@@ -3,14 +3,34 @@
 
     python3 chip_gate_mutation.py
 
-Needs the card, as ``chip_smoke.py`` does.  It copies the port and
-``chip_smoke.py`` into ``build/gate_mutation/``, makes the kernels'
-bf16 rounding of the normalised probabilities the identity there (the
-one step of the reference that, left out, still gives attention close
-to the plain version), and runs the smoke's kernel, serve and parity
-phases on that copy with every gate logged instead of raised.  Exits 0
-only if each accuracy gate fails on the mutant: K1's and K3's tolerance
-against their plain versions and the decode-logit tolerance.
+Needs the card, as ``chip_smoke.py`` does.  For each mutant it copies
+the port and ``chip_smoke.py`` into ``build/gate_mutation/<mutant>/``,
+changes one line of one kernel source there, and runs the smoke's
+phases that read that kernel on the copy, with every gate logged
+instead of raised.  Each mutant is a step of the reference's arithmetic
+left out or done in lower precision, so that its output stays close to
+the sound kernel's:
+
+- ``probs_rounding``: K1 and K3 skip the bf16 rounding of the
+  normalised probabilities; the kernel, serve and parity phases run,
+  and K1's, K3's and the decode-logit gates must fail;
+- ``fp8_bf16_accumulator``: K6 rounds its f32 accumulator to bf16 after
+  every 128 of K; K6's gate must fail;
+- ``fa_fwd_bf16_rowsum``: the flash forward sums the row's softmax
+  denominator from the bf16-rounded probabilities, not the f32 ones;
+  the forward's gate must fail;
+- ``fa_bwd_bf16_lse``: the flash backward reads the logsumexp rounded to
+  bf16, not f32; the backward's gate must fail;
+- ``fa_fwd_pv_tile``: in the second half of the rows the flash forward
+  leaves key tile 1 (64 keys) out of the PV product but not out of the
+  row sum, so the logsumexp stays exact; the forward's gate must fail;
+- ``fa_bwd_dv_tile``: in the second half of the keys the dK/dV kernel
+  leaves one query tile (32 queries) out of dV; the backward's gate
+  must fail.
+
+The training mutants also run the step-0 parity of the training path;
+its loss or grad gates must fail on at least one of them.  Exits 0 only
+if every expected gate failed.
 """
 
 from __future__ import annotations
@@ -22,19 +42,49 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "gate_mutation"
-HEADER = "distributed_training_sandbox_tpu_torch/csrc/paged_common.cuh"
-ROUNDING = "return __bfloat162float(__float2bfloat16_rn(x));"
-EXPECTED = ("paged_decode:", "flash_prefill:", "decode logits")
+PKG = "distributed_training_sandbox_tpu_torch"
+ROUND = "__bfloat162float(__float2bfloat16_rn({}))"
+MUTANTS = [
+    # name, source, sound line, mutant line, phases, gates that must fail
+    ("probs_rounding", "csrc/paged_common.cuh",
+     "  return __bfloat162float(__float2bfloat16_rn(x));",
+     "  return x;", "serve",
+     ("paged_decode:", "flash_prefill:", "decode logits")),
+    ("fp8_bf16_accumulator", "csrc/fp8_matmul.cu",
+     "  return acc + part;",
+     f"  return {ROUND.format('acc + part')};", "train",
+     ("fp8_matmul:",)),
+    ("fa_fwd_bf16_rowsum", "csrc/flash_attention.cu",
+     "__device__ __forceinline__ float lsum_term(float p) { return p; }",
+     "__device__ __forceinline__ float lsum_term(float p) { return "
+     f"{ROUND.format('p')}; }}", "train", ("flash_attention_fwd:",)),
+    ("fa_bwd_bf16_lse", "csrc/flash_attention.cu",
+     "__device__ __forceinline__ float lse_in(float x) { return x; }",
+     "__device__ __forceinline__ float lse_in(float x) { return "
+     f"{ROUND.format('x')}; }}", "train", ("flash_attention_bwd:",)),
+    ("fa_fwd_pv_tile", "csrc/flash_attention.cu",
+     "    mma_c_times_tile<HD, kRows / 16>(oacc, s, vs, 0, lane);",
+     "    if (jt != 1 || q0 < S / 2) "
+     "mma_c_times_tile<HD, kRows / 16>(oacc, s, vs, 0, lane);", "train",
+     ("flash_attention_fwd:",)),
+    ("fa_bwd_dv_tile", "csrc/flash_attention.cu",
+     "      mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   "
+     "// P^T dO",
+     "      if (q0 != k0 + kSub || k0 < S / 2) "
+     "mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   // P^T dO",
+     "train", ("flash_attention_bwd:",)),
+]
+STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
-CHILD = """
+CHILD = {"serve": """
 import numpy as np, torch
 import chip_smoke as c
-failed = []
 def check(cond, msg):
     if not cond:
-        failed.append(msg)
         print("[mutant] gate fails:", msg, flush=True)
 c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 c.loader.build_all()
 rng = np.random.default_rng(c.SEED)
 gen = torch.Generator(device="cuda").manual_seed(c.SEED)
@@ -42,39 +92,71 @@ c.kernel_phase(rng, gen)
 params = c.build_params()
 eng, reqs, _ = c.serve_phase(params, rng, c.card_line())
 c.parity_phase(params, reqs, eng)
-"""
+""", "train": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.fp8_phase()
+c.attention_phase()
+c.train_parity_phase()
+"""}
+
+
+def run_mutant(name, source, sound, mutant, phases) -> list[str] | None:
+    """The failed-gate lines of one mutant's run, or None if the run
+    itself failed."""
+    work = WORK / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    shutil.copy(ROOT / "chip_smoke.py", work)
+    shutil.copytree(ROOT / PKG, work / PKG,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = work / PKG / source
+    text = path.read_text()
+    if text.count(sound + "\n") != 1:
+        print(f"[mutant] {name}: the line {sound!r} is not in {source} "
+              f"once", file=sys.stderr)
+        return None
+    path.write_text(text.replace(sound + "\n", mutant + "\n"))
+    out = subprocess.run([sys.executable, "-c", CHILD[phases]], cwd=work,
+                         capture_output=True, text=True, timeout=1200)
+    for line in out.stdout.splitlines():
+        print(f"[{name}] {line}", flush=True)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+        return None
+    return [ln for ln in out.stdout.splitlines()
+            if ln.startswith("[mutant] gate fails:")]
 
 
 def main() -> int:
-    shutil.rmtree(WORK, ignore_errors=True)
-    WORK.mkdir(parents=True)
-    shutil.copy(ROOT / "chip_smoke.py", WORK)
-    shutil.copytree(ROOT / "distributed_training_sandbox_tpu_torch",
-                    WORK / "distributed_training_sandbox_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    header = WORK / HEADER
-    text = header.read_text()
-    if text.count(ROUNDING) != 1:
-        print(f"[mutant] the rounding line is not in {HEADER} once",
+    ok, step0 = True, []
+    for name, source, sound, mutant, phases, expected in MUTANTS:
+        fails = run_mutant(name, source, sound, mutant, phases)
+        if fails is None:
+            return 1
+        missed = [g for g in expected if not any(g in ln for ln in fails)]
+        if missed:
+            ok = False
+            print(f"[mutant] {name}: gates that let it through: {missed}",
+                  file=sys.stderr)
+        else:
+            print(f"[mutant] {name}: every expected gate failed: "
+                  f"{list(expected)}", flush=True)
+        if phases == "train" and any(g in ln for ln in fails for g in STEP0):
+            step0.append(name)
+    print(f"[mutant] the step-0 loss or grad gate failed on: {step0}",
+          flush=True)
+    if not step0:
+        print("[mutant] the step-0 gates let every training mutant through",
               file=sys.stderr)
-        return 1
-    header.write_text(text.replace(ROUNDING, "return x;"))
-    out = subprocess.run([sys.executable, "-c", CHILD], cwd=WORK,
-                         capture_output=True, text=True, timeout=900)
-    print(out.stdout, end="", flush=True)
-    if out.returncode != 0:
-        print(out.stderr[-4000:], file=sys.stderr)
-        return 1
-    fails = [ln for ln in out.stdout.splitlines()
-             if ln.startswith("[mutant] gate fails:")]
-    missed = [g for g in EXPECTED if not any(g in ln for ln in fails)]
-    if missed:
-        print(f"[mutant] gates that let the mutant through: {missed}",
-              file=sys.stderr)
-        return 1
-    print(f"[mutant] every accuracy gate failed on the mutant: "
-          f"{list(EXPECTED)}", flush=True)
-    return 0
+        ok = False
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

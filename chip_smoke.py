@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the paged serving engine on
-SmolLM3-3B with the hand-written Hopper kernels.
+SmolLM3-3B and the one-card trainer on SmolLM3-3B-L8, with the
+hand-written Hopper kernels.
 
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels build for sm_90a) and nvcc.
+TF32 is off for matmuls and cuDNN, so the plain paths are f32 oracles.
 Phases, each of which fails the run:
 
 1. card and build — print the card's name and power limit, build every
    kernel from ``csrc/`` (one nvcc per source, in parallel);
 2. kernels — each kernel against its plain PyTorch version at the shapes
-   the serve phase gives it, at the tolerance its module states; then
-   CUDA-event times of the kernel, the plain version and a library
-   yardstick (SDPA over a pre-gathered view), beside the card's bound;
-3. serve — ``ServingEngine`` with both kernels on SMOLLM3_3B (full width,
+   its path gives it, at the tolerance its module states, and launched
+   twice on the same inputs with bit-equal results; then CUDA-event
+   times of the kernel, the plain version and a library yardstick
+   (SDPA, ``torch._scaled_mm``), beside the card's bound;
+3. serve — ``ServingEngine`` with K1 and K3 on SMOLLM3_3B (full width,
    all 36 layers, seeded random weights scaled ×3) answers 8 requests;
    launch counts must equal the steps × layers, plain counts must be 0;
 4. parity — against the port's one-shot ``generate`` at the engine's
    view capacity: first tokens equal, and one decode step's logits
    through the kernels and through the plain path from one pool state
-   allclose.
+   allclose;
+5. train parity — SMOLLM3_3B_L8 at full width and depth, seq 8192: the
+   step-0 loss and grads through K6 and the flash attention against the
+   plain path (plain fp8 forward, plain attention) on the same params
+   and batch, and the grads again with bf16 projections (flash against
+   plain attention);
+6. train — ``train.flagship.run_leg`` takes 6 AdamW steps on the card
+   through K6 and the flash attention (forward and backward): launch
+   counts exact, plain counts 0, losses finite and falling, the step-0
+   loss bit-equal to phase 5's kernel path; step time,
+   tokens/s, MFU, peak memory, and a ``torch.profiler`` breakdown of
+   the last step.
 
-After the gates, a second serve run of the same shape under
+After the serving gates, a second serve run of the same shape under
 ``torch.profiler`` reports the device's busy share and its top kernels.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
@@ -31,7 +45,9 @@ when there is no card or when any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -43,8 +59,12 @@ from distributed_training_sandbox_tpu_torch.kernels import loader
 from distributed_training_sandbox_tpu_torch.models import transformer as T
 from distributed_training_sandbox_tpu_torch.models.generate import (
     _forward_cached, generate, init_cache)
+from distributed_training_sandbox_tpu_torch.ops import flash_attention as FA
 from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
+from distributed_training_sandbox_tpu_torch.ops import quant as Q
+from distributed_training_sandbox_tpu_torch.parallel import fsdp
+from distributed_training_sandbox_tpu_torch.train import flagship
 from distributed_training_sandbox_tpu_torch.serving import engine as E
 from distributed_training_sandbox_tpu_torch.serving.accounting import (
     kv_bytes_per_step, tree_bytes, weight_read_bytes)
@@ -60,7 +80,30 @@ ENGINE = dict(paged_kernel=True, flash_prefill=True, max_batch=8,
               sync_every=8)
 # H100 SXM data sheet, dense, at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP8_FLOPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
+# the training phase: run_leg's flagship at a quarter of its batch
+TRAIN = dict(model="smollm3-3b-l8", precision="fp8_pallas", seq=8192, bs=1,
+             num_steps=6, warmup_steps=3, peak_lr=3e-4, seed=42)
+TRAIN_CFG = dataclasses.replace(T.SMOLLM3_3B_L8,
+                                matmul_precision=TRAIN["precision"])
+# the projections of one layer: (name, K, N) of x @ w at M = seq · bs
+PROJECTIONS = [("wq", 2048, 2048), ("wk", 2048, 512), ("wv", 2048, 512),
+               ("wo", 2048, 2048), ("w_gate", 2048, 11008),
+               ("w_up", 2048, 11008), ("w_down", 11008, 2048)]
+# Step-0 parity, kernel path vs plain path on the same params and batch:
+# |loss difference| <= LOSS_ATOL, and every grad leaf's relative L2
+# error <= GRAD_REL_L2; the same without fp8 (bf16 projections, so only
+# the attention kernels differ from the plain path): every grad leaf's
+# relative L2 error <= BF16_GRAD_REL_L2.  Each is set between the sound
+# kernels' reading and a mutant's (chip_gate_mutation.py; PERF.md).  The
+# fp8 grad reading is mostly fp8 rounding noise (one-ulp differences
+# upstream flip e4m3/e5m2 roundings), so GRAD_REL_L2 separates only a
+# K6 mutant, by a thin margin; BF16_GRAD_REL_L2 is the backward
+# kernel's step-level gate.
+LOSS_ATOL = 1.5e-3
+GRAD_REL_L2 = 0.182
+BF16_GRAD_REL_L2 = 0.017
 # One decode step's logits through the kernels vs the plain path, from
 # one pool state: max |difference| <= LOGIT_ATOL.  The kernels do the
 # plain path's operations in another summation order, so a few bf16
@@ -94,6 +137,7 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
+    """CUDA-event mean of ``iters`` calls after ``warmup``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -107,10 +151,17 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gate_ratio(got, ref, atol, rtol) -> float:
+    """max |got - ref| / (atol + rtol·|ref|): allclose passes iff <= 1."""
+    g, r = got.float(), ref.float()
+    return float(((g - r).abs() / (atol + rtol * r.abs())).max())
 
 
 # ------------------------------------------------------------ kernel phase
@@ -436,11 +487,373 @@ def profile_phase(params, rng) -> None:
             f"{d / 1e3:.1f} ms: {key[:90]}")
 
 
+# ------------------------------------------------- training kernel phase
+
+def _twice_equal(name, fn):
+    """Launch ``fn`` twice on the same inputs; the results must be bit
+    for bit equal (no float atomics: remat's recompute repeats)."""
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{name}: two launches on the same inputs differ")
+
+
+def _entry(name, source, replaces, err, ratio, k_ms, p_ms, l_ms, b_ms,
+           b_by):
+    return {"name": name, "route": "cuda",
+            "source": f"distributed_training_sandbox_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "gate_ratio": ratio, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "max_err": err, "kernel_ms": k_ms}
+
+
+def fp8_phase() -> dict:
+    """K6 at one layer's seven projections (M = 8192): each against the
+    plain version, then times summed over the seven.  Operands cycle
+    through 3 copies so that no launch finds the last one's in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    M = TRAIN["seq"] * TRAIN["bs"]
+    atol, rtol = Q.TOLERANCE[torch.bfloat16]
+    tot = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, flops=0.0)
+    err = ratio = 0.0
+    times = {}
+    for name, K, N in PROJECTIONS:
+        if (K, N) not in times:
+            ops = []
+            for _ in range(3):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                w = (torch.randn((K, N), generator=gen, device="cuda")
+                     * 0.02).to(torch.bfloat16)
+                ops.append((*Q.quantize_fp8(x), *Q.quantize_fp8(w)))
+            aq, a_s, bq, b_s = ops[0]
+            got = Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+            ref = Q.fp8_matmul(aq, a_s, bq, b_s, torch.bfloat16)
+            e = float((got.float() - ref.float()).abs().max())
+            r = gate_ratio(got, ref, atol, rtol)
+            _twice_equal("fp8_matmul", lambda: Q.fp8_matmul_kernel(
+                aq, a_s, bq, b_s))
+            check(torch.isfinite(got).all(), "fp8_matmul: non-finite output")
+            check(r <= 1.0, f"fp8_matmul: ({M}, {K}) x ({K}, {N}) max |kernel"
+                  f" - plain| = {e} over atol {atol} rtol {rtol} (gate "
+                  f"ratio {r:.3f})")
+            it = iter(range(10 ** 9))
+            cyc = lambda: ops[next(it) % len(ops)]
+            k_ms = time_ms(lambda: Q.fp8_matmul_kernel(*cyc()))
+            p_ms = time_ms(lambda: Q.fp8_matmul(*cyc(), torch.bfloat16),
+                           iters=5)
+            # the library's layout: B column-major, made outside the timing
+            lib = [(a, b.t().contiguous().t(), sa, sb) for a, sa, b, sb in ops]
+            l_ms = time_ms(lambda: torch._scaled_mm(
+                *lib[next(it) % len(lib)], out_dtype=torch.bfloat16))
+            del ops, lib, got, ref
+            times[(K, N)] = (k_ms, p_ms, l_ms, e, r)
+            log(f"fp8_matmul ({M}, {K}) x ({K}, {N}): max_abs_err {e:.3e}, "
+                f"gate ratio {r:.4f} (atol {atol}, rtol {rtol}); kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, _scaled_mm {l_ms:.4f} "
+                f"ms")
+        k_ms, p_ms, l_ms, e, r = times[(K, N)]
+        err, ratio = max(err, e), max(ratio, r)
+        tot["k"] += k_ms
+        tot["p"] += p_ms
+        tot["l"] += l_ms
+        # fp8 operands read once, bf16 output written once, and the
+        # wrapper's K-major copy of the weight read and written
+        tot["nbytes"] += M * K + K * N + 2 * M * N + 2 * K * N
+        tot["flops"] += 2 * M * K * N
+    b_ms, b_by = bound(tot["nbytes"], tot["flops"], PEAK_FP8_FLOPS)
+    log(f"fp8_matmul, one layer's 7 projections: kernel {tot['k']:.4f} ms, "
+        f"plain {tot['p']:.4f} ms, _scaled_mm {tot['l']:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({tot['nbytes'] / 1e6:.1f} MB, "
+        f"{tot['flops'] / 1e12:.3f} TFLOP at fp8)")
+    torch.cuda.empty_cache()
+    return _entry("fp8_matmul", "fp8_matmul.cu",
+                  "distributed_training_sandbox_tpu/ops/quant.py:613 "
+                  "(fp8_matmul_pallas, _fp8_mm_kernel)", err, ratio,
+                  tot["k"], tot["p"], tot["l"], b_ms, b_by)
+
+
+def _fa_reading(kernel, name, got, ref, which) -> tuple[float, float]:
+    """Log one flash-attention output against the plain version: its
+    elementwise gate ratio (and the worst element), and its largest
+    64-row block relative L2 error over ``FA.BLOCK_REL_L2``.  Returns
+    (max abs error, gate ratio: the larger of the two)."""
+    atol, rtol = FA.TOLERANCE[which]
+    g, r = got.float(), ref.float()
+    q = (g - r).abs() / (atol + rtol * r.abs())
+    i = int(q.argmax())
+    pos = i // (r.shape[2] * r.shape[3]) % r.shape[1]
+    err, ratio = float((g - r).abs().max()), float(q.max())
+    blk = FA.block_rel_l2(got, ref)
+    log(f"{kernel}: {name} max_abs_err {err:.3e}; elementwise ratio "
+        f"{ratio:.4f} (atol {atol}, rtol {rtol}), worst at position {pos}: "
+        f"plain {float(r.flatten()[i]):.4e}, kernel "
+        f"{float(g.flatten()[i]):.4e}; block relative L2 {blk:.5f} (limit "
+        f"{FA.BLOCK_REL_L2})")
+    return err, max(ratio, blk / FA.BLOCK_REL_L2)
+
+
+def attention_phase() -> list[dict]:
+    """The flash attention at the training shape (B 1, S 8192, 16 query
+    and 4 kv heads, hd 128, bf16), forward and backward, against the
+    plain version; inputs cycle through 3 copies."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B, S = TRAIN["bs"], TRAIN["seq"]
+    nq, nkv = TRAIN_CFG.num_attention_heads, TRAIN_CFG.num_key_value_heads
+    hd = TRAIN_CFG.resolved_head_dim
+    scale = hd ** -0.5
+    mk = lambda n: torch.randn((B, S, n, hd), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+    sets = [(mk(nq), mk(nkv), mk(nkv), mk(nq)) for _ in range(3)]
+    q, k, v, do = sets[0]
+    o, lse = FA.flash_attention_fwd(q, k, v, scale)
+    ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+    e_o, r_o = _fa_reading("flash_attention_fwd", "O", o, ref_o, "fwd")
+    e_lse = float((lse - ref_lse).abs().max())
+    r_fwd = max(r_o, e_lse / FA.LSE_ATOL)
+    log(f"flash_attention_fwd: logsumexp max_abs_err {e_lse:.3e} (atol "
+        f"{FA.LSE_ATOL}); gate ratio {r_fwd:.4f}")
+    check(torch.isfinite(o).all(), "flash_attention_fwd: non-finite output")
+    check(r_fwd <= 1.0, f"flash_attention_fwd: O max |kernel - plain| "
+          f"{e_o}, logsumexp {e_lse} (gate ratio {r_fwd:.3f})")
+    _twice_equal("flash_attention_fwd",
+                 lambda: FA.flash_attention_fwd(q, k, v, scale))
+    del ref_o, ref_lse
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    ref_g = FA.flash_attention_bwd_plain(q, k, v, do, scale)
+    e_g, r_g = zip(*(_fa_reading("flash_attention_bwd", n, g, r, "bwd")
+                     for n, g, r in zip(("dq", "dk", "dv"), grads, ref_g)))
+    r_bwd = max(r_g)
+    log(f"flash_attention_bwd: gate ratio {r_bwd:.4f}")
+    check(all(torch.isfinite(g).all() for g in grads),
+          "flash_attention_bwd: non-finite grads")
+    check(r_bwd <= 1.0, f"flash_attention_bwd: max |kernel - plain| "
+          f"{max(e_g)} (gate ratio {r_bwd:.3f})")
+    _twice_equal("flash_attention_bwd", lambda: FA.flash_attention_bwd(
+        q, k, v, o, lse, do, scale))
+    del grads, ref_g
+    torch.cuda.empty_cache()
+
+    it = iter(range(10 ** 9))
+    cyc = lambda: sets[next(it) % len(sets)]
+    saved = [(*s[:3], *FA.flash_attention_fwd(*s[:3], scale), s[3])
+             for s in sets]
+    fwd_ms = time_ms(lambda: FA.flash_attention_fwd(*cyc()[:3], scale))
+    bwd_ms = time_ms(lambda: FA.flash_attention_bwd(
+        *saved[next(it) % len(saved)], scale))
+    fwd_plain = time_ms(lambda: FA.attention_plain_lse(*cyc()[:3], scale),
+                        iters=3, warmup=1)
+    bwd_plain = time_ms(lambda: FA.flash_attention_bwd_plain(*cyc(), scale),
+                        iters=3, warmup=1)
+    # SDPA over K/V repeated to the query heads outside the timed region;
+    # its backward timed alone on a retained graph
+    rep = nq // nkv
+    sd = []
+    for q_, k_, v_, do_ in sets:
+        args = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in
+                (q_, k_.repeat_interleave(rep, 2), v_.repeat_interleave(rep,
+                                                                       2))]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *args, is_causal=True, scale=scale)
+        sd.append((args, out, do_.transpose(1, 2).contiguous()))
+    fwd_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *[a.detach() for a in sd[next(it) % 3][0]], is_causal=True,
+        scale=scale))
+
+    def sdpa_bwd():
+        args, out, g = sd[next(it) % 3]
+        return torch.autograd.grad(out, args, g, retain_graph=True)
+
+    bwd_lib = time_ms(sdpa_bwd)
+    del sd, saved, sets
+    torch.cuda.empty_cache()
+
+    item = 2
+    io = (2 * B * S * nq * hd + 2 * B * S * nkv * hd) * item   # q, o; k, v
+    f_flops = 2.0 * B * nq * S * S * hd   # causal QK and PV
+    fb, fby = bound(io + B * nq * S * 4, f_flops)
+    # backward: q, k, v, o, dO read, dq, dk, dv written, lse read
+    bb, bby = bound(io + B * S * nq * hd * item * 2
+                    + 2 * B * S * nkv * hd * item + B * nq * S * 4,
+                    2.5 * f_flops)
+    log(f"flash_attention_fwd: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f}"
+        f" ms, SDPA {fwd_lib:.4f} ms, bound {fb:.4f} ms by {fby} "
+        f"({f_flops / 1e12:.3f} TFLOP)")
+    log(f"flash_attention_bwd: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f}"
+        f" ms, SDPA backward {bwd_lib:.4f} ms, bound {bb:.4f} ms by {bby}")
+    replaces = ("distributed_training_sandbox_tpu/models/transformer.py:382 "
+                "(_attention_flash, splash attention {})")
+    return [
+        _entry("flash_attention_fwd", "flash_attention.cu",
+               replaces.format("forward"), max(e_o, e_lse), r_fwd, fwd_ms,
+               fwd_plain, fwd_lib, fb, fby),
+        _entry("flash_attention_bwd", "flash_attention.cu",
+               replaces.format("dq / dkv backward"), max(e_g), r_bwd,
+               bwd_ms, bwd_plain, bwd_lib, bb, bby)]
+
+
+# ------------------------------------------------------------ train phases
+
+def _first_batch():
+    """run_leg's first batch."""
+    ib, lb = next(flagship.leg_batches(TRAIN_CFG.vocab_size, TRAIN["seq"],
+                                       TRAIN["bs"], TRAIN["num_steps"],
+                                       TRAIN["seed"]))
+    return (torch.as_tensor(ib, device="cuda"),
+            torch.as_tensor(lb, device="cuda"))
+
+
+def train_parity_phase() -> float:
+    """Step-0 loss and grads on run_leg's params and first batch: the
+    kernel path (K6 forward, flash attention) against the plain path
+    (plain fp8 forward, plain attention at S = 8192, which fits under
+    per-layer checkpointing).  Returns the kernel path's loss."""
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN["seed"])
+    params = T.init_params(TRAIN_CFG, gen, "cuda")
+    batch = _first_batch()
+    plain_cfg = dataclasses.replace(TRAIN_CFG, matmul_precision="fp8",
+                                    attention_impl="xla")
+    # without fp8: bf16 projections, the flash kernels against the plain
+    # attention
+    bf16_cfg = dataclasses.replace(TRAIN_CFG, matmul_precision="bf16")
+    bf16_plain = dataclasses.replace(bf16_cfg, attention_impl="xla")
+    out = {}
+    for name, cfg in (("kernel", TRAIN_CFG), ("plain", plain_cfg),
+                      ("bf16 flash", bf16_cfg), ("bf16 plain", bf16_plain)):
+        t = time.perf_counter()
+        loss, grads = fsdp.microbatch_value_and_grad(
+            lambda p, b, cfg=cfg: T.lm_loss(p, b, cfg), params, batch, 1)
+        out[name] = (float(loss), grads)
+        log(f"train parity: {name} path loss {float(loss)!r} "
+            f"({time.perf_counter() - t:.1f} s)")
+    def rel_l2(ga, gb):
+        return {"/".join(path): float(
+            torch.linalg.vector_norm(a.float() - fsdp.optim.tree_get(gb, path)
+                                     .float())
+            / torch.linalg.vector_norm(fsdp.optim.tree_get(gb, path).float()))
+            for path, a in fsdp.optim.tree_leaves(ga)}
+
+    (lb, gb), (lbp, gbp) = out.pop("bf16 flash"), out.pop("bf16 plain")
+    rel_b = rel_l2(gb, gbp)
+    worst_b = max(rel_b, key=rel_b.get)
+    log(f"train parity without fp8: |loss flash - plain| "
+        f"{abs(lb - lbp):.6f}; grad relative L2, worst leaf {worst_b} "
+        f"{rel_b[worst_b]:.5f} (limit {BF16_GRAD_REL_L2})")
+    del gb, gbp
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    rel = rel_l2(gk, gp)
+    worst = max(rel, key=rel.get)
+    log(f"train parity: |loss kernel - plain| {abs(lk - lp):.6f} (atol "
+        f"{LOSS_ATOL}); grad relative L2, worst leaf {worst} "
+        f"{rel[worst]:.5f} (limit {GRAD_REL_L2}); all leaves "
+        f"{json.dumps({k: round(v, 6) for k, v in rel.items()})}")
+    failures = []
+    if not (np.isfinite(lk) and np.isfinite(lp)):
+        failures.append("step-0 loss: non-finite")
+    if abs(lk - lp) > LOSS_ATOL:
+        failures.append(f"step-0 loss: |kernel - plain| {abs(lk - lp)} over "
+                        f"{LOSS_ATOL}")
+    if not rel[worst] <= GRAD_REL_L2:
+        failures.append(f"step-0 grads: {worst} relative L2 {rel[worst]} "
+                        f"over {GRAD_REL_L2}")
+    if not (np.isfinite(lb) and rel_b[worst_b] <= BF16_GRAD_REL_L2):
+        failures.append(f"step-0 bf16 grads: {worst_b} relative L2 "
+                        f"{rel_b[worst_b]} over {BF16_GRAD_REL_L2}")
+    del params, out, gk, gp
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return lk
+
+
+def train_phase(card: str, loss0: float) -> dict:
+    """6 steps of run_leg on the card; returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = (Q.COUNTS, Q.BWD_COUNTS, FA.FWD_COUNTS, FA.BWD_COUNTS)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN["num_steps"]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(i, loss):
+        log(f"train step {i}: loss {loss!r}")
+        if i == n - 2:   # trace the last step: device activity only
+            prof.start()
+            marks["t"] = time.perf_counter()
+        elif i == n - 1:
+            marks["wall_us"] = (time.perf_counter() - marks["t"]) * 1e6
+            prof.stop()
+
+    res = flagship.run_leg(TRAIN["model"], TRAIN["precision"], TRAIN["seq"],
+                           TRAIN["bs"], n, TRAIN["warmup_steps"],
+                           TRAIN["peak_lr"], seed=TRAIN["seed"],
+                           device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {"fp8_matmul": (Q.COUNTS.launches, Q.COUNTS.plain_calls),
+              "flash_attention_fwd": (FA.FWD_COUNTS.launches,
+                                      FA.FWD_COUNTS.plain_calls),
+              "flash_attention_bwd": (FA.BWD_COUNTS.launches,
+                                      FA.BWD_COUNTS.plain_calls)}
+    L = TRAIN_CFG.num_hidden_layers
+    want = {"fp8_matmul": n * L * len(PROJECTIONS) * 2,
+            "flash_attention_fwd": n * L * 2, "flash_attention_bwd": n * L}
+    losses = res["losses"]
+    times = res["step_times_s"]
+    steps = [b - a for a, b in zip([0.0] + times[:-1], times)]
+    step_s = statistics.median(steps[1:n - 1])   # unprofiled, after step 0
+    tok_s = TRAIN["seq"] * TRAIN["bs"] / step_s
+    flops_tok = T.model_flops_per_token(TRAIN_CFG, TRAIN["seq"])
+    log(f"train on {card}: losses {losses}; lrs {res['lrs']}")
+    log(f"train: step times (s, host clock, each ending in a sync) "
+        f"{steps}; median of steps 1-{n - 2} {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tokens/s, MFU {flops_tok * tok_s / PEAK_BF16_FLOPS:.4f}"
+        f" ({flops_tok:.4e} model FLOP/token over the 989 TFLOP/s bf16 "
+        f"dense peak); run_leg tokens_per_second "
+        f"{res['tokens_per_second']:.1f}; peak memory {peak / 2 ** 30:.2f} "
+        f"GiB")
+    log(f"train launches (kernel, plain): {json.dumps(counts)}; expected "
+        f"kernel launches {json.dumps(want)}; the backward's plain fp8 "
+        f"products {Q.BWD_COUNTS.plain_calls}")
+    log(f"train: step-0 loss {losses[0]!r}, the parity phase's kernel path "
+        f"{loss0!r}, bit-equal {losses[0] == loss0}")
+    check(losses[0] == loss0, f"step-0 loss {losses[0]!r} of the run is not "
+          f"the parity phase's {loss0!r} (same params and batch)")
+    dev = [(e.key, e.count, e.self_device_time_total)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(d for _, _, d in dev)
+    if dev:
+        log(f"train profile (step {n - 1}): device busy "
+            f"{busy_us / 1e3:.1f} ms of {marks['wall_us'] / 1e3:.1f} ms wall"
+            f", idle share {1 - busy_us / marks['wall_us']:.3f}")
+        for key, cnt, d in sorted(dev, key=lambda e: -e[2])[:10]:
+            log(f"train profile: {d / busy_us:.3f} of device time, {cnt} "
+                f"calls, {d / 1e3:.1f} ms: {key[:90]}")
+    else:
+        log("train profile: torch.profiler recorded no device time (not "
+            "measured)")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (want[name], 0),
+              f"{name} (launches, plain) {(launches, plain)} != "
+              f"({want[name]}, 0)")
+    check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"step-{n - 1} loss {losses[-1]} is not "
+          f"below step-0 loss {losses[0]}")
+    return {k: v[0] for k, v in counts.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",
               file=sys.stderr)
         return 2
+    # the plain paths are f32 oracles: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     t = time.perf_counter()
@@ -454,6 +867,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     try:
         kernels = kernel_phase(rng, gen)
+        kernels.append(fp8_phase())
+        kernels.extend(attention_phase())
         t = time.perf_counter()
         params = build_params()
         torch.cuda.synchronize()
@@ -461,6 +876,12 @@ def main() -> int:
         eng, reqs, launches = serve_phase(params, rng, card)
         parity_phase(params, reqs, eng)
         profile_phase(params, rng)
+        del eng, reqs, params
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        loss0 = train_parity_phase()
+        launches.update(train_phase(card, loss0))
+        log(f"train phases took {time.perf_counter() - t:.1f} s")
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1

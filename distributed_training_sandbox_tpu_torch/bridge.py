@@ -49,3 +49,19 @@ def params_to_numpy(params: dict) -> dict:
     """The inverse: the port's params → a dict tree of numpy arrays in
     the reference's layout (``jax.numpy.asarray`` takes each leaf)."""
     return _map(params, _to_numpy)
+
+
+def adam_state_from_jax(mu: dict, nu: dict, count: int, cfg, device=None):
+    """The reference's ``AdamState`` (its ``mu`` and ``nu`` as dict
+    trees of numpy arrays, its ``count`` as an int) → the port's
+    ``parallel.optim.AdamState``, moments in ``cfg.dtype``."""
+    from .parallel.optim import AdamState
+    return AdamState(mu=params_from_jax(mu, cfg, device),
+                     nu=params_from_jax(nu, cfg, device), count=int(count))
+
+
+def adam_state_to_numpy(state) -> tuple[dict, dict, int]:
+    """The inverse: ``(mu, nu, count)`` with numpy trees in the
+    reference's layout."""
+    return params_to_numpy(state.mu), params_to_numpy(state.nu), \
+        int(state.count)

@@ -23,7 +23,9 @@ class LaunchCount:
         self.plain_calls = 0
 
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C interfaces; the fp8 kernel (csrc/fp8_matmul.cu)
+# takes e4m3, the attention kernels bf16 (and f32 for the paged ones)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
 def check_cuda_operands(name: str, floats: dict, ints: dict) -> int:

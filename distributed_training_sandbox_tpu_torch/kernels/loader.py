@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C functions of each kernel library: name -> {function: (argtypes,
 # restype)}
 SIGNATURES = {
@@ -34,6 +34,13 @@ SIGNATURES = {
     },
     "flash_prefill": {
         "flash_prefill_launch": ([P] * 6 + [I] * 8 + [P], I),
+    },
+    "fp8_matmul": {
+        "fp8_matmul_launch": ([P] * 5 + [I] * 3 + [P], I),
+    },
+    "flash_attention": {
+        "flash_attn_fwd_launch": ([P] * 5 + [I] * 5 + [F, P], I),
+        "flash_attn_bwd_launch": ([P] * 10 + [I] * 5 + [F, P], I),
     },
 }
 

@@ -1,3 +1,15 @@
-from .transformer import SMOLLM3_3B, TINY_LM, TransformerConfig, init_params
+from .transformer import (SMOLLM3_3B, SMOLLM3_3B_L8, TINY_LM,
+                          TransformerConfig, forward, init_params, lm_loss,
+                          model_flops_per_token)
 
-__all__ = ["SMOLLM3_3B", "TINY_LM", "TransformerConfig", "init_params"]
+__all__ = ["SMOLLM3_3B", "SMOLLM3_3B_L8", "TINY_LM", "TransformerConfig",
+           "MODEL_REGISTRY", "forward", "init_params", "lm_loss",
+           "model_flops_per_token"]
+
+# CLI name -> TransformerConfig attribute: the JAX package's names for
+# the configs the port has
+MODEL_REGISTRY = {
+    "smollm3-3b": "SMOLLM3_3B",
+    "smollm3-3b-l8": "SMOLLM3_3B_L8",
+    "tiny": "TINY_LM",
+}

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM — the port of the JAX package's
-``models/transformer.py`` building blocks that serving runs.
+``models/transformer.py``.
 
 The parameter tree is the reference's, leaf for leaf: ``embed``
 (vocab, H), ``layers`` holding stacked ``(L, …)`` tensors with
@@ -7,11 +7,18 @@ projection weights stored ``(in, out)`` so every projection is
 ``x @ w``, and ``final_norm`` (H,).  That keeps the bridge
 (``bridge.py``) one array copy per leaf.
 
-Only the pieces the serving slice needs are here: config, init, RMSNorm,
-split-half RoPE with the NoPE schedule, the QKV projection, the dense
-SwiGLU MLP and the tied unembedding, at ``matmul_precision="bf16"``.
-Training (scanned layers, remat, flash/ring attention, losses) and the
-quantized precisions are later slices of the port (ROADMAP.md queue A).
+Ported: config, init, RMSNorm, split-half RoPE with the NoPE schedule,
+the QKV projection, the dense SwiGLU MLP, the tied unembedding (the
+serving slice), and the training trunk: ``_layer_body``,
+``hidden_states`` (a Python loop over the stacked layers, each layer
+under ``torch.utils.checkpoint`` for remat ``"full"``), ``forward``,
+the dense and streamed-vocab cross-entropy, ``lm_loss`` and
+``model_flops_per_token``.  Attention is ``"xla"`` (the plain
+``_attention_xla``) or ``"flash"`` (the port's kernel,
+``ops/flash_attention.py``); projections run at ``bf16`` or the fp8
+recipe (``ops/quant.py``).  Ring attention, MoE, the int8 precisions
+and the other remat policies are later slices (ROADMAP.md queues A and
+B).
 """
 
 from __future__ import annotations
@@ -21,9 +28,15 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+from ..ops.flash_attention import attention_plain, flash_attention
+from ..ops.quant import resolve_quantized_dense
+from ..utils.flops import get_model_flops_per_token
 
 _ROADMAP = ("not ported yet — see ROADMAP.md, queue A item 2 (model "
             "core) and queue B (precision kernels)")
+PRECISIONS = ("bf16", "fp8", "fp8_delayed", "fp8_pallas")
 
 
 @dataclass(frozen=True)
@@ -43,7 +56,18 @@ class TransformerConfig:
     nope_interval: int = 4
     dtype: Any = torch.bfloat16
     remat: bool = True
+    # "full" recomputes each layer in the backward (torch.utils.checkpoint
+    # around the layer); the reference's other policies are not ported
+    remat_policy: str = "full"
+    # "xla" (the plain causal attention) | "flash" (the port's kernel);
+    # the reference's "ring" needs the sequence-parallel slice
+    attention_impl: str = "xla"
+    # None: dense f32 log-softmax over (B, S, vocab) logits; an int
+    # streams the vocab in chunks of that size (chunked_softmax_xent)
+    loss_vocab_chunk: int | None = None
+    # "bf16" | "fp8" | "fp8_delayed" | "fp8_pallas" (ops/quant.py)
     matmul_precision: str = "bf16"
+    fp8_amax_history_len: int = 16
     n_experts: int = 0
 
     @property
@@ -54,6 +78,11 @@ class TransformerConfig:
 # SmolLM3-3B-class config (~3.1 B params).
 SMOLLM3_3B = TransformerConfig()
 
+# One-card flagship: the 3B geometry truncated to 8 layers, with the
+# flash attention and the streamed-vocab loss.
+SMOLLM3_3B_L8 = TransformerConfig(
+    num_hidden_layers=8, attention_impl="flash", loss_vocab_chunk=16_032)
+
 TINY_LM = TransformerConfig(
     vocab_size=512, hidden_size=64, intermediate_size=160,
     num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
@@ -61,12 +90,16 @@ TINY_LM = TransformerConfig(
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise on the configurations this slice of the port does not run."""
-    if cfg.matmul_precision != "bf16":
+    """Raise on the configurations the port does not run yet."""
+    if cfg.matmul_precision not in PRECISIONS:
         raise NotImplementedError(
             f"matmul_precision={cfg.matmul_precision!r}: {_ROADMAP}")
     if cfg.n_experts:
         raise NotImplementedError(f"n_experts={cfg.n_experts}: {_ROADMAP}")
+    if cfg.attention_impl not in ("xla", "flash"):
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r}: not ported yet — see "
+            f"ROADMAP.md, queue A item 10 (sequence parallelism)")
 
 
 # ------------------------------------------------------------------- init
@@ -153,10 +186,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def _dense(cfg: TransformerConfig):
-    """The projection matmul; this slice runs ``bf16`` (a plain
-    ``x @ w`` in the config's dtype) only."""
+    """The projection matmul at the configured precision
+    (``ops/quant.resolve_quantized_dense``)."""
     check_supported(cfg)
-    return torch.matmul
+    return resolve_quantized_dense(
+        cfg.matmul_precision, fp8_history_len=cfg.fp8_amax_history_len)
 
 
 def _qkv_proj(r, layer, *, cfg: TransformerConfig, cos, sin, use_rope: bool):
@@ -198,3 +232,141 @@ def _output_embedding(params: dict, cfg: TransformerConfig) -> torch.Tensor:
     if w is None:
         return params["embed"].to(cfg.dtype)
     return w.to(cfg.dtype).T
+
+
+def _attention_xla(q, k, v, scale: float) -> torch.Tensor:
+    """Plain causal attention (B, S, n, hd) → (B, S, nq, hd): f32
+    scores, the -1e30 mask, softmax, probabilities in q's dtype."""
+    return attention_plain(q, k, v, scale)
+
+
+def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
+                use_rope: bool):
+    """One decoder layer on the residual stream x (B, S, H).  The
+    reference's tensor-parallel arguments and MoE aux loss are not
+    ported, so it returns the new residual only."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    r = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
+    q, k, v = _qkv_proj(r, layer, cfg=cfg, cos=cos, sin=sin,
+                        use_rope=use_rope)
+    scale = 1.0 / math.sqrt(hd)
+    attend = flash_attention if cfg.attention_impl == "flash" \
+        else _attention_xla
+    attn = attend(q, k, v, scale).to(x.dtype)
+    x = x + _dense(cfg)(attn.reshape(B, S, cfg.num_attention_heads * hd),
+                        layer["wo"])
+    r = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+    return x + _mlp_block(r, layer, cfg=cfg)
+
+
+def resolve_remat_policy(cfg: TransformerConfig):
+    """``cfg.remat_policy`` → a wrapper ``(fn, *args) -> fn(*args)``.
+    ``"full"`` recomputes the whole layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant, with early stopping off,
+    so that every operation of the layer, its kernels included, runs
+    again in the backward)."""
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: not ported yet — see "
+            f"ROADMAP.md, queue A item 2 (the remat policies)")
+
+    def full(fn, *args):
+        with set_checkpoint_early_stop(False):
+            return checkpoint(fn, *args, use_reentrant=False)
+
+    return full
+
+
+def hidden_states(params: dict, input_ids: torch.Tensor,
+                  cfg: TransformerConfig) -> torch.Tensor:
+    """Trunk only: (B, S) ids → final-norm hidden states (B, S, H).
+    The reference scans the stacked layers; here a Python loop slices
+    them, each layer checkpointed when ``cfg.remat``."""
+    check_supported(cfg)
+    S = input_ids.shape[1]
+    x = params["embed"].to(cfg.dtype)[input_ids.long()]
+    cos, sin = _rope_tables(S, cfg.resolved_head_dim, cfg.rope_theta,
+                            device=x.device)
+    remat = resolve_remat_policy(cfg) if cfg.remat else None
+    for li, use_rope in enumerate(rope_flags(cfg)):
+        layer = layer_params(params, li)
+
+        def body(x, layer, use_rope=use_rope):
+            return _layer_body(x, layer, cfg=cfg, cos=cos, sin=sin,
+                               use_rope=use_rope)
+
+        x = remat(body, x, layer) if remat else body(x, layer)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def forward(params: dict, input_ids: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """(B, S) ids → logits (B, S, vocab) in ``cfg.dtype``."""
+    x = hidden_states(params, input_ids, cfg)
+    return x @ _output_embedding(params, cfg).T
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_vocab: torch.Tensor,
+                         labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean cross-entropy of ``x @ w_vocab.T`` against ``labels``
+    without the (B, S, vocab) logits: vocab chunks stream through an
+    online logsumexp, the gold logit gathered as its chunk passes, each
+    chunk checkpointed so the backward also holds one chunk of logits.
+
+    The chunk logits are f32, as the reference's
+    ``preferred_element_type=f32``: both operands are upcast to f32
+    (exact for bf16) and multiplied in f32 — with TF32 off, the sum is
+    a true f32 sum.  The reference pads the last chunk with zero rows
+    and masks them to -inf; here the last chunk is shorter, which
+    computes the same function."""
+    V = w_vocab.shape[0]
+    B, S, _ = x.shape
+    xf = x.float()
+    labels = labels.long()
+
+    def body(m, s, gold, w_c, c0):
+        logits = xf @ w_c.float().T
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[..., None]).sum(dim=-1)
+        idx = labels - c0
+        hit = (idx >= 0) & (idx < logits.shape[-1])
+        g = logits.gather(-1, idx.clamp(0, logits.shape[-1] - 1)[..., None])
+        gold = gold + torch.where(hit, g[..., 0], 0.0)
+        return m_new, s, gold
+
+    m = torch.full((B, S), -math.inf, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for c0 in range(0, V, chunk):
+        m, s, gold = checkpoint(body, m, s, gold, w_vocab[c0:c0 + chunk],
+                                c0, use_reentrant=False)
+    return torch.mean(torch.log(s) + m - gold)
+
+
+def xent_from_hidden(x: torch.Tensor, w_vocab: torch.Tensor,
+                     labels: torch.Tensor, *,
+                     chunk: int | None = None) -> torch.Tensor:
+    """Mean causal-LM cross-entropy from final hidden states:
+    streamed-vocab when ``chunk`` is set; otherwise dense, with the
+    logits in ``x``'s dtype cast to f32 as the reference does."""
+    if chunk:
+        return chunked_softmax_xent(x, w_vocab, labels, chunk)
+    logits = (x @ w_vocab.T).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def lm_loss(params: dict, batch, cfg: TransformerConfig) -> torch.Tensor:
+    """Causal-LM cross-entropy of ``batch`` = (input_ids, labels), both
+    (B, S)."""
+    input_ids, labels = batch
+    x = hidden_states(params, input_ids, cfg)
+    return xent_from_hidden(x, _output_embedding(params, cfg), labels,
+                            chunk=cfg.loss_vocab_chunk)
+
+
+def model_flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
+    return get_model_flops_per_token(cfg, seq_len)

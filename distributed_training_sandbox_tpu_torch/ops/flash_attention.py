@@ -1,0 +1,216 @@
+"""Causal GQA flash attention, forward and backward: the CUDA kernels
+``csrc/flash_attention.cu`` and their plain PyTorch version.
+
+Counterpart of the JAX package's ``transformer._attention_flash`` (jax's
+splash kernel).  ``flash_attention(q, k, v, scale)`` takes the reference
+layout: q (B, S, nq, hd), k and v (B, S, nkv, hd) with ``nkv`` dividing
+``nq``, and returns (B, S, nq, hd) in q's dtype.
+
+The plain version is ``transformer._attention_xla``'s math
+(:func:`attention_plain`): f32 scores scaled after the product, the
+-1e30 causal mask, softmax in f32, the probabilities rounded to q's
+dtype before PV.  The kernel scales the f32 scores in the same place;
+the splash path instead rounds ``q·scale`` to bf16 before its kernel,
+which the port does not copy.  There is no einsum fallback for ragged
+S as the reference has (``S % 128``): the kernels mask ragged tiles.
+
+Dispatch: CPU tensors take the plain version, forward and backward
+(counted in ``FWD_COUNTS.plain_calls`` and ``BWD_COUNTS.plain_calls``);
+CUDA tensors launch the kernels or raise.  ``FWD_COUNTS.launches`` counts
+forward launches; ``BWD_COUNTS.launches`` counts backward launches, one
+per backward call (its three kernels: D, dK/dV, dQ).
+
+Tolerances against the plain version on bf16 inputs, each set between
+the sound kernel's reading and a mutant's (``chip_smoke.py``,
+``chip_gate_mutation.py``): ``TOLERANCE``, elementwise ``(atol, rtol)``
+for O, dQ, dK and dV; ``BLOCK_REL_L2`` for the relative L2 error of
+each 64-row block of one head; ``LSE_ATOL`` for the f32 logsumexp.  The
+kernels round ``exp(s - m_running)`` and dS to bf16 where the plain path
+rounds the normalised probabilities and dP, so the two differ by a bf16
+ulp or two of the largest terms of a sum.  In the first rows and keys a
+few large terms cancel to a small entry, and there that difference sets
+the elementwise atol; the block gate holds the small entries of late
+rows and keys to their own scale.  The logsumexp differs only by the
+order of f32 sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
+                       raise_on_error, stream_ptr)
+
+__all__ = ["flash_attention", "attention_plain", "attention_plain_lse",
+           "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "block_rel_l2", "FWD_COUNTS",
+           "BWD_COUNTS", "TOLERANCE", "BLOCK_REL_L2", "LSE_ATOL"]
+
+FWD_COUNTS = LaunchCount()
+BWD_COUNTS = LaunchCount()
+# (atol, rtol) of the kernels' O and dQ/dK/dV against the plain version,
+# element by element
+TOLERANCE = {"fwd": (6e-3, 2e-2), "bwd": (1.5e-2, 2e-2)}
+# ... and the largest relative L2 error of a block of BLOCK_ROWS
+# sequence positions of one head (:func:`block_rel_l2`), for each of O,
+# dQ, dK and dV
+BLOCK_REL_L2 = 1e-2
+BLOCK_ROWS = 64
+LSE_ATOL = 1e-4
+HEAD_DIM = 128   # the kernels' head dim (csrc/flash_attention.cu)
+
+
+def _attention_math(q, k, v, scale):
+    """``_attention_xla``: (B, S, n, hd) → (B, S, nq, hd) and the f32
+    row logsumexp (B, nq, S).  Uncounted."""
+    B, S, nq, hd = q.shape
+    nkv = k.shape[2]
+    if nq != nkv:
+        rep = nq // nkv
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    scores = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, torch.full((), -1e30,
+                                                  device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bnqk,bknh->bqnh", probs, v)
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+def attention_plain(q, k, v, scale):
+    """The plain attention, differentiable by autograd; counted in
+    ``FWD_COUNTS.plain_calls``."""
+    FWD_COUNTS.plain_calls += 1
+    return _attention_math(q, k, v, scale)[0]
+
+
+def attention_plain_lse(q, k, v, scale):
+    """The forward kernel's plain version: (O, logsumexp); counted in
+    ``FWD_COUNTS.plain_calls``."""
+    FWD_COUNTS.plain_calls += 1
+    return _attention_math(q, k, v, scale)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, scale):
+    """The backward kernel's plain version: (dq, dk, dv) by autograd
+    through the plain forward; counted in ``BWD_COUNTS.plain_calls``."""
+    BWD_COUNTS.plain_calls += 1
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = _attention_math(qq, kk, vv, scale)[0]
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def block_rel_l2(got, ref, rows: int = BLOCK_ROWS) -> float:
+    """The largest relative L2 error ``||got - ref|| / ||ref||`` over the
+    blocks of ``rows`` sequence positions of one head of (B, S, n, hd)
+    tensors.  Each block is held to its own scale, so the small entries
+    of late query rows (O, dQ) and late keys (dK, dV) are checked as
+    closely as the large early ones."""
+    B, S, n, hd = ref.shape
+    pad = (-S) % rows
+
+    def sq_norms(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, -1, rows, n, hd).pow(2).sum((2, 4))
+
+    num, den = sq_norms(got.float() - ref.float()), sq_norms(ref)
+    return float((num / den.clamp_min(torch.finfo(torch.float32).tiny))
+                 .sqrt().max())
+
+
+def _check(q, k, v):
+    B, S, nq, hd = q.shape
+    if k.shape != (B, S, k.shape[2], hd) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
+                         f"match")
+    if nq % k.shape[2]:
+        raise ValueError(f"flash_attention: nkv={k.shape[2]} must divide "
+                         f"nq={nq}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernels take hd "
+                         f"{HEAD_DIM}, got {hd}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: the kernels take bf16, got "
+                         f"{q.dtype}")
+
+
+def flash_attention_fwd(q, k, v, scale):
+    """The forward kernel on CUDA tensors: (O bf16 like q, logsumexp f32
+    (B, nq, S))."""
+    _check(q, k, v)
+    check_cuda_operands("flash_attention_fwd", {"q": q, "k": k, "v": v}, {})
+    B, S, nq, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, nq, S), dtype=torch.float32, device=q.device)
+    fn = loader.load("flash_attention").flash_attn_fwd_launch
+    rc = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), B, S, nq, k.shape[2],
+            hd, ctypes.c_float(scale), stream_ptr(q.device))
+    raise_on_error("flash_attention_fwd", rc)
+    FWD_COUNTS.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, scale):
+    """The backward kernels on CUDA tensors: (dq, dk, dv)."""
+    _check(q, k, v)
+    dout = dout.contiguous()
+    check_cuda_operands("flash_attention_bwd",
+                        {"q": q, "k": k, "v": v, "o": o, "dout": dout}, {})
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous f32")
+    B, S, nq, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty_like(lse)
+    fn = loader.load("flash_attention").flash_attn_bwd_launch
+    rc = fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(dout), ptr(lse), ptr(dvec),
+            ptr(dq), ptr(dk), ptr(dv), B, S, nq, k.shape[2], hd,
+            ctypes.c_float(scale), stream_ptr(q.device))
+    raise_on_error("flash_attention_bwd", rc)
+    BWD_COUNTS.launches += 1
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout, ctx.scale)
+        return dq, dk, dv, None
+
+
+class _Plain(torch.autograd.Function):
+    """The CPU path: the plain forward, and a backward that counts as the
+    backward kernel's plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return attention_plain(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, dout, ctx.scale), None)
+
+
+def flash_attention(q, k, v, scale: float):
+    """Causal GQA attention (B, S, nq, hd) × (B, S, nkv, hd)² → (B, S,
+    nq, hd); CPU tensors take the plain version, CUDA tensors the
+    kernels."""
+    if q.device.type == "cpu":
+        return _Plain.apply(q, k, v, scale)
+    return _Flash.apply(q, k, v, scale)

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions: K1
+paged decode, K3 flash prefill, K6 fp8 GEMM and the flash attention
+forward and backward, at tiny, ragged and the main paths' shapes.
 
 Imports torch, numpy and the port only — no JAX — so that it also runs
 on a machine with a card and no JAX:
@@ -11,7 +13,9 @@ present; the rest check dispatch and validation on the CPU.  Tolerances
 are the ones each kernel module states (``TOLERANCE``): the kernels do
 the plain version's operations in another summation order, so f32 pools
 agree to f32 rounding, and bf16 pools where no probability lands on the
-other side of a bf16 rounding boundary.
+other side of a bf16 rounding boundary; K6 to one bf16 ulp of the plain
+f32 sum; the flash attention to bf16 level in O and the grads and f32
+level in the logsumexp.
 """
 
 import numpy as np
@@ -148,3 +152,142 @@ def test_masked_positions_and_null_page_contribute_nothing():
         pv2[pg, off + 1:] = -7.0
     got = PA.gather_attention(qg, pk2, pv2, pages, apos)
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+# ---- K6 fp8 GEMM and the flash attention (training slice) -----------------
+
+from distributed_training_sandbox_tpu_torch.ops import (  # noqa: E402
+    flash_attention as FA, quant as Q)
+
+FP8_SHAPES = {
+    # name: (M, K, N)
+    "tiny_ragged": (70, 48, 40),
+    "ragged": (333, 1040, 200),
+    "wq_wo": (8192, 2048, 2048),
+    "wk_wv": (8192, 2048, 512),
+    "w_gate_up": (8192, 2048, 11008),
+    "w_down": (8192, 11008, 2048),
+}
+ATTN_SHAPES = {
+    # name: (B, S, nq, nkv, hd)
+    "tiny_ragged": (2, 37, 4, 2, 128),
+    "gqa_ragged": (1, 200, 8, 2, 128),
+    "mha": (2, 128, 2, 2, 128),
+    "smollm3_train": (1, 8192, 16, 4, 128),
+}
+
+
+def fp8_case(seed, M, K, N, device):
+    """bf16 activations ~ N(0, 1) and weights ~ N(0, 0.02²), quantised
+    to e4m3 as the training path's forward does."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=device) * 0.02).to(
+        torch.bfloat16)
+    return (*Q.quantize_fp8(x), *Q.quantize_fp8(w))
+
+
+def attn_case(seed, B, S, nq, nkv, hd, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=gen,
+                               device=device).to(torch.bfloat16)
+                   for n in (nq, nkv, nkv, nq))
+    return q, k, v, do
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(FP8_SHAPES))
+def test_fp8_kernel_matches_plain(cuda, shape):
+    aq, a_s, bq, b_s = fp8_case(0, *FP8_SHAPES[shape], cuda)
+    Q.COUNTS.reset()
+    got = Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+    torch.cuda.synchronize()
+    assert (Q.COUNTS.launches, Q.COUNTS.plain_calls) == (1, 0)
+    ref = Q.fp8_matmul(aq, a_s, bq, b_s, torch.bfloat16)
+    atol, rtol = Q.TOLERANCE[torch.bfloat16]
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(ATTN_SHAPES))
+def test_flash_attention_kernels_match_plain(cuda, shape):
+    B, S, nq, nkv, hd = ATTN_SHAPES[shape]
+    q, k, v, do = attn_case(1, B, S, nq, nkv, hd, cuda)
+    scale = hd ** -0.5
+    FA.FWD_COUNTS.reset()
+    FA.BWD_COUNTS.reset()
+    o, lse = FA.flash_attention_fwd(q, k, v, scale)
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (FA.FWD_COUNTS.launches, FA.BWD_COUNTS.launches) == (1, 1)
+    ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+    atol, rtol = FA.TOLERANCE["fwd"]
+    torch.testing.assert_close(o, ref_o, atol=atol, rtol=rtol)
+    assert FA.block_rel_l2(o, ref_o) <= FA.BLOCK_REL_L2
+    torch.testing.assert_close(lse, ref_lse, atol=FA.LSE_ATOL, rtol=0)
+    ref_grads = FA.flash_attention_bwd_plain(q, k, v, do, scale)
+    atol, rtol = FA.TOLERANCE["bwd"]
+    for name, g, r in zip("qkv", grads, ref_grads):
+        torch.testing.assert_close(g, r, atol=atol, rtol=rtol,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+        assert FA.block_rel_l2(g, r) <= FA.BLOCK_REL_L2, f"d{name}"
+
+
+@pytest.mark.gpu_port
+def test_flash_attention_autograd_goes_through_the_kernels(cuda):
+    q, k, v, do = attn_case(2, *ATTN_SHAPES["gqa_ragged"], cuda)
+    args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FA.FWD_COUNTS.reset()
+    FA.BWD_COUNTS.reset()
+    out = FA.flash_attention(*args, 128 ** -0.5)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (FA.FWD_COUNTS.launches, FA.BWD_COUNTS.launches) == (1, 1)
+    assert (FA.FWD_COUNTS.plain_calls, FA.BWD_COUNTS.plain_calls) == (0, 0)
+    assert all(torch.isfinite(a.grad).all() for a in args)
+
+
+@pytest.mark.gpu_port
+def test_training_kernels_reject_what_they_do_not_take(cuda):
+    aq, a_s, bq, b_s = fp8_case(3, 64, 40, 32, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+    q, k, v, _ = attn_case(4, 1, 16, 4, 2, 64, cuda)
+    with pytest.raises(ValueError, match="hd"):
+        FA.flash_attention_fwd(q, k, v, 0.1)
+    q, k, v, _ = attn_case(4, 1, 16, 4, 2, 128, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        FA.flash_attention_fwd(q.float(), k.float(), v.float(), 0.1)
+    with pytest.raises(ValueError, match="divide"):
+        FA.flash_attention_fwd(q, k[:, :, :1].expand(1, 16, 3, 128)
+                               .contiguous(), v[:, :, :1].expand(
+                                   1, 16, 3, 128).contiguous(), 0.1)
+
+
+def test_block_rel_l2_holds_each_block_to_its_own_scale():
+    gen = torch.Generator().manual_seed(7)
+    ref = torch.randn((1, 150, 2, 128), generator=gen)
+    ref[:, 64:] *= 1e-3                 # small late rows
+    got = ref.clone()
+    assert FA.block_rel_l2(got, ref) == 0.0
+    got[0, 140, 1] *= 1.5               # the ragged last block, head 1
+    err = float((got - ref).abs().max())
+    want = float(0.5 * ref[0, 140, 1].norm() / ref[0, 128:, 1].norm())
+    # an error far below any elementwise atol, far above the block limit
+    assert err < 2e-3 and want > 5 * FA.BLOCK_REL_L2
+    assert FA.block_rel_l2(got, ref) == pytest.approx(want, rel=1e-5)
+
+
+def test_training_wrappers_take_the_plain_versions_on_the_cpu():
+    aq, a_s, bq, b_s = fp8_case(5, 24, 32, 16, "cpu")
+    Q.COUNTS.reset()
+    out = Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+    assert (Q.COUNTS.launches, Q.COUNTS.plain_calls) == (0, 1)
+    assert out.dtype == torch.bfloat16 and out.shape == (24, 16)
+    q, k, v, do = attn_case(6, 1, 9, 4, 2, 16, "cpu")
+    FA.FWD_COUNTS.reset()
+    FA.BWD_COUNTS.reset()
+    args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FA.flash_attention(*args, 0.25).backward(do)
+    assert (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls) == (0, 1)
+    assert (FA.BWD_COUNTS.launches, FA.BWD_COUNTS.plain_calls) == (0, 1)
