@@ -26,11 +26,23 @@ the sound kernel's:
   row sum, so the logsumexp stays exact; the forward's gate must fail;
 - ``fa_bwd_dv_tile``: in the second half of the keys the dK/dV kernel
   leaves one query tile (32 queries) out of dV; the backward's gate
-  must fail.
+  must fail;
+- ``k5_slice_absmax``: K5 quantises each 128-wide K slice of a row with
+  that slice's own absmax instead of the full row's; K5's gate and the
+  int8 step-0 parity must fail;
+- ``k5_eager_scale``: K5 computes its row scale as ``amax / 127`` (the
+  reference's eager form) instead of ``amax · f32(1/127)``; K5's gate
+  and the int8 step-0 parity must fail;
+- ``k4_scale_product``: K4 (and K5, which shares its epilogue) applies
+  ``acc · (xs · ws)``; K4's gate and the int8 step-0 parity must fail;
+- ``k2_chunk_absmax``: K2 requantises each 256-position chunk's ``p ·
+  vs`` with the chunk's own absmax instead of the row's; K2's gate and
+  the int8 decode-logit gate must fail.
 
-The training mutants also run the step-0 parity of the training path;
-its loss or grad gates must fail on at least one of them.  Exits 0 only
-if every expected gate failed.
+The fp8-path training mutants also run the step-0 parity of the
+training path; its loss or grad gates must fail on at least one of
+them.  Exits 0 only if every expected gate failed.  Names given on the
+command line run those mutants only.
 """
 
 from __future__ import annotations
@@ -73,6 +85,23 @@ MUTANTS = [
      "      if (q0 != k0 + kSub || k0 < S / 2) "
      "mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   // P^T dO",
      "train", ("flash_attention_bwd:",)),
+    ("k5_slice_absmax", "csrc/int8_matmul.cu",
+     "  return xs[gr];   // the scale of the full row",
+     "  { const float a = slice_amax(x, gr, k0, K); "
+     "return a > 0.f ? a * (1.0f / 127.0f) : 1.0f; }", "int8_train",
+     ("int8_matmul_fused:", "int8 step-0")),
+    ("k5_eager_scale", "csrc/int8_matmul.cu",
+     "    xs[row] = amax > 0.f ? amax * (1.0f / 127.0f) : 1.0f;",
+     "    xs[row] = amax > 0.f ? amax / 127.0f : 1.0f;", "int8_train",
+     ("int8_matmul_fused:", "int8 step-0")),
+    ("k4_scale_product", "csrc/int8_matmul.cu",
+     "          const float v = (__int2float_rn(acc[i][j][e]) * sx) * sw;",
+     "          const float v = __int2float_rn(acc[i][j][e]) * (sx * sw);",
+     "int8_train", ("int8_matmul:", "int8 step-0")),
+    ("k2_chunk_absmax", "csrc/paged_decode_q8.cu",
+     "    for (int c = 0; c < used; ++c) A = fmaxf(A, pa[c * rep + r]);",
+     "    A = pa[blockIdx.y * rep + r];", "int8_serve",
+     ("paged_decode_q8:", "int8 decode logits")),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -104,6 +133,33 @@ torch.backends.cudnn.allow_tf32 = False
 c.fp8_phase()
 c.attention_phase()
 c.train_parity_phase()
+""", "int8_train": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.int8_gemm_phase()
+c.int8_train_parity_phase()
+""", "int8_serve": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+rng = np.random.default_rng(c.SEED)
+gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+c.kernel_phase(rng, gen)
+c.q8_decode_phase(rng, gen)
+params = c.quantize_decode_params(c.build_params(), c.CFG)
+eng, reqs, _ = c.int8_serve_phase(params, rng, c.card_line())
+c.int8_parity_phase(params, reqs, eng)
 """}
 
 
@@ -134,9 +190,13 @@ def run_mutant(name, source, sound, mutant, phases) -> list[str] | None:
             if ln.startswith("[mutant] gate fails:")]
 
 
-def main() -> int:
+def main(argv) -> int:
     ok, step0 = True, []
-    for name, source, sound, mutant, phases, expected in MUTANTS:
+    chosen = [m for m in MUTANTS if not argv or m[0] in argv]
+    if len(chosen) != len(argv or MUTANTS):
+        print(f"[mutant] unknown mutants in {argv}", file=sys.stderr)
+        return 2
+    for name, source, sound, mutant, phases, expected in chosen:
         fails = run_mutant(name, source, sound, mutant, phases)
         if fails is None:
             return 1
@@ -152,7 +212,7 @@ def main() -> int:
             step0.append(name)
     print(f"[mutant] the step-0 loss or grad gate failed on: {step0}",
           flush=True)
-    if not step0:
+    if not step0 and any(m[4] == "train" for m in chosen):
         print("[mutant] the step-0 gates let every training mutant through",
               file=sys.stderr)
         ok = False
@@ -160,4 +220,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

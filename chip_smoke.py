@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the paged serving engine on
-SmolLM3-3B and the one-card trainer on SmolLM3-3B-L8, with the
+SmolLM3-3B (bf16, and int8 weights over an int8 KV pool) and the
+one-card trainer on SmolLM3-3B-L8 (fp8 and int8 projections), with the
 hand-written Hopper kernels.
 
     python3 chip_smoke.py
@@ -12,10 +13,11 @@ Phases, each of which fails the run:
 1. card and build — print the card's name and power limit, build every
    kernel from ``csrc/`` (one nvcc per source, in parallel);
 2. kernels — each kernel against its plain PyTorch version at the shapes
-   its path gives it, at the tolerance its module states, and launched
-   twice on the same inputs with bit-equal results; then CUDA-event
-   times of the kernel, the plain version and a library yardstick
-   (SDPA, ``torch._scaled_mm``), beside the card's bound;
+   its path gives it, at the tolerance its module states (K4 and K5 bit
+   for bit), and launched twice on the same inputs with bit-equal
+   results; then CUDA-event times of the kernel, the plain version and
+   a library yardstick (SDPA, ``torch._scaled_mm``, ``torch._int_mm``),
+   beside the card's bound;
 3. serve — ``ServingEngine`` with K1 and K3 on SMOLLM3_3B (full width,
    all 36 layers, seeded random weights scaled ×3) answers 8 requests;
    launch counts must equal the steps × layers, plain counts must be 0;
@@ -33,10 +35,21 @@ Phases, each of which fails the run:
    counts exact, plain counts 0, losses finite and falling, the step-0
    loss bit-equal to phase 5's kernel path; step time,
    tokens/s, MFU, peak memory, and a ``torch.profiler`` breakdown of
-   the last step.
+   the last step;
+7. int8 serve and parity — the SMOLLM3_3B weights through
+   ``quantize_decode_params``, served with ``kv_quant`` through K2
+   (decode attention) and K4 (every projection and the unembedding):
+   launch counts exact, plain counts 0; every first token equals the
+   port's one-shot ``generate(kv_quant=True)``, and one decode step's
+   logits through K2 and K4 and through the plain path allclose;
+8. int8 train parity and train — SMOLLM3_3B_L8 at ``int8_pallas_bwd``:
+   the step-0 loss and every grad leaf through K5 (forward) and K4 (dX,
+   dW) bit-equal to the plain int8 products, then 4 steps of
+   ``run_leg`` with exact launch counts, as phase 6.
 
-After the serving gates, a second serve run of the same shape under
-``torch.profiler`` reports the device's busy share and its top kernels.
+After each serving path's gates, a second serve run of the same shape
+under ``torch.profiler`` reports the device's busy share and its top
+kernels.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -45,6 +58,7 @@ when there is no card or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -58,7 +72,7 @@ import torch
 from distributed_training_sandbox_tpu_torch.kernels import loader
 from distributed_training_sandbox_tpu_torch.models import transformer as T
 from distributed_training_sandbox_tpu_torch.models.generate import (
-    _forward_cached, generate, init_cache)
+    _forward_cached, generate, init_cache, quantize_decode_params)
 from distributed_training_sandbox_tpu_torch.ops import flash_attention as FA
 from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
@@ -81,12 +95,20 @@ ENGINE = dict(paged_kernel=True, flash_prefill=True, max_batch=8,
 # H100 SXM data sheet, dense, at the 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP8_FLOPS = 1979e12
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 # the training phase: run_leg's flagship at a quarter of its batch
 TRAIN = dict(model="smollm3-3b-l8", precision="fp8_pallas", seq=8192, bs=1,
              num_steps=6, warmup_steps=3, peak_lr=3e-4, seed=42)
 TRAIN_CFG = dataclasses.replace(T.SMOLLM3_3B_L8,
                                 matmul_precision=TRAIN["precision"])
+# the int8 training phase: int8_pallas_bwd, 4 steps
+INT8_TRAIN = dict(TRAIN, precision="int8_pallas_bwd", num_steps=4)
+INT8_TRAIN_CFG = dataclasses.replace(T.SMOLLM3_3B_L8,
+                                     matmul_precision="int8_pallas_bwd")
+# the int8 serve phase: int8 weights, the int8 pool, K2 for decode; the
+# reference refuses kv_quant with flash_prefill, so prefill gathers
+INT8_ENGINE = dict(ENGINE, kv_quant=True, flash_prefill=False)
 # the projections of one layer: (name, K, N) of x @ w at M = seq · bs
 PROJECTIONS = [("wq", 2048, 2048), ("wk", 2048, 512), ("wv", 2048, 512),
                ("wo", 2048, 2048), ("w_gate", 2048, 11008),
@@ -113,6 +135,12 @@ BF16_GRAD_REL_L2 = 0.017
 # rounding read 2.81 (one-pass) and 2.13 (``chip_gate_mutation.py``).
 # The limit lies between them.
 LOGIT_ATOL = 1.5
+# The same for int8 serving, through K2 and K4 against the plain int8
+# path: K4 is bit-equal to its plain version, so the logits differ only
+# where K2 moves a code of the requantised probabilities.  Set between
+# the sound kernels' reading and that of a K2 which requantises each
+# 256-position chunk with its own absmax (PERF.md).
+INT8_LOGIT_ATOL = 1.5
 
 
 class SmokeFailure(RuntimeError):
@@ -281,6 +309,90 @@ def kernel_phase(rng, gen) -> list[dict]:
     return results
 
 
+def _q8_pools(gen, n_pages, page, nkv, hd, copies):
+    """``copies`` int8 pools quantised per row from random bf16 K/V rows
+    (codes and f32 scales, as the engine writes them)."""
+    def one():
+        return Q.quantize_int8(torch.randn((n_pages, page, nkv, hd),
+                                           generator=gen, device="cuda"))
+    return [(*one(), *one()) for _ in range(copies)]   # kq, ks, vq, vs
+
+
+def q8_decode_phase(rng, gen) -> dict:
+    """K2 at the int8 serve phase's shapes: B = 8 slots, pages of 16
+    rows, a 2048-position view, 4 kv heads × 4 query rows, hd 128, int8
+    codes with f32 row scales; apos drawn like the serve phase's."""
+    B, page = ENGINE["max_batch"], ENGINE["page_size"]
+    P = ENGINE["max_seq_len"] // page
+    nkv, hd = CFG.num_key_value_heads, CFG.resolved_head_dim
+    rep = CFG.num_attention_heads // nkv
+    n_pages, V = B * P + 1, P * page
+    plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
+    apos_np = (plen + rng.integers(0, NEW_TOKENS, size=B))[:, None]
+    apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
+    pages = _page_table(rng, apos_np.max(axis=1), page, P, n_pages)
+    copies = 4
+    pools = _q8_pools(gen, n_pages, page, nkv, hd, copies)
+    qq, qs = Q.quantize_int8(torch.randn((B, 1, nkv, rep, hd), generator=gen,
+                                         device="cuda"))
+
+    def kernel(kq, ks, vq, vs):
+        return PA.paged_attention_decode(qq, kq, vq, pages, apos, q_scale=qs,
+                                         pk_s=ks, pv_s=vs)
+
+    def plain(kq, ks, vq, vs):
+        return PA.paged_attention_plain_q8(qq, qs, kq, vq, ks, vs, pages, apos)
+
+    got = kernel(*pools[0])
+    torch.cuda.synchronize()
+    ref = plain(*pools[0])
+    atol, rtol = PA.TOLERANCE_Q8
+    err, ratio = float((got - ref).abs().max()), gate_ratio(got, ref, atol,
+                                                            rtol)
+    n_diff = int((got != ref).sum())
+    log(f"paged_decode_q8: max_abs_err {err:.3e}, gate ratio {ratio:.4f} "
+        f"(atol {atol}, rtol {rtol}); {n_diff} of {got.numel()} outputs "
+        f"differ; max |plain| {float(ref.abs().max()):.4f}")
+    check(torch.isfinite(got).all(), "paged_decode_q8: non-finite output")
+    check(ratio <= 1.0, f"paged_decode_q8: max |kernel - plain| = {err} over "
+          f"atol {atol} rtol {rtol} (gate ratio {ratio:.3f})")
+    _twice_equal("paged_decode_q8", lambda: kernel(*pools[0]))
+
+    it = iter(range(10 ** 9))
+
+    def cyc():
+        return pools[next(it) % copies]
+
+    k_ms = time_ms(lambda: kernel(*cyc()))
+    p_ms = time_ms(lambda: plain(*cyc()), iters=5)
+    # the yardstick: SDPA over the dequantised gathered view (dequantised
+    # and gathered outside the timed call)
+    qd = (qq.float() * qs).to(CFG.dtype)
+    sd = [_sdpa_inputs(qd, (kq.float() * ks).to(CFG.dtype),
+                       (vq.float() * vs).to(CFG.dtype), pages, apos)
+          for kq, ks, vq, vs in pools]
+    l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *sd[next(it) % copies][:3], attn_mask=sd[0][3], enable_gqa=True))
+    del sd, pools
+    torch.cuda.empty_cache()
+    # what this run's data needs: every visible K and V row (codes and
+    # scale) read once, the int8 q rows and scales, the f32 output;
+    # QK and PV over the visible positions as int8 operations
+    vis_rows = np.minimum(apos_np, V - 1) + 1
+    kv_rows = int(vis_rows.sum())
+    nbytes = (qq.numel() + qs.numel() * 4 + kv_rows * nkv * (hd + 4) * 2
+              + got.numel() * 4 + pages.numel() * 4 + apos.numel() * 4)
+    ops = float(kv_rows) * nkv * rep * hd * 4
+    b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
+    log(f"paged_decode_q8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+        f"(dequantised view) {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G int8 operations)")
+    return _entry("paged_decode_q8", "paged_decode_q8.cu",
+                  "distributed_training_sandbox_tpu/ops/paged_attention.py:140"
+                  " (paged_attention_decode int8 branch, _decode_kernel_q8 "
+                  ":75)", err, ratio, k_ms, p_ms, l_ms, b_ms, b_by)
+
+
 # ------------------------------------------------------------- serve phase
 
 def build_params():
@@ -348,7 +460,8 @@ def _prefill(reqs, eng, flash: bool):
     logits at its last prompt position (B, vocab)."""
     page, P, Ck = eng.page_size, eng.pages_per_request, eng.prefill_chunk
     B = len(reqs)
-    pool = PagedKVPool(eng.cfg, B * P + 1, page, device="cuda")
+    pool = PagedKVPool(eng.cfg, B * P + 1, page, kv_quant=eng.kv_quant,
+                       device="cuda")
     pages = torch.arange(1, B * P + 1, dtype=torch.int32,
                          device="cuda").reshape(B, P)
     plen = np.array([r.n_prompt for r in reqs], np.int32)
@@ -378,16 +491,21 @@ def _prefill(reqs, eng, flash: bool):
     return pool, pages, logits
 
 
+def _pool_tensors(pool):
+    b = pool.bufs
+    return [*b.k, *b.v, *(b.k_scale or ()), *(b.v_scale or ())]
+
+
 def _decode_step_logits(eng, pool, pages, toks, lengths, kernel: bool):
     """One decode step from the pool's current state, restored after."""
-    snapshot = [t.clone() for t in pool.bufs.k + pool.bufs.v]
+    snapshot = [t.clone() for t in _pool_tensors(pool)]
     with torch.no_grad():
         x = E._paged_forward(eng._params, toks[:, None], eng.cfg, pool.bufs,
                              pages, lengths[:, None],
                              torch.ones_like(toks[:, None], dtype=torch.bool),
                              paged_kernel=kernel)
         out = E._last_logits(eng._params, x, eng.cfg)
-    for t, s in zip(pool.bufs.k + pool.bufs.v, snapshot):
+    for t, s in zip(_pool_tensors(pool), snapshot):
         t.copy_(s)
     return out
 
@@ -453,13 +571,18 @@ def parity_phase(params, reqs, eng):
     check(not failures, "; ".join(failures))
 
 
-def profile_phase(params, rng) -> None:
-    """A second serve run of the same shape under ``torch.profiler``:
-    the device's busy share of the run's wall time and the kernels that
-    take it.  It comes after every gate, so profiler overhead touches
-    none of the gated numbers; it reports and gates nothing."""
+def profile_phase(params, rng, engine=None, label="serve",
+                  window=None) -> None:
+    """A second serve run of the same shape under ``torch.profiler``
+    (default: the bf16 serve's ``ENGINE``): the device's busy share of
+    the run's wall time and the kernels that take it.  ``window =
+    (first, n)`` profiles scheduler rounds first .. first + n - 1 only
+    (each a prefill chunk or two and a decode burst): the int8 run
+    launches ~50 000 kernels, whose trace takes minutes to post-process.
+    It comes after every gate, so profiler overhead touches none of the
+    gated numbers; it reports and gates nothing."""
     from torch.profiler import ProfilerActivity, profile
-    eng = E.ServingEngine(params, CFG, **ENGINE)
+    eng = E.ServingEngine(params, CFG, **(engine or ENGINE))
     for _ in range(N_REQUESTS):
         n = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
         eng.submit(rng.integers(1, CFG.vocab_size, size=n).astype(np.int32),
@@ -467,24 +590,152 @@ def profile_phase(params, rng) -> None:
     torch.cuda.synchronize()
     # device activity only: tracing every CPU operator as well doubles
     # the run's wall time and takes minutes to post-process
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    if window is None:
+        with prof:
+            t = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+    else:
+        # run()'s loop with every request arriving at t = 0
+        first, n = window
+        eng.start()
+        for req in eng._pending:
+            eng.batcher.submit(req, 0.0)
+        eng._pending = []
+        i = 0
+        while eng.batcher.has_work():
+            if i == first:
+                torch.cuda.synchronize()
+                prof.start()
+                t = time.perf_counter()
+            eng.step_round(time.perf_counter() - eng._t0)
+            if i == first + n - 1:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t) * 1e6
+                prof.stop()
+            i += 1
+        eng.close_pump()
+        if i < first + n:
+            check(False, f"profile ({label}): the run took {i} rounds, "
+                  f"fewer than the window's {first + n}")
+            return
+        label += f", rounds {first}-{first + n - 1}"
     dev = [(e.key, e.count, e.self_device_time_total)
            for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(d for _, _, d in dev)
     if not dev:
-        log("profile: torch.profiler recorded no device time (not "
-            "measured)")
+        log(f"profile ({label}): torch.profiler recorded no device time "
+            f"(not measured)")
         return
-    log(f"profile (serve run under torch.profiler): device busy "
+    log(f"profile ({label} run under torch.profiler): device busy "
         f"{busy_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall = "
         f"{busy_us / wall_us:.3f}; idle share {1 - busy_us / wall_us:.3f}")
     for key, count, d in sorted(dev, key=lambda e: -e[2])[:8]:
-        log(f"profile: {d / busy_us:.3f} of device time, {count} calls, "
-            f"{d / 1e3:.1f} ms: {key[:90]}")
+        log(f"profile ({label}): {d / busy_us:.3f} of device time, {count} "
+            f"calls, {d / 1e3:.1f} ms: {key[:90]}")
+
+
+# ------------------------------------------------------ int8 serve phases
+
+def int8_serve_phase(params_q8, rng, card: str):
+    """The int8 engine (int8 weights, int8 pool, K2 decode, K4 for every
+    projection and the unembedding) answers 8 requests."""
+    prompts = [rng.integers(1, CFG.vocab_size,
+                            size=int(rng.integers(PROMPT_LEN[0],
+                                                  PROMPT_LEN[1] + 1))
+                            ).astype(np.int32) for _ in range(N_REQUESTS)]
+    eng = E.ServingEngine(params_q8, CFG, **INT8_ENGINE)
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (PA.Q8_COUNTS, Q.INT8_COUNTS, Q.INT8_FUSED_COUNTS, PA.COUNTS,
+                FP.COUNTS)
+    for c in counters:
+        c.reset()
+    eng.run()
+    torch.cuda.synchronize()
+    counts = {"paged_decode_q8": (PA.Q8_COUNTS.launches,
+                                  PA.Q8_COUNTS.plain_calls),
+              "int8_matmul": (Q.INT8_COUNTS.launches,
+                              Q.INT8_COUNTS.plain_calls)}
+    L = CFG.num_hidden_layers
+    steps, chunks = eng.stats["decode_steps"], eng.stats["prefill_chunks"]
+    want = {"paged_decode_q8": steps * L,
+            "int8_matmul": (steps + chunks) * (len(PROJECTIONS) * L + 1)}
+    log(f"int8 serve launches (kernel, plain): {json.dumps(counts)}; "
+        f"expected kernel launches {json.dumps(want)} ({steps} decode steps,"
+        f" {chunks} prefill chunks); K1 {PA.COUNTS.launches}, K3 "
+        f"{FP.COUNTS.launches}, K5 {Q.INT8_FUSED_COUNTS.launches}")
+    for r in reqs:
+        check(len(r.tokens) == NEW_TOKENS,
+              f"int8 request {r.rid}: {len(r.tokens)} tokens, not "
+              f"{NEW_TOKENS}")
+        check(all(0 <= t < CFG.vocab_size for t in r.tokens),
+              f"int8 request {r.rid}: token out of the vocabulary")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (want[name], 0),
+              f"int8 serve: {name} (launches, plain) {(launches, plain)} != "
+              f"({want[name]}, 0)")
+    slo = eng.slo_report()
+    log(f"int8 serve on {card}: {slo['completed']}/{N_REQUESTS} requests, "
+        f"{steps} decode steps, {chunks} prefill chunks; TTFT p50 "
+        f"{slo['ttft_ms']['p50']} ms p99 {slo['ttft_ms']['p99']} ms, "
+        f"per-token p50 {slo['per_token_ms']['p50']} ms, "
+        f"{slo['tokens_per_s']} tok/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, pool "
+        f"prediction {slo['pool']['predicted_gb']:.3f} GiB")
+    log(f"int8 serve scheduler: {json.dumps(slo['scheduler'])}")
+    ctx = np.mean([r.n_prompt + NEW_TOKENS / 2 for r in reqs])
+    w_bytes = weight_read_bytes(CFG, params_q8, tree_bytes(params_q8))
+    kv_bytes = kv_bytes_per_step(CFG, N_REQUESTS, int(ctx), kv_quant=True)
+    step_bytes = w_bytes + kv_bytes
+    log(f"int8 decode step: {slo['scheduler']['decode_ms_total'] / steps:.3f}"
+        f" ms on the host clock, bound {step_bytes / HBM_BYTES_PER_S * 1e3:.3f}"
+        f" ms by bytes ({w_bytes / 1e9:.3f} GB of weights + "
+        f"{kv_bytes / 1e9:.3f} GB of int8 KV of {N_REQUESTS} slots at mean "
+        f"context {ctx:.0f})")
+    return eng, reqs, {k: v[0] for k, v in counts.items()}
+
+
+def int8_parity_phase(params_q8, reqs, eng):
+    """Every request's first token against the port's one-shot
+    ``generate(kv_quant=True)`` at the view capacity, and one decode
+    step's logits through K2 and K4 against the plain int8 path from one
+    pool state.  Everything is logged first; the gates follow."""
+    failures = []
+    firsts = []
+    for r in reqs:
+        ref = int(generate(params_q8, r.prompt[None], CFG, max_new_tokens=1,
+                           cache_capacity=eng.view_capacity,
+                           kv_quant=True)[0, 0])
+        firsts.append((r.tokens[0], ref))
+        if r.tokens[0] != ref:
+            failures.append(f"int8 request {r.rid}: first token "
+                            f"{r.tokens[0]} != one-shot generate's {ref}")
+    log(f"int8 parity: first tokens (engine, generate) {firsts}; "
+        f"{sum(a == b for a, b in firsts)}/{len(firsts)} equal")
+    pair = reqs[:2]
+    pool, pages, lg = _prefill(pair, eng, flash=False)
+    toks = lg.argmax(-1).to(torch.int32)
+    lengths = torch.as_tensor([r.n_prompt for r in pair], dtype=torch.int32,
+                              device="cuda")
+    lk = _decode_step_logits(eng, pool, pages, toks, lengths, True)
+    with Q.plain_int8_products():
+        lp = _decode_step_logits(eng, pool, pages, toks, lengths, False)
+    err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+    log(f"int8 parity decode logits kernel vs plain: max abs diff {err:.4f},"
+        f" max |logit| {scale:.2f}, atol {INT8_LOGIT_ATOL}, argmax equal "
+        f"{(lk.argmax(-1) == lp.argmax(-1)).tolist()}, top1-top2 gap "
+        f"(plain) {_gap(lp)}")
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        failures.append("non-finite int8 decode logits")
+    if not torch.allclose(lk, lp, atol=INT8_LOGIT_ATOL, rtol=0.0):
+        failures.append(f"int8 decode logits kernel vs plain: max abs diff "
+                        f"{err} over atol {INT8_LOGIT_ATOL}")
+    del pool
+    check(not failures, "; ".join(failures))
 
 
 # ------------------------------------------------- training kernel phase
@@ -573,6 +824,190 @@ def fp8_phase() -> dict:
                   "distributed_training_sandbox_tpu/ops/quant.py:613 "
                   "(fp8_matmul_pallas, _fp8_mm_kernel)", err, ratio,
                   tot["k"], tot["p"], tot["l"], b_ms, b_by)
+
+
+def _int_mm_ms(a, b_kn, it, copies):
+    """CUDA-event ms of ``torch._int_mm`` (int32 out, no scales) on
+    row-major A and column-major B, cycling through ``copies``; None
+    where its shape rules refuse (M must exceed 16)."""
+    try:
+        torch._int_mm(a[0], b_kn[0])
+    except RuntimeError as e:
+        log(f"torch._int_mm refuses ({a[0].shape[0]}, {a[0].shape[1]}) x "
+            f"({b_kn[0].shape[0]}, {b_kn[0].shape[1]}): {str(e)[:80]}")
+        return None
+    return time_ms(lambda: torch._int_mm(*(lambda i: (a[i], b_kn[i]))(
+        next(it) % copies)))
+
+
+def _col_major(t):
+    return t.t().contiguous().t()
+
+
+def _gate_bitwise(name, shape, got, ref):
+    """K4 and K5 must equal their plain versions bit for bit."""
+    err = float((got.float() - ref.float()).abs().max())
+    n = int((got != ref).sum())
+    check(torch.isfinite(got).all(), f"{name}: non-finite output")
+    check(n == 0, f"{name}: {shape} not bit-equal to the plain version: "
+          f"{n} outputs differ, max |kernel - plain| {err}")
+    return err
+
+
+def int8_gemm_phase() -> list[dict]:
+    """K5 (forward) and K4 (the backward's dX and dW layouts) at one
+    layer's seven projections at M = 8192, then K4 at decode (M = 8, the
+    seven projections and the unembedding): bit-equal to the plain
+    versions and twice-launch equal; times summed over the shapes.
+    Operands cycle through 3 copies so that no launch finds the last
+    one's in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    M = TRAIN["seq"] * TRAIN["bs"]
+    bf16 = torch.bfloat16
+    zero = lambda: dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, ops=0.0)  # noqa
+    t5, t4 = zero(), zero()
+    e5 = e4 = 0.0
+    lib_missing = set()
+    for name, K, N in PROJECTIONS:
+        sets = []
+        for _ in range(3):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 * 0.02).to(bf16)
+            g = (torch.randn((M, N), generator=gen, device="cuda")
+                 * 1e-3).to(bf16)
+            wq, ws = Q.quantize_int8(w, axis=0)
+            gq, gs = Q.quantize_int8(g, axis=-1)
+            wq_n, ws_n = Q.quantize_int8(w, axis=1)
+            xq_m, xs_m = Q.quantize_int8(x, axis=0)
+            gq_m, gs_m = Q.quantize_int8(g, axis=0)
+            sets.append(dict(x=x, wq=wq, ws=ws, xq=Q.quantize_int8(x)[0],
+                             dx=(gq, gs, wq_n, ws_n.T, (1, 1)),
+                             dw=(xq_m, xs_m.T, gq_m, gs_m, (0, 0))))
+            del w, g
+        it = iter(range(10 ** 9))
+        c = lambda: sets[next(it) % 3]  # noqa: E731
+        s0 = sets[0]
+        shape = f"({M}, {K}) x ({K}, {N})"
+        # K5: the forward
+        got = Q.int8_matmul_fused_kernel(s0["x"], s0["wq"], s0["ws"])
+        e5 = max(e5, _gate_bitwise("int8_matmul_fused", shape, got,
+                                   Q.int8_matmul_fused(s0["x"], s0["wq"],
+                                                       s0["ws"], bf16)))
+        _twice_equal("int8_matmul_fused", lambda: Q.int8_matmul_fused_kernel(
+            s0["x"], s0["wq"], s0["ws"]))
+        k_ms = time_ms(lambda: (lambda d: Q.int8_matmul_fused_kernel(
+            d["x"], d["wq"], d["ws"]))(c()))
+        p_ms = time_ms(lambda: (lambda d: Q.int8_matmul_fused(
+            d["x"], d["wq"], d["ws"], bf16))(c()), iters=3, warmup=1)
+        l_ms = _int_mm_ms([d["xq"] for d in sets],
+                          [_col_major(d["wq"]) for d in sets], it, 3)
+        t5["k"] += k_ms
+        t5["p"] += p_ms
+        t5["l"] += l_ms or 0.0
+        lib_missing |= {"int8_matmul_fused"} if l_ms is None else set()
+        t5["nbytes"] += 2 * M * K + K * N + 4 * N + 2 * M * N
+        t5["ops"] += 2 * M * K * N
+        log(f"int8_matmul_fused {shape}: bit-equal; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, _int_mm {l_ms} ms")
+        # K4: dX = g · Wᵀ (B read K-major) and dW = Xᵀ · g (A transposed)
+        for prod, Mo, No, Kc in (("dx", M, K, N), ("dw", K, N, M)):
+            sh = f"{prod} ({Mo}, {Kc}) x ({Kc}, {No})"
+            got = Q._int8_dot(*s0[prod], bf16, plain=False)
+            e4 = max(e4, _gate_bitwise("int8_matmul", sh, got, Q._int8_dot(
+                *s0[prod], bf16, plain=True)))
+            _twice_equal("int8_matmul", lambda: Q._int8_dot(
+                *s0[prod], bf16, plain=False))
+            k_ms = time_ms(lambda: Q._int8_dot(*c()[prod], bf16, plain=False))
+            p_ms = time_ms(lambda: Q._int8_dot(*c()[prod], bf16, plain=True),
+                           iters=3, warmup=1)
+            if prod == "dx":
+                la = [d["dx"][0] for d in sets]
+                lb = [d["dx"][2].t() for d in sets]      # column-major
+            else:
+                la = [d["dw"][0].t().contiguous() for d in sets]
+                lb = [_col_major(d["dw"][2]) for d in sets]
+            l_ms = _int_mm_ms(la, lb, it, 3)
+            del la, lb
+            t4["k"] += k_ms
+            t4["p"] += p_ms
+            t4["l"] += l_ms or 0.0
+            lib_missing |= {"int8_matmul"} if l_ms is None else set()
+            # int8 operands read once, bf16 output written once, scales;
+            # dW also reads and writes the transposed copy of X's codes
+            t4["nbytes"] += (Mo * Kc + Kc * No + 4 * (Mo + No) + 2 * Mo * No
+                             + (2 * Mo * Kc if prod == "dw" else 0))
+            t4["ops"] += 2 * Mo * No * Kc
+            log(f"int8_matmul {sh}: bit-equal; kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, _int_mm {l_ms} ms")
+        del sets, got
+        torch.cuda.empty_cache()
+    b5 = bound(t5["nbytes"], t5["ops"], PEAK_INT8_OPS)
+    b4 = bound(t4["nbytes"], t4["ops"], PEAK_INT8_OPS)
+    for nm, t, b in (("int8_matmul_fused", t5, b5), ("int8_matmul", t4, b4)):
+        log(f"{nm}, one layer's 7 projections at M = {M}: kernel "
+            f"{t['k']:.4f} ms, plain {t['p']:.4f} ms, _int_mm {t['l']:.4f} "
+            f"ms, bound {b[0]:.4f} ms by {b[1]} ({t['nbytes'] / 1e6:.1f} "
+            f"MB, {t['ops'] / 1e12:.3f} T int8 operations)")
+
+    # K4 at decode: M = 8 rows, the weights as quantize_decode_params
+    # stores them ((K, N) codes, one scale per column)
+    dec = dict(k=0.0, p=0.0, nbytes=0.0, ops=0.0)
+    unembed = None
+    Md = ENGINE["max_batch"]
+    for name, K, N in PROJECTIONS + [("unembed", CFG.hidden_size,
+                                      CFG.vocab_size)]:
+        sets = []
+        for _ in range(3):
+            xq, xs = Q.quantize_int8(torch.randn((Md, K), generator=gen,
+                                                 device="cuda"))
+            wq = torch.randint(-127, 128, (K, N), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            ws = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+            sets.append((xq, xs, wq, ws))
+        it = iter(range(10 ** 9))
+        shape = f"decode {name} ({Md}, {K}) x ({K}, {N})"
+        got = Q.int8_matmul_kernel(*sets[0])
+        e4 = max(e4, _gate_bitwise("int8_matmul", shape, got,
+                                   Q.int8_matmul(*sets[0], bf16)))
+        _twice_equal("int8_matmul", lambda: Q.int8_matmul_kernel(*sets[0]))
+        k_ms = time_ms(lambda: Q.int8_matmul_kernel(*sets[next(it) % 3]))
+        p_ms = time_ms(lambda: Q.int8_matmul(*sets[next(it) % 3], bf16))
+        nbytes = Md * K + K * N + 4 * (Md + N) + 2 * Md * N
+        b_ms = bound(nbytes, 2 * Md * K * N, PEAK_INT8_OPS)[0]
+        log(f"int8_matmul {shape}: bit-equal; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by bytes "
+            f"({nbytes / 1e6:.2f} MB); _int_mm refuses M = {Md}")
+        if name == "unembed":
+            unembed = (k_ms, p_ms, b_ms)
+        else:
+            dec["k"] += k_ms
+            dec["p"] += p_ms
+            dec["nbytes"] += nbytes
+            dec["ops"] += 2 * Md * K * N
+        del sets, got
+    torch.cuda.empty_cache()
+    db = bound(dec["nbytes"], dec["ops"], PEAK_INT8_OPS)
+    log(f"int8_matmul at decode, one layer's 7 projections (M = {Md}): "
+        f"kernel {dec['k']:.4f} ms, plain {dec['p']:.4f} ms, bound "
+        f"{db[0]:.4f} ms by {db[1]}; the unembedding: kernel "
+        f"{unembed[0]:.4f} ms, plain {unembed[1]:.4f} ms, bound "
+        f"{unembed[2]:.4f} ms")
+    k5 = _entry("int8_matmul_fused", "int8_matmul.cu",
+                "distributed_training_sandbox_tpu/ops/quant.py:226 "
+                "(int8_matmul_pallas_fused, _fused_qmm_kernel :210)", e5, 0.0,
+                t5["k"], t5["p"],
+                None if "int8_matmul_fused" in lib_missing else t5["l"],
+                *b5)
+    k4 = _entry("int8_matmul", "int8_matmul.cu",
+                "distributed_training_sandbox_tpu/ops/quant.py:162 "
+                "(int8_matmul_pallas, _qmm_kernel :153)", e4, 0.0, t4["k"],
+                t4["p"], None if "int8_matmul" in lib_missing else t4["l"],
+                *b4)
+    k4.update(decode_layer_ms=dec["k"], decode_layer_plain_ms=dec["p"],
+              decode_layer_bound_ms=db[0], unembed_ms=unembed[0],
+              unembed_plain_ms=unembed[1], unembed_bound_ms=unembed[2])
+    return [k4, k5]
 
 
 def _fa_reading(kernel, name, got, ref, which) -> tuple[float, float]:
@@ -767,20 +1202,29 @@ def train_parity_phase() -> float:
     return lk
 
 
-def train_phase(card: str, loss0: float) -> dict:
-    """6 steps of run_leg on the card; returns the launch counts."""
+def train_phase(card: str, loss0: float, train=None, cfg=None,
+                expect=None, label="train") -> dict:
+    """``train["num_steps"]`` steps of run_leg on the card (default: the
+    fp8 leg, ``TRAIN``); ``expect`` maps each kernel's name to (its
+    counter, launches per step).  Returns the launch counts."""
     from torch.profiler import ProfilerActivity, profile
-    counters = (Q.COUNTS, Q.BWD_COUNTS, FA.FWD_COUNTS, FA.BWD_COUNTS)
-    for c in counters:
+    train, cfg = train or TRAIN, cfg or TRAIN_CFG
+    L = cfg.num_hidden_layers
+    if expect is None:   # the fp8 path: K6 forward, the flash attention
+        expect = {"fp8_matmul": (Q.COUNTS, L * len(PROJECTIONS) * 2),
+                  "flash_attention_fwd": (FA.FWD_COUNTS, L * 2),
+                  "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+    for c in (Q.COUNTS, Q.BWD_COUNTS, Q.INT8_COUNTS, Q.INT8_FUSED_COUNTS,
+              FA.FWD_COUNTS, FA.BWD_COUNTS):
         c.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n = TRAIN["num_steps"]
+    n = train["num_steps"]
     prof = profile(activities=[ProfilerActivity.CUDA])
     marks = {}
 
     def on_step(i, loss):
-        log(f"train step {i}: loss {loss!r}")
+        log(f"{label} step {i}: loss {loss!r}")
         if i == n - 2:   # trace the last step: device activity only
             prof.start()
             marks["t"] = time.perf_counter()
@@ -788,62 +1232,101 @@ def train_phase(card: str, loss0: float) -> dict:
             marks["wall_us"] = (time.perf_counter() - marks["t"]) * 1e6
             prof.stop()
 
-    res = flagship.run_leg(TRAIN["model"], TRAIN["precision"], TRAIN["seq"],
-                           TRAIN["bs"], n, TRAIN["warmup_steps"],
-                           TRAIN["peak_lr"], seed=TRAIN["seed"],
+    res = flagship.run_leg(train["model"], train["precision"], train["seq"],
+                           train["bs"], n, train["warmup_steps"],
+                           train["peak_lr"], seed=train["seed"],
                            device="cuda", on_step=on_step)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    counts = {"fp8_matmul": (Q.COUNTS.launches, Q.COUNTS.plain_calls),
-              "flash_attention_fwd": (FA.FWD_COUNTS.launches,
-                                      FA.FWD_COUNTS.plain_calls),
-              "flash_attention_bwd": (FA.BWD_COUNTS.launches,
-                                      FA.BWD_COUNTS.plain_calls)}
-    L = TRAIN_CFG.num_hidden_layers
-    want = {"fp8_matmul": n * L * len(PROJECTIONS) * 2,
-            "flash_attention_fwd": n * L * 2, "flash_attention_bwd": n * L}
+    counts = {name: (c.launches, c.plain_calls)
+              for name, (c, _) in expect.items()}
+    want = {name: n * per for name, (_, per) in expect.items()}
     losses = res["losses"]
     times = res["step_times_s"]
     steps = [b - a for a, b in zip([0.0] + times[:-1], times)]
     step_s = statistics.median(steps[1:n - 1])   # unprofiled, after step 0
-    tok_s = TRAIN["seq"] * TRAIN["bs"] / step_s
-    flops_tok = T.model_flops_per_token(TRAIN_CFG, TRAIN["seq"])
-    log(f"train on {card}: losses {losses}; lrs {res['lrs']}")
-    log(f"train: step times (s, host clock, each ending in a sync) "
+    tok_s = train["seq"] * train["bs"] / step_s
+    flops_tok = T.model_flops_per_token(cfg, train["seq"])
+    log(f"{label} on {card}: losses {losses}; lrs {res['lrs']}")
+    log(f"{label}: step times (s, host clock, each ending in a sync) "
         f"{steps}; median of steps 1-{n - 2} {step_s * 1e3:.1f} ms, "
         f"{tok_s:.1f} tokens/s, MFU {flops_tok * tok_s / PEAK_BF16_FLOPS:.4f}"
         f" ({flops_tok:.4e} model FLOP/token over the 989 TFLOP/s bf16 "
         f"dense peak); run_leg tokens_per_second "
         f"{res['tokens_per_second']:.1f}; peak memory {peak / 2 ** 30:.2f} "
         f"GiB")
-    log(f"train launches (kernel, plain): {json.dumps(counts)}; expected "
-        f"kernel launches {json.dumps(want)}; the backward's plain fp8 "
+    log(f"{label} launches (kernel, plain): {json.dumps(counts)}; expected "
+        f"kernel launches {json.dumps(want)}; the fp8 backward's plain "
         f"products {Q.BWD_COUNTS.plain_calls}")
-    log(f"train: step-0 loss {losses[0]!r}, the parity phase's kernel path "
-        f"{loss0!r}, bit-equal {losses[0] == loss0}")
-    check(losses[0] == loss0, f"step-0 loss {losses[0]!r} of the run is not "
-          f"the parity phase's {loss0!r} (same params and batch)")
+    log(f"{label}: step-0 loss {losses[0]!r}, the parity phase's kernel "
+        f"path {loss0!r}, bit-equal {losses[0] == loss0}")
+    check(losses[0] == loss0, f"{label}: step-0 loss {losses[0]!r} of the "
+          f"run is not the parity phase's {loss0!r} (same params and batch)")
     dev = [(e.key, e.count, e.self_device_time_total)
            for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(d for _, _, d in dev)
     if dev:
-        log(f"train profile (step {n - 1}): device busy "
+        log(f"{label} profile (step {n - 1}): device busy "
             f"{busy_us / 1e3:.1f} ms of {marks['wall_us'] / 1e3:.1f} ms wall"
             f", idle share {1 - busy_us / marks['wall_us']:.3f}")
         for key, cnt, d in sorted(dev, key=lambda e: -e[2])[:10]:
-            log(f"train profile: {d / busy_us:.3f} of device time, {cnt} "
+            log(f"{label} profile: {d / busy_us:.3f} of device time, {cnt} "
                 f"calls, {d / 1e3:.1f} ms: {key[:90]}")
     else:
-        log("train profile: torch.profiler recorded no device time (not "
-            "measured)")
+        log(f"{label} profile: torch.profiler recorded no device time (not "
+            f"measured)")
     for name, (launches, plain) in counts.items():
         check((launches, plain) == (want[name], 0),
-              f"{name} (launches, plain) {(launches, plain)} != "
+              f"{label}: {name} (launches, plain) {(launches, plain)} != "
               f"({want[name]}, 0)")
-    check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
-    check(losses[-1] < losses[0], f"step-{n - 1} loss {losses[-1]} is not "
-          f"below step-0 loss {losses[0]}")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"{label}: step-{n - 1} loss {losses[-1]} "
+          f"is not below step-0 loss {losses[0]}")
     return {k: v[0] for k, v in counts.items()}
+
+
+def int8_train_parity_phase() -> float:
+    """Step-0 loss and grads at ``int8_pallas_bwd`` on run_leg's params
+    and first batch, the flash attention on both sides: the kernel path
+    (K5 forward, K4 dX and dW) against the plain int8 products
+    (``quant.plain_int8_products``).  Every int8 product is exact and
+    both sides round at the same points, so the loss and every grad leaf
+    must be bit-equal.  Returns the kernel path's loss."""
+    gen = torch.Generator(device="cuda").manual_seed(INT8_TRAIN["seed"])
+    params = T.init_params(INT8_TRAIN_CFG, gen, "cuda")
+    batch = _first_batch()
+    out = {}
+    for name in ("kernel", "plain"):
+        t = time.perf_counter()
+        with (Q.plain_int8_products() if name == "plain"
+              else contextlib.nullcontext()):
+            loss, grads = fsdp.microbatch_value_and_grad(
+                lambda p, b: T.lm_loss(p, b, INT8_TRAIN_CFG), params, batch, 1)
+        torch.cuda.synchronize()
+        out[name] = (float(loss), grads)
+        log(f"int8 train parity: {name} path loss {float(loss)!r} "
+            f"({time.perf_counter() - t:.1f} s)")
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    unequal = {}
+    for path, a in fsdp.optim.tree_leaves(gk):
+        b = fsdp.optim.tree_get(gp, path)
+        if not torch.equal(a, b):
+            unequal["/".join(path)] = float((a.float() - b.float()).abs().max())
+    log(f"int8 train parity: loss kernel {lk!r} plain {lp!r} (bit-equal "
+        f"{lk == lp}); grad leaves not bit-equal: {json.dumps(unequal)}")
+    failures = []
+    if not (np.isfinite(lk) and np.isfinite(lp)):
+        failures.append("int8 step-0 loss: non-finite")
+    if lk != lp:
+        failures.append(f"int8 step-0 loss: kernel {lk!r} != plain {lp!r}")
+    if unequal:
+        failures.append(f"int8 step-0 grads: {len(unequal)} leaves not "
+                        f"bit-equal, max |kernel - plain| "
+                        f"{max(unequal.values())}")
+    del params, out, gk, gp
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return lk
 
 
 def main() -> int:
@@ -856,7 +1339,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    t = time.perf_counter()
+    t_all = t = time.perf_counter()
     loader.build_all()
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
     for name, text in loader.build_logs.items():
@@ -865,28 +1348,63 @@ def main() -> int:
                 log(f"{name}: {line.strip()}")
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    try:
-        kernels = kernel_phase(rng, gen)
-        kernels.append(fp8_phase())
-        kernels.extend(attention_phase())
+    walls = {}
+
+    def timed(name, fn, *args):
         t = time.perf_counter()
-        params = build_params()
+        out = fn(*args)
         torch.cuda.synchronize()
-        log(f"SMOLLM3_3B params built in {time.perf_counter() - t:.1f} s")
-        eng, reqs, launches = serve_phase(params, rng, card)
-        parity_phase(params, reqs, eng)
-        profile_phase(params, rng)
-        del eng, reqs, params
+        walls[name] = round(time.perf_counter() - t, 1)
+        log(f"phase {name}: {walls[name]} s")
+        return out
+
+    L, L8 = CFG.num_hidden_layers, INT8_TRAIN_CFG.num_hidden_layers
+    try:
+        kernels = timed("kernels K1 K3", kernel_phase, rng, gen)
+        kernels.append(timed("kernel K2", q8_decode_phase, rng, gen))
+        kernels.extend(timed("kernels K4 K5", int8_gemm_phase))
+        kernels.append(timed("kernel K6", fp8_phase))
+        kernels.extend(timed("kernels FA", attention_phase))
+        params = timed("SMOLLM3_3B params", build_params)
+        eng, reqs, launches = timed("serve", serve_phase, params, rng, card)
+        timed("parity", parity_phase, params, reqs, eng)
+        timed("profile", profile_phase, params, rng)
+        del eng, reqs
+        params_q8 = timed("int8 params", quantize_decode_params, params, CFG)
+        del params
         torch.cuda.empty_cache()
-        t = time.perf_counter()
-        loss0 = train_parity_phase()
-        launches.update(train_phase(card, loss0))
-        log(f"train phases took {time.perf_counter() - t:.1f} s")
+        eng, reqs, q8 = timed("int8 serve", int8_serve_phase, params_q8, rng,
+                              card)
+        timed("int8 parity", int8_parity_phase, params_q8, reqs, eng)
+        timed("int8 profile", profile_phase, params_q8, rng, INT8_ENGINE,
+              "int8 serve", (4, 2))
+        del eng, reqs, params_q8
+        torch.cuda.empty_cache()
+        loss0 = timed("train parity", train_parity_phase)
+        fp8 = timed("train", train_phase, card, loss0)
+        loss0 = timed("int8 train parity", int8_train_parity_phase)
+        i8 = timed("int8 train", train_phase, card, loss0, INT8_TRAIN,
+                   INT8_TRAIN_CFG, {
+                       "int8_matmul_fused": (Q.INT8_FUSED_COUNTS,
+                                             L8 * len(PROJECTIONS) * 2),
+                       "int8_matmul": (Q.INT8_COUNTS,
+                                       L8 * len(PROJECTIONS) * 2),
+                       "flash_attention_fwd": (FA.FWD_COUNTS, L8 * 2),
+                       "flash_attention_bwd": (FA.BWD_COUNTS, L8)},
+                   "int8 train")
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
+    # each kernel's launches on the main paths that run it, each path
+    # read with its counts set to 0 just before it
+    paths = {"serve": launches, "int8 serve": q8, "train": fp8,
+             "int8 train": i8}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
+        k["launches"] = sum(per.values())
+        k["launches_by_path"] = per
+    log(f"phase wall times (s): {json.dumps(walls)}; total "
+        f"{time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

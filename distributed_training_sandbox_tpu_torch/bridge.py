@@ -7,12 +7,19 @@ arrays (``jax.tree.map(np.asarray, params)``): this module never
 imports JAX.  bf16 leaves arrive as numpy arrays of ``ml_dtypes``'
 bfloat16, which numpy cannot hand to torch directly; they cross as
 their raw 16-bit patterns, so the copy is exact either way.
+
+int8 decode params (``quantize_decode_params`` on either side) hold
+``QuantizedWeight`` leaves, a NamedTuple ``(q, s)`` in both packages:
+they cross field for field, ``q`` as int8 and ``s`` as f32, whatever
+``cfg.dtype`` is, and ``unembed_q`` with them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ops.quant import QuantizedWeight
 
 
 def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -32,6 +39,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _is_quantized(leaf) -> bool:
+    """A ``QuantizedWeight`` of either package (a NamedTuple (q, s))."""
+    return getattr(leaf, "_fields", None) == ("q", "s")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -39,16 +51,27 @@ def _map(tree, fn):
 
 
 def params_from_jax(np_tree: dict, cfg, device=None) -> dict:
-    """Reference params (a dict tree of numpy arrays) → the port's
-    params in ``cfg.dtype`` on ``device`` (default: CPU), leaf for
-    leaf."""
-    return _map(np_tree, lambda a: _to_torch(a, cfg.dtype, device))
+    """Reference params (a dict tree of numpy arrays, ``QuantizedWeight``
+    leaves holding numpy arrays) → the port's params on ``device``
+    (default: CPU), leaf for leaf: float leaves in ``cfg.dtype``, a
+    quantised weight as int8 codes and f32 scales."""
+    def leaf(a):
+        if _is_quantized(a):
+            return QuantizedWeight(_to_torch(a.q, torch.int8, device),
+                                   _to_torch(a.s, torch.float32, device))
+        return _to_torch(a, cfg.dtype, device)
+    return _map(np_tree, leaf)
 
 
 def params_to_numpy(params: dict) -> dict:
     """The inverse: the port's params → a dict tree of numpy arrays in
-    the reference's layout (``jax.numpy.asarray`` takes each leaf)."""
-    return _map(params, _to_numpy)
+    the reference's layout (``jax.numpy.asarray`` takes each leaf; a
+    ``QuantizedWeight`` comes back as one holding numpy arrays)."""
+    def leaf(t):
+        if _is_quantized(t):
+            return QuantizedWeight(_to_numpy(t.q), _to_numpy(t.s))
+        return _to_numpy(t)
+    return _map(params, leaf)
 
 
 def adam_state_from_jax(mu: dict, nu: dict, count: int, cfg, device=None):

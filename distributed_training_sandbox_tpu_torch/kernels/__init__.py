@@ -28,12 +28,14 @@ class LaunchCount:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
-def check_cuda_operands(name: str, floats: dict, ints: dict) -> int:
+def check_cuda_operands(name: str, floats: dict, ints: dict,
+                        others: dict | None = None) -> int | None:
     """Validate a kernel's operands: one CUDA device, contiguous, the
-    float operands of one supported dtype, the index operands int32.
-    Returns the dtype code of the C interface."""
+    float operands of one supported dtype, the index operands int32
+    (``others``: any dtype, checked by the caller).  Returns the dtype
+    code of the C interface (None without float operands)."""
     dev = None
-    for k, t in {**floats, **ints}.items():
+    for k, t in {**floats, **ints, **(others or {})}.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {k} is on {t.device}, not CUDA")
         if dev is not None and t.device != dev:
@@ -41,13 +43,15 @@ def check_cuda_operands(name: str, floats: dict, ints: dict) -> int:
         dev = t.device
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} is not contiguous")
+    for k, t in ints.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {k} must be int32, got {t.dtype}")
+    if not floats:
+        return None
     dts = {t.dtype for t in floats.values()}
     if len(dts) != 1 or next(iter(dts)) not in DTYPE_CODES:
         raise ValueError(f"{name}: float operands must share one dtype of "
                          f"{list(DTYPE_CODES)}, got {sorted(map(str, dts))}")
-    for k, t in ints.items():
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: {k} must be int32, got {t.dtype}")
     return DTYPE_CODES[next(iter(dts))]
 
 

@@ -35,8 +35,16 @@ SIGNATURES = {
     "flash_prefill": {
         "flash_prefill_launch": ([P] * 6 + [I] * 8 + [P], I),
     },
+    "paged_decode_q8": {
+        "paged_decode_q8_launch": ([P] * 10 + [I] * 6 + [P], I),
+        "paged_decode_q8_scratch_floats": ([I] * 6, ctypes.c_int64),
+    },
     "fp8_matmul": {
         "fp8_matmul_launch": ([P] * 5 + [I] * 3 + [P], I),
+    },
+    "int8_matmul": {
+        "int8_matmul_launch": ([P] * 5 + [I] * 4 + [P], I),
+        "int8_matmul_fused_launch": ([P] * 5 + [I] * 3 + [P], I),
     },
     "flash_attention": {
         "flash_attn_fwd_launch": ([P] * 5 + [I] * 5 + [F, P], I),

@@ -15,9 +15,9 @@ under ``torch.utils.checkpoint`` for remat ``"full"``), ``forward``,
 the dense and streamed-vocab cross-entropy, ``lm_loss`` and
 ``model_flops_per_token``.  Attention is ``"xla"`` (the plain
 ``_attention_xla``) or ``"flash"`` (the port's kernel,
-``ops/flash_attention.py``); projections run at ``bf16`` or the fp8
-recipe (``ops/quant.py``).  Ring attention, MoE, the int8 precisions
-and the other remat policies are later slices (ROADMAP.md queues A and
+``ops/flash_attention.py``); projections run at ``bf16``, the fp8
+recipe or the int8 recipe (``ops/quant.py``).  Ring attention, MoE and
+the other remat policies are later slices (ROADMAP.md queues A and
 B).
 """
 
@@ -31,12 +31,13 @@ import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..ops.flash_attention import attention_plain, flash_attention
-from ..ops.quant import resolve_quantized_dense
+from ..ops.quant import QuantizedWeight, resolve_quantized_dense
 from ..utils.flops import get_model_flops_per_token
 
 _ROADMAP = ("not ported yet — see ROADMAP.md, queue A item 2 (model "
             "core) and queue B (precision kernels)")
-PRECISIONS = ("bf16", "fp8", "fp8_delayed", "fp8_pallas")
+PRECISIONS = ("bf16", "fp8", "fp8_delayed", "fp8_pallas", "int8",
+              "int8_pallas", "int8_bwd", "int8_pallas_bwd")
 
 
 @dataclass(frozen=True)
@@ -65,7 +66,8 @@ class TransformerConfig:
     # None: dense f32 log-softmax over (B, S, vocab) logits; an int
     # streams the vocab in chunks of that size (chunked_softmax_xent)
     loss_vocab_chunk: int | None = None
-    # "bf16" | "fp8" | "fp8_delayed" | "fp8_pallas" (ops/quant.py)
+    # "bf16" | "fp8" | "fp8_delayed" | "fp8_pallas" | "int8" |
+    # "int8_pallas" | "int8_bwd" | "int8_pallas_bwd" (ops/quant.py)
     matmul_precision: str = "bf16"
     fp8_amax_history_len: int = 16
     n_experts: int = 0
@@ -222,8 +224,11 @@ def rope_flags(cfg: TransformerConfig) -> list[bool]:
 
 def layer_params(params: dict, li: int) -> dict:
     """Layer ``li``'s leaves, sliced from the stacked ``(L, …)`` tensors
-    (views — no copy)."""
-    return {k: v[li] for k, v in params["layers"].items()}
+    (views — no copy).  A ``QuantizedWeight`` leaf is sliced field by
+    field: indexing the NamedTuple itself would pick one of its fields."""
+    return {k: (QuantizedWeight(v.q[li], v.s[li])
+                if isinstance(v, QuantizedWeight) else v[li])
+            for k, v in params["layers"].items()}
 
 
 def _output_embedding(params: dict, cfg: TransformerConfig) -> torch.Tensor:

@@ -1,38 +1,367 @@
-"""The fp8 tier of the precision stack: the Float8Linear recipe (e4m3
-forward operands, e5m2 grad_output in the backward, per-tensor absmax
-scales), and the forward product's CUDA kernel ``csrc/fp8_matmul.cu``
-(K6) with its plain PyTorch version.
+"""The precision stack: the int8 tier (per-row absmax int8, kernels K4
+and K5) and the fp8 tier (the Float8Linear recipe, kernel K6), each
+with its plain PyTorch versions.
 
-Port of the fp8 part of the JAX package's ``ops/quant.py`` (``:533-687``)
-and of ``resolve_quantized_dense`` for ``bf16`` and the fp8 names.  The
-int8 tier (``quantized_dense``, kernels K4 and K5) is not ported yet.
+Port of the JAX package's ``ops/quant.py``: ``quantize_int8``,
+``QuantizedWeight``, ``quantize_weight``, ``dequantize``,
+``prequantized_dense``, ``int8_matmul`` (K4's plain version) with its
+CUDA kernel ``csrc/int8_matmul.cu`` (``int8_matmul_kernel``, K4, the
+twin of ``int8_matmul_pallas``), the fused quantise-matmul
+(``int8_matmul_fused``, K5's plain version, and
+``int8_matmul_fused_kernel``, the twin of ``int8_matmul_pallas_fused``),
+``_int8_dot``, ``quantized_dense`` with the reference's custom VJP, the
+fp8 recipe (``:533-687``, K6 in ``csrc/fp8_matmul.cu``) and
+``resolve_quantized_dense`` for every name the port runs.
 
-Dispatch of ``fp8_matmul_kernel``: a CPU tensor goes to the plain
-version (``fp8_matmul``) and is counted in ``COUNTS.plain_calls``; a
-CUDA tensor launches the kernel or raises.  The backward of
-``fp8_dense`` is plain products on every device, as the reference
-computes it outside any Pallas kernel; each is counted in
-``BWD_COUNTS.plain_calls``.
+**Which form of a quantizer.**  The reference divides by a constant
+(``amax / 127.0``, ``amax / fmax``), and XLA rewrites that division into
+a multiplication by the f32 reciprocal whenever the quantizer runs under
+``jax.jit``; the division ``x / scale`` stays a true division.  Eager
+and jitted quantizers therefore disagree: on the CPU, eager and jitted
+``quantize_int8`` gave different scales on 195 of 200 random 64×48 f32
+tensors, and ``quantize_fp8`` on 232 of 400 (by one f32 ulp).  The
+reference runs both forms: its train and serve steps are jitted
+(activations, gradients, K/V rows, q rows and the v-scaled
+probabilities), while ``quantize_decode_params`` runs eagerly
+(``scripts/decode_bench.py``, ``generate_demo.py``).  So every
+quantizer here takes the jitted form, ``amax * f32(1/127)``, unless the
+caller passes ``eager=True`` (the decode weights).  ``x / scale`` is a
+true IEEE division, rounded half to even and clipped to ±127.
 
-Tolerance of the kernel against the plain version (``TOLERANCE``): both
+Dispatch of the kernel wrappers (``int8_matmul_kernel``,
+``int8_matmul_fused_kernel``, ``fp8_matmul_kernel``): a CPU tensor goes
+to the plain version and is counted in the kernel's ``plain_calls``; a
+CUDA tensor launches the kernel or raises.  Every int8 product of the
+model path goes to a kernel on the card: the ``"int8"`` (the
+reference's XLA) and ``"int8_pallas"`` forwards, both backward products
+of the ``_bwd`` names and ``prequantized_dense`` to K4; the
+``int8_pallas`` forward to K5.  None of them takes ``torch._int_mm`` or
+the plain f64 product.  Inside :func:`plain_int8_products` (the
+step-level parity on the card) they take the plain versions instead.
+
+The plain int8 products are exact: int32 sums on the CPU, and on CUDA
+(where torch has no integer matmul, and f32 is not exact above 2^24)
+f64 sums, which equal ``float(int32 sum)`` bit for bit.  With the
+epilogue ``(float(acc) · xs) · ws`` in that order and one rounding to
+the output dtype, the kernels K4 and K5 are bit-equal to their plain
+versions (``chip_smoke.py`` gates it).
+
+Tolerance of K6 against its plain version (``TOLERANCE``): both
 multiply the same fp8 operands, and each product of two fp8 values is
 exact in f32, so they differ only in the order of the f32 sum, and then
 in the one bf16 rounding of the output; the limits are stated below
 and set between the sound kernel's reading and a mutant's
-(``chip_smoke.py``, ``chip_gate_mutation.py``).
+(``chip_smoke.py``, ``chip_gate_mutation.py``).  K6's gates are not
+moved by the quantizer's form: both sides share the quantizer.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
                        raise_on_error, stream_ptr)
 
-__all__ = ["FP8_FWD_DTYPE", "FP8_BWD_DTYPE", "fp8_max",
+__all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
+           "dequantize", "f32_recip", "int_einsum_exact", "int8_matmul",
+           "int8_matmul_kernel",
+           "int8_matmul_fused", "int8_matmul_fused_kernel",
+           "prequantized_dense", "quantized_dense", "plain_int8_products",
+           "INT8_COUNTS", "INT8_FUSED_COUNTS",
+           "FP8_FWD_DTYPE", "FP8_BWD_DTYPE", "fp8_max",
            "amax_history_update", "scale_from_history", "quantize_fp8",
            "fp8_matmul", "fp8_matmul_kernel", "fp8_dense",
            "resolve_quantized_dense", "COUNTS", "BWD_COUNTS", "TOLERANCE"]
+
+
+def f32_recip(v: float) -> float:
+    """``f32(1) / f32(v)``: the constant XLA folds ``x / v`` into."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+# ------------------------------------------------------------------ int8
+
+# K4: launches of the int8 GEMM and its plain calls (the wrapper's CPU
+# branch, and every product inside plain_int8_products)
+INT8_COUNTS = LaunchCount()
+# K5: the fused quantise-matmul, likewise
+INT8_FUSED_COUNTS = LaunchCount()
+INV_127 = f32_recip(127.0)
+_PLAIN = {"on": False}
+
+
+@contextlib.contextmanager
+def plain_int8_products():
+    """Within this block every int8 product of ``quantized_dense`` and
+    ``prequantized_dense`` (forward and backward) takes the plain
+    version on any device, counted in the kernels' ``plain_calls``:
+    the plain side of a step-level parity check on the card.  The
+    kernel wrappers themselves are unchanged."""
+    old = _PLAIN["on"]
+    _PLAIN["on"] = True
+    try:
+        yield
+    finally:
+        _PLAIN["on"] = old
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1, *, eager: bool = False):
+    """Symmetric absmax int8 quantisation along ``axis`` (the
+    contraction dim): ``(q int8, scale f32 with axis kept at 1)``.  The
+    scale is ``amax · f32(1/127)`` (the jitted form), or
+    ``amax / 127`` with ``eager=True``; an all-zero row gets scale 1."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    if eager:
+        # a divisor on the tensor's device: CUDA turns a division by a
+        # Python scalar into a multiplication by its reciprocal
+        s = amax / torch.full((), 127.0, device=amax.device)
+    else:
+        s = amax * INV_127
+    scale = torch.where(amax > 0, s, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+class QuantizedWeight(NamedTuple):
+    """A weight stored as int8 with its f32 dequant scales: ``q`` keeps
+    the contraction dim where the bf16 weight had it, ``s`` keeps it at
+    size 1.  Any ``resolve_quantized_dense`` matmul takes it in the
+    weight slot and routes it through ``prequantized_dense``."""
+    q: torch.Tensor
+    s: torch.Tensor
+
+
+def quantize_weight(w: torch.Tensor, *, contract_axis: int = -2,
+                    eager: bool = False) -> QuantizedWeight:
+    """(…, K, N) → QuantizedWeight: per-output-column absmax over the
+    contraction dim (stacked (L, K, N) leaves quantise per layer)."""
+    q, s = quantize_int8(w, axis=contract_axis, eager=eager)
+    return QuantizedWeight(q=q.contiguous(), s=s.contiguous())
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def int_einsum_exact(eq: str, a: torch.Tensor, b: torch.Tensor):
+    """``einsum`` of two integer-valued tensors as f32 ``float(int32
+    sum)``, exactly: int32 on the CPU; f64 on CUDA (torch has no integer
+    matmul there, and f32 is not exact above 2^24), whose integer sums
+    are exact below 2^53 in any order."""
+    if a.device.type == "cpu":
+        return torch.einsum(eq, a.to(torch.int32), b.to(torch.int32)).float()
+    return torch.einsum(eq, a.double(), b.double()).float()
+
+
+def int8_matmul(xq, xs, wq, ws, out_dtype=torch.bfloat16):
+    """K4's plain version: (M, K) int8 · (K, N) int8, exact integer
+    sum, then ``(f32(acc) · xs) · ws`` rounded to ``out_dtype``.  xs
+    (M, 1) f32, ws (1, N) f32."""
+    return (int_einsum_exact("mk,kn->mn", xq, wq) * xs * ws).to(out_dtype)
+
+
+def int8_matmul_fused(x, wq, ws, out_dtype=torch.bfloat16):
+    """K5's plain version: quantise each row of ``x`` (M, K) over its
+    full K (the jitted form), then K4's product and epilogue."""
+    xq, xs = quantize_int8(x, axis=-1)
+    return int8_matmul(xq, xs, wq, ws, out_dtype)
+
+
+def _check_int8_gemm(name, M, N, K, b, b_kmajor):
+    if K % 16:
+        raise ValueError(f"{name}: the contraction K={K} must be a multiple "
+                         f"of 16 (16-byte row loads)")
+    if not b_kmajor and N % 16:
+        raise ValueError(f"{name}: N={N} must be a multiple of 16 for a "
+                         f"(K, N) weight (16-byte row loads)")
+    if b.dtype != torch.int8:
+        raise ValueError(f"{name}: the weight must be int8, got {b.dtype}")
+    want = (N, K) if b_kmajor else (K, N)
+    if tuple(b.shape) != want:
+        raise ValueError(f"{name}: weight shape {tuple(b.shape)} != {want}")
+
+
+def _launch_k4(a, xs, b, ws, b_kmajor: bool):
+    """K4 on the card: a (M, Kc) int8; b (N, Kc) int8 if ``b_kmajor``
+    else (Kc, N); xs (M,) and ws (N,) f32.  Returns (M, N) bf16."""
+    M, Kc = a.shape
+    N = b.shape[0] if b_kmajor else b.shape[1]
+    _check_int8_gemm("int8_matmul_kernel", M, N, Kc, b, b_kmajor)
+    if a.dtype != torch.int8:
+        raise ValueError("int8_matmul_kernel takes an int8 activation")
+    xs = xs.reshape(M).float().contiguous()
+    ws = ws.reshape(N).float().contiguous()
+    check_cuda_operands("int8_matmul_kernel", {"xs": xs, "ws": ws}, {},
+                        {"a": a, "b": b})
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    fn = loader.load("int8_matmul").int8_matmul_launch
+    rc = fn(ptr(a), ptr(b), ptr(xs), ptr(ws), ptr(out), M, N, Kc,
+            int(b_kmajor), stream_ptr(a.device))
+    raise_on_error("int8_matmul_kernel", rc)
+    INT8_COUNTS.launches += 1
+    return out
+
+
+def int8_matmul_kernel(xq, xs, wq, ws, out_dtype=torch.bfloat16):
+    """K4: xq (M, K) int8, xs (M, 1) f32, wq (K, N) int8 in the
+    reference's layout, ws (1, N) f32; returns (M, N) ``out_dtype``
+    (bf16 on the card), bit-equal to ``int8_matmul``.  The kernel reads
+    wq in place (no transposed copy)."""
+    if xq.device.type == "cpu":
+        INT8_COUNTS.plain_calls += 1
+        return int8_matmul(xq, xs, wq, ws, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError("int8_matmul_kernel writes bf16 only")
+    if xq.shape[1] != wq.shape[0]:
+        raise ValueError(f"int8_matmul_kernel: inner dims {xq.shape[1]} != "
+                         f"{wq.shape[0]}")
+    return _launch_k4(xq.contiguous(), xs, wq.contiguous(), ws,
+                      b_kmajor=False)
+
+
+def int8_matmul_fused_kernel(x, wq, ws, out_dtype=torch.bfloat16):
+    """K5: x (M, K) bf16 activation, wq (K, N) int8, ws (1, N) f32;
+    each row of x is quantised in the kernel over its full K, the codes
+    never leave shared memory.  Returns (M, N) ``out_dtype`` (bf16 on
+    the card), bit-equal to ``int8_matmul_fused``."""
+    if x.device.type == "cpu":
+        INT8_FUSED_COUNTS.plain_calls += 1
+        return int8_matmul_fused(x, wq, ws, out_dtype)
+    M, K = x.shape
+    N = wq.shape[1]
+    if out_dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        raise ValueError("int8_matmul_fused_kernel takes and writes bf16 "
+                         "only")
+    if wq.shape[0] != K:
+        raise ValueError(f"int8_matmul_fused_kernel: inner dims {K} != "
+                         f"{wq.shape[0]}")
+    _check_int8_gemm("int8_matmul_fused_kernel", M, N, K, wq, False)
+    ws = ws.reshape(N).float().contiguous()
+    check_cuda_operands("int8_matmul_fused_kernel", {"ws": ws}, {},
+                        {"x": x, "wq": wq})
+    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    fn = loader.load("int8_matmul").int8_matmul_fused_launch
+    rc = fn(ptr(x), ptr(wq), ptr(xs), ptr(ws), ptr(out), M, N, K,
+            stream_ptr(x.device))
+    raise_on_error("int8_matmul_fused_kernel", rc)
+    INT8_FUSED_COUNTS.launches += 1
+    return out
+
+
+def _int8_dot(aq, a_scale, bq, b_scale, dims, out_dtype, plain: bool):
+    """Two-operand int8 ``dot_general`` with int32 accumulation and the
+    epilogue ``(f32(acc) · a_scale) · b_scale``: ``dims = (ca, cb)``,
+    the contraction axis of the 2-D ``aq`` and of ``bq``; the scales
+    broadcast against the (m, n) result.  ``plain`` takes the plain
+    product on any device; otherwise K4 (the plain version on the CPU).
+    K4 takes A row-major over the contraction, so ``ca == 0`` costs a
+    transposed copy of ``aq``; B it reads either way.  A contraction
+    that is not a multiple of 16 (dW over a ragged batch × sequence) is
+    zero-padded for the kernel: zero codes add exactly nothing."""
+    ca, cb = dims
+    a = aq if ca == 1 else aq.t()
+    if plain or aq.device.type == "cpu":
+        INT8_COUNTS.plain_calls += 1
+        b = bq.t() if cb == 1 else bq
+        return (int_einsum_exact("mk,kn->mn", a, b) * a_scale
+                * b_scale).to(out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError("int8_matmul_kernel writes bf16 only")
+    pad = -a.shape[1] % 16
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        bq = torch.nn.functional.pad(bq, (0, pad) if cb == 1
+                                     else (0, 0, 0, pad))
+    return _launch_k4(a.contiguous(), a_scale, bq.contiguous(), b_scale,
+                      b_kmajor=(cb == 1))
+
+
+def prequantized_dense(a: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
+    """(…, K) · QuantizedWeight (K, N) → (…, N): per-row activation
+    quantisation (the jitted form), then K4 on the stored int8 weight
+    (``int8_matmul_kernel``), or its plain version inside
+    :func:`plain_int8_products`."""
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    xq, xs = quantize_int8(a2, axis=-1)
+    ws = w.s.reshape(1, -1)
+    if _PLAIN["on"]:
+        INT8_COUNTS.plain_calls += 1
+        out = int8_matmul(xq, xs, w.q, ws, a.dtype)
+    else:
+        out = int8_matmul_kernel(xq, xs, w.q, ws, a.dtype)
+    return out.reshape(*lead, w.q.shape[-1])
+
+
+INT8_IMPLS = ("xla", "pallas", "pallas_fused", "plain")
+
+
+class _QuantizedDense(torch.autograd.Function):
+    """``quantized_dense`` with the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w, impl, quantize_bwd):
+        ctx.save_for_backward(x, w)
+        ctx.impl, ctx.quantize_bwd = impl, quantize_bwd
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        wq, ws = quantize_int8(w, axis=0)
+        if impl == "pallas_fused":
+            out = int8_matmul_fused_kernel(x2.contiguous(), wq, ws, x.dtype)
+        else:
+            xq, xs = quantize_int8(x2, axis=-1)
+            if impl == "plain":
+                INT8_COUNTS.plain_calls += 1
+                out = int8_matmul(xq, xs, wq, ws, x.dtype)
+            else:   # "xla" and "pallas" are both K4 on the card
+                out = int8_matmul_kernel(xq, xs, wq, ws, x.dtype)
+        return out.reshape(*lead, w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if not ctx.quantize_bwd:   # straight-through bf16 backward
+            gx = torch.einsum("...n,kn->...k", g, w)
+            gw = torch.einsum("...k,...n->kn", x, g)
+            return gx, gw, None, None
+        plain = ctx.impl == "plain"
+        lead = x.shape[:-1]
+        K, N = w.shape
+        g2 = g.reshape(-1, N)
+        x2 = x.reshape(-1, K)
+        # dX = g · Wᵀ, contraction over N: g rows, w along its N axis
+        gq, gs = quantize_int8(g2, axis=-1)                 # (M,N), (M,1)
+        wq_n, ws_n = quantize_int8(w, axis=1)               # (K,N), (K,1)
+        gx = _int8_dot(gq, gs, wq_n, ws_n.T, (1, 1), x.dtype, plain)
+        # dW = Xᵀ · g, contraction over M: both quantised along M
+        xq_m, xs_m = quantize_int8(x2, axis=0)              # (M,K), (1,K)
+        gq_m, gs_m = quantize_int8(g2, axis=0)              # (M,N), (1,N)
+        gw = _int8_dot(xq_m, xs_m.T, gq_m, gs_m, (0, 0), w.dtype, plain)
+        return gx.reshape(*lead, K), gw, None, None
+
+
+def quantized_dense(x, w, impl: str = "xla", quantize_bwd: bool = False):
+    """Linear layer with an int8 forward (``x`` (…, K), ``w`` (K, N)).
+    ``impl``: ``"xla"`` or ``"pallas"`` (K4 on the pre-quantised
+    operands), ``"pallas_fused"`` (K5), or ``"plain"`` (the plain
+    products on any device, also inside :func:`plain_int8_products`).
+    ``quantize_bwd=False``: straight-through bf16 backward; True: dX
+    and dW as int8 products (K4) with fresh absmax scales."""
+    if impl not in INT8_IMPLS:
+        raise ValueError(f"quantized_dense: unknown impl {impl!r}")
+    if _PLAIN["on"]:
+        impl = "plain"
+    return _QuantizedDense.apply(x, w, impl, quantize_bwd)
+
+
+# ------------------------------------------------------------------- fp8
 
 FP8_FWD_DTYPE = torch.float8_e4m3fn   # forward operands  (max 448)
 FP8_BWD_DTYPE = torch.float8_e5m2     # grad_output       (max 57344)
@@ -47,10 +376,6 @@ BWD_COUNTS = LaunchCount()
 # land on either side of a rounding boundary; atol covers outputs that
 # cancel to near zero, where the sums' f32 rounding shows.
 TOLERANCE = {torch.bfloat16: (1e-5, 1e-2)}
-
-_ROADMAP_INT8 = ("the int8 precisions are not ported yet — see "
-                 "ROADMAP.md, queue B items 3 and 4 (K5, K4)")
-
 
 def fp8_max(dtype) -> float:
     """Largest finite value of an fp8 dtype (448 for e4m3fn, 57344 for
@@ -67,19 +392,22 @@ def amax_history_update(history: torch.Tensor,
 
 
 def scale_from_history(history: torch.Tensor, dtype) -> torch.Tensor:
-    """Delayed scaling's scale: the absmax over the whole history."""
+    """Delayed scaling's scale: the absmax over the whole history,
+    times ``f32(1/fmax)`` (the jitted form)."""
     amax = history.max()
-    return torch.where(amax > 0, amax / fp8_max(dtype),
+    return torch.where(amax > 0, amax * f32_recip(fp8_max(dtype)),
                        torch.ones_like(amax))
 
 
 def quantize_fp8(x: torch.Tensor, dtype=FP8_FWD_DTYPE, *,
                  amax_history_len: int = 0):
     """Per-tensor absmax scaling to fp8: ``(q, scale f32 scalar)`` with
-    ``dequant = q * scale``.  ``amax_history_len > 0`` routes the scale
-    through the delayed-scaling helpers, with the history seeded by the
-    current tensor (numerically the dynamic scale), as the reference's
-    stateless instantiation does."""
+    ``dequant = q * scale``; the scale is ``amax · f32(1/fmax)``, the
+    form the reference's jitted train step computes.
+    ``amax_history_len > 0`` routes the scale through the delayed-scaling
+    helpers, with the history seeded by the current tensor (numerically
+    the dynamic scale), as the reference's stateless instantiation
+    does."""
     if amax_history_len:
         hist = amax_history_update(
             torch.zeros((amax_history_len,), dtype=torch.float32,
@@ -87,7 +415,7 @@ def quantize_fp8(x: torch.Tensor, dtype=FP8_FWD_DTYPE, *,
         scale = scale_from_history(hist, dtype)
     else:
         amax = x.float().abs().max()
-        scale = torch.where(amax > 0, amax / fp8_max(dtype),
+        scale = torch.where(amax > 0, amax * f32_recip(fp8_max(dtype)),
                             torch.ones_like(amax))
     fmax = fp8_max(dtype)
     q = torch.clamp(x.float() / scale, -fmax, fmax).to(dtype)
@@ -187,16 +515,33 @@ def fp8_dense(x, w, impl: str = "plain", amax_history_len: int = 0):
 
 def resolve_quantized_dense(precision: str, *, fp8_history_len: int = 0):
     """``matmul_precision`` → ``(a, w) -> out``: ``"bf16"`` a plain
-    matmul; ``"fp8"`` and ``"fp8_delayed"`` the recipe with the plain
-    forward; ``"fp8_pallas"`` the recipe with K6 forward (the
-    reference's Pallas-forward name)."""
+    matmul; ``"fp8"`` and ``"fp8_delayed"`` the fp8 recipe with the
+    plain forward, ``"fp8_pallas"`` with K6 forward; ``"int8"`` and
+    ``"int8_pallas"`` the int8 forward through K4 and K5, with a
+    straight-through backward, or with int8 dX and dW (K4) under the
+    ``_bwd`` suffix.  Every returned matmul also takes a
+    ``QuantizedWeight`` and routes it through ``prequantized_dense``."""
     if precision == "bf16":
-        return torch.matmul
-    if precision in ("fp8", "fp8_delayed", "fp8_pallas"):
+        base_fn = torch.matmul
+    elif precision in ("fp8", "fp8_delayed", "fp8_pallas"):
         impl = "kernel" if precision == "fp8_pallas" else "plain"
         hist = (fp8_history_len or 16) if precision == "fp8_delayed" else 0
-        return lambda a, w: fp8_dense(a, w, impl, hist)
-    if precision.startswith("int8"):
-        raise NotImplementedError(
-            f"matmul_precision={precision!r}: {_ROADMAP_INT8}")
-    raise ValueError(f"unknown matmul_precision {precision!r}")
+
+        def base_fn(a, w):
+            return fp8_dense(a, w, impl, hist)
+    elif precision in ("int8", "int8_pallas", "int8_bwd", "int8_pallas_bwd"):
+        base = precision.removesuffix("_bwd")
+        impl = {"int8": "xla", "int8_pallas": "pallas_fused"}[base]
+        quantize_bwd = precision.endswith("_bwd")
+
+        def base_fn(a, w):
+            return quantized_dense(a, w, impl, quantize_bwd)
+    else:
+        raise ValueError(f"unknown matmul_precision {precision!r}")
+
+    def dense(a, w):
+        if isinstance(w, QuantizedWeight):
+            return prequantized_dense(a, w)
+        return base_fn(a, w)
+
+    return dense

@@ -1,5 +1,6 @@
 """Continuous-batching decode engine over the paged KV pool — the port of
-the JAX package's ``serving/engine.py`` (single device, float pool).
+the JAX package's ``serving/engine.py`` (single device, float or int8
+pool).
 
 Same layer math as ``models/generate.py``, different cache substrate and
 driver:
@@ -29,6 +30,16 @@ into a contiguous view and runs the reference's einsums — the kernels'
 plain versions, each counted in its kernel's ``COUNTS.plain_calls``.  On
 CPU tensors the kernel entry points take those plain versions too.
 
+``kv_quant=True`` stores the pool int8 with per-row scales: new K/V rows
+are quantised as they are written, and decode attention (S == 1) runs
+the int8 core — through K2 under ``paged_kernel``, else its plain
+version.  Prefill (S > 1) on an int8 pool takes the gather path, which
+has no kernel (the reference refuses ``kv_quant`` with
+``flash_prefill``, and so does this engine).  Params from
+``models.generate.quantize_decode_params`` serve int8 weights: every
+projection and the unembedding go through ``prequantized_dense`` (K4 on
+the card).
+
 What does not carry over from JAX: the reference's steps were jitted
 with donated pool buffers and held a zero-retrace contract
 (``recompiles_after_warmup`` in its SLO report).  PyTorch runs eagerly,
@@ -45,9 +56,12 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as T
-from ..models.generate import _decode_cfg
+from ..models.generate import _decode_cfg, _quant_kv
 from ..ops.flash_prefill import paged_flash_prefill, paged_flash_prefill_plain
-from ..ops.paged_attention import paged_attention_decode, paged_attention_plain
+from ..ops.paged_attention import (gather_attention_q8, paged_attention_decode,
+                                   paged_attention_plain,
+                                   paged_attention_plain_q8)
+from ..ops.quant import QuantizedWeight, prequantized_dense
 from ..runtime.pump import StepPump
 from .accounting import serve_waterline_gb, tree_bytes
 from .kv_pool import PagedKVPool, PoolBuffers
@@ -78,12 +92,15 @@ def _apply_rope_ragged(x, cos, sin):
 
 
 def _paged_layer_body(x, layer, *, cfg, cos, sin, use_rope, pk, pv, pages,
-                      apos, valid, paged_kernel=False, flash_prefill=False):
+                      apos, valid, paged_kernel=False, flash_prefill=False,
+                      pk_s=None, pv_s=None):
     """One decoder layer against the PAGED pool.  New K/V rows are
     written token by token into their page-table slots (rows with
     ``valid`` False divert to the null page 0); attention then reads the
     slot's pages — through a kernel, or by gathering them into the
     contiguous view whose position ``t`` is absolute position ``t``.
+    An int8 pool (``pk.dtype == int8``) comes with its row scales
+    ``pk_s``/``pv_s``.
 
     x (B, S, H); pages (B, P) int32; apos (B, S) int32 absolute
     positions of x's rows; valid (B, S) bool."""
@@ -108,17 +125,35 @@ def _paged_layer_body(x, layer, *, cfg, cos, sin, use_rope, pk, pv, pages,
     pi = (apos // page).clamp(0, P - 1).long()
     pg = torch.where(valid, torch.gather(pages, 1, pi), 0).long()
     off = (apos % page).long()
-    pk[pg, off] = k
-    pv[pg, off] = v
-
     qg = q.reshape(B, S, nkv, nq // nkv, hd)
-    if S == 1:
-        attend = paged_attention_decode if paged_kernel \
-            else paged_attention_plain
+    if pk.dtype == torch.int8:
+        # int8 rows with their scales; int8 prefill has no kernel
+        kq, ks_new = _quant_kv(k)
+        vq, vs_new = _quant_kv(v)
+        pk[pg, off] = kq
+        pv[pg, off] = vq
+        pk_s[pg, off] = ks_new
+        pv_s[pg, off] = vs_new
+        qq, q_s = _quant_kv(qg)
+        if S > 1:
+            attn = gather_attention_q8(qq, q_s, pk, pv, pk_s, pv_s, pages,
+                                       apos)
+        elif paged_kernel:
+            attn = paged_attention_decode(qq, pk, pv, pages, apos,
+                                          q_scale=q_s, pk_s=pk_s, pv_s=pv_s)
+        else:
+            attn = paged_attention_plain_q8(qq, q_s, pk, pv, pk_s, pv_s,
+                                            pages, apos)
     else:
-        attend = paged_flash_prefill if flash_prefill \
-            else paged_flash_prefill_plain
-    attn = attend(qg, pk, pv, pages, apos)
+        pk[pg, off] = k
+        pv[pg, off] = v
+        if S == 1:
+            attend = paged_attention_decode if paged_kernel \
+                else paged_attention_plain
+        else:
+            attend = paged_flash_prefill if flash_prefill \
+                else paged_flash_prefill_plain
+        attn = attend(qg, pk, pv, pages, apos)
     attn = attn.to(x.dtype).reshape(B, S, nq * hd)
     x = x + dense(attn, layer["wo"])
     r = T.rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
@@ -132,18 +167,25 @@ def _paged_forward(params, ids, cfg, bufs: PoolBuffers, pages, apos, valid,
     x = params["embed"].to(cfg.dtype)[ids.long()]
     cos, sin = _ragged_rope_tables(apos, cfg.resolved_head_dim,
                                    cfg.rope_theta)
+    q8 = bufs.k_scale is not None
     for li, use_rope in enumerate(T.rope_flags(cfg)):
         x = _paged_layer_body(
             x, T.layer_params(params, li), cfg=cfg, cos=cos, sin=sin,
             use_rope=use_rope, pk=bufs.k[li], pv=bufs.v[li], pages=pages,
             apos=apos, valid=valid, paged_kernel=paged_kernel,
-            flash_prefill=flash_prefill)
+            flash_prefill=flash_prefill,
+            pk_s=bufs.k_scale[li] if q8 else None,
+            pv_s=bufs.v_scale[li] if q8 else None)
     return x
 
 
 def _all_logits(params, x, cfg):
-    """(B, S, H) hidden → (B, S, vocab) f32 logits."""
+    """(B, S, H) hidden → (B, S, vocab) f32 logits, through the int8
+    unembedding (``unembed_q``) when the params carry one."""
     x = T.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    uq = params.get("unembed_q")
+    if uq is not None:
+        return prequantized_dense(x, uq).float()
     return (x @ T._output_embedding(params, cfg).T).float()
 
 
@@ -221,8 +263,9 @@ class ServingEngine:
                  page_size: int = 8, max_seq_len: int = 64,
                  n_pages: int | None = None, prefill_chunk: int = 16,
                  prefill_chunks_per_round: int = 2, sync_every: int = 4,
-                 max_in_flight: int = 8, paged_kernel: bool = False,
-                 flash_prefill: bool = False, device=None):
+                 max_in_flight: int = 8, kv_quant: bool = False,
+                 paged_kernel: bool = False, flash_prefill: bool = False,
+                 device=None):
         self.device = resolve_device(device)
         self.cfg = _decode_cfg(cfg)
         T.check_supported(self.cfg)
@@ -236,8 +279,12 @@ class ServingEngine:
         self.prefill_chunks_per_round = int(prefill_chunks_per_round)
         self.sync_every = max(int(sync_every), 1)
         self.max_in_flight = int(max_in_flight)
+        self.kv_quant = bool(kv_quant)
         self.paged_kernel = bool(paged_kernel)
         self.flash_prefill = bool(flash_prefill)
+        if self.flash_prefill and self.kv_quant:
+            raise ValueError("the flash prefill kernel is float-only — "
+                             "drop kv_quant or flash_prefill")
 
         if n_pages is None:
             n_pages = self.max_batch * self.pages_per_request + 1
@@ -249,10 +296,10 @@ class ServingEngine:
         self.n_pages = int(n_pages)
         self._params = _to_device(params, self.device)
         self.pool = PagedKVPool(self.cfg, self.n_pages, self.page_size,
-                                device=self.device)
+                                kv_quant=self.kv_quant, device=self.device)
         self._mem_prediction_gb = serve_waterline_gb(
             self.cfg, self.n_pages, self.page_size,
-            weight_bytes=tree_bytes(self._params))
+            weight_bytes=tree_bytes(self._params), kv_quant=self.kv_quant)
 
         B, P = self.max_batch, self.pages_per_request
         self._h_tokens = np.zeros(B, np.int32)
@@ -536,6 +583,7 @@ class ServingEngine:
                 "decode_steps_per_token": (self.stats["decode_steps"]
                                            / dec_toks),
             },
+            "kv_quant": self.kv_quant,
             "paged_kernel": self.paged_kernel,
             "flash_prefill": self.flash_prefill,
         }
@@ -544,6 +592,8 @@ class ServingEngine:
 def _to_device(params, device):
     if isinstance(params, dict):
         return {k: _to_device(v, device) for k, v in params.items()}
+    if isinstance(params, QuantizedWeight):
+        return QuantizedWeight(params.q.to(device), params.s.to(device))
     return params.to(device)
 
 

@@ -1,9 +1,10 @@
 """Paged KV cache pool — the port of the JAX package's
-``serving/kv_pool.py`` (float pools; the radix prefix cache is a later
-slice).
+``serving/kv_pool.py`` (float and int8 pools; the radix prefix cache is
+a later slice).
 
   * per-layer POOLS of page blocks, ``(n_pages, page_size, n_kv, hd)``
-    tensors in ``cfg.dtype`` on one device;
+    tensors in ``cfg.dtype`` on one device, or int8 with f32
+    ``(n_pages, page_size, n_kv, 1)`` row scales (``kv_quant``);
   * a host-side PAGE TABLE per request slot: absolute position ``p`` of
     a request lives at ``(page_table[slot, p // page_size],
     p % page_size)``;
@@ -24,9 +25,12 @@ import torch
 
 
 class PoolBuffers(NamedTuple):
-    """The device half of the pool: per-layer page-block tensors."""
+    """The device half of the pool: per-layer page-block tensors, and
+    for an int8 pool their per-row f32 scales."""
     k: tuple            # L × (n_pages, page_size, n_kv, hd)
     v: tuple
+    k_scale: tuple | None = None   # L × (n_pages, page_size, n_kv, 1)
+    v_scale: tuple | None = None
 
 
 class PageAllocator:
@@ -72,22 +76,33 @@ class PageAllocator:
 
 
 class PagedKVPool:
-    """Per-layer device pools + the page allocator."""
+    """Per-layer device pools + the page allocator.  ``kv_quant`` stores
+    K and V as int8 with per-row f32 scales, initialised to ones like
+    ``generate.init_cache``'s, so unwritten rows dequantise to zeros."""
 
-    def __init__(self, cfg, n_pages: int, page_size: int, *, device):
+    def __init__(self, cfg, n_pages: int, page_size: int, *,
+                 kv_quant: bool = False, device):
         self.cfg = cfg
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
+        self.kv_quant = bool(kv_quant)
         self.device = torch.device(device)
         shape = (self.n_pages, self.page_size, cfg.num_key_value_heads,
                  cfg.resolved_head_dim)
+        L = cfg.num_hidden_layers
+        dt = torch.int8 if self.kv_quant else cfg.dtype
 
         def zeros():
-            return tuple(torch.zeros(shape, dtype=cfg.dtype,
-                                     device=self.device)
-                         for _ in range(cfg.num_hidden_layers))
+            return tuple(torch.zeros(shape, dtype=dt, device=self.device)
+                         for _ in range(L))
 
-        self.bufs = PoolBuffers(k=zeros(), v=zeros())
+        def ones():
+            return tuple(torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                    device=self.device) for _ in range(L))
+
+        sc = (ones(), ones()) if self.kv_quant else (None, None)
+        self.bufs = PoolBuffers(k=zeros(), v=zeros(), k_scale=sc[0],
+                                v_scale=sc[1])
         self.allocator = PageAllocator(self.n_pages)
 
     @property

@@ -7,8 +7,11 @@
 Runs ``smollm3-3b-l8`` (SmolLM3-3B width, 8 layers) on the card with
 AdamW under warmup-cosine, on fresh synthetic Zipfian windows, through
 ``parallel.fsdp.make_fsdp_train_step`` at one rank; on the card the
-attention is the flash kernel and ``fp8_pallas`` the fp8 kernel, as
-the reference selects its TPU kernels.  The data comes from the numpy
+attention is the flash kernel, ``fp8_pallas`` the fp8 kernel (K6) and
+the int8 precisions the int8 kernels (K5 forward under
+``int8_pallas``, K4 for the other int8 products), as the reference
+selects its TPU kernels.  ``--precision`` takes every name of
+``models.transformer.PRECISIONS``.  The data comes from the numpy
 engine (the reference script uses its native engine, whose stream
 differs).  Not ported: checkpointing and resume, ``--plan``,
 ``--spike-demo``, corpus data and the loss plot (ROADMAP.md).

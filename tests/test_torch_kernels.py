@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions: K1
-paged decode, K3 flash prefill, K6 fp8 GEMM and the flash attention
-forward and backward, at tiny, ragged and the main paths' shapes.
+paged decode, K2 int8 paged decode, K3 flash prefill, K4 int8 GEMM, K5
+fused quantise-matmul, K6 fp8 GEMM and the flash attention forward and
+backward, at tiny, ragged and the main paths' shapes.
 
 Imports torch, numpy and the port only — no JAX — so that it also runs
 on a machine with a card and no JAX:
@@ -15,7 +16,9 @@ the plain version's operations in another summation order, so f32 pools
 agree to f32 rounding, and bf16 pools where no probability lands on the
 other side of a bf16 rounding boundary; K6 to one bf16 ulp of the plain
 f32 sum; the flash attention to bf16 level in O and the grads and f32
-level in the logsumexp.
+level in the logsumexp; K4 and K5 bit for bit (exact integer sums, the
+same epilogue); K2 at ``TOLERANCE_Q8`` (a code of the requantised
+probabilities can flip where the softmax sums in another order).
 """
 
 import numpy as np
@@ -291,3 +294,134 @@ def test_training_wrappers_take_the_plain_versions_on_the_cpu():
     FA.flash_attention(*args, 0.25).backward(do)
     assert (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls) == (0, 1)
     assert (FA.BWD_COUNTS.launches, FA.BWD_COUNTS.plain_calls) == (0, 1)
+
+
+# ---- K4, K5 int8 GEMMs and K2 int8 paged decode (int8 slice) ---------------
+
+INT8_SHAPES = {
+    # name: (M, K, N)
+    "tiny_ragged": (70, 48, 48),
+    "ragged": (333, 1040, 208),
+    "decode": (8, 2048, 2048),
+    "wq_wo": (8192, 2048, 2048),
+    "w_gate_up": (8192, 2048, 11008),
+    "w_down": (8192, 11008, 2048),
+}
+
+
+def int8_case(seed, M, K, N, device):
+    """A bf16 activation ~ N(0, 1) and a weight ~ N(0, 0.02²), quantised
+    as the int8 training path does (rows of x, columns of w)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=device) * 0.02).to(
+        torch.bfloat16)
+    return (x, *Q.quantize_int8(x), *Q.quantize_int8(w, axis=0))
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(INT8_SHAPES))
+def test_int8_kernels_are_bitwise_their_plain_versions(cuda, shape):
+    x, xq, xs, wq, ws = int8_case(0, *INT8_SHAPES[shape], cuda)
+    Q.INT8_COUNTS.reset()
+    Q.INT8_FUSED_COUNTS.reset()
+    k4 = Q.int8_matmul_kernel(xq, xs, wq, ws)
+    k5 = Q.int8_matmul_fused_kernel(x, wq, ws)
+    torch.cuda.synchronize()
+    assert (Q.INT8_COUNTS.launches, Q.INT8_FUSED_COUNTS.launches) == (1, 1)
+    assert (Q.INT8_COUNTS.plain_calls, Q.INT8_FUSED_COUNTS.plain_calls) \
+        == (0, 0)
+    assert torch.equal(k4, Q.int8_matmul(xq, xs, wq, ws, torch.bfloat16))
+    assert torch.equal(k5, Q.int8_matmul_fused(x, wq, ws, torch.bfloat16))
+    assert torch.equal(k4, k5)   # the same codes: K5 quantises in-kernel
+    assert torch.equal(k5, Q.int8_matmul_fused_kernel(x, wq, ws))
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", ["tiny_ragged", "wq_wo"])
+def test_int8_backward_layouts_are_bitwise(cuda, shape):
+    """dX = g · Wᵀ (B read K-major) and dW = Xᵀ · g (A transposed, B
+    read (K, N)) through K4 against the plain products."""
+    M, K, N = INT8_SHAPES[shape]
+    x, _, _, _, _ = int8_case(1, M, K, N, cuda)
+    g, _, _, w, _ = int8_case(2, M, N, K, cuda)
+    w = w.t().contiguous()                                     # (K, N)
+    gq, gs = Q.quantize_int8(g, axis=-1)
+    wq_n, ws_n = Q.quantize_int8(w, axis=1)
+    xq_m, xs_m = Q.quantize_int8(x, axis=0)
+    gq_m, gs_m = Q.quantize_int8(g, axis=0)
+    for args in ((gq, gs, wq_n, ws_n.T, (1, 1)),
+                 (xq_m, xs_m.T, gq_m, gs_m, (0, 0))):
+        got = Q._int8_dot(*args, torch.bfloat16, plain=False)
+        ref = Q._int8_dot(*args, torch.bfloat16, plain=True)
+        assert torch.equal(got, ref)
+
+
+def q8_case(seed, B, nkv, rep, hd, page, P, n_pages, device):
+    """An int8 pool quantised from random bf16 K/V rows, int8 query rows,
+    and the page table of ``_case``."""
+    qg, pk, pv, pages, apos = _case(seed, B, 1, nkv, rep, hd, page, P,
+                                    n_pages, torch.bfloat16, device)
+    (qq, qs), (kq, ks), (vq, vs) = (Q.quantize_int8(t) for t in (qg, pk, pv))
+    return qq, qs, kq, vq, ks, vs, pages, apos
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_decode_q8_kernel_matches_plain(cuda, shape):
+    B, nkv, rep, hd, page, P = SHAPES[shape]
+    qq, qs, kq, vq, ks, vs, pages, apos = q8_case(
+        6, B, nkv, rep, hd, page, P, B * P + 1, cuda)
+    PA.Q8_COUNTS.reset()
+    got = PA.paged_attention_decode(qq, kq, vq, pages, apos, q_scale=qs,
+                                    pk_s=ks, pv_s=vs)
+    torch.cuda.synchronize()
+    assert (PA.Q8_COUNTS.launches, PA.Q8_COUNTS.plain_calls) == (1, 0)
+    ref = PA.paged_attention_plain_q8(qq, qs, kq, vq, ks, vs, pages, apos)
+    atol, rtol = PA.TOLERANCE_Q8
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    again = PA.paged_attention_decode(qq, kq, vq, pages, apos, q_scale=qs,
+                                      pk_s=ks, pv_s=vs)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu_port
+def test_int8_kernels_reject_what_they_do_not_take(cuda):
+    x, xq, xs, wq, ws = int8_case(3, 64, 40, 32, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.int8_matmul_kernel(xq, xs, wq, ws)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.int8_matmul_fused_kernel(x, wq, ws)
+    x, xq, xs, wq, ws = int8_case(3, 64, 48, 32, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        Q.int8_matmul_kernel(xq, xs, wq, ws, torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        Q.int8_matmul_fused_kernel(x.float(), wq, ws)
+    qq, qs, kq, vq, ks, vs, pages, apos = q8_case(7, 2, 2, 2, 16, 8, 4, 9,
+                                                  cuda)
+    with pytest.raises(ValueError, match="int8"):
+        PA.paged_attention_decode(qq.float(), kq, vq, pages, apos,
+                                  q_scale=qs, pk_s=ks, pv_s=vs)
+    with pytest.raises(ValueError, match="int32"):
+        PA.paged_attention_decode(qq, kq, vq, pages.long(), apos,
+                                  q_scale=qs, pk_s=ks, pv_s=vs)
+
+
+def test_int8_wrappers_take_the_plain_versions_on_the_cpu():
+    x, xq, xs, wq, ws = int8_case(4, 24, 32, 16, "cpu")
+    Q.INT8_COUNTS.reset()
+    Q.INT8_FUSED_COUNTS.reset()
+    k4 = Q.int8_matmul_kernel(xq, xs, wq, ws)
+    k5 = Q.int8_matmul_fused_kernel(x, wq, ws)
+    assert (Q.INT8_COUNTS.launches, Q.INT8_COUNTS.plain_calls) == (0, 1)
+    assert (Q.INT8_FUSED_COUNTS.launches,
+            Q.INT8_FUSED_COUNTS.plain_calls) == (0, 1)
+    assert k4.dtype == torch.bfloat16 and k4.shape == (24, 16)
+    assert torch.equal(k4, k5)
+    qq, qs, kq, vq, ks, vs, pages, apos = q8_case(5, 2, 2, 2, 16, 8, 4, 9,
+                                                  "cpu")
+    PA.Q8_COUNTS.reset()
+    got = PA.paged_attention_decode(qq, kq, vq, pages, apos, q_scale=qs,
+                                    pk_s=ks, pv_s=vs)
+    assert (PA.Q8_COUNTS.launches, PA.Q8_COUNTS.plain_calls) == (0, 1)
+    assert got.dtype == torch.float32 and got.shape == (2, 1, 2, 2, 16)

@@ -419,7 +419,7 @@ def test_entry_points_raise_without_a_card(weights, monkeypatch):
 
 def test_unported_configurations_raise():
     import dataclasses
-    for cfg in (dataclasses.replace(PT.TINY_LM, matmul_precision="int8"),
-                dataclasses.replace(PT.TINY_LM, n_experts=4)):
+    for cfg in (dataclasses.replace(PT.TINY_LM, n_experts=4),
+                dataclasses.replace(PT.TINY_LM, attention_impl="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PT.init_params(cfg, torch.Generator(), "cpu")

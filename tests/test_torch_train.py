@@ -81,13 +81,16 @@ def _bits(a) -> np.ndarray:
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
 @pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
 def test_quantize_fp8_is_bitwise_jax(fmt, hist, in_dtype):
+    """Held against the JITTED reference quantizer, the form its train
+    step runs (XLA folds ``amax / fmax`` into ``amax * f32(1/fmax)``)."""
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((64, 48)) * 3).astype(np.float32)
     x[3, 5] = 900.0   # one outlier sets the scale
     jdt = {"e4m3": JQ.FP8_FWD_DTYPE, "e5m2": JQ.FP8_BWD_DTYPE}[fmt]
     pdt = {"e4m3": PQ.FP8_FWD_DTYPE, "e5m2": PQ.FP8_BWD_DTYPE}[fmt]
-    jq, js = JQ.quantize_fp8(jnp.asarray(x, dtype=in_dtype), jdt,
-                             amax_history_len=hist)
+    jq, js = jax.jit(JQ.quantize_fp8, static_argnums=(1,),
+                     static_argnames=("amax_history_len",))(
+        jnp.asarray(x, dtype=in_dtype), jdt, amax_history_len=hist)
     pq, ps = PQ.quantize_fp8(torch.from_numpy(x).to(getattr(torch, in_dtype)),
                              pdt, amax_history_len=hist)
     assert PQ.fp8_max(pdt) == JQ.fp8_max(jdt)
@@ -144,12 +147,23 @@ def test_fp8_dense_value_and_grads_match_jax():
 
 
 def test_resolve_quantized_dense_names():
-    for name in ("fp8", "fp8_delayed", "fp8_pallas"):
-        assert callable(PQ.resolve_quantized_dense(name))
-    assert PQ.resolve_quantized_dense("bf16") is torch.matmul
-    for name in ("int8", "int8_pallas", "int8_bwd", "int8_pallas_bwd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PQ.resolve_quantized_dense(name)
+    """Every name resolves to a matmul that also takes a
+    ``QuantizedWeight`` (routed through ``prequantized_dense``, as the
+    reference wraps even ``bf16``); an unknown name raises."""
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(rng.standard_normal((3, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((32, 16)).astype(np.float32))
+    qw = PQ.quantize_weight(w, eager=True)
+    want = PQ.prequantized_dense(a, qw)
+    for name in PT.PRECISIONS:
+        dense = PQ.resolve_quantized_dense(name)
+        assert dense is not torch.matmul and callable(dense)
+        assert dense(a, w).shape == (3, 16)
+        assert torch.equal(dense(a, qw), want), name
+    torch.testing.assert_close(PQ.resolve_quantized_dense("bf16")(a, w),
+                               a @ w, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="unknown"):
+        PQ.resolve_quantized_dense("int4")
 
 
 # ---- attention ---------------------------------------------------------------
