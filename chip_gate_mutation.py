@@ -37,7 +37,11 @@ the sound kernel's:
   ``acc · (xs · ws)``; K4's gate and the int8 step-0 parity must fail;
 - ``k2_chunk_absmax``: K2 requantises each 256-position chunk's ``p ·
   vs`` with the chunk's own absmax instead of the row's; K2's gate and
-  the int8 decode-logit gate must fail.
+  the int8 decode-logit gate must fail;
+- ``k7_bf16_accumulator``: K7 rounds its f32 accumulators to bf16 after
+  every 32-deep K tile; K7's gate must fail;
+- ``k7_dropped_k_tile``: K7 leaves the chunk's last K tile out of the
+  sum; K7's gate and the FSDP step-0 parity must fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -102,6 +106,16 @@ MUTANTS = [
      "    for (int c = 0; c < used; ++c) A = fmaxf(A, pa[c * rep + r]);",
      "    A = pa[blockIdx.y * rep + r];", "int8_serve",
      ("paged_decode_q8:", "int8 decode logits")),
+    ("k7_bf16_accumulator", "csrc/ag_matmul.cu",
+     "__device__ __forceinline__ float acc_keep(float x) { return x; }",
+     "__device__ __forceinline__ float acc_keep(float x) { return "
+     f"{ROUND.format('x')}; }}", "fsdp_train", ("ag_matmul:",)),
+    ("k7_dropped_k_tile", "csrc/ag_matmul.cu",
+     "__device__ __forceinline__ bool tile_in_sum(int kt, int nk) "
+     "{ return kt < nk; }",
+     "__device__ __forceinline__ bool tile_in_sum(int kt, int nk) "
+     "{ return kt + 1 < nk; }", "fsdp_train",
+     ("ag_matmul:", "fsdp step-0")),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -160,6 +174,20 @@ c.q8_decode_phase(rng, gen)
 params = c.quantize_decode_params(c.build_params(), c.CFG)
 eng, reqs, _ = c.int8_serve_phase(params, rng, c.card_line())
 c.int8_parity_phase(params, reqs, eng)
+""", "fsdp_train": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.ag_matmul_phase()
+try:
+    c.fsdp_train_parity_phase()
+finally:
+    c.mesh.destroy_process_group()
 """}
 
 

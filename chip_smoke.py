@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the paged serving engine on
-SmolLM3-3B (bf16, and int8 weights over an int8 KV pool) and the
-one-card trainer on SmolLM3-3B-L8 (fp8 and int8 projections), with the
-hand-written Hopper kernels.
+SmolLM3-3B (bf16, and int8 weights over an int8 KV pool), the one-card
+trainer on SmolLM3-3B-L8 (fp8 and int8 projections) and the FSDP
+trainer on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank), with
+the hand-written Hopper kernels.
 
     python3 chip_smoke.py
 
@@ -16,8 +17,8 @@ Phases, each of which fails the run:
    its path gives it, at the tolerance its module states (K4 and K5 bit
    for bit), and launched twice on the same inputs with bit-equal
    results; then CUDA-event times of the kernel, the plain version and
-   a library yardstick (SDPA, ``torch._scaled_mm``, ``torch._int_mm``),
-   beside the card's bound;
+   a library yardstick (SDPA, ``torch._scaled_mm``, ``torch._int_mm``,
+   ``torch.matmul``), beside the card's bound;
 3. serve — ``ServingEngine`` with K1 and K3 on SMOLLM3_3B (full width,
    all 36 layers, seeded random weights scaled ×3) answers 8 requests;
    launch counts must equal the steps × layers, plain counts must be 0;
@@ -45,7 +46,20 @@ Phases, each of which fails the run:
 8. int8 train parity and train — SMOLLM3_3B_L8 at ``int8_pallas_bwd``:
    the step-0 loss and every grad leaf through K5 (forward) and K4 (dX,
    dW) bit-equal to the plain int8 products, then 4 steps of
-   ``run_leg`` with exact launch counts, as phase 6.
+   ``run_leg`` with exact launch counts, as phase 6;
+9. FSDP train parity and train — on a one-rank NCCL process group (the
+   group ``torchrun --nproc-per-node 1`` would give), SMOLLM3_3B_L8 at
+   seq 8192, batch 1, bf16: the step-0 loss and every grad leaf of the
+   FSDP step at ``overlap="ring_fused_pallas"`` (every projection
+   through K7) against ``overlap="none"`` (plain bf16 products), then 4
+   steps of ``train.train_fsdp.run`` at ``ring_fused_pallas``: K7's
+   launches exact (7 projections x 8 layers x 2, remat, a step), plain
+   calls 0, losses finite and falling, the step-0 loss bit-equal to the
+   parity's K7 path; step time, tokens/s, MFU, peak memory and a
+   ``torch.profiler`` breakdown of the last step.  K7 itself is held
+   against its plain version in phase 2, at the seven one-rank products
+   and at a rank's K-chunks of a four-rank ring (Kc 512 and 2752, the
+   activation a strided view).
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -73,12 +87,14 @@ from distributed_training_sandbox_tpu_torch.kernels import loader
 from distributed_training_sandbox_tpu_torch.models import transformer as T
 from distributed_training_sandbox_tpu_torch.models.generate import (
     _forward_cached, generate, init_cache, quantize_decode_params)
+from distributed_training_sandbox_tpu_torch.ops import collectives as C
 from distributed_training_sandbox_tpu_torch.ops import flash_attention as FA
 from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.parallel import fsdp
-from distributed_training_sandbox_tpu_torch.train import flagship
+from distributed_training_sandbox_tpu_torch.train import flagship, train_fsdp
+from distributed_training_sandbox_tpu_torch.utils import mesh
 from distributed_training_sandbox_tpu_torch.serving import engine as E
 from distributed_training_sandbox_tpu_torch.serving.accounting import (
     kv_bytes_per_step, tree_bytes, weight_read_bytes)
@@ -126,6 +142,28 @@ PROJECTIONS = [("wq", 2048, 2048), ("wk", 2048, 512), ("wv", 2048, 512),
 LOSS_ATOL = 1.5e-3
 GRAD_REL_L2 = 0.182
 BF16_GRAD_REL_L2 = 0.017
+# the FSDP phases: train_fsdp.run at ring_fused_pallas on a one-rank
+# NCCL group, SMOLLM3_3B_L8 (bf16, flash attention) at seq 8192, batch 1
+FSDP_TRAIN = dict(model="smollm3-3b-l8", overlap="ring_fused_pallas",
+                  seq=8192, bs=1, num_steps=4, seed=42)
+FSDP_CFG = train_fsdp.model_config(FSDP_TRAIN["model"])
+# K7 at one rank's K-chunk of a four-rank ring: (name, K, Kc, N), the
+# chunk a strided view of the (M, K) activation
+AG_CHUNKS = [("wq/wo chunk", 2048, 512, 2048),
+             ("w_down chunk", 11008, 2752, 2048)]
+# FSDP step-0 parity, ring_fused_pallas (K7) vs none (plain bf16
+# products) on the same shards and batch: |loss difference| <=
+# FSDP_LOSS_ATOL and every grad leaf's relative L2 error <=
+# FSDP_GRAD_REL_L2.  Both paths run the same flash attention and the
+# same plain backward products; they can differ only where K7's f32 sum
+# and the library's round to neighbouring bf16 values.  On an H100 they
+# read 0 (bit-equal: both sum each output's products in K order); K7
+# mutants read 1.75e-4 and 8.5e-4 on the loss, 0.73 and 0.064 on the
+# grads (chip_gate_mutation.py; PERF.md).  The limits leave room for a
+# library that sums in another order, whose one-ulp flips would move
+# the loss by ~1e-5 and the grads by a few 1e-3.
+FSDP_LOSS_ATOL = 1e-4
+FSDP_GRAD_REL_L2 = 0.02
 # One decode step's logits through the kernels vs the plain path, from
 # one pool state: max |difference| <= LOGIT_ATOL.  The kernels do the
 # plain path's operations in another summation order, so a few bf16
@@ -1129,6 +1167,91 @@ def attention_phase() -> list[dict]:
                bwd_ms, bwd_plain, bwd_lib, bb, bby)]
 
 
+def ag_matmul_phase() -> dict:
+    """K7 at one layer's seven projections at one rank (M = 8192, the
+    whole weight a chunk) and at a rank's K-chunk of a four-rank ring
+    (Kc 512 and 2752, the activation's chunk a strided view): each
+    against the plain version and launched twice bit for bit; then
+    CUDA-event times of K7, the plain version and ``torch.matmul`` on
+    the same bf16 operands (the yardstick), summed over the seven.
+    Operands cycle through 3 copies so that no launch finds the last
+    one's in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    M = FSDP_TRAIN["seq"] * FSDP_TRAIN["bs"]
+    atol, rtol = C.TOLERANCE[torch.bfloat16]
+    tot = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, flops=0.0)
+    err = ratio = 0.0
+    times, chunks = {}, {}
+    shapes = [(n, K, K, N) for n, K, N in PROJECTIONS] + AG_CHUNKS
+    for name, K, Kc, N in shapes:
+        key = (K, Kc, N)
+        if key not in times:
+            ops = []
+            for i in range(3):
+                a = torch.randn((M, K), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                w = (torch.randn((Kc, N), generator=gen, device="cuda")
+                     * 0.02).to(torch.bfloat16)
+                c0 = (i + 1) % (K // Kc) * Kc   # a chunk off the start
+                ops.append((a[:, c0:c0 + Kc], w))
+            a2, w = ops[0]
+            got = C.ag_matmul_kernel(a2, w)
+            ref = C.ag_matmul_plain(a2, w)
+            e = float((got.float() - ref.float()).abs().max())
+            r = gate_ratio(got, ref, atol, rtol)
+            n_diff = int((got != ref).sum())
+            small = ref.float().abs() < 2 ** -10
+            e_small = float((got.float() - ref.float()).abs()[small].max())
+            shape = f"({M}, {Kc}) x ({Kc}, {N})" + (
+                f", a strided (row stride {K})" if Kc < K else "")
+            log(f"ag_matmul {shape}: max_abs_err {e:.3e} ({e_small:.3e} "
+                f"where |plain| < 2^-10), gate ratio {r:.4f} (atol {atol}, "
+                f"rtol {rtol}); {n_diff} of {got.numel()} outputs differ "
+                f"from the plain version")
+            check(torch.isfinite(got).all(), "ag_matmul: non-finite output")
+            check(r <= 1.0, f"ag_matmul: {shape} max |kernel - plain| = {e}"
+                  f" over atol {atol} rtol {rtol} (gate ratio {r:.3f})")
+            _twice_equal("ag_matmul", lambda: C.ag_matmul_kernel(a2, w))
+            it = iter(range(10 ** 9))
+            cyc = lambda: ops[next(it) % len(ops)]  # noqa: E731
+            k_ms = time_ms(lambda: C.ag_matmul_kernel(*cyc()))
+            p_ms = time_ms(lambda: C.ag_matmul_plain(*cyc()), iters=5)
+            l_ms = time_ms(lambda: torch.matmul(*cyc()))
+            del ops, got, ref
+            times[key] = (k_ms, p_ms, l_ms, e, r)
+            log(f"ag_matmul {shape}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, torch.matmul {l_ms:.4f} ms")
+        k_ms, p_ms, l_ms, e, r = times[key]
+        err, ratio = max(err, e), max(ratio, r)
+        # bf16 operands read once (the chunk of a in place), bf16 out
+        nbytes = 2 * (M * Kc + Kc * N + M * N)
+        flops = 2 * M * Kc * N
+        if Kc < K:
+            b_ms, b_by = bound(nbytes, flops)
+            chunks[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+            log(f"ag_matmul {name}: bound {b_ms:.4f} ms by {b_by}")
+            continue
+        tot["k"] += k_ms
+        tot["p"] += p_ms
+        tot["l"] += l_ms
+        tot["nbytes"] += nbytes
+        tot["flops"] += flops
+    b_ms, b_by = bound(tot["nbytes"], tot["flops"])
+    log(f"ag_matmul, one layer's 7 projections at one rank: kernel "
+        f"{tot['k']:.4f} ms, plain {tot['p']:.4f} ms, torch.matmul "
+        f"{tot['l']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({tot['nbytes'] / 1e6:.1f} MB, {tot['flops'] / 1e12:.3f} TFLOP)")
+    torch.cuda.empty_cache()
+    entry = _entry("ag_matmul", "ag_matmul.cu",
+                   "distributed_training_sandbox_tpu/ops/collectives.py:391 "
+                   "(all_gather_matmul_pallas, pallas_call :350, "
+                   "_agmm_chunk_kernel :333)", err, ratio, tot["k"],
+                   tot["p"], tot["l"], b_ms, b_by)
+    entry["four_rank_chunks"] = chunks
+    return entry
+
+
 # ------------------------------------------------------------ train phases
 
 def _first_batch():
@@ -1202,6 +1325,24 @@ def train_parity_phase() -> float:
     return lk
 
 
+def _step_profile(prof, wall_us, label, step) -> None:
+    """Log one profiled step: the device's busy and idle share of its
+    wall time and the kernels that take the most device time."""
+    dev = [(e.key, e.count, e.self_device_time_total)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(d for _, _, d in dev)
+    if not dev:
+        log(f"{label} profile: torch.profiler recorded no device time (not "
+            f"measured)")
+        return
+    log(f"{label} profile (step {step}): device busy {busy_us / 1e3:.1f} ms "
+        f"of {wall_us / 1e3:.1f} ms wall, idle share "
+        f"{1 - busy_us / wall_us:.3f}")
+    for key, cnt, d in sorted(dev, key=lambda e: -e[2])[:10]:
+        log(f"{label} profile: {d / busy_us:.3f} of device time, {cnt} "
+            f"calls, {d / 1e3:.1f} ms: {key[:90]}")
+
+
 def train_phase(card: str, loss0: float, train=None, cfg=None,
                 expect=None, label="train") -> dict:
     """``train["num_steps"]`` steps of run_leg on the card (default: the
@@ -1262,19 +1403,7 @@ def train_phase(card: str, loss0: float, train=None, cfg=None,
         f"path {loss0!r}, bit-equal {losses[0] == loss0}")
     check(losses[0] == loss0, f"{label}: step-0 loss {losses[0]!r} of the "
           f"run is not the parity phase's {loss0!r} (same params and batch)")
-    dev = [(e.key, e.count, e.self_device_time_total)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(d for _, _, d in dev)
-    if dev:
-        log(f"{label} profile (step {n - 1}): device busy "
-            f"{busy_us / 1e3:.1f} ms of {marks['wall_us'] / 1e3:.1f} ms wall"
-            f", idle share {1 - busy_us / marks['wall_us']:.3f}")
-        for key, cnt, d in sorted(dev, key=lambda e: -e[2])[:10]:
-            log(f"{label} profile: {d / busy_us:.3f} of device time, {cnt} "
-                f"calls, {d / 1e3:.1f} ms: {key[:90]}")
-    else:
-        log(f"{label} profile: torch.profiler recorded no device time (not "
-            f"measured)")
+    _step_profile(prof, marks["wall_us"], label, n - 1)
     for name, (launches, plain) in counts.items():
         check((launches, plain) == (want[name], 0),
               f"{label}: {name} (launches, plain) {(launches, plain)} != "
@@ -1329,6 +1458,139 @@ def int8_train_parity_phase() -> float:
     return lk
 
 
+def _fsdp_inputs():
+    """train_fsdp.run's shards (seeded init, this rank's rows) and first
+    global batch."""
+    gen = torch.Generator(device="cuda").manual_seed(FSDP_TRAIN["seed"])
+    shards = fsdp.shard_params_fsdp(T.init_params(FSDP_CFG, gen, "cuda"))
+    ib, lb = next(train_fsdp.fsdp_batches(
+        FSDP_CFG.vocab_size, FSDP_TRAIN["seq"], FSDP_TRAIN["bs"],
+        FSDP_TRAIN["num_steps"], FSDP_TRAIN["seed"]))
+    return shards, (torch.as_tensor(ib, device="cuda"),
+                    torch.as_tensor(lb, device="cuda"))
+
+
+def fsdp_train_parity_phase() -> float:
+    """On a one-rank NCCL group (made here, as torchrun would give it):
+    the FSDP step's step-0 loss and grads at ``ring_fused_pallas`` (every
+    projection through K7; the backward plain bf16 products) against
+    ``none`` (the gathers, then plain bf16 products), on train_fsdp.run's
+    shards and first batch.  Returns the K7 path's loss."""
+    mesh.init_process_group("cuda")
+    log(f"fsdp: process group of {mesh.axis_size()} rank(s), backend "
+        f"{torch.distributed.get_backend()}")
+    shards, batch = _fsdp_inputs()
+    L = FSDP_CFG.num_hidden_layers
+    out = {}
+    for overlap in ("ring_fused_pallas", "none"):
+        C.COUNTS.reset()
+        C.COLLECTIVES.reset()
+        t = time.perf_counter()
+        vg = fsdp.make_fsdp_value_and_grad(shards, FSDP_CFG, overlap=overlap)
+        loss, grads = vg(shards, batch)
+        torch.cuda.synchronize()
+        out[overlap] = (float(loss), grads)
+        log(f"fsdp train parity: {overlap} loss {float(loss)!r} "
+            f"({time.perf_counter() - t:.1f} s); K7 (launches, plain) "
+            f"({C.COUNTS.launches}, {C.COUNTS.plain_calls}); collectives "
+            f"{json.dumps(C.COLLECTIVES.read())}")
+        want = (len(PROJECTIONS) * L * 2 if overlap != "none" else 0, 0)
+        check((C.COUNTS.launches, C.COUNTS.plain_calls) == want,
+              f"fsdp train parity: {overlap} K7 (launches, plain) "
+              f"{(C.COUNTS.launches, C.COUNTS.plain_calls)} != {want}")
+    (lk, gk), (lp, gp) = out["ring_fused_pallas"], out["none"]
+    rel = {}
+    for path, a in fsdp.optim.tree_leaves(gk):
+        b = fsdp.optim.tree_get(gp, path).float()
+        rel["/".join(path)] = float(torch.linalg.vector_norm(a.float() - b)
+                                    / torch.linalg.vector_norm(b))
+    worst = max(rel, key=rel.get)
+    equal = lk == lp and all(torch.equal(a, fsdp.optim.tree_get(gp, path))
+                             for path, a in fsdp.optim.tree_leaves(gk))
+    log(f"fsdp train parity: loss and grads bit-equal {equal}; |loss K7 - "
+        f"plain| {abs(lk - lp):.6f} (atol {FSDP_LOSS_ATOL}); grad relative "
+        f"L2, worst leaf {worst} "
+        f"{rel[worst]:.5f} (limit {FSDP_GRAD_REL_L2}); all leaves "
+        f"{json.dumps({k: round(v, 6) for k, v in rel.items()})}")
+    failures = []
+    if not (np.isfinite(lk) and np.isfinite(lp)):
+        failures.append("fsdp step-0 loss: non-finite")
+    if abs(lk - lp) > FSDP_LOSS_ATOL:
+        failures.append(f"fsdp step-0 loss: |K7 - plain| {abs(lk - lp)} "
+                        f"over {FSDP_LOSS_ATOL}")
+    if not rel[worst] <= FSDP_GRAD_REL_L2:
+        failures.append(f"fsdp step-0 grads: {worst} relative L2 "
+                        f"{rel[worst]} over {FSDP_GRAD_REL_L2}")
+    del shards, out, gk, gp
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return lk
+
+
+def fsdp_train_phase(card: str, loss0: float) -> dict:
+    """``FSDP_TRAIN["num_steps"]`` steps of ``train_fsdp.run`` at
+    ring_fused_pallas on the parity phase's process group: K7 and the
+    flash attention's launch counts exact, plain counts 0, the losses
+    finite and falling, step 0's loss bit-equal to the parity's K7 path;
+    the last step profiled.  Returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    L, n = FSDP_CFG.num_hidden_layers, FSDP_TRAIN["num_steps"]
+    expect = {"ag_matmul": (C.COUNTS, L * len(PROJECTIONS) * 2),
+              "flash_attention_fwd": (FA.FWD_COUNTS, L * 2),
+              "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+    for c, _ in expect.values():
+        c.reset()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(i, loss):
+        if i == n - 2:   # trace the last step: device activity only
+            prof.start()
+            marks["t"] = time.perf_counter()
+        elif i == n - 1:
+            marks["wall_us"] = (time.perf_counter() - marks["t"]) * 1e6
+            prof.stop()
+
+    res = train_fsdp.run(FSDP_TRAIN["model"], overlap=FSDP_TRAIN["overlap"],
+                         batch_size=FSDP_TRAIN["bs"], seq=FSDP_TRAIN["seq"],
+                         num_steps=n, device="cuda", seed=FSDP_TRAIN["seed"],
+                         on_step=on_step, log=log)
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    want = {k: n * per for k, (_, per) in expect.items()}
+    losses, times = res["losses"], res["step_times_s"]
+    steps = [b - a for a, b in zip([0.0] + times[:-1], times)]
+    step_s = statistics.median(steps[1:n - 1])   # unprofiled, after step 0
+    tok_s = FSDP_TRAIN["seq"] * FSDP_TRAIN["bs"] / step_s
+    flops_tok = res["model_flops_per_token"]
+    log(f"fsdp train on {card}: losses {losses}; collectives a step "
+        f"{json.dumps(res['collectives'][-1])}")
+    log(f"fsdp train: step times (s, host clock, each ending in a sync) "
+        f"{steps}; median of steps 1-{n - 2} {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tokens/s, MFU {flops_tok * tok_s / PEAK_BF16_FLOPS:.4f}"
+        f" ({flops_tok:.4e} model FLOP/token over the 989 TFLOP/s bf16 "
+        f"dense peak); run tokens_per_second {res['tokens_per_second']:.1f};"
+        f" peak memory {res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    log(f"fsdp train launches (kernel, plain): {json.dumps(counts)}; "
+        f"expected kernel launches {json.dumps(want)}")
+    log(f"fsdp train: step-0 loss {losses[0]!r}, the parity phase's K7 "
+        f"path {loss0!r}, bit-equal {losses[0] == loss0}")
+    _step_profile(prof, marks["wall_us"], "fsdp train", n - 1)
+    check(losses[0] == loss0, f"fsdp train: step-0 loss {losses[0]!r} of "
+          f"the run is not the parity phase's {loss0!r} (same shards and "
+          f"batch)")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (want[name], 0),
+              f"fsdp train: {name} (launches, plain) {(launches, plain)} != "
+              f"({want[name]}, 0)")
+    check(all(np.isfinite(losses)), f"fsdp train: non-finite loss in "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"fsdp train: step-{n - 1} loss "
+          f"{losses[-1]} is not below step-0 loss {losses[0]}")
+    return {k: v[0] for k, v in counts.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",
@@ -1365,6 +1627,7 @@ def main() -> int:
         kernels.extend(timed("kernels K4 K5", int8_gemm_phase))
         kernels.append(timed("kernel K6", fp8_phase))
         kernels.extend(timed("kernels FA", attention_phase))
+        kernels.append(timed("kernel K7", ag_matmul_phase))
         params = timed("SMOLLM3_3B params", build_params)
         eng, reqs, launches = timed("serve", serve_phase, params, rng, card)
         timed("parity", parity_phase, params, reqs, eng)
@@ -1392,13 +1655,17 @@ def main() -> int:
                        "flash_attention_fwd": (FA.FWD_COUNTS, L8 * 2),
                        "flash_attention_bwd": (FA.BWD_COUNTS, L8)},
                    "int8 train")
+        loss0 = timed("fsdp train parity", fsdp_train_parity_phase)
+        fs = timed("fsdp train", fsdp_train_phase, card, loss0)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        mesh.destroy_process_group()
     # each kernel's launches on the main paths that run it, each path
     # read with its counts set to 0 just before it
     paths = {"serve": launches, "int8 serve": q8, "train": fp8,
-             "int8 train": i8}
+             "int8 train": i8, "fsdp train": fs}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())

@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of ``distributed_training_sandbox_tpu``.
 
 The JAX package is the reference; this package re-implements its paged
-serving path on PyTorch, with the two TPU attention kernels (paged
-decode, paged flash prefill) rewritten as CUDA C++ for Hopper
-(``csrc/``, built at first use by ``kernels/loader.py``).
+serving path, its one-card trainer and its FSDP step on PyTorch, with
+every TPU kernel they run rewritten as CUDA C++ for Hopper (``csrc/``,
+built at first use by ``kernels/loader.py``).
 
 Importing this package imports ``torch`` and ``numpy`` only — never
 ``jax`` and never the JAX package.  Entry points run on the CUDA device

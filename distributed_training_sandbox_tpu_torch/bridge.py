@@ -8,6 +8,12 @@ imports JAX.  bf16 leaves arrive as numpy arrays of ``ml_dtypes``'
 bfloat16, which numpy cannot hand to torch directly; they cross as
 their raw 16-bit patterns, so the copy is exact either way.
 
+FSDP shards cross the same way: :func:`shards_from_jax` carries the
+reference's full parameters into one rank's shards (the rows
+``parallel.fsdp.shard_params_fsdp`` keeps), and :func:`assemble_shards`
+concatenates every rank's shards, in rank order, back into the full
+tree.
+
 int8 decode params (``quantize_decode_params`` on either side) hold
 ``QuantizedWeight`` leaves, a NamedTuple ``(q, s)`` in both packages:
 they cross field for field, ``q`` as int8 and ``s`` as f32, whatever
@@ -88,3 +94,26 @@ def adam_state_to_numpy(state) -> tuple[dict, dict, int]:
     reference's layout."""
     return params_to_numpy(state.mu), params_to_numpy(state.nu), \
         int(state.count)
+
+
+def shards_from_jax(np_tree: dict, cfg, rank: int, world: int) -> dict:
+    """Reference params (a dict tree of numpy arrays, full size) → rank
+    ``rank``'s FSDP shards over a ``world``-rank axis, on the CPU, in
+    ``cfg.dtype``."""
+    from .parallel.fsdp import shard_tree
+    return shard_tree(params_from_jax(np_tree, cfg), rank, world)
+
+
+def assemble_shards(rank_trees: list) -> dict:
+    """Every rank's shards as numpy trees, in rank order → the full
+    numpy tree (dim 0 of plain leaves, dim 1 of stacked layer leaves
+    concatenated, as ``fsdp_specs`` shards them)."""
+    from .parallel.fsdp import fsdp_specs
+    specs = fsdp_specs(rank_trees[0])
+
+    def walk(spec, leaves):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], [t[k] for t in leaves]) for k in spec}
+        return np.concatenate([np.asarray(t) for t in leaves],
+                              axis=len(spec) - 1)
+    return walk(specs, rank_trees)

@@ -50,6 +50,9 @@ SIGNATURES = {
         "flash_attn_fwd_launch": ([P] * 5 + [I] * 5 + [F, P], I),
         "flash_attn_bwd_launch": ([P] * 10 + [I] * 5 + [F, P], I),
     },
+    "ag_matmul": {
+        "ag_matmul_launch": ([P] * 3 + [I] * 4 + [P], I),
+    },
 }
 
 _lock = threading.Lock()

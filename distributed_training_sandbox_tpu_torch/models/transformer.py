@@ -13,7 +13,9 @@ serving slice), and the training trunk: ``_layer_body``,
 ``hidden_states`` (a Python loop over the stacked layers, each layer
 under ``torch.utils.checkpoint`` for remat ``"full"``), ``forward``,
 the dense and streamed-vocab cross-entropy, ``lm_loss`` and
-``model_flops_per_token``.  Attention is ``"xla"`` (the plain
+``model_flops_per_token``; the FSDP slice added the ``layer_hook`` seam
+of ``hidden_states`` and ``lm_loss`` and the ``RingShard`` dispatch of
+``_dense``.  Attention is ``"xla"`` (the plain
 ``_attention_xla``) or ``"flash"`` (the port's kernel,
 ``ops/flash_attention.py``); projections run at ``bf16``, the fp8
 recipe or the int8 recipe (``ops/quant.py``).  Ring attention, MoE and
@@ -30,6 +32,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from ..ops import collectives as C
 from ..ops.flash_attention import attention_plain, flash_attention
 from ..ops.quant import QuantizedWeight, resolve_quantized_dense
 from ..utils.flops import get_model_flops_per_token
@@ -189,10 +192,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def _dense(cfg: TransformerConfig):
     """The projection matmul at the configured precision
-    (``ops/quant.resolve_quantized_dense``)."""
+    (``ops/quant.resolve_quantized_dense``).  A weight arriving as a
+    :class:`ops.collectives.RingShard` (the FSDP layer hook of the
+    ring_fused modes leaves projection weights sharded along their
+    contraction dim) runs as the ring's collective matmul instead:
+    ``all_gather_matmul``, or its kernel twin (K7) when the shard is
+    marked ``impl="pallas"``; the precision does not apply to it, as in
+    the reference."""
     check_supported(cfg)
-    return resolve_quantized_dense(
+    base = resolve_quantized_dense(
         cfg.matmul_precision, fp8_history_len=cfg.fp8_amax_history_len)
+
+    def dispatch(a, w):
+        if isinstance(w, C.RingShard):
+            if w.impl == "pallas":
+                return C.all_gather_matmul_pallas(a, w.shard, w.axis_name)
+            return C.all_gather_matmul(a, w.shard, w.axis_name)
+        return base(a, w)
+
+    return dispatch
 
 
 def _qkv_proj(r, layer, *, cfg: TransformerConfig, cos, sin, use_rope: bool):
@@ -284,10 +302,17 @@ def resolve_remat_policy(cfg: TransformerConfig):
 
 
 def hidden_states(params: dict, input_ids: torch.Tensor,
-                  cfg: TransformerConfig) -> torch.Tensor:
+                  cfg: TransformerConfig, *, layer_hook=None
+                  ) -> torch.Tensor:
     """Trunk only: (B, S) ids → final-norm hidden states (B, S, H).
     The reference scans the stacked layers; here a Python loop slices
-    them, each layer checkpointed when ``cfg.remat``."""
+    them, each layer checkpointed when ``cfg.remat``.
+
+    ``layer_hook(layer_params) -> layer_params`` runs inside the
+    checkpointed layer body, before the layer computes: the seam where
+    FSDP gathers a layer's full weights from its shards.  Under remat
+    the hook, its gathers included, runs again in the backward, and the
+    gathered weights do not outlive the layer."""
     check_supported(cfg)
     S = input_ids.shape[1]
     x = params["embed"].to(cfg.dtype)[input_ids.long()]
@@ -298,6 +323,8 @@ def hidden_states(params: dict, input_ids: torch.Tensor,
         layer = layer_params(params, li)
 
         def body(x, layer, use_rope=use_rope):
+            if layer_hook is not None:
+                layer = layer_hook(layer)
             return _layer_body(x, layer, cfg=cfg, cos=cos, sin=sin,
                                use_rope=use_rope)
 
@@ -364,11 +391,12 @@ def xent_from_hidden(x: torch.Tensor, w_vocab: torch.Tensor,
     return torch.mean(logz - gold)
 
 
-def lm_loss(params: dict, batch, cfg: TransformerConfig) -> torch.Tensor:
+def lm_loss(params: dict, batch, cfg: TransformerConfig, *,
+            layer_hook=None) -> torch.Tensor:
     """Causal-LM cross-entropy of ``batch`` = (input_ids, labels), both
-    (B, S)."""
+    (B, S) (``layer_hook``: see :func:`hidden_states`)."""
     input_ids, labels = batch
-    x = hidden_states(params, input_ids, cfg)
+    x = hidden_states(params, input_ids, cfg, layer_hook=layer_hook)
     return xent_from_hidden(x, _output_embedding(params, cfg), labels,
                             chunk=cfg.loss_vocab_chunk)
 

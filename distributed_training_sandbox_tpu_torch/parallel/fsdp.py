@@ -1,13 +1,30 @@
-"""The FSDP train step, on one process for now.
+"""Fully-sharded data parallel training of the transformer LM.
 
 Port of the JAX package's ``parallel/fsdp.py`` explicit step
-(``make_fsdp_train_step``) at world size 1, the path of the one-card
-flagship (``scripts/train_flagship.py``).  With one rank FSDP's
-per-layer gathers are identities, so the step is value-and-grad of
-``lm_loss`` (with optional microbatch accumulation), then Adam with the
-reference's b1 0.9, b2 0.95 and moments in the params' dtype.  The name
-stays so that a reader finds the counterpart, and so that the
-multi-rank step grows here over NCCL (ROADMAP.md queue A item 6).
+(``make_fsdp_train_step``) over ``torch.distributed``: every parameter
+sharded at rest, each rank keeping its contiguous rows of dim 0 (plain
+leaves: embedding, final norm) or dim 1 (the stacked ``(L, …)`` layer
+leaves); the root leaves gathered up front; each layer's leaves gathered
+by the model's ``layer_hook`` inside the checkpointed layer body, so
+remat re-gathers them in the backward (``reshard_after_forward=True``,
+ZeRO-3), or every layer gathered once and kept (``False``, ZeRO-2).
+Gradients need no separate choreography: each gather's backward is a
+reduce_scatter, which sums the ranks' contributions into the shards;
+the step divides them by the world size and runs Adam on the shards.
+
+``overlap`` (``OVERLAP_MODES``): ``"none"`` gathers each leaf with one
+``all_gather``; ``"ring"`` with ``ring_all_gather`` (the same values and
+grads from n - 1 hops); the ring_fused modes leave the 2-D projection
+weights sharded (``ops.collectives.RingShard``) and run their products
+as ``all_gather_matmul`` (``"ring_fused"``) or through K7
+(``"ring_fused_pallas"``).  Each rank takes its contiguous rows of the
+global batch, as the reference's ``P("dp")`` does.  Not ported:
+quantized gathers and grads, optimizer offload, sequence parallelism,
+int8 optimizer state and the auto (jit + sharding) variant; they raise.
+
+Without a process group the axis has one rank, every gather is the
+identity and the step is value-and-grad of ``lm_loss`` and Adam: the
+one-card flagship's step (``train/flagship.py``).
 """
 
 from __future__ import annotations
@@ -15,18 +32,104 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from ..models import transformer as T
+from ..ops import collectives as C
+from ..utils import mesh
 from . import optim
 
 _ROADMAP_A6 = "not ported yet — see ROADMAP.md, queue A item 6 (FSDP)"
+OVERLAP_MODES = ("none", "ring", "ring_fused", "ring_fused_pallas")
+OFFLOAD_MODES = ("none", "opt", "opt_act")
 
 
-def init_fsdp_opt_state(params: dict, state_dtype=None) -> optim.AdamState:
-    """Adam state for ``params``: moments in the params' dtype unless
-    ``state_dtype`` says otherwise (the reference's bf16 AdamW state)."""
-    return optim.adam_init(params, state_dtype)
+def _keystr(path) -> str:
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _map_with_path(fn, tree: dict, prefix=()):
+    return {k: _map_with_path(fn, v, prefix + (k,)) if isinstance(v, dict)
+            else fn(prefix + (k,), v) for k, v in tree.items()}
+
+
+# ------------------------------------------------------------------ layout
+
+def fsdp_specs(params: dict, axis="dp") -> dict:
+    """Spec tree (a tuple of axis names or None per dim, as a
+    ``PartitionSpec``): dim 0 of plain leaves, dim 1 of stacked
+    ``(L, …)`` layer leaves (dim 0 is the layer dim) over ``axis``."""
+    name = mesh.resolve_axis(axis).name
+    return _map_with_path(
+        lambda path, _: (None, name) if "layers" in path else (name,),
+        params)
+
+
+def check_divisibility(params: dict, specs: dict, sizes: dict) -> None:
+    """Raise unless every sharded dim divides by its axis size
+    (``sizes``: axis name → ranks)."""
+    def chk(path, leaf):
+        spec = optim.tree_get(specs, path)
+        for dim, name in enumerate(spec):
+            if name is None:
+                continue
+            ws = int(sizes[name])
+            if leaf.shape[dim] % ws:
+                raise ValueError(
+                    f"param {_keystr(path)} dim {dim} of size "
+                    f"{leaf.shape[dim]} not divisible by mesh axis "
+                    f"{name!r}={ws}")
+    _map_with_path(chk, params)
+
+
+def shard_tree(params: dict, rank: int, world: int, axis="dp") -> dict:
+    """Rank ``rank``'s shards of ``params`` over a ``world``-rank axis:
+    its contiguous chunk of each leaf's sharded dim, as its own
+    tensor."""
+    specs = fsdp_specs(params, axis)
+    check_divisibility(params, specs, {mesh.resolve_axis(axis).name: world})
+
+    def leaf(path, x):
+        dim = len(optim.tree_get(specs, path)) - 1
+        chunk = x.shape[dim] // world
+        return x.narrow(dim, rank * chunk, chunk).clone()
+    return _map_with_path(leaf, params)
+
+
+def shard_params_fsdp(params: dict, axis="dp") -> dict:
+    """Full (replicated) params → this rank's shards: the
+    ``fully_shard(module)`` moment."""
+    return shard_tree(params, mesh.axis_rank(axis), mesh.axis_size(axis),
+                      axis)
+
+
+def init_fsdp_opt_state(params_sharded: dict,
+                        state_dtype=None) -> optim.AdamState:
+    """Adam state for the shards it tracks: moments in the params'
+    dtype unless ``state_dtype`` says otherwise (the reference's bf16
+    AdamW state)."""
+    return optim.adam_init(params_sharded, state_dtype)
+
+
+# ---------------------------------------------------------------- explicit
+
+def _gather_leaf(x, spec, axis, overlap: str = "none", fuse_matmul=False):
+    """Gather a shard back to full size along its sharded dim (no-op for
+    leaves ``axis`` does not shard).  ``overlap="ring"``: through the
+    ring (``C.ring_all_gather``).  ``fuse_matmul`` (ring_fused modes,
+    layer-hook leaves only; False or the chunk-matmul impl name): a 2-D
+    projection weight sharded along its contraction dim is NOT gathered
+    but returned as a :class:`C.RingShard` for the model's collective
+    matmul."""
+    name = mesh.resolve_axis(axis).name
+    for dim, n in enumerate(spec):
+        if n == name:
+            if fuse_matmul and x.ndim == 2 and dim == 0:
+                return C.RingShard(
+                    x, axis, "pallas" if fuse_matmul == "pallas" else "xla")
+            if overlap in ("ring", "ring_fused", "ring_fused_pallas"):
+                return C.ring_all_gather(x, axis, dim)
+            return C.all_gather(x, axis, axis=dim)
+    return x
 
 
 def _unflatten(params: dict, flat) -> dict:
@@ -52,7 +155,7 @@ def microbatch_value_and_grad(loss_fn, params: dict, batch,
         if B % accum_steps:
             raise ValueError(
                 f"accum_steps={accum_steps} must divide the per-device "
-                f"batch {B}")
+                f"batch {B} (global batch / dp axis size)")
         m = B // accum_steps
         g_sum = [torch.zeros_like(p) for p in leaves]
         l_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
@@ -69,45 +172,123 @@ def microbatch_value_and_grad(loss_fn, params: dict, batch,
             p.requires_grad_(False)
 
 
-def make_fsdp_train_step(params: dict, cfg: T.TransformerConfig, *,
+def local_batch(batch, axis="dp"):
+    """This rank's contiguous rows of the global ``batch``."""
+    n, r = mesh.axis_size(axis), mesh.axis_rank(axis)
+    B = batch[0].shape[0]
+    if B % n:
+        raise ValueError(f"batch of {B} rows is not divisible by mesh axis "
+                         f"{mesh.resolve_axis(axis).name!r} size {n}")
+    m = B // n
+    return tuple(t[r * m:(r + 1) * m] for t in batch)
+
+
+def make_fsdp_value_and_grad(params_sharded: dict, cfg: T.TransformerConfig,
+                             axis="dp", *, reshard_after_forward: bool = True,
+                             overlap: str = "none", accum_steps: int = 1):
+    """``(shards, global batch) -> (loss, grad shards)``: the loss
+    averaged over the ranks (one all_reduce) and the grads of the
+    shards, summed over the ranks by the gathers' reduce_scatters and
+    divided by the world size — the step before its Adam update."""
+    ax = mesh.resolve_axis(axis)
+    specs = fsdp_specs(params_sharded, ax)
+    layer_specs = specs["layers"]
+    # a layer's leaves have lost the layer dim: the sharded dim is 0
+    hook_specs = {k: s[1:] for k, s in layer_specs.items()}
+    fuse = {"ring_fused": "xla", "ring_fused_pallas": "pallas"}.get(
+        overlap, False)
+
+    def layer_hook(layer):
+        return {k: _gather_leaf(v, hook_specs[k], ax, overlap, fuse)
+                for k, v in layer.items()}
+
+    def sharded_loss(shards, batch):
+        # root leaves gathered up front; never matmul-fused (embed is a
+        # lookup table, not a projection operand)
+        outer = {k: _gather_leaf(v, specs[k], ax, overlap)
+                 for k, v in shards.items() if k != "layers"}
+        if reshard_after_forward:
+            return T.lm_loss({**outer, "layers": shards["layers"]}, batch,
+                             cfg, layer_hook=layer_hook)
+        # ZeRO-2: every layer gathered once, kept through the backward
+        full_layers = {k: _gather_leaf(v, layer_specs[k], ax, overlap)
+                       for k, v in shards["layers"].items()}
+        return T.lm_loss({**outer, "layers": full_layers}, batch, cfg)
+
+    def value_and_grad(shards, batch):
+        ws = mesh.axis_size(ax)
+        loss, grads = microbatch_value_and_grad(
+            sharded_loss, shards, local_batch(batch, ax), accum_steps)
+        loss = C.all_reduce(loss, ax, mean=True)
+        if ws > 1:   # the ranks' sum → their mean, in place
+            for _, g in optim.tree_leaves(grads):
+                g.div_(ws)
+        return loss, grads
+
+    return value_and_grad
+
+
+def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
+                         axis="dp", *, reshard_after_forward: bool = True,
+                         quantized_gather: bool = False,
+                         quantized_grads: bool = False,
+                         overlap: str = "none", accum_steps: int = 1,
+                         offload: str = "none", sp_axis=None,
                          lr: float = 3e-4,
                          lr_schedule: Callable | None = None,
                          b1: float = 0.9, b2: float = 0.95,
-                         eps: float = 1e-8, accum_steps: int = 1,
-                         overlap: str = "none",
-                         quantized_gather: bool = False,
-                         offload: str = "none",
+                         eps: float = 1e-8,
                          state_precision: str = "full"):
-    """``step(params, opt_state, batch) -> (params, opt_state, loss)``
-    with ``batch`` = (input_ids, labels) tensors on the params' device.
-
-    ``lr_schedule(count)`` is evaluated on the optimiser's step counter
-    before the update increments it, as in the reference.  The update
-    runs in place (``optim.adam_update``).  Multi-rank process groups,
-    overlap modes, quantized gathers, offload and int8 state are not
-    ported yet and raise."""
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(f"a process group of "
-                                  f"{dist.get_world_size()} ranks: "
-                                  f"{_ROADMAP_A6}")
-    for name, value, default in (("overlap", overlap, "none"),
-                                 ("quantized_gather", quantized_gather, False),
+    """``step(shards, opt_state, batch) -> (shards, opt_state, loss)``
+    with ``batch`` = (input_ids, labels), the GLOBAL batch on this
+    rank's device; ``axis`` names the data-parallel process group
+    (``utils.mesh``).  The options are the reference's; see the module
+    docstring.  ``lr_schedule(count)`` is evaluated on the optimiser's
+    step counter before the update increments it.  The update runs in
+    place (``optim.adam_update``)."""
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(f"overlap={overlap!r}; choose from "
+                         f"{OVERLAP_MODES}")
+    if overlap.startswith("ring_fused"):
+        if quantized_gather:
+            raise ValueError(f"overlap={overlap!r} fuses full-precision "
+                             "collective matmuls; it does not compose "
+                             "with quantized_gather (use overlap='ring')")
+        if not reshard_after_forward:
+            raise ValueError(f"overlap={overlap!r} needs the per-layer "
+                             "gather seam — reshard_after_forward=False "
+                             "keeps gathered weights live, which "
+                             "contradicts fused re-ringing")
+        if getattr(cfg, "n_experts", 0):
+            raise ValueError(f"overlap={overlap!r} covers dense "
+                             "projection leaves only; MoE expert leaves "
+                             "shard their expert dim, not a contraction "
+                             "dim (use overlap='ring')")
+    if quantized_grads and not quantized_gather:
+        raise ValueError("quantized_grads quantizes the backward "
+                         "reduce-scatter of the quantized gathers; it "
+                         "requires quantized_gather=True")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if offload not in OFFLOAD_MODES:
+        raise ValueError(f"offload={offload!r}; choose from {OFFLOAD_MODES}")
+    for name, value, default in (("quantized_gather", quantized_gather, False),
                                  ("offload", offload, "none"),
+                                 ("sp_axis", sp_axis, None),
                                  ("state_precision", state_precision,
                                   "full")):
         if value != default:
             raise NotImplementedError(f"{name}={value!r}: {_ROADMAP_A6}")
-    if accum_steps < 1:
-        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     T.check_supported(cfg)
+    value_and_grad = make_fsdp_value_and_grad(
+        params_sharded, cfg, axis, reshard_after_forward=reshard_after_forward,
+        overlap=overlap, accum_steps=accum_steps)
 
-    def step(params, opt_state, batch):
-        loss, grads = microbatch_value_and_grad(
-            lambda p, b: T.lm_loss(p, b, cfg), params, batch, accum_steps)
+    def step(shards, opt_state, batch):
+        loss, grads = value_and_grad(shards, batch)
         lr_t = lr_schedule(opt_state.count) if lr_schedule else lr
-        params, opt_state = optim.adam_update(
-            grads, opt_state, params, lr=lr_t, b1=b1, b2=b2, eps=eps)
-        return params, opt_state, loss
+        shards, opt_state = optim.adam_update(
+            grads, opt_state, shards, lr=lr_t, b1=b1, b2=b2, eps=eps)
+        return shards, opt_state, loss
 
     return step

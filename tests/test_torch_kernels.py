@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions: K1
 paged decode, K2 int8 paged decode, K3 flash prefill, K4 int8 GEMM, K5
-fused quantise-matmul, K6 fp8 GEMM and the flash attention forward and
-backward, at tiny, ragged and the main paths' shapes.
+fused quantise-matmul, K6 fp8 GEMM, the flash attention forward and
+backward and K7 (the FSDP ring's chunk product), at tiny, ragged and
+the main paths' shapes.
 
 Imports torch, numpy and the port only — no JAX — so that it also runs
 on a machine with a card and no JAX:
@@ -18,7 +19,9 @@ other side of a bf16 rounding boundary; K6 to one bf16 ulp of the plain
 f32 sum; the flash attention to bf16 level in O and the grads and f32
 level in the logsumexp; K4 and K5 bit for bit (exact integer sums, the
 same epilogue); K2 at ``TOLERANCE_Q8`` (a code of the requantised
-probabilities can flip where the softmax sums in another order).
+probabilities can flip where the softmax sums in another order); K7 at
+``collectives.TOLERANCE`` (one bf16 ulp where the f32 sums, taken in
+another order, straddle a rounding boundary).
 """
 
 import numpy as np
@@ -425,3 +428,101 @@ def test_int8_wrappers_take_the_plain_versions_on_the_cpu():
                                     pk_s=ks, pv_s=vs)
     assert (PA.Q8_COUNTS.launches, PA.Q8_COUNTS.plain_calls) == (0, 1)
     assert got.dtype == torch.float32 and got.shape == (2, 1, 2, 2, 16)
+
+
+# ---- K7 chunk product of the FSDP all-gather matmul (FSDP slice) -----------
+
+from distributed_training_sandbox_tpu_torch.ops import (  # noqa: E402
+    collectives as C)
+
+AG_SHAPES = {
+    # name: (M, K of the activation, Kc, N, first column of a's K-chunk):
+    # the one-rank products of SMOLLM3_3B_L8 (Kc = K) and a rank's chunk
+    # at four ranks (Kc = K / 4, a strided view of the activation)
+    "tiny_ragged": (70, 48, 48, 40, 0),
+    "wq_wo": (8192, 2048, 2048, 2048, 0),
+    "wk_wv": (8192, 2048, 2048, 512, 0),
+    "w_gate_up": (8192, 2048, 2048, 11008, 0),
+    "w_down": (8192, 11008, 11008, 2048, 0),
+    "chunk_512": (8192, 2048, 512, 2048, 1024),
+    "chunk_2752": (8192, 11008, 2752, 2048, 3 * 2752),
+    "chunk_ragged": (333, 96, 24, 40, 48),
+}
+
+
+def ag_case(seed, M, K, Kc, N, c0, device, dtype=torch.bfloat16):
+    """An activation ~ N(0, 1) and a weight shard ~ N(0, 0.02²); the
+    activation's K-chunk is the strided view ``a[:, c0:c0 + Kc]``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((M, K), generator=gen, device=device).to(dtype)
+    w = (torch.randn((Kc, N), generator=gen, device=device) * 0.02).to(dtype)
+    return a[:, c0:c0 + Kc], w
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(AG_SHAPES))
+def test_ag_matmul_kernel_matches_plain(cuda, shape):
+    a2, w = ag_case(0, *AG_SHAPES[shape], cuda)
+    C.COUNTS.reset()
+    got = C.ag_matmul_kernel(a2, w)
+    torch.cuda.synchronize()
+    assert (C.COUNTS.launches, C.COUNTS.plain_calls) == (1, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (a2.shape[0],
+                                                          w.shape[1])
+    atol, rtol = C.TOLERANCE[torch.bfloat16]
+    torch.testing.assert_close(got, C.ag_matmul_plain(a2, w), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, C.ag_matmul_kernel(a2, w))   # no atomics
+
+
+@pytest.mark.gpu_port
+def test_all_gather_matmul_pallas_goes_through_k7_at_one_rank(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((2, 64, 256), generator=gen, device=cuda).to(
+        torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((256, 128), generator=gen, device=cuda) * 0.02).to(
+        torch.bfloat16).requires_grad_(True)
+    C.COUNTS.reset()
+    out = C.all_gather_matmul_pallas(a, w)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (C.COUNTS.launches, C.COUNTS.plain_calls) == (1, 0)
+    ref = C.ag_matmul_plain(a.detach().reshape(-1, 256), w.detach())
+    atol, rtol = C.TOLERANCE[torch.bfloat16]
+    torch.testing.assert_close(out.detach().reshape(-1, 128), ref,
+                               atol=atol, rtol=rtol)
+    # the backward is the plain products g @ wᵀ and aᵀ @ g
+    g = 2 * out.detach().float()
+    torch.testing.assert_close(a.grad.float(), (g.to(torch.bfloat16) @
+                                                w.detach().t()).float())
+    assert torch.isfinite(w.grad).all()
+
+
+@pytest.mark.gpu_port
+def test_ag_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    a2, w = ag_case(2, 64, 64, 64, 32, 0, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        C.ag_matmul_kernel(a2.float(), w.float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.ag_matmul_kernel(a2[:, :60], w[:60])
+    with pytest.raises(ValueError, match="aligned"):
+        C.ag_matmul_kernel(a2[:, 4:12], w[:8])
+    with pytest.raises(ValueError, match="row-strided"):
+        C.ag_matmul_kernel(a2.t()[:, :64], w)
+    with pytest.raises(ValueError, match="cpu"):
+        C.ag_matmul_kernel(a2, w.cpu())
+    with pytest.raises(ValueError, match="inner dims"):
+        C.ag_matmul_kernel(a2, w[:32])
+
+
+def test_ag_matmul_takes_the_plain_version_on_the_cpu():
+    a2, w = ag_case(3, 24, 96, 32, 16, 32, "cpu", torch.float32)
+    C.COUNTS.reset()
+    out = C.ag_matmul_kernel(a2, w)
+    assert (C.COUNTS.launches, C.COUNTS.plain_calls) == (0, 1)
+    assert out.dtype == torch.float32 and torch.equal(out, a2 @ w)
+    a2, w = ag_case(3, 24, 96, 32, 16, 32, "cpu")
+    out = C.ag_matmul_kernel(a2, w)
+    assert (C.COUNTS.launches, C.COUNTS.plain_calls) == (0, 2)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, (a2.float() @ w.float()).to(torch.bfloat16))

@@ -320,8 +320,8 @@ def test_unported_training_options_raise():
         PT.check_supported(dataclasses.replace(PT.TINY_LM,
                                                attention_impl="ring"))
     pp = PT.init_params(PT.TINY_LM, torch.Generator().manual_seed(0), "cpu")
-    for kw in ({"overlap": "ring"}, {"quantized_gather": True},
-               {"offload": "opt"}, {"state_precision": "int8"}):
+    for kw in ({"quantized_gather": True}, {"offload": "opt"},
+               {"state_precision": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PF.make_fsdp_train_step(pp, PT.TINY_LM, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -460,6 +460,9 @@ import distributed_training_sandbox_tpu_torch.ops.flash_attention
 import distributed_training_sandbox_tpu_torch.ops.quant
 import distributed_training_sandbox_tpu_torch.data.packing
 import distributed_training_sandbox_tpu_torch.utils.flops
+import distributed_training_sandbox_tpu_torch.utils.mesh
+import distributed_training_sandbox_tpu_torch.ops.collectives
+import distributed_training_sandbox_tpu_torch.train.train_fsdp
 import chip_smoke, chip_gate_mutation
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m.startswith("distributed_training_sandbox_tpu.")
