@@ -12,8 +12,13 @@ left out or done in lower precision, so that its output stays close to
 the sound kernel's:
 
 - ``probs_rounding``: K1 and K3 skip the bf16 rounding of the
-  normalised probabilities; the kernel, serve and parity phases run,
-  and K1's, K3's and the decode-logit gates must fail;
+  normalised probabilities (``dts::round_to``); K3's bf16 kernel then
+  hands wgmma the probability's upper 16 bits, a truncation instead of
+  a round to nearest; the kernel, serve and parity phases run, and K1's,
+  K3's and the decode-logit gates must fail;
+- ``k3_diagonal_mask``: K3's mask on the tiles that cross a row's
+  position is off by one (``t < apos``), so each row loses its own key;
+  K3's gate must fail;
 - ``fp8_bf16_accumulator``: K6 rounds its f32 accumulator to bf16 after
   every 128 of K; K6's gate must fail;
 - ``fa_fwd_bf16_rowsum``: the flash forward sums the row's softmax
@@ -27,14 +32,19 @@ the sound kernel's:
 - ``fa_bwd_dv_tile``: in the second half of the keys the dK/dV kernel
   leaves one query tile (32 queries) out of dV; the backward's gate
   must fail;
-- ``k5_slice_absmax``: K5 quantises each 128-wide K slice of a row with
-  that slice's own absmax instead of the full row's; K5's gate and the
-  int8 step-0 parity must fail;
-- ``k5_eager_scale``: K5 computes its row scale as ``amax / 127`` (the
-  reference's eager form) instead of ``amax · f32(1/127)``; K5's gate
-  and the int8 step-0 parity must fail;
-- ``k4_scale_product``: K4 (and K5, which shares its epilogue) applies
-  ``acc · (xs · ws)``; K4's gate and the int8 step-0 parity must fail;
+- ``k5_slice_absmax``: K5's quantising prologue codes each 128-wide K
+  slice of a row with that slice's own absmax instead of the full
+  row's; K5's gate and the int8 step-0 parity must fail;
+- ``k5_eager_scale``: K5's prologue computes its row scale as
+  ``amax / 127`` (the reference's eager form) instead of
+  ``amax · f32(1/127)``; K5's gate and the int8 step-0 parity must fail;
+- ``k5_dropped_k_block``: K5's consumers leave the last k-block of the
+  TMA ring out of the sum; K5's gate and the int8 step-0 parity must
+  fail;
+- ``k5_scale_product``: K5's epilogue applies ``acc · (xs · ws)``; K5's
+  gate and the int8 step-0 parity must fail;
+- ``k4_scale_product``: K4 applies ``acc · (xs · ws)``; K4's gate and
+  the int8 step-0 parity must fail;
 - ``k2_chunk_absmax``: K2 requantises each 256-position chunk's ``p ·
   vs`` with the chunk's own absmax instead of the row's; K2's gate and
   the int8 decode-logit gate must fail;
@@ -89,15 +99,27 @@ MUTANTS = [
      "      if (q0 != k0 + kSub || k0 < S / 2) "
      "mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   // P^T dO",
      "train", ("flash_attention_bwd:",)),
+    ("k3_diagonal_mask", "csrc/flash_prefill.cu",
+     "__device__ __forceinline__ bool visible(int t, int ap) "
+     "{ return t <= ap; }",
+     "__device__ __forceinline__ bool visible(int t, int ap) "
+     "{ return t < ap; }", "kernels", ("flash_prefill:",)),
     ("k5_slice_absmax", "csrc/int8_matmul.cu",
-     "  return xs[gr];   // the scale of the full row",
-     "  { const float a = slice_amax(x, gr, k0, K); "
+     "  return s;   // the scale of the full row",
+     "  { const float a = slice_amax(row, k & ~127, K); "
      "return a > 0.f ? a * (1.0f / 127.0f) : 1.0f; }", "int8_train",
      ("int8_matmul_fused:", "int8 step-0")),
     ("k5_eager_scale", "csrc/int8_matmul.cu",
-     "    xs[row] = amax > 0.f ? amax * (1.0f / 127.0f) : 1.0f;",
-     "    xs[row] = amax > 0.f ? amax / 127.0f : 1.0f;", "int8_train",
+     "  const float s = amax > 0.f ? amax * (1.0f / 127.0f) : 1.0f;",
+     "  const float s = amax > 0.f ? amax / 127.0f : 1.0f;", "int8_train",
      ("int8_matmul_fused:", "int8 step-0")),
+    ("k5_dropped_k_block", "csrc/int8_matmul.cu",
+     "  return kb < nk;", "  return kb + 1 < nk;", "int8_train",
+     ("int8_matmul_fused:", "int8 step-0")),
+    ("k5_scale_product", "csrc/int8_matmul.cu",
+     "  return __float2bfloat16_rn((__int2float_rn(acc) * sx) * sw);",
+     "  return __float2bfloat16_rn(__int2float_rn(acc) * (sx * sw));",
+     "int8_train", ("int8_matmul_fused:", "int8 step-0")),
     ("k4_scale_product", "csrc/int8_matmul.cu",
      "          const float v = (__int2float_rn(acc[i][j][e]) * sx) * sw;",
      "          const float v = __int2float_rn(acc[i][j][e]) * (sx * sw);",
@@ -119,7 +141,20 @@ MUTANTS = [
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
-CHILD = {"serve": """
+CHILD = {"kernels": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+rng = np.random.default_rng(c.SEED)
+gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+c.kernel_phase(rng, gen)
+""", "serve": """
 import numpy as np, torch
 import chip_smoke as c
 def check(cond, msg):

@@ -68,17 +68,27 @@ kernels.
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no card or when any phase fails.
+
+    python3 chip_smoke.py --parent-csrc DIR
+
+builds K3 and K5 from DIR (another commit's ``csrc/``, unpacked under
+the gitignored ``build/``) beside this checkout's, times both in turns
+at the kernel phase's shapes, reads K3's accuracy over several draws,
+prints a ``{"compare": ...}`` line and runs nothing else.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -129,6 +139,8 @@ INT8_ENGINE = dict(ENGINE, kv_quant=True, flash_prefill=False)
 PROJECTIONS = [("wq", 2048, 2048), ("wk", 2048, 512), ("wv", 2048, 512),
                ("wo", 2048, 2048), ("w_gate", 2048, 11008),
                ("w_up", 2048, 11008), ("w_down", 11008, 2048)]
+# draws of the serve shapes on which --parent-csrc reads K3's accuracy
+COMPARE_DRAWS = 10
 # Step-0 parity, kernel path vs plain path on the same params and batch:
 # |loss difference| <= LOSS_ATOL, and every grad leaf's relative L2
 # error <= GRAD_REL_L2; the same without fp8 (bf16 projections, so only
@@ -915,11 +927,14 @@ def int8_gemm_phase() -> list[dict]:
             g = (torch.randn((M, N), generator=gen, device="cuda")
                  * 1e-3).to(bf16)
             wq, ws = Q.quantize_int8(w, axis=0)
+            # the training path's K5 weight: (N, K) codes, K-major
+            wq_t, ws_t = Q.quantize_int8(w.t(), axis=-1)
             gq, gs = Q.quantize_int8(g, axis=-1)
             wq_n, ws_n = Q.quantize_int8(w, axis=1)
             xq_m, xs_m = Q.quantize_int8(x, axis=0)
             gq_m, gs_m = Q.quantize_int8(g, axis=0)
-            sets.append(dict(x=x, wq=wq, ws=ws, xq=Q.quantize_int8(x)[0],
+            sets.append(dict(x=x, wq=wq, ws=ws, wq_t=wq_t.contiguous(),
+                             ws_t=ws_t, xq=Q.quantize_int8(x)[0],
                              dx=(gq, gs, wq_n, ws_n.T, (1, 1)),
                              dw=(xq_m, xs_m.T, gq_m, gs_m, (0, 0))))
             del w, g
@@ -927,15 +942,21 @@ def int8_gemm_phase() -> list[dict]:
         c = lambda: sets[next(it) % 3]  # noqa: E731
         s0 = sets[0]
         shape = f"({M}, {K}) x ({K}, {N})"
-        # K5: the forward
-        got = Q.int8_matmul_fused_kernel(s0["x"], s0["wq"], s0["ws"])
-        e5 = max(e5, _gate_bitwise("int8_matmul_fused", shape, got,
-                                   Q.int8_matmul_fused(s0["x"], s0["wq"],
-                                                       s0["ws"], bf16)))
-        _twice_equal("int8_matmul_fused", lambda: Q.int8_matmul_fused_kernel(
-            s0["x"], s0["wq"], s0["ws"]))
-        k_ms = time_ms(lambda: (lambda d: Q.int8_matmul_fused_kernel(
-            d["x"], d["wq"], d["ws"]))(c()))
+        # K5: the forward, the weight K-major as the training path passes
+        # it, and in the reference's (K, N) layout (transposed by the
+        # wrapper), both bit for bit
+        def k5(d):
+            return Q.int8_matmul_fused_kernel(d["x"], d["wq_t"], d["ws_t"],
+                                              b_kmajor=True)
+
+        ref = Q.int8_matmul_fused(s0["x"], s0["wq"], s0["ws"], bf16)
+        e5 = max(e5, _gate_bitwise("int8_matmul_fused", shape, k5(s0), ref))
+        e5 = max(e5, _gate_bitwise(
+            "int8_matmul_fused", f"{shape}, weight (K, N)",
+            Q.int8_matmul_fused_kernel(s0["x"], s0["wq"], s0["ws"]), ref))
+        del ref
+        _twice_equal("int8_matmul_fused", lambda: k5(s0))
+        k_ms = time_ms(lambda: k5(c()))
         p_ms = time_ms(lambda: (lambda d: Q.int8_matmul_fused(
             d["x"], d["wq"], d["ws"], bf16))(c()), iters=3, warmup=1)
         l_ms = _int_mm_ms([d["xq"] for d in sets],
@@ -944,7 +965,10 @@ def int8_gemm_phase() -> list[dict]:
         t5["p"] += p_ms
         t5["l"] += l_ms or 0.0
         lib_missing |= {"int8_matmul_fused"} if l_ms is None else set()
-        t5["nbytes"] += 2 * M * K + K * N + 4 * N + 2 * M * N
+        # x read, its codes written and read back (the scratch), the
+        # K-major weight and scales read, the row scales written and
+        # read, the bf16 output written
+        t5["nbytes"] += 4 * M * K + K * N + 4 * N + 8 * M + 2 * M * N
         t5["ops"] += 2 * M * K * N
         log(f"int8_matmul_fused {shape}: bit-equal; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, _int_mm {l_ms} ms")
@@ -1591,7 +1615,170 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
     return {k: v[0] for k, v in counts.items()}
 
 
-def main() -> int:
+# ------------------------------------------- parent-versus-change timing
+
+def _parent_libs(csrc: Path) -> dict:
+    """K3's and K5's libraries built from another commit's ``csrc`` (one
+    nvcc each, in parallel) into ``build/parent_kernels``, with that
+    commit's C signatures (K5 then took a (K, N) weight and no code
+    scratch)."""
+    out = loader.BUILD_DIR.parent / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("flash_prefill", "int8_matmul"):
+        so = out / f"lib{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [loader._nvcc(), *loader.NVCC_FLAGS, f"-I{csrc}", "-o", str(so),
+             str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"parent {name}: nvcc failed:\n{text}")
+        libs[name] = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    libs["flash_prefill"].flash_prefill_launch.argtypes = [P] * 6 + [I] * 8 \
+        + [P]
+    libs["int8_matmul"].int8_matmul_fused_launch.argtypes = [P] * 5 \
+        + [I] * 3 + [P]
+    return libs
+
+
+def _turns(old, new) -> tuple[list, list]:
+    """CUDA-event times in turns: old, new, new, old."""
+    a, b = time_ms(old), time_ms(new)
+    c, d = time_ms(new), time_ms(old)
+    return [a, d], [b, c]
+
+
+def parent_compare_phase(csrc: Path) -> dict:
+    """K3 at the kernel phase's serve shapes and K5 at one layer's seven
+    projections (M = 8192), each built from this checkout and from
+    ``csrc`` (another commit's sources), timed in one process in turns
+    (old, new, new, old).  K5 of both must be bit-equal to its plain
+    version; K3's max |kernel - plain| is read on ``COMPARE_DRAWS``
+    draws of the serve shapes and logged."""
+    libs = _parent_libs(csrc)
+    ptr, stream = (lambda t: ctypes.c_void_p(t.data_ptr())), (
+        lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    res = {}
+
+    # K3, as kernel_phase draws it
+    B, page = ENGINE["max_batch"], ENGINE["page_size"]
+    P = ENGINE["max_seq_len"] // page
+    nkv, hd = CFG.num_key_value_heads, CFG.resolved_head_dim
+    rep = CFG.num_attention_heads // nkv
+    plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
+    chunk = ENGINE["prefill_chunk"]
+    apos_np = ((plen - 1) // chunk * chunk)[:, None] + np.arange(chunk)
+    pools = _pools(gen, B * P + 1, page, nkv, hd, 4)
+    apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
+    pages = _page_table(rng, apos_np.max(axis=1), page, P, B * P + 1)
+    qg = torch.randn((B, chunk, nkv, rep, hd), generator=gen, device="cuda",
+                     dtype=CFG.dtype)
+    out = torch.empty((B, chunk, nkv, rep, hd), device="cuda")
+    it = iter(range(10 ** 9))
+
+    def old_k3():
+        k, v = pools[next(it) % 4]
+        rc = libs["flash_prefill"].flash_prefill_launch(
+            ptr(qg), ptr(k), ptr(v), ptr(pages), ptr(apos), ptr(out), B,
+            chunk, P, page, nkv, rep, hd, 1, stream())
+        check(rc == 0, f"parent flash_prefill: CUDA error {rc}")
+        return out
+
+    def new_k3():
+        return FP.paged_flash_prefill(qg, *pools[next(it) % 4], pages, apos)
+
+    it = iter(range(10 ** 9))
+    old, new = _turns(old_k3, new_k3)
+    res["flash_prefill"] = {"parent_ms": old, "change_ms": new}
+    log(f"compare flash_prefill (serve shapes): parent {old} ms, change "
+        f"{new} ms (turns: parent, change, change, parent)")
+    # accuracy over COMPARE_DRAWS draws of the same shapes (the gate of
+    # the default run reads one): each kernel's max |kernel - plain| and
+    # its count of outputs off by more than atol / 4, logged, not gated
+    atol = FP.TOLERANCE[CFG.dtype][0]
+    errs = {"parent": [], "change": []}
+    for d in range(COMPARE_DRAWS):
+        if d:
+            plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
+            apos_np = ((plen - 1) // chunk * chunk)[:, None] \
+                + np.arange(chunk)
+            apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
+            pages = _page_table(rng, apos_np.max(axis=1), page, P,
+                                B * P + 1)
+            qg = torch.randn((B, chunk, nkv, rep, hd), generator=gen,
+                             device="cuda", dtype=CFG.dtype)
+        ref = FP.paged_flash_prefill_plain(qg, *pools[0], pages, apos)
+        for nm, fn in (("parent", old_k3), ("change", new_k3)):
+            it = iter(range(0, 10 ** 9, 4))   # pool 0
+            diff = (fn() - ref).abs()
+            errs[nm].append((float(diff.max()), int((diff > atol / 4).sum())))
+    res["flash_prefill"]["max_abs_err_and_count"] = errs
+    log(f"compare flash_prefill over {COMPARE_DRAWS} draws, (max |kernel - "
+        f"plain|, outputs off by > {atol / 4}): {json.dumps(errs)}")
+    del pools, ref
+    torch.cuda.empty_cache()
+
+    # K5, one layer's seven projections
+    M, bf16 = TRAIN["seq"] * TRAIN["bs"], torch.bfloat16
+    tot_old, tot_new = [0.0, 0.0], [0.0, 0.0]
+    for name, K, N in PROJECTIONS:
+        sets = []
+        for _ in range(3):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 * 0.02).to(bf16)
+            wq, ws = Q.quantize_int8(w, axis=0)
+            wq_t, ws_t = Q.quantize_int8(w.t(), axis=-1)
+            sets.append((x, wq, ws.reshape(N).contiguous(),
+                         wq_t.contiguous(), ws_t))
+        xs = torch.empty((M,), device="cuda")
+        o5 = torch.empty((M, N), device="cuda", dtype=bf16)
+        it = iter(range(10 ** 9))
+
+        def old_k5():
+            x, wq, ws, _, _ = sets[next(it) % 3]
+            rc = libs["int8_matmul"].int8_matmul_fused_launch(
+                ptr(x), ptr(wq), ptr(xs), ptr(ws), ptr(o5), M, N, K,
+                stream())
+            check(rc == 0, f"parent int8_matmul_fused: CUDA error {rc}")
+            return o5
+
+        def new_k5():
+            x, _, _, wq_t, ws_t = sets[next(it) % 3]
+            return Q.int8_matmul_fused_kernel(x, wq_t, ws_t, b_kmajor=True)
+
+        ref = Q.int8_matmul_fused(sets[0][0], sets[0][1],
+                                  sets[0][2].reshape(1, N), bf16)
+        for nm, fn in (("parent", old_k5), ("change", new_k5)):
+            it = iter(range(0, 10 ** 9, 3))
+            _gate_bitwise(f"compare int8_matmul_fused {nm}",
+                          f"({M}, {K}) x ({K}, {N})", fn(), ref)
+        it = iter(range(10 ** 9))
+        old, new = _turns(old_k5, new_k5)
+        tot_old = [a + b for a, b in zip(tot_old, old)]
+        tot_new = [a + b for a, b in zip(tot_new, new)]
+        log(f"compare int8_matmul_fused {name} ({M}, {K}) x ({K}, {N}): "
+            f"parent {old} ms, change {new} ms")
+        del sets, ref
+        torch.cuda.empty_cache()
+    res["int8_matmul_fused"] = {"parent_ms": tot_old, "change_ms": tot_new}
+    log(f"compare int8_matmul_fused, one layer's 7 projections: parent "
+        f"{tot_old} ms, change {tot_new} ms")
+    return res
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", type=Path, default=None,
+                    help="time K3 and K5 built from this csrc directory (an "
+                    "unpacked parent commit) against this checkout's, in "
+                    "turns, and run nothing else")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",
               file=sys.stderr)
@@ -1601,6 +1788,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
+    if args.parent_csrc is not None:
+        try:
+            res = parent_compare_phase(args.parent_csrc.resolve())
+        except SmokeFailure as e:
+            print(f"[smoke] FAILED: {e}", file=sys.stderr)
+            return 1
+        print(card, flush=True)
+        print(json.dumps({"compare": res}), flush=True)
+        return 0
     t_all = t = time.perf_counter()
     loader.build_all()
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
@@ -1681,4 +1877,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,269 @@
+// Hopper building blocks of the wgmma kernels (flash_prefill.cu,
+// int8_matmul.cu): shared-memory addresses, 16-byte cp.async, mbarriers,
+// 2-D TMA loads, shared-memory descriptors of 128-byte swizzled tiles,
+// and the wgmma shapes the kernels issue.  sm_90a only.
+//
+// The tiles these kernels hand to wgmma are 128-byte swizzled: a tile of
+// R rows x 128 bytes holds row r at byte r * 128, its 16-byte chunk c at
+// chunk position c ^ (r % 8), from a 1024-byte aligned base.  This is
+// what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and a 128-byte inner
+// box, and what cp.async writes when the kernel applies the XOR itself.
+// A wider row (hd = 128 bf16 is 256 bytes) is split into 128-byte
+// column blocks, each its own R x 128-byte region.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first address at or after p whose shared-space offset is a
+// multiple of 1024 (the swizzle pattern repeats every 8 rows of 128
+// bytes).  Callers reserve 1008 bytes of slack for it.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a swizzled region.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// ---- cp.async
+
+// 16 bytes from src to shared dst; zeros instead where !valid (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's completed writes to shared memory, made visible to the
+// async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// arrive, and expect `bytes` of TMA transactions in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
+          "r"(smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box at coordinates (c0 innermost, c1) into shared dst; the
+// transfer completes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// ---- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's registers across
+// the asynchronous instructions.
+__device__ __forceinline__ void reg_fence(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void reg_fence(int& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(d[i]);
+}
+
+// Descriptor of a 128-byte swizzled shared tile at p (layout type 1 in
+// bits 62-63).  K-major operand: sbo = 1024 (one 8-row group to the
+// next), lbo unused (16).  MN-major operand: lbo = the bytes from one
+// 64-element column block to the next along M or N, sbo = 1024 (one
+// group of 8 rows of K to the next).  Stepping 32 bytes along K inside
+// a 128-byte row adds 2 to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+#define HOP_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HOP_F16(i) HOP_F4(i), HOP_F4(i + 4), HOP_F4(i + 8), HOP_F4(i + 12)
+#define HOP_F32(i) HOP_F16(i), HOP_F16(i + 16)
+#define HOP_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define HOP_R16(i) HOP_R4(i), HOP_R4(i + 4), HOP_R4(i + 8), HOP_R4(i + 12)
+#define HOP_R64(i) HOP_R16(i), HOP_R16(i + 16), HOP_R16(i + 32), \
+                   HOP_R16(i + 48)
+
+// Accumulator layout of every shape here: thread t of the warpgroup
+// (warp w = t / 32, lane l) holds, for each 8-column block j, d[4j],
+// d[4j + 1] at row 16w + l / 4, columns 8j + 2(l % 4) + {0, 1}, and
+// d[4j + 2], d[4j + 3] at row 16w + l / 4 + 8, the same columns.
+
+// D (64 x 32 f32) += A (64 x 16 bf16, shared, K-major) · B (32 x 16
+// bf16, shared, K-major)ᵀ
+__device__ __forceinline__ void wgmma_m64n32k16_bf16_ss(float (&d)[16],
+                                                        uint64_t da,
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOP_F16(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64 f32) += A (64 x 16 bf16, shared, K-major) · B (64 x 16
+// bf16, shared, K-major)ᵀ
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32],
+                                                        uint64_t da,
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOP_F32(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64 f32) += A (64 x 16 bf16, registers) · B (16 x 64 bf16,
+// shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs_tb(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOP_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128 f32) += A (64 x 16 bf16, registers) · B (16 x 128 bf16,
+// shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs_tb(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;"
+      "\n}\n"
+      : HOP_F32(0), HOP_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256 s32) += A (64 x 32 s8, shared, K-major) · B (256 x 32 s8,
+// shared, K-major)ᵀ, exact
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : HOP_R64(0), HOP_R64(64)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef HOP_F4
+#undef HOP_F16
+#undef HOP_F32
+#undef HOP_R4
+#undef HOP_R16
+#undef HOP_R64
+
+}  // namespace hop

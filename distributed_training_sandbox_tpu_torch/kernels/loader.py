@@ -44,7 +44,7 @@ SIGNATURES = {
     },
     "int8_matmul": {
         "int8_matmul_launch": ([P] * 5 + [I] * 4 + [P], I),
-        "int8_matmul_fused_launch": ([P] * 5 + [I] * 3 + [P], I),
+        "int8_matmul_fused_launch": ([P] * 6 + [I] * 3 + [P], I),
     },
     "flash_attention": {
         "flash_attn_fwd_launch": ([P] * 5 + [I] * 5 + [F, P], I),

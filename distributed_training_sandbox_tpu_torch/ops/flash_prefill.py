@@ -9,15 +9,21 @@ rounds unnormalised weights.  The kernel computes the first (it takes
 two passes over the keys to have the softmax max and sum before it
 rounds); the plain version is the gather path itself
 (:func:`.paged_attention.gather_attention`).  Float pools only, as in
-the reference.
+the reference.  A bf16 pool (the serve's) runs QKᵀ and PV on the tensor
+cores (wgmma, K/V tiles through a cp.async ring); an f32 pool runs the
+CUDA-core kernel of the same source, whose f32 products meet its f32
+tolerance (TF32 tensor cores would not).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises.  Tolerance of the kernel against the
 plain version (``TOLERANCE``): ``atol = rtol = 1e-5`` on an f32 pool;
 ``atol = 1e-3, rtol = 0`` on a bf16 pool, for the reason the decode
 kernel states.  On an H100 at the serve shapes (``chip_smoke.py``
-kernel phase) the kernel reads 6.3e-4, and a kernel that skips the
-probabilities' rounding reads 1.9e-3; the limit lies between the two.
+kernel phase) the kernel reads 3.7e-4, and a kernel that skips the
+probabilities' rounding (a truncation on the tensor-core path) reads
+3.9e-3; the limit lies between the two.  It reads one draw: on other
+draws of the same shapes a one-ulp flip of one large probability has
+moved an output by up to 1.6e-3 (``chip_smoke.py --parent-csrc``).
 """
 
 from __future__ import annotations
@@ -70,6 +76,9 @@ def paged_flash_prefill(qg, pk, pv, pages, apos):
         raise ValueError(f"kernel takes rep dividing {QUERY_VECTORS} and "
                          f"hd <= {MAX_HD}, a multiple of 8; got rep={rep} "
                          f"hd={hd}")
+    if any(t.data_ptr() % 16 for t in (qg, pk, pv)):
+        raise ValueError("paged_flash_prefill: qg, pk and pv must be "
+                         "16-byte aligned (16-byte row copies)")
     out = torch.empty((B, S, nkv, rep, hd), dtype=torch.float32,
                       device=qg.device)
     fn = loader.load("flash_prefill").flash_prefill_launch

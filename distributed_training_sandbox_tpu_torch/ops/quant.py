@@ -225,30 +225,41 @@ def int8_matmul_kernel(xq, xs, wq, ws, out_dtype=torch.bfloat16):
                       b_kmajor=False)
 
 
-def int8_matmul_fused_kernel(x, wq, ws, out_dtype=torch.bfloat16):
-    """K5: x (M, K) bf16 activation, wq (K, N) int8, ws (1, N) f32;
-    each row of x is quantised in the kernel over its full K, the codes
-    never leave shared memory.  Returns (M, N) ``out_dtype`` (bf16 on
-    the card), bit-equal to ``int8_matmul_fused``."""
+def int8_matmul_fused_kernel(x, wq, ws, out_dtype=torch.bfloat16, *,
+                             b_kmajor: bool = False):
+    """K5: x (M, K) bf16 activation; wq the int8 weight codes, (K, N) in
+    the reference's layout or, with ``b_kmajor``, (N, K), the layout
+    the training path passes (``_QuantizedDense``); ws its N f32
+    scales.  Each row of x is quantised over its full K by the kernel's
+    prologue (codes written once to an (M, K) scratch), then the wgmma
+    GEMM.  A (K, N) weight is transposed here first (a copy of K·N
+    bytes).  Returns (M, N) ``out_dtype`` (bf16 on the card), bit-equal
+    to ``int8_matmul_fused``."""
+    M, K = x.shape
+    N, Kw = wq.shape if b_kmajor else wq.shape[::-1]
+    if Kw != K:
+        raise ValueError(f"int8_matmul_fused_kernel: inner dims {K} != "
+                         f"{Kw}")
     if x.device.type == "cpu":
         INT8_FUSED_COUNTS.plain_calls += 1
-        return int8_matmul_fused(x, wq, ws, out_dtype)
-    M, K = x.shape
-    N = wq.shape[1]
+        return int8_matmul_fused(x, wq.t() if b_kmajor else wq,
+                                 ws.reshape(1, N), out_dtype)
     if out_dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
         raise ValueError("int8_matmul_fused_kernel takes and writes bf16 "
                          "only")
-    if wq.shape[0] != K:
-        raise ValueError(f"int8_matmul_fused_kernel: inner dims {K} != "
-                         f"{wq.shape[0]}")
-    _check_int8_gemm("int8_matmul_fused_kernel", M, N, K, wq, False)
+    b = wq.contiguous() if b_kmajor else wq.t().contiguous()
+    _check_int8_gemm("int8_matmul_fused_kernel", M, N, K, b, True)
     ws = ws.reshape(N).float().contiguous()
     check_cuda_operands("int8_matmul_fused_kernel", {"ws": ws}, {},
-                        {"x": x, "wq": wq})
+                        {"x": x, "wq": b})
+    if x.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("int8_matmul_fused_kernel: x and wq must be "
+                         "16-byte aligned")
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
     xs = torch.empty((M,), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     fn = loader.load("int8_matmul").int8_matmul_fused_launch
-    rc = fn(ptr(x), ptr(wq), ptr(xs), ptr(ws), ptr(out), M, N, K,
+    rc = fn(ptr(x), ptr(b), ptr(codes), ptr(xs), ptr(ws), ptr(out), M, N, K,
             stream_ptr(x.device))
     raise_on_error("int8_matmul_fused_kernel", rc)
     INT8_FUSED_COUNTS.launches += 1
@@ -312,10 +323,13 @@ class _QuantizedDense(torch.autograd.Function):
         ctx.impl, ctx.quantize_bwd = impl, quantize_bwd
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        wq, ws = quantize_int8(w, axis=0)
         if impl == "pallas_fused":
-            out = int8_matmul_fused_kernel(x2.contiguous(), wq, ws, x.dtype)
+            # (N, K) codes: bit for bit quantize_int8(w, axis=0)'s transpose
+            wq, ws = quantize_int8(w.t(), axis=-1)
+            out = int8_matmul_fused_kernel(x2.contiguous(), wq.contiguous(),
+                                           ws, x.dtype, b_kmajor=True)
         else:
+            wq, ws = quantize_int8(w, axis=0)
             xq, xs = quantize_int8(x2, axis=-1)
             if impl == "plain":
                 INT8_COUNTS.plain_calls += 1

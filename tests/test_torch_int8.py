@@ -201,6 +201,50 @@ def test_plain_k5_is_bitwise_jax_pallas_interpret(shape, out_dtype):
     assert (_tbits(got) == _bits(ref)).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 48), (208, 40)],
+                         ids=["aligned", "ragged"])
+def test_kmajor_weight_codes_are_the_reference_codes_transposed(shape,
+                                                                dtype):
+    """The training path's K5 weight: ``quantize_int8(w.t(), axis=-1)``
+    gives (N, K) codes and (N, 1) scales, bit for bit the transpose of
+    ``quantize_int8(w, axis=0)`` and of jitted JAX's."""
+    rng = np.random.default_rng(8)
+    w = (rng.standard_normal(shape) * 0.05).astype(np.float32)
+    w[:, 3] = 0.0          # an all-zero column: scale 1, codes 0
+    jq, js = jax.jit(JQ.quantize_int8, static_argnames=("axis",))(
+        jnp.asarray(w, dtype), axis=0)
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    pq, ps = PQ.quantize_int8(tw.t(), axis=-1)
+    rq, rs = PQ.quantize_int8(tw, axis=0)
+    assert pq.shape == shape[::-1] and ps.shape == (shape[1], 1)
+    assert torch.equal(pq, rq.t()) and torch.equal(ps, rs.t())
+    assert (_tbits(pq) == _bits(np.asarray(jq).T)).all()
+    assert (_tbits(ps) == _bits(np.asarray(js).T)).all()
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 256, 128), (40, 48, 24)],
+                         ids=["aligned", "ragged"])
+def test_plain_k5_kmajor_is_bitwise_jax_pallas_interpret(shape, out_dtype):
+    """K5's wrapper with the weight K-major (the training path's layout)
+    against the reference's Pallas kernel on its (K, N) weight."""
+    x, (_, _, wq, ws) = _int8_operands(9, *shape)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    ref = JQ.int8_matmul_pallas_fused(xb, wq, ws,
+                                      out_dtype=jnp.dtype(out_dtype),
+                                      interpret=True)
+    PQ.INT8_FUSED_COUNTS.reset()
+    got = PQ.int8_matmul_fused_kernel(
+        torch.from_numpy(x).to(torch.bfloat16),
+        torch.from_numpy(np.ascontiguousarray(np.asarray(wq).T)),
+        torch.from_numpy(np.array(ws).T), getattr(torch, out_dtype),
+        b_kmajor=True)
+    assert (PQ.INT8_FUSED_COUNTS.launches,
+            PQ.INT8_FUSED_COUNTS.plain_calls) == (0, 1)
+    assert (_tbits(got) == _bits(ref)).all()
+
+
 # ---- quantized_dense --------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -101,6 +101,54 @@ def test_prefill_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
 
 
+def _ragged_case(seed, S, nkv, rep, hd, page, dtype, device):
+    """Three slots over a view V a little past S: slot 0's chunk starts
+    at position 0, slot 1's ends at V - 1, slot 2's lies in between;
+    each slot's row of the page table is padded with the null page 0,
+    and every pool page (the null page too) holds random rows."""
+    rng = np.random.default_rng(seed)
+    P = -(-(S + 70) // page)
+    V, B = P * page, 3
+    n_pages = B * P + 1
+    pk = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    pv = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    qg = rng.standard_normal((B, S, nkv, rep, hd)).astype(np.float32)
+    last = np.array([S - 1, V - 1, int(rng.integers(S, V - 1))])
+    apos = last[:, None] - (S - 1) + np.arange(S)[None, :]
+    perm = rng.permutation(np.arange(1, n_pages))
+    pages = np.zeros((B, P), np.int32)
+    used = 0
+    for b in range(B):
+        n = int(last[b]) // page + 1
+        pages[b, :n] = perm[used:used + n]
+        used += n
+    t = lambda a, dt: torch.as_tensor(a).to(device=device, dtype=dt)
+    return (t(qg, dtype), t(pk, dtype), t(pv, dtype),
+            t(pages, torch.int32), t(apos, torch.int32))
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_prefill_kernel_ragged_shapes_match_plain(cuda, rep, hd, page,
+                                                  dtype):
+    """S = 2·(64 / rep) + 3 chunk rows: the last block of vectors is
+    partly past S, and the key tiles of 64 span pages of 8 or 16."""
+    S = 2 * (64 // rep) + 3
+    args = _ragged_case(10 + rep, S, 2, rep, hd, page, dtype, cuda)
+    FP.COUNTS.reset()
+    got = FP.paged_flash_prefill(*args)
+    torch.cuda.synchronize()
+    assert (FP.COUNTS.launches, FP.COUNTS.plain_calls) == (1, 0)
+    ref = FP.paged_flash_prefill_plain(*args)
+    atol, rtol = FP.TOLERANCE[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    assert torch.equal(got, FP.paged_flash_prefill(*args))
+
+
 @pytest.mark.gpu_port
 def test_kernels_reject_what_they_do_not_take(cuda):
     qg, pk, pv, pages, apos = _case(2, 2, 1, 2, 2, 16, 8, 4, 9,
@@ -340,6 +388,34 @@ def test_int8_kernels_are_bitwise_their_plain_versions(cuda, shape):
     assert torch.equal(k5, Q.int8_matmul_fused_kernel(x, wq, ws))
 
 
+K5_RAGGED = {
+    # name: (M, K, N), K = 16 x an odd number, M and N off the 128 x 256
+    # output tile, K off the 128-byte k-block
+    "odd_n": (200, 16 * 13, 301),
+    "one_k_block": (129, 16 * 7, 257),
+    "few_rows": (7, 16 * 3, 5),
+    "long_k": (300, 16 * 173, 520),
+}
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(K5_RAGGED))
+def test_k5_ragged_shapes_are_bitwise_in_both_layouts(cuda, shape):
+    """K5 with the weight K-major (the training path's layout) and in
+    the reference's (K, N) layout, which the wrapper transposes."""
+    x, _, _, wq, ws = int8_case(7, *K5_RAGGED[shape], cuda)
+    ref = Q.int8_matmul_fused(x, wq, ws, torch.bfloat16)
+    Q.INT8_FUSED_COUNTS.reset()
+    kn = Q.int8_matmul_fused_kernel(x, wq, ws)
+    km = Q.int8_matmul_fused_kernel(x, wq.t().contiguous(), ws.t(),
+                                    b_kmajor=True)
+    torch.cuda.synchronize()
+    assert (Q.INT8_FUSED_COUNTS.launches,
+            Q.INT8_FUSED_COUNTS.plain_calls) == (2, 0)
+    assert torch.equal(kn, ref)
+    assert torch.equal(km, ref)
+
+
 @pytest.mark.gpu_port
 @pytest.mark.parametrize("shape", ["tiny_ragged", "wq_wo"])
 def test_int8_backward_layouts_are_bitwise(cuda, shape):
@@ -428,6 +504,26 @@ def test_int8_wrappers_take_the_plain_versions_on_the_cpu():
                                     pk_s=ks, pv_s=vs)
     assert (PA.Q8_COUNTS.launches, PA.Q8_COUNTS.plain_calls) == (0, 1)
     assert got.dtype == torch.float32 and got.shape == (2, 1, 2, 2, 16)
+
+
+def test_k5_wrapper_takes_either_weight_layout_on_the_cpu():
+    """On the CPU both layouts take the plain version, bit for bit the
+    same; the inner dimension is checked in either layout before the
+    dispatch."""
+    x, _, _, wq, ws = int8_case(5, 40, 48, 24, "cpu")
+    Q.INT8_FUSED_COUNTS.reset()
+    kn = Q.int8_matmul_fused_kernel(x, wq, ws)
+    km = Q.int8_matmul_fused_kernel(x, wq.t().contiguous(), ws.t(),
+                                    b_kmajor=True)
+    assert (Q.INT8_FUSED_COUNTS.launches,
+            Q.INT8_FUSED_COUNTS.plain_calls) == (0, 2)
+    assert kn.shape == km.shape == (40, 24)
+    assert torch.equal(kn, km)
+    with pytest.raises(ValueError, match="inner dims"):
+        Q.int8_matmul_fused_kernel(x, wq[:32], ws)
+    with pytest.raises(ValueError, match="inner dims"):
+        Q.int8_matmul_fused_kernel(x, wq.t().contiguous()[:, :32], ws.t(),
+                                   b_kmajor=True)
 
 
 # ---- K7 chunk product of the FSDP all-gather matmul (FSDP slice) -----------
