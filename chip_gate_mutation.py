@@ -15,12 +15,18 @@ the sound kernel's:
   normalised probabilities (``dts::round_to``); K3's bf16 kernel then
   hands wgmma the probability's upper 16 bits, a truncation instead of
   a round to nearest; the kernel, serve and parity phases run, and K1's,
-  K3's and the decode-logit gates must fail;
+  K3's one-draw and both multi-draw, the prefill-logit and the
+  decode-logit gates must fail;
 - ``k3_diagonal_mask``: K3's mask on the tiles that cross a row's
   position is off by one (``t < apos``), so each row loses its own key;
-  K3's gate must fail;
-- ``fp8_bf16_accumulator``: K6 rounds its f32 accumulator to bf16 after
-  every 128 of K; K6's gate must fail;
+  the same phases run, and K3's one-draw and both multi-draw gates and
+  the prefill-logit gate must fail;
+- ``k3_qk_truncating_add``: K3 adds the k-groups' QKᵀ sums into its f32
+  scores rounding toward zero, as the tensor cores align addends; the
+  same phases run, and K3's count against the f64 oracle (over the plain
+  path's) must fail;
+- ``fp8_bf16_accumulator``: K6 rounds its f32 accumulator to bf16 where
+  it promotes each 128-deep k-block's wgmma sum; K6's gate must fail;
 - ``fa_fwd_bf16_rowsum``: the flash forward sums the row's softmax
   denominator from the bf16-rounded probabilities, not the f32 ones;
   the forward's gate must fail;
@@ -30,8 +36,8 @@ the sound kernel's:
   leaves key tile 1 (64 keys) out of the PV product but not out of the
   row sum, so the logsumexp stays exact; the forward's gate must fail;
 - ``fa_bwd_dv_tile``: in the second half of the keys the dK/dV kernel
-  leaves one query tile (32 queries) out of dV; the backward's gate
-  must fail;
+  leaves one query tile (64 queries) out of its wgmma dV product; the
+  backward's gate must fail;
 - ``k5_slice_absmax``: K5's quantising prologue codes each 128-wide K
   slice of a row with that slice's own absmax instead of the full
   row's; K5's gate and the int8 step-0 parity must fail;
@@ -75,7 +81,8 @@ MUTANTS = [
     ("probs_rounding", "csrc/paged_common.cuh",
      "  return __bfloat162float(__float2bfloat16_rn(x));",
      "  return x;", "serve",
-     ("paged_decode:", "flash_prefill:", "decode logits")),
+     ("paged_decode:", "flash_prefill:", "flash_prefill draws:",
+      "flash_prefill oracle:", "prefill logits", "decode logits")),
     ("fp8_bf16_accumulator", "csrc/fp8_matmul.cu",
      "  return acc + part;",
      f"  return {ROUND.format('acc + part')};", "train",
@@ -94,16 +101,20 @@ MUTANTS = [
      "mma_c_times_tile<HD, kRows / 16>(oacc, s, vs, 0, lane);", "train",
      ("flash_attention_fwd:",)),
     ("fa_bwd_dv_tile", "csrc/flash_attention.cu",
-     "      mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   "
-     "// P^T dO",
-     "      if (q0 != k0 + kSub || k0 < S / 2) "
-     "mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   // P^T dO",
+     "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, true);   // dV, dK",
+     "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, "
+     "q0 != k0 + kQt || k0 < S / 2);   // dV, dK",
      "train", ("flash_attention_bwd:",)),
     ("k3_diagonal_mask", "csrc/flash_prefill.cu",
      "__device__ __forceinline__ bool visible(int t, int ap) "
      "{ return t <= ap; }",
      "__device__ __forceinline__ bool visible(int t, int ap) "
-     "{ return t < ap; }", "kernels", ("flash_prefill:",)),
+     "{ return t < ap; }", "serve",
+     ("flash_prefill:", "flash_prefill draws:", "flash_prefill oracle:",
+      "prefill logits")),
+    ("k3_qk_truncating_add", "csrc/flash_prefill.cu",
+     "  return acc + part;", "  return __fadd_rz(acc, part);", "serve",
+     ("flash_prefill oracle:",)),
     ("k5_slice_absmax", "csrc/int8_matmul.cu",
      "  return s;   // the scale of the full row",
      "  { const float a = slice_amax(row, k & ~127, K); "
@@ -141,7 +152,7 @@ MUTANTS = [
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
-CHILD = {"kernels": """
+CHILD = {"serve": """
 import numpy as np, torch
 import chip_smoke as c
 def check(cond, msg):
@@ -154,19 +165,7 @@ c.loader.build_all()
 rng = np.random.default_rng(c.SEED)
 gen = torch.Generator(device="cuda").manual_seed(c.SEED)
 c.kernel_phase(rng, gen)
-""", "serve": """
-import numpy as np, torch
-import chip_smoke as c
-def check(cond, msg):
-    if not cond:
-        print("[mutant] gate fails:", msg, flush=True)
-c.check = check
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-c.loader.build_all()
-rng = np.random.default_rng(c.SEED)
-gen = torch.Generator(device="cuda").manual_seed(c.SEED)
-c.kernel_phase(rng, gen)
+c.q8_decode_phase(rng, gen)   # the smoke's draws: the same prompts
 params = c.build_params()
 eng, reqs, _ = c.serve_phase(params, rng, c.card_line())
 c.parity_phase(params, reqs, eng)

@@ -16,16 +16,26 @@ Phases, each of which fails the run:
 2. kernels — each kernel against its plain PyTorch version at the shapes
    its path gives it, at the tolerance its module states (K4 and K5 bit
    for bit), and launched twice on the same inputs with bit-equal
-   results; then CUDA-event times of the kernel, the plain version and
-   a library yardstick (SDPA, ``torch._scaled_mm``, ``torch._int_mm``,
-   ``torch.matmul``), beside the card's bound;
+   results; K3 also over ``COMPARE_DRAWS`` draws of its serve shapes
+   from each seed of ``K3_DRAW_SEEDS``, beside an f64 oracle of the
+   reference's arithmetic, with each seed's count of outputs off the
+   plain path gated, and K3's count off the oracle over the plain
+   path's; then CUDA-event times of the
+   kernel, the plain version and a library yardstick (SDPA,
+   ``torch._scaled_mm``, ``torch._int_mm``, ``torch.matmul``), beside
+   the card's bound;
 3. serve — ``ServingEngine`` with K1 and K3 on SMOLLM3_3B (full width,
    all 36 layers, seeded random weights scaled ×3) answers 8 requests;
    launch counts must equal the steps × layers, plain counts must be 0;
 4. parity — against the port's one-shot ``generate`` at the engine's
-   view capacity: first tokens equal, and one decode step's logits
-   through the kernels and through the plain path from one pool state
-   allclose;
+   view capacity: first tokens equal, the prefill logits through K3 and
+   through the plain gather path within ``PREFILL_LOGIT_ATOL`` on the
+   serve's first two prompts and on two prompts from each seed of
+   ``PARITY_PROMPT_SEEDS`` (beside the logits through K3's f64 oracle,
+   a second witness of how far any other summation order moves them),
+   and one
+   decode step's logits through the kernels and through the plain path
+   from one pool state allclose;
 5. train parity — SMOLLM3_3B_L8 at full width and depth, seq 8192: the
    step-0 loss and grads through K6 and the flash attention against the
    plain path (plain fp8 forward, plain attention) on the same params
@@ -71,10 +81,11 @@ when there is no card or when any phase fails.
 
     python3 chip_smoke.py --parent-csrc DIR
 
-builds K3 and K5 from DIR (another commit's ``csrc/``, unpacked under
-the gitignored ``build/``) beside this checkout's, times both in turns
-at the kernel phase's shapes, reads K3's accuracy over several draws,
-prints a ``{"compare": ...}`` line and runs nothing else.
+builds K3, K6 and the flash attention's backward from DIR (another
+commit's ``csrc/``, unpacked under the gitignored ``build/``) beside this
+checkout's, gates both builds against the plain versions (K3 over the
+multi-draw reading too), times both in turns at the kernel phase's
+shapes, prints a ``{"compare": ...}`` line and runs nothing else.
 """
 
 from __future__ import annotations
@@ -88,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -139,8 +151,12 @@ INT8_ENGINE = dict(ENGINE, kv_quant=True, flash_prefill=False)
 PROJECTIONS = [("wq", 2048, 2048), ("wk", 2048, 512), ("wv", 2048, 512),
                ("wo", 2048, 2048), ("w_gate", 2048, 11008),
                ("w_up", 2048, 11008), ("w_down", 11008, 2048)]
-# draws of the serve shapes on which --parent-csrc reads K3's accuracy
+# draws of the serve shapes on which K3's multi-draw gate reads its
+# accuracy (kernel_phase, and --parent-csrc for both builds)
 COMPARE_DRAWS = 10
+# the seeds of K3's multi-draw readings (k3_draws): COMPARE_DRAWS draws
+# each, every seed's count gated on its own
+K3_DRAW_SEEDS = (SEED, SEED + 5)
 # Step-0 parity, kernel path vs plain path on the same params and batch:
 # |loss difference| <= LOSS_ATOL, and every grad leaf's relative L2
 # error <= GRAD_REL_L2; the same without fp8 (bf16 projections, so only
@@ -185,6 +201,23 @@ FSDP_GRAD_REL_L2 = 0.02
 # rounding read 2.81 (one-pass) and 2.13 (``chip_gate_mutation.py``).
 # The limit lies between them.
 LOGIT_ATOL = 1.5
+# The prefill logits through K3 and through the plain gather path (the
+# parity phase's chunked prefill of two prompts into fresh pools): max
+# |difference| <= PREFILL_LOGIT_ATOL, the max over the serve's first two
+# prompts and two prompts from each seed of PARITY_PROMPT_SEEDS.  The
+# plain path equals one-shot generate's bit for bit (the same
+# arithmetic); K3 differs from it where a normalised probability rounds
+# to the neighbouring bf16 value, and 36 layers of x3 weights over up to
+# six chunks amplify each such flip: the f64 oracle pushed through the
+# same prefill, an attention independent of both, reads as far from the
+# plain path.  On an H100 K3 reads 2.0-2.6035 over the five pairs
+# (oracle 1.9375-2.625) at max |logit| 31.75-36.0, argmax unchanged; K3
+# truncating the probabilities reads 3.5625-5.375, K3 losing each row's
+# own key 8.875-12.97 (chip_gate_mutation.py).  The limit lies between.
+PREFILL_LOGIT_ATOL = 3.5
+# the prefill-logit gate's further prompt pairs: two prompts from each
+# seed, of the serve's prompt lengths
+PARITY_PROMPT_SEEDS = (SEED + 6, SEED + 7, SEED + 8, SEED + 9)
 # The same for int8 serving, through K2 and K4 against the plain int8
 # path: K4 is bit-equal to its plain version, so the logits differ only
 # where K2 moves a code of the requantised probabilities.  Set between
@@ -356,7 +389,110 @@ def kernel_phase(rng, gen) -> list[dict]:
         del sd
     del pools
     torch.cuda.empty_cache()
+    k3_draws_reading(FP.paged_flash_prefill)
     return results
+
+
+def k3_draws(seed, n=COMPARE_DRAWS):
+    """``n`` draws of K3's serve shapes (kernel_phase's: 8 slots, each
+    slot's final 256-row chunk of a prompt of 256-1536, a 2048 view),
+    from ``seed``: four pool copies are drawn and the first is read, then
+    each draw's prompt lengths, page table and queries.  The default run
+    and ``--parent-csrc`` read the same draws; yields (qg, pk, pv, pages,
+    apos)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, page = ENGINE["max_batch"], ENGINE["page_size"]
+    P = ENGINE["max_seq_len"] // page
+    nkv, hd = CFG.num_key_value_heads, CFG.resolved_head_dim
+    rep = CFG.num_attention_heads // nkv
+    chunk = ENGINE["prefill_chunk"]
+    pk, pv = _pools(gen, B * P + 1, page, nkv, hd, 4)[0]
+    for _ in range(n):
+        plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
+        apos_np = ((plen - 1) // chunk * chunk)[:, None] + np.arange(chunk)
+        pages = _page_table(rng, apos_np.max(axis=1), page, P, B * P + 1)
+        qg = torch.randn((B, chunk, nkv, rep, hd), generator=gen,
+                         device="cuda", dtype=CFG.dtype)
+        yield (qg, pk, pv, pages,
+               torch.as_tensor(apos_np.astype(np.int32), device="cuda"))
+
+
+def k3_draws_reading(kernels, label="flash_prefill", gated=None) -> dict:
+    """K3 over ``COMPARE_DRAWS`` draws (:func:`k3_draws`) of each seed of
+    ``K3_DRAW_SEEDS``: each kernel of ``kernels`` (one callable, or a
+    dict of named ones) and the plain path against the f64 oracle of the
+    reference's arithmetic, and each kernel against the plain path; per
+    reading the max |difference| over a seed's draws and the count of
+    outputs off by more than atol / 4.  Every output where |kernel -
+    plain| passes atol is logged with |plain - oracle| and |kernel -
+    oracle| there.  Gates each seed's count of ``|kernel - plain|`` at
+    ``FP.DRAW_COUNT_LIMIT`` (the one-draw atol stays kernel_phase's), and
+    the kernel's count against the oracle, summed over the seeds, at
+    ``FP.ORACLE_COUNT_RATIO`` times the plain path's; ``gated`` names
+    the kernels held to the ratio (all by default), the others log it."""
+    kernels = kernels if isinstance(kernels, dict) else {label: kernels}
+    gated = set(kernels) if gated is None else set(gated)
+    atol = FP.TOLERANCE[CFG.dtype][0]
+    th = atol / 4
+    res = {}
+    # outputs off the oracle by more than atol / 4, summed over the seeds
+    vs_oracle = {n: 0 for n in [*kernels, "plain"]}
+    for seed in K3_DRAW_SEEDS:
+        read = {f"{n} - {r}": [0.0, 0] for n in kernels
+                for r in ("oracle", "plain")}
+        read["plain - oracle"] = [0.0, 0]
+        # where |kernel - plain| > atol: (draw, index, kernel - plain,
+        # plain - oracle, kernel - oracle)
+        over = {n: [] for n in kernels}
+        for d, (qg, pk, pv, pages, apos) in enumerate(k3_draws(seed)):
+            orc = FP.paged_flash_prefill_oracle(qg, pk, pv, pages, apos)
+            ref = FP.paged_flash_prefill_plain(qg, pk, pv, pages, apos)
+            outs = {n: fn(qg, pk, pv, pages, apos)
+                    for n, fn in kernels.items()}
+            torch.cuda.synchronize()
+            pairs = [("plain - oracle", ref, orc)]
+            for n, got in outs.items():
+                pairs += [(f"{n} - oracle", got, orc),
+                          (f"{n} - plain", got, ref)]
+                kp = got.double() - ref.double()
+                for i in (kp.abs() > atol).nonzero()[:16].tolist():
+                    i = tuple(i)
+                    over[n].append([d, list(i), float(kp[i]),
+                                    float(ref[i].double() - orc[i]),
+                                    float(got[i].double() - orc[i])])
+            for key, a, b in pairs:
+                read[key][0] = max(read[key][0], float(
+                    (a.double() - b.double()).abs().max()))
+                read[key][1] += FP.off_count(a, b, th)
+            del orc, ref, outs
+        torch.cuda.empty_cache()
+        log(f"{label} over {COMPARE_DRAWS} draws of seed {seed}, (max "
+            f"|difference|, outputs off by > {th}): {json.dumps(read)}; "
+            f"outputs where |kernel - plain| > {atol}, as [draw, index, "
+            f"kernel - plain, plain - oracle, kernel - oracle]: "
+            f"{json.dumps(over)}")
+        vs_oracle["plain"] += read["plain - oracle"][1]
+        for n in kernels:
+            vs_oracle[n] += read[f"{n} - oracle"][1]
+            cnt = read[f"{n} - plain"][1]
+            check(cnt <= FP.DRAW_COUNT_LIMIT,
+                  f"{n} draws: {cnt} outputs off the plain path by more "
+                  f"than {th} over {COMPARE_DRAWS} draws of seed {seed}, "
+                  f"above {FP.DRAW_COUNT_LIMIT}")
+        res[f"seed {seed}"] = {"readings": read, "over_atol": over}
+    ratios = {n: vs_oracle[n] / max(vs_oracle["plain"], 1) for n in kernels}
+    log(f"{label} over the seeds {list(K3_DRAW_SEEDS)}: outputs off the "
+        f"oracle by > {th} {json.dumps(vs_oracle)}; each kernel's count over"
+        f" the plain path's {json.dumps(ratios)} (limit "
+        f"{FP.ORACLE_COUNT_RATIO} for {sorted(gated)})")
+    for n in sorted(gated):
+        check(ratios[n] <= FP.ORACLE_COUNT_RATIO,
+              f"{n} oracle: {vs_oracle[n]} outputs off the f64 oracle by "
+              f"more than {th}, {ratios[n]:.3f} times the plain path's "
+              f"{vs_oracle['plain']}, above {FP.ORACLE_COUNT_RATIO}")
+    res["oracle_counts"], res["oracle_ratio"] = vs_oracle, ratios
+    return res
 
 
 def _q8_pools(gen, n_pages, page, nkv, hd, copies):
@@ -541,6 +677,38 @@ def _prefill(reqs, eng, flash: bool):
     return pool, pages, logits
 
 
+@contextlib.contextmanager
+def _oracle_prefill():
+    """The engine's flash prefill through K3's f64 oracle of the
+    reference's arithmetic, rounded to f32 as K3 returns it (uncounted):
+    a second attention that sums in another order than the plain path,
+    independent of K3."""
+    saved = E.paged_flash_prefill
+    E.paged_flash_prefill = \
+        lambda *a: FP.paged_flash_prefill_oracle(*a).float()
+    try:
+        yield
+    finally:
+        E.paged_flash_prefill = saved
+
+
+def _prefill_logit_readings(pair, eng):
+    """The prefill logits of ``pair`` through K3, the plain gather path
+    and the oracle (:func:`_oracle_prefill`): the readings (max |K3 -
+    plain|, |oracle - plain|, |K3 - oracle|, max |logit|) and K3's pool,
+    page table and logits, and the plain path's logits."""
+    pool, pages, lg_k = _prefill(pair, eng, flash=True)
+    _, _, lg_p = _prefill(pair, eng, flash=False)
+    with _oracle_prefill():
+        _, _, lg_o = _prefill(pair, eng, flash=True)
+    d = lambda a, b: float((a - b).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (lg_k, lg_p, lg_o))
+    read = {"kernel - plain": d(lg_k, lg_p), "oracle - plain": d(lg_o, lg_p),
+            "kernel - oracle": d(lg_k, lg_o),
+            "max |logit|": float(lg_p.abs().max()), "finite": finite}
+    return read, pool, pages, lg_k, lg_p
+
+
 def _pool_tensors(pool):
     b = pool.bufs
     return [*b.k, *b.v, *(b.k_scale or ()), *(b.v_scale or ())]
@@ -593,16 +761,37 @@ def parity_phase(params, reqs, eng):
                 r.prompt[None], device="cuda").long(), CFG, cache, 0)
         cache_logits.append(lg[0])
     lg_gen = torch.stack(cache_logits)
-    pool, pages, lg_k = _prefill(pair, eng, flash=True)
-    _, _, lg_p = _prefill(pair, eng, flash=False)
+    read, pool, pages, lg_k, lg_p = _prefill_logit_readings(pair, eng)
     d = lambda a, b: float((a - b).abs().max())
-    log(f"parity prefill logits: |kernel - plain| {d(lg_k, lg_p):.4f}, "
-        f"|kernel - generate| {d(lg_k, lg_gen):.4f}, |plain - generate| "
-        f"{d(lg_p, lg_gen):.4f}; max |logit| {float(lg_p.abs().max()):.2f}"
-        f"; top1-top2 gap (generate) {_gap(lg_gen)}; argmax kernel "
+    log(f"parity prefill logits: |kernel - plain| "
+        f"{read['kernel - plain']:.4f}, |oracle - plain| "
+        f"{read['oracle - plain']:.4f}, |kernel - oracle| "
+        f"{read['kernel - oracle']:.4f}, |kernel - generate| "
+        f"{d(lg_k, lg_gen):.4f}, |plain - generate| {d(lg_p, lg_gen):.4f}"
+        f"; max |logit| {read['max |logit|']:.2f}; top1-top2 gap "
+        f"(generate) {_gap(lg_gen)}; argmax kernel "
         f"{lg_k.argmax(-1).tolist()} plain {lg_p.argmax(-1).tolist()} "
         f"generate {lg_gen.argmax(-1).tolist()} engine "
         f"{[r.tokens[0] for r in pair]}")
+    reads = {"serve": read}
+    for seed in PARITY_PROMPT_SEEDS:
+        prng = np.random.default_rng(seed)
+        prompts = [prng.integers(1, CFG.vocab_size, size=int(prng.integers(
+            PROMPT_LEN[0], PROMPT_LEN[1] + 1))).astype(np.int32)
+            for _ in range(2)]
+        reads[f"seed {seed}"] = _prefill_logit_readings(
+            [types.SimpleNamespace(prompt=p, n_prompt=len(p))
+             for p in prompts], eng)[0]
+        torch.cuda.empty_cache()
+    log(f"parity prefill logits by prompt pair (the serve's first two, "
+        f"then two prompts from each seed): {json.dumps(reads)}")
+    pre_err = max(r["kernel - plain"] for r in reads.values())
+    if not all(r["finite"] for r in reads.values()):
+        failures.append("non-finite prefill logits")
+    if not pre_err <= PREFILL_LOGIT_ATOL:
+        failures.append(f"prefill logits kernel vs plain: max abs diff "
+                        f"{pre_err} over atol {PREFILL_LOGIT_ATOL} (max "
+                        f"over the prompt pairs)")
     toks = lg_k.argmax(-1).to(torch.int32)
     lengths = torch.as_tensor([r.n_prompt for r in pair], dtype=torch.int32,
                               device="cuda")
@@ -817,6 +1006,10 @@ def fp8_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     M = TRAIN["seq"] * TRAIN["bs"]
     atol, rtol = Q.TOLERANCE[torch.bfloat16]
+
+    def k6(aq, a_s, bt, b_s):
+        return Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
+
     tot = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, flops=0.0)
     err = ratio = 0.0
     times = {}
@@ -828,28 +1021,29 @@ def fp8_phase() -> dict:
                     torch.bfloat16)
                 w = (torch.randn((K, N), generator=gen, device="cuda")
                      * 0.02).to(torch.bfloat16)
-                ops.append((*Q.quantize_fp8(x), *Q.quantize_fp8(w)))
-            aq, a_s, bq, b_s = ops[0]
-            got = Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
-            ref = Q.fp8_matmul(aq, a_s, bq, b_s, torch.bfloat16)
+                # the weight's codes K-major, as the training path
+                # quantises them
+                ops.append((*Q.quantize_fp8(x), *Q.quantize_fp8_kmajor(w)))
+            aq, a_s, bt, b_s = ops[0]
+            got = k6(aq, a_s, bt, b_s)
+            ref = Q.fp8_matmul(aq, a_s, bt.t(), b_s, torch.bfloat16)
             e = float((got.float() - ref.float()).abs().max())
             r = gate_ratio(got, ref, atol, rtol)
-            _twice_equal("fp8_matmul", lambda: Q.fp8_matmul_kernel(
-                aq, a_s, bq, b_s))
+            _twice_equal("fp8_matmul", lambda: k6(aq, a_s, bt, b_s))
             check(torch.isfinite(got).all(), "fp8_matmul: non-finite output")
             check(r <= 1.0, f"fp8_matmul: ({M}, {K}) x ({K}, {N}) max |kernel"
                   f" - plain| = {e} over atol {atol} rtol {rtol} (gate "
                   f"ratio {r:.3f})")
             it = iter(range(10 ** 9))
             cyc = lambda: ops[next(it) % len(ops)]
-            k_ms = time_ms(lambda: Q.fp8_matmul_kernel(*cyc()))
-            p_ms = time_ms(lambda: Q.fp8_matmul(*cyc(), torch.bfloat16),
-                           iters=5)
-            # the library's layout: B column-major, made outside the timing
-            lib = [(a, b.t().contiguous().t(), sa, sb) for a, sa, b, sb in ops]
-            l_ms = time_ms(lambda: torch._scaled_mm(
-                *lib[next(it) % len(lib)], out_dtype=torch.bfloat16))
-            del ops, lib, got, ref
+            k_ms = time_ms(lambda: k6(*cyc()))
+            p_ms = time_ms(lambda: (lambda a, sa, b, sb: Q.fp8_matmul(
+                a, sa, b.t(), sb, torch.bfloat16))(*cyc()), iters=5)
+            # the library's layout, B column-major, is the K-major codes'
+            # transposed view
+            l_ms = time_ms(lambda: (lambda a, sa, b, sb: torch._scaled_mm(
+                a, b.t(), sa, sb, out_dtype=torch.bfloat16))(*cyc()))
+            del ops, got, ref
             times[(K, N)] = (k_ms, p_ms, l_ms, e, r)
             log(f"fp8_matmul ({M}, {K}) x ({K}, {N}): max_abs_err {e:.3e}, "
                 f"gate ratio {r:.4f} (atol {atol}, rtol {rtol}); kernel "
@@ -860,9 +1054,9 @@ def fp8_phase() -> dict:
         tot["k"] += k_ms
         tot["p"] += p_ms
         tot["l"] += l_ms
-        # fp8 operands read once, bf16 output written once, and the
-        # wrapper's K-major copy of the weight read and written
-        tot["nbytes"] += M * K + K * N + 2 * M * N + 2 * K * N
+        # fp8 operands read once, bf16 output written once (the weight
+        # arrives K-major: no copy)
+        tot["nbytes"] += M * K + K * N + 2 * M * N
         tot["flops"] += 2 * M * K * N
     b_ms, b_by = bound(tot["nbytes"], tot["flops"], PEAK_FP8_FLOPS)
     log(f"fp8_matmul, one layer's 7 projections: kernel {tot['k']:.4f} ms, "
@@ -1618,14 +1812,14 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
-    """K3's and K5's libraries built from another commit's ``csrc`` (one
-    nvcc each, in parallel) into ``build/parent_kernels``, with that
-    commit's C signatures (K5 then took a (K, N) weight and no code
-    scratch)."""
+    """K3's, K6's and the flash attention's libraries built from another
+    commit's ``csrc`` (one nvcc each, in parallel) into
+    ``build/parent_kernels``, with that commit's C signatures (K6 then
+    took no bf16 scratch)."""
     out = loader.BUILD_DIR.parent / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("flash_prefill", "int8_matmul"):
+    for name in ("flash_prefill", "fp8_matmul", "flash_attention"):
         so = out / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [loader._nvcc(), *loader.NVCC_FLAGS, f"-I{csrc}", "-o", str(so),
@@ -1636,11 +1830,12 @@ def _parent_libs(csrc: Path) -> dict:
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"parent {name}: nvcc failed:\n{text}")
         libs[name] = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs["flash_prefill"].flash_prefill_launch.argtypes = [P] * 6 + [I] * 8 \
         + [P]
-    libs["int8_matmul"].int8_matmul_fused_launch.argtypes = [P] * 5 \
-        + [I] * 3 + [P]
+    libs["fp8_matmul"].fp8_matmul_launch.argtypes = [P] * 5 + [I] * 3 + [P]
+    libs["flash_attention"].flash_attn_bwd_launch.argtypes = [P] * 10 \
+        + [I] * 5 + [F, P]
     return libs
 
 
@@ -1652,12 +1847,15 @@ def _turns(old, new) -> tuple[list, list]:
 
 
 def parent_compare_phase(csrc: Path) -> dict:
-    """K3 at the kernel phase's serve shapes and K5 at one layer's seven
-    projections (M = 8192), each built from this checkout and from
-    ``csrc`` (another commit's sources), timed in one process in turns
-    (old, new, new, old).  K5 of both must be bit-equal to its plain
-    version; K3's max |kernel - plain| is read on ``COMPARE_DRAWS``
-    draws of the serve shapes and logged."""
+    """K3 at the kernel phase's serve shapes, K6 at one layer's seven
+    projections (M = 8192) and the flash attention's backward at the
+    training shape (B 1, S 8192, 16 / 4 heads, hd 128), each built from
+    this checkout and from ``csrc`` (another commit's sources) and timed
+    in one process in turns (old, new, new, old).  Both builds are gated
+    against their plain versions at their modules' tolerances; K3 over
+    the multi-draw reading (:func:`k3_draws_reading`) as well, whose
+    count against the oracle gates the change and is logged for the
+    parent."""
     libs = _parent_libs(csrc)
     ptr, stream = (lambda t: ctypes.c_void_p(t.data_ptr())), (
         lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -1678,53 +1876,34 @@ def parent_compare_phase(csrc: Path) -> dict:
     pages = _page_table(rng, apos_np.max(axis=1), page, P, B * P + 1)
     qg = torch.randn((B, chunk, nkv, rep, hd), generator=gen, device="cuda",
                      dtype=CFG.dtype)
-    out = torch.empty((B, chunk, nkv, rep, hd), device="cuda")
-    it = iter(range(10 ** 9))
 
-    def old_k3():
-        k, v = pools[next(it) % 4]
+    def old_k3_on(qg, pk, pv, pages, apos):
+        out = torch.empty(qg.shape, device="cuda")
         rc = libs["flash_prefill"].flash_prefill_launch(
-            ptr(qg), ptr(k), ptr(v), ptr(pages), ptr(apos), ptr(out), B,
-            chunk, P, page, nkv, rep, hd, 1, stream())
+            ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos), ptr(out),
+            qg.shape[0], qg.shape[1], pages.shape[1], pk.shape[1], nkv, rep,
+            hd, 1, stream())
         check(rc == 0, f"parent flash_prefill: CUDA error {rc}")
         return out
 
-    def new_k3():
-        return FP.paged_flash_prefill(qg, *pools[next(it) % 4], pages, apos)
-
     it = iter(range(10 ** 9))
-    old, new = _turns(old_k3, new_k3)
+    old, new = _turns(
+        lambda: old_k3_on(qg, *pools[next(it) % 4], pages, apos),
+        lambda: FP.paged_flash_prefill(qg, *pools[next(it) % 4], pages,
+                                       apos))
     res["flash_prefill"] = {"parent_ms": old, "change_ms": new}
     log(f"compare flash_prefill (serve shapes): parent {old} ms, change "
         f"{new} ms (turns: parent, change, change, parent)")
-    # accuracy over COMPARE_DRAWS draws of the same shapes (the gate of
-    # the default run reads one): each kernel's max |kernel - plain| and
-    # its count of outputs off by more than atol / 4, logged, not gated
-    atol = FP.TOLERANCE[CFG.dtype][0]
-    errs = {"parent": [], "change": []}
-    for d in range(COMPARE_DRAWS):
-        if d:
-            plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
-            apos_np = ((plen - 1) // chunk * chunk)[:, None] \
-                + np.arange(chunk)
-            apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
-            pages = _page_table(rng, apos_np.max(axis=1), page, P,
-                                B * P + 1)
-            qg = torch.randn((B, chunk, nkv, rep, hd), generator=gen,
-                             device="cuda", dtype=CFG.dtype)
-        ref = FP.paged_flash_prefill_plain(qg, *pools[0], pages, apos)
-        for nm, fn in (("parent", old_k3), ("change", new_k3)):
-            it = iter(range(0, 10 ** 9, 4))   # pool 0
-            diff = (fn() - ref).abs()
-            errs[nm].append((float(diff.max()), int((diff > atol / 4).sum())))
-    res["flash_prefill"]["max_abs_err_and_count"] = errs
-    log(f"compare flash_prefill over {COMPARE_DRAWS} draws, (max |kernel - "
-        f"plain|, outputs off by > {atol / 4}): {json.dumps(errs)}")
-    del pools, ref
+    del pools
     torch.cuda.empty_cache()
+    res["flash_prefill"].update(k3_draws_reading(
+        {"parent": old_k3_on, "change": FP.paged_flash_prefill},
+        "compare flash_prefill", gated=("change",)))
 
-    # K5, one layer's seven projections
+    # K6, one layer's seven projections; the weight's codes K-major, the
+    # layout both builds' C functions take
     M, bf16 = TRAIN["seq"] * TRAIN["bs"], torch.bfloat16
+    atol, rtol = Q.TOLERANCE[bf16]
     tot_old, tot_new = [0.0, 0.0], [0.0, 0.0]
     for name, K, N in PROJECTIONS:
         sets = []
@@ -1732,52 +1911,97 @@ def parent_compare_phase(csrc: Path) -> dict:
             x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
             w = (torch.randn((K, N), generator=gen, device="cuda")
                  * 0.02).to(bf16)
-            wq, ws = Q.quantize_int8(w, axis=0)
-            wq_t, ws_t = Q.quantize_int8(w.t(), axis=-1)
-            sets.append((x, wq, ws.reshape(N).contiguous(),
-                         wq_t.contiguous(), ws_t))
-        xs = torch.empty((M,), device="cuda")
-        o5 = torch.empty((M, N), device="cuda", dtype=bf16)
+            sets.append((*Q.quantize_fp8(x), *Q.quantize_fp8_kmajor(w)))
+        o6 = torch.empty((M, N), device="cuda", dtype=bf16)
         it = iter(range(10 ** 9))
 
-        def old_k5():
-            x, wq, ws, _, _ = sets[next(it) % 3]
-            rc = libs["int8_matmul"].int8_matmul_fused_launch(
-                ptr(x), ptr(wq), ptr(xs), ptr(ws), ptr(o5), M, N, K,
+        def old_k6():
+            aq, a_s, bt, b_s = sets[next(it) % 3]
+            rc = libs["fp8_matmul"].fp8_matmul_launch(
+                ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(o6), M, N, K,
                 stream())
-            check(rc == 0, f"parent int8_matmul_fused: CUDA error {rc}")
-            return o5
+            check(rc == 0, f"parent fp8_matmul: CUDA error {rc}")
+            return o6
 
-        def new_k5():
-            x, _, _, wq_t, ws_t = sets[next(it) % 3]
-            return Q.int8_matmul_fused_kernel(x, wq_t, ws_t, b_kmajor=True)
+        def new_k6():
+            aq, a_s, bt, b_s = sets[next(it) % 3]
+            return Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
 
-        ref = Q.int8_matmul_fused(sets[0][0], sets[0][1],
-                                  sets[0][2].reshape(1, N), bf16)
-        for nm, fn in (("parent", old_k5), ("change", new_k5)):
+        aq, a_s, bt, b_s = sets[0]
+        ref = Q.fp8_matmul(aq, a_s, bt.t(), b_s, bf16)
+        ratios = {}
+        for nm, fn in (("parent", old_k6), ("change", new_k6)):
             it = iter(range(0, 10 ** 9, 3))
-            _gate_bitwise(f"compare int8_matmul_fused {nm}",
-                          f"({M}, {K}) x ({K}, {N})", fn(), ref)
+            ratios[nm] = gate_ratio(fn(), ref, atol, rtol)
+            check(ratios[nm] <= 1.0, f"compare fp8_matmul {nm}: ({M}, {K}) x "
+                  f"({K}, {N}) gate ratio {ratios[nm]:.3f}")
         it = iter(range(10 ** 9))
-        old, new = _turns(old_k5, new_k5)
+        old, new = _turns(old_k6, new_k6)
         tot_old = [a + b for a, b in zip(tot_old, old)]
         tot_new = [a + b for a, b in zip(tot_new, new)]
-        log(f"compare int8_matmul_fused {name} ({M}, {K}) x ({K}, {N}): "
-            f"parent {old} ms, change {new} ms")
+        log(f"compare fp8_matmul {name} ({M}, {K}) x ({K}, {N}): parent "
+            f"{old} ms, change {new} ms; gate ratios {json.dumps(ratios)}")
         del sets, ref
         torch.cuda.empty_cache()
-    res["int8_matmul_fused"] = {"parent_ms": tot_old, "change_ms": tot_new}
-    log(f"compare int8_matmul_fused, one layer's 7 projections: parent "
-        f"{tot_old} ms, change {tot_new} ms")
+    res["fp8_matmul"] = {"parent_ms": tot_old, "change_ms": tot_new}
+    log(f"compare fp8_matmul, one layer's 7 projections: parent {tot_old} "
+        f"ms, change {tot_new} ms")
+
+    # the flash attention's backward at the training shape, from the
+    # change's forward (the forward is the same code in both)
+    Bt, S = TRAIN["bs"], TRAIN["seq"]
+    nq, nkv_t = TRAIN_CFG.num_attention_heads, TRAIN_CFG.num_key_value_heads
+    scale = hd ** -0.5
+    mk = lambda n: torch.randn((Bt, S, n, hd), generator=gen,  # noqa: E731
+                               device="cuda").to(bf16)
+    sets = []
+    for _ in range(3):
+        q, k, v, do = mk(nq), mk(nkv_t), mk(nkv_t), mk(nq)
+        sets.append((q, k, v, *FA.flash_attention_fwd(q, k, v, scale), do))
+    it = iter(range(10 ** 9))
+
+    def old_bwd():
+        q, k, v, o, lse, do = sets[next(it) % 3]
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dvec = torch.empty_like(lse)
+        rc = libs["flash_attention"].flash_attn_bwd_launch(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec),
+            ptr(dq), ptr(dk), ptr(dv), Bt, S, nq, nkv_t, hd, scale, stream())
+        check(rc == 0, f"parent flash_attention_bwd: CUDA error {rc}")
+        return dq, dk, dv
+
+    def new_bwd():
+        return FA.flash_attention_bwd(*sets[next(it) % 3], scale)
+
+    q, k, v, _, _, do = sets[0]
+    ref_g = FA.flash_attention_bwd_plain(q, k, v, do, scale)
+    ratios = {}
+    for nm, fn in (("parent", old_bwd), ("change", new_bwd)):
+        it = iter(range(0, 10 ** 9, 3))
+        ratios[nm] = max(_fa_reading(f"compare flash_attention_bwd {nm}", g,
+                                     got, r, "bwd")[1]
+                         for g, got, r in zip(("dq", "dk", "dv"), fn(), ref_g))
+        check(ratios[nm] <= 1.0, f"compare flash_attention_bwd {nm}: gate "
+              f"ratio {ratios[nm]:.3f}")
+    del ref_g
+    it = iter(range(10 ** 9))
+    old, new = _turns(old_bwd, new_bwd)
+    res["flash_attention_bwd"] = {"parent_ms": old, "change_ms": new,
+                                  "gate_ratio": ratios}
+    log(f"compare flash_attention_bwd (B {Bt}, S {S}, {nq}/{nkv_t} heads): "
+        f"parent {old} ms, change {new} ms; gate ratios {json.dumps(ratios)}")
+    del sets
+    torch.cuda.empty_cache()
     return res
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="time K3 and K5 built from this csrc directory (an "
-                    "unpacked parent commit) against this checkout's, in "
-                    "turns, and run nothing else")
+                    help="time K3, K6 and the flash attention's backward "
+                    "built from this csrc directory (an unpacked parent "
+                    "commit) against this checkout's, in turns, and run "
+                    "nothing else")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",

@@ -16,29 +16,42 @@
 // D = rowsum(dO * O), dV = P^T dO, dS = P * (dO V^T - D),
 // dQ = scale * dS K, dK = scale * dS^T Q.
 //
-// What bounds it on an H100: operations.  At S = 8192, hd = 128 a block
-// reuses each staged K/V row for 64 query rows, ~2·64 flops per byte, and
-// the causal work is 2·B·nq·S²·hd flops forward (2.5x that backward).
-// This first version runs its products on the bf16 tensor cores through
-// mma.sync m16n8k16 with f32 accumulation; wgmma, TMA and warp
-// specialisation are later work (ROADMAP.md).
+// What bounds it on an H100: operations.  At S = 8192, hd = 128 the
+// causal work is 2·B·nq·S²·hd flops forward (2.5x that backward, 3.5x
+// as this backward computes it: dQ forms S and dP again), against a few
+// passes over 8 MB tensors.  Only wgmma reaches the bf16 tensor cores'
+// 989 TFLOP/s.
 //
-// Design.  Forward: one block of 4 warps per (query tile of 64 rows,
-// query head, batch), 16 query rows a warp, Q fragments in registers,
-// the tiles issued longest first.  It walks the causal key tiles of 64
-// (tiles above the diagonal are never visited), staging K and V with
-// cp.async (rows past S zero-filled, and masked), and keeps an online
-// softmax: running max m and sum l per row, the accumulator rescaled by
-// exp(m_old - m_new).  exp(s - m) is rounded to bf16 to enter the PV
-// product, while l sums the f32 values.  Backward: three kernels, no
-// float atomics, so a run repeats to the last digit: D per row; dK and
-// dV per (key tile of 64, kv head, batch), looping over the group's
-// query heads and the causal query tiles of 32 with both accumulators
-// in registers; dQ per (query tile of 64, query head, batch), looping
-// over the causal key tiles of 32.  Shared rows are padded to hd + 8
-// elements, which keeps fragment loads and ldmatrix free of bank
-// conflicts.
+// Design.  Forward (not yet redesigned; ROADMAP.md): mma.sync m16n8k16
+// with f32 accumulation, one block of 4 warps per (query tile of 64
+// rows, query head, batch), 16 query rows a warp, Q fragments in
+// registers, the tiles issued longest first.  It walks the causal key
+// tiles of 64 (tiles above the diagonal are never visited), staging K
+// and V with cp.async into rows padded to hd + 8 elements (rows past S
+// zero-filled, and masked), and keeps an online softmax: running max m
+// and sum l per row, the accumulator rescaled by exp(m_old - m_new).
+// exp(s - m) is rounded to bf16 to enter the PV product, while l sums
+// the f32 values.
 //
+// Backward, for Hopper: three kernels, no float atomics, so a run
+// repeats to the last digit.  D per row (one warp a row).  dK and dV per
+// (64 keys, kv head, batch): one warpgroup holds dK and dV (64 x 128 f32
+// each) in registers while the group's query heads and causal query
+// tiles of 64 stream through a 2-stage ring (Q and dO by TMA, 128-byte
+// swizzled; their logsumexp and D); keys are wgmma's M, so Sᵀ = K Qᵀ and
+// dPᵀ = V dOᵀ (m64n64k16, both operands K-major in shared memory, the
+// two chains interleaved) come out in the A-operand register layout,
+// where Pᵀ and dSᵀ are rounded to bf16 and fed from registers to dV +=
+// Pᵀ dO and dK += dSᵀ Q (m64n128k16, dO and Q read MN-major through the
+// descriptor's transpose).  dQ per (64 queries, query head, batch): Q
+// and dO resident, the causal key tiles of 64 (K, V) through the same
+// kind of ring, S and dP again, dQ += dS K with K read MN-major.  Two
+// blocks share an SM.  The last query tiles see the most keys and are
+// launched first; ragged S and the diagonal are masked element by
+// element.  What bounds it in practice is latency: a block's steps
+// (wait for the tile, both score chains, the exponentials, the dV / dK
+// chains) run in turn, and two blocks an SM hide only part of it.
+
 // Numerics vs the plain path (transformer._attention_xla): the plain
 // path rounds the NORMALISED probabilities to bf16 before PV; this
 // kernel rounds exp(s - m_running) and divides at the end.  Expect
@@ -49,12 +62,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;   // 4 warps
-constexpr int kRows = 64;       // forward query tile, dK/dV key tile, dQ query tile
-constexpr int kSub = 32;        // dK/dV query tile, dQ key tile
+constexpr int kRows = 64;       // forward query and key tile
 
 // the row sum l takes each probability as computed, in f32
 __device__ __forceinline__ float lsum_term(float p) { return p; }
@@ -320,200 +334,415 @@ fa_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   if (lane == 0) dvec[(static_cast<int64_t>(b) * G.nq + h) * G.S + s] = acc;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// ---- dK/dV and dQ on wgmma.  One warpgroup a block, two blocks an SM
+// (a block's dK and dV, or dQ, take most of its 255 registers a thread;
+// two independent blocks hide each other's serial steps better than two
+// warpgroups of one block that meet at every ring step).  The streamed
+// tiles come through a 2-stage ring of TMA loads (4-D maps over (B, S,
+// heads, hd), zeros past S) that one thread issues, completing on an
+// mbarrier a stage; the block's resident tiles come by cp.async.  A 64
+// x 128 bf16 tile is two 128-byte swizzled column blocks of 64 rows x
+// 128 bytes (hopper.cuh); the same tile serves as a K-major operand (a
+// product over hd) and as an MN-major B (a product over its rows, the
+// descriptor's transpose).
+
+constexpr int kWgThreads = 128;  // one warpgroup a block
+constexpr int kBlocksPerSm = 2;   // what registers and shared memory allow
+constexpr int kBwdStages = 2;     // ring depth
+constexpr int kQt = 64;           // dK/dV: queries a ring step
+constexpr int kKt = 64;           // dQ: keys a ring step
+
+// bytes of a rows x 128 bf16 tile, and its column block cb
+__host__ __device__ constexpr int tile_bytes(int rows) { return rows * 256; }
+__device__ __forceinline__ uint8_t* col_block(uint8_t* t, int rows, int cb) {
+  return t + cb * rows * 128;
+}
+
+// 4 bytes from src to shared dst (zeros where !valid)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hop::smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Issue the copies of rows [s0, s0 + R) of head hh of a (B, S, nh, 128)
+// tensor into the swizzled tile dst (rows past S are zeros), spread over
+// the block's threads.
+template <int R>
+__device__ __forceinline__ void load_tile(uint8_t* dst,
+                                          const bf16* __restrict__ src,
+                                          int b, int S, int nh, int hh,
+                                          int s0) {
+  for (int i = threadIdx.x; i < R * 16; i += kWgThreads) {
+    const int r = i / 16, c = i % 16, s = s0 + r;
+    const bool ok = s < S;
+    const bf16* p =
+        ok ? src + ((static_cast<int64_t>(b) * S + s) * nh + hh) * 128 + c * 8
+           : src;
+    hop::cp_async16(col_block(dst, R, c / 8) + hop::sw128(r, c % 8), p, ok);
+  }
+}
+
+// Descriptor of k16 step kk of a product over hd of a 64-row tile
+// (K-major operand)
+__device__ __forceinline__ uint64_t over_hd(const uint8_t* t, int kk) {
+  return hop::sw128_desc(t + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// Descriptor of k16 step kk of a product over the tile's 64 rows, B (16
+// rows x 128 of hd) MN-major
+__device__ __forceinline__ uint64_t over_rows(const uint8_t* t, int kk) {
+  return hop::sw128_desc(t + kk * 16 * 128, 64 * 128, 1024);
+}
+
+// d1 = A1 · B1ᵀ and d2 = A2 · B2ᵀ over hd, each operand a 64-row tile:
+// the two chains of 8 wgmma k16 steps interleaved, so that neither
+// waits on its own last step
+__device__ __forceinline__ void scores64x2(float (&d1)[32], const uint8_t* a1,
+                                           const uint8_t* b1,
+                                           float (&d2)[32], const uint8_t* a2,
+                                           const uint8_t* b2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d1[i] = d2[i] = 0.f;
+  hop::fence_regs(d1);
+  hop::fence_regs(d2);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    hop::wgmma_m64n64k16_bf16_ss(d1, over_hd(a1, kk), over_hd(b1, kk));
+    hop::wgmma_m64n64k16_bf16_ss(d2, over_hd(a2, kk), over_hd(b2, kk));
+  }
+}
+
+// acc (64 x 128) += A (64 x 64, bf16 fragments in registers) times the
+// 64-row tile t (rows the contraction, hd the columns)
+__device__ __forceinline__ void acc_rows(float (&acc)[64],
+                                         const uint32_t (&a)[4][4],
+                                         const uint8_t* t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_m64n128k16_bf16_rs_tb(acc, a[kk], over_rows(t, kk));
+}
+
+// dV += Pᵀ dO (where with_dv) and dK += dSᵀ Q over one query tile, the
+// two chains interleaved
+__device__ __forceinline__ void accumulate_dv_dk(
+    float (&dva)[64], const uint32_t (&pa)[4][4], const uint8_t* dos,
+    float (&dka)[64], const uint32_t (&da)[4][4], const uint8_t* qs,
+    bool with_dv) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (with_dv)
+      hop::wgmma_m64n128k16_bf16_rs_tb(dva, pa[kk], over_rows(dos, kk));
+    hop::wgmma_m64n128k16_bf16_rs_tb(dka, da[kk], over_rows(qs, kk));
+  }
+}
+
+// Accumulator element e of a 64 x 64 score tile: row 16 warp + lane / 4
+// + 8 ((e / 2) % 2), column 8 (e / 4) + 2 (lane % 4) + e % 2; elements
+// 8 kk .. 8 kk + 7 are the A fragment of columns 16 kk .. 16 kk + 15.
+__device__ __forceinline__ int acc_row(int e, int lane, int warp) {
+  return 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int e, int lane) {
+  return 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+}
+
+// dK and dV: one block per (64 keys, kv head, batch); the group's query
+// heads and the causal query tiles of 64 stream through the ring (Q and
+// dO by TMA, their logsumexp and D by cp.async).  Keys are the M
+// dimension: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ land in the A layout, where Pᵀ
+// and dSᵀ are rounded to bf16 for dV += Pᵀ dO and dK += dSᵀ Q.
+constexpr int kKvKeys = 64;
+constexpr int kKvStage =
+    ((2 * tile_bytes(kQt) + 2 * kQt * 4 + 1023) / 1024) * 1024;
+constexpr int kKvSmem =
+    2 * tile_bytes(kKvKeys) + kBwdStages * (kKvStage + 8) + 1008;
+
+__global__ void __launch_bounds__(kWgThreads, kBlocksPerSm)
+fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const float* __restrict__ lse,
                    const float* __restrict__ dvec, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, Geom G) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kRows * LD;
-  bf16* qs = vs + kRows * LD;
-  bf16* dos = qs + kSub * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + kSub * LD);
-  float* d_s = lse_s + kSub;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const ks = hop::align1024(smem_raw);
+  uint8_t* const vs = ks + tile_bytes(kKvKeys);
+  auto stage = [&](int j) {
+    return vs + tile_bytes(kKvKeys) + (j % kBwdStages) * kKvStage;
+  };
   const int S = G.S, rep = G.nq / G.nkv;
-  const int k0 = blockIdx.x * kRows;   // early keys have the most queries
+  const int k0 = blockIdx.x * kKvKeys;   // early keys have the most queries
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wr = warp * 16;
-  const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32;
+  const int n_qt = (S - k0 + kQt - 1) / kQt;
+  const int n_items = rep * n_qt;
+  // the ring's TMA completions, one a stage, after the ring
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      vs + tile_bytes(kKvKeys) + kBwdStages * kKvStage);
 
-  load_rows<HD, kRows>(ks, k, b, S, G.nkv, kh, k0);
-  load_rows<HD, kRows>(vs, v, b, S, G.nkv, kh, k0);
-  cp_async_commit();
+  if (tid == 0) {
+    for (int i = 0; i < kBwdStages; ++i) hop::mbar_init(&full[i], 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  load_tile<kKvKeys>(ks, k, b, S, G.nkv, kh, k0);
+  load_tile<kKvKeys>(vs, v, b, S, G.nkv, kh, k0);
+  hop::cp_async_commit();
 
-  float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-
-  for (int r = 0; r < rep; ++r) {
-    const int h = kh * rep + r;
-    for (int q0 = k0; q0 < S; q0 += kSub) {
-      __syncthreads();   // the previous query tile is consumed
-      load_rows<HD, kSub>(qs, q, b, S, G.nq, h, q0);
-      load_rows<HD, kSub>(dos, dout, b, S, G.nq, h, q0);
-      cp_async_commit();
-      if (threadIdx.x < kSub) {
-        const int s = q0 + threadIdx.x;
+  // ring step j: query head kh * rep + j / n_qt, queries from
+  // k0 + 64 (j % n_qt): Q and dO by TMA (one thread), then the
+  // logsumexp and D of each query by cp.async
+  auto issue = [&](int j) {
+    if (j < n_items) {
+      const int h = kh * rep + j / n_qt, q0 = k0 + (j % n_qt) * kQt;
+      uint8_t* st = stage(j);
+      if (tid == 0) {
+        uint64_t* bar = &full[j % kBwdStages];
+        hop::mbar_expect_tx(bar, 2 * tile_bytes(kQt));
+        for (int cb = 0; cb < 2; ++cb) {
+          hop::tma_load_4d(col_block(st, kQt, cb), &tq, bar, 64 * cb, h, q0,
+                           b);
+          hop::tma_load_4d(col_block(st + tile_bytes(kQt), kQt, cb), &tdo,
+                           bar, 64 * cb, h, q0, b);
+        }
+      }
+      float* ls = reinterpret_cast<float*>(st + 2 * tile_bytes(kQt));
+      if (tid < 2 * kQt) {
+        const int r = tid % kQt, s = q0 + r;
         const int64_t i = (static_cast<int64_t>(b) * G.nq + h) * S + s;
-        lse_s[threadIdx.x] = s < S ? lse_in(lse[i]) : 0.f;
-        d_s[threadIdx.x] = s < S ? dvec[i] : 0.f;
+        cp_async4(ls + tid, (tid < kQt ? lse : dvec) + (s < S ? i : 0),
+                  s < S);
       }
-      cp_async_wait<0>();
-      __syncthreads();
-
-      // S^T (this warp's 16 keys x 32 queries) = K Q^T, then P^T
-      float st[kSub / 8][4], dpt[kSub / 8][4];
-#pragma unroll
-      for (int n = 0; n < kSub / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        a_frag<HD>(ka, ks, wr, kk * 16, g, t);
-        a_frag<HD>(va, vs, wr, kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < kSub / 8; ++n) {
-          uint32_t bb[2];
-          b_frag<HD>(bb, qs, n * 8, kk * 16, g, t);
-          mma_bf16(st[n], ka, bb);
-          b_frag<HD>(bb, dos, n * 8, kk * 16, g, t);
-          mma_bf16(dpt[n], va, bb);   // dP^T = V dO^T
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kSub / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + t * 2 + (e & 1), qi = q0 + c;
-          const float p = (qi >= key[e / 2] && qi < S)
-                              ? expf(st[n][e] * G.scale - lse_s[c])
-                              : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - d_s[c]);   // dS^T
-        }
-      mma_c_times_tile<HD, kSub / 16>(dva, st, dos, 0, lane);   // P^T dO
-      mma_c_times_tile<HD, kSub / 16>(dka, dpt, qs, 0, lane);   // dS^T Q
     }
+    hop::cp_async_commit();   // possibly empty: the group count stays even
+  };
+#pragma unroll
+  for (int j = 0; j < kBwdStages - 1; ++j) issue(j);
+
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int j = 0; j < n_items; ++j) {
+    hop::cp_async_wait<kBwdStages - 2>();
+    hop::mbar_wait(&full[j % kBwdStages], (j / kBwdStages) & 1);
+    hop::fence_proxy_async();
+    __syncthreads();   // step j has landed and step j - 1 is consumed
+    issue(j + kBwdStages - 1);
+    const int q0 = k0 + (j % n_qt) * kQt;
+    const uint8_t* qs = stage(j);
+    const uint8_t* dos = qs + tile_bytes(kQt);
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * tile_bytes(kQt));
+    const float* d_s = lse_s + kQt;
+
+    float st[32], dpt[32];
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
+    scores64x2(st, ks, qs, dpt, vs, dos);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(st);
+    hop::fence_regs(dpt);
+
+    // Pᵀ and dSᵀ, rounded to bf16 in the A layout; only the diagonal
+    // tile and one past S are masked element by element
+    uint32_t pa[4][4], da[4][4];
+    auto p_ds = [&](bool masked) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int key = k0 + acc_row(e, lane, warp);
+        float p[2], ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int c = acc_col(e + u, lane), qi = q0 + c;
+          p[u] = !masked || (qi >= key && qi < S)
+                     ? expf(st[e + u] * G.scale - lse_in(lse_s[c]))
+                     : 0.f;
+          ds[u] = p[u] * (dpt[e + u] - d_s[c]);
+        }
+        pa[e / 8][(e % 8) / 2] = pack2(p[0], p[1]);
+        da[e / 8][(e % 8) / 2] = pack2(ds[0], ds[1]);
+      }
+    };
+    if (q0 == k0 || q0 + kQt > S)
+      p_ds(true);
+    else
+      p_ds(false);
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
+    hop::wgmma_fence();
+    accumulate_dv_dk(dva, pa, dos, dka, da, qs, true);   // dV, dK
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dva);
+    hop::fence_regs(dka);
   }
 
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
+  for (int h = 0; h < 2; ++h) {
+    const int s = k0 + 16 * warp + lane / 4 + 8 * h;
+    if (s >= S) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * S + s) * G.nkv + kh) * 128;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int s = key[e / 2];
-      if (s < S) {
-        const int64_t i =
-            ((static_cast<int64_t>(b) * S + s) * G.nkv + kh) * HD + d * 8 +
-            t * 2 + (e & 1);
-        dk[i] = __float2bfloat16_rn(dka[d][e] * G.scale);
-        dv[i] = __float2bfloat16_rn(dva[d][e]);
-      }
+    for (int jb = 0; jb < 16; ++jb) {
+      const int d = 8 * jb + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
+          __floats2bfloat162_rn(dka[4 * jb + 2 * h] * G.scale,
+                                dka[4 * jb + 2 * h + 1] * G.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + d) =
+          __floats2bfloat162_rn(dva[4 * jb + 2 * h], dva[4 * jb + 2 * h + 1]);
     }
+  }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// dQ: one block per (64 queries, query head, batch), Q and dO resident;
+// the causal key tiles of 64 (K, V) stream through the ring by TMA.
+// S = Q Kᵀ and dP = dO Vᵀ are computed again here, so that dQ needs no
+// float atomics; dS is rounded to bf16 in the A layout for dQ += dS K.
+constexpr int kDqRows = 64;
+constexpr int kDqStage = 2 * tile_bytes(kKt);
+constexpr int kDqSmem =
+    2 * tile_bytes(kDqRows) + kBwdStages * (kDqStage + 8) + 1008;
+
+__global__ void __launch_bounds__(kWgThreads, kBlocksPerSm)
+fa_bwd_dq_kernel(const bf16* __restrict__ q,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ dvec,
                  bf16* __restrict__ dq, Geom G) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kRows * LD;
-  bf16* ks = dos + kRows * LD;
-  bf16* vs = ks + kSub * LD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const qs = hop::align1024(smem_raw);
+  uint8_t* const dos = qs + tile_bytes(kDqRows);
+  auto stage = [&](int j) {
+    return dos + tile_bytes(kDqRows) + (j % kBwdStages) * kDqStage;
+  };
   const int S = G.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;   // longest first
   const int h = blockIdx.y, b = blockIdx.z, kh = h / (G.nq / G.nkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wr = warp * 16;
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32;
+  const int last = min(q0 + kDqRows, S) - 1;
+  const int n_kt = last / kKt + 1;
 
-  load_rows<HD, kRows>(qs, q, b, S, G.nq, h, q0);
-  load_rows<HD, kRows>(dos, dout, b, S, G.nq, h, q0);
-  cp_async_commit();
+  // the ring's TMA completions, one a stage, after the ring
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      dos + tile_bytes(kDqRows) + kBwdStages * kDqStage);
+  if (tid == 0) {
+    for (int i = 0; i < kBwdStages; ++i) hop::mbar_init(&full[i], 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  load_tile<kDqRows>(qs, q, b, S, G.nq, h, q0);
+  load_tile<kDqRows>(dos, dout, b, S, G.nq, h, q0);
+  hop::cp_async_commit();
+  // ring step j: the keys from 64 j, K and V by TMA (one thread)
+  auto issue = [&](int j) {
+    if (j < n_kt && tid == 0) {
+      uint64_t* bar = &full[j % kBwdStages];
+      hop::mbar_expect_tx(bar, 2 * tile_bytes(kKt));
+      for (int cb = 0; cb < 2; ++cb) {
+        hop::tma_load_4d(col_block(stage(j), kKt, cb), &tk, bar, 64 * cb, kh,
+                         j * kKt, b);
+        hop::tma_load_4d(col_block(stage(j) + tile_bytes(kKt), kKt, cb), &tv,
+                         bar, 64 * cb, kh, j * kKt, b);
+      }
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kBwdStages - 1; ++j) issue(j);
+
+  int row[2];
   float lr[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + 16 * warp + lane / 4 + 8 * r;
     const int64_t i = (static_cast<int64_t>(b) * G.nq + h) * S + row[r];
     lr[r] = row[r] < S ? lse_in(lse[i]) : 0.f;
     dr[r] = row[r] < S ? dvec[i] : 0.f;
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  float dqa[64];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    a_frag<HD>(qf[kk], qs, wr, kk * 16, g, t);
-    a_frag<HD>(df[kk], dos, wr, kk * 16, g, t);
-  }
-  float dqa[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[d][e] = 0.f;
+  for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
 
-  const int last = min(q0 + kRows, S) - 1;
-  for (int k0 = 0; k0 <= last; k0 += kSub) {
-    __syncthreads();   // the previous key tile is consumed
-    load_rows<HD, kSub>(ks, k, b, S, G.nkv, kh, k0);
-    load_rows<HD, kSub>(vs, v, b, S, G.nkv, kh, k0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  hop::cp_async_wait<0>();   // Q and dO
+  hop::fence_proxy_async();
+  for (int j = 0; j < n_kt; ++j) {
+    hop::mbar_wait(&full[j % kBwdStages], (j / kBwdStages) & 1);
+    __syncthreads();   // tile j has landed and tile j - 1 is consumed
+    issue(j + kBwdStages - 1);
+    const uint8_t* kst = stage(j);
+    const uint8_t* vst = kst + tile_bytes(kKt);
+    const int t0 = j * kKt;
 
-    float s[kSub / 8][4], dp[kSub / 8][4];
+    float sc[32], dp[32];
+    // S = Q Kᵀ and dP = dO Vᵀ
+    scores64x2(sc, qs, kst, dp, dos, vst);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+    // P, f32; only the diagonal tile and one past S are masked element
+    // by element
+    auto probs = [&](bool masked) {
 #pragma unroll
-    for (int n = 0; n < kSub / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < kSub / 8; ++n) {
-        uint32_t bb[2];
-        b_frag<HD>(bb, ks, n * 8, kk * 16, g, t);
-        mma_bf16(s[n], qf[kk], bb);
-        b_frag<HD>(bb, vs, n * 8, kk * 16, g, t);
-        mma_bf16(dp[n], df[kk], bb);   // dP = dO V^T
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e / 2) % 2, key = t0 + acc_col(e, lane);
+        sc[e] = !masked || (key <= row[r] && row[r] < S)
+                    ? expf(sc[e] * G.scale - lr[r])
+                    : 0.f;
       }
-#pragma unroll
-    for (int n = 0; n < kSub / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t * 2 + (e & 1), r = row[e / 2];
-        const float p = (col <= r && r < S)
-                            ? expf(s[n][e] * G.scale - lr[e / 2])
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - dr[e / 2]);   // dS
-      }
-    mma_c_times_tile<HD, kSub / 16>(dqa, s, ks, 0, lane);   // dS K
-  }
+    };
+    if (t0 == q0 || q0 + kDqRows > S)
+      probs(true);
+    else
+      probs(false);
 
+    uint32_t da[4][4];
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
+    for (int e = 0; e < 32; e += 2) {
+      const int r = (e / 2) % 2;
+      float ds[2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row[e / 2];
-      if (r < S)
-        dq[((static_cast<int64_t>(b) * S + r) * G.nq + h) * HD + d * 8 +
-           t * 2 + (e & 1)] = __float2bfloat16_rn(dqa[d][e] * G.scale);
+      for (int u = 0; u < 2; ++u) ds[u] = sc[e + u] * (dp[e + u] - dr[r]);
+      da[e / 8][(e % 8) / 2] = pack2(ds[0], ds[1]);
     }
+    hop::fence_regs(dqa);
+    hop::wgmma_fence();
+    acc_rows(dqa, da, kst);   // dQ += dS K
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(dqa);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= S) continue;
+    bf16* o = dq + ((static_cast<int64_t>(b) * S + row[r]) * G.nq + h) * 128;
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+      const int d = 8 * jb + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(
+          dqa[4 * jb + 2 * r] * G.scale, dqa[4 * jb + 2 * r + 1] * G.scale);
+    }
+  }
 }
 
+// max_shared: the whole L1 as shared memory, so that the backward's
+// blocks fit kBlocksPerSm to an SM
 template <typename Kernel>
-int set_smem(Kernel kernel, int bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+int set_smem(Kernel kernel, int bytes, bool max_shared = false) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && max_shared)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return static_cast<int>(err);
 }
 
 template <int HD>
@@ -529,35 +758,36 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
 int bwd(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* dvec, void* dq, void* dk,
         void* dv, int B, Geom G, cudaStream_t st) {
   const int rows = B * G.S * G.nq, per_block = kThreads / 32;
-  fa_bwd_dot_kernel<HD><<<(rows + per_block - 1) / per_block, kThreads, 0,
-                          st>>>(static_cast<const bf16*>(o),
-                                static_cast<const bf16*>(dout),
-                                static_cast<float*>(dvec), B, G);
+  fa_bwd_dot_kernel<128><<<(rows + per_block - 1) / per_block, kThreads, 0,
+                           st>>>(static_cast<const bf16*>(o),
+                                 static_cast<const bf16*>(dout),
+                                 static_cast<float*>(dvec), B, G);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
 
-  const int smem_kv = (2 * kRows + 2 * kSub) * (HD + 8) * 2 + 2 * kSub * 4;
-  if (int err = set_smem(fa_bwd_dkdv_kernel<HD>, smem_kv)) return err;
-  fa_bwd_dkdv_kernel<HD>
-      <<<dim3((G.S + kRows - 1) / kRows, G.nkv, B), kThreads, smem_kv, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(dvec),
-          static_cast<bf16*>(dk), static_cast<bf16*>(dv), G);
+  CUtensorMap tq, tdo, tk, tv;
+  if (!hop::heads_map(&tq, q, B, G.S, G.nq, kQt) ||
+      !hop::heads_map(&tdo, dout, B, G.S, G.nq, kQt) ||
+      !hop::heads_map(&tk, k, B, G.S, G.nkv, kKt) ||
+      !hop::heads_map(&tv, v, B, G.S, G.nkv, kKt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = set_smem(fa_bwd_dkdv_kernel, kKvSmem, true)) return err;
+  fa_bwd_dkdv_kernel<<<dim3((G.S + kKvKeys - 1) / kKvKeys, G.nkv, B),
+                       kWgThreads, kKvSmem, st>>>(
+      tq, tdo, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), G);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
 
-  const int smem_q = (2 * kRows + 2 * kSub) * (HD + 8) * 2;
-  if (int err = set_smem(fa_bwd_dq_kernel<HD>, smem_q)) return err;
-  fa_bwd_dq_kernel<HD>
-      <<<dim3((G.S + kRows - 1) / kRows, G.nq, B), kThreads, smem_q, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(dvec),
-          static_cast<bf16*>(dq), G);
+  if (int err = set_smem(fa_bwd_dq_kernel, kDqSmem, true)) return err;
+  fa_bwd_dq_kernel<<<dim3((G.S + kDqRows - 1) / kDqRows, G.nq, B),
+                     kWgThreads, kDqSmem, st>>>(
+      static_cast<const bf16*>(q), tk, tv, static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec),
+      static_cast<bf16*>(dq), G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -592,6 +822,6 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
   if (bad_geom(B, S, nq, nkv) || hd != 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom G{S, nq, nkv, scale};
-  return bwd<128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, G,
-                  static_cast<cudaStream_t>(stream));
+  return bwd(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, G,
+             static_cast<cudaStream_t>(stream));
 }

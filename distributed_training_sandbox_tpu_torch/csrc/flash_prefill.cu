@@ -33,7 +33,8 @@
 // because the reference rounds the NORMALISED probability before PV (a
 // one-pass online softmax cannot, and at 36 layers that rounding decides
 // tokens).  Pass 1 needs K only: 64-key tiles, QKᵀ one wgmma m64n64k16
-// per 16 of hd from shared Q and K (K-major), each row's max and sum in
+// per 16 of hd from shared Q and K (K-major), each into zeroed registers
+// and the eight added in f32 (promote_qk), each row's max and sum in
 // registers (the accumulator spreads a row over a quad of lanes: two
 // shuffles).  Pass 2 takes K and V of 32 keys in the same stage bytes:
 // the scores again (m64n32k16), round_bf16(exp(s - max) / sum) formed in
@@ -55,11 +56,14 @@
 // that fails returns its error; it does not fall back.
 //
 // Numerics vs the reference: the same operations, in another summation
-// order (tensor cores sum the exact bf16 x bf16 products in their own
-// order, truncating rather than rounding where they align addends);
-// expect agreement to f32 rounding, and rare one-ulp differences where a
-// probability sits on a bf16 rounding boundary: one such flip of a large
-// probability moves an output by ~1e-3 (PERF.md).
+// order (tensor cores sum the exact bf16 x bf16 products of a 16-deep
+// k-group in their own order, truncating rather than rounding where they
+// align addends; the groups' sums are added in f32, since one
+// accumulation across all of hd truncated at the scale of the running
+// score and flipped probabilities the plain path rounds as the f64
+// oracle does); expect agreement to f32 rounding, and rare one-ulp
+// differences where a probability sits on a bf16 rounding boundary: one
+// such flip of a large probability moves an output by ~1e-3 (PERF.md).
 
 #include "hopper.cuh"
 #include "paged_common.cuh"
@@ -310,11 +314,20 @@ __device__ __forceinline__ void load_keys(uint8_t* st,
   }
 }
 
+// The f32 score takes one 16-deep k-group's tensor-core sum.
+__device__ __forceinline__ float promote_qk(float acc, float part) {
+  return acc + part;
+}
+
 // Scores of a warpgroup's 64 query vectors (Q at qs) against the KEYS
 // keys at t0 in stage st, scaled; -inf where masked (only a tile that
 // crosses a row's position is masked element by element).  Element e:
 // row 16 warp + lane / 4 + 8 ((e / 2) % 2) of the warpgroup's, key
-// t0 + 8 (e / 4) + 2 (lane % 4) + e % 2.
+// t0 + 8 (e / 4) + 2 (lane % 4) + e % 2.  Each 16-deep k-group of hd is
+// its own wgmma into zeroed registers (two in flight), and the group
+// sums are added in f32 in promote_qk(): the tensor cores truncate
+// where they align addends, and a sum carried across the k-groups would
+// be truncated at the scale of the whole running score.
 template <int HDP, int KEYS>
 __device__ __forceinline__ void tile_scores(float (&sc)[KEYS / 2],
                                             const uint8_t* qs,
@@ -322,24 +335,37 @@ __device__ __forceinline__ void tile_scores(float (&sc)[KEYS / 2],
                                             bool crossing, const int (&ap)[2],
                                             float inv_hd) {
   const int lane = threadIdx.x % 32;
+  constexpr int kGroups = HDP / 16;
+  float part[2][KEYS / 2];
 #pragma unroll
-  for (int e = 0; e < KEYS / 2; ++e) sc[e] = 0.f;
-  hop::fence_regs(sc);
-  hop::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
+  for (int e = 0; e < KEYS / 2; ++e) part[0][e] = part[1][e] = 0.f;
+  auto group = [&](int kk) {
     const int at = (kk % 4) * 32;
     const uint64_t dq = hop::sw128_desc(qs + (kk / 4) * kBlk + at, 16, 1024);
     const uint64_t dk =
         hop::sw128_desc(st + (kk / 4) * KEYS * 128 + at, 16, 1024);
+    hop::fence_regs(part[kk % 2]);
+    hop::wgmma_fence();
     if constexpr (KEYS == 64)
-      hop::wgmma_m64n64k16_bf16_ss(sc, dq, dk);
+      hop::wgmma_m64n64k16_bf16_ss(part[kk % 2], dq, dk, 0);
     else
-      hop::wgmma_m64n32k16_bf16_ss(sc, dq, dk);
+      hop::wgmma_m64n32k16_bf16_ss(part[kk % 2], dq, dk, 0);
+    hop::wgmma_commit();
+  };
+  group(0);
+#pragma unroll
+  for (int kk = 0; kk < kGroups; ++kk) {
+    if (kk + 1 < kGroups) {
+      group(kk + 1);
+      hop::wgmma_wait<1>();
+    } else {
+      hop::wgmma_wait<0>();
+    }
+    hop::fence_regs(part[kk % 2]);
+#pragma unroll
+    for (int e = 0; e < KEYS / 2; ++e)
+      sc[e] = kk ? promote_qk(sc[e], part[kk % 2][e]) : part[kk % 2][e];
   }
-  hop::wgmma_commit();
-  hop::wgmma_wait<0>();
-  hop::fence_regs(sc);
 #pragma unroll
   for (int e = 0; e < KEYS / 2; ++e) {
     const int t = t0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);

@@ -1,7 +1,8 @@
 // Hopper building blocks of the wgmma kernels (flash_prefill.cu,
-// int8_matmul.cu): shared-memory addresses, 16-byte cp.async, mbarriers,
-// 2-D TMA loads, shared-memory descriptors of 128-byte swizzled tiles,
-// and the wgmma shapes the kernels issue.  sm_90a only.
+// int8_matmul.cu, fp8_matmul.cu, flash_attention.cu): shared-memory
+// addresses, 16-byte cp.async, mbarriers, 2-D and 4-D TMA loads and
+// their tensor maps, shared-memory descriptors of 128-byte swizzled
+// tiles, and the wgmma shapes the kernels issue.  sm_90a only.
 //
 // The tiles these kernels hand to wgmma are 128-byte swizzled: a tile of
 // R rows x 128 bytes holds row r at byte r * 128, its 16-byte chunk c at
@@ -121,6 +122,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One TMA box of a 4-D map at coordinates (c0 innermost .. c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -177,25 +190,27 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
 // d[4j + 1] at row 16w + l / 4, columns 8j + 2(l % 4) + {0, 1}, and
 // d[4j + 2], d[4j + 3] at row 16w + l / 4 + 8, the same columns.
 
-// D (64 x 32 f32) += A (64 x 16 bf16, shared, K-major) · B (32 x 16
-// bf16, shared, K-major)ᵀ
+// D (64 x 32 f32) = A (64 x 16 bf16, shared, K-major) · B (32 x 16
+// bf16, shared, K-major)ᵀ + (acc ? D : 0)
 __device__ __forceinline__ void wgmma_m64n32k16_bf16_ss(float (&d)[16],
                                                         uint64_t da,
-                                                        uint64_t db) {
+                                                        uint64_t db,
+                                                        int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : HOP_F16(0)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
 }
 
-// D (64 x 64 f32) += A (64 x 16 bf16, shared, K-major) · B (64 x 16
-// bf16, shared, K-major)ᵀ
+// D (64 x 64 f32) = A (64 x 16 bf16, shared, K-major) · B (64 x 16
+// bf16, shared, K-major)ᵀ + (acc ? D : 0)
 __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32],
                                                         uint64_t da,
-                                                        uint64_t db) {
+                                                        uint64_t db,
+                                                        int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -203,7 +218,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOP_F32(0)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // D (64 x 64 f32) += A (64 x 16 bf16, registers) · B (16 x 64 bf16,
@@ -259,11 +274,102 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int (&d)[128],
       : "l"(da), "l"(db), "r"(1));
 }
 
+// D (64 x 128 f32) = A (64 x 16 bf16, shared, K-major) · B (128 x 16
+// bf16, shared, K-major)ᵀ + (acc ? D : 0)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
+                                                         uint64_t da,
+                                                         uint64_t db,
+                                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOP_F32(0), HOP_F32(32)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 #undef HOP_F4
 #undef HOP_F16
 #undef HOP_F32
 #undef HOP_R4
 #undef HOP_R16
 #undef HOP_R64
+
+// ---- TMA descriptors (host)
+
+// cuTensorMapEncodeTiled, looked up through the runtime at first use
+// (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D matrix of `rows` rows of `cols` elements of `elem` bytes (1 or
+// 2), row stride `stride` bytes (a multiple of 16), as boxes of 128
+// bytes of a row x box_rows rows, 128-byte swizzled, zeros outside the
+// matrix.  False where the descriptor cannot be made.
+inline bool sw128_map(CUtensorMap* map, const void* p, int rows, int cols,
+                      int64_t stride, int elem, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map,
+            elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+            2, const_cast<void*>(p), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B, S, nh, 128) bf16 tensor as boxes of 64 elements of one head's
+// row x box_rows sequence positions of one batch row (128 bytes x
+// box_rows, 128-byte swizzled), zeros past S.  False where the
+// descriptor cannot be made.
+inline bool heads_map(CUtensorMap* map, const void* p, int B, int S, int nh,
+                      int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(nh),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {256, static_cast<cuuint64_t>(nh) * 256,
+                                 static_cast<cuuint64_t>(S) * nh * 256};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace hop

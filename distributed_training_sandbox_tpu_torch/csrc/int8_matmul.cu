@@ -414,51 +414,6 @@ k5_gemm(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime at first use
-// (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (rows, K) row-major int8 matrix as boxes of 128 bytes of K x
-// box_rows rows, 128-byte swizzled, zeros outside the matrix.
-bool kmajor_map(CUtensorMap* map, const void* p, int rows, int K,
-                int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(k5::kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // K4.  a (M, K) int8; b (N, K) int8 if b_kmajor else (K, N); xs (M) and
@@ -496,8 +451,8 @@ extern "C" int int8_matmul_fused_launch(const void* x, const void* b,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap ta, tb;
-  if (!kmajor_map(&ta, codes, M, K, k5::kBM) ||
-      !kmajor_map(&tb, b, N, K, k5::kBN))
+  if (!hop::sw128_map(&ta, codes, M, K, K, 1, k5::kBM) ||
+      !hop::sw128_map(&tb, b, N, K, K, 1, k5::kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(k5_gemm,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

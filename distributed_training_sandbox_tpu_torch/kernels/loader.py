@@ -40,7 +40,7 @@ SIGNATURES = {
         "paged_decode_q8_scratch_floats": ([I] * 6, ctypes.c_int64),
     },
     "fp8_matmul": {
-        "fp8_matmul_launch": ([P] * 5 + [I] * 3 + [P], I),
+        "fp8_matmul_launch": ([P] * 7 + [I] * 3 + [P], I),
     },
     "int8_matmul": {
         "int8_matmul_launch": ([P] * 5 + [I] * 4 + [P], I),

@@ -74,6 +74,7 @@ __all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
            "INT8_COUNTS", "INT8_FUSED_COUNTS",
            "FP8_FWD_DTYPE", "FP8_BWD_DTYPE", "fp8_max",
            "amax_history_update", "scale_from_history", "quantize_fp8",
+           "quantize_fp8_kmajor",
            "fp8_matmul", "fp8_matmul_kernel", "fp8_dense",
            "resolve_quantized_dense", "COUNTS", "BWD_COUNTS", "TOLERANCE"]
 
@@ -422,17 +423,35 @@ def quantize_fp8(x: torch.Tensor, dtype=FP8_FWD_DTYPE, *,
     helpers, with the history seeded by the current tensor (numerically
     the dynamic scale), as the reference's stateless instantiation
     does."""
+    scale = _fp8_scale(x, dtype, amax_history_len)
+    fmax = fp8_max(dtype)
+    q = torch.clamp(x.float() / scale, -fmax, fmax).to(dtype)
+    return q, scale
+
+
+def _fp8_scale(x, dtype, amax_history_len):
     if amax_history_len:
         hist = amax_history_update(
             torch.zeros((amax_history_len,), dtype=torch.float32,
                         device=x.device), x)
-        scale = scale_from_history(hist, dtype)
-    else:
-        amax = x.float().abs().max()
-        scale = torch.where(amax > 0, amax * f32_recip(fp8_max(dtype)),
-                            torch.ones_like(amax))
+        return scale_from_history(hist, dtype)
+    amax = x.float().abs().max()
+    return torch.where(amax > 0, amax * f32_recip(fp8_max(dtype)),
+                       torch.ones_like(amax))
+
+
+def quantize_fp8_kmajor(w: torch.Tensor, dtype=FP8_FWD_DTYPE, *,
+                        amax_history_len: int = 0):
+    """:func:`quantize_fp8` of a (K, N) weight with its codes written
+    K-major, ``(N, K)`` contiguous, in the pass that rounds them: bit
+    for bit ``quantize_fp8(w)[0].t()`` and the same scale.  K6 takes B
+    in this layout only (its TMA loads and wgmma read both operands
+    K-major),
+    so the training path makes no transposed copy per launch."""
+    scale = _fp8_scale(w, dtype, amax_history_len)
     fmax = fp8_max(dtype)
-    q = torch.clamp(x.float() / scale, -fmax, fmax).to(dtype)
+    q = torch.empty((w.shape[1], w.shape[0]), dtype=dtype, device=w.device)
+    q.copy_(torch.clamp(w.float() / scale, -fmax, fmax).t())
     return q, scale
 
 
@@ -445,37 +464,47 @@ def fp8_matmul(aq, a_scale, bq, b_scale, out_dtype):
     return (acc * a_scale * b_scale).to(out_dtype)
 
 
-def fp8_matmul_kernel(aq, a_scale, bq, b_scale, out_dtype=torch.bfloat16):
-    """K6: aq (M, K) e4m3, bq (K, N) e4m3 in the reference's layout,
-    scales f32 scalars; returns (M, N) ``out_dtype`` (bf16 on the
-    card).  The kernel takes B K-major, so this wrapper hands it
-    ``bq.T`` contiguous: one (N, K) fp8 copy (K·N bytes read and
-    written), counted in the kernel phase's bound."""
-    if aq.device.type == "cpu":
-        COUNTS.plain_calls += 1
-        return fp8_matmul(aq, a_scale, bq, b_scale, out_dtype)
+def fp8_matmul_kernel(aq, a_scale, bt, b_scale, out_dtype=torch.bfloat16):
+    """K6: aq (M, K) e4m3; bt (N, K) e4m3, the weight's codes K-major
+    (:func:`quantize_fp8_kmajor`, the reference's (K, N) codes
+    transposed), as Hopper's MMAs take B; scales f32 scalars; returns
+    (M, N) ``out_dtype`` (bf16 on the card).  The kernel's prologue
+    writes both operands' codes as bf16 into scratch allocated here
+    ((M, K) and (N, K)): the bf16 tensor cores sum in f32, the fp8 ones
+    do not (csrc/fp8_matmul.cu).  The operands' shapes and dtype are
+    checked on every device, so that a CPU run meets what the card would
+    refuse."""
     M, K = aq.shape
-    K2, N = bq.shape
+    N, K2 = bt.shape
     if K != K2:
-        raise ValueError(f"fp8_matmul_kernel: inner dims {K} != {K2}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError("fp8_matmul_kernel writes bf16 only")
+        raise ValueError(f"fp8_matmul_kernel: inner dims {K} != {K2} (B "
+                         f"is (N, K), K-major)")
     if K % 16:
         raise ValueError(f"fp8_matmul_kernel: K={K} must be a multiple "
-                         f"of 16 (16-byte row loads)")
-    bt = bq.t().contiguous()
+                         f"of 16 (16-byte TMA row strides)")
+    if aq.dtype != FP8_FWD_DTYPE or bt.dtype != FP8_FWD_DTYPE:
+        raise ValueError("fp8_matmul_kernel takes e4m3 operands")
+    if aq.device.type == "cpu":
+        COUNTS.plain_calls += 1
+        return fp8_matmul(aq, a_scale, bt.t(), b_scale, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError("fp8_matmul_kernel writes bf16 only")
     a_s = a_scale.reshape(1).float().contiguous()
     b_s = b_scale.reshape(1).float().contiguous()
     check_cuda_operands("fp8_matmul_kernel", {"aq": aq, "bt": bt}, {})
-    if aq.dtype != FP8_FWD_DTYPE or bt.dtype != FP8_FWD_DTYPE:
-        raise ValueError("fp8_matmul_kernel takes e4m3 operands")
     if a_s.device != aq.device or b_s.device != aq.device:
         raise ValueError("fp8_matmul_kernel: scales must be on the "
                          "operands' device")
+    if aq.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError("fp8_matmul_kernel: operands must be 16-byte "
+                         "aligned (TMA)")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=aq.device)
+    # the codes as bf16, written by the kernel's prologue
+    a16 = torch.empty((M, K), dtype=torch.bfloat16, device=aq.device)
+    b16 = torch.empty((N, K), dtype=torch.bfloat16, device=aq.device)
     fn = loader.load("fp8_matmul").fp8_matmul_launch
-    rc = fn(ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(out), M, N, K,
-            stream_ptr(aq.device))
+    rc = fn(ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(a16), ptr(b16),
+            ptr(out), M, N, K, stream_ptr(aq.device))
     raise_on_error("fp8_matmul_kernel", rc)
     COUNTS.launches += 1
     return out
@@ -491,10 +520,13 @@ class _FP8Dense(torch.autograd.Function):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         xq, xs = quantize_fp8(x2, FP8_FWD_DTYPE, amax_history_len=hist)
-        wq, ws = quantize_fp8(w, FP8_FWD_DTYPE, amax_history_len=hist)
         if impl == "kernel":
-            out = fp8_matmul_kernel(xq, xs, wq, ws, x.dtype)
+            # the codes K-major, as K6 reads them
+            wt, ws = quantize_fp8_kmajor(w, FP8_FWD_DTYPE,
+                                         amax_history_len=hist)
+            out = fp8_matmul_kernel(xq, xs, wt, ws, x.dtype)
         else:
+            wq, ws = quantize_fp8(w, FP8_FWD_DTYPE, amax_history_len=hist)
             COUNTS.plain_calls += 1
             out = fp8_matmul(xq, xs, wq, ws, x.dtype)
         return out.reshape(*lead, w.shape[1])

@@ -221,24 +221,35 @@ FP8_SHAPES = {
     "wk_wv": (8192, 2048, 512),
     "w_gate_up": (8192, 2048, 11008),
     "w_down": (8192, 11008, 2048),
+    # M off the 128-row tile, N a third of one
+    "m_off_tile_n40": (1000, 2048, 40),
 }
 ATTN_SHAPES = {
     # name: (B, S, nq, nkv, hd)
     "tiny_ragged": (2, 37, 4, 2, 128),
     "gqa_ragged": (1, 200, 8, 2, 128),
     "mha": (2, 128, 2, 2, 128),
+    # S a multiple of 64 and not of 128 (half of the backward's last
+    # 128-row tiles), and a group of 8 query heads
+    "s320_rep8": (1, 320, 16, 2, 128),
     "smollm3_train": (1, 8192, 16, 4, 128),
 }
 
 
-def fp8_case(seed, M, K, N, device):
-    """bf16 activations ~ N(0, 1) and weights ~ N(0, 0.02²), quantised
-    to e4m3 as the training path's forward does."""
+def fp8_weight(seed, M, K, N, device):
+    """bf16 activations ~ N(0, 1) and a (K, N) weight ~ N(0, 0.02²)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
     w = (torch.randn((K, N), generator=gen, device=device) * 0.02).to(
         torch.bfloat16)
-    return (*Q.quantize_fp8(x), *Q.quantize_fp8(w))
+    return x, w
+
+
+def fp8_case(seed, M, K, N, device):
+    """:func:`fp8_weight` quantised to e4m3 as the training path's
+    forward does: (aq, a_s, bt, b_s), the weight's codes K-major (N, K)."""
+    x, w = fp8_weight(seed, M, K, N, device)
+    return (*Q.quantize_fp8(x), *Q.quantize_fp8_kmajor(w))
 
 
 def attn_case(seed, B, S, nq, nkv, hd, device):
@@ -252,14 +263,66 @@ def attn_case(seed, B, S, nq, nkv, hd, device):
 @pytest.mark.gpu_port
 @pytest.mark.parametrize("shape", list(FP8_SHAPES))
 def test_fp8_kernel_matches_plain(cuda, shape):
-    aq, a_s, bq, b_s = fp8_case(0, *FP8_SHAPES[shape], cuda)
+    aq, a_s, bt, b_s = fp8_case(0, *FP8_SHAPES[shape], cuda)
     Q.COUNTS.reset()
-    got = Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+    got = Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
     torch.cuda.synchronize()
     assert (Q.COUNTS.launches, Q.COUNTS.plain_calls) == (1, 0)
-    ref = Q.fp8_matmul(aq, a_s, bq, b_s, torch.bfloat16)
+    ref = Q.fp8_matmul(aq, a_s, bt.t(), b_s, torch.bfloat16)
     atol, rtol = Q.TOLERANCE[torch.bfloat16]
     torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(FP8_SHAPES))
+def test_fp8_kernel_takes_the_kmajor_weight_and_repeats(cuda, shape):
+    """The training path's layout: the weight's codes quantised K-major
+    on the card are the reference's (K, N) codes transposed, and the
+    kernel on them is bit for bit the same on a second launch."""
+    M, K, N = FP8_SHAPES[shape]
+    aq, a_s, bt, bt_s = fp8_case(0, M, K, N, cuda)
+    bq, b_s = Q.quantize_fp8(fp8_weight(0, M, K, N, cuda)[1])
+    assert torch.equal(bt.view(torch.uint8),
+                       bq.t().contiguous().view(torch.uint8))
+    assert torch.equal(bt_s, b_s)
+    Q.COUNTS.reset()
+    got = Q.fp8_matmul_kernel(aq, a_s, bt, bt_s)
+    again = Q.fp8_matmul_kernel(aq, a_s, bt, bt_s)
+    torch.cuda.synchronize()
+    assert (Q.COUNTS.launches, Q.COUNTS.plain_calls) == (2, 0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu_port
+def test_fp8_kernel_reproduces_every_e4m3_code(cuda):
+    """Row i of A holds e4m3 code i (0 for the two NaN codes) in column
+    0 and B picks column 0 with a 1: each output is its code's value,
+    exactly, subnormal codes included (the kernel's exact e4m3 → bf16
+    conversion)."""
+    codes = torch.arange(256, dtype=torch.int32)
+    codes[(codes & 0x7F) == 0x7F] = 0
+    a = torch.zeros((256, 32), dtype=torch.uint8)
+    a[:, 0] = codes.to(torch.uint8)
+    a = a.view(torch.float8_e4m3fn).to(cuda)
+    bt = torch.zeros((16, 32), dtype=torch.float8_e4m3fn)
+    bt[:, 0] = 1.0
+    one = torch.ones((), device=cuda)
+    got = Q.fp8_matmul_kernel(a, one, bt.to(cuda), one)
+    want = a[:, 0].float().to(torch.bfloat16)
+    assert torch.equal(got[:, 0], want)
+    assert torch.equal(got, want[:, None].expand(256, 16))
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(ATTN_SHAPES))
+def test_flash_attention_backward_repeats_bit_for_bit(cuda, shape):
+    B, S, nq, nkv, hd = ATTN_SHAPES[shape]
+    q, k, v, do = attn_case(5, B, S, nq, nkv, hd, cuda)
+    o, lse = FA.flash_attention_fwd(q, k, v, hd ** -0.5)
+    a = FA.flash_attention_bwd(q, k, v, o, lse, do, hd ** -0.5)
+    b = FA.flash_attention_bwd(q, k, v, o, lse, do, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.gpu_port
@@ -303,9 +366,9 @@ def test_flash_attention_autograd_goes_through_the_kernels(cuda):
 
 @pytest.mark.gpu_port
 def test_training_kernels_reject_what_they_do_not_take(cuda):
-    aq, a_s, bq, b_s = fp8_case(3, 64, 40, 32, cuda)
+    aq, a_s, bt, b_s = fp8_case(3, 64, 40, 32, cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
-        Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+        Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
     q, k, v, _ = attn_case(4, 1, 16, 4, 2, 64, cuda)
     with pytest.raises(ValueError, match="hd"):
         FA.flash_attention_fwd(q, k, v, 0.1)
@@ -333,9 +396,9 @@ def test_block_rel_l2_holds_each_block_to_its_own_scale():
 
 
 def test_training_wrappers_take_the_plain_versions_on_the_cpu():
-    aq, a_s, bq, b_s = fp8_case(5, 24, 32, 16, "cpu")
+    aq, a_s, bt, b_s = fp8_case(5, 24, 32, 16, "cpu")
     Q.COUNTS.reset()
-    out = Q.fp8_matmul_kernel(aq, a_s, bq, b_s)
+    out = Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
     assert (Q.COUNTS.launches, Q.COUNTS.plain_calls) == (0, 1)
     assert out.dtype == torch.bfloat16 and out.shape == (24, 16)
     q, k, v, do = attn_case(6, 1, 9, 4, 2, 16, "cpu")

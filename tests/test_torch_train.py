@@ -111,9 +111,10 @@ def test_plain_fp8_matmul_matches_jax_pallas_interpret(shape):
     ref = JQ.fp8_matmul_pallas(aq, a_s, bq, b_s, out_dtype=jnp.float32,
                                interpret=True)
     paq, pas = PQ.quantize_fp8(torch.from_numpy(a))
-    pbq, pbs = PQ.quantize_fp8(torch.from_numpy(b))
+    # the kernel takes B K-major, as the training path quantises it
+    pbt, pbs = PQ.quantize_fp8_kmajor(torch.from_numpy(b))
     PQ.COUNTS.reset()
-    got = PQ.fp8_matmul_kernel(paq, pas, pbq, pbs, torch.float32)
+    got = PQ.fp8_matmul_kernel(paq, pas, pbt, pbs, torch.float32)
     assert (PQ.COUNTS.launches, PQ.COUNTS.plain_calls) == (0, 1)
     # atol: a few f32 ulps of the partial sums (|out| ~ 0.5), where the
     # two sum orders cancel to near zero
