@@ -33,8 +33,15 @@ the sound kernel's:
 - ``fa_bwd_bf16_lse``: the flash backward reads the logsumexp rounded to
   bf16, not f32; the backward's gate must fail;
 - ``fa_fwd_pv_tile``: in the second half of the rows the flash forward
-  leaves key tile 1 (64 keys) out of the PV product but not out of the
-  row sum, so the logsumexp stays exact; the forward's gate must fail;
+  leaves key tile 1 (64 keys) out of its wgmma PV product but not out of
+  the row sum, so the logsumexp stays exact; the forward's gate and its
+  count against the f64 oracle must fail;
+- ``fa_fwd_bf16_scores``: the flash forward rounds each tensor-core
+  score to bf16 before scaling it; the forward's count against the f64
+  oracle (over the plain path's) must fail;
+- ``k1_last_key``: K1's last visible key is ``apos - 1``, not ``apos``
+  (``t < apos``), so each slot loses its own new key; the serve phases
+  run, and K1's gate and the decode-logit gate must fail;
 - ``fa_bwd_dv_tile``: in the second half of the keys the dK/dV kernel
   leaves one query tile (64 queries) out of its wgmma dV product; the
   backward's gate must fail;
@@ -96,10 +103,16 @@ MUTANTS = [
      "__device__ __forceinline__ float lse_in(float x) { return "
      f"{ROUND.format('x')}; }}", "train", ("flash_attention_bwd:",)),
     ("fa_fwd_pv_tile", "csrc/flash_attention.cu",
-     "    mma_c_times_tile<HD, kRows / 16>(oacc, s, vs, 0, lane);",
-     "    if (jt != 1 || q0 < S / 2) "
-     "mma_c_times_tile<HD, kRows / 16>(oacc, s, vs, 0, lane);", "train",
-     ("flash_attention_fwd:",)),
+     "    acc_rows(oacc, pa, vtile(j));   // O += P V",
+     "    if (j != 1 || q0 < S / 2) acc_rows(oacc, pa, vtile(j));   "
+     "// O += P V", "train",
+     ("flash_attention_fwd:", "flash_attention_fwd oracle:")),
+    ("fa_fwd_bf16_scores", "csrc/flash_attention.cu",
+     "__device__ __forceinline__ float fwd_score(float s, float scale) "
+     "{ return s * scale; }",
+     "__device__ __forceinline__ float fwd_score(float s, float scale) "
+     f"{{ return {ROUND.format('s')} * scale; }}", "train",
+     ("flash_attention_fwd oracle:",)),
     ("fa_bwd_dv_tile", "csrc/flash_attention.cu",
      "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, true);   // dV, dK",
      "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, "
@@ -135,6 +148,12 @@ MUTANTS = [
      "          const float v = (__int2float_rn(acc[i][j][e]) * sx) * sw;",
      "          const float v = __int2float_rn(acc[i][j][e]) * (sx * sw);",
      "int8_train", ("int8_matmul:", "int8 step-0")),
+    ("k1_last_key", "csrc/paged_decode.cu",
+     "__device__ __forceinline__ int last_key(int ap, int V) "
+     "{ return min(ap, V - 1); }",
+     "__device__ __forceinline__ int last_key(int ap, int V) "
+     "{ return min(ap - 1, V - 1); }", "serve",
+     ("paged_decode:", "decode logits")),
     ("k2_chunk_absmax", "csrc/paged_decode_q8.cu",
      "    for (int c = 0; c < used; ++c) A = fmaxf(A, pa[c * rep + r]);",
      "    A = pa[blockIdx.y * rep + r];", "int8_serve",

@@ -20,7 +20,9 @@ Phases, each of which fails the run:
    from each seed of ``K3_DRAW_SEEDS``, beside an f64 oracle of the
    reference's arithmetic, with each seed's count of outputs off the
    plain path gated, and K3's count off the oracle over the plain
-   path's; then CUDA-event times of the
+   path's; the flash forward over ``FA_ORACLE_DRAWS`` draws beside its
+   f64 oracle, its count off the oracle over the plain path's gated;
+   then CUDA-event times of the
    kernel, the plain version and a library yardstick (SDPA,
    ``torch._scaled_mm``, ``torch._int_mm``, ``torch.matmul``), beside
    the card's bound;
@@ -81,11 +83,14 @@ when there is no card or when any phase fails.
 
     python3 chip_smoke.py --parent-csrc DIR
 
-builds K3, K6 and the flash attention's backward from DIR (another
-commit's ``csrc/``, unpacked under the gitignored ``build/``) beside this
-checkout's, gates both builds against the plain versions (K3 over the
-multi-draw reading too), times both in turns at the kernel phase's
-shapes, prints a ``{"compare": ...}`` line and runs nothing else.
+builds K1, K3, K6 and the flash attention (forward and backward) from
+DIR (another commit's ``csrc/``, unpacked under the gitignored
+``build/``) beside this checkout's, gates both builds against the plain
+versions (K3 over the multi-draw reading and the forward over its f64
+oracle reading too), times both in turns at the kernel phase's shapes,
+serves the serve phase's kind of requests with each build's K1 in the
+engine's decode step (in turns, after a warm-up serve), prints a
+``{"compare": ...}`` line and runs nothing else.
 """
 
 from __future__ import annotations
@@ -126,6 +131,7 @@ SEED = 0
 CFG = T.SMOLLM3_3B
 PARAM_SCALE = 3.0
 N_REQUESTS, NEW_TOKENS = 8, 64
+SERVE_ROUNDS = 5   # --parent-csrc: serves in turns, 4 a round
 PROMPT_LEN = (256, 1536)
 ENGINE = dict(paged_kernel=True, flash_prefill=True, max_batch=8,
               page_size=16, max_seq_len=2048, prefill_chunk=256,
@@ -157,6 +163,11 @@ COMPARE_DRAWS = 10
 # the seeds of K3's multi-draw readings (k3_draws): COMPARE_DRAWS draws
 # each, every seed's count gated on its own
 K3_DRAW_SEEDS = (SEED, SEED + 5)
+# the FA forward's reading against its f64 oracle (fa_oracle_reading):
+# draws of B 1, S FA_ORACLE_SEQ at the training shape's heads, one seed
+# each from FA_ORACLE_SEED (the default run and --parent-csrc read the
+# same draws)
+FA_ORACLE_SEQ, FA_ORACLE_DRAWS, FA_ORACLE_SEED = 2048, 4, SEED + 100
 # Step-0 parity, kernel path vs plain path on the same params and batch:
 # |loss difference| <= LOSS_ATOL, and every grad leaf's relative L2
 # error <= GRAD_REL_L2; the same without fp8 (bf16 projections, so only
@@ -262,6 +273,36 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=8, replays=20) -> float:
+    """Device ms of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, its replays timed by CUDA events (no host launch cost between
+    the calls, which a kernel of a few tens of microseconds would
+    otherwise measure)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(calls):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del g
+    return ms
+
+
 def bound(nbytes: float, flops: float,
           peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -360,11 +401,16 @@ def kernel_phase(rng, gen) -> list[dict]:
         def cyc():
             return pools[next(it) % copies]
 
-        k_ms = time_ms(lambda: fn(qg, *cyc(), pages, apos))
+        # device times from CUDA-graph replays (the calls cycle through
+        # the pool copies; a graph replays the same ones), the host-loop
+        # time of the kernel beside them
+        k_eager = time_ms(lambda: fn(qg, *cyc(), pages, apos))
+        k_ms = graph_ms(lambda: fn(qg, *cyc(), pages, apos))
         p_ms = time_ms(lambda: plain(qg, *cyc(), pages, apos), iters=5)
         sd = [_sdpa_inputs(qg, k_, v_, pages, apos) for k_, v_ in pools]
-        l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            *sd[next(it) % copies][:3], attn_mask=sd[0][3], enable_gqa=True))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        l_ms = graph_ms(lambda: sdpa(*sd[next(it) % copies][:3],
+                                     attn_mask=sd[0][3], enable_gqa=True))
 
         # work this run's data needs: every visible key row read once,
         # QK and PV over the visible positions of every query row
@@ -376,15 +422,16 @@ def kernel_phase(rng, gen) -> list[dict]:
         flops = float(vis_rows.sum()) * nkv * rep * hd * 4
         b_ms, b_by = bound(nbytes, flops)
         log(f"{name}: max_abs_err {err:.3e} (atol {atol}, rtol {rtol}); "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} "
-            f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+            f"kernel {k_ms:.5f} ms (graph replays; host loop {k_eager:.5f} "
+            f"ms), plain {p_ms:.4f} ms, SDPA {l_ms:.5f} ms (graph), bound "
+            f"{b_ms:.6f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
         results.append({
             "name": name, "route": "cuda",
             "source": f"distributed_training_sandbox_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms,
+            "bound_by": b_by, "library_ms": l_ms, "eager_ms": k_eager,
             "max_err": err, "kernel_ms": k_ms})
         del sd
     del pools
@@ -1286,6 +1333,63 @@ def _fa_reading(kernel, name, got, ref, which) -> tuple[float, float]:
     return err, max(ratio, blk / FA.BLOCK_REL_L2)
 
 
+def fa_draws():
+    """``FA_ORACLE_DRAWS`` draws of (q, k, v): B 1, S ``FA_ORACLE_SEQ``,
+    the training shape's 16 / 4 heads, hd 128, bf16."""
+    nq, nkv = TRAIN_CFG.num_attention_heads, TRAIN_CFG.num_key_value_heads
+    hd = TRAIN_CFG.resolved_head_dim
+    for d in range(FA_ORACLE_DRAWS):
+        gen = torch.Generator(device="cuda").manual_seed(FA_ORACLE_SEED + d)
+        yield tuple(torch.randn((1, FA_ORACLE_SEQ, n, hd), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for n in (nq, nkv, nkv))
+
+
+def fa_oracle_reading(kernels, label="flash_attention_fwd",
+                      gated=None) -> dict:
+    """The FA forward over :func:`fa_draws` beside the f64 oracle of the
+    reference's arithmetic (``FA.attention_oracle``): for each kernel of
+    ``kernels`` (name -> fn(q, k, v, scale) -> (O, lse)) and the plain
+    path, O's count of outputs off the oracle by more than a quarter of
+    the elementwise tolerance (``FA.off_count``), summed over the draws,
+    and each kernel's count off the plain path; the max |difference| of
+    each.  Gates the kernels named in ``gated`` (all by default): their
+    count off the oracle over the plain path's, at most
+    ``FA.ORACLE_COUNT_RATIO``."""
+    gated = set(kernels) if gated is None else set(gated)
+    scale = TRAIN_CFG.resolved_head_dim ** -0.5
+    read = {f"{n} - {r}": [0.0, 0] for n in kernels
+            for r in ("oracle", "plain")}
+    read["plain - oracle"] = [0.0, 0]
+    for q, k, v in fa_draws():
+        orc = FA.attention_oracle(q, k, v, scale)
+        ref = FA.attention_plain_lse(q, k, v, scale)[0]
+        pairs = [("plain - oracle", ref, orc)]
+        for n, fn in kernels.items():
+            got = fn(q, k, v, scale)[0]
+            pairs += [(f"{n} - oracle", got, orc), (f"{n} - plain", got, ref)]
+        torch.cuda.synchronize()
+        for key, a, b in pairs:
+            read[key][0] = max(read[key][0], float(
+                (a.double() - b.double()).abs().max()))
+            read[key][1] += FA.off_count(a, b)
+        del orc, ref, pairs
+        torch.cuda.empty_cache()
+    plain = read["plain - oracle"][1]
+    ratios = {n: read[f"{n} - oracle"][1] / max(plain, 1) for n in kernels}
+    log(f"{label} over {FA_ORACLE_DRAWS} draws (B 1, S {FA_ORACLE_SEQ}), "
+        f"(max |difference|, outputs off by > a quarter of the elementwise "
+        f"tolerance): {json.dumps(read)}; each kernel's count off the "
+        f"oracle over the plain path's {json.dumps(ratios)} (limit "
+        f"{FA.ORACLE_COUNT_RATIO} for {sorted(gated)})")
+    for n in sorted(gated):
+        check(ratios[n] <= FA.ORACLE_COUNT_RATIO,
+              f"{n} oracle: {read[f'{n} - oracle'][1]} outputs off the f64 "
+              f"oracle, {ratios[n]:.3f} times the plain path's {plain}, "
+              f"above {FA.ORACLE_COUNT_RATIO}")
+    return {"readings": read, "oracle_ratio": ratios}
+
+
 def attention_phase() -> list[dict]:
     """The flash attention at the training shape (B 1, S 8192, 16 query
     and 4 kv heads, hd 128, bf16), forward and backward, against the
@@ -1312,6 +1416,8 @@ def attention_phase() -> list[dict]:
     _twice_equal("flash_attention_fwd",
                  lambda: FA.flash_attention_fwd(q, k, v, scale))
     del ref_o, ref_lse
+    torch.cuda.empty_cache()
+    oracle = fa_oracle_reading({"flash_attention_fwd": FA.flash_attention_fwd})
     grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
     ref_g = FA.flash_attention_bwd_plain(q, k, v, do, scale)
     e_g, r_g = zip(*(_fa_reading("flash_attention_bwd", n, g, r, "bwd")
@@ -1377,9 +1483,10 @@ def attention_phase() -> list[dict]:
     replaces = ("distributed_training_sandbox_tpu/models/transformer.py:382 "
                 "(_attention_flash, splash attention {})")
     return [
-        _entry("flash_attention_fwd", "flash_attention.cu",
-               replaces.format("forward"), max(e_o, e_lse), r_fwd, fwd_ms,
-               fwd_plain, fwd_lib, fb, fby),
+        dict(_entry("flash_attention_fwd", "flash_attention.cu",
+                    replaces.format("forward"), max(e_o, e_lse), r_fwd,
+                    fwd_ms, fwd_plain, fwd_lib, fb, fby),
+             oracle_ratio=oracle["oracle_ratio"]["flash_attention_fwd"]),
         _entry("flash_attention_bwd", "flash_attention.cu",
                replaces.format("dq / dkv backward"), max(e_g), r_bwd,
                bwd_ms, bwd_plain, bwd_lib, bb, bby)]
@@ -1812,14 +1919,15 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
-    """K3's, K6's and the flash attention's libraries built from another
-    commit's ``csrc`` (one nvcc each, in parallel) into
-    ``build/parent_kernels``, with that commit's C signatures (K6 then
-    took no bf16 scratch)."""
+    """K1's, K3's, K6's and the flash attention's libraries built from
+    another commit's ``csrc`` (one nvcc each, in parallel) into
+    ``build/parent_kernels``, with that commit's C signatures (K1 then
+    took a scratch buffer of ``paged_decode_scratch_floats``)."""
     out = loader.BUILD_DIR.parent / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("flash_prefill", "fp8_matmul", "flash_attention"):
+    for name in ("paged_decode", "flash_prefill", "fp8_matmul",
+                 "flash_attention"):
         so = out / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [loader._nvcc(), *loader.NVCC_FLAGS, f"-I{csrc}", "-o", str(so),
@@ -1833,29 +1941,40 @@ def _parent_libs(csrc: Path) -> dict:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs["flash_prefill"].flash_prefill_launch.argtypes = [P] * 6 + [I] * 8 \
         + [P]
-    libs["fp8_matmul"].fp8_matmul_launch.argtypes = [P] * 5 + [I] * 3 + [P]
+    libs["fp8_matmul"].fp8_matmul_launch.argtypes = [P] * 7 + [I] * 3 + [P]
     libs["flash_attention"].flash_attn_bwd_launch.argtypes = [P] * 10 \
         + [I] * 5 + [F, P]
+    libs["flash_attention"].flash_attn_fwd_launch.argtypes = [P] * 5 \
+        + [I] * 5 + [F, P]
+    libs["paged_decode"].paged_decode_launch.argtypes = [P] * 7 + [I] * 7 \
+        + [P]
+    libs["paged_decode"].paged_decode_scratch_floats.argtypes = [I] * 6
+    libs["paged_decode"].paged_decode_scratch_floats.restype = \
+        ctypes.c_int64
     return libs
 
 
-def _turns(old, new) -> tuple[list, list]:
+def _turns(old, new, timer=time_ms) -> tuple[list, list]:
     """CUDA-event times in turns: old, new, new, old."""
-    a, b = time_ms(old), time_ms(new)
-    c, d = time_ms(new), time_ms(old)
+    a, b = timer(old), timer(new)
+    c, d = timer(new), timer(old)
     return [a, d], [b, c]
 
 
 def parent_compare_phase(csrc: Path) -> dict:
-    """K3 at the kernel phase's serve shapes, K6 at one layer's seven
-    projections (M = 8192) and the flash attention's backward at the
-    training shape (B 1, S 8192, 16 / 4 heads, hd 128), each built from
+    """K1 and K3 at the kernel phase's serve shapes, K6 at one layer's
+    seven projections (M = 8192) and the flash attention's backward and
+    forward at the training shape (B 1, S 8192, 16 / 4 heads, hd 128),
+    each built from
     this checkout and from ``csrc`` (another commit's sources) and timed
     in one process in turns (old, new, new, old).  Both builds are gated
     against their plain versions at their modules' tolerances; K3 over
-    the multi-draw reading (:func:`k3_draws_reading`) as well, whose
-    count against the oracle gates the change and is logged for the
-    parent."""
+    the multi-draw reading (:func:`k3_draws_reading`) and the forward
+    over its oracle reading (:func:`fa_oracle_reading`) as well, whose
+    counts against the oracle gate the change and are logged for the
+    parent.  Then SMOLLM3_3B serves 8 requests with either build's K1 as
+    the engine's paged decode (:func:`_serve_reading`), in
+    ``SERVE_ROUNDS`` rounds of the same turns after one warm-up serve."""
     libs = _parent_libs(csrc)
     ptr, stream = (lambda t: ctypes.c_void_p(t.data_ptr())), (
         lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -1913,13 +2032,16 @@ def parent_compare_phase(csrc: Path) -> dict:
                  * 0.02).to(bf16)
             sets.append((*Q.quantize_fp8(x), *Q.quantize_fp8_kmajor(w)))
         o6 = torch.empty((M, N), device="cuda", dtype=bf16)
+        # the codes as bf16, the prologue's scratch
+        a16 = torch.empty((M, K), device="cuda", dtype=bf16)
+        b16 = torch.empty((N, K), device="cuda", dtype=bf16)
         it = iter(range(10 ** 9))
 
         def old_k6():
             aq, a_s, bt, b_s = sets[next(it) % 3]
             rc = libs["fp8_matmul"].fp8_matmul_launch(
-                ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(o6), M, N, K,
-                stream())
+                ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(a16), ptr(b16),
+                ptr(o6), M, N, K, stream())
             check(rc == 0, f"parent fp8_matmul: CUDA error {rc}")
             return o6
 
@@ -1941,7 +2063,7 @@ def parent_compare_phase(csrc: Path) -> dict:
         tot_new = [a + b for a, b in zip(tot_new, new)]
         log(f"compare fp8_matmul {name} ({M}, {K}) x ({K}, {N}): parent "
             f"{old} ms, change {new} ms; gate ratios {json.dumps(ratios)}")
-        del sets, ref
+        del sets, ref, a16, b16
         torch.cuda.empty_cache()
     res["fp8_matmul"] = {"parent_ms": tot_old, "change_ms": tot_new}
     log(f"compare fp8_matmul, one layer's 7 projections: parent {tot_old} "
@@ -1992,16 +2114,165 @@ def parent_compare_phase(csrc: Path) -> dict:
         f"parent {old} ms, change {new} ms; gate ratios {json.dumps(ratios)}")
     del sets
     torch.cuda.empty_cache()
+
+    # the flash attention's forward at the training shape
+    def old_fwd_on(q, k, v, scale):
+        o, lse = torch.empty_like(q), torch.empty(
+            (q.shape[0], nq, q.shape[1]), device="cuda")
+        rc = libs["flash_attention"].flash_attn_fwd_launch(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), q.shape[0], q.shape[1],
+            nq, nkv_t, hd, scale, stream())
+        check(rc == 0, f"parent flash_attention_fwd: CUDA error {rc}")
+        return o, lse
+
+    sets = [(mk(nq), mk(nkv_t), mk(nkv_t)) for _ in range(3)]
+    q, k, v = sets[0]
+    ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+    ratios = {}
+    for nm, fn in (("parent", old_fwd_on), ("change", FA.flash_attention_fwd)):
+        o, lse = fn(q, k, v, scale)
+        e_lse = float((lse - ref_lse).abs().max())
+        ratios[nm] = max(_fa_reading(f"compare flash_attention_fwd {nm}", "O",
+                                     o, ref_o, "fwd")[1], e_lse / FA.LSE_ATOL)
+        check(ratios[nm] <= 1.0, f"compare flash_attention_fwd {nm}: gate "
+              f"ratio {ratios[nm]:.3f}")
+    del ref_o, ref_lse, o, lse
+    it = iter(range(10 ** 9))
+    old, new = _turns(lambda: old_fwd_on(*sets[next(it) % 3], scale),
+                      lambda: FA.flash_attention_fwd(*sets[next(it) % 3],
+                                                     scale))
+    res["flash_attention_fwd"] = {"parent_ms": old, "change_ms": new,
+                                  "gate_ratio": ratios}
+    log(f"compare flash_attention_fwd (B {Bt}, S {S}, {nq}/{nkv_t} heads): "
+        f"parent {old} ms, change {new} ms; gate ratios {json.dumps(ratios)}")
+    del sets
+    torch.cuda.empty_cache()
+    res["flash_attention_fwd"].update(fa_oracle_reading(
+        {"parent": old_fwd_on, "change": FA.flash_attention_fwd},
+        "compare flash_attention_fwd", gated=("change",)))
+
+    # K1 at the kernel phase's serve shapes: one row per slot somewhere in
+    # its 64 decode steps
+    rng = np.random.default_rng(SEED + 3)
+    plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
+    dec = plen + rng.integers(0, NEW_TOKENS, size=B)
+    pools = _pools(gen, B * P + 1, page, nkv, hd, 4)
+    apos = torch.as_tensor(dec[:, None].astype(np.int32), device="cuda")
+    pages = _page_table(rng, dec, page, P, B * P + 1)
+    qg = torch.randn((B, 1, nkv, rep, hd), generator=gen, device="cuda",
+                     dtype=CFG.dtype)
+    geom = (B, P, page, nkv, rep, hd)
+    scratch = torch.empty(
+        libs["paged_decode"].paged_decode_scratch_floats(*geom),
+        device="cuda")
+
+    def old_k1_on(pk, pv):
+        out = torch.empty((B, 1, nkv, rep, hd), device="cuda")
+        rc = libs["paged_decode"].paged_decode_launch(
+            ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos), ptr(scratch),
+            ptr(out), *geom, 1, stream())
+        check(rc == 0, f"parent paged_decode: CUDA error {rc}")
+        return out
+
+    ref = PA.paged_attention_plain(qg, *pools[0], pages, apos)
+    atol, rtol = PA.TOLERANCE[CFG.dtype]
+    errs = {}
+    for nm, fn in (("parent", old_k1_on), ("change", lambda pk, pv:
+                   PA.paged_attention_decode(qg, pk, pv, pages, apos))):
+        got = fn(*pools[0])
+        errs[nm] = float((got - ref).abs().max())
+        check(torch.allclose(got, ref, atol=atol, rtol=rtol),
+              f"compare paged_decode {nm}: max |kernel - plain| = "
+              f"{errs[nm]} over atol {atol} rtol {rtol}")
+    it = iter(range(10 ** 9))
+    old, new = _turns(lambda: old_k1_on(*pools[next(it) % 4]),
+                      lambda: PA.paged_attention_decode(
+                          qg, *pools[next(it) % 4], pages, apos), graph_ms)
+    res["paged_decode"] = {"parent_ms": old, "change_ms": new,
+                           "max_abs_err": errs}
+    log(f"compare paged_decode (serve shapes): parent {old} ms, change {new}"
+        f" ms (graph replays); max |kernel - plain| {json.dumps(errs)}")
+    del pools, scratch
+    torch.cuda.empty_cache()
+
+    def old_k1_serve(qg, pk, pv, pages, apos):
+        """The parent's K1 as its wrapper launched it (a scratch a call)."""
+        code = PA.check_cuda_operands(
+            "paged_attention_decode", {"qg": qg, "pk": pk, "pv": pv},
+            {"pages": pages, "apos": apos})
+        B, _, nkv, rep, hd = qg.shape
+        geom = (B, pages.shape[1], pk.shape[1], nkv, rep, hd)
+        scratch = torch.empty(
+            libs["paged_decode"].paged_decode_scratch_floats(*geom),
+            device="cuda")
+        out = torch.empty((B, 1, nkv, rep, hd), device="cuda")
+        rc = libs["paged_decode"].paged_decode_launch(
+            ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos), ptr(scratch),
+            ptr(out), *geom, code, stream())
+        check(rc == 0, f"parent paged_decode: CUDA error {rc}")
+        PA.COUNTS.launches += 1
+        return out
+
+    params = build_params()
+    serve = {"parent": [], "change": []}
+    k1 = {"parent": old_k1_serve, "change": PA.paged_attention_decode}
+    # the first serve warms the allocator and the libraries; then
+    # SERVE_ROUNDS rounds of turns: the host clock spreads between serves
+    order = ["change"] + ["parent", "change", "change", "parent"] \
+        * SERVE_ROUNDS
+    for i, nm in enumerate(order):
+        reading = _serve_reading(params, k1[nm])
+        if i:
+            serve[nm].append(reading)
+        log(f"compare serve ({'warm-up, ' if not i else ''}{nm} K1): "
+            f"{json.dumps(reading)}")
+    for nm, rs in serve.items():
+        log(f"compare serve, {nm} K1 over {len(rs)} serves: medians "
+            + json.dumps({k: statistics.median(r[k] for r in rs)
+                          for k in rs[0]}))
+    res["serve"] = serve
+    del params
+    torch.cuda.empty_cache()
     return res
+
+
+def _serve_reading(params, attend) -> dict:
+    """The serve phase's requests (the same prompts every call) through a
+    fresh engine whose paged decode is ``attend``: the decode step on the
+    host clock, TTFT p50 and tokens a second."""
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(1, CFG.vocab_size,
+                            size=int(rng.integers(PROMPT_LEN[0],
+                                                  PROMPT_LEN[1] + 1))
+                            ).astype(np.int32) for _ in range(N_REQUESTS)]
+    saved, E.paged_attention_decode = E.paged_attention_decode, attend
+    try:
+        eng = E.ServingEngine(params, CFG, **ENGINE)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=NEW_TOKENS)
+        torch.cuda.synchronize()
+        PA.COUNTS.reset()
+        eng.run()
+        torch.cuda.synchronize()
+    finally:
+        E.paged_attention_decode = saved
+    steps = eng.stats["decode_steps"]
+    check(PA.COUNTS.launches == steps * CFG.num_hidden_layers,
+          f"compare serve: {PA.COUNTS.launches} K1 launches for {steps} "
+          "decode steps")
+    slo = eng.slo_report()
+    return {"decode_step_ms": slo["scheduler"]["decode_ms_total"] / steps,
+            "ttft_p50_ms": slo["ttft_ms"]["p50"],
+            "tokens_per_s": slo["tokens_per_s"]}
 
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="time K3, K6 and the flash attention's backward "
+                    help="time K1, K3, K6 and the flash attention "
                     "built from this csrc directory (an unpacked parent "
-                    "commit) against this checkout's, in turns, and run "
-                    "nothing else")
+                    "commit) against this checkout's, and the serve with "
+                    "either K1, in turns, and run nothing else")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",

@@ -22,18 +22,31 @@
 // passes over 8 MB tensors.  Only wgmma reaches the bf16 tensor cores'
 // 989 TFLOP/s.
 //
-// Design.  Forward (not yet redesigned; ROADMAP.md): mma.sync m16n8k16
-// with f32 accumulation, one block of 4 warps per (query tile of 64
-// rows, query head, batch), 16 query rows a warp, Q fragments in
-// registers, the tiles issued longest first.  It walks the causal key
-// tiles of 64 (tiles above the diagonal are never visited), staging K
-// and V with cp.async into rows padded to hd + 8 elements (rows past S
-// zero-filled, and masked), and keeps an online softmax: running max m
-// and sum l per row, the accumulator rescaled by exp(m_old - m_new).
-// exp(s - m) is rounded to bf16 to enter the PV product, while l sums
-// the f32 values.
+// Design, for Hopper: one warpgroup a block, two blocks an SM, the
+// streamed tiles through rings of 4-D TMA loads (hopper.cuh heads_map,
+// 128-byte swizzled, zeros past S) that one thread issues, completing on
+// an mbarrier a stage.
 //
-// Backward, for Hopper: three kernels, no float atomics, so a run
+// Forward: one block per (query head, 64 queries, batch), the query
+// tiles longest first across every head.  Q is resident (one TMA load);
+// the causal key tiles of 64 stream K and V through rings of 2 stages
+// each.  S = Q Kᵀ runs on wgmma m64n64k16 (both operands K-major), the
+// online softmax (running max m and sum l per row, the accumulator
+// rescaled by exp(m_old - m_new)) in registers; exp(s - m) is rounded
+// to bf16 in the A-operand register layout and O += P V runs on wgmma
+// m64n128k16 with V read MN-major (the descriptor's transpose), while l
+// sums the f32 values.  Tile j's scores are issued before tile j - 1's
+// PV, so that the exponentials of tile j overlap that product; a stage
+// is refilled once both products that read it have completed.  Only
+// the diagonal tile (which alone can hold keys past S) is masked
+// element by element.  One warpgroup and two stages measured fastest on
+// an H100 (two warpgroups sharing the K/V tiles meet at every stage and
+// wait for each other; three stages leave one block an SM).  A product
+// issued under a condition made ptxas serialise every wgmma (warning
+// C7514) and cost the forward a quarter of its speed, so the tile loop
+// issues and retires each product unconditionally.
+//
+// Backward: three kernels, no float atomics, so a run
 // repeats to the last digit.  D per row (one warp a row).  dK and dV per
 // (64 keys, kv head, batch): one warpgroup holds dK and dV (64 x 128 f32
 // each) in registers while the group's query heads and causal query
@@ -67,52 +80,14 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;   // 4 warps
-constexpr int kRows = 64;       // forward query and key tile
+constexpr int kThreads = 128;   // 4 warps (the D kernel)
 
 // the row sum l takes each probability as computed, in f32
 __device__ __forceinline__ float lsum_term(float p) { return p; }
+// the forward scales the f32 score as the tensor cores summed it
+__device__ __forceinline__ float fwd_score(float s, float scale) { return s * scale; }
 // the backward reads the forward's f32 logsumexp as stored
 __device__ __forceinline__ float lse_in(float x) { return x; }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8x8 b16 matrices, transposed: the B fragments of two n8 tiles
-// from a row-major [k][n] tile
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -129,190 +104,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Stage rows [s0, s0 + R) of head hh of a (B, S, nh, HD) tensor into a
-// [R][HD + 8] shared tile; rows past S are zero-filled.
-template <int HD, int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src,
-                                          int b, int S, int nh, int hh,
-                                          int s0) {
-  constexpr int kCh = HD / 8;
-  for (int c = threadIdx.x; c < R * kCh; c += kThreads) {
-    const int r = c / kCh, cc = (c % kCh) * 8;
-    const int s = s0 + r;
-    const bool ok = s < S;
-    const bf16* p =
-        ok ? src + ((static_cast<int64_t>(b) * S + s) * nh + hh) * HD + cc
-           : src;
-    cp_async16(dst + r * (HD + 8) + cc, p, ok ? 16 : 0);
-  }
-}
-
-// A fragment (16 rows x 16 of k at column k0) of a [rows][HD + 8] tile
-template <int HD>
-__device__ __forceinline__ void a_frag(uint32_t a[4], const bf16* tile,
-                                       int row0, int k0, int g, int t) {
-  const bf16* p = tile + (row0 + g) * (HD + 8) + k0 + t * 2;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * (HD + 8));
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * (HD + 8) + 8);
-}
-
-// B fragment (16 of k at column k0 x 8 of n) of a tile stored [n][k]
-template <int HD>
-__device__ __forceinline__ void b_frag(uint32_t b[2], const bf16* tile,
-                                       int n0, int k0, int g, int t) {
-  const bf16* p = tile + (n0 + g) * (HD + 8) + k0 + t * 2;
-  b[0] = lds32(p);
-  b[1] = lds32(p + 8);
-}
-
-// acc[HD/8][4] += A (16 x 16·KC, C-fragment layout floats `c[2·KC][4]`,
-// rounded to bf16) times the [k][HD] tile rows k0..
-template <int HD, int KC>
-__device__ __forceinline__ void mma_c_times_tile(float acc[][4],
-                                                 const float c[][4],
-                                                 const bf16* tile, int k0,
-                                                 int lane) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const uint32_t a[4] = {pack2(c[2 * kc][0], c[2 * kc][1]),
-                           pack2(c[2 * kc][2], c[2 * kc][3]),
-                           pack2(c[2 * kc + 1][0], c[2 * kc + 1][1]),
-                           pack2(c[2 * kc + 1][2], c[2 * kc + 1][3])};
-    const int kr = k0 + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, tile + kr * (HD + 8) + np * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * np], a, b);
-      mma_bf16(acc[2 * np + 1], a, b + 2);
-    }
-  }
-}
-
 struct Geom {
   int S, nq, nkv;
   float scale;
 };
-
-// ------------------------------------------------------------- forward
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
-              float* __restrict__ lse, Geom G) {
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kRows * LD;
-  bf16* vs = ks + kRows * LD;
-  const int S = G.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;   // longest first
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (G.nq / G.nkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wr = warp * 16;
-
-  load_rows<HD, kRows>(qs, q, b, S, G.nq, h, q0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) a_frag<HD>(qf[kk], qs, wr, kk * 16, g, t);
-
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float oacc[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
-
-  const int n_tiles = (min(q0 + kRows, S) - 1) / kRows + 1;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * kRows;
-    __syncthreads();   // the previous tiles are consumed
-    load_rows<HD, kRows>(ks, k, b, S, G.nkv, kh, k0);
-    cp_async_commit();
-    load_rows<HD, kRows>(vs, v, b, S, G.nkv, kh, k0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[kRows / 8][4];
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < kRows / 8; ++n) {
-        uint32_t bb[2];
-        b_frag<HD>(bb, ks, n * 8, kk * 16, g, t);
-        mma_bf16(s[n], qf[kk], bb);
-      }
-    // scale the f32 scores, mask, and take each row's max; key k0 is
-    // visible to every row of this tile (k0 <= q0), so the max is finite
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t * 2 + (e & 1);
-        const float x = (col <= row[e / 2] && col < S) ? s[n][e] * G.scale
-                                                       : -INFINITY;
-        s[n][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = expf(m[r] - mn);
-      m[r] = mn;
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kRows / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e / 2]);
-        s[n][e] = p;
-        ls[e / 2] += lsum_term(p);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[d][e] *= corr[e / 2];
-
-    cp_async_wait<0>();
-    __syncthreads();
-    mma_c_times_tile<HD, kRows / 16>(oacc, s, vs, 0, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row[e / 2];
-      if (r < S)
-        o[((static_cast<int64_t>(b) * S + r) * G.nq + h) * HD + d * 8 +
-          t * 2 + (e & 1)] = __float2bfloat16_rn(oacc[d][e] / l[e / 2]);
-    }
-  if (t == 0)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row[r] < S)
-        lse[(static_cast<int64_t>(b) * G.nq + h) * S + row[r]] =
-            m[r] + logf(l[r]);
-}
 
 // ------------------------------------------------------------ backward
 
@@ -732,6 +527,200 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ------------------------------------------------------------- forward
+
+// One block per (query head, 64 queries, batch): one warpgroup with its
+// 64 query rows resident; the causal key tiles of 64 stream K and V
+// through a K ring and a V ring of kFwdStages each.  Tile j's S = Q Kᵀ
+// is issued before tile j - 1's O += P V, so that tile j's exponentials
+// run while the tensor cores take that product; once both have
+// completed, K stage j and V stage j - 1 are refilled.
+constexpr int kFwdStages = 2;
+constexpr int kFwdSmem = tile_bytes(64) + 2 * kFwdStages * tile_bytes(kKt) +
+                         (2 * kFwdStages + 1) * 8 + 1008;
+
+__global__ void __launch_bounds__(kWgThreads, kBlocksPerSm)
+fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+              float* __restrict__ lse, Geom G) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const qs = hop::align1024(smem_raw);
+  uint8_t* const kring = qs + tile_bytes(64);
+  uint8_t* const vring = kring + kFwdStages * tile_bytes(kKt);
+  // the TMA completions (K stages, V stages, then Q), after the rings
+  uint64_t* const kfull =
+      reinterpret_cast<uint64_t*>(vring + kFwdStages * tile_bytes(kKt));
+  uint64_t* const vfull = kfull + kFwdStages;
+  uint64_t* const qfull = vfull + kFwdStages;
+  auto ktile = [&](int j) {
+    return kring + (j % kFwdStages) * tile_bytes(kKt);
+  };
+  auto vtile = [&](int j) {
+    return vring + (j % kFwdStages) * tile_bytes(kKt);
+  };
+  const int S = G.S;
+  const int h = blockIdx.x, b = blockIdx.z, kh = h / (G.nq / G.nkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;   // longest first
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the key tiles end at the rows' diagonal tile
+  const int jlast = q0 / kKt, n_kt = jlast + 1;
+
+  // rows [s0, s0 + 64) of head hh of a map into dst, completing on bar
+  auto load = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int hh,
+                  int s0) {
+    hop::mbar_expect_tx(bar, tile_bytes(kKt));
+    for (int cb = 0; cb < 2; ++cb)
+      hop::tma_load_4d(col_block(dst, kKt, cb), map, bar, 64 * cb, hh, s0, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      hop::mbar_init(&kfull[i], 1);
+      hop::mbar_init(&vfull[i], 1);
+    }
+    hop::mbar_init(qfull, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();   // the barriers are initialised
+  if (tid == 0) {
+    load(qs, &tq, qfull, h, q0);
+    for (int j = 0; j < kFwdStages && j < n_kt; ++j) {
+      load(ktile(j), &tk, &kfull[j], kh, j * kKt);
+      load(vtile(j), &tv, &vfull[j], kh, j * kKt);
+    }
+  }
+
+  int row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) row[r] = q0 + 16 * warp + lane / 4 + 8 * r;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  float sc[32], oacc[64];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+
+  // S = Q K_jᵀ, issued as one wgmma group
+  auto scores = [&](int j) {
+    hop::mbar_wait(&kfull[j % kFwdStages], (j / kFwdStages) & 1);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    hop::fence_regs(sc);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      hop::wgmma_m64n64k16_bf16_ss(sc, over_hd(qs, kk), over_hd(ktile(j), kk));
+    hop::wgmma_commit();
+  };
+  // O += P V_j (P the bf16 fragments in pa), issued as one wgmma group
+  auto pv = [&](int j) {
+    hop::mbar_wait(&vfull[j % kFwdStages], (j / kFwdStages) & 1);
+    hop::fence_regs(oacc);
+    hop::wgmma_fence();
+    acc_rows(oacc, pa, vtile(j));   // O += P V
+    hop::wgmma_commit();
+  };
+  // the online softmax of tile j's scores: scaled f32 scores, masked
+  // on the diagonal tile (key t visible to row s iff t <= s, and
+  // t < S), the new row max, corr = exp(m_old - m_new), sc =
+  // exp(s - m_new) in f32 and l = l · corr + the row's sum of them; key
+  // j · 64 <= q0 is visible to every row, so the max is finite
+  auto softmax = [&](int j) {
+    auto body = [&](bool masked) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e / 2) % 2, key = j * kKt + acc_col(e, lane);
+        const float x = !masked || (key <= row[r] && key < S)
+                            ? fwd_score(sc[e], G.scale)
+                            : -INFINITY;
+        sc[e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = expf(m[r] - mn);
+        m[r] = mn;
+      }
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e / 2) % 2;
+        const float p = expf(sc[e] - m[r]);
+        sc[e] = p;
+        ls[r] += lsum_term(p);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
+    };
+    if (j == jlast)
+      body(true);
+    else
+      body(false);
+  };
+  // exp(s - m) rounded to bf16, in the A layout of the PV product
+  auto pack = [&]() {
+#pragma unroll
+    for (int e = 0; e < 32; e += 2)
+      pa[e / 8][(e % 8) / 2] = pack2(sc[e], sc[e + 1]);
+  };
+  // after tile j's scores and tile j - 1's PV: K stage j and V stage
+  // j - 1 are free for tiles j + kFwdStages and j - 1 + kFwdStages
+  auto refill = [&](int j) {
+    __syncthreads();
+    if (tid == 0) {
+      if (j + kFwdStages < n_kt)
+        load(ktile(j), &tk, &kfull[j % kFwdStages], kh,
+             (j + kFwdStages) * kKt);
+      if (j >= 1 && j - 1 + kFwdStages < n_kt)
+        load(vtile(j - 1), &tv, &vfull[(j - 1) % kFwdStages], kh,
+             (j - 1 + kFwdStages) * kKt);
+    }
+  };
+
+  hop::mbar_wait(qfull, 0);
+  scores(0);
+  hop::wgmma_wait<0>();
+  hop::fence_regs(sc);
+  softmax(0);
+  refill(0);
+  pack();
+  for (int j = 1; j < n_kt; ++j) {
+    scores(j);
+    pv(j - 1);
+    hop::wgmma_wait<1>();   // S_j
+    hop::fence_regs(sc);
+    softmax(j);             // while O += P_{j-1} V_{j-1} runs
+    hop::wgmma_wait<0>();
+    hop::fence_regs(oacc);
+    refill(j);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) oacc[i] *= corr[(i / 2) % 2];
+    pack();
+  }
+  pv(n_kt - 1);
+  hop::wgmma_wait<0>();
+  hop::fence_regs(oacc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= S) continue;
+    bf16* out = o + ((static_cast<int64_t>(b) * S + row[r]) * G.nq + h) * 128;
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+      const int d = 8 * jb + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(out + d) =
+          __floats2bfloat162_rn(oacc[4 * jb + 2 * r] / l[r],
+                                oacc[4 * jb + 2 * r + 1] / l[r]);
+    }
+    if (lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * G.nq + h) * S + row[r]] =
+          m[r] + logf(l[r]);
+  }
+}
+
 // max_shared: the whole L1 as shared memory, so that the backward's
 // blocks fit kBlocksPerSm to an SM
 template <typename Kernel>
@@ -745,16 +734,17 @@ int set_smem(Kernel kernel, int bytes, bool max_shared = false) {
   return static_cast<int>(err);
 }
 
-template <int HD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, Geom G, cudaStream_t st) {
-  const int smem = 3 * kRows * (HD + 8) * 2;
-  if (int err = set_smem(fa_fwd_kernel<HD>, smem)) return err;
-  const dim3 grid((G.S + kRows - 1) / kRows, G.nq, B);
-  fa_fwd_kernel<HD><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), G);
+  CUtensorMap tq, tk, tv;
+  if (!hop::heads_map(&tq, q, B, G.S, G.nq, 64) ||
+      !hop::heads_map(&tk, k, B, G.S, G.nkv, kKt) ||
+      !hop::heads_map(&tv, v, B, G.S, G.nkv, kKt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = set_smem(fa_fwd_kernel, kFwdSmem, true)) return err;
+  fa_fwd_kernel<<<dim3(G.nq, (G.S + 63) / 64, B), kWgThreads, kFwdSmem,
+                  st>>>(tq, tk, tv, static_cast<bf16*>(o),
+                        static_cast<float*>(lse), G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -807,7 +797,7 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
   if (bad_geom(B, S, nq, nkv) || hd != 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom G{S, nq, nkv, scale};
-  return fwd<128>(q, k, v, o, lse, B, G, static_cast<cudaStream_t>(stream));
+  return fwd(q, k, v, o, lse, B, G, static_cast<cudaStream_t>(stream));
 }
 
 // The backward from the forward's o and lse and the output grad dout

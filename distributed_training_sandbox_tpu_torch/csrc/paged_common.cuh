@@ -43,6 +43,20 @@ struct Vec {
   }
 };
 
+// two neighbouring elements of T (4- or 8-byte aligned) as floats
+__device__ __forceinline__ void pair_f32(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void pair_f32(const __nv_bfloat16* p, float& a,
+                                         float& b) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = v.x;
+  b = v.y;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

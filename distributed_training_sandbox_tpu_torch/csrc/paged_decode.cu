@@ -13,329 +13,469 @@
 // What bounds it on an H100: bytes.  Each (b, g) reads its visible K and
 // V rows (2 · (apos+1) · hd elements) for 4 · rep · hd flops per
 // position — about 2 flops per byte, far below the ~295 the card needs
-// to be compute-bound.  So the design is about keeping enough loads in
-// flight across the whole card.
+// to be compute-bound.  So the design is about having every visible row
+// in flight at once, reading each once, in one launch.
 //
-// Design (split-K, "flash decoding", two passes):
-//  * the positions of a slot are cut into chunks of kChunk; one block of
-//    kWarps warps per (b, g, chunk) gives B · n_kv · ceil(view / kChunk)
-//    blocks, enough to fill 132 SMs at B = 8.  Chunks wholly past
-//    apos[b] exit at once: masked positions get probability exactly 0 in
-//    the reference, so stopping at apos computes the same function while
-//    reading only the rows the slot holds;
-//  * pass 1 (decode_stats): per chunk, the running max and sum of
-//    exp(score - max), each warp over its 32-key tiles (lanes load the
-//    tile's page ids once and stage the K tile in shared memory with
-//    16-byte loads; each lane scores one key against the rep queries);
-//  * pass 2 (decode_pv): every chunk block folds the chunks' (max, sum)
-//    into the row's softmax max M and denominator L, scores its keys
-//    again, forms p = round(exp(s - M) / L) — the reference's rounded
-//    probability — and accumulates p · v in f32, reading each V row once,
-//    coalesced, straight from the pool;
-//  * decode_sum adds the chunks' partial sums.
-// K is read twice and V once: 1.5x the bytes of one pass.  An online
-// softmax (one pass) cannot round the NORMALISED probability, and at 36
-// layers that rounding decides tokens: without it the logits of the
-// SmolLM3-3B smoke moved by 3.5 against the plain path.
+// Design, for Hopper: one launch, a thread-block cluster of kCluster
+// blocks per (b, g).
+//  * The visible positions 0..min(apos[b], V - 1) are cut into kCluster
+//    contiguous ranges, one a block; a block wholly past apos issues no
+//    loads (masked positions get probability exactly 0 in the
+//    reference, so stopping at apos computes the same function while
+//    reading only the rows the slot holds; the null page 0 of padded
+//    table rows is never read).
+//  * Loads: the K and V rows of one head are strided in the pool, so
+//    every thread issues 16-byte cp.async copies of the visible rows
+//    into shared memory, each row's page id read from the table, K and
+//    V as two commit groups: a block's rows are in flight at once, and
+//    its keys are scored while V still arrives.  (One bulk copy a row,
+//    the TMA unit's 1-D form, was tried first: the unit takes such
+//    copies one after another, and the loads became the block's
+//    longest step.)  A range longer than the R rows a block holds is taken in
+//    sub-ranges: K sub-range by sub-range first, the last sub-range's V
+//    loaded with the first K.
+//  * Scores: each block scores its keys once on the CUDA cores, a thread
+//    a key against the rep query rows (K rows padded by 16 bytes in
+//    shared memory, so that a warp's 16-byte loads of eight rows meet no
+//    bank twice; q read as broadcasts), and keeps them in shared memory
+//    (in a view longer than kCluster · kMaxRange positions, in a global
+//    scratch the caller gives, each block its own slice) with its local
+//    (max, sum of exp(s - max)) per query row.  (A group
+//    of lanes per key summing by shuffles, tried first, was a chain of
+//    dependent shuffles.)  Every loop over the query rows runs to RB,
+//    rep rounded up to a power of two (a template argument), with zero
+//    rows past rep: a loop that breaks at rep keeps the compiler from
+//    issuing the next row's shared load before the branch.
+//  * Exchange: through distributed shared memory and a cluster barrier,
+//    every block reads the kCluster partial (max, sum) pairs, in rank
+//    order, and forms the row's max M and sum L.
+//  * PV: each block forms p = round_to<T>(exp(s - M) / L) from its kept
+//    scores (K is never read again) and sums p · v from its V rows in
+//    shared memory, two dims a thread, the positions split over groups
+//    of hd / 2 threads whose sums are added in a fixed order.
+//  * Reduction: after a second cluster barrier block c adds the
+//    kCluster partial sums of its slice of the output, in rank order,
+//    and writes it once: bitwise repeatable, no atomics.
+// The two-pass structure of the softmax stays: an online softmax cannot
+// round the NORMALISED probability, and at 36 layers that rounding
+// decides tokens (without it the logits of the SmolLM3-3B smoke moved by
+// 3.5 against the plain path).
 //
 // Numerics vs the reference: the same operations, in another summation
 // order; expect agreement to f32 rounding, and rare one-ulp differences
 // where a probability sits on a bf16 rounding boundary.
 
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 #include "paged_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;                   // warps per block
-constexpr int kTile = 32;                   // keys per tile = lanes
-constexpr int kChunk = 2 * kWarps * kTile;  // positions per block: 256
-constexpr int kMaxRep = 8;                  // query rows per kv head
-constexpr int kMaxDs = 4;                   // head dims per lane: hd <= 128
+constexpr int kThreads = 256;      // 8 warps a block
+constexpr int kCluster = 8;        // blocks per (b, g), portable size
+constexpr int kMaxRep = 8;         // query rows per kv head
+constexpr int kMaxHd = 128;        // head dims
+// K + V rows a block holds at once: with the scores and sums, three
+// blocks share an SM, so the serve shape's 256 blocks run in one wave
+constexpr int kRowBytes = 57344;
+// positions a block keeps scores for in shared memory; a longer range
+// keeps them in the caller's scratch
+constexpr int kMaxRange = 2048;
+constexpr int kMaxView = 1 << 30;  // positions of a view, as int
 
 struct Geom {
   int P, page, nkv, rep, hd;
 };
 
-// Shared-memory layout of one block: q rows, per-warp probabilities,
-// per-warp K tiles (reused at the end for the warp merge).
+// The last visible position of a slot whose query sits at ap, in a view
+// of V positions: key t is visible iff t <= ap.
+__device__ __forceinline__ int last_key(int ap, int V) { return min(ap, V - 1); }
+
+// The most positions a block is given.
+__host__ __device__ inline int range_max(const Geom& G) {
+  return (G.P * G.page + kCluster - 1) / kCluster;
+}
+// whether the blocks keep their scores in shared memory
+__host__ __device__ inline bool scores_shared(const Geom& G) {
+  return range_max(G) <= kMaxRange;
+}
+// rep rounded up to a power of two: the stride of the scores
+__host__ __device__ inline int rep_block(int rep) {
+  return rep == 1 ? 1 : rep == 2 ? 2 : rep <= 4 ? 4 : 8;
+}
+// the K buffer's row stride in elements: 16 bytes of padding
+template <typename T>
+__host__ __device__ inline int kstride(const Geom& G) {
+  return G.hd + 16 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ inline int rows_held(const Geom& G) {
+  const int r = kRowBytes / (2 * G.hd * static_cast<int>(sizeof(T)));
+  return r < range_max(G) ? r : range_max(G);
+}
+// table entries a block's range can touch
+__host__ __device__ inline int pages_held(const Geom& G) {
+  return range_max(G) / G.page + 2;
+}
+// threads a PV group (two dims each), and the groups of a block
+__host__ __device__ inline int pv_groups(const Geom& G) {
+  const int n = kThreads / (G.hd / 2);
+  return n > 1 ? n : 1;
+}
+
+// Shared-memory layout of one block; RB is rep rounded up to a power
+// of two, the stride of the q rows and of each position's scores.
+template <typename T, int RB>
 struct Smem {
-  float *qs, *ps, *kt;
-  __device__ Smem(float* base, const Geom& G) {
-    qs = base;
-    ps = qs + G.rep * G.hd;
-    kt = ps + kWarps * G.rep * kTile;
+  T *kb, *vb;               // rows_held K and V rows
+  float *gpart;             // the PV groups' sums, over the K rows
+  float *qs, *sc, *stat;    // q rows (f32, zero past rep); scores, then p
+                            // (or in the caller's scratch); (max, sum);
+  float *ml, *part;         // the row's (M, L); PV sums
+  int* pg;                  // the page ids of the block's range
+  // bytes of the K rows' region: the K rows, or the groups' PV sums
+  __host__ __device__ static size_t k_bytes(const Geom& G) {
+    const size_t k = static_cast<size_t>(rows_held<T>(G)) * kstride<T>(G) *
+                     sizeof(T);
+    const size_t g = sizeof(float) * G.rep * pv_groups(G) * G.hd;
+    return k > g ? k : g;
+  }
+  __host__ __device__ static size_t bytes(const Geom& G) {
+    return k_bytes(G) +
+           static_cast<size_t>(rows_held<T>(G)) * G.hd * sizeof(T) +
+           sizeof(float) * (static_cast<size_t>(RB) * G.hd +
+                            (scores_shared(G) ? static_cast<size_t>(
+                                 range_max(G)) * RB : 0) +
+                            4 * G.rep + G.rep * G.hd + pages_held(G));
+  }
+  __device__ Smem(unsigned char* base, const Geom& G) {
+    kb = reinterpret_cast<T*>(base);
+    gpart = reinterpret_cast<float*>(base);
+    vb = reinterpret_cast<T*>(base + k_bytes(G));
+    qs = reinterpret_cast<float*>(vb + rows_held<T>(G) * G.hd);
+    sc = qs + RB * G.hd;
+    stat = sc + (scores_shared(G) ? range_max(G) * RB : 0);
+    ml = stat + 2 * G.rep;
+    part = ml + 2 * G.rep;
+    pg = reinterpret_cast<int*>(part + G.rep * G.hd);
   }
 };
 
-template <typename T>
-__device__ void load_q(const T* q, float* qs, int bg, const Geom& G) {
-  const T* qb = q + static_cast<int64_t>(bg) * G.rep * G.hd;
-  for (int i = threadIdx.x; i < G.rep * G.hd; i += blockDim.x)
-    qs[i] = dts::to_f32(qb[i]);
-}
-
-// Stage this warp's K tile at t0 and score lane's key against the rep
-// query rows; s[r] = -inf where the key is past `last`.  Returns the
-// lane's page id (the page of key t0 + lane), for the V reads.
-template <typename T>
-__device__ int tile_scores(const T* __restrict__ pk,
-                           const int* __restrict__ prow, const float* qs,
-                           float* my_k, int t0, int last, int g,
-                           const Geom& G, float s[kMaxRep]) {
-  const int lane = threadIdx.x % 32;
-  const int pos = t0 + lane;
-  const bool vis = pos <= last;
-  const int pg_lane = vis ? prow[pos / G.page] : 0;
-  dts::stage_tile<T>(pk, my_k, G.hd + 1, t0, last, g, G.page, G.nkv, G.hd,
-                     lane, 32, [&](int t) {
-                       return __shfl_sync(0xffffffffu, pg_lane, t);
-                     });
-  __syncwarp();
-  const float root_hd = sqrtf(static_cast<float>(G.hd));
-  // register arrays are indexed by unrolled constants (a runtime index
-  // would spill them to local memory)
+// RB floats of shared memory at p (16-byte aligned for RB >= 4)
+template <int RB>
+__device__ __forceinline__ void load_rows(const float* p, float (&x)[RB]) {
+  if constexpr (RB >= 4) {
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r >= G.rep) break;
-    float acc = 0.f;
-    for (int d = 0; d < G.hd; ++d)
-      acc += qs[r * G.hd + d] * my_k[lane * (G.hd + 1) + d];
-    s[r] = vis ? acc / root_hd : -INFINITY;
-  }
-  return pg_lane;
-}
-
-// Pass 1: per (b, g, chunk), the softmax max and sum of the chunk's keys.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_stats(const T* __restrict__ q, const T* __restrict__ pk,
-             const int* __restrict__ pages, const int* __restrict__ apos,
-             float* __restrict__ stats, Geom G) {
-  extern __shared__ float smem[];
-  const int bg = blockIdx.x, b = bg / G.nkv, g = bg % G.nkv;
-  const int kend = min(apos[b], G.P * G.page - 1);
-  const int c0 = blockIdx.y * kChunk;
-  if (c0 > kend) return;
-  const int cend = min(kend, c0 + kChunk - 1);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  Smem sm(smem, G);
-  load_q(q, sm.qs, bg, G);
-  __syncthreads();
-  const int* prow = pages + static_cast<int64_t>(b) * G.P;
-  float* my_k = sm.kt + warp * kTile * (G.hd + 1);
-
-  float m[kMaxRep], l[kMaxRep], s[kMaxRep];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) m[r] = -INFINITY, l[r] = 0.f;
-  for (int t0 = c0 + warp * kTile; t0 <= cend; t0 += kWarps * kTile) {
-    tile_scores(pk, prow, sm.qs, my_k, t0, cend, g, G, s);
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r >= G.rep) break;
-      // key t0 (lane 0) is visible, so m_new is finite
-      const float m_new = fmaxf(m[r], dts::warp_max(s[r]));
-      const float p = s[r] == -INFINITY ? 0.f : expf(s[r] - m_new);
-      l[r] = l[r] * expf(m[r] - m_new) + dts::warp_sum(p);
-      m[r] = m_new;
+    for (int i = 0; i < RB; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      x[i] = v.x, x[i + 1] = v.y, x[i + 2] = v.z, x[i + 3] = v.w;
     }
-    __syncwarp();
-  }
-  // merge the warps: (max, sum) of the whole chunk
-  float* mg = sm.kt;   // kWarps * rep * 2
-  __syncthreads();
+  } else {
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r >= G.rep) break;
-    if (lane == 0) {
-      mg[(warp * G.rep + r) * 2] = m[r];
-      mg[(warp * G.rep + r) * 2 + 1] = l[r];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < G.rep) {
-    const int r = threadIdx.x;
-    float M = -INFINITY, L = 0.f;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, mg[(w * G.rep + r) * 2]);
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = mg[(w * G.rep + r) * 2];
-      if (mw != -INFINITY) L += mg[(w * G.rep + r) * 2 + 1] * expf(mw - M);
-    }
-    float* st = stats + ((static_cast<int64_t>(bg) * gridDim.y + blockIdx.y) *
-                             G.rep + r) * 2;
-    st[0] = M;
-    st[1] = L;
+    for (int i = 0; i < RB; ++i) x[i] = p[i];
   }
 }
 
-// Pass 2: per (b, g, chunk), sum over the chunk's keys of the rounded
-// probability times v.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_pv(const T* __restrict__ q, const T* __restrict__ pk,
-          const T* __restrict__ pv, const int* __restrict__ pages,
-          const int* __restrict__ apos, const float* __restrict__ stats,
-          float* __restrict__ part, Geom G) {
-  extern __shared__ float smem[];
-  __shared__ float ML[2 * kMaxRep];
-  const int bg = blockIdx.x, b = bg / G.nkv, g = bg % G.nkv;
-  const int kend = min(apos[b], G.P * G.page - 1);
-  const int c0 = blockIdx.y * kChunk;
-  if (c0 > kend) return;
-  const int cend = min(kend, c0 + kChunk - 1);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+template <typename T, int RB>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ pk,
+              const T* __restrict__ pv, const int* __restrict__ pages,
+              const int* __restrict__ apos, float* scores,
+              float* __restrict__ out, Geom G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bg = blockIdx.x / kCluster, b = bg / G.nkv, g = bg % G.nkv;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int hd = G.hd, rep = G.rep;
-  Smem sm(smem, G);
-  load_q(q, sm.qs, bg, G);
-  if (threadIdx.x < rep) {
-    // fold the chunks' (max, sum) into the row's softmax max and sum
-    const int r = threadIdx.x, used = kend / kChunk + 1;
-    const float* st = stats + static_cast<int64_t>(bg) * gridDim.y * rep * 2;
-    float M = -INFINITY, L = 0.f;
-    for (int c = 0; c < used; ++c) M = fmaxf(M, st[(c * rep + r) * 2]);
-    for (int c = 0; c < used; ++c)
-      L += st[(c * rep + r) * 2 + 1] * expf(st[(c * rep + r) * 2] - M);
-    ML[2 * r] = M;
-    ML[2 * r + 1] = L;
+  Smem<T, RB> sm(smem_raw, G);
+  if (!scores_shared(G))
+    sm.sc = scores + static_cast<int64_t>(blockIdx.x) * range_max(G) * RB;
+  const int* prow = pages + static_cast<int64_t>(b) * G.P;
+
+  // this block's positions [p0, p0 + len) of the visible 0..kend
+  const int n = last_key(apos[b], G.P * G.page) + 1;
+  const int chunk = (n + kCluster - 1) / kCluster;
+  const int p0 = rank * chunk;
+  const int len = max(0, min(chunk, n - p0));
+  const int held = rows_held<T>(G);
+  const int n_sub = (len + held - 1) / held;
+  const int cpr = hd * static_cast<int>(sizeof(T)) / 16;   // 16 B a row
+  const int ks = kstride<T>(G);
+
+  // issue the copies of the rows of sub-range s of the pool src into the
+  // buffer dst (row stride `stride`), spread over the block's threads,
+  // as one commit group (after a barrier: the buffer's earlier reads
+  // are done, and the staged page ids are visible)
+  auto issue = [&](T* dst, int stride, const T* __restrict__ src, int s) {
+    const int cnt = min(held, len - s * held);
+    __syncthreads();
+    for (int i = tid; i < cnt * cpr; i += kThreads) {
+      const int r = i / cpr, c = i % cpr, pos = p0 + s * held + r;
+      const int64_t at = dts::pool_row(sm.pg[pos / G.page - p0 / G.page],
+                                       pos % G.page, g, G.page, G.nkv, hd);
+      hop::cp_async16(reinterpret_cast<uint8_t*>(dst + r * stride) + 16 * c,
+                      reinterpret_cast<const uint8_t*>(src + at) + 16 * c,
+                      true);
+    }
+    hop::cp_async_commit();
+  };
+
+  for (int i = tid; i < RB * hd; i += kThreads)
+    sm.qs[i] = i < rep * hd
+                   ? dts::to_f32(q[static_cast<int64_t>(bg) * rep * hd + i])
+                   : 0.f;
+  // the table entries of the range, read once
+  if (len > 0)
+    for (int i = p0 / G.page + tid; i <= (p0 + len - 1) / G.page;
+         i += kThreads)
+      sm.pg[i - p0 / G.page] = prow[i];
+  if (len > 0) {
+    issue(sm.kb, ks, pk, 0);
+    issue(sm.vb, hd, pv, n_sub - 1);   // kept for the PV pass
   }
   __syncthreads();
-  const int* prow = pages + static_cast<int64_t>(b) * G.P;
-  float* my_k = sm.kt + warp * kTile * (hd + 1);
-  float* my_p = sm.ps + warp * rep * kTile;
 
-  float acc[kMaxRep][kMaxDs], s[kMaxRep];
+  // scores: a thread a key, 16 bytes of its K row at a time against the
+  // same 16 bytes of each query row (broadcast reads)
+  const float root_hd = sqrtf(static_cast<float>(hd));
+  constexpr int kVec = dts::Vec<T>::n;
+  for (int s = 0; s < n_sub; ++s) {
+    // K of sub-range s (the first V group may still be in flight)
+    if (s == 0)
+      hop::cp_async_wait<1>();
+    else
+      hop::cp_async_wait<0>();
+    __syncthreads();
+    const int cnt = min(held, len - s * held);
+    for (int kr = tid; kr < cnt; kr += kThreads) {
+      float acc[RB];
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
+      for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+      for (int c = 0; c < hd; c += kVec) {
+        float kv[kVec];
+        dts::Vec<T>::load(sm.kb + kr * ks + c, kv);
 #pragma unroll
-    for (int i = 0; i < kMaxDs; ++i) acc[r][i] = 0.f;
-  for (int t0 = c0 + warp * kTile; t0 <= cend; t0 += kWarps * kTile) {
-    const int pg_lane = tile_scores(pk, prow, sm.qs, my_k, t0, cend, g, G, s);
+        for (int r = 0; r < RB; ++r) {
+          const float* qr = sm.qs + r * hd + c;
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r >= rep) break;
-      my_p[r * kTile + lane] =
-          s[r] == -INFINITY
-              ? 0.f
-              : dts::round_to<T>(expf(s[r] - ML[2 * r]) / ML[2 * r + 1]);
-    }
-    __syncwarp();
-    const int tn = min(kTile, cend - t0 + 1);
-    for (int t = 0; t < tn; ++t) {
-      const int pg = __shfl_sync(0xffffffffu, pg_lane, t);
-      const T* vrow = pv + dts::pool_row(pg, (t0 + t) % G.page, g, G.page,
-                                         G.nkv, hd);
-#pragma unroll
-      for (int i = 0; i < kMaxDs; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          const float vv = dts::to_f32(vrow[d]);
-#pragma unroll
-          for (int r = 0; r < kMaxRep; ++r) {
-            if (r >= rep) break;
-            acc[r][i] += my_p[r * kTile + t] * vv;
-          }
+          for (int i = 0; i < kVec; ++i) acc[r] += qr[i] * kv[i];
         }
       }
-    }
-    __syncwarp();
-  }
-  // sum the warps' partial sums into the chunk's
-  float* mg = sm.kt;   // kWarps * rep * hd
-  __syncthreads();
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r >= rep) break;
-#pragma unroll
-    for (int i = 0; i < kMaxDs; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) mg[(warp * rep + r) * hd + d] = acc[r][i];
+      for (int r = 0; r < RB; ++r)
+        sm.sc[(s * held + kr) * RB + r] = acc[r] / root_hd;
     }
+    if (s + 1 < n_sub) issue(sm.kb, ks, pk, s + 1);
   }
   __syncthreads();
-  float* pb = part + (static_cast<int64_t>(bg) * gridDim.y + blockIdx.y) *
-                         rep * hd;
-  for (int idx = threadIdx.x; idx < rep * hd; idx += blockDim.x) {
-    float v = 0.f;
-    for (int w = 0; w < kWarps; ++w) v += mg[w * rep * hd + idx];
-    pb[idx] = v;
+
+  // the block's (max, sum of exp(s - max)) per query row; a block with
+  // no positions gives (-inf, 0)
+  for (int r = warp; r < rep; r += kThreads / 32) {
+    float mx = -INFINITY;
+    for (int i = lane; i < len; i += 32) mx = fmaxf(mx, sm.sc[i * RB + r]);
+    mx = dts::warp_max(mx);
+    float sum = 0.f;
+    for (int i = lane; i < len; i += 32) sum += expf(sm.sc[i * RB + r] - mx);
+    sum = dts::warp_sum(sum);
+    if (lane == 0) {
+      sm.stat[2 * r] = mx;
+      sm.stat[2 * r + 1] = len > 0 ? sum : 0.f;
+    }
   }
+  cluster.sync();
+
+  // the row's softmax max M and sum L from the cluster's pairs, in rank
+  // order (every block forms the same values)
+  if (tid < rep) {
+    const int r = tid;
+    float M = -INFINITY, L = 0.f;
+    for (int c = 0; c < kCluster; ++c)
+      M = fmaxf(M, cluster.map_shared_rank(sm.stat, c)[2 * r]);
+    for (int c = 0; c < kCluster; ++c) {
+      const float* st = cluster.map_shared_rank(sm.stat, c);
+      if (st[2 * r] != -INFINITY) L += st[2 * r + 1] * expf(st[2 * r] - M);
+    }
+    sm.ml[2 * r] = M;
+    sm.ml[2 * r + 1] = L;
+  }
+  __syncthreads();
+  // the rounded normalised probabilities, in place of the scores (0 in
+  // the rows past rep)
+  for (int i = tid; i < len * RB; i += kThreads) {
+    const int r = i % RB;
+    sm.sc[i] = r < rep ? dts::round_to<T>(expf(sm.sc[i] - sm.ml[2 * r]) /
+                                          sm.ml[2 * r + 1])
+                       : 0.f;
+  }
+  __syncthreads();
+
+  // PV: ng groups of hd / 2 threads, two dims a thread, group gi taking
+  // every ng-th position; the last sub-range's V is in the buffer, the
+  // others are loaded after it
+  const int ng = pv_groups(G), gi = tid / (hd / 2), d = 2 * (tid % (hd / 2));
+  float acc[RB][2];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int t = 0; t < n_sub; ++t) {
+    const int s = t == 0 ? n_sub - 1 : t - 1;
+    if (t > 0) issue(sm.vb, hd, pv, s);
+    hop::cp_async_wait<0>();
+    __syncthreads();
+    const int cnt = min(held, len - s * held);
+    if (gi < ng)
+#pragma unroll 4
+      for (int kr = gi; kr < cnt; kr += ng) {
+        float v0, v1, p[RB];
+        dts::pair_f32(sm.vb + kr * hd + d, v0, v1);
+        load_rows<RB>(sm.sc + (s * held + kr) * RB, p);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          acc[r][0] += p[r] * v0;
+          acc[r][1] += p[r] * v1;
+        }
+      }
+    __syncthreads();   // the buffer is read before the next sub-range
+  }
+  if (gi < ng)
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      if (r < rep) {
+        sm.gpart[(gi * rep + r) * hd + d] = acc[r][0];
+        sm.gpart[(gi * rep + r) * hd + d + 1] = acc[r][1];
+      }
+  __syncthreads();
+  for (int i = tid; i < rep * hd; i += kThreads) {
+    float v = 0.f;
+    for (int k = 0; k < ng; ++k) v += sm.gpart[k * rep * hd + i];
+    sm.part[i] = v;
+  }
+  cluster.sync();
+
+  // block `rank` adds the cluster's partial sums of its slice, in rank
+  // order, and writes it
+  const int n_out = rep * hd, per = (n_out + kCluster - 1) / kCluster;
+  for (int i = rank * per + tid; i < min(n_out, (rank + 1) * per);
+       i += kThreads) {
+    float v = 0.f;
+    for (int c = 0; c < kCluster; ++c)
+      v += cluster.map_shared_rank(sm.part, c)[i];
+    out[static_cast<int64_t>(bg) * n_out + i] = v;
+  }
+  cluster.sync();   // no block leaves while its partial sums are read
 }
 
-// out[bg] = sum of the partial sums of the chunks holding a visible key
-__global__ void decode_sum(const float* __restrict__ part,
-                           const int* __restrict__ apos,
-                           float* __restrict__ out, int nchunks, Geom G) {
-  const int bg = blockIdx.x, b = bg / G.nkv, n = G.rep * G.hd;
-  const int used = min(apos[b], G.P * G.page - 1) / kChunk + 1;
-  const float* pb = part + static_cast<int64_t>(bg) * nchunks * n;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    float v = 0.f;
-    for (int c = 0; c < used; ++c) v += pb[c * n + idx];
-    out[static_cast<int64_t>(bg) * n + idx] = v;
-  }
+constexpr int kMaxSmem = 232448;   // the most shared memory a block has
+
+// The kernel's attributes, set once a device: dynamic shared memory up
+// to kMaxSmem, and the whole L1 as shared memory (more blocks an SM).
+template <typename T, int RB>
+cudaError_t set_attributes() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(decode_kernel<T, RB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(decode_kernel<T, RB>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
-template <typename T>
+template <typename T, int RB>
 int launch(const void* q, const void* pk, const void* pv, const void* pages,
-           const void* apos, void* scratch, void* out, int B, Geom G,
+           const void* apos, void* scores, void* out, int B, Geom G,
            cudaStream_t stream) {
-  const int nchunks = (G.P * G.page + kChunk - 1) / kChunk;
-  const size_t tiles = static_cast<size_t>(kWarps) * kTile * (G.hd + 1);
-  const size_t merge = static_cast<size_t>(kWarps) * G.rep * G.hd;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(G.rep) * G.hd +
-                       static_cast<size_t>(kWarps) * G.rep * kTile +
-                       (tiles > merge ? tiles : merge));
-  for (const void* fn : {reinterpret_cast<const void*>(decode_stats<T>),
-                         reinterpret_cast<const void*>(decode_pv<T>)}) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  float* stats = static_cast<float*>(scratch);
-  float* part = stats + static_cast<size_t>(B) * G.nkv * nchunks * G.rep * 2;
-  const dim3 grid(B * G.nkv, nchunks);
-  decode_stats<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const int*>(pages), static_cast<const int*>(apos), stats, G);
-  decode_pv<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const int*>(pages),
-      static_cast<const int*>(apos), stats, part, G);
-  decode_sum<<<B * G.nkv, 128, 0, stream>>>(
-      part, static_cast<const int*>(apos), static_cast<float*>(out), nchunks,
-      G);
+  const size_t smem = Smem<T, RB>::bytes(G);
+  if (smem > kMaxSmem || (!scores_shared(G) && scores == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_attributes<T, RB>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * B * G.nkv);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_kernel<T, RB>,
+                           static_cast<const T*>(q), static_cast<const T*>(pk),
+                           static_cast<const T*>(pv),
+                           static_cast<const int*>(pages),
+                           static_cast<const int*>(apos),
+                           static_cast<float*>(scores),
+                           static_cast<float*>(out), G);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for rep rounded up to a power of two
+template <typename T>
+int launch_rep(const void* q, const void* pk, const void* pv,
+               const void* pages, const void* apos, void* scores, void* out,
+               int B, Geom G, cudaStream_t stream) {
+  if (G.rep == 1)
+    return launch<T, 1>(q, pk, pv, pages, apos, scores, out, B, G, stream);
+  if (G.rep == 2)
+    return launch<T, 2>(q, pk, pv, pages, apos, scores, out, B, G, stream);
+  if (G.rep <= 4)
+    return launch<T, 4>(q, pk, pv, pages, apos, scores, out, B, G, stream);
+  return launch<T, 8>(q, pk, pv, pages, apos, scores, out, B, G, stream);
+}
+
+bool bad_geom(int B, int P, int page, int nkv, int rep) {
+  return B < 1 || P < 1 || page < 1 || nkv < 1 || rep < 1 || rep > kMaxRep ||
+         static_cast<int64_t>(P) * page > kMaxView ||
+         static_cast<int64_t>(B) * nkv * kCluster > 0x7fffffff;
 }
 
 }  // namespace
 
-// Floats of scratch the launch needs: per (b, g, chunk) the softmax
-// (max, sum) of each query row and its partial PV sum.
+// f32 elements of the scores scratch that paged_decode_launch takes: 0
+// where the blocks keep their scores in shared memory (a view of at most
+// kCluster · kMaxRange positions), else a slice of range_max · rep_block
+// for each block.
 extern "C" int64_t paged_decode_scratch_floats(int B, int P, int page,
-                                               int nkv, int rep, int hd) {
-  const int64_t nchunks = (static_cast<int64_t>(P) * page + kChunk - 1) /
-                          kChunk;
-  return static_cast<int64_t>(B) * nkv * nchunks * rep * (hd + 2);
+                                               int nkv, int rep) {
+  if (bad_geom(B, P, page, nkv, rep)) return 0;
+  const Geom G{P, page, nkv, rep, 0};
+  if (scores_shared(G)) return 0;
+  return static_cast<int64_t>(B) * nkv * kCluster * range_max(G) *
+         rep_block(rep);
 }
 
 // q (B, 1, nkv, rep, hd); pk/pv (n_pages, page, nkv, hd); pages (B, P)
-// int32; apos (B, 1) int32; scratch f32 of paged_decode_scratch_floats;
-// out (B, 1, nkv, rep, hd) f32.  All contiguous on one device; hd a
-// multiple of 8.  Returns cudaGetLastError() after the launches.
+// int32; apos (B, 1) int32; scores f32 of paged_decode_scratch_floats
+// elements (null where that is 0); out (B, 1, nkv, rep, hd) f32.  All
+// contiguous on one device, the pools 16-byte aligned; hd a multiple of
+// 8, at most 128; rep at most 8.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int paged_decode_launch(const void* q, const void* pk,
                                    const void* pv, const void* pages,
-                                   const void* apos, void* scratch, void* out,
+                                   const void* apos, void* scores, void* out,
                                    int B, int P, int page, int nkv, int rep,
                                    int hd, int dtype, void* stream) {
-  if (rep < 1 || rep > kMaxRep || hd < 8 || hd > 32 * kMaxDs || hd % 8)
+  if (bad_geom(B, P, page, nkv, rep) || hd < 8 || hd > kMaxHd || hd % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom G{P, page, nkv, rep, hd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dts::kBFloat16)
-    return launch<__nv_bfloat16>(q, pk, pv, pages, apos, scratch, out, B, G,
-                                 s);
+    return launch_rep<__nv_bfloat16>(q, pk, pv, pages, apos, scores, out, B,
+                                     G, s);
   if (dtype == dts::kFloat32)
-    return launch<float>(q, pk, pv, pages, apos, scratch, out, B, G, s);
+    return launch_rep<float>(q, pk, pv, pages, apos, scores, out, B, G, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

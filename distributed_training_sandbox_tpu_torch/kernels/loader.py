@@ -30,7 +30,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_decode": {
         "paged_decode_launch": ([P] * 7 + [I] * 7 + [P], I),
-        "paged_decode_scratch_floats": ([I] * 6, ctypes.c_int64),
+        "paged_decode_scratch_floats": ([I] * 5, ctypes.c_int64),
     },
     "flash_prefill": {
         "flash_prefill_launch": ([P] * 6 + [I] * 8 + [P], I),

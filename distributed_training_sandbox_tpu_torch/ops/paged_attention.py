@@ -27,8 +27,9 @@ against the plain version on the same inputs (``TOLERANCE``):
   land a probability on the other side of a bf16 rounding boundary from
   the plain version's, which moves that term by one bf16 ulp.  On an
   H100 at the serve shapes (``chip_smoke.py`` kernel phase) the kernel
-  reads 4.7e-5, and a kernel that skips the probabilities' rounding
-  reads 6.7e-4; the limit lies between the two.
+  reads 5.1e-6 (an earlier, split-K design 4.7e-5), a kernel that skips
+  the probabilities' rounding 6.7e-4, and one that loses each slot's
+  own key 3.8e-2; the limit lies between.
 - int8 pool (K2, ``TOLERANCE_Q8``): ``atol = 2.5e-3, rtol = 0``.  The
   kernel's softmax sums in another order, so a probability can differ
   by an f32 ulp, which now and then moves one code of the requantised
@@ -65,6 +66,16 @@ TOLERANCE = {torch.bfloat16: (2e-4, 0.0), torch.float32: (1e-5, 1e-5)}
 # (atol, rtol) of K2 against its plain version, on its f32 output
 TOLERANCE_Q8 = (2.5e-3, 0.0)
 MAX_REP, MAX_HD = 8, 128   # the kernels' limits (csrc/paged_decode*.cu)
+# K1's blocks a (slot, kv head), and the bytes of K and V rows a block
+# holds at once (csrc/paged_decode.cu kCluster, kRowBytes): a block whose
+# range is longer takes it in sub-ranges of rows_held positions
+CLUSTER, ROW_BYTES = 8, 57344
+
+
+def rows_held(view: int, hd: int, itemsize: int) -> int:
+    """The positions of K and V a K1 block holds at once in a view of
+    ``view`` positions (``rows_held`` in csrc/paged_decode.cu)."""
+    return min(ROW_BYTES // (2 * hd * itemsize), -(-view // CLUSTER))
 
 
 def gather_attention(qg, pk, pv, pages, apos):
@@ -175,15 +186,22 @@ def paged_attention_decode(qg, pk, pv, pages, apos, *, q_scale=None,
     if not (1 <= rep <= MAX_REP and hd <= MAX_HD and hd % 8 == 0):
         raise ValueError(f"kernel takes rep <= {MAX_REP} and hd <= "
                          f"{MAX_HD}, a multiple of 8; got rep={rep} hd={hd}")
+    if pk.data_ptr() % 16 or pv.data_ptr() % 16:
+        raise ValueError("paged_attention_decode: the pools must be 16-byte "
+                         "aligned")
     lib = loader.load("paged_decode")
-    geom = (B, pages.shape[1], pk.shape[1], nkv, rep, hd)
-    scratch = torch.empty(lib.paged_decode_scratch_floats(*geom),
-                          dtype=torch.float32, device=qg.device)
+    geom = (B, pages.shape[1], pk.shape[1], nkv, rep)
+    # a long view's scores do not fit in shared memory: the kernel then
+    # keeps them in this scratch
+    n_scores = lib.paged_decode_scratch_floats(*geom)
+    scores = torch.empty(n_scores, dtype=torch.float32, device=qg.device) \
+        if n_scores else None
     out = torch.empty((B, 1, nkv, rep, hd), dtype=torch.float32,
                       device=qg.device)
     rc = lib.paged_decode_launch(
-        ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos), ptr(scratch),
-        ptr(out), *geom, code, stream_ptr(qg.device))
+        ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos),
+        ptr(scores) if n_scores else None, ptr(out), *geom, hd, code,
+        stream_ptr(qg.device))
     raise_on_error("paged_attention_decode", rc)
     COUNTS.launches += 1
     return out

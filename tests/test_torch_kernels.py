@@ -85,6 +85,97 @@ def test_decode_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
 
 
+def _decode_case(seed, last, nkv, rep, hd, page, P, dtype, device):
+    """One slot per entry of ``last`` (its query's absolute position) over
+    a view of P pages, each slot's table row padded with the null page
+    0; every pool page (the null page too) holds random rows."""
+    rng = np.random.default_rng(seed)
+    B = len(last)
+    n_pages = sum(a // page + 1 for a in last) + 1
+    pk = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    pv = rng.standard_normal((n_pages, page, nkv, hd)).astype(np.float32)
+    qg = rng.standard_normal((B, 1, nkv, rep, hd)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    pages = np.zeros((B, P), np.int32)
+    used = 0
+    for b, a in enumerate(last):
+        n = a // page + 1
+        pages[b, :n] = perm[used:used + n]
+        used += n
+    t = lambda a, dt: torch.as_tensor(a).to(device=device, dtype=dt)
+    return (t(qg, dtype), t(pk, dtype), t(pv, dtype),
+            t(pages, torch.int32),
+            t(np.array(last)[:, None], torch.int32))
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_decode_kernel_boundaries_match_plain_and_repeat(cuda, rep, hd, page,
+                                                         dtype):
+    """K1 over a 2048-position view, its cluster of 8 blocks splitting
+    each slot's visible positions: apos 0 (one key, seven blocks with
+    none), 5, the last row of the first page and the first of the next,
+    the edge where a block's range becomes two sub-ranges (8 · H - 1,
+    8 · H and 8 · H + 1 visible positions, H the rows a block holds:
+    ``PA.rows_held``) and the view's last two positions; bit-equal on a
+    second launch."""
+    V = 2048
+    held = PA.rows_held(V, hd, torch.tensor([], dtype=dtype).element_size())
+    assert 8 * held + 1 < V - 1
+    last = sorted({0, 5, page - 1, page, 8 * held - 2, 8 * held - 1,
+                   8 * held, V - 2, V - 1})
+    args = _decode_case(20 + rep, last, 2, rep, hd, page, V // page, dtype,
+                        cuda)
+    PA.COUNTS.reset()
+    got = PA.paged_attention_decode(*args)
+    again = PA.paged_attention_decode(*args)
+    torch.cuda.synchronize()
+    assert (PA.COUNTS.launches, PA.COUNTS.plain_calls) == (2, 0)
+    ref = PA.paged_attention_plain(*args)
+    atol, rtol = PA.TOLERANCE[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_decode_kernel_long_view_matches_plain_and_repeat(cuda, rep, dtype):
+    """K1 over a view longer than its blocks keep scores for in shared
+    memory (8 · 2048 positions), where they keep them in the wrapper's
+    scratch: slots at apos 0, at the shared-memory edge ± 1 and at the
+    view's end; bit-equal on a second launch."""
+    page, V = 16, 8 * 2048 + 8 * 16
+    last = [0, 8 * 2048 - 1, 8 * 2048, V - 1]
+    args = _decode_case(40 + rep, last, 2, rep, 128, page, V // page, dtype,
+                        cuda)
+    PA.COUNTS.reset()
+    got = PA.paged_attention_decode(*args)
+    again = PA.paged_attention_decode(*args)
+    torch.cuda.synchronize()
+    assert (PA.COUNTS.launches, PA.COUNTS.plain_calls) == (2, 0)
+    ref = PA.paged_attention_plain(*args)
+    atol, rtol = PA.TOLERANCE[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name, value", [("kCluster", PA.CLUSTER),
+                                         ("kRowBytes", PA.ROW_BYTES)])
+def test_decode_constants_match_the_kernel_source(name, value):
+    """``PA.rows_held`` reads K1's block count and row budget from the
+    module's constants; they must be the kernel's."""
+    from pathlib import Path
+    src = (Path(PA.__file__).parents[1] / "csrc" / "paged_decode.cu") \
+        .read_text()
+    assert f"constexpr int {name} = {value};" in src
+
+
 @pytest.mark.gpu_port
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -348,6 +439,27 @@ def test_flash_attention_kernels_match_plain(cuda, shape):
         torch.testing.assert_close(g, r, atol=atol, rtol=rtol,
                                    msg=lambda m, n=name: f"d{n}: {m}")
         assert FA.block_rel_l2(g, r) <= FA.BLOCK_REL_L2, f"d{name}"
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 1000])
+def test_flash_attention_forward_edges_match_plain_and_repeat(cuda, S, rep):
+    """The forward at S on either side of its 64-row tiles, with nq / nkv
+    = rep over 2 kv heads; bit-equal on a second launch."""
+    q, k, v, _ = attn_case(7, 1, S, 2 * rep, 2, 128, cuda)
+    scale = 128 ** -0.5
+    FA.FWD_COUNTS.reset()
+    o, lse = FA.flash_attention_fwd(q, k, v, scale)
+    o2, lse2 = FA.flash_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls) == (2, 0)
+    ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+    atol, rtol = FA.TOLERANCE["fwd"]
+    torch.testing.assert_close(o, ref_o, atol=atol, rtol=rtol)
+    assert FA.block_rel_l2(o, ref_o) <= FA.BLOCK_REL_L2
+    torch.testing.assert_close(lse, ref_lse, atol=FA.LSE_ATOL, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.gpu_port
