@@ -56,13 +56,20 @@ the sound kernel's:
   fail;
 - ``k5_scale_product``: K5's epilogue applies ``acc · (xs · ws)``; K5's
   gate and the int8 step-0 parity must fail;
-- ``k4_scale_product``: K4 applies ``acc · (xs · ws)``; K4's gate and
-  the int8 step-0 parity must fail;
+- ``k4_scale_product``: K4's epilogue, shared by its three designs,
+  applies ``acc · (xs · ws)``; K4's gate and the int8 step-0 parity
+  must fail;
+- ``k4_dropped_k_block``: K4's wgmma GEMM (the training path's dX and
+  dW) leaves the last k-block of its TMA ring out of the sum; K4's gate
+  and the int8 step-0 parity must fail;
+- ``k4_gemv_dropped_split``: K4's split-K decode GEMV loses the last K
+  split's partial sums; K4's decode gate and the int8 decode-logit gate
+  must fail;
 - ``k2_chunk_absmax``: K2 requantises each 256-position chunk's ``p ·
   vs`` with the chunk's own absmax instead of the row's; K2's gate and
   the int8 decode-logit gate must fail;
 - ``k7_bf16_accumulator``: K7 rounds its f32 accumulators to bf16 after
-  every 32-deep K tile; K7's gate must fail;
+  every 64-deep k-block; K7's gate must fail;
 - ``k7_dropped_k_tile``: K7 leaves the chunk's last K tile out of the
   sum; K7's gate and the FSDP step-0 parity must fail.
 
@@ -145,9 +152,21 @@ MUTANTS = [
      "  return __float2bfloat16_rn(__int2float_rn(acc) * (sx * sw));",
      "int8_train", ("int8_matmul_fused:", "int8 step-0")),
     ("k4_scale_product", "csrc/int8_matmul.cu",
-     "          const float v = (__int2float_rn(acc[i][j][e]) * sx) * sw;",
-     "          const float v = __int2float_rn(acc[i][j][e]) * (sx * sw);",
+     "  const float v = (__int2float_rn(acc) * sx) * sw;",
+     "  const float v = __int2float_rn(acc) * (sx * sw);",
      "int8_train", ("int8_matmul:", "int8 step-0")),
+    ("k4_dropped_k_block", "csrc/int8_matmul.cu",
+     "__device__ __forceinline__ bool k4_kblock_in_sum(int kb, int nk) "
+     "{ return kb < nk; }",
+     "__device__ __forceinline__ bool k4_kblock_in_sum(int kb, int nk) "
+     "{ return kb + 1 < nk; }", "int8_train",
+     ("int8_matmul:", "int8 step-0")),
+    ("k4_gemv_dropped_split", "csrc/int8_matmul.cu",
+     "__device__ __forceinline__ bool split_in_sum(int s, int n) "
+     "{ return s < n; }",
+     "__device__ __forceinline__ bool split_in_sum(int s, int n) "
+     "{ return s + 1 < n; }", "int8_decode",
+     ("int8_matmul decode:", "int8 decode logits")),
     ("k1_last_key", "csrc/paged_decode.cu",
      "__device__ __forceinline__ int last_key(int ap, int V) "
      "{ return min(ap, V - 1); }",
@@ -159,9 +178,9 @@ MUTANTS = [
      "    A = pa[blockIdx.y * rep + r];", "int8_serve",
      ("paged_decode_q8:", "int8 decode logits")),
     ("k7_bf16_accumulator", "csrc/ag_matmul.cu",
-     "__device__ __forceinline__ float acc_keep(float x) { return x; }",
-     "__device__ __forceinline__ float acc_keep(float x) { return "
-     f"{ROUND.format('x')}; }}", "fsdp_train", ("ag_matmul:",)),
+     "__device__ __forceinline__ bool acc_rounded() { return false; }",
+     "__device__ __forceinline__ bool acc_rounded() { return true; }",
+     "fsdp_train", ("ag_matmul:",)),
     ("k7_dropped_k_tile", "csrc/ag_matmul.cu",
      "__device__ __forceinline__ bool tile_in_sum(int kt, int nk) "
      "{ return kt < nk; }",
@@ -220,6 +239,23 @@ def check(cond, msg):
 c.check = check
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+rng = np.random.default_rng(c.SEED)
+gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+c.kernel_phase(rng, gen)
+c.q8_decode_phase(rng, gen)
+params = c.quantize_decode_params(c.build_params(), c.CFG)
+eng, reqs, _ = c.int8_serve_phase(params, rng, c.card_line())
+c.int8_parity_phase(params, reqs, eng)
+""", "int8_decode": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.k4_decode_gates()
 rng = np.random.default_rng(c.SEED)
 gen = torch.Generator(device="cuda").manual_seed(c.SEED)
 c.kernel_phase(rng, gen)

@@ -25,7 +25,11 @@ Phases, each of which fails the run:
    then CUDA-event times of the
    kernel, the plain version and a library yardstick (SDPA,
    ``torch._scaled_mm``, ``torch._int_mm``, ``torch.matmul``), beside
-   the card's bound;
+   the card's bound; K4 on each of its designs: the training products
+   (wgmma), decode at M 1, 8 and 16 and the unembedding (the split-K
+   GEMV, timed at M 8 in CUDA-graph replays beside ``torch._int_mm`` on
+   the rows zero-padded to the fewest it takes) and one prefill chunk
+   (M 256, mma.sync);
 3. serve — ``ServingEngine`` with K1 and K3 on SMOLLM3_3B (full width,
    all 36 layers, seeded random weights scaled ×3) answers 8 requests;
    launch counts must equal the steps × layers, plain counts must be 0;
@@ -75,7 +79,9 @@ Phases, each of which fails the run:
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
-kernels.
+kernels, and a profile of ``DECODE_PROFILE_STEPS`` decode steps over the
+serve's slots reports the decode step's device time beside its host
+clock.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -83,11 +89,13 @@ when there is no card or when any phase fails.
 
     python3 chip_smoke.py --parent-csrc DIR
 
-builds K1, K3, K6 and the flash attention (forward and backward) from
-DIR (another commit's ``csrc/``, unpacked under the gitignored
-``build/``) beside this checkout's, gates both builds against the plain
-versions (K3 over the multi-draw reading and the forward over its f64
-oracle reading too), times both in turns at the kernel phase's shapes,
+builds K7, K4/K5, K1, K3, K6 and the flash attention (forward and
+backward) from DIR (another commit's ``csrc/``, unpacked under the
+gitignored ``build/``) beside this checkout's, gates both builds against
+the plain versions (K3 over the multi-draw reading and the forward over
+its f64 oracle reading too), times both in turns at the kernel phase's
+shapes (K4 at training, where the parent's wrapper copied X's codes
+transposed for dW, and at decode),
 serves the serve phase's kind of requests with each build's K1 in the
 engine's decode step (in turns, after a warm-up serve), prints a
 ``{"compare": ...}`` line and runs nothing else.
@@ -923,6 +931,47 @@ def profile_phase(params, rng, engine=None, label="serve",
             f"calls, {d / 1e3:.1f} ms: {key[:90]}")
 
 
+DECODE_PROFILE_STEPS = 8
+
+
+def decode_step_profile(eng, reqs, label, flash: bool) -> dict:
+    """The device time of one decode step at the serve's shape: every
+    request of the serve prefilled into a fresh pool (the engine's way),
+    then ``DECODE_PROFILE_STEPS`` steps of the engine's ``_decode_core``
+    over all its slots under ``torch.profiler`` (device activity): the
+    device's busy time a step beside the step's host clock, and the
+    kernels that take it.  Reports and gates nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    pool, pages, lg = _prefill(reqs, eng, flash=flash)
+    toks = lg.argmax(-1).to(torch.int32)
+    lengths = torch.as_tensor([r.n_prompt for r in reqs], dtype=torch.int32,
+                              device="cuda")
+    stop = lengths + DECODE_PROFILE_STEPS + 1
+    active = torch.ones_like(toks, dtype=torch.bool)
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(DECODE_PROFILE_STEPS):
+            toks, lengths, active, _ = E._decode_core(
+                pool.bufs, eng._params, pages, toks, lengths, stop, active,
+                cfg=eng.cfg, paged_kernel=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / DECODE_PROFILE_STEPS
+    dev = sorted(((e.key, e.count, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda e: -e[2])
+    busy_ms = sum(d for _, _, d in dev) / 1e3 / DECODE_PROFILE_STEPS
+    log(f"decode step profile ({label}, {len(reqs)} slots, "
+        f"{DECODE_PROFILE_STEPS} steps): device busy {busy_ms:.3f} ms a "
+        f"step, host clock {wall_ms:.3f} ms a step")
+    for key, count, d in dev[:5]:
+        step_ms = d / 1e3 / DECODE_PROFILE_STEPS
+        log(f"decode step profile ({label}): {step_ms:.4f} ms a step, "
+            f"{count} calls: {key[:90]}")
+    del pool
+    return {"device_busy_ms": busy_ms, "host_ms": wall_ms}
+
+
 # ------------------------------------------------------ int8 serve phases
 
 def int8_serve_phase(params_q8, rng, card: str):
@@ -1117,7 +1166,7 @@ def fp8_phase() -> dict:
                   tot["k"], tot["p"], tot["l"], b_ms, b_by)
 
 
-def _int_mm_ms(a, b_kn, it, copies):
+def _int_mm_ms(a, b_kn, it, copies, timer=time_ms):
     """CUDA-event ms of ``torch._int_mm`` (int32 out, no scales) on
     row-major A and column-major B, cycling through ``copies``; None
     where its shape rules refuse (M must exceed 16)."""
@@ -1127,7 +1176,7 @@ def _int_mm_ms(a, b_kn, it, copies):
         log(f"torch._int_mm refuses ({a[0].shape[0]}, {a[0].shape[1]}) x "
             f"({b_kn[0].shape[0]}, {b_kn[0].shape[1]}): {str(e)[:80]}")
         return None
-    return time_ms(lambda: torch._int_mm(*(lambda i: (a[i], b_kn[i]))(
+    return timer(lambda: torch._int_mm(*(lambda i: (a[i], b_kn[i]))(
         next(it) % copies)))
 
 
@@ -1145,19 +1194,72 @@ def _gate_bitwise(name, shape, got, ref):
     return err
 
 
+# K4 at decode: the rows it is gated at (the serve's 8 slots timed), and
+# the weights as quantize_decode_params stores them ((K, N) codes, one
+# scale a column): the seven projections and the unembedding
+K4_DECODE_ROWS = (1, 8, 16)
+K4_DECODE_SHAPES = PROJECTIONS + [("unembed", CFG.hidden_size,
+                                   CFG.vocab_size)]
+# K4 at the int8 prefill: one chunk of 256 rows (the mma.sync design)
+K4_PREFILL_M = ENGINE["prefill_chunk"]
+
+
+def _decode_operands(gen, M, K, N, copies=3):
+    """``copies`` sets of (xq, xs, wq (K, N), ws) at decode"""
+    sets = []
+    for _ in range(copies):
+        xq, xs = Q.quantize_int8(torch.randn((M, K), generator=gen,
+                                             device="cuda"))
+        wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        ws = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+        sets.append((xq, xs, wq, ws))
+    return sets
+
+
+def k4_decode_gates() -> float:
+    """K4 (its split-K GEMV) at every decode shape and each of
+    ``K4_DECODE_ROWS``: bit-equal to the plain version and twice-launch
+    equal.  Returns the max |kernel - plain| (0)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    err = 0.0
+    for name, K, N in K4_DECODE_SHAPES:
+        for M in K4_DECODE_ROWS:
+            ops = _decode_operands(gen, M, K, N, copies=1)[0]
+            check(Q.k4_design(M, N, K, False) == "gemv",
+                  f"int8_matmul decode: ({M}, {K}) x ({K}, {N}) does not "
+                  f"take the GEMV")
+            err = max(err, _gate_bitwise(
+                "int8_matmul decode", f"{name} ({M}, {K}) x ({K}, {N})",
+                Q.int8_matmul_kernel(*ops),
+                Q.int8_matmul(*ops, torch.bfloat16)))
+            _twice_equal("int8_matmul decode",
+                         lambda: Q.int8_matmul_kernel(*ops))
+            del ops
+    log(f"int8_matmul decode: bit-equal at M {K4_DECODE_ROWS} on the seven "
+        f"projections and the unembedding")
+    return err
+
+
 def int8_gemm_phase() -> list[dict]:
-    """K5 (forward) and K4 (the backward's dX and dW layouts) at one
-    layer's seven projections at M = 8192, then K4 at decode (M = 8, the
-    seven projections and the unembedding): bit-equal to the plain
-    versions and twice-launch equal; times summed over the shapes.
-    Operands cycle through 3 copies so that no launch finds the last
-    one's in L2."""
+    """K5 (forward) and K4 (the backward's dX and dW, both K-major, on
+    its wgmma GEMM) at one layer's seven projections at M = 8192, then K4
+    at decode (the split-K GEMV: :func:`k4_decode_gates`, then times at
+    M = 8, the seven projections and the unembedding, in CUDA-graph
+    replays) and at one prefill chunk (M = 256, mma.sync): bit-equal to
+    the plain versions and twice-launch equal; times summed over the
+    shapes.  Operands cycle through 3 copies so that no launch finds the
+    last one's in L2."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     M = TRAIN["seq"] * TRAIN["bs"]
     bf16 = torch.bfloat16
     zero = lambda: dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, ops=0.0)  # noqa
     t5, t4 = zero(), zero()
     e5 = e4 = 0.0
+    # the backward's quantisers of X and g along M into K-major codes,
+    # and the same codes from a layout-keeping quantiser and an int8
+    # transposed copy (the parent's dW operand)
+    quant_ms = quant_copy_ms = 0.0
     lib_missing = set()
     for name, K, N in PROJECTIONS:
         sets = []
@@ -1172,17 +1274,26 @@ def int8_gemm_phase() -> list[dict]:
             wq_t, ws_t = Q.quantize_int8(w.t(), axis=-1)
             gq, gs = Q.quantize_int8(g, axis=-1)
             wq_n, ws_n = Q.quantize_int8(w, axis=1)
-            xq_m, xs_m = Q.quantize_int8(x, axis=0)
-            gq_m, gs_m = Q.quantize_int8(g, axis=0)
-            sets.append(dict(x=x, wq=wq, ws=ws, wq_t=wq_t.contiguous(),
-                             ws_t=ws_t, xq=Q.quantize_int8(x)[0],
+            # dW's operands as the backward quantises them: along M,
+            # the codes K-major ((K, M) and (N, M))
+            xq_t, xs_t = Q.quantize_int8(x.t(), axis=-1)
+            gq_t, gs_t = Q.quantize_int8(g.t(), axis=-1)
+            sets.append(dict(x=x, g=g, wq=wq, ws=ws, wq_t=wq_t, ws_t=ws_t,
+                             xq=Q.quantize_int8(x)[0],
                              dx=(gq, gs, wq_n, ws_n.T, (1, 1)),
-                             dw=(xq_m, xs_m.T, gq_m, gs_m, (0, 0))))
-            del w, g
+                             dw=(xq_t, xs_t, gq_t, gs_t.T, (1, 1))))
+            del w
         it = iter(range(10 ** 9))
         c = lambda: sets[next(it) % 3]  # noqa: E731
         s0 = sets[0]
         shape = f"({M}, {K}) x ({K}, {N})"
+        quant_ms += time_ms(lambda: (lambda d: (
+            Q.quantize_int8(d["x"].t(), axis=-1),
+            Q.quantize_int8(d["g"].t(), axis=-1)))(c()), iters=5)
+        quant_copy_ms += time_ms(lambda: (lambda d: (
+            Q.quantize_int8(d["x"], axis=0)[0].t().contiguous(),
+            Q.quantize_int8(d["g"], axis=0)[0].t().contiguous()))(c()),
+            iters=5)
         # K5: the forward, the weight K-major as the training path passes
         # it, and in the reference's (K, N) layout (transposed by the
         # wrapper), both bit for bit
@@ -1213,7 +1324,7 @@ def int8_gemm_phase() -> list[dict]:
         t5["ops"] += 2 * M * K * N
         log(f"int8_matmul_fused {shape}: bit-equal; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, _int_mm {l_ms} ms")
-        # K4: dX = g · Wᵀ (B read K-major) and dW = Xᵀ · g (A transposed)
+        # K4: dX = g · Wᵀ and dW = Xᵀ · g, both operands K-major
         for prod, Mo, No, Kc in (("dx", M, K, N), ("dw", K, N, M)):
             sh = f"{prod} ({Mo}, {Kc}) x ({Kc}, {No})"
             got = Q._int8_dot(*s0[prod], bf16, plain=False)
@@ -1224,22 +1335,17 @@ def int8_gemm_phase() -> list[dict]:
             k_ms = time_ms(lambda: Q._int8_dot(*c()[prod], bf16, plain=False))
             p_ms = time_ms(lambda: Q._int8_dot(*c()[prod], bf16, plain=True),
                            iters=3, warmup=1)
-            if prod == "dx":
-                la = [d["dx"][0] for d in sets]
-                lb = [d["dx"][2].t() for d in sets]      # column-major
-            else:
-                la = [d["dw"][0].t().contiguous() for d in sets]
-                lb = [_col_major(d["dw"][2]) for d in sets]
-            l_ms = _int_mm_ms(la, lb, it, 3)
-            del la, lb
+            # the library's layout, B column-major, is B's K-major codes'
+            # transposed view
+            l_ms = _int_mm_ms([d[prod][0] for d in sets],
+                              [d[prod][2].t() for d in sets], it, 3)
             t4["k"] += k_ms
             t4["p"] += p_ms
             t4["l"] += l_ms or 0.0
             lib_missing |= {"int8_matmul"} if l_ms is None else set()
-            # int8 operands read once, bf16 output written once, scales;
-            # dW also reads and writes the transposed copy of X's codes
-            t4["nbytes"] += (Mo * Kc + Kc * No + 4 * (Mo + No) + 2 * Mo * No
-                             + (2 * Mo * Kc if prod == "dw" else 0))
+            # int8 operands read once, bf16 output written once, scales
+            t4["nbytes"] += (Mo * Kc + Kc * No + 4 * (Mo + No)
+                             + 2 * Mo * No)
             t4["ops"] += 2 * Mo * No * Kc
             log(f"int8_matmul {sh}: bit-equal; kernel {k_ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms, _int_mm {l_ms} ms")
@@ -1252,50 +1358,88 @@ def int8_gemm_phase() -> list[dict]:
             f"{t['k']:.4f} ms, plain {t['p']:.4f} ms, _int_mm {t['l']:.4f} "
             f"ms, bound {b[0]:.4f} ms by {b[1]} ({t['nbytes'] / 1e6:.1f} "
             f"MB, {t['ops'] / 1e12:.3f} T int8 operations)")
+    log(f"the int8 backward's quantisers (plain PyTorch) of X and g along "
+        f"M into K-major codes, one layer's 7 projections: {quant_ms:.4f} "
+        f"ms; a layout-keeping quantiser and an int8 transposed copy "
+        f"instead: {quant_copy_ms:.4f} ms")
 
-    # K4 at decode: M = 8 rows, the weights as quantize_decode_params
-    # stores them ((K, N) codes, one scale per column)
-    dec = dict(k=0.0, p=0.0, nbytes=0.0, ops=0.0)
-    unembed = None
+    # K4 at decode: gated at every decode row count, timed at the serve's
+    # 8 rows in CUDA-graph replays (a host loop would time the launch);
+    # the library yardstick is torch._int_mm on the 8 rows zero-padded
+    # to the fewest rows it takes
+    e4 = max(e4, k4_decode_gates())
+    dec = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, ops=0.0)
+    unembed, pad_rows = None, None
     Md = ENGINE["max_batch"]
-    for name, K, N in PROJECTIONS + [("unembed", CFG.hidden_size,
-                                      CFG.vocab_size)]:
-        sets = []
-        for _ in range(3):
-            xq, xs = Q.quantize_int8(torch.randn((Md, K), generator=gen,
-                                                 device="cuda"))
-            wq = torch.randint(-127, 128, (K, N), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            ws = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
-            sets.append((xq, xs, wq, ws))
+    for name, K, N in K4_DECODE_SHAPES:
+        sets = _decode_operands(gen, Md, K, N)
         it = iter(range(10 ** 9))
         shape = f"decode {name} ({Md}, {K}) x ({K}, {N})"
-        got = Q.int8_matmul_kernel(*sets[0])
-        e4 = max(e4, _gate_bitwise("int8_matmul", shape, got,
+        k_ms = graph_ms(lambda: Q.int8_matmul_kernel(*sets[next(it) % 3]))
+        p_ms = time_ms(lambda: Q.int8_matmul(*sets[next(it) % 3], bf16))
+        l_ms = None
+        for rows in (17, 24, 32):
+            la = [torch.nn.functional.pad(d[0], (0, 0, 0, rows - Md))
+                  for d in sets]
+            l_ms = _int_mm_ms(la, [_col_major(d[2]) for d in sets], it, 3,
+                              graph_ms)
+            if l_ms is not None:
+                pad_rows = rows
+                break
+        nbytes = Md * K + K * N + 4 * (Md + N) + 2 * Md * N
+        b_ms = bound(nbytes, 2 * Md * K * N, PEAK_INT8_OPS)[0]
+        log(f"int8_matmul {shape}: kernel {k_ms:.5f} ms (graph replays), "
+            f"plain {p_ms:.4f} ms, _int_mm on {pad_rows} rows (padded) "
+            f"{l_ms} ms, bound {b_ms:.5f} ms by bytes "
+            f"({nbytes / 1e6:.2f} MB)")
+        if name == "unembed":
+            unembed = (k_ms, p_ms, l_ms, b_ms)
+        else:
+            dec["k"] += k_ms
+            dec["p"] += p_ms
+            dec["l"] += l_ms or 0.0
+            dec["nbytes"] += nbytes
+            dec["ops"] += 2 * Md * K * N
+        del sets
+    torch.cuda.empty_cache()
+    db = bound(dec["nbytes"], dec["ops"], PEAK_INT8_OPS)
+    log(f"int8_matmul at decode, one layer's 7 projections (M = {Md}): "
+        f"kernel {dec['k']:.5f} ms, plain {dec['p']:.4f} ms, _int_mm on "
+        f"{pad_rows} rows (padded) {dec['l']:.5f} ms, bound {db[0]:.5f} ms "
+        f"by {db[1]}; the unembedding: kernel {unembed[0]:.5f} ms, plain "
+        f"{unembed[1]:.4f} ms, _int_mm (padded) {unembed[2]} ms, bound "
+        f"{unembed[3]:.5f} ms")
+
+    # K4 at one int8 prefill chunk: M = 256 rows, (K, N) weights
+    pre = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, ops=0.0)
+    Mp = K4_PREFILL_M
+    for name, K, N in PROJECTIONS:
+        sets = _decode_operands(gen, Mp, K, N)
+        it = iter(range(10 ** 9))
+        shape = f"prefill {name} ({Mp}, {K}) x ({K}, {N})"
+        check(Q.k4_design(Mp, N, K, False) == "mma",
+              f"int8_matmul: {shape} does not take the mma.sync GEMM")
+        e4 = max(e4, _gate_bitwise("int8_matmul", shape,
+                                   Q.int8_matmul_kernel(*sets[0]),
                                    Q.int8_matmul(*sets[0], bf16)))
         _twice_equal("int8_matmul", lambda: Q.int8_matmul_kernel(*sets[0]))
         k_ms = time_ms(lambda: Q.int8_matmul_kernel(*sets[next(it) % 3]))
         p_ms = time_ms(lambda: Q.int8_matmul(*sets[next(it) % 3], bf16))
-        nbytes = Md * K + K * N + 4 * (Md + N) + 2 * Md * N
-        b_ms = bound(nbytes, 2 * Md * K * N, PEAK_INT8_OPS)[0]
+        l_ms = _int_mm_ms([d[0] for d in sets],
+                          [_col_major(d[2]) for d in sets], it, 3)
+        pre["k"] += k_ms
+        pre["p"] += p_ms
+        pre["l"] += l_ms or 0.0
+        pre["nbytes"] += Mp * K + K * N + 4 * (Mp + N) + 2 * Mp * N
+        pre["ops"] += 2 * Mp * K * N
         log(f"int8_matmul {shape}: bit-equal; kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by bytes "
-            f"({nbytes / 1e6:.2f} MB); _int_mm refuses M = {Md}")
-        if name == "unembed":
-            unembed = (k_ms, p_ms, b_ms)
-        else:
-            dec["k"] += k_ms
-            dec["p"] += p_ms
-            dec["nbytes"] += nbytes
-            dec["ops"] += 2 * Md * K * N
-        del sets, got
+            f"{p_ms:.4f} ms, _int_mm {l_ms} ms")
+        del sets
     torch.cuda.empty_cache()
-    db = bound(dec["nbytes"], dec["ops"], PEAK_INT8_OPS)
-    log(f"int8_matmul at decode, one layer's 7 projections (M = {Md}): "
-        f"kernel {dec['k']:.4f} ms, plain {dec['p']:.4f} ms, bound "
-        f"{db[0]:.4f} ms by {db[1]}; the unembedding: kernel "
-        f"{unembed[0]:.4f} ms, plain {unembed[1]:.4f} ms, bound "
-        f"{unembed[2]:.4f} ms")
+    pb = bound(pre["nbytes"], pre["ops"], PEAK_INT8_OPS)
+    log(f"int8_matmul at prefill, one layer's 7 projections (M = {Mp}): "
+        f"kernel {pre['k']:.4f} ms, plain {pre['p']:.4f} ms, _int_mm "
+        f"{pre['l']:.4f} ms, bound {pb[0]:.5f} ms by {pb[1]}")
     k5 = _entry("int8_matmul_fused", "int8_matmul.cu",
                 "distributed_training_sandbox_tpu/ops/quant.py:226 "
                 "(int8_matmul_pallas_fused, _fused_qmm_kernel :210)", e5, 0.0,
@@ -1308,8 +1452,16 @@ def int8_gemm_phase() -> list[dict]:
                 t4["p"], None if "int8_matmul" in lib_missing else t4["l"],
                 *b4)
     k4.update(decode_layer_ms=dec["k"], decode_layer_plain_ms=dec["p"],
+              decode_layer_library_padded_ms=dec["l"],
+              decode_library_rows=pad_rows,
               decode_layer_bound_ms=db[0], unembed_ms=unembed[0],
-              unembed_plain_ms=unembed[1], unembed_bound_ms=unembed[2])
+              unembed_plain_ms=unembed[1],
+              unembed_library_padded_ms=unembed[2],
+              unembed_bound_ms=unembed[3], prefill_layer_ms=pre["k"],
+              prefill_layer_plain_ms=pre["p"],
+              prefill_layer_library_ms=pre["l"],
+              prefill_layer_bound_ms=pb[0], bwd_quantisers_layer_ms=quant_ms,
+              bwd_quantisers_copy_layer_ms=quant_copy_ms)
     return [k4, k5]
 
 
@@ -1919,15 +2071,16 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
-    """K1's, K3's, K6's and the flash attention's libraries built from
-    another commit's ``csrc`` (one nvcc each, in parallel) into
-    ``build/parent_kernels``, with that commit's C signatures (K1 then
-    took a scratch buffer of ``paged_decode_scratch_floats``)."""
+    """K1's, K3's, K4/K5's, K6's, K7's and the flash attention's
+    libraries built from another commit's ``csrc`` (one nvcc each, in
+    parallel) into ``build/parent_kernels``, with that commit's C
+    signatures (K1 then took a scratch buffer of
+    ``paged_decode_scratch_floats``; K4 had no GEMV)."""
     out = loader.BUILD_DIR.parent / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ("paged_decode", "flash_prefill", "fp8_matmul",
-                 "flash_attention"):
+                 "flash_attention", "int8_matmul", "ag_matmul"):
         so = out / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [loader._nvcc(), *loader.NVCC_FLAGS, f"-I{csrc}", "-o", str(so),
@@ -1951,6 +2104,11 @@ def _parent_libs(csrc: Path) -> dict:
     libs["paged_decode"].paged_decode_scratch_floats.argtypes = [I] * 6
     libs["paged_decode"].paged_decode_scratch_floats.restype = \
         ctypes.c_int64
+    libs["int8_matmul"].int8_matmul_launch.argtypes = [P] * 5 + [I] * 4 \
+        + [P]
+    libs["int8_matmul"].int8_matmul_fused_launch.argtypes = [P] * 6 \
+        + [I] * 3 + [P]
+    libs["ag_matmul"].ag_matmul_launch.argtypes = [P] * 3 + [I] * 4 + [P]
     return libs
 
 
@@ -1961,8 +2119,208 @@ def _turns(old, new, timer=time_ms) -> tuple[list, list]:
     return [a, d], [b, c]
 
 
+def _compare_gemms(libs, ptr, stream, gen) -> dict:
+    """--parent-csrc for K7 (one layer's seven projections at M = 8192
+    and the four-rank chunks), K5 and K4's training products (the
+    seven projections' forward, dX and dW at M = 8192; K5 in CUDA-graph
+    replays) and K4 at decode (M = 8, the seven projections and the
+    unembedding, CUDA-graph replays): each build gated against the plain
+    version (K7 at its tolerance, K4 and K5 bit for bit) and timed in
+    turns.  The parent's
+    K4 takes each operand as its wrapper passed it: dW's A as a
+    transposed copy of X's (M, K) codes, made in the timed call."""
+    res, bf16 = {}, torch.bfloat16
+    M = TRAIN["seq"] * TRAIN["bs"]
+
+    def launched(name, rc):
+        check(rc == 0, f"parent {name}: CUDA error {rc}")
+
+    # K7: the same operands for both builds, the chunk a strided view
+    atol, rtol = C.TOLERANCE[bf16]
+    tot = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    chunks, seen = {}, {}
+    for name, K, Kc, N in [(n, K, K, N) for n, K, N in PROJECTIONS] \
+            + AG_CHUNKS:
+        if (K, Kc, N) not in seen:
+            ops = []
+            for i in range(3):
+                a = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+                w = (torch.randn((Kc, N), generator=gen, device="cuda")
+                     * 0.02).to(bf16)
+                c0 = (i + 1) % (K // Kc) * Kc
+                ops.append((a[:, c0:c0 + Kc], w))
+            o7 = torch.empty((M, N), device="cuda", dtype=bf16)
+
+            def old_k7(a2, w, o7=o7, N=N, Kc=Kc):
+                launched("ag_matmul", libs["ag_matmul"].ag_matmul_launch(
+                    ptr(a2), ptr(w), ptr(o7), M, N, Kc, a2.stride(0),
+                    stream()))
+                return o7
+
+            ref = C.ag_matmul_plain(*ops[0])
+            ratios = {}
+            for nm, fn in (("parent", old_k7), ("change", C.ag_matmul_kernel)):
+                ratios[nm] = gate_ratio(fn(*ops[0]), ref, atol, rtol)
+                check(ratios[nm] <= 1.0, f"compare ag_matmul {nm}: ({M}, "
+                      f"{Kc}) x ({Kc}, {N}) gate ratio {ratios[nm]:.3f}")
+            it = iter(range(10 ** 9))
+            old, new = _turns(lambda: old_k7(*ops[next(it) % 3]),
+                              lambda: C.ag_matmul_kernel(*ops[next(it) % 3]))
+            seen[(K, Kc, N)] = (old, new)
+            log(f"compare ag_matmul ({M}, {Kc}) x ({Kc}, {N})"
+                f"{', a strided' if Kc < K else ''}: parent {old} ms, change "
+                f"{new} ms; gate ratios {json.dumps(ratios)}")
+            del ops, ref, o7
+            torch.cuda.empty_cache()
+        old, new = seen[(K, Kc, N)]
+        if Kc < K:
+            chunks[name] = {"parent_ms": old, "change_ms": new}
+            continue
+        tot["parent"] = [a + b for a, b in zip(tot["parent"], old)]
+        tot["change"] = [a + b for a, b in zip(tot["change"], new)]
+    res["ag_matmul"] = {"parent_ms": tot["parent"],
+                        "change_ms": tot["change"],
+                        "four_rank_chunks": chunks}
+    log(f"compare ag_matmul, one layer's 7 projections: parent "
+        f"{tot['parent']} ms, change {tot['change']} ms")
+
+    # K5 and K4's training products
+    lib8 = libs["int8_matmul"]
+    t5 = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    t4 = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    for name, K, N in PROJECTIONS:
+        sets = []
+        for _ in range(3):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 * 0.02).to(bf16)
+            g = (torch.randn((M, N), generator=gen, device="cuda")
+                 * 1e-3).to(bf16)
+            wq_t, ws_t = Q.quantize_int8(w.t(), axis=-1)
+            gq, gs = Q.quantize_int8(g, axis=-1)
+            wq_n, ws_n = Q.quantize_int8(w, axis=1)
+            xq_t, xs_t = Q.quantize_int8(x.t(), axis=-1)
+            gq_t, gs_t = Q.quantize_int8(g.t(), axis=-1)
+            sets.append(dict(
+                x=x, wq_t=wq_t, ws_t=ws_t,
+                dx=(gq, gs, wq_n, ws_n.T, (1, 1)),
+                dw=(xq_t, xs_t, gq_t, gs_t.T, (1, 1)),
+                # the parent's dW operands: X's and g's (M, ·) codes
+                xq_m=xq_t.t().contiguous(), gq_m=gq_t.t().contiguous()))
+            del w, g
+        codes = torch.empty((M, K), dtype=torch.int8, device="cuda")
+        xs5 = torch.empty((M,), device="cuda")
+        out = {"x": torch.empty((M, N), device="cuda", dtype=bf16),
+               "dx": torch.empty((M, K), device="cuda", dtype=bf16),
+               "dw": torch.empty((K, N), device="cuda", dtype=bf16)}
+
+        def old_k5(d):
+            launched("int8_matmul_fused", lib8.int8_matmul_fused_launch(
+                ptr(d["x"]), ptr(d["wq_t"]), ptr(codes), ptr(xs5),
+                ptr(d["ws_t"]), ptr(out["x"]), M, N, K, stream()))
+            return out["x"]
+
+        def new_k5(d):
+            return Q.int8_matmul_fused_kernel(d["x"], d["wq_t"], d["ws_t"],
+                                              b_kmajor=True)
+
+        def old_k4(d, prod):
+            if prod == "dx":
+                gq, gs, wq_n, ws_n, _ = d["dx"]
+                a, b, sa, sb, Mo, No, Kc, kmaj = (gq, wq_n, gs, ws_n, M, K,
+                                                  N, 1)
+            else:   # the parent's wrapper copied X's codes transposed
+                _, xs_t, _, gs_n, _ = d["dw"]
+                a, b, sa, sb, Mo, No, Kc, kmaj = (
+                    d["xq_m"].t().contiguous(), d["gq_m"], xs_t, gs_n, K, N,
+                    M, 0)
+            launched("int8_matmul", lib8.int8_matmul_launch(
+                ptr(a), ptr(b), ptr(sa), ptr(sb), ptr(out[prod]), Mo, No, Kc,
+                kmaj, stream()))
+            return out[prod]
+
+        s0 = sets[0]
+        ref = Q.int8_matmul_fused(s0["x"], s0["wq_t"].t(), s0["ws_t"].T, bf16)
+        for nm, fn in (("parent", old_k5), ("change", new_k5)):
+            _gate_bitwise(f"compare int8_matmul_fused {nm}", name, fn(s0),
+                          ref)
+        # in graph replays: the change launches through its wrapper, the
+        # parent straight into its C function, and the host work between
+        # launches would otherwise count against the change
+        it = iter(range(10 ** 9))
+        old, new = _turns(lambda: old_k5(sets[next(it) % 3]),
+                          lambda: new_k5(sets[next(it) % 3]), graph_ms)
+        t5["parent"] = [a + b for a, b in zip(t5["parent"], old)]
+        t5["change"] = [a + b for a, b in zip(t5["change"], new)]
+        log(f"compare int8_matmul_fused {name} ({M}, {K}) x ({K}, {N}): "
+            f"parent {old} ms, change {new} ms")
+        for prod in ("dx", "dw"):
+            ref = Q._int8_dot(*s0[prod], bf16, plain=True)
+            for nm, fn in (("parent", lambda d: old_k4(d, prod)),
+                           ("change", lambda d: Q._int8_dot(
+                               *d[prod], bf16, plain=False))):
+                _gate_bitwise(f"compare int8_matmul {nm}",
+                              f"{name} {prod}", fn(s0), ref)
+            it = iter(range(10 ** 9))
+            old, new = _turns(
+                lambda: old_k4(sets[next(it) % 3], prod),
+                lambda: Q._int8_dot(*sets[next(it) % 3][prod], bf16,
+                                    plain=False))
+            t4["parent"] = [a + b for a, b in zip(t4["parent"], old)]
+            t4["change"] = [a + b for a, b in zip(t4["change"], new)]
+            log(f"compare int8_matmul {name} {prod}: parent {old} ms, change "
+                f"{new} ms")
+        del sets, ref, codes, out
+        torch.cuda.empty_cache()
+    res["int8_matmul_fused"] = {"parent_ms": t5["parent"],
+                                "change_ms": t5["change"]}
+    res["int8_matmul"] = {"parent_ms": t4["parent"],
+                          "change_ms": t4["change"]}
+    log(f"compare int8_matmul_fused, one layer's 7 projections: parent "
+        f"{t5['parent']} ms, change {t5['change']} ms; int8_matmul, the 14 "
+        f"backward products: parent {t4['parent']} ms, change "
+        f"{t4['change']} ms")
+
+    # K4 at decode, M = 8: the parent's mma.sync against the GEMV
+    Md = ENGINE["max_batch"]
+    td = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    for name, K, N in K4_DECODE_SHAPES:
+        sets = _decode_operands(gen, Md, K, N)
+        o4 = torch.empty((Md, N), device="cuda", dtype=bf16)
+
+        def old_dec(xq, xs, wq, ws, o4=o4, N=N, K=K):
+            launched("int8_matmul", lib8.int8_matmul_launch(
+                ptr(xq), ptr(wq), ptr(xs), ptr(ws), ptr(o4), Md, N, K, 0,
+                stream()))
+            return o4
+
+        ref = Q.int8_matmul(*sets[0], bf16)
+        for nm, fn in (("parent", old_dec), ("change", Q.int8_matmul_kernel)):
+            _gate_bitwise(f"compare int8_matmul decode {nm}", name,
+                          fn(*sets[0]), ref)
+        it = iter(range(10 ** 9))
+        old, new = _turns(lambda: old_dec(*sets[next(it) % 3]),
+                          lambda: Q.int8_matmul_kernel(*sets[next(it) % 3]),
+                          graph_ms)
+        log(f"compare int8_matmul decode {name} ({Md}, {K}) x ({K}, {N}): "
+            f"parent {old} ms, change {new} ms (graph replays)")
+        if name == "unembed":
+            res["int8_matmul_unembed"] = {"parent_ms": old, "change_ms": new}
+        else:
+            td["parent"] = [a + b for a, b in zip(td["parent"], old)]
+            td["change"] = [a + b for a, b in zip(td["change"], new)]
+        del sets, ref, o4
+    torch.cuda.empty_cache()
+    res["int8_matmul_decode"] = {"parent_ms": td["parent"],
+                                 "change_ms": td["change"]}
+    log(f"compare int8_matmul decode, one layer's 7 projections: parent "
+        f"{td['parent']} ms, change {td['change']} ms (graph replays)")
+    return res
+
+
 def parent_compare_phase(csrc: Path) -> dict:
-    """K1 and K3 at the kernel phase's serve shapes, K6 at one layer's
+    """K7, K5 and K4 (:func:`_compare_gemms`), K1 and K3 at the kernel
+    phase's serve shapes, K6 at one layer's
     seven projections (M = 8192) and the flash attention's backward and
     forward at the training shape (B 1, S 8192, 16 / 4 heads, hd 128),
     each built from
@@ -1980,7 +2338,8 @@ def parent_compare_phase(csrc: Path) -> dict:
         lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    res = {}
+    res = _compare_gemms(libs, ptr, stream,
+                         torch.Generator(device="cuda").manual_seed(SEED + 4))
 
     # K3, as kernel_phase draws it
     B, page = ENGINE["max_batch"], ENGINE["page_size"]
@@ -2269,10 +2628,10 @@ def _serve_reading(params, attend) -> dict:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="time K1, K3, K6 and the flash attention "
-                    "built from this csrc directory (an unpacked parent "
-                    "commit) against this checkout's, and the serve with "
-                    "either K1, in turns, and run nothing else")
+                    help="time K7, K4, K5, K1, K3, K6 and the flash "
+                    "attention built from this csrc directory (an unpacked "
+                    "parent commit) against this checkout's, and the serve "
+                    "with either K1, in turns, and run nothing else")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",
@@ -2322,6 +2681,8 @@ def main(argv) -> int:
         params = timed("SMOLLM3_3B params", build_params)
         eng, reqs, launches = timed("serve", serve_phase, params, rng, card)
         timed("parity", parity_phase, params, reqs, eng)
+        timed("decode profile", decode_step_profile, eng, reqs, "serve",
+              ENGINE["flash_prefill"])
         timed("profile", profile_phase, params, rng)
         del eng, reqs
         params_q8 = timed("int8 params", quantize_decode_params, params, CFG)
@@ -2330,6 +2691,8 @@ def main(argv) -> int:
         eng, reqs, q8 = timed("int8 serve", int8_serve_phase, params_q8, rng,
                               card)
         timed("int8 parity", int8_parity_phase, params_q8, reqs, eng)
+        timed("int8 decode profile", decode_step_profile, eng, reqs,
+              "int8 serve", INT8_ENGINE["flash_prefill"])
         timed("int8 profile", profile_phase, params_q8, rng, INT8_ENGINE,
               "int8 serve", (4, 2))
         del eng, reqs, params_q8

@@ -17,217 +17,208 @@
 // (M = 8192 rows, Kc x N from 512 x 2048 to 11008 x 2048) a product
 // does 2·M·N·Kc flops over (M·Kc + Kc·N + M·N) · 2 bytes, 400-1400
 // flops a byte, above the card's ~295 bf16 flops per byte of HBM
-// bandwidth.  This first version runs the bf16 tensor cores through
-// mma.sync (m16n8k16), which reaches only part of the 989 TFLOP/s that
-// wgmma with a TMA-fed ring of tiles can (ROADMAP.md).
+// bandwidth.  Only wgmma reaches the bf16 tensor cores' 989 TFLOP/s, and
+// only a ring of tiles in flight keeps them fed.
 //
-// Design: one block of 8 warps per 128 x 128 output tile; each warp owns
-// a 64 x 32 sub-tile (4 x 4 mma tiles, 64 f32 accumulators a thread).
-// The block walks Kc in 32-deep tiles through a 3-stage cp.async ring in
-// shared memory (16-byte copies).  A is read in place with its own row
-// stride (lda), so the strided chunk a[..., s:s+Kc] of the activation
-// needs no copy; B is the (Kc, N) shard in the reference's layout, read
-// as [k][n] tiles and turned into column fragments by ldmatrix.trans.
-// Rows past M, columns past N and k past Kc are zero-filled, so Kc = 2752
-// (86 tiles of 32) or any multiple of 8 needs no padding.  Shared rows
-// are padded by 8 elements, which keeps the fragment loads free of bank
-// conflicts.
+// Design: a persistent grid of one block an SM (384 threads, three
+// warpgroups) walks the 128 x 256 output tiles in a grouped order
+// (kGroupM row tiles a column sweep, so that the blocks of a wave share
+// A's rows and B's columns in L2).
+// - Warpgroup 0 is the producer.  It gives up registers (setmaxnreg 40)
+//   and one thread keeps a 4-stage ring of TMA loads in flight across
+//   tiles: a stage is A's 128 rows x 64 of K (16 KB, one 128-byte
+//   swizzled column block) and B's 64 rows of K x 256 columns (32 KB,
+//   four column blocks of 64 rows x 128 bytes), completing on a "full"
+//   mbarrier.  A is read in place as a 2-D box of the strided chunk
+//   a[..., s:s+Kc] (tensor map base the chunk's pointer, row stride
+//   lda · 2 bytes), B in the shard's own (Kc, N) layout: no copy of
+//   either.  TMA zero-fills rows past M and k past Kc; B's boxes wholly
+//   past N are not loaded (their columns are never stored).
+// - Warpgroups 1 and 2 are the consumers (setmaxnreg 232), 64 rows of
+//   the tile each: per stage four wgmma m64n256k16 bf16 -> f32 from
+//   shared memory, A K-major and B MN-major (the descriptor's transpose
+//   bit).  One wgmma group stays in flight across stages: a stage goes
+//   back to the producer on its "empty" mbarrier once the next stage's
+//   group is issued and its own has retired (wgmma_wait<1>).
+// - The epilogue rounds each f32 sum once to bf16 and stores pairs from
+//   registers, guarded against M and N; meanwhile the producer is
+//   already loading the next tile's stages.
+// Kc, N and lda must be multiples of 8 and the operands 16-byte aligned
+// (the strides and bases TMA takes); Kc = 2752 (43 stages of 64) needs
+// no padding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128, kBN = 128;  // output tile
-constexpr int kBK = 32;              // K tile
-constexpr int kStages = 3;           // cp.async ring depth
-constexpr int kThreads = 256;        // 8 warps: 2 along M x 4 along N
-constexpr int kWM = 64, kWN = 32;    // warp tile
-constexpr int kMT = kWM / 16, kNT = kWN / 8;
-constexpr int kALd = kBK + 8;        // A tile [kBM][kALd]
-constexpr int kBLd = kBN + 8;        // B tile [kBK][kBLd]
-constexpr int kStage = kBM * kALd + kBK * kBLd;   // elements per stage
+constexpr int kBM = 128, kBN = 256, kBK = 64;   // tile; K in elements
+constexpr int kStages = 4;
+constexpr int kThreads = 384;   // producer warpgroup + 2 consumers
+constexpr int kGroupM = 8;      // row tiles a column sweep of the walk
+constexpr int kABytes = kBM * kBK * 2;          // one column block
+constexpr int kBBlock = kBK * 128;              // 64 rows x 128 bytes
+constexpr int kBBytes = (kBN / 64) * kBBlock;
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1008;
 
-// the f32 accumulator keeps each K tile's tensor-core sum as it is
-__device__ __forceinline__ float acc_keep(float x) { return x; }
+// Rounds the f32 accumulators to bf16 after every k-block?  Never: each
+// output's sum stays f32 over the whole chunk.
+__device__ __forceinline__ bool acc_rounded() { return false; }
 
 // the K tiles that enter the sum: every one of the chunk's
 __device__ __forceinline__ bool tile_in_sum(int kt, int nk) { return kt < nk; }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
+// Output tile t of the grouped walk: (first row, first column)
+__device__ __forceinline__ void tile_origin(int t, int mt, int nt, int& m0,
+                                            int& n0) {
+  const int per_group = kGroupM * nt;
+  const int first = (t / per_group) * kGroupM;
+  const int rows = min(mt - first, kGroupM);
+  const int r = t % per_group;
+  m0 = (first + r % rows) * kBM;
+  n0 = (r / rows) * kBN;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8x8 b16 matrices, transposed: the B fragments of two n8 tiles
-// from a row-major [k][n] tile
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage K tile kt: A rows [m0, m0 + kBM) x k [k0, k0 + kBK) and B rows
-// k [k0, k0 + kBK) x columns [n0, n0 + kBN); what lies outside the
-// operands is zero-filled.
-__device__ __forceinline__ void load_tile(bf16* st, const bf16* __restrict__ a,
-                                          const bf16* __restrict__ b, int M,
-                                          int N, int K, int lda, int m0,
-                                          int n0, int kt) {
-  const int k0 = kt * kBK;
-  bf16* as = st;
-  bf16* bs = st + kBM * kALd;
-  constexpr int kACh = kBK / 8;   // 16-byte chunks per A row
-  for (int c = threadIdx.x; c < kBM * kACh; c += kThreads) {
-    const int r = c / kACh, kc = (c % kACh) * 8;
-    const int gr = m0 + r, gk = k0 + kc;
-    const bool ok = gr < M && gk < K;
-    const bf16* p = ok ? a + static_cast<int64_t>(gr) * lda + gk : a;
-    cp_async16(as + r * kALd + kc, p, ok ? 16 : 0);
-  }
-  constexpr int kBCh = kBN / 8;   // 16-byte chunks per B row
-  for (int c = threadIdx.x; c < kBK * kBCh; c += kThreads) {
-    const int r = c / kBCh, nc = (c % kBCh) * 8;
-    const int gk = k0 + r, gn = n0 + nc;
-    const bool ok = gk < K && gn < N;
-    const bf16* p = ok ? b + static_cast<int64_t>(gk) * N + gn : b;
-    cp_async16(bs + r * kBLd + nc, p, ok ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ag_matmul_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                 bf16* __restrict__ out, int M, int N, int K, int lda) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp / 4) * kWM, wn = (warp % 4) * kWN;
-  const int g = lane / 4, t = lane % 4;
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
+__global__ void __launch_bounds__(kThreads, 1)
+ag_matmul_kernel(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 bf16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = hop::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  auto a_tile = [&](int s) { return smem + s * kStageBytes; };
+  auto b_tile = [&](int s) { return a_tile(s) + kABytes; };
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int mt = (M + kBM - 1) / kBM, nt = (N + kBN - 1) / kBN;
   const int nk = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_tile(smem + s * kStage, a, b, M, N, K, lda, m0, n0, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();   // tile kt has landed
-    __syncthreads();                // and tile kt - 1's stage is free
-    const int nt = kt + kStages - 1;
-    if (nt < nk)
-      load_tile(smem + (nt % kStages) * kStage, a, b, M, N, K, lda, m0, n0,
-                nt);
-    cp_async_commit();
-    if (!tile_in_sum(kt, nk)) continue;
 
-    const bf16* as = smem + (kt % kStages) * kStage;
-    const bf16* bs = as + kBM * kALd;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[kMT][4], bfr[kNT][2];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const bf16* p = as + (wm + i * 16 + g) * kALd + ks + t * 2;
-        af[i][0] = lds32(p);
-        af[i][1] = lds32(p + 8 * kALd);
-        af[i][2] = lds32(p + 8);
-        af[i][3] = lds32(p + 8 * kALd + 8);
-      }
-      const int kr = ks + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int jp = 0; jp < kNT / 2; ++jp) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, bs + kr * kBLd + wn + jp * 16 + (lane >> 4) * 8);
-        bfr[2 * jp][0] = r[0];
-        bfr[2 * jp][1] = r[1];
-        bfr[2 * jp + 1][0] = r[2];
-        bfr[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 8);   // the consumers' eight warps
     }
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = acc_keep(acc[i][j][e]);
+    hop::mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // epilogue: one rounding to bf16, two neighbouring columns a store
+  if (wg == 0) {   // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;   // stages issued, over every tile of this block
+      for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
+        int m0, n0;
+        tile_origin(t, mt, nt, m0, n0);
+        const int nb = min(kBN, N - n0 + 63) / 64;   // B boxes inside N
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % kStages;
+          hop::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          hop::mbar_expect_tx(&full[s], kABytes + nb * kBBlock);
+          hop::tma_load_2d(a_tile(s), &ta, &full[s], kb * kBK, m0);
+          for (int cb = 0; cb < nb; ++cb)
+            hop::tma_load_2d(b_tile(s) + cb * kBBlock, &tb, &full[s],
+                             n0 + 64 * cb, kb * kBK);
+        }
+      }
+    }
+  } else {   // consumers: rows cw * 64 .. + 63 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int row = cw * 64 + ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+    float acc[128];
+    int it = 0;   // stages consumed, over every tile of this block
+    for (int t = blockIdx.x; t < mt * nt; t += gridDim.x) {
+      int m0, n0;
+      tile_origin(t, mt, nt, m0, n0);
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % kStages;
+        hop::mbar_wait(&full[s], (it / kStages) & 1);
+        hop::fence_regs(acc);
+        hop::wgmma_fence();
+        if (tile_in_sum(kb, nk)) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+          for (int k = 0; k < 4; ++k)   // k16 steps of the stage
+            hop::wgmma_m64n256k16_bf16_ss_tb(
+                acc, hop::sw128_desc(a_tile(s) + cw * 64 * 128 + k * 32, 16,
+                                     1024),
+                hop::sw128_desc(b_tile(s) + k * 16 * 128, kBBlock, 1024));
+        }
+        hop::wgmma_commit();
+        hop::fence_regs(acc);
+        hop::wgmma_wait<1>();   // the previous stage's group has retired
+        if (kb > 0 && lane == 0)
+          hop::mbar_arrive(&empty[(it - 1) % kStages]);
+        if (acc_rounded()) {
+          hop::wgmma_wait<0>();
+          hop::fence_regs(acc);
+#pragma unroll
+          for (int i = 0; i < 128; ++i)
+            acc[i] = __bfloat162float(__float2bfloat16_rn(acc[i]));
+        }
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      if (lane == 0) hop::mbar_arrive(&empty[(it - 1) % kStages]);
+
+      // one rounding to bf16, two neighbouring columns a store
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm + i * 16 + g + h * 8;
-        const int c = n0 + wn + j * 8 + t * 2;
-        if (r < M && c < N)
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + static_cast<int64_t>(r) * N + c) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        const int r = m0 + row + 8 * h;
+        if (r >= M) continue;
+        bf16* orow = out + static_cast<int64_t>(r) * N;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int c = n0 + 8 * j + 2 * (lane % 4);
+          if (c < N)
+            *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                      acc[4 * j + 2 * h + 1]);
+        }
       }
+    }
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
 }
 
 }  // namespace
 
 // a (M, K) bf16 with row stride lda (elements), b (K, N) bf16 row-major,
 // out (M, N) bf16 row-major.  K, N and lda must be multiples of 8 and
-// the operands 16-byte aligned.  Returns cudaGetLastError().
+// the operands 16-byte aligned.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue where the tensor maps cannot be made).
 extern "C" int ag_matmul_launch(const void* a, const void* b, void* out,
                                 int M, int N, int K, int lda, void* stream) {
   if (M < 1 || N < 8 || K < 8 || K % 8 || N % 8 || lda % 8 || lda < K)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kStages * kStage * static_cast<int>(sizeof(bf16));
+  CUtensorMap ta, tb;
+  if (!hop::sw128_map(&ta, a, M, K, static_cast<int64_t>(lda) * 2, 2, kBM) ||
+      !hop::sw128_map(&tb, b, K, N, static_cast<int64_t>(N) * 2, 2, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      ag_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ag_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  ag_matmul_kernel<<<grid, kThreads, smem,
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  ag_matmul_kernel<<<std::min(tiles, sm_count()), kThreads, kSmem,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<bf16*>(out), M, N, K, lda);
+      ta, tb, static_cast<bf16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 // Hopper building blocks of the wgmma kernels (flash_prefill.cu,
-// int8_matmul.cu, fp8_matmul.cu, flash_attention.cu): shared-memory
-// addresses, 16-byte cp.async, mbarriers, 2-D and 4-D TMA loads and
-// their tensor maps, shared-memory descriptors of 128-byte swizzled
-// tiles, and the wgmma shapes the kernels issue.  sm_90a only.
+// int8_matmul.cu, fp8_matmul.cu, flash_attention.cu, ag_matmul.cu):
+// shared-memory addresses, 16-byte cp.async, mbarriers, 2-D and 4-D TMA
+// loads and their tensor maps, shared-memory descriptors of 128-byte
+// swizzled tiles, and the wgmma shapes the kernels issue.  sm_90a only.
 //
 // The tiles these kernels hand to wgmma are 128-byte swizzled: a tile of
 // R rows x 128 bytes holds row r at byte r * 128, its 16-byte chunk c at
@@ -290,6 +290,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
       "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : HOP_F32(0), HOP_F32(32)
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64 x 256 f32) += A (64 x 16 bf16, shared, K-major) · B (16 x 256
+// bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n256k16_bf16_ss_tb(
+    float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : HOP_F32(0), HOP_F32(32), HOP_F32(64), HOP_F32(96)
+      : "l"(da), "l"(db), "r"(1));
 }
 
 #undef HOP_F4

@@ -17,22 +17,40 @@
 // epilogue in the reference's order, (f32(acc) · xs) · ws, and one
 // round to nearest even to bf16.  The plain PyTorch versions
 // (ops/quant.py) compute the same sums exactly, so the kernels are
-// bit-equal to them.  K5's quantiser divides (an IEEE division: never
-// --use_fast_math, never x · (1/scale)) and rounds half to even.
+// bit-equal to them whatever order they sum in: split-K partial sums
+// added by integer atomics repeat bit for bit.  K5's quantiser divides
+// (an IEEE division: never --use_fast_math, never x · (1/scale)) and
+// rounds half to even.
 //
 // What bounds them on an H100: operations at the training shapes (M =
 // 8192: ~650-1300 int8 operations per byte moved, above the card's ~590
 // at 1979 TOPS over 3.35 TB/s); bytes at decode (M = 8: the weight is
 // read once for 16 operations per byte).
 //
-// K4: mma.sync m16n8k32 (s8) in one block of 8
-// warps per 128 x 128 output tile, each warp a 64 x 32 sub-tile, K in
-// slices of 128 double-buffered by cp.async, rows padded to 144 bytes.
-// B comes in either layout: K-major (N, K), read with 32-bit fragment
-// loads (the dX product), or the reference's (K, N), whose fragments
-// gather four bytes of a column (ldmatrix has no 8-bit transpose); no
-// transposed copy of a weight is made.  Ragged edges are zero-filled,
-// so K % 16 == 0 (and N % 16 == 0 for a (K, N) B) is all it needs.
+// K4 has three designs; the wrapper (ops/quant.py k4_design) picks one
+// from M and B's layout, and every one ends in k4_out:
+// - B K-major, (N, K) (the training path's dX = g · Wᵀ and dW = Xᵀ · g,
+//   whose operands the backward quantises along M straight into (K, M)
+//   and (N, M) codes): K5's wgmma GEMM below, without its prologue.
+// - B in the reference's (K, N) layout, M <= 16 (decode; the
+//   unembedding): a split-K GEMV.  Reading the weight once is the bound,
+//   so the grid is (N strips of 128 columns) x (K splits), sized to fill
+//   the card about twice.  A lane loads 4 bytes of 4 consecutive k rows
+//   (a warp reads 128 contiguous bytes a row), turns the 4 x 4 bytes
+//   into 4 words of 4 k-values of one column (__byte_perm) and __dp4a's
+//   each against the A rows' packed codes, staged once in shared memory.
+//   The block's eight warps add their sums in shared memory; a split adds
+//   its strip's sums into a zeroed int32 scratch by integer atomics, and
+//   the strip's last block (a counter) takes them back with atomicExch
+//   (leaving the scratch zero again for the next launch) and runs the
+//   epilogue.  A single split writes its output directly.
+// - B (K, N), M > 16 (the int8 prefill's chunks, the "int8" forward):
+//   mma.sync m16n8k32 (s8) in one block of 8 warps per 128 x 128 output
+//   tile, each warp a 64 x 32 sub-tile, K in slices of 128
+//   double-buffered by cp.async, rows padded to 144 bytes; the B
+//   fragments gather four bytes of a column (ldmatrix has no 8-bit
+//   transpose), so no transposed copy of a weight is made.  Ragged edges
+//   are zero-filled, so K % 16 == 0 and N % 16 == 0 are all it needs.
 //
 // K5.  Quantising inside the GEMM would divide each element once per
 // block of the N grid, N / 128 times (86 for w_gate and w_up), and a
@@ -46,11 +64,11 @@
 // 2. B arrives K-major, (N, K): the training path quantises w.t() along
 //    its last axis, which gives the transpose of the reference's codes
 //    bit for bit.  The wrapper transposes a (K, N) B itself.
-// 3. The GEMM: one block per 128 x 256 output tile, three warpgroups.
-//    Warp 0 of the first is the producer: one thread keeps a 4-stage
-//    ring of TMA loads in flight (A 128 x 128 and B 256 x 128 bytes a
-//    stage, 128-byte swizzle, completion on a "full" mbarrier each
-//    stage).  The two consumer warpgroups each own 64 rows: per stage
+// 3. The GEMM (K4's too, on its own codes): one block per 128 x 256
+//    output tile, three warpgroups.  Warp 0 of the first is the
+//    producer: one thread keeps a 4-stage ring of TMA loads in flight
+//    (A 128 x 128 and B 256 x 128 bytes a stage, 128-byte swizzle,
+//    completion on a "full" mbarrier each stage).  The two consumer warpgroups each own 64 rows: per stage
 //    four wgmma m64n256k32 s8·s8→s32 from shared memory, both operands
 //    K-major, the previous stage released to the producer on an "empty"
 //    mbarrier once its wgmma group has retired.  TMA zero-fills past M,
@@ -62,11 +80,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "hopper.cuh"
 
 namespace {
 
-// ------------------------------------------------- K4: mma.sync GEMM
+// K4's epilogue, on every path: (f32(acc) · xs) · ws in the reference's
+// order, one round to nearest even
+__device__ __forceinline__ __nv_bfloat16 k4_out(int acc, float sx, float sw) {
+  const float v = (__int2float_rn(acc) * sx) * sw;
+  return __float2bfloat16_rn(v);
+}
+
+// ------------------------------------------ K4, B (K, N): mma.sync GEMM
 
 constexpr int kBM = 128, kBN = 128;  // output tile
 constexpr int kBK = 128;             // K slice (elements = bytes)
@@ -128,8 +155,6 @@ __device__ __forceinline__ void load_cols(uint8_t* dst,
   }
 }
 
-// kBKMajor: B is (N, K), else (K, N).
-template <bool kBKMajor>
 __global__ void __launch_bounds__(kThreads)
 int8_mm(const uint8_t* __restrict__ a8, const uint8_t* __restrict__ b,
         const float* __restrict__ xs, const float* __restrict__ ws,
@@ -139,13 +164,6 @@ int8_mm(const uint8_t* __restrict__ a8, const uint8_t* __restrict__ b,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = (warp / 4) * kWM, wn = (warp % 4) * kWN;
   const int g = lane / 4, t = lane % 4;
-
-  auto load_b = [&](uint8_t* dst, int k0) {
-    if constexpr (kBKMajor)
-      load_rows(dst, b, N, K, n0, k0);
-    else
-      load_cols(dst, b, K, N, k0, n0);
-  };
 
   int acc[kMT][kNT][4];
 #pragma unroll
@@ -157,16 +175,15 @@ int8_mm(const uint8_t* __restrict__ a8, const uint8_t* __restrict__ b,
 
   const int nk = (K + kBK - 1) / kBK;
   load_rows(smem, a8, M, K, m0, 0);
-  load_b(smem + kTile, 0);
+  load_cols(smem + kTile, b, K, N, 0, n0);
   hop::cp_async_commit();
   for (int kt = 0; kt < nk; ++kt) {
     const uint8_t* as = smem + (kt % 2) * kStage;
     const uint8_t* bs = as + kTile;
     uint8_t* nxt = smem + ((kt + 1) % 2) * kStage;
-    const bool more = kt + 1 < nk;
-    if (more) {
+    if (kt + 1 < nk) {
       load_rows(nxt, a8, M, K, m0, (kt + 1) * kBK);
-      load_b(nxt + kTile, (kt + 1) * kBK);
+      load_cols(nxt + kTile, b, K, N, (kt + 1) * kBK, n0);
     }
     hop::cp_async_commit();
     hop::cp_async_wait<1>();   // slice kt has landed
@@ -185,15 +202,9 @@ int8_mm(const uint8_t* __restrict__ a8, const uint8_t* __restrict__ b,
       }
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        if constexpr (kBKMajor) {
-          const uint8_t* p = bs + (wn + j * 8 + g) * kStride + ks + t * 4;
-          bf[j][0] = lds32(p);
-          bf[j][1] = lds32(p + 16);
-        } else {
-          const uint8_t* p = bs + (ks + t * 4) * kStride + wn + j * 8 + g;
-          bf[j][0] = lds_col4(p, kStride);
-          bf[j][1] = lds_col4(p + 16 * kStride, kStride);
-        }
+        const uint8_t* p = bs + (ks + t * 4) * kStride + wn + j * 8 + g;
+        bf[j][0] = lds_col4(p, kStride);
+        bf[j][1] = lds_col4(p + 16 * kStride, kStride);
       }
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
@@ -211,23 +222,19 @@ int8_mm(const uint8_t* __restrict__ a8, const uint8_t* __restrict__ b,
       for (int e = 0; e < 4; ++e) {
         const int r = m0 + wm + i * 16 + g + (e / 2) * 8;
         const int c = n0 + wn + j * 8 + t * 2 + (e % 2);
-        if (r < M && c < N) {
-          const float sx = xs[r], sw = ws[c];
-          const float v = (__int2float_rn(acc[i][j][e]) * sx) * sw;
-          out[static_cast<int64_t>(r) * N + c] = __float2bfloat16_rn(v);
-        }
+        if (r < M && c < N)
+          out[static_cast<int64_t>(r) * N + c] = k4_out(acc[i][j][e], xs[r],
+                                                        ws[c]);
       }
 }
 
-template <bool kBKMajor>
 int launch_mm(const void* a, const void* b, const float* xs, const float* ws,
               void* out, int M, int N, int K, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      int8_mm<kBKMajor>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      2 * kStage);
+      int8_mm, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * kStage);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  int8_mm<kBKMajor><<<grid, kThreads, 2 * kStage, stream>>>(
+  int8_mm<<<grid, kThreads, 2 * kStage, stream>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), xs, ws,
       static_cast<__nv_bfloat16*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
@@ -237,7 +244,167 @@ bool bad_shape(int M, int N, int K, bool b_kmajor) {
   return M < 1 || N < 1 || K < 16 || K % 16 || (!b_kmajor && N % 16);
 }
 
-// --------------------------------- K5: quantising prologue, wgmma GEMM
+// ------------------------------------ K4, B (K, N), M <= 16: split-K GEMV
+
+namespace gemv {
+constexpr int kCols = 128;         // a strip: 32 lanes x 4 columns
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = 4;          // 4-row groups a warp loads at once
+constexpr int kMinRows = 128;      // the least of K a split takes
+constexpr int kMaxRows = 2048;     // the most (A's codes: 32 KB at M 16)
+constexpr int kFill = 264;         // blocks wanted: two an SM
+
+// (strips, splits, rows a split) of an (M <= 16, K) x (K, N) product
+struct Plan {
+  int strips, splits, rows;
+};
+
+Plan plan(int N, int K) {
+  Plan p;
+  p.strips = (N + kCols - 1) / kCols;
+  int want = (kFill + p.strips - 1) / p.strips;
+  want = std::min(want, std::max(1, K / kMinRows));
+  want = std::max(want, (K + kMaxRows - 1) / kMaxRows);
+  p.rows = ((K + want - 1) / want + 15) / 16 * 16;
+  p.splits = (K + p.rows - 1) / p.rows;
+  return p;
+}
+}  // namespace gemv
+
+// Does split s of n add its partial sums into the strip's total?
+__device__ __forceinline__ bool split_in_sum(int s, int n) { return s < n; }
+
+// The 4 x 4 bytes w[r] (4 columns of k row r) as c[j] (4 k rows of
+// column j, row 0 in the low byte)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
+                                             uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Block (strip x, split y): rows [y·rows, +rows) of K against columns
+// [128 x, +128) of B, for the MT >= M rows of A (rows past M are zeros).
+// scratch: M·N int32 sums then one counter a strip, zero between
+// launches (unused with one split).
+template <int MT>
+__global__ void __launch_bounds__(gemv::kThreads)
+int8_gemv(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+          const float* __restrict__ xs, const float* __restrict__ ws,
+          __nv_bfloat16* __restrict__ out, int* __restrict__ scratch, int M,
+          int N, int K, int rows) {
+  extern __shared__ uint32_t sm[];
+  __shared__ int last;
+  const int gw = rows / 4;                           // A words a row
+  uint32_t* aw = sm;                                 // [MT][gw]
+  int* red = reinterpret_cast<int*>(sm + MT * gw);   // [MT][kCols]
+  const int n0 = blockIdx.x * gemv::kCols, k0 = blockIdx.y * rows;
+  const int ng = min(rows, K - k0) / 4;              // 4-row groups
+  for (int i = threadIdx.x; i < MT * ng; i += gemv::kThreads) {
+    const int m = i / ng, g = i % ng;
+    aw[m * gw + g] = m < M ? *reinterpret_cast<const uint32_t*>(
+                                 a + static_cast<int64_t>(m) * K + k0 + 4 * g)
+                           : 0u;
+  }
+  for (int i = threadIdx.x; i < MT * gemv::kCols; i += gemv::kThreads)
+    red[i] = 0;
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = n0 + 4 * lane;
+  const bool inside = n < N;   // N % 4 == 0: a lane's 4 columns or none
+  const uint8_t* bp = b + static_cast<int64_t>(k0) * N + n;
+  int acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0;
+  // warp w takes groups w, w + 8, ...: the warps sweep consecutive rows
+  for (int g0 = warp; g0 < ng; g0 += gemv::kWarps * gemv::kBatch) {
+    uint32_t w[gemv::kBatch][4];
+#pragma unroll
+    for (int u = 0; u < gemv::kBatch; ++u) {
+      const int g = g0 + gemv::kWarps * u;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        w[u][r] = inside && g < ng
+                      ? __ldcs(reinterpret_cast<const unsigned int*>(
+                            bp + static_cast<int64_t>(4 * g + r) * N))
+                      : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < gemv::kBatch; ++u) {
+      const int g = g0 + gemv::kWarps * u;
+      if (g >= ng) break;
+      uint32_t c[4];
+      transpose4x4(w[u], c);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int x = static_cast<int>(aw[m * gw + g]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[m][j] = __dp4a(static_cast<int>(c[j]), x, acc[m][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (m < M) atomicAdd(&red[m * gemv::kCols + 4 * lane + j], acc[m][j]);
+  __syncthreads();
+
+  if (gridDim.y == 1) {   // the block holds the whole sum
+    for (int i = threadIdx.x; i < M * gemv::kCols; i += gemv::kThreads) {
+      const int m = i / gemv::kCols, c = n0 + i % gemv::kCols;
+      if (c < N)
+        out[static_cast<int64_t>(m) * N + c] = k4_out(red[i], xs[m], ws[c]);
+    }
+    return;
+  }
+  if (split_in_sum(blockIdx.y, gridDim.y)) {
+    for (int i = threadIdx.x; i < M * gemv::kCols; i += gemv::kThreads) {
+      const int m = i / gemv::kCols, c = n0 + i % gemv::kCols;
+      if (c < N) atomicAdd(&scratch[static_cast<int64_t>(m) * N + c], red[i]);
+    }
+  }
+  __threadfence();   // this split's sums before its ticket
+  __syncthreads();
+  int* ticket = scratch + static_cast<int64_t>(M) * N + blockIdx.x;
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.y) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < M * gemv::kCols; i += gemv::kThreads) {
+    const int m = i / gemv::kCols, c = n0 + i % gemv::kCols;
+    if (c < N) {
+      const int64_t o = static_cast<int64_t>(m) * N + c;
+      out[o] = k4_out(atomicExch(&scratch[o], 0), xs[m], ws[c]);
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
+template <int MT>
+int launch_gemv(const void* a, const void* b, const float* xs,
+                const float* ws, void* out, int* scratch, int M, int N, int K,
+                cudaStream_t stream) {
+  const gemv::Plan p = gemv::plan(N, K);
+  const int smem = MT * p.rows + MT * gemv::kCols * 4;
+  int8_gemv<MT><<<dim3(p.strips, p.splits), gemv::kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), xs, ws,
+      static_cast<__nv_bfloat16*>(out), scratch, M, N, K, p.rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------ K5: quantising prologue; the wgmma GEMM (K4, K5)
 
 constexpr int kQRows = 8;   // prologue: rows (warps) per block
 
@@ -311,10 +478,13 @@ constexpr int kThreads = 384;   // producer warpgroup + 2 consumers
 constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1008;
 }  // namespace k5
 
-// Does k-block kb of nk enter the sum?
+// Does k-block kb of nk enter K5's sum?
 __device__ __forceinline__ bool kblock_in_sum(int kb, int nk) {
   return kb < nk;
 }
+
+// Does k-block kb of nk enter the sum of K4's wgmma path?
+__device__ __forceinline__ bool k4_kblock_in_sum(int kb, int nk) { return kb < nk; }
 
 // K5's epilogue: (f32(acc) · xs) · ws in the reference's order, one
 // round to nearest even
@@ -323,11 +493,14 @@ __device__ __forceinline__ __nv_bfloat16 k5_out(int acc, float sx,
   return __float2bfloat16_rn((__int2float_rn(acc) * sx) * sw);
 }
 
+// The wgmma GEMM of K5 (kK5, on its prologue's codes) and of K4 (on the
+// caller's codes); the two differ only in which hooks they name.
+template <bool kK5>
 __global__ void __launch_bounds__(k5::kThreads, 1)
-k5_gemm(const __grid_constant__ CUtensorMap ta,
-        const __grid_constant__ CUtensorMap tb, const float* __restrict__ xs,
-        const float* __restrict__ ws, __nv_bfloat16* __restrict__ out, int M,
-        int N, int K) {
+wgmma_gemm(const __grid_constant__ CUtensorMap ta,
+           const __grid_constant__ CUtensorMap tb,
+           const float* __restrict__ xs, const float* __restrict__ ws,
+           __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   using k5::kStages;
   using k5::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -371,7 +544,7 @@ k5_gemm(const __grid_constant__ CUtensorMap ta,
     hop::mbar_wait(&full[s], (kb / kStages) & 1);
     hop::fence_regs(acc);
     hop::wgmma_fence();
-    if (kblock_in_sum(kb, nk)) {
+    if (kK5 ? kblock_in_sum(kb, nk) : k4_kblock_in_sum(kb, nk)) {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         hop::wgmma_m64n256k32_s8_ss(
@@ -397,9 +570,13 @@ k5_gemm(const __grid_constant__ CUtensorMap ta,
     for (int j = 0; j < k5::kBN / 8; ++j) {
       const int c = n0 + 8 * j + 2 * (lane % 4);
       if (c >= N) continue;
-      const __nv_bfloat16 v0 = k5_out(acc[4 * j + 2 * h], sx, ws[c]);
+      const int a0 = acc[4 * j + 2 * h];
+      const __nv_bfloat16 v0 =
+          kK5 ? k5_out(a0, sx, ws[c]) : k4_out(a0, sx, ws[c]);
       if (c + 1 < N) {
-        const __nv_bfloat16 v1 = k5_out(acc[4 * j + 2 * h + 1], sx, ws[c + 1]);
+        const int a1 = acc[4 * j + 2 * h + 1];
+        const __nv_bfloat16 v1 =
+            kK5 ? k5_out(a1, sx, ws[c + 1]) : k4_out(a1, sx, ws[c + 1]);
         if (N % 2 == 0) {
           *reinterpret_cast<__nv_bfloat162*>(orow + c) =
               __halves2bfloat162(v0, v1);
@@ -414,11 +591,33 @@ k5_gemm(const __grid_constant__ CUtensorMap ta,
   }
 }
 
+// The wgmma GEMM on a (M, K) and b (N, K) int8 codes, both K-major
+template <bool kK5>
+int launch_wgmma(const void* a, const void* b, const float* xs,
+                 const float* ws, void* out, int M, int N, int K,
+                 cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!hop::sw128_map(&ta, a, M, K, K, 1, k5::kBM) ||
+      !hop::sw128_map(&tb, b, N, K, K, 1, k5::kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgmma_gemm<kK5>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k5::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + k5::kBN - 1) / k5::kBN, (M + k5::kBM - 1) / k5::kBM);
+  wgmma_gemm<kK5><<<grid, k5::kThreads, k5::kSmem, stream>>>(
+      ta, tb, xs, ws, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// K4.  a (M, K) int8; b (N, K) int8 if b_kmajor else (K, N); xs (M) and
-// ws (N) f32; out (M, N) bf16.  All contiguous on one device, K a
-// multiple of 16 (and N for a (K, N) b).  Returns cudaGetLastError().
+// K4 with B K-major (the wgmma GEMM) or in the reference's (K, N)
+// layout (mma.sync).  a (M, K) int8; b (N, K) int8 if b_kmajor else
+// (K, N); xs (M) and ws (N) f32; out (M, N) bf16.  All contiguous on one
+// device, K a multiple of 16 (and N for a (K, N) b); a and b 16-byte
+// aligned for the K-major path (TMA).  Returns cudaGetLastError()
+// (cudaErrorInvalidValue where the tensor maps cannot be made).
 extern "C" int int8_matmul_launch(const void* a, const void* b,
                                   const void* xs, const void* ws, void* out,
                                   int M, int N, int K, int b_kmajor,
@@ -428,8 +627,38 @@ extern "C" int int8_matmul_launch(const void* a, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fx = static_cast<const float*>(xs);
   const float* fw = static_cast<const float*>(ws);
-  return b_kmajor ? launch_mm<true>(a, b, fx, fw, out, M, N, K, s)
-                  : launch_mm<false>(a, b, fx, fw, out, M, N, K, s);
+  return b_kmajor ? launch_wgmma<false>(a, b, fx, fw, out, M, N, K, s)
+                  : launch_mm(a, b, fx, fw, out, M, N, K, s);
+}
+
+// int32 elements of the zeroed scratch K4's GEMV takes for an (M, K) x
+// (K, N) product: the M·N sums and a counter a strip; 0 where one split
+// covers K.
+extern "C" int64_t int8_gemv_scratch_ints(int M, int N, int K) {
+  const gemv::Plan p = gemv::plan(N, K);
+  return p.splits == 1 ? 0
+                       : static_cast<int64_t>(M) * N + p.strips;
+}
+
+// K4 at M <= 16 with B in the reference's (K, N) layout: the split-K
+// GEMV.  a (M, K) int8; b (K, N) int8; xs (M) and ws (N) f32; out (M, N)
+// bf16; scratch int8_gemv_scratch_ints(M, N, K) int32, zero (the kernel
+// leaves it zero).  All contiguous on one device, K and N multiples of
+// 16.  Returns cudaGetLastError().
+extern "C" int int8_gemv_launch(const void* a, const void* b, const void* xs,
+                                const void* ws, void* out, void* scratch,
+                                int M, int N, int K, void* stream) {
+  if (bad_shape(M, N, K, false) || M > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fx = static_cast<const float*>(xs);
+  const float* fw = static_cast<const float*>(ws);
+  int* sc = static_cast<int*>(scratch);
+  if (M <= 1) return launch_gemv<1>(a, b, fx, fw, out, sc, M, N, K, s);
+  if (M <= 2) return launch_gemv<2>(a, b, fx, fw, out, sc, M, N, K, s);
+  if (M <= 4) return launch_gemv<4>(a, b, fx, fw, out, sc, M, N, K, s);
+  if (M <= 8) return launch_gemv<8>(a, b, fx, fw, out, sc, M, N, K, s);
+  return launch_gemv<16>(a, b, fx, fw, out, sc, M, N, K, s);
 }
 
 // K5.  x (M, K) bf16; b (N, K) int8, K-major; codes (M, K) int8 and xs
@@ -448,19 +677,8 @@ extern "C" int int8_matmul_fused_launch(const void* x, const void* b,
   quantise_rows<<<(M + kQRows - 1) / kQRows, kQRows * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<uint8_t*>(codes),
       static_cast<float*>(xs), M, K);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap ta, tb;
-  if (!hop::sw128_map(&ta, codes, M, K, K, 1, k5::kBM) ||
-      !hop::sw128_map(&tb, b, N, K, K, 1, k5::kBN))
-    return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(k5_gemm,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             k5::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + k5::kBN - 1) / k5::kBN, (M + k5::kBM - 1) / k5::kBM);
-  k5_gemm<<<grid, k5::kThreads, k5::kSmem, s>>>(
-      ta, tb, static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<__nv_bfloat16*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return launch_wgmma<true>(codes, b, static_cast<const float*>(xs),
+                            static_cast<const float*>(ws), out, M, N, K, s);
 }

@@ -44,6 +44,8 @@ SIGNATURES = {
     },
     "int8_matmul": {
         "int8_matmul_launch": ([P] * 5 + [I] * 4 + [P], I),
+        "int8_gemv_launch": ([P] * 6 + [I] * 3 + [P], I),
+        "int8_gemv_scratch_ints": ([I] * 3, ctypes.c_int64),
         "int8_matmul_fused_launch": ([P] * 6 + [I] * 3 + [P], I),
     },
     "flash_attention": {

@@ -23,8 +23,8 @@ The ring family of the FSDP slice: ``RingShard``, ``ring_all_gather``
 (bitwise ``all_gather``, backward pinned to one monolithic
 reduce_scatter), ``all_gather_matmul`` (plain code whose autograd is the
 reversed-ring dW) and ``all_gather_matmul_pallas``, whose chunk product
-is K7: ``ag_matmul_kernel``, a bf16 tensor-core GEMM in
-``csrc/ag_matmul.cu`` (replacing ``_agmm_tile_call``'s
+is K7: ``ag_matmul_kernel``, a persistent bf16 wgmma GEMM fed by TMA
+in ``csrc/ag_matmul.cu`` (replacing ``_agmm_tile_call``'s
 ``pl.pallas_call``), beside its plain version ``ag_matmul_plain``.
 ``decomposed_all_reduce`` and ``matmul_reduce_scatter`` belong to the
 tensor-parallel ring (ROADMAP.md queue A item 10).
@@ -61,7 +61,8 @@ __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "scatter", "ppermute_ring", "all_to_all", "barrier",
            "tree_all_reduce", "tree_all_gather", "RingShard",
            "ring_all_gather", "all_gather_matmul", "all_gather_matmul_pallas",
-           "ag_matmul_kernel", "ag_matmul_plain", "COLLECTIVES", "COUNTS",
+           "ag_matmul_kernel", "ag_matmul_layout", "ag_matmul_plain",
+           "COLLECTIVES", "COUNTS",
            "TOLERANCE"]
 
 
@@ -454,13 +455,39 @@ def ag_matmul_plain(a2, w, out_dtype=None):
     return torch.matmul(a2.float(), w.float()).to(out_dtype)
 
 
+def ag_matmul_layout(a2, w) -> int:
+    """K7's operand rules, on any device: bf16 operands, ``w`` (Kc, N)
+    contiguous, ``a2`` (M, Kc) a row-strided view (its last dim
+    contiguous) as the ring's K-chunk ``a[..., s:s+Kc]`` is; Kc, N and
+    the row stride multiples of 8 and both operands 16-byte aligned (the
+    strides and bases TMA takes).  Returns the row stride ``lda``."""
+    M, K = a2.shape
+    K2, N = w.shape
+    if K != K2:
+        raise ValueError(f"ag_matmul_kernel: inner dims {K} != {K2}")
+    if a2.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"ag_matmul_kernel takes bf16 operands, got "
+                         f"{a2.dtype} and {w.dtype}")
+    lda = a2.stride(0) if M > 1 else K
+    if a2.stride(1) != 1 or lda < K:
+        raise ValueError("ag_matmul_kernel: a must be a row-strided view "
+                         "with a contiguous last dim")
+    if not w.is_contiguous():
+        raise ValueError("ag_matmul_kernel: w is not contiguous")
+    if K % 8 or N % 8 or lda % 8:
+        raise ValueError(f"ag_matmul_kernel: Kc={K}, N={N} and the row "
+                         f"stride {lda} must be multiples of 8 (16-byte "
+                         f"row strides)")
+    if a2.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("ag_matmul_kernel: operands must be 16-byte "
+                         "aligned")
+    return lda
+
+
 def ag_matmul_kernel(a2, w):
     """K7: ``a2 (M, Kc) @ w (Kc, N)`` in ``promote(a2, w)``.  CPU
     tensors take the plain version (counted in ``COUNTS.plain_calls``);
-    on the card both operands are bf16, ``w`` contiguous and ``a2`` a
-    row-strided view (its last dim contiguous, the row stride a
-    multiple of 8), as the ring's K-chunk ``a[..., s:s+Kc]`` is.  Kc and
-    N must be multiples of 8 and the operands 16-byte aligned."""
+    on the card the operands follow :func:`ag_matmul_layout`."""
     if a2.device.type == "cpu" and w.device.type == "cpu":
         COUNTS.plain_calls += 1
         return ag_matmul_plain(a2, w)
@@ -473,20 +500,7 @@ def ag_matmul_kernel(a2, w):
     if a2.device != w.device:
         raise ValueError(f"ag_matmul_kernel: a is on {a2.device}, w on "
                          f"{w.device}")
-    if a2.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"ag_matmul_kernel takes bf16 operands, got "
-                         f"{a2.dtype} and {w.dtype}")
-    lda = a2.stride(0) if M > 1 else K
-    if a2.stride(1) != 1 or lda < K:
-        raise ValueError("ag_matmul_kernel: a must be a row-strided view "
-                         "with a contiguous last dim")
-    if K % 8 or N % 8 or lda % 8:
-        raise ValueError(f"ag_matmul_kernel: Kc={K}, N={N} and the row "
-                         f"stride {lda} must be multiples of 8 (16-byte "
-                         f"row loads)")
-    if a2.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("ag_matmul_kernel: operands must be 16-byte "
-                         "aligned")
+    lda = ag_matmul_layout(a2, w)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=w.device)
     fn = loader.load("ag_matmul").ag_matmul_launch
     rc = fn(ptr(a2), ptr(w), ptr(out), M, N, K, lda, stream_ptr(w.device))

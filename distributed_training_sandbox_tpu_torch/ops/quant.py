@@ -68,7 +68,7 @@ from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
 
 __all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
            "dequantize", "f32_recip", "int_einsum_exact", "int8_matmul",
-           "int8_matmul_kernel",
+           "int8_matmul_kernel", "k4_design", "GEMV_MAX_M",
            "int8_matmul_fused", "int8_matmul_fused_kernel",
            "prequantized_dense", "quantized_dense", "plain_int8_products",
            "INT8_COUNTS", "INT8_FUSED_COUNTS",
@@ -114,7 +114,10 @@ def quantize_int8(x: torch.Tensor, axis: int = -1, *, eager: bool = False):
     """Symmetric absmax int8 quantisation along ``axis`` (the
     contraction dim): ``(q int8, scale f32 with axis kept at 1)``.  The
     scale is ``amax · f32(1/127)`` (the jitted form), or
-    ``amax / 127`` with ``eager=True``; an all-zero row gets scale 1."""
+    ``amax / 127`` with ``eager=True``; an all-zero row gets scale 1.
+    ``q`` is contiguous: ``quantize_int8(x.t(), axis=-1)`` is bit for bit
+    ``quantize_int8(x, axis=0)``'s transpose, codes and scales, laid out
+    with the contraction dim last."""
     xf = x.float()
     amax = xf.abs().amax(dim=axis, keepdim=True)
     if eager:
@@ -125,7 +128,11 @@ def quantize_int8(x: torch.Tensor, axis: int = -1, *, eager: bool = False):
         s = amax * INV_127
     scale = torch.where(amax > 0, s, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale), -127, 127)
-    return q.to(torch.int8), scale
+    # contiguous codes whatever x's strides: quantising a transposed view
+    # along its last axis writes the K-major codes K4's and K5's wgmma
+    # GEMMs read in its last pass, which on an H100 costs less than the
+    # int8 transposed copy a layout-keeping pass would need (PERF.md)
+    return q.to(torch.int8, memory_format=torch.contiguous_format), scale
 
 
 class QuantizedWeight(NamedTuple):
@@ -174,13 +181,35 @@ def int8_matmul_fused(x, wq, ws, out_dtype=torch.bfloat16):
     return int8_matmul(xq, xs, wq, ws, out_dtype)
 
 
-def _check_int8_gemm(name, M, N, K, b, b_kmajor):
+# K4's split-K GEMV takes products of at most this many rows (decode)
+GEMV_MAX_M = 16
+
+
+def k4_design(M: int, N: int, K: int, b_kmajor: bool) -> str:
+    """Which of K4's designs (``csrc/int8_matmul.cu``) takes an (M, K) x
+    B product: ``"wgmma"`` (B K-major, (N, K): the training path's dX
+    and dW), ``"gemv"`` (B (K, N), M <= ``GEMV_MAX_M``: decode and the
+    unembedding) or ``"mma"`` (B (K, N), larger M: the int8 prefill).
+    Raises on a shape none of them takes."""
+    if M < 1 or N < 1:
+        raise ValueError(f"int8_matmul_kernel: empty product ({M}, {N})")
+    _check_int8_shape("int8_matmul_kernel", N, K, b_kmajor)
+    if b_kmajor:
+        return "wgmma"
+    return "gemv" if M <= GEMV_MAX_M else "mma"
+
+
+def _check_int8_shape(name, N, K, b_kmajor):
     if K % 16:
         raise ValueError(f"{name}: the contraction K={K} must be a multiple "
                          f"of 16 (16-byte row loads)")
     if not b_kmajor and N % 16:
         raise ValueError(f"{name}: N={N} must be a multiple of 16 for a "
                          f"(K, N) weight (16-byte row loads)")
+
+
+def _check_int8_gemm(name, M, N, K, b, b_kmajor):
+    _check_int8_shape(name, N, K, b_kmajor)
     if b.dtype != torch.int8:
         raise ValueError(f"{name}: the weight must be int8, got {b.dtype}")
     want = (N, K) if b_kmajor else (K, N)
@@ -188,11 +217,29 @@ def _check_int8_gemm(name, M, N, K, b, b_kmajor):
         raise ValueError(f"{name}: weight shape {tuple(b.shape)} != {want}")
 
 
+# the GEMV's zeroed int32 scratch, one a device, grown as shapes need
+# (every launch leaves it zero again, so the port's launches, all on one
+# stream, share it; two launches in flight at once on two streams would
+# not)
+_GEMV_SCRATCH: dict = {}
+
+
+def _gemv_scratch(lib, M, N, K, device):
+    n = max(1, lib.int8_gemv_scratch_ints(M, N, K))
+    buf = _GEMV_SCRATCH.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _GEMV_SCRATCH[device] = buf
+    return buf
+
+
 def _launch_k4(a, xs, b, ws, b_kmajor: bool):
     """K4 on the card: a (M, Kc) int8; b (N, Kc) int8 if ``b_kmajor``
-    else (Kc, N); xs (M,) and ws (N,) f32.  Returns (M, N) bf16."""
+    else (Kc, N); xs (M,) and ws (N,) f32.  Launches the design
+    :func:`k4_design` picks; returns (M, N) bf16."""
     M, Kc = a.shape
     N = b.shape[0] if b_kmajor else b.shape[1]
+    design = k4_design(M, N, Kc, b_kmajor)
     _check_int8_gemm("int8_matmul_kernel", M, N, Kc, b, b_kmajor)
     if a.dtype != torch.int8:
         raise ValueError("int8_matmul_kernel takes an int8 activation")
@@ -200,10 +247,20 @@ def _launch_k4(a, xs, b, ws, b_kmajor: bool):
     ws = ws.reshape(N).float().contiguous()
     check_cuda_operands("int8_matmul_kernel", {"xs": xs, "ws": ws}, {},
                         {"a": a, "b": b})
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("int8_matmul_kernel: a and b must be 16-byte "
+                         "aligned")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-    fn = loader.load("int8_matmul").int8_matmul_launch
-    rc = fn(ptr(a), ptr(b), ptr(xs), ptr(ws), ptr(out), M, N, Kc,
-            int(b_kmajor), stream_ptr(a.device))
+    lib = loader.load("int8_matmul")
+    if design == "gemv":
+        scratch = _gemv_scratch(lib, M, N, Kc, a.device)
+        rc = lib.int8_gemv_launch(ptr(a), ptr(b), ptr(xs), ptr(ws), ptr(out),
+                                  ptr(scratch), M, N, Kc,
+                                  stream_ptr(a.device))
+    else:
+        rc = lib.int8_matmul_launch(ptr(a), ptr(b), ptr(xs), ptr(ws),
+                                    ptr(out), M, N, Kc, int(b_kmajor),
+                                    stream_ptr(a.device))
     raise_on_error("int8_matmul_kernel", rc)
     INT8_COUNTS.launches += 1
     return out
@@ -213,7 +270,8 @@ def int8_matmul_kernel(xq, xs, wq, ws, out_dtype=torch.bfloat16):
     """K4: xq (M, K) int8, xs (M, 1) f32, wq (K, N) int8 in the
     reference's layout, ws (1, N) f32; returns (M, N) ``out_dtype``
     (bf16 on the card), bit-equal to ``int8_matmul``.  The kernel reads
-    wq in place (no transposed copy)."""
+    wq in place (no transposed copy): the split-K GEMV at M <= 16, the
+    mma.sync GEMM above."""
     if xq.device.type == "cpu":
         INT8_COUNTS.plain_calls += 1
         return int8_matmul(xq, xs, wq, ws, out_dtype)
@@ -274,9 +332,10 @@ def _int8_dot(aq, a_scale, bq, b_scale, dims, out_dtype, plain: bool):
     broadcast against the (m, n) result.  ``plain`` takes the plain
     product on any device; otherwise K4 (the plain version on the CPU).
     K4 takes A row-major over the contraction, so ``ca == 0`` costs a
-    transposed copy of ``aq``; B it reads either way.  A contraction
-    that is not a multiple of 16 (dW over a ragged batch × sequence) is
-    zero-padded for the kernel: zero codes add exactly nothing."""
+    transposed copy of ``aq``; B it reads either way, on its wgmma GEMM
+    when ``cb == 1`` (K-major).  A contraction that is not a multiple of
+    16 (dW over a ragged batch × sequence) is zero-padded for the
+    kernel: zero codes add exactly nothing."""
     ca, cb = dims
     a = aq if ca == 1 else aq.t()
     if plain or aq.device.type == "cpu":
@@ -355,10 +414,13 @@ class _QuantizedDense(torch.autograd.Function):
         gq, gs = quantize_int8(g2, axis=-1)                 # (M,N), (M,1)
         wq_n, ws_n = quantize_int8(w, axis=1)               # (K,N), (K,1)
         gx = _int8_dot(gq, gs, wq_n, ws_n.T, (1, 1), x.dtype, plain)
-        # dW = Xᵀ · g, contraction over M: both quantised along M
-        xq_m, xs_m = quantize_int8(x2, axis=0)              # (M,K), (1,K)
-        gq_m, gs_m = quantize_int8(g2, axis=0)              # (M,N), (1,N)
-        gw = _int8_dot(xq_m, xs_m.T, gq_m, gs_m, (0, 0), w.dtype, plain)
+        # dW = Xᵀ · g, contraction over M: both quantised along M, the
+        # quantiser writing the codes K-major ((K, M) and (N, M), bit for
+        # bit the transposes of quantize_int8(·, axis=0)) as K4's wgmma
+        # GEMM reads them, with no separate transposed copy
+        xq_t, xs_t = quantize_int8(x2.t(), axis=-1)         # (K,M), (K,1)
+        gq_t, gs_t = quantize_int8(g2.t(), axis=-1)         # (N,M), (N,1)
+        gw = _int8_dot(xq_t, xs_t, gq_t, gs_t.T, (1, 1), w.dtype, plain)
         return gx.reshape(*lead, K), gw, None, None
 
 

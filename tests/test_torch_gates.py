@@ -20,7 +20,7 @@ _spec.loader.exec_module(M)
 
 def test_mutants_have_unique_names_and_known_phases():
     names = [m[0] for m in M.MUTANTS]
-    assert len(names) == len(set(names)) >= 18
+    assert len(names) == len(set(names)) >= 20
     assert {m[4] for m in M.MUTANTS} <= set(M.CHILD)
     assert all(m[5] for m in M.MUTANTS)
 

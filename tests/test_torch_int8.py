@@ -245,6 +245,29 @@ def test_plain_k5_kmajor_is_bitwise_jax_pallas_interpret(shape, out_dtype):
     assert (_tbits(got) == _bits(ref)).all()
 
 
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(70, 40), (333, 24), (14, 160)],
+                         ids=["ragged", "tall", "tiny_lm_rows"])
+def test_quantize_along_m_writes_the_transposed_codes(shape, dtype):
+    """The int8 backward's dW operands: ``quantize_int8(x.t(), axis=-1)``
+    gives contiguous (K, M) codes and (K, 1) scales, bit for bit the
+    transpose of ``quantize_int8(x, axis=0)`` and of jitted JAX's."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    x[:, 5] = 0.0          # an all-zero column: scale 1, codes 0
+    jq, js = jax.jit(JQ.quantize_int8, static_argnames=("axis",))(
+        jnp.asarray(x, dtype), axis=0)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    pq, ps = PQ.quantize_int8(tx.t(), axis=-1)
+    rq, rs = PQ.quantize_int8(tx, axis=0)
+    assert pq.shape == shape[::-1] and ps.shape == (shape[1], 1)
+    assert pq.is_contiguous()
+    assert torch.equal(pq, rq.t()) and torch.equal(ps, rs.t())
+    assert (_tbits(pq) == _bits(np.asarray(jq).T)).all()
+    assert (_tbits(ps) == _bits(np.asarray(js).T)).all()
+
+
 # ---- quantized_dense --------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -295,6 +318,38 @@ def test_quantized_dense_value_and_grads_match_jitted_jax(name):
     else:     # straight-through f32 products: summation order
         np.testing.assert_allclose(px.grad.numpy(), np.asarray(jgx), **TOL)
         np.testing.assert_allclose(pw.grad.numpy(), np.asarray(jgw), **TOL)
+
+
+
+# TINY_LM's projections (K, N) and its token rows: 2 x 8, and 2 x 7 (a
+# contraction over M that is not a multiple of 16)
+TINY_PROJECTIONS = {"wq": (64, 64), "wk": (64, 32), "w_up": (64, 160),
+                    "w_down": (160, 64)}
+
+
+@pytest.mark.parametrize("rows", [(2, 8), (2, 7)], ids=["16", "14"])
+@pytest.mark.parametrize("proj", list(TINY_PROJECTIONS))
+@pytest.mark.parametrize("name", ["int8_bwd", "int8_pallas_bwd"])
+def test_int8_backward_is_bitwise_jitted_jax_on_tiny_lm(name, proj, rows):
+    """The int8 backward with dW's operands quantised along M straight
+    into K-major codes: value, dX and dW bit for bit jitted JAX's at
+    TINY_LM's projection shapes."""
+    K, N = TINY_PROJECTIONS[proj]
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((*rows, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    r = rng.standard_normal((*rows, N)).astype(np.float32)
+    jdense = JQ.resolve_quantized_dense(name)
+    (jl, jout), (jgx, jgw) = jax.jit(jax.value_and_grad(
+        lambda x, w: (jnp.sum(jdense(x, w) * r), jdense(x, w)),
+        argnums=(0, 1), has_aux=True))(jnp.asarray(x), jnp.asarray(w))
+    px = torch.from_numpy(x).requires_grad_(True)
+    pw = torch.from_numpy(w).requires_grad_(True)
+    out = PQ.resolve_quantized_dense(name)(px, pw)
+    (out * torch.from_numpy(r)).sum().backward()
+    assert (_tbits(out) == _bits(jout)).all()
+    assert (_tbits(px.grad) == _bits(jgx)).all()
+    assert (_tbits(pw.grad) == _bits(jgw)).all()
 
 
 def test_plain_int8_products_take_the_plain_versions():

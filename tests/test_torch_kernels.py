@@ -611,6 +611,89 @@ def test_int8_backward_layouts_are_bitwise(cuda, shape):
         assert torch.equal(got, ref)
 
 
+
+# K4's three designs at every row count the decode GEMV takes, just
+# past it, and the training rows; K and N off every tile and split
+K4_ROWS = list(range(1, 17)) + [17, 255, 8192]
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("M", K4_ROWS)
+@pytest.mark.parametrize("b_kmajor", [False, True], ids=["kn", "kmajor"])
+def test_k4_designs_are_bitwise_at_every_row_count(cuda, M, b_kmajor):
+    """K4 in both B layouts (the GEMV at M <= 16 and mma.sync above for
+    a (K, N) B, the wgmma GEMM for a K-major one): bit-equal to the plain
+    version and on a second launch."""
+    K, N = 16 * 37, 16 * 13
+    _, xq, xs, wq, ws = int8_case(8, M, K, N, cuda)
+    want = "wgmma" if b_kmajor else ("gemv" if M <= 16 else "mma")
+    assert Q.k4_design(M, N, K, b_kmajor) == want
+    ref = Q.int8_matmul(xq, xs, wq, ws, torch.bfloat16)
+    Q.INT8_COUNTS.reset()
+    if b_kmajor:
+        got = Q._int8_dot(xq, xs, wq.t().contiguous(), ws, (1, 1),
+                          torch.bfloat16, plain=False)
+        again = Q._int8_dot(xq, xs, wq.t().contiguous(), ws, (1, 1),
+                            torch.bfloat16, plain=False)
+    else:
+        got = Q.int8_matmul_kernel(xq, xs, wq, ws)
+        again = Q.int8_matmul_kernel(xq, xs, wq, ws)
+    torch.cuda.synchronize()
+    assert (Q.INT8_COUNTS.launches, Q.INT8_COUNTS.plain_calls) == (2, 0)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, again)
+
+
+K4_GEMV_SHAPES = {
+    # name: (M, K, N): one split (the unembedding), ragged last splits,
+    # a ragged last strip, the fewest rows
+    "unembed": (8, 2048, 128256),
+    "w_down": (16, 11008, 2048),
+    "ragged_split": (3, 16 * 131, 512),
+    "ragged_strip": (1, 1040, 16 * 257),
+    "wk": (8, 2048, 512),
+}
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(K4_GEMV_SHAPES))
+def test_k4_gemv_splits_are_bitwise_and_repeat(cuda, shape):
+    """The split-K GEMV at decode shapes and ragged ones: bit-equal to
+    the plain version, and again on a second and third launch (the
+    scratch it adds into is left zero)."""
+    M, K, N = K4_GEMV_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xq, xs = Q.quantize_int8(torch.randn((M, K), generator=gen,
+                                         device=cuda))
+    wq = torch.randint(-127, 128, (K, N), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    ws = torch.rand((1, N), generator=gen, device=cuda) * 1e-3
+    assert Q.k4_design(M, N, K, False) == "gemv"
+    ref = Q.int8_matmul(xq, xs, wq, ws, torch.bfloat16)
+    outs = [Q.int8_matmul_kernel(xq, xs, wq, ws) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ref) for o in outs)
+
+
+def test_k4_design_follows_rows_and_layout_and_rejects_bad_shapes():
+    """The wrapper's choice of K4's design, and the shapes it refuses
+    before any launch (checked on the CPU: no card needed)."""
+    assert Q.k4_design(8, 2048, 2048, False) == "gemv"
+    assert Q.k4_design(16, 128256, 2048, False) == "gemv"
+    assert Q.k4_design(17, 2048, 2048, False) == "mma"
+    assert Q.k4_design(256, 2048, 2048, False) == "mma"
+    assert Q.k4_design(8192, 2048, 8192, True) == "wgmma"
+    assert Q.k4_design(8, 2048, 2048, True) == "wgmma"
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.k4_design(8, 2048, 2040, False)      # ragged K at decode
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.k4_design(8192, 2048, 8200, True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.k4_design(8, 2040, 2048, False)      # ragged N, (K, N) weight
+    with pytest.raises(ValueError, match="empty"):
+        Q.k4_design(0, 2048, 2048, False)
+
+
 def q8_case(seed, B, nkv, rep, hd, page, P, n_pages, device):
     """An int8 pool quantised from random bf16 K/V rows, int8 query rows,
     and the page table of ``_case``."""
@@ -744,6 +827,58 @@ def test_ag_matmul_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, C.ag_matmul_plain(a2, w), atol=atol,
                                rtol=rtol)
     assert torch.equal(got, C.ag_matmul_kernel(a2, w))   # no atomics
+
+
+
+AG_RAGGED = {
+    # name: (M, K, Kc, N, c0): rows, chunk depth and columns off the 128
+    # x 256 tile and the 64-deep k-block, the last column tile a single
+    # 64-wide box, a chunk at a ragged offset of a long activation
+    "rows_cols": (129, 136, 136, 264, 0),
+    "one_box": (300, 64, 64, 8, 0),
+    "deep_chunk": (200, 11008, 2752, 520, 2752),
+    "offset_chunk": (1000, 2048, 520, 72, 1024 + 8),
+    "one_row": (1, 512, 512, 256, 0),
+}
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("shape", list(AG_RAGGED))
+def test_ag_matmul_ragged_shapes_match_plain_and_repeat(cuda, shape):
+    """K7 at ragged M, Kc and N and at strided chunks: within
+    ``collectives.TOLERANCE`` of the plain version, bit for bit on a
+    second launch."""
+    a2, w = ag_case(4, *AG_RAGGED[shape], cuda)
+    got = C.ag_matmul_kernel(a2, w)
+    again = C.ag_matmul_kernel(a2, w)
+    torch.cuda.synchronize()
+    atol, rtol = C.TOLERANCE[torch.bfloat16]
+    torch.testing.assert_close(got, C.ag_matmul_plain(a2, w), atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got, again)
+
+
+def test_ag_matmul_layout_rejects_what_k7_does_not_take():
+    """K7's operand rules, checked on the CPU (the wrapper applies them
+    to CUDA operands before a launch): a strided chunk at an offset that
+    breaks 16-byte alignment, a depth or row stride off a multiple of 8,
+    a column-strided view, a non-bf16 operand, mismatched inner dims."""
+    a = torch.zeros((64, 2048), dtype=torch.bfloat16)
+    w = torch.zeros((512, 256), dtype=torch.bfloat16)
+    assert C.ag_matmul_layout(a[:, 1024:1536], w) == 2048
+    with pytest.raises(ValueError, match="aligned"):
+        C.ag_matmul_layout(a[:, 1028:1540], w)          # 8 bytes off
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.ag_matmul_layout(a[:, 1024:1524], w[:500])     # Kc 500
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.ag_matmul_layout(torch.zeros((64, 2052), dtype=torch.bfloat16)
+                           [:, :512], w)                 # row stride 2052
+    with pytest.raises(ValueError, match="row-strided"):
+        C.ag_matmul_layout(a.t()[:512], w[:64])
+    with pytest.raises(ValueError, match="bf16"):
+        C.ag_matmul_layout(a[:, :512].float(), w.float())
+    with pytest.raises(ValueError, match="inner dims"):
+        C.ag_matmul_layout(a[:, :512], w[:256])
 
 
 @pytest.mark.gpu_port
