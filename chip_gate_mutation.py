@@ -65,9 +65,13 @@ the sound kernel's:
 - ``k4_gemv_dropped_split``: K4's split-K decode GEMV loses the last K
   split's partial sums; K4's decode gate and the int8 decode-logit gate
   must fail;
-- ``k2_chunk_absmax``: K2 requantises each 256-position chunk's ``p ·
-  vs`` with the chunk's own absmax instead of the row's; K2's gate and
-  the int8 decode-logit gate must fail;
+- ``k2_chunk_absmax``: each block of K2's cluster requantises its
+  positions' ``p · vs`` with its own absmax instead of the cluster's
+  (the row's); K2's gate and the int8 decode-logit gate must fail;
+- ``k2_dropped_rank``: K2's int32 reduction over the cluster leaves out
+  the last rank's partial PV sums; the same gates must fail;
+- ``k2_last_key``: K2's last visible key is ``apos - 1``, not ``apos``,
+  so each slot loses its own new key; the same gates must fail;
 - ``k7_bf16_accumulator``: K7 rounds its f32 accumulators to bf16 after
   every 64-deep k-block; K7's gate must fail;
 - ``k7_dropped_k_tile``: K7 leaves the chunk's last K tile out of the
@@ -174,8 +178,20 @@ MUTANTS = [
      "{ return min(ap - 1, V - 1); }", "serve",
      ("paged_decode:", "decode logits")),
     ("k2_chunk_absmax", "csrc/paged_decode_q8.cu",
-     "    for (int c = 0; c < used; ++c) A = fmaxf(A, pa[c * rep + r]);",
-     "    A = pa[blockIdx.y * rep + r];", "int8_serve",
+     "      A = fmaxf(A, cluster.map_shared_rank(sm.am, c)[r]);",
+     "      A = sm.am[r];", "int8_serve",
+     ("paged_decode_q8:", "int8 decode logits")),
+    ("k2_dropped_rank", "csrc/paged_decode_q8.cu",
+     "__device__ __forceinline__ bool rank_in_sum(int c, int n) "
+     "{ return c < n; }",
+     "__device__ __forceinline__ bool rank_in_sum(int c, int n) "
+     "{ return c + 1 < n; }", "int8_serve",
+     ("paged_decode_q8:", "int8 decode logits")),
+    ("k2_last_key", "csrc/paged_decode_q8.cu",
+     "__device__ __forceinline__ int last_key(int ap, int V) "
+     "{ return min(ap, V - 1); }",
+     "__device__ __forceinline__ int last_key(int ap, int V) "
+     "{ return min(ap - 1, V - 1); }", "int8_serve",
      ("paged_decode_q8:", "int8 decode logits")),
     ("k7_bf16_accumulator", "csrc/ag_matmul.cu",
      "__device__ __forceinline__ bool acc_rounded() { return false; }",

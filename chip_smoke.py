@@ -89,16 +89,17 @@ when there is no card or when any phase fails.
 
     python3 chip_smoke.py --parent-csrc DIR
 
-builds K7, K4/K5, K1, K3, K6 and the flash attention (forward and
+builds K7, K4/K5, K1, K2, K3, K6 and the flash attention (forward and
 backward) from DIR (another commit's ``csrc/``, unpacked under the
 gitignored ``build/``) beside this checkout's, gates both builds against
 the plain versions (K3 over the multi-draw reading and the forward over
 its f64 oracle reading too), times both in turns at the kernel phase's
 shapes (K4 at training, where the parent's wrapper copied X's codes
-transposed for dW, and at decode),
-serves the serve phase's kind of requests with each build's K1 in the
-engine's decode step (in turns, after a warm-up serve), prints a
-``{"compare": ...}`` line and runs nothing else.
+transposed for dW, and at decode; K1 and K2 in CUDA-graph replays),
+reads the int8 serve's decode step on the device with each build's K2
+(in turns), serves the serve phase's kind of requests with each build's
+K1 in the engine's decode step (in turns, after a warm-up serve), prints
+a ``{"compare": ...}`` line and runs nothing else.
 """
 
 from __future__ import annotations
@@ -239,10 +240,13 @@ PREFILL_LOGIT_ATOL = 3.5
 PARITY_PROMPT_SEEDS = (SEED + 6, SEED + 7, SEED + 8, SEED + 9)
 # The same for int8 serving, through K2 and K4 against the plain int8
 # path: K4 is bit-equal to its plain version, so the logits differ only
-# where K2 moves a code of the requantised probabilities.  Set between
-# the sound kernels' reading and that of a K2 which requantises each
-# 256-position chunk with its own absmax (PERF.md).
-INT8_LOGIT_ATOL = 1.5
+# where K2 moves a code of the requantised probabilities or a row's
+# scale by an ulp (which the bf16 rounding of the attention output has
+# absorbed in every run: the sound kernels read 0.0000).  Set between
+# that and the mutants' readings: K2 losing each slot's own key 0.6562,
+# a rank's partial PV sums 32.875, each block requantising with its own
+# absmax 50.5; K4's GEMV losing a split 47.125 (PERF.md).
+INT8_LOGIT_ATOL = 0.25
 
 
 class SmokeFailure(RuntimeError):
@@ -559,23 +563,56 @@ def _q8_pools(gen, n_pages, page, nkv, hd, copies):
     return [(*one(), *one()) for _ in range(copies)]   # kq, ks, vq, vs
 
 
-def q8_decode_phase(rng, gen) -> dict:
-    """K2 at the int8 serve phase's shapes: B = 8 slots, pages of 16
-    rows, a 2048-position view, 4 kv heads × 4 query rows, hd 128, int8
-    codes with f32 row scales; apos drawn like the serve phase's."""
+def _q8_decode_inputs(rng, gen, copies=4):
+    """K2's inputs at the int8 serve phase's shapes: B = 8 slots, pages
+    of 16 rows, a 2048-position view, 4 kv heads × 4 query rows, hd 128,
+    int8 codes with f32 row scales; apos drawn like the serve phase's.
+    Returns (qq, qs, pools, pages, apos, apos_np), ``copies`` pools."""
     B, page = ENGINE["max_batch"], ENGINE["page_size"]
     P = ENGINE["max_seq_len"] // page
     nkv, hd = CFG.num_key_value_heads, CFG.resolved_head_dim
     rep = CFG.num_attention_heads // nkv
-    n_pages, V = B * P + 1, P * page
+    n_pages = B * P + 1
     plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
     apos_np = (plen + rng.integers(0, NEW_TOKENS, size=B))[:, None]
     apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
     pages = _page_table(rng, apos_np.max(axis=1), page, P, n_pages)
-    copies = 4
     pools = _q8_pools(gen, n_pages, page, nkv, hd, copies)
     qq, qs = Q.quantize_int8(torch.randn((B, 1, nkv, rep, hd), generator=gen,
                                          device="cuda"))
+    return qq, qs, pools, pages, apos, apos_np
+
+
+def _q8_reading(name, got, ref) -> tuple[float, float]:
+    """K2's output against its plain version's: logged (with the count of
+    outputs that differ at all) and gated at ``PA.TOLERANCE_Q8``;
+    returns (max |difference|, gate ratio)."""
+    atol, rtol = PA.TOLERANCE_Q8
+    err, ratio = float((got - ref).abs().max()), gate_ratio(got, ref, atol,
+                                                            rtol)
+    n_diff = int((got != ref).sum())
+    # an f32 ulp of a row's scale moves every output of the row by about
+    # an ulp; a moved code moves one output by a step of sc · |v|
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    log(f"{name}: max_abs_err {err:.3e}, gate ratio {ratio:.4f} (atol "
+        f"{atol}, rtol {rtol}); {n_diff} of {got.numel()} outputs differ, "
+        f"by at most {rel:.3e} of |plain|; max |plain| "
+        f"{float(ref.abs().max()):.4f}")
+    check(torch.isfinite(got).all(), f"{name}: non-finite output")
+    check(ratio <= 1.0, f"{name}: max |kernel - plain| = {err} over atol "
+          f"{atol} rtol {rtol} (gate ratio {ratio:.3f})")
+    return err, ratio
+
+
+def q8_decode_phase(rng, gen) -> dict:
+    """K2 at the int8 serve phase's shapes (:func:`_q8_decode_inputs`):
+    against its plain version, twice bit-equal, then timed in CUDA-graph
+    replays and in a host loop, beside SDPA over the dequantised view
+    timed both ways."""
+    qq, qs, pools, pages, apos, apos_np = _q8_decode_inputs(rng, gen)
+    copies = len(pools)
+    V = pages.shape[1] * ENGINE["page_size"]
+    nkv, rep, hd = qq.shape[2:]
 
     def kernel(kq, ks, vq, vs):
         return PA.paged_attention_decode(qq, kq, vq, pages, apos, q_scale=qs,
@@ -586,17 +623,7 @@ def q8_decode_phase(rng, gen) -> dict:
 
     got = kernel(*pools[0])
     torch.cuda.synchronize()
-    ref = plain(*pools[0])
-    atol, rtol = PA.TOLERANCE_Q8
-    err, ratio = float((got - ref).abs().max()), gate_ratio(got, ref, atol,
-                                                            rtol)
-    n_diff = int((got != ref).sum())
-    log(f"paged_decode_q8: max_abs_err {err:.3e}, gate ratio {ratio:.4f} "
-        f"(atol {atol}, rtol {rtol}); {n_diff} of {got.numel()} outputs "
-        f"differ; max |plain| {float(ref.abs().max()):.4f}")
-    check(torch.isfinite(got).all(), "paged_decode_q8: non-finite output")
-    check(ratio <= 1.0, f"paged_decode_q8: max |kernel - plain| = {err} over "
-          f"atol {atol} rtol {rtol} (gate ratio {ratio:.3f})")
+    err, ratio = _q8_reading("paged_decode_q8", got, plain(*pools[0]))
     _twice_equal("paged_decode_q8", lambda: kernel(*pools[0]))
 
     it = iter(range(10 ** 9))
@@ -604,7 +631,10 @@ def q8_decode_phase(rng, gen) -> dict:
     def cyc():
         return pools[next(it) % copies]
 
-    k_ms = time_ms(lambda: kernel(*cyc()))
+    # graph replays: a host loop times the launch of a kernel of a few
+    # tens of microseconds, not the kernel
+    k_ms = graph_ms(lambda: kernel(*cyc()))
+    k_eager = time_ms(lambda: kernel(*cyc()))
     p_ms = time_ms(lambda: plain(*cyc()), iters=5)
     # the yardstick: SDPA over the dequantised gathered view (dequantised
     # and gathered outside the timed call)
@@ -612,8 +642,13 @@ def q8_decode_phase(rng, gen) -> dict:
     sd = [_sdpa_inputs(qd, (kq.float() * ks).to(CFG.dtype),
                        (vq.float() * vs).to(CFG.dtype), pages, apos)
           for kq, ks, vq, vs in pools]
-    l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        *sd[next(it) % copies][:3], attn_mask=sd[0][3], enable_gqa=True))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *sd[next(it) % copies][:3], attn_mask=sd[0][3], enable_gqa=True)
+
+    l_ms = graph_ms(sdpa)
+    l_eager = time_ms(sdpa)
     del sd, pools
     torch.cuda.empty_cache()
     # what this run's data needs: every visible K and V row (codes and
@@ -625,13 +660,18 @@ def q8_decode_phase(rng, gen) -> dict:
               + got.numel() * 4 + pages.numel() * 4 + apos.numel() * 4)
     ops = float(kv_rows) * nkv * rep * hd * 4
     b_ms, b_by = bound(nbytes, ops, PEAK_INT8_OPS)
-    log(f"paged_decode_q8: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-        f"(dequantised view) {l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
-        f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G int8 operations)")
-    return _entry("paged_decode_q8", "paged_decode_q8.cu",
-                  "distributed_training_sandbox_tpu/ops/paged_attention.py:140"
-                  " (paged_attention_decode int8 branch, _decode_kernel_q8 "
-                  ":75)", err, ratio, k_ms, p_ms, l_ms, b_ms, b_by)
+    log(f"paged_decode_q8: kernel {k_ms:.5f} ms (graph replays; host loop "
+        f"{k_eager:.5f} ms), plain {p_ms:.4f} ms, SDPA (dequantised view) "
+        f"{l_ms:.5f} ms (graph; host loop {l_eager:.5f} ms), bound "
+        f"{b_ms:.6f} ms by {b_by} ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+        f"int8 operations)")
+    entry = _entry("paged_decode_q8", "paged_decode_q8.cu",
+                   "distributed_training_sandbox_tpu/ops/paged_attention.py"
+                   ":140 (paged_attention_decode int8 branch, "
+                   "_decode_kernel_q8 :75)", err, ratio, k_ms, p_ms, l_ms,
+                   b_ms, b_by)
+    entry.update(eager_ms=k_eager, library_eager_ms=l_eager)
+    return entry
 
 
 # ------------------------------------------------------------- serve phase
@@ -934,13 +974,19 @@ def profile_phase(params, rng, engine=None, label="serve",
 DECODE_PROFILE_STEPS = 8
 
 
+# the paged decode kernels' names in a profile (K1's, K2's, and the
+# four passes of K2's first design)
+PAGED_DECODE_KERNELS = "(anonymous namespace)::decode_"
+
+
 def decode_step_profile(eng, reqs, label, flash: bool) -> dict:
     """The device time of one decode step at the serve's shape: every
     request of the serve prefilled into a fresh pool (the engine's way),
     then ``DECODE_PROFILE_STEPS`` steps of the engine's ``_decode_core``
     over all its slots under ``torch.profiler`` (device activity): the
-    device's busy time a step beside the step's host clock, and the
-    kernels that take it.  Reports and gates nothing."""
+    device's busy time a step beside the step's host clock, the kernels
+    that take it, and the paged decode attention's share
+    (``PAGED_DECODE_KERNELS``).  Reports and gates nothing."""
     from torch.profiler import ProfilerActivity, profile
     pool, pages, lg = _prefill(reqs, eng, flash=flash)
     toks = lg.argmax(-1).to(torch.int32)
@@ -968,8 +1014,13 @@ def decode_step_profile(eng, reqs, label, flash: bool) -> dict:
         step_ms = d / 1e3 / DECODE_PROFILE_STEPS
         log(f"decode step profile ({label}): {step_ms:.4f} ms a step, "
             f"{count} calls: {key[:90]}")
+    attn_ms = sum(d for key, _, d in dev if PAGED_DECODE_KERNELS in key) \
+        / 1e3 / DECODE_PROFILE_STEPS
+    log(f"decode step profile ({label}): the paged decode attention's "
+        f"kernels {attn_ms:.4f} ms a step")
     del pool
-    return {"device_busy_ms": busy_ms, "host_ms": wall_ms}
+    return {"device_busy_ms": busy_ms, "host_ms": wall_ms,
+            "paged_decode_ms": attn_ms}
 
 
 # ------------------------------------------------------ int8 serve phases
@@ -2071,16 +2122,19 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
-    """K1's, K3's, K4/K5's, K6's, K7's and the flash attention's
+    """K1's, K2's, K3's, K4/K5's, K6's, K7's and the flash attention's
     libraries built from another commit's ``csrc`` (one nvcc each, in
     parallel) into ``build/parent_kernels``, with that commit's C
     signatures (K1 then took a scratch buffer of
-    ``paged_decode_scratch_floats``; K4 had no GEMV)."""
+    ``paged_decode_scratch_floats``; K2's, four passes, a scratch of
+    ``paged_decode_q8_scratch_floats`` always nonzero; K4 had no
+    GEMV)."""
     out = loader.BUILD_DIR.parent / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("paged_decode", "flash_prefill", "fp8_matmul",
-                 "flash_attention", "int8_matmul", "ag_matmul"):
+    for name in ("paged_decode", "paged_decode_q8", "flash_prefill",
+                 "fp8_matmul", "flash_attention", "int8_matmul",
+                 "ag_matmul"):
         so = out / f"lib{name}.so"
         procs[name] = (so, subprocess.Popen(
             [loader._nvcc(), *loader.NVCC_FLAGS, f"-I{csrc}", "-o", str(so),
@@ -2103,6 +2157,12 @@ def _parent_libs(csrc: Path) -> dict:
         + [P]
     libs["paged_decode"].paged_decode_scratch_floats.argtypes = [I] * 6
     libs["paged_decode"].paged_decode_scratch_floats.restype = \
+        ctypes.c_int64
+    libs["paged_decode_q8"].paged_decode_q8_launch.argtypes = [P] * 10 \
+        + [I] * 6 + [P]
+    libs["paged_decode_q8"].paged_decode_q8_scratch_floats.argtypes = \
+        [I] * 6
+    libs["paged_decode_q8"].paged_decode_q8_scratch_floats.restype = \
         ctypes.c_int64
     libs["int8_matmul"].int8_matmul_launch.argtypes = [P] * 5 + [I] * 4 \
         + [P]
@@ -2318,9 +2378,98 @@ def _compare_gemms(libs, ptr, stream, gen) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _engine_decode(attend):
+    """The engine's paged decode attention replaced by ``attend``."""
+    saved, E.paged_attention_decode = E.paged_attention_decode, attend
+    try:
+        yield
+    finally:
+        E.paged_attention_decode = saved
+
+
+def _compare_k2(lib, ptr, stream) -> dict:
+    """--parent-csrc for K2: at q8_decode_phase's shapes (drawn from
+    ``SEED``) each build against the plain version at
+    ``PA.TOLERANCE_Q8`` and twice bit-equal, both timed in CUDA-graph
+    replays in turns; then the int8 serve's decode step
+    (:func:`decode_step_profile`, over 8 prompts of the serve's lengths
+    drawn from ``SEED + 12``) with either build's K2 as the engine's, in
+    turns, its device time read by ``torch.profiler``."""
+    def old_k2(qq, kq, vq, pages, apos, *, q_scale, pk_s, pv_s):
+        """The parent's K2 as its wrapper launched it (a scratch a
+        call), counted in ``PA.Q8_COUNTS``."""
+        B, _, nkv, rep, hd = qq.shape
+        geom = (B, pages.shape[1], kq.shape[1], nkv, rep, hd)
+        scratch = torch.empty(lib.paged_decode_q8_scratch_floats(*geom),
+                              device="cuda")
+        out = torch.empty((B, 1, nkv, rep, hd), device="cuda")
+        rc = lib.paged_decode_q8_launch(
+            ptr(qq), ptr(q_scale), ptr(kq), ptr(vq), ptr(pk_s), ptr(pv_s),
+            ptr(pages), ptr(apos), ptr(scratch), ptr(out), *geom, stream())
+        check(rc == 0, f"parent paged_decode_q8: CUDA error {rc}")
+        PA.Q8_COUNTS.launches += 1
+        return out
+
+    builds = {"parent": old_k2, "change": PA.paged_attention_decode}
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qq, qs, pools, pages, apos, _ = _q8_decode_inputs(rng, gen)
+    ref = PA.paged_attention_plain_q8(qq, qs, pools[0][0], pools[0][2],
+                                      pools[0][1], pools[0][3], pages, apos)
+    res = {"max_abs_err": {}, "gate_ratio": {}}
+    calls = {}
+    for nm, fn in builds.items():
+        calls[nm] = lambda kq, ks, vq, vs, fn=fn: fn(
+            qq, kq, vq, pages, apos, q_scale=qs, pk_s=ks, pv_s=vs)
+        got = calls[nm](*pools[0])
+        torch.cuda.synchronize()
+        err, ratio = _q8_reading(f"compare paged_decode_q8 {nm}", got, ref)
+        res["max_abs_err"][nm], res["gate_ratio"][nm] = err, ratio
+        _twice_equal(f"compare paged_decode_q8 {nm}",
+                     lambda: calls[nm](*pools[0]))
+    it = iter(range(10 ** 9))
+    old, new = _turns(lambda: calls["parent"](*pools[next(it) % 4]),
+                      lambda: calls["change"](*pools[next(it) % 4]), graph_ms)
+    res.update(parent_ms=old, change_ms=new)
+    log(f"compare paged_decode_q8 (serve shapes): parent {old} ms, change "
+        f"{new} ms (graph replays; turns: parent, change, change, parent)")
+    del pools, ref
+    torch.cuda.empty_cache()
+
+    # the int8 serve's decode step with either K2, in turns
+    params_q8 = quantize_decode_params(build_params(), CFG)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 12)
+    eng = E.ServingEngine(params_q8, CFG, **INT8_ENGINE)
+    reqs = [eng.submit(rng.integers(1, CFG.vocab_size, size=int(
+        rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))).astype(np.int32),
+        max_new_tokens=NEW_TOKENS) for _ in range(N_REQUESTS)]
+    steps = {"parent": [], "change": []}
+    want = DECODE_PROFILE_STEPS * CFG.num_hidden_layers
+    for nm in ("parent", "change", "change", "parent"):
+        PA.Q8_COUNTS.reset()
+        with _engine_decode(builds[nm]):
+            reading = decode_step_profile(eng, reqs, f"compare int8 serve, "
+                                          f"{nm} K2", False)
+        check(PA.Q8_COUNTS.launches == want,
+              f"compare int8 decode step: {PA.Q8_COUNTS.launches} {nm} K2 "
+              f"launches, not {want}")
+        steps[nm].append(reading)
+    res["int8_decode_step"] = steps
+    for key in ("device_busy_ms", "paged_decode_ms"):
+        log(f"compare int8 decode step, {key} a step (turns): parent "
+            f"{[r[key] for r in steps['parent']]}, change "
+            f"{[r[key] for r in steps['change']]}")
+    del eng, reqs, params_q8
+    torch.cuda.empty_cache()
+    return res
+
+
 def parent_compare_phase(csrc: Path) -> dict:
-    """K7, K5 and K4 (:func:`_compare_gemms`), K1 and K3 at the kernel
-    phase's serve shapes, K6 at one layer's
+    """K7, K5 and K4 (:func:`_compare_gemms`), K1, K2
+    (:func:`_compare_k2`) and K3 at the kernel phase's serve shapes, K6
+    at one layer's
     seven projections (M = 8192) and the flash attention's backward and
     forward at the training shape (B 1, S 8192, 16 / 4 heads, hd 128),
     each built from
@@ -2554,6 +2703,9 @@ def parent_compare_phase(csrc: Path) -> dict:
     del pools, scratch
     torch.cuda.empty_cache()
 
+    res["paged_decode_q8"] = _compare_k2(libs["paged_decode_q8"], ptr,
+                                         stream)
+
     def old_k1_serve(qg, pk, pv, pages, apos):
         """The parent's K1 as its wrapper launched it (a scratch a call)."""
         code = PA.check_cuda_operands(
@@ -2604,8 +2756,7 @@ def _serve_reading(params, attend) -> dict:
                             size=int(rng.integers(PROMPT_LEN[0],
                                                   PROMPT_LEN[1] + 1))
                             ).astype(np.int32) for _ in range(N_REQUESTS)]
-    saved, E.paged_attention_decode = E.paged_attention_decode, attend
-    try:
+    with _engine_decode(attend):
         eng = E.ServingEngine(params, CFG, **ENGINE)
         for p in prompts:
             eng.submit(p, max_new_tokens=NEW_TOKENS)
@@ -2613,8 +2764,6 @@ def _serve_reading(params, attend) -> dict:
         PA.COUNTS.reset()
         eng.run()
         torch.cuda.synchronize()
-    finally:
-        E.paged_attention_decode = saved
     steps = eng.stats["decode_steps"]
     check(PA.COUNTS.launches == steps * CFG.num_hidden_layers,
           f"compare serve: {PA.COUNTS.launches} K1 launches for {steps} "
@@ -2628,10 +2777,11 @@ def _serve_reading(params, attend) -> dict:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="time K7, K4, K5, K1, K3, K6 and the flash "
+                    help="time K7, K4, K5, K1, K2, K3, K6 and the flash "
                     "attention built from this csrc directory (an unpacked "
-                    "parent commit) against this checkout's, and the serve "
-                    "with either K1, in turns, and run nothing else")
+                    "parent commit) against this checkout's, the int8 "
+                    "decode step with either K2 and the serve with either "
+                    "K1, in turns, and run nothing else")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[smoke] no CUDA device: the smoke runs on the card",

@@ -1,8 +1,10 @@
 // Hopper building blocks of the wgmma kernels (flash_prefill.cu,
-// int8_matmul.cu, fp8_matmul.cu, flash_attention.cu, ag_matmul.cu):
-// shared-memory addresses, 16-byte cp.async, mbarriers, 2-D and 4-D TMA
-// loads and their tensor maps, shared-memory descriptors of 128-byte
-// swizzled tiles, and the wgmma shapes the kernels issue.  sm_90a only.
+// int8_matmul.cu, fp8_matmul.cu, flash_attention.cu, ag_matmul.cu) and
+// the paged decode kernels (paged_decode.cu, paged_decode_q8.cu):
+// shared-memory addresses, 16- and 4-byte cp.async, mbarriers, 2-D and
+// 4-D TMA loads and their tensor maps, shared-memory descriptors of
+// 128-byte swizzled tiles, and the wgmma shapes the kernels issue.
+// sm_90a only.
 //
 // The tiles these kernels hand to wgmma are 128-byte swizzled: a tile of
 // R rows x 128 bytes holds row r at byte r * 128, its 16-byte chunk c at
@@ -45,6 +47,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from src to shared dst (both 4-byte aligned), through L1: a
+// strided scalar such as a row's scale.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
                : "memory");
 }
 

@@ -35,10 +35,13 @@ against the plain version on the same inputs (``TOLERANCE``):
   by an f32 ulp, which now and then moves one code of the requantised
   ``p · vs`` across a rounding boundary: one step of ``sc · |v|``, at
   most the row's ``p · vs`` absmax (about 1.2e-3 at the serve shapes'
-  inputs), in that output element.  On an H100 at those shapes the
-  kernel reads 4.5e-8 (no code moved), and a kernel that requantises
-  each 256-position chunk with its own absmax reads 8.0e-3; the limit
-  lies between a moved code and the mutant.
+  inputs), in that output element; an ulp of that absmax moves the
+  row's scale, and every output of the row, by about an ulp.  On an
+  H100 at those shapes the kernel reads 4.5e-8 (no code moved), and its
+  mutants read 3.9e-2 (each slot's own key lost), 0.12 (a rank's
+  partial sums lost) and 0.42 (each block of the cluster requantising
+  with its own absmax); the limit lies between a moved code and the
+  mutants.
 """
 
 from __future__ import annotations
@@ -70,12 +73,21 @@ MAX_REP, MAX_HD = 8, 128   # the kernels' limits (csrc/paged_decode*.cu)
 # holds at once (csrc/paged_decode.cu kCluster, kRowBytes): a block whose
 # range is longer takes it in sub-ranges of rows_held positions
 CLUSTER, ROW_BYTES = 8, 57344
+# K2's, likewise (csrc/paged_decode_q8.cu kCluster, kRowBytes; its rows
+# are int8 codes)
+Q8_CLUSTER, Q8_ROW_BYTES = 8, 57344
 
 
 def rows_held(view: int, hd: int, itemsize: int) -> int:
     """The positions of K and V a K1 block holds at once in a view of
     ``view`` positions (``rows_held`` in csrc/paged_decode.cu)."""
     return min(ROW_BYTES // (2 * hd * itemsize), -(-view // CLUSTER))
+
+
+def rows_held_q8(view: int, hd: int) -> int:
+    """The positions of K and V a K2 block holds at once in a view of
+    ``view`` positions (``rows_held`` in csrc/paged_decode_q8.cu)."""
+    return min(Q8_ROW_BYTES // (2 * hd), -(-view // Q8_CLUSTER))
 
 
 def gather_attention(qg, pk, pv, pages, apos):
@@ -233,18 +245,25 @@ def _decode_q8(qq, qs, pk, pv, pk_s, pv_s, pages, apos):
                          "q_scale (B, 1, n_kv, rep, 1)")
     if pages.shape[0] != B or apos.shape != (B, 1):
         raise ValueError("pages must be (B, P) and apos (B, 1)")
-    if not (1 <= rep <= MAX_REP and hd <= MAX_HD and hd % 16 == 0):
+    if not (1 <= rep <= MAX_REP and 16 <= hd <= MAX_HD and hd % 16 == 0):
         raise ValueError(f"kernel takes rep <= {MAX_REP} and hd <= "
                          f"{MAX_HD}, a multiple of 16; got rep={rep} hd={hd}")
+    if qq.data_ptr() % 16 or pk.data_ptr() % 16 or pv.data_ptr() % 16:
+        raise ValueError("paged_attention_decode: qg and the pools must be "
+                         "16-byte aligned")
     lib = loader.load("paged_decode_q8")
     geom = (B, pages.shape[1], pk.shape[1], nkv, rep, hd)
-    scratch = torch.empty(lib.paged_decode_q8_scratch_floats(*geom),
-                          dtype=torch.float32, device=qq.device)
+    # a long view's scores do not fit in shared memory: the kernel then
+    # keeps them in this scratch
+    n_scratch = lib.paged_decode_q8_scratch_floats(*geom)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=qq.device) \
+        if n_scratch else None
     out = torch.empty((B, 1, nkv, rep, hd), dtype=torch.float32,
                       device=qq.device)
     rc = lib.paged_decode_q8_launch(
         ptr(qq), ptr(qs), ptr(pk), ptr(pv), ptr(pk_s), ptr(pv_s), ptr(pages),
-        ptr(apos), ptr(scratch), ptr(out), *geom, stream_ptr(qq.device))
+        ptr(apos), ptr(scratch) if n_scratch else None, ptr(out), *geom,
+        stream_ptr(qq.device))
     raise_on_error("paged_attention_decode", rc)
     Q8_COUNTS.launches += 1
     return out

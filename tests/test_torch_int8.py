@@ -477,6 +477,83 @@ def test_paged_layer_body_int8_matches_jitted_jax(int8_weights, S,
     np.testing.assert_allclose(got.numpy(), np.asarray(jx), **TOL)
 
 
+# the positions where K2's work splits, in a 2048-position view of pages
+# of 16: apos 0 (one key); 7 and 8 (one position a block of the cluster
+# of 8, then blocks with none); the first page's last row and the next
+# page's first; a block's range edge ± 1 (256 = 8 · 32 visible
+# positions); the edge ± 1 where a block's range becomes two sub-ranges
+# at hd 128 (8 · PPA.rows_held_q8(2048, 128) = 1792); the view's last two
+K2_VIEW, K2_PAGE = 2048, 16
+K2_SPLITS = (0, 7, 8, 15, 16, 255, 256, 257, 1791, 1792, 1793, 2046, 2047)
+
+
+def _q8_view_case(seed, last, cfg):
+    """One slot per entry of ``last`` (its new row's absolute position)
+    over a ``K2_VIEW``-position view: int8 pools from the reference's
+    jitted quantiser on random K/V rows, each slot's table row padded
+    with the null page 0, one input row a slot."""
+    rng = np.random.default_rng(seed)
+    nkv, hd = cfg.num_key_value_heads, cfg.resolved_head_dim
+    B, P = len(last), K2_VIEW // K2_PAGE
+    n_pages = sum(a // K2_PAGE + 1 for a in last) + 1
+    raw = rng.standard_normal((2, n_pages, K2_PAGE, nkv, hd)) \
+        .astype(np.float32)
+    jq = jax.jit(JQ.quantize_int8, static_argnames=("axis",))
+    (pk, pk_s), (pv, pv_s) = (jq(jnp.asarray(r)) for r in raw)
+    perm = rng.permutation(np.arange(1, n_pages))
+    pages = np.zeros((B, P), np.int32)
+    used = 0
+    for b, a in enumerate(last):
+        n = a // K2_PAGE + 1
+        pages[b, :n] = perm[used:used + n]
+        used += n
+    x = rng.standard_normal((B, 1, cfg.hidden_size)).astype(np.float32)
+    pools = tuple(np.asarray(a) for a in (pk, pv, pk_s, pv_s))
+    return x, pools, pages, np.array(last, np.int32)[:, None]
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_k2_plain_matches_jitted_jax_where_the_kernel_splits(rep):
+    """One int8 decode layer (TINY_LM's width, hd 16, 2 kv heads, rep
+    query rows each) with S == 1 through K2's wrapper, which takes its
+    plain version on the CPU, against the reference's jitted gather
+    path, one slot at each of ``K2_SPLITS``.  Tolerance: ``TOL``, as in
+    ``test_paged_layer_body_int8_matches_jitted_jax`` (no code of the
+    requantised probabilities flips on these inputs)."""
+    geom = dict(num_attention_heads=2 * rep, num_key_value_heads=2,
+                head_dim=16, num_hidden_layers=1)
+    jcfg = dataclasses.replace(JT.TINY_LM, **geom)
+    cfg = dataclasses.replace(PT.TINY_LM, **geom)
+    jpq = JG.quantize_decode_params(_jax_params(jcfg, seed=rep), jcfg)
+    ppq = bridge.params_from_jax(jax.tree.map(np.asarray, jpq), cfg)
+    x, pools, pages, apos = _q8_view_case(30 + rep, K2_SPLITS, cfg)
+    valid = np.ones(apos.shape, bool)
+    jcos, jsin = JE._ragged_rope_tables(jnp.asarray(apos),
+                                        cfg.resolved_head_dim, cfg.rope_theta)
+    jlayer = jax.tree.map(lambda p: p[0], jpq["layers"])
+
+    @jax.jit
+    def jbody(x, pk, pv, pk_s, pv_s):
+        return JE._paged_layer_body(
+            x, jlayer, cfg=jcfg, cos=jcos, sin=jsin, use_rope=True,
+            pk=pk, pv=pv, pk_s=pk_s, pv_s=pv_s, pages=jnp.asarray(pages),
+            apos=jnp.asarray(apos), valid=jnp.asarray(valid))
+
+    jx, _ = jbody(jnp.asarray(x), *map(jnp.asarray, pools))
+    pcos, psin = PE._ragged_rope_tables(torch.from_numpy(apos),
+                                        cfg.resolved_head_dim, cfg.rope_theta)
+    pk, pv, pk_s, pv_s = (torch.from_numpy(a.copy()) for a in pools)
+    PPA.Q8_COUNTS.reset()
+    got = PE._paged_layer_body(
+        torch.from_numpy(x), PT.layer_params(ppq, 0), cfg=cfg, cos=pcos,
+        sin=psin, use_rope=True, pk=pk, pv=pv, pages=torch.from_numpy(pages),
+        apos=torch.from_numpy(apos), valid=torch.from_numpy(valid),
+        paged_kernel=True, pk_s=pk_s, pv_s=pv_s)
+    assert (PPA.Q8_COUNTS.launches, PPA.Q8_COUNTS.plain_calls) == (0, 1)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx), **TOL)
+
+
 def test_decode_wrapper_takes_k2_plain_version_on_the_cpu():
     x, (pk, pv, pk_s, pv_s), pages, apos = _q8_pool_case(3, 1)
     rng = np.random.default_rng(3)

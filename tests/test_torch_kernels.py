@@ -165,14 +165,21 @@ def test_decode_kernel_long_view_matches_plain_and_repeat(cuda, rep, dtype):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("name, value", [("kCluster", PA.CLUSTER),
-                                         ("kRowBytes", PA.ROW_BYTES)])
-def test_decode_constants_match_the_kernel_source(name, value):
-    """``PA.rows_held`` reads K1's block count and row budget from the
-    module's constants; they must be the kernel's."""
+@pytest.mark.parametrize("source, name, value", [
+    pytest.param("paged_decode.cu", "kCluster", PA.CLUSTER,
+                 id=f"kCluster-{PA.CLUSTER}"),
+    pytest.param("paged_decode.cu", "kRowBytes", PA.ROW_BYTES,
+                 id=f"kRowBytes-{PA.ROW_BYTES}"),
+    pytest.param("paged_decode_q8.cu", "kCluster", PA.Q8_CLUSTER,
+                 id=f"q8-kCluster-{PA.Q8_CLUSTER}"),
+    pytest.param("paged_decode_q8.cu", "kRowBytes", PA.Q8_ROW_BYTES,
+                 id=f"q8-kRowBytes-{PA.Q8_ROW_BYTES}")])
+def test_decode_constants_match_the_kernel_source(source, name, value):
+    """``PA.rows_held`` and ``PA.rows_held_q8`` read K1's and K2's block
+    count and row budget from the module's constants; they must be the
+    kernels'."""
     from pathlib import Path
-    src = (Path(PA.__file__).parents[1] / "csrc" / "paged_decode.cu") \
-        .read_text()
+    src = (Path(PA.__file__).parents[1] / "csrc" / source).read_text()
     assert f"constexpr int {name} = {value};" in src
 
 
@@ -722,6 +729,76 @@ def test_decode_q8_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, again)
 
 
+def q8_decode_case(seed, last, nkv, rep, hd, page, P, device):
+    """``_decode_case``'s slots, table and pools, the bf16 rows quantised
+    to int8 codes with f32 row scales, as the engine writes them."""
+    qg, pk, pv, pages, apos = _decode_case(seed, last, nkv, rep, hd, page, P,
+                                           torch.bfloat16, device)
+    (qq, qs), (kq, ks), (vq, vs) = (Q.quantize_int8(t) for t in (qg, pk, pv))
+    return qq, qs, kq, vq, ks, vs, pages, apos
+
+
+def _q8_launch_twice_against_plain(args):
+    """K2 launched twice on ``args``: finite, within ``TOLERANCE_Q8`` of
+    the plain version, bit-equal on the second launch, two launches and
+    no plain call counted."""
+    qq, qs, kq, vq, ks, vs, pages, apos = args
+    PA.Q8_COUNTS.reset()
+    got, again = (PA.paged_attention_decode(qq, kq, vq, pages, apos,
+                                            q_scale=qs, pk_s=ks, pv_s=vs)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert (PA.Q8_COUNTS.launches, PA.Q8_COUNTS.plain_calls) == (2, 0)
+    ref = PA.paged_attention_plain_q8(qq, qs, kq, vq, ks, vs, pages, apos)
+    atol, rtol = PA.TOLERANCE_Q8
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_decode_q8_kernel_boundaries_match_plain_and_repeat(cuda, rep, hd,
+                                                            page):
+    """K2 over a 2048-position view, its cluster of 8 blocks splitting
+    each slot's visible positions: apos 0 (one key, seven blocks with
+    none), 5, 7 and 8 (one position a block, then blocks with none
+    again), the last row of the first page and the first of the next,
+    the edge where a block's range becomes two sub-ranges (8 · H - 1,
+    8 · H and 8 · H + 1 visible positions, H = ``PA.rows_held_q8``,
+    where that lies inside the view) and the view's last two
+    positions; bit-equal on a second launch."""
+    V = 2048
+    held = PA.rows_held_q8(V, hd)
+    last = sorted(a for a in {0, 5, 7, 8, page - 1, page, 8 * held - 2,
+                              8 * held - 1, 8 * held, V - 2, V - 1}
+                  if a < V)
+    _q8_launch_twice_against_plain(q8_decode_case(
+        60 + rep, last, 2, rep, hd, page, V // page, cuda))
+
+
+@pytest.mark.gpu_port
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_decode_q8_kernel_long_view_matches_plain_and_repeat(cuda, rep):
+    """K2 over a view longer than its blocks keep scores for in shared
+    memory (8 · 2048 positions), where they keep them, with each
+    position's V scale, in the wrapper's scratch: slots at apos 0, at
+    the shared-memory edge ± 1 and at the view's end; bit-equal on a
+    second launch."""
+    from distributed_training_sandbox_tpu_torch.kernels import loader
+    page, V = 16, 8 * 2048 + 8 * 16
+    last = [0, 8 * 2048 - 1, 8 * 2048, V - 1]
+    args = q8_decode_case(80 + rep, last, 2, rep, 128, page, V // page, cuda)
+    lib = loader.load("paged_decode_q8")
+    assert lib.paged_decode_q8_scratch_floats(4, V // page, page, 2, rep,
+                                              128) > 0
+    assert lib.paged_decode_q8_scratch_floats(4, 2048 // page, page, 2, rep,
+                                              128) == 0
+    _q8_launch_twice_against_plain(args)
+
+
 @pytest.mark.gpu_port
 def test_int8_kernels_reject_what_they_do_not_take(cuda):
     x, xq, xs, wq, ws = int8_case(3, 64, 40, 32, cuda)
@@ -741,6 +818,11 @@ def test_int8_kernels_reject_what_they_do_not_take(cuda):
                                   q_scale=qs, pk_s=ks, pv_s=vs)
     with pytest.raises(ValueError, match="int32"):
         PA.paged_attention_decode(qq, kq, vq, pages.long(), apos,
+                                  q_scale=qs, pk_s=ks, pv_s=vs)
+    qq, qs, kq, vq, ks, vs, pages, apos = q8_case(7, 2, 2, 2, 8, 8, 4, 9,
+                                                  cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        PA.paged_attention_decode(qq, kq, vq, pages, apos,
                                   q_scale=qs, pk_s=ks, pv_s=vs)
 
 
