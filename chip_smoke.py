@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the paged serving engine on
 SmolLM3-3B (bf16, and int8 weights over an int8 KV pool), the one-card
-trainer on SmolLM3-3B-L8 (fp8 and int8 projections) and the FSDP
-trainer on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank), with
-the hand-written Hopper kernels.
+trainer on SmolLM3-3B-L8 (fp8 and int8 projections), the FSDP trainer
+on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank), with the
+hand-written Hopper kernels, and DDP and ZeRO-1/2/3 on the ZeRO toy MLP
+(one NCCL rank).
 
     python3 chip_smoke.py
 
@@ -75,7 +76,21 @@ Phases, each of which fails the run:
    ``torch.profiler`` breakdown of the last step.  K7 itself is held
    against its plain version in phase 2, at the seven one-rank products
    and at a rank's K-chunks of a four-rank ring (Kc 512 and 2752, the
-   activation a strided view).
+   activation a strided view);
+10. ddp and zero — on the same one-rank NCCL group, the ZeRO toy MLP at
+   full width (6 x Linear(10 000, 10 000), 600 060 000 f32 params, no
+   kernel of the table: its products are cuBLAS's, as the reference's
+   are XLA dots): ``train.ddp.run`` takes 6 SGD steps at batch 32 with
+   per-leaf sync (the sync check reads 0.0; 12 init broadcasts; 14
+   all_reduces a step; the first batch's loss lower under the final
+   params), then ``train.zero.run`` 6 steps a leg at batch 16 for
+   ZeRO-1 (both rebuilds), -2 and -3: every sharded leg equal to its
+   baseline Adam leg in losses and final params bit for bit, the
+   broadcast rebuild bit-equal to the all_gather one, the shim's counts a
+   step the contracts' (``parallel.contracts``); step ms beside each
+   step's byte bound (``STEP_BYTES_OVER_P``), optimizer MB, memory, and a
+   ``torch.profiler`` breakdown of the last step of DDP, ZeRO-1 and
+   ZeRO-3 (both legs).
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -120,6 +135,7 @@ import numpy as np
 import torch
 
 from distributed_training_sandbox_tpu_torch.kernels import loader
+from distributed_training_sandbox_tpu_torch.models import mlp as MLP
 from distributed_training_sandbox_tpu_torch.models import transformer as T
 from distributed_training_sandbox_tpu_torch.models.generate import (
     _forward_cached, generate, init_cache, quantize_decode_params)
@@ -129,7 +145,11 @@ from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.parallel import fsdp
+from distributed_training_sandbox_tpu_torch.parallel.contracts import (
+    step_collectives)
+from distributed_training_sandbox_tpu_torch.train import ddp as ddp_run
 from distributed_training_sandbox_tpu_torch.train import flagship, train_fsdp
+from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.utils import mesh
 from distributed_training_sandbox_tpu_torch.serving import engine as E
 from distributed_training_sandbox_tpu_torch.serving.accounting import (
@@ -212,6 +232,19 @@ AG_CHUNKS = [("wq/wo chunk", 2048, 512, 2048),
 # the loss by ~1e-5 and the grads by a few 1e-3.
 FSDP_LOSS_ATOL = 1e-4
 FSDP_GRAD_REL_L2 = 0.02
+# phase 10, DDP and ZeRO-1/2/3: the ZeRO toy MLP at full width (scale 1:
+# 6 layers of 10 000 x 10 000, 12 leaves, 600 060 000 f32 params) on the
+# FSDP phases' one-rank NCCL group; DDP takes SGD steps on a new global
+# batch each step, each ZeRO stage's A/B run Adam steps on one batch
+DDP_ZERO = dict(scale=1, num_steps=6, ddp_batch=32, zero_batch=16, seed=42)
+# each step's least bytes over the MLP's param bytes P (f32; the GEMMs at
+# M 16 or 32 are bound by reading the weights, not by their FLOPs):
+# forward + backward read the weights 3 times (x @ w, dy @ w^T, and dW
+# written); Adam reads p, g, m, v and writes p, m, v (7 P); SGD reads p,
+# g and writes p (3 P); ZeRO-3 reads the weights once more, in the
+# backward's recompute
+STEP_BYTES_OVER_P = {"ddp": 3 + 3, "adam": 3 + 7, "zero1": 3 + 7,
+                     "zero2": 3 + 7, "zero3": 4 + 7}
 # One decode step's logits through the kernels vs the plain path, from
 # one pool state: max |difference| <= LOGIT_ATOL.  The kernels do the
 # plain path's operations in another summation order, so a few bf16
@@ -2119,6 +2152,158 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
     return {k: v[0] for k, v in counts.items()}
 
 
+def _step_ms(step_s: list) -> float:
+    """The median of the steps between the first and the last (which
+    phase 10 may profile), in ms."""
+    return statistics.median(step_s[1:-1]) * 1e3
+
+
+def _last_step_profiler(n: int, label: str):
+    """An ``on_step`` hook for the twins (``(i, loss)`` or ``(leg, i,
+    loss)``) that profiles each leg's step n - 1, device activity only,
+    and logs its breakdown (``_step_profile``)."""
+    from torch.profiler import ProfilerActivity, profile
+    held = {}
+
+    def hook(*args):
+        *leg, i, _ = args
+        if i == n - 2:
+            held["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            held["prof"].start()
+            held["t"] = time.perf_counter()
+        elif i == n - 1:
+            wall_us = (time.perf_counter() - held["t"]) * 1e6
+            held["prof"].stop()
+            _step_profile(held["prof"], wall_us, " ".join([label, *leg]), i)
+    return hook
+
+
+def ddp_zero_phase(card: str) -> dict:
+    """Phase 10 on the FSDP phases' one-rank NCCL group: ``train.ddp.run``
+    (``DDP_ZERO["num_steps"]`` SGD steps, per-leaf sync) and
+    ``train.zero.run`` for ZeRO-1 (both rebuilds), -2 and -3 at full
+    width.  Gates: the sync check; the shim's counts a step (DDP n + 2
+    all_reduces, its init 12 broadcasts; each ZeRO leg its contract's);
+    losses finite and falling (DDP: the first batch's loss under the
+    final params below step 0's, since each step draws a new batch);
+    every sharded leg equal to its baseline Adam leg in losses and final
+    params, bit for bit (at one rank every collective is a copy and a
+    chunk the whole flat param, so each sharded leg does the baseline's
+    arithmetic on the same values); ZeRO-1's broadcast rebuild
+    bit-equal to its all_gather rebuild.  The last step of DDP and of
+    both legs of ZeRO-1 (broadcast) and ZeRO-3 is profiled.  Returns the
+    readings: step ms (host clock, the median of the steps between the
+    first and the profiled last) beside each step's byte bound,
+    optimizer MB, memory, collectives a step."""
+    torch.cuda.empty_cache()
+    cfg = DDP_ZERO
+    out = {}
+    n_steps = cfg["num_steps"]
+    r = ddp_run.run(scale=cfg["scale"], num_steps=n_steps,
+                    batch_size=cfg["ddp_batch"], seed=cfg["seed"],
+                    device="cuda", on_step=_last_step_profiler(n_steps, "ddp"),
+                    log=log)
+    n = r["n_leaves"]
+    sizes = [w // cfg["scale"] for w in MLP.ZERO_TOY_SIZES]
+    p_bytes = 4 * sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
+    bound = lambda k: STEP_BYTES_OVER_P[k] * p_bytes / HBM_BYTES_PER_S * 1e3
+    steps = r["step_s"]
+    out["ddp"] = {"step_ms": _step_ms(steps), "bound_ms": bound("ddp"),
+                  "peak_gib": r["peak_memory_bytes"] / 2 ** 30,
+                  "collectives": r["collectives"][-1],
+                  "losses": r["losses"],
+                  "final_loss_batch0": r["final_loss_batch0"]}
+    log(f"ddp on {card}: params {p_bytes / 1e9:.3f} GB ({n} leaves); step "
+        f"{out['ddp']['step_ms']:.3f} ms (host clock, median of steps 1-"
+        f"{n_steps - 2}; steps {[round(t * 1e3, 3) for t in steps]})"
+        f" against a byte bound of {out['ddp']['bound_ms']:.3f} ms; peak "
+        f"memory {out['ddp']['peak_gib']:.3f} GiB; collectives a step "
+        f"{json.dumps(C.COLLECTIVES.nonzero(r['collectives'][-1]))}")
+    check(r["sync_error"] == 0.0, f"ddp: sync check read {r['sync_error']}")
+    broadcasts = {**dict.fromkeys(C.CollectiveCounts.KINDS, 0),
+                  "broadcast": n}
+    check(r["init_collectives"] == broadcasts,
+          f"ddp: init broadcast {r['init_collectives']}")
+    want = step_collectives("ddp", n)
+    check(all(c == want for c in r["collectives"]),
+          f"ddp: collectives a step {r['collectives']} != {want}")
+    check(all(np.isfinite(r["losses"] + [r["final_loss_batch0"]])),
+          f"ddp: non-finite loss in {r['losses']}")
+    check(r["final_loss_batch0"] < r["losses"][0],
+          f"ddp: the first batch's loss under the final params "
+          f"{r['final_loss_batch0']!r} is not below step 0's "
+          f"{r['losses'][0]!r}")
+    del r
+    for stage, rebuild in ((1, "broadcast"), (1, "all_gather"),
+                           (2, "broadcast"), (3, "all_gather")):
+        name = f"zero{stage}" + ("_all_gather" if (stage, rebuild) == (
+            1, "all_gather") else "")
+        torch.cuda.empty_cache()
+        profiled = (stage, rebuild) in ((1, "broadcast"), (3, "all_gather"))
+        z = zero_run.run(stage, rebuild=rebuild, scale=cfg["scale"],
+                         num_steps=n_steps, batch_size=cfg["zero_batch"],
+                         seed=cfg["seed"], device="cuda",
+                         keep_params=stage == 1,
+                         on_step=_last_step_profiler(n_steps, name)
+                         if profiled else None, log=log)
+        bits = z["params_bit_equal"] and z["base_losses"] == z["shard_losses"]
+        rd = {"base_ms": _step_ms(z["base_step_s"]),
+              "shard_ms": _step_ms(z["shard_step_s"]),
+              "base_bound_ms": bound("adam"),
+              "shard_bound_ms": bound(f"zero{stage}"),
+              "base_opt_mb": z["base_opt_mb"],
+              "shard_opt_mb": z["shard_opt_mb"],
+              "shard_param_mb": z["shard_param_mb"],
+              "base_gib": {k: v / 2 ** 30
+                           for k, v in z["base_memory_bytes"].items()},
+              "shard_gib": {k: v / 2 ** 30
+                            for k, v in z["shard_memory_bytes"].items()},
+              "base_collectives": z["base_counts"][-1],
+              "shard_collectives": z["shard_counts"][-1],
+              "loss_drift": z["loss_drift"],
+              "param_max_abs_diff": z["param_max_abs_diff"]}
+        out[name] = rd
+        log(f"{name} on {card}: step baseline {rd['base_ms']:.3f} ms "
+            f"(bound {rd['base_bound_ms']:.3f}), sharded "
+            f"{rd['shard_ms']:.3f} ms (bound {rd['shard_bound_ms']:.3f}); "
+            f"optimizer {rd['base_opt_mb']:.1f} -> {rd['shard_opt_mb']:.1f} "
+            f"MB" + (f", params {z['param_mb']:.1f} -> "
+                     f"{rd['shard_param_mb']:.1f} MB" if stage == 3 else "")
+            + f"; memory at start and peak (GiB) baseline "
+            f"{rd['base_gib']['start']:.3f}, {rd['base_gib']['peak']:.3f}, "
+            f"sharded {rd['shard_gib']['start']:.3f}, "
+            f"{rd['shard_gib']['peak']:.3f}; loss drift "
+            f"{rd['loss_drift']!r}, params max |diff| "
+            f"{rd['param_max_abs_diff']!r}, bit-equal {bits}")
+        check(bits, f"{name}: sharded leg not bit-equal to baseline Adam: "
+              f"losses baseline {z['base_losses']} sharded "
+              f"{z['shard_losses']}, params max |diff| "
+              f"{z['param_max_abs_diff']}")
+        want = step_collectives(f"zero{stage}", n, rebuild=rebuild)
+        check(all(c == want for c in z["shard_counts"]),
+              f"{name}: collectives a step {z['shard_counts'][-1]} != {want}")
+        check(all(c == step_collectives("ddp", n)
+                  for c in z["base_counts"]),
+              f"{name}: baseline collectives a step {z['base_counts'][-1]}")
+        losses = z["base_losses"] + z["shard_losses"]
+        check(all(np.isfinite(losses)), f"{name}: non-finite loss")
+        check(z["shard_losses"][-1] < z["shard_losses"][0],
+              f"{name}: losses not falling {z['shard_losses']}")
+        if name == "zero1":   # the broadcast rebuild, kept for the next
+            kept = z["shard_losses"], z["shard_params"]
+        elif name == "zero1_all_gather":
+            same = kept[0] == z["shard_losses"] and all(
+                torch.equal(a, fsdp.optim.tree_get(z["shard_params"], path))
+                for path, a in fsdp.optim.tree_leaves(kept[1]))
+            log(f"zero1: rebuild broadcast bit-equal to all_gather {same}")
+            check(same, "zero1: rebuild broadcast is not bit-equal to "
+                  "all_gather")
+            kept = None
+        del z
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -2861,6 +3046,7 @@ def main(argv) -> int:
                    "int8 train")
         loss0 = timed("fsdp train parity", fsdp_train_parity_phase)
         fs = timed("fsdp train", fsdp_train_phase, card, loss0)
+        ddp_zero = timed("ddp and zero", ddp_zero_phase, card)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -2876,6 +3062,7 @@ def main(argv) -> int:
         k["launches_by_path"] = per
     log(f"phase wall times (s): {json.dumps(walls)}; total "
         f"{time.perf_counter() - t_all:.1f} s")
+    log(f"ddp and zero readings on {card}: {json.dumps(ddp_zero)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

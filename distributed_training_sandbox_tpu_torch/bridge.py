@@ -8,6 +8,17 @@ imports JAX.  bf16 leaves arrive as numpy arrays of ``ml_dtypes``'
 bfloat16, which numpy cannot hand to torch directly; they cross as
 their raw 16-bit patterns, so the copy is exact either way.
 
+The toy MLP's params (a list of ``{"w", "b"}`` dicts) cross leaf for
+leaf in their own dtype (:func:`mlp_params_from_jax`, back through
+:func:`params_to_numpy`).  ZeRO's flat chunks are pure data movement:
+:func:`zero_chunks_from_jax` cuts one rank's chunks from the full
+params, and :func:`assemble_zero_chunks` concatenates every rank's in
+rank order into the padded flat leaves that ``np.asarray`` makes of the
+reference's ``shard_params_zero3`` output.  DDP's error-feedback
+residual is stacked on a leading rank axis in the reference and one
+tree a rank in the port (:func:`residual_from_jax`,
+:func:`stack_residuals`).
+
 FSDP shards cross the same way: :func:`shards_from_jax` carries the
 reference's full parameters into one rank's shards (the rows
 ``parallel.fsdp.shard_params_fsdp`` keeps), and :func:`assemble_shards`
@@ -26,6 +37,7 @@ import numpy as np
 import torch
 
 from .ops.quant import QuantizedWeight
+from .parallel.optim import AdamState, tree_leaves, tree_map, tree_unflatten
 
 
 def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -34,7 +46,7 @@ def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -50,12 +62,6 @@ def _is_quantized(leaf) -> bool:
     return getattr(leaf, "_fields", None) == ("q", "s")
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(np_tree: dict, cfg, device=None) -> dict:
     """Reference params (a dict tree of numpy arrays, ``QuantizedWeight``
     leaves holding numpy arrays) → the port's params on ``device``
@@ -66,7 +72,7 @@ def params_from_jax(np_tree: dict, cfg, device=None) -> dict:
             return QuantizedWeight(_to_torch(a.q, torch.int8, device),
                                    _to_torch(a.s, torch.float32, device))
         return _to_torch(a, cfg.dtype, device)
-    return _map(np_tree, leaf)
+    return tree_map(leaf, np_tree)
 
 
 def params_to_numpy(params: dict) -> dict:
@@ -77,14 +83,13 @@ def params_to_numpy(params: dict) -> dict:
         if _is_quantized(t):
             return QuantizedWeight(_to_numpy(t.q), _to_numpy(t.s))
         return _to_numpy(t)
-    return _map(params, leaf)
+    return tree_map(leaf, params)
 
 
 def adam_state_from_jax(mu: dict, nu: dict, count: int, cfg, device=None):
     """The reference's ``AdamState`` (its ``mu`` and ``nu`` as dict
     trees of numpy arrays, its ``count`` as an int) → the port's
     ``parallel.optim.AdamState``, moments in ``cfg.dtype``."""
-    from .parallel.optim import AdamState
     return AdamState(mu=params_from_jax(mu, cfg, device),
                      nu=params_from_jax(nu, cfg, device), count=int(count))
 
@@ -117,3 +122,46 @@ def assemble_shards(rank_trees: list) -> dict:
         return np.concatenate([np.asarray(t) for t in leaves],
                               axis=len(spec) - 1)
     return walk(specs, rank_trees)
+
+
+def mlp_params_from_jax(np_tree, device=None):
+    """A reference MLP tree (a list of ``{"w", "b"}`` dicts of numpy
+    arrays, or any tree of them: chunks, residuals) → the port's, each
+    leaf in its own dtype, on ``device`` (default: CPU)."""
+    return tree_map(lambda a: _to_torch(a, None, device), np_tree)
+
+
+def zero_chunks_from_jax(np_tree, rank: int, world: int, device=None):
+    """Full reference params (numpy) → rank ``rank``'s flat ZeRO chunks
+    over a ``world``-rank axis (``parallel.zero.chunk_of``)."""
+    from .parallel.zero import chunk_of
+    return tree_map(lambda t: chunk_of(t, rank, world),
+                    mlp_params_from_jax(np_tree, device))
+
+
+def _join(rank_trees: list, fn):
+    """``fn`` of the rank-ordered list of each leaf across ``rank_trees``
+    (trees of one structure), rebuilt as that structure."""
+    columns = zip(*([x for _, x in tree_leaves(t)] for t in rank_trees))
+    return tree_unflatten(rank_trees[0], [fn([np.asarray(x) for x in c])
+                                          for c in columns])
+
+
+def assemble_zero_chunks(rank_trees: list):
+    """Every rank's chunk tree (numpy), in rank order → the padded flat
+    leaves, as ``np.asarray`` gives the reference's chunk arrays."""
+    return _join(rank_trees, np.concatenate)
+
+
+def residual_from_jax(np_stacked, rank: int, device=None):
+    """A tree stacked on a leading rank axis, as the reference keeps the
+    error-feedback residual (or any per-device tree) → rank ``rank``'s
+    own tree."""
+    return tree_map(lambda a: _to_torch(np.asarray(a)[rank], None, device),
+                    np_stacked)
+
+
+def stack_residuals(rank_trees: list):
+    """Every rank's tree (numpy), in rank order → the reference's
+    stacked layout."""
+    return _join(rank_trees, np.stack)

@@ -1,10 +1,13 @@
+from .mlp import (PP_TOY_SIZES, ZERO_TOY_SIZES, init_mlp, mlp_apply,
+                  mse_loss, pp_toy_mlp, zero_toy_mlp)
 from .transformer import (SMOLLM3_3B, SMOLLM3_3B_L8, TINY_LM,
                           TransformerConfig, forward, init_params, lm_loss,
                           model_flops_per_token)
 
 __all__ = ["SMOLLM3_3B", "SMOLLM3_3B_L8", "TINY_LM", "TransformerConfig",
            "MODEL_REGISTRY", "forward", "init_params", "lm_loss",
-           "model_flops_per_token"]
+           "model_flops_per_token", "PP_TOY_SIZES", "ZERO_TOY_SIZES",
+           "init_mlp", "mlp_apply", "mse_loss", "pp_toy_mlp", "zero_toy_mlp"]
 
 # CLI name -> TransformerConfig attribute: the JAX package's names for
 # the configs the port has

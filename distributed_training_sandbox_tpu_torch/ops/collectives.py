@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
                        raise_on_error, stream_ptr)
+from ..parallel.optim import tree_map
 from ..utils.mesh import (axis_rank, axis_size, global_rank, initialized,
                           resolve_axis)
 
@@ -84,6 +85,11 @@ class CollectiveCounts:
     def read(self) -> dict:
         return dict(self.counts)
 
+    @staticmethod
+    def nonzero(counts: dict) -> dict:
+        """A reading without its zero kinds, for printing."""
+        return {k: v for k, v in counts.items() if v}
+
 
 COLLECTIVES = CollectiveCounts()
 # K7's launches and its plain version's calls
@@ -93,14 +99,6 @@ TOLERANCE = {torch.bfloat16: (1e-4, 2 ** -7)}   # (atol, rtol)
 
 def _group(axis):
     return resolve_axis(axis).group
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 # ----------------------------------------------------- wire calls (no grad)
@@ -250,7 +248,7 @@ def broadcast(x, axis_name="dp", root: int = 0):
                            group=_group(axis_name))
             COLLECTIVES.record("broadcast")
         return out
-    return _tree_map(leaf, x)
+    return tree_map(leaf, x)
 
 
 def scatter(x, axis_name="dp", *, axis: int = 0):
@@ -327,7 +325,7 @@ def _barrier_device():
 
 def tree_all_reduce(tree, axis_name="dp", *, mean: bool = True):
     """Per-leaf ``all_reduce`` of a tree (one call per leaf)."""
-    return _tree_map(lambda g: all_reduce(g, axis_name, mean=mean), tree)
+    return tree_map(lambda g: all_reduce(g, axis_name, mean=mean), tree)
 
 
 def tree_all_gather(tree, axis_name="dp", *, axis: int = 0,
@@ -340,7 +338,7 @@ def tree_all_gather(tree, axis_name="dp", *, axis: int = 0,
         if x.ndim == 0:
             return all_gather(x[None], axis_name, axis=0, tiled=True)
         return all_gather(x, axis_name, axis=axis, tiled=tiled)
-    return _tree_map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 # ------------------------------------------------------------ ring family

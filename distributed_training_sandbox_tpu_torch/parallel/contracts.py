@@ -1,0 +1,73 @@
+"""The collectives one DDP or ZeRO step issues, as the shim
+``ops.collectives.COLLECTIVES`` counts them.
+
+The port's copy of the JAX package's ``analysis/contracts.py`` formulas
+for these steps (``ddp``, ``ddp_bucketed``, ``ddp_q8``, ``zero1``,
+``zero2``, ``zero3``), read as calls.  The CPU tests and
+``chip_smoke.py`` hold the steps of ``parallel/ddp.py`` and
+``parallel/zero.py`` to them.
+"""
+
+from __future__ import annotations
+
+from ..ops.collectives import CollectiveCounts
+from .ddp import DEFAULT_Q8_BUCKET_MB
+
+STEP_KINDS = ("ddp", "zero1", "zero2", "zero3")
+
+
+def ddp_bucket_count(param_bytes: int, bucket_mb: float,
+                     itemsize: int = 4) -> int:
+    """The reference's ``ddp_bucket_count``: flat buckets of exact
+    capacity (whole elements) over the concatenated grads."""
+    cap_elems = max(int(bucket_mb * 2 ** 20) // itemsize, 1)
+    n_elems = -(-int(param_bytes) // itemsize)
+    return max(-(-n_elems // cap_elems), 1)
+
+
+def step_collectives(kind: str, n_leaves: int, param_bytes: int = 0, *,
+                     bucket_mb: float | None = None, q8: bool = False,
+                     rebuild: str = "broadcast") -> dict:
+    """Every kind of ``CollectiveCounts.KINDS`` one step of ``kind``
+    issues with ``n_leaves`` param leaves of ``param_bytes`` bytes in all.
+
+    ``ddp`` n + 2 all_reduces (a leaf's grads, the loss mean, the
+    barrier); bucketed (``bucket_mb``) one all_reduce a bucket + 2; ``q8``
+    two all_gathers a bucket (codes, scale; ``bucket_mb`` or
+    ``DEFAULT_Q8_BUCKET_MB``) + 2 all_reduces.  ``zero1`` 2n + 2
+    all_reduces with the masked all_reduce rebuild, else n + 2 and n
+    all_gathers; ``zero2`` n reduce_scatters and n + 2 all_reduces, or 2
+    and n all_gathers; ``zero3`` 2 all_reduces, n reduce_scatters (each
+    gather's backward) and 2n all_gathers.
+
+    The ``zero3`` contract counts 2n - 1 gather *sites*: XLA drops the
+    last bias's backward gather, as no recomputed value after it is
+    needed (no ReLU mask follows the last layer).  The shim counts
+    *calls*: the non-reentrant checkpoint recomputes each layer up to
+    its last saved tensor, and in the last layer that is the product's
+    operands, after both gathers of the layer (``w`` and ``b`` are
+    gathered before ``x @ w + b``, as in the reference's layer body).
+    So every layer's two gathers run again in the backward: 2n calls."""
+    if kind not in STEP_KINDS:
+        raise ValueError(f"kind={kind!r}; choose from {STEP_KINDS}")
+    n, out = n_leaves, dict.fromkeys(CollectiveCounts.KINDS, 0)
+    gather = rebuild == "all_gather"
+    if kind == "ddp":
+        if q8:
+            buckets = ddp_bucket_count(param_bytes,
+                                       bucket_mb or DEFAULT_Q8_BUCKET_MB)
+            out.update(all_reduce=2, all_gather=2 * buckets)
+        elif bucket_mb:
+            out.update(all_reduce=ddp_bucket_count(param_bytes, bucket_mb)
+                       + 2)
+        else:
+            out.update(all_reduce=n + 2)
+    elif kind == "zero1":
+        out.update(all_reduce=n + 2 if gather else 2 * n + 2,
+                   all_gather=n if gather else 0)
+    elif kind == "zero2":
+        out.update(all_reduce=2 if gather else n + 2,
+                   all_gather=n if gather else 0, reduce_scatter=n)
+    else:
+        out.update(all_reduce=2, all_gather=2 * n, reduce_scatter=n)
+    return out

@@ -38,7 +38,11 @@ from ..ops import collectives as C
 from ..utils import mesh
 from . import optim
 
-_ROADMAP_A6 = "not ported yet — see ROADMAP.md, queue A item 6 (FSDP)"
+# the ROADMAP.md queue A item that holds each option not ported yet
+_ROADMAP_ITEMS = {"quantized_gather": "A7 (the precision tier)",
+                  "offload": "A12 (memory_plan/)",
+                  "sp_axis": "A10 (sequence parallelism)",
+                  "state_precision": "A3 (optim8)"}
 OVERLAP_MODES = ("none", "ring", "ring_fused", "ring_fused_pallas")
 OFFLOAD_MODES = ("none", "opt", "opt_act")
 
@@ -132,12 +136,6 @@ def _gather_leaf(x, spec, axis, overlap: str = "none", fuse_matmul=False):
     return x
 
 
-def _unflatten(params: dict, flat) -> dict:
-    """``flat`` (in ``tree_leaves`` order) as a tree shaped like params."""
-    it = iter(flat)
-    return optim.tree_map(lambda _: next(it), params)
-
-
 def microbatch_value_and_grad(loss_fn, params: dict, batch,
                               accum_steps: int):
     """``(mean loss, mean grads)`` of ``loss_fn(params, batch)`` over
@@ -150,7 +148,7 @@ def microbatch_value_and_grad(loss_fn, params: dict, batch,
         if accum_steps == 1:
             loss = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), _unflatten(params, grads)
+            return loss.detach(), optim.tree_unflatten(params, grads)
         B = batch[0].shape[0]
         if B % accum_steps:
             raise ValueError(
@@ -166,7 +164,7 @@ def microbatch_value_and_grad(loss_fn, params: dict, batch,
                 acc.add_(g)
             l_sum += loss.detach().float()
         return (l_sum / accum_steps,
-                _unflatten(params, [g / accum_steps for g in g_sum]))
+                optim.tree_unflatten(params, [g / accum_steps for g in g_sum]))
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -278,7 +276,9 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
                                  ("state_precision", state_precision,
                                   "full")):
         if value != default:
-            raise NotImplementedError(f"{name}={value!r}: {_ROADMAP_A6}")
+            raise NotImplementedError(
+                f"{name}={value!r}: not ported yet — see ROADMAP.md, queue "
+                f"A item {_ROADMAP_ITEMS[name]}")
     T.check_supported(cfg)
     value_and_grad = make_fsdp_value_and_grad(
         params_sharded, cfg, axis, reshard_after_forward=reshard_after_forward,

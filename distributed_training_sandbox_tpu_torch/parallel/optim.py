@@ -18,33 +18,59 @@ import torch
 
 
 class AdamState(NamedTuple):
-    mu: dict
-    nu: dict
+    mu: dict | list
+    nu: dict | list
     count: int
 
 
-def tree_leaves(tree: dict, prefix=()):
-    """``(path, leaf)`` of a dict tree, in insertion order (the order
-    ``tree_map`` visits)."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from tree_leaves(v, prefix + (k,))
-        else:
+def _children(tree):
+    """``(key, child)`` pairs of a dict (its keys), a list or a tuple (the
+    indices); None for a leaf.  A NamedTuple (``QuantizedWeight``) or a
+    ``torch.Size`` is a leaf."""
+    if isinstance(tree, dict):
+        return tree.items()
+    if type(tree) in (list, tuple):
+        return enumerate(tree)
+    return None
+
+
+def tree_leaves(tree, prefix=()):
+    """``(path, leaf)`` of a tree of dicts, lists and tuples, in
+    insertion and index order (the order ``tree_map`` visits); a list's
+    or tuple's path key is the index."""
+    for k, v in _children(tree):
+        if _children(v) is None:
             yield prefix + (k,), v
+        else:
+            yield from tree_leaves(v, prefix + (k,))
 
 
-def tree_get(tree: dict, path):
+def tree_get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
 
 
-def tree_map(fn, tree: dict) -> dict:
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts, lists and tuples, the
+    containers rebuilt as they were.  The one tree walk of the port
+    (``ops.collectives`` and ``bridge`` map with it too)."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in kids}
+    return type(tree)(tree_map(fn, v) for _, v in kids)
 
 
-def adam_init(params: dict, state_dtype=None) -> AdamState:
+def tree_unflatten(like, flat):
+    """``flat`` (in ``tree_leaves`` order) as a tree shaped like
+    ``like``."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), like)
+
+
+def adam_init(params, state_dtype=None) -> AdamState:
     """Zero moments in ``state_dtype`` (default: each param's dtype)."""
     zeros = lambda p: torch.zeros_like(p, dtype=state_dtype or p.dtype)
     return AdamState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
@@ -52,7 +78,7 @@ def adam_init(params: dict, state_dtype=None) -> AdamState:
 
 
 @torch.no_grad()
-def adam_update(grads: dict, state: AdamState, params: dict, *, lr=1e-3,
+def adam_update(grads, state: AdamState, params, *, lr=1e-3,
                 b1=0.9, b2=0.999, eps=1e-8):
     """One Adam step; the reference's arithmetic: the moments in their
     own dtype, ``b·m + (1 - b)·g``; the step
@@ -95,16 +121,16 @@ def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,
 
 
 class SGDState(NamedTuple):
-    momentum: dict | None
+    momentum: dict | list | None
 
 
-def sgd_init(params: dict, momentum: float = 0.0) -> SGDState:
+def sgd_init(params, momentum: float = 0.0) -> SGDState:
     return SGDState(momentum=tree_map(torch.zeros_like, params)
                     if momentum else None)
 
 
 @torch.no_grad()
-def sgd_update(grads: dict, state: SGDState, params: dict, *, lr=1e-3,
+def sgd_update(grads, state: SGDState, params, *, lr=1e-3,
                momentum=0.0):
     """SGD with optional momentum ``buf = momentum · buf + g``; in
     place."""

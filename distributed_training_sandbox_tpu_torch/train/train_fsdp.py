@@ -122,7 +122,7 @@ def run(model: str = "tiny", *, overlap: str = "none",
         times.append(time.perf_counter() - t0)
         if rank == 0:
             log(f"[fsdp] step {i:3d} loss {losses[-1]:.4f} collectives "
-                f"{json.dumps({k: v for k, v in counts[-1].items() if v})}")
+                f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1]))}")
         if on_step is not None:
             on_step(i, losses[-1])
     # tokens/s over the steps after the first two, as run_leg counts
