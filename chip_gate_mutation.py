@@ -31,11 +31,14 @@ the sound kernel's:
   denominator from the bf16-rounded probabilities, not the f32 ones;
   the forward's gate must fail;
 - ``fa_bwd_bf16_lse``: the flash backward reads the logsumexp rounded to
-  bf16, not f32; the backward's gate must fail;
+  bf16, not f32; the backward's gate and its L2 distance from the exact
+  gradient at a pipeline stage's microbatch (over the plain path's)
+  must fail;
 - ``fa_fwd_pv_tile``: in the second half of the rows the flash forward
   leaves key tile 1 (64 keys) out of its wgmma PV product but not out of
-  the row sum, so the logsumexp stays exact; the forward's gate and its
-  count against the f64 oracle must fail;
+  the row sum, so the logsumexp stays exact; the forward's gate, its
+  count against the f64 oracle and the pipeline's step-0 gate against
+  plain attention (``pipeline plain``) must fail;
 - ``fa_fwd_bf16_scores``: the flash forward rounds each tensor-core
   score to bf16 before scaling it; the forward's count against the f64
   oracle (over the plain path's) must fail;
@@ -44,7 +47,9 @@ the sound kernel's:
   run, and K1's gate and the decode-logit gate must fail;
 - ``fa_bwd_dv_tile``: in the second half of the keys the dK/dV kernel
   leaves one query tile (64 queries) out of its wgmma dV product; the
-  backward's gate must fail;
+  backward's gate, its L2 distance from the exact gradient at a
+  pipeline stage's microbatch and the pipeline's step-0 gate against
+  plain attention must fail;
 - ``k5_slice_absmax``: K5's quantising prologue codes each 128-wide K
   slice of a row with that slice's own absmax instead of the full
   row's; K5's gate and the int8 step-0 parity must fail;
@@ -112,12 +117,14 @@ MUTANTS = [
     ("fa_bwd_bf16_lse", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float lse_in(float x) { return x; }",
      "__device__ __forceinline__ float lse_in(float x) { return "
-     f"{ROUND.format('x')}; }}", "train", ("flash_attention_bwd:",)),
+     f"{ROUND.format('x')}; }}", "train",
+     ("flash_attention_bwd:", "flash_attention_bwd oracle:")),
     ("fa_fwd_pv_tile", "csrc/flash_attention.cu",
      "    acc_rows(oacc, pa, vtile(j));   // O += P V",
      "    if (j != 1 || q0 < S / 2) acc_rows(oacc, pa, vtile(j));   "
-     "// O += P V", "train",
-     ("flash_attention_fwd:", "flash_attention_fwd oracle:")),
+     "// O += P V", "train_pipeline",
+     ("flash_attention_fwd:", "flash_attention_fwd oracle:",
+      "pipeline plain")),
     ("fa_fwd_bf16_scores", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float fwd_score(float s, float scale) "
      "{ return s * scale; }",
@@ -128,7 +135,8 @@ MUTANTS = [
      "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, true);   // dV, dK",
      "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, "
      "q0 != k0 + kQt || k0 < S / 2);   // dV, dK",
-     "train", ("flash_attention_bwd:",)),
+     "train_pipeline", ("flash_attention_bwd:",
+                        "flash_attention_bwd oracle:", "pipeline plain")),
     ("k3_diagonal_mask", "csrc/flash_prefill.cu",
      "__device__ __forceinline__ bool visible(int t, int ap) "
      "{ return t <= ap; }",
@@ -234,7 +242,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 c.fp8_phase()
 c.attention_phase()
+c.fa_bwd_oracle_gate()
 c.train_parity_phase()
+""", "train_pipeline": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.fp8_phase()
+c.attention_phase()
+c.fa_bwd_oracle_gate()
+c.train_parity_phase()
+c.pipeline_lm_parity_phase()
 """, "int8_train": """
 import torch
 import chip_smoke as c
@@ -341,11 +364,12 @@ def main(argv) -> int:
         else:
             print(f"[mutant] {name}: every expected gate failed: "
                   f"{list(expected)}", flush=True)
-        if phases == "train" and any(g in ln for ln in fails for g in STEP0):
+        if phases.startswith("train") and any(g in ln for ln in fails
+                                              for g in STEP0):
             step0.append(name)
     print(f"[mutant] the step-0 loss or grad gate failed on: {step0}",
           flush=True)
-    if not step0 and any(m[4] == "train" for m in chosen):
+    if not step0 and any(m[4].startswith("train") for m in chosen):
         print("[mutant] the step-0 gates let every training mutant through",
               file=sys.stderr)
         ok = False

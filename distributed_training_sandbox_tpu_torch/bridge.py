@@ -25,6 +25,12 @@ reference's full parameters into one rank's shards (the rows
 concatenates every rank's shards, in rank order, back into the full
 tree.
 
+A pipeline's stages cross one by one: :func:`pipeline_stages_to_numpy`
+gives each stage's params and Adam state as numpy trees in the
+reference's layout (the MLP stages' lists of ``{"w", "b"}``, the
+transformer stages' dicts), and :func:`load_pipeline_stages` writes a
+JAX pipeline's per-stage state into the port's stages in place.
+
 int8 decode params (``quantize_decode_params`` on either side) hold
 ``QuantizedWeight`` leaves, a NamedTuple ``(q, s)`` in both packages:
 they cross field for field, ``q`` as int8 and ``s`` as f32, whatever
@@ -50,11 +56,13 @@ def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy: a CPU tensor's ``numpy()`` shares its storage, which the
+    in-place optimisers go on writing."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         import ml_dtypes   # only callers that hold JAX arrays need this
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
 
 
 def _is_quantized(leaf) -> bool:
@@ -165,3 +173,36 @@ def stack_residuals(rank_trees: list):
     """Every rank's tree (numpy), in rank order → the reference's
     stacked layout."""
     return _join(rank_trees, np.stack)
+
+
+def pipeline_stages_to_numpy(stages) -> list[dict]:
+    """Each stage of a port pipeline (``parallel.pipeline``) as
+    ``{"params", "mu", "nu", "count"}``: numpy trees in the reference's
+    layout and the Adam step count."""
+    return [{"params": params_to_numpy(s.params),
+             "mu": params_to_numpy(s.opt_state.mu),
+             "nu": params_to_numpy(s.opt_state.nu),
+             "count": int(s.opt_state.count)} for s in stages]
+
+
+def load_pipeline_stages(stages, np_states: list[dict]) -> None:
+    """Write a JAX pipeline's per-stage state into the port's stages of
+    the same split, in place: ``np_states[s]`` holds stage s's
+    ``"params"`` and, optionally, its Adam ``"mu"``, ``"nu"`` and
+    ``"count"`` (numpy trees, as ``np.asarray`` gives the reference's
+    ``stage.params`` and ``stage.opt_state``); each leaf is copied in the
+    port leaf's dtype."""
+    for stage, st in zip(stages, np_states, strict=True):
+        with torch.no_grad():
+            for key, tree in (("params", stage.params),
+                              ("mu", stage.opt_state.mu),
+                              ("nu", stage.opt_state.nu)):
+                if key not in st:
+                    continue
+                for path, t in tree_leaves(tree):
+                    a = st[key]
+                    for k in path:
+                        a = a[k]
+                    t.copy_(_to_torch(a, t.dtype, t.device))
+        if "count" in st:
+            stage.opt_state = stage.opt_state._replace(count=int(st["count"]))

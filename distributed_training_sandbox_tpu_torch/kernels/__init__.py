@@ -59,11 +59,17 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def raise_on_error(name: str, rc: int) -> None:
+def launch(name: str, fn, *args, device: torch.device) -> None:
+    """Call the C launcher ``fn(*args, stream)`` with ``device`` as the
+    CUDA runtime's current device and its current stream, and raise on
+    the launcher's error code.  The runtime launches a kernel (and
+    ``cudaFuncSetAttribute`` sets its attributes) on the *current*
+    device, whatever device the operands lie on, so every wrapper
+    launches through here: a stage on ``cuda:1`` of a one-process
+    pipeline gets its kernels on ``cuda:1``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")

@@ -52,8 +52,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
-                       raise_on_error, stream_ptr)
+from ..kernels import LaunchCount, check_cuda_operands, launch, loader, ptr
 from ..parallel.optim import tree_map
 from ..utils.mesh import (axis_rank, axis_size, global_rank, initialized,
                           resolve_axis)
@@ -500,9 +499,8 @@ def ag_matmul_kernel(a2, w):
                          f"{w.device}")
     lda = ag_matmul_layout(a2, w)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=w.device)
-    fn = loader.load("ag_matmul").ag_matmul_launch
-    rc = fn(ptr(a2), ptr(w), ptr(out), M, N, K, lda, stream_ptr(w.device))
-    raise_on_error("ag_matmul_kernel", rc)
+    launch("ag_matmul_kernel", loader.load("ag_matmul").ag_matmul_launch,
+           ptr(a2), ptr(w), ptr(out), M, N, K, lda, device=w.device)
     COUNTS.launches += 1
     return out
 

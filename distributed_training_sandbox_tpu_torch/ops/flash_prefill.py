@@ -54,8 +54,7 @@ import math
 import numpy as np
 import torch
 
-from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
-                       raise_on_error, stream_ptr)
+from ..kernels import LaunchCount, check_cuda_operands, launch, loader, ptr
 from .paged_attention import gather_attention
 
 __all__ = ["paged_flash_prefill", "paged_flash_prefill_plain",
@@ -140,10 +139,10 @@ def paged_flash_prefill(qg, pk, pv, pages, apos):
                          "16-byte aligned (16-byte row copies)")
     out = torch.empty((B, S, nkv, rep, hd), dtype=torch.float32,
                       device=qg.device)
-    fn = loader.load("flash_prefill").flash_prefill_launch
-    rc = fn(ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos), ptr(out),
-            B, S, pages.shape[1], pk.shape[1], nkv, rep, hd, code,
-            stream_ptr(qg.device))
-    raise_on_error("paged_flash_prefill", rc)
+    launch("paged_flash_prefill",
+           loader.load("flash_prefill").flash_prefill_launch,
+           ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos), ptr(out),
+           B, S, pages.shape[1], pk.shape[1], nkv, rep, hd, code,
+           device=qg.device)
     COUNTS.launches += 1
     return out

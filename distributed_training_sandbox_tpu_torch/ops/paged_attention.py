@@ -50,8 +50,7 @@ import math
 
 import torch
 
-from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
-                       raise_on_error, stream_ptr)
+from ..kernels import LaunchCount, check_cuda_operands, launch, loader, ptr
 from .quant import f32_recip, int_einsum_exact, quantize_int8
 
 __all__ = ["paged_attention_decode", "paged_attention_plain",
@@ -210,11 +209,10 @@ def paged_attention_decode(qg, pk, pv, pages, apos, *, q_scale=None,
         if n_scores else None
     out = torch.empty((B, 1, nkv, rep, hd), dtype=torch.float32,
                       device=qg.device)
-    rc = lib.paged_decode_launch(
-        ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos),
-        ptr(scores) if n_scores else None, ptr(out), *geom, hd, code,
-        stream_ptr(qg.device))
-    raise_on_error("paged_attention_decode", rc)
+    launch("paged_attention_decode", lib.paged_decode_launch,
+           ptr(qg), ptr(pk), ptr(pv), ptr(pages), ptr(apos),
+           ptr(scores) if n_scores else None, ptr(out), *geom, hd, code,
+           device=qg.device)
     COUNTS.launches += 1
     return out
 
@@ -260,10 +258,9 @@ def _decode_q8(qq, qs, pk, pv, pk_s, pv_s, pages, apos):
         if n_scratch else None
     out = torch.empty((B, 1, nkv, rep, hd), dtype=torch.float32,
                       device=qq.device)
-    rc = lib.paged_decode_q8_launch(
-        ptr(qq), ptr(qs), ptr(pk), ptr(pv), ptr(pk_s), ptr(pv_s), ptr(pages),
-        ptr(apos), ptr(scratch) if n_scratch else None, ptr(out), *geom,
-        stream_ptr(qq.device))
-    raise_on_error("paged_attention_decode", rc)
+    launch("paged_attention_decode", lib.paged_decode_q8_launch,
+           ptr(qq), ptr(qs), ptr(pk), ptr(pv), ptr(pk_s), ptr(pv_s),
+           ptr(pages), ptr(apos), ptr(scratch) if n_scratch else None,
+           ptr(out), *geom, device=qq.device)
     Q8_COUNTS.launches += 1
     return out

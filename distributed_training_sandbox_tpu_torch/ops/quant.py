@@ -63,8 +63,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import (LaunchCount, check_cuda_operands, loader, ptr,
-                       raise_on_error, stream_ptr)
+from ..kernels import LaunchCount, check_cuda_operands, launch, loader, ptr
 
 __all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
            "dequantize", "f32_recip", "int_einsum_exact", "int8_matmul",
@@ -254,14 +253,13 @@ def _launch_k4(a, xs, b, ws, b_kmajor: bool):
     lib = loader.load("int8_matmul")
     if design == "gemv":
         scratch = _gemv_scratch(lib, M, N, Kc, a.device)
-        rc = lib.int8_gemv_launch(ptr(a), ptr(b), ptr(xs), ptr(ws), ptr(out),
-                                  ptr(scratch), M, N, Kc,
-                                  stream_ptr(a.device))
+        launch("int8_matmul_kernel", lib.int8_gemv_launch, ptr(a), ptr(b),
+               ptr(xs), ptr(ws), ptr(out), ptr(scratch), M, N, Kc,
+               device=a.device)
     else:
-        rc = lib.int8_matmul_launch(ptr(a), ptr(b), ptr(xs), ptr(ws),
-                                    ptr(out), M, N, Kc, int(b_kmajor),
-                                    stream_ptr(a.device))
-    raise_on_error("int8_matmul_kernel", rc)
+        launch("int8_matmul_kernel", lib.int8_matmul_launch, ptr(a), ptr(b),
+               ptr(xs), ptr(ws), ptr(out), M, N, Kc, int(b_kmajor),
+               device=a.device)
     INT8_COUNTS.launches += 1
     return out
 
@@ -317,10 +315,10 @@ def int8_matmul_fused_kernel(x, wq, ws, out_dtype=torch.bfloat16, *,
     codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
     xs = torch.empty((M,), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    fn = loader.load("int8_matmul").int8_matmul_fused_launch
-    rc = fn(ptr(x), ptr(b), ptr(codes), ptr(xs), ptr(ws), ptr(out), M, N, K,
-            stream_ptr(x.device))
-    raise_on_error("int8_matmul_fused_kernel", rc)
+    launch("int8_matmul_fused_kernel",
+           loader.load("int8_matmul").int8_matmul_fused_launch,
+           ptr(x), ptr(b), ptr(codes), ptr(xs), ptr(ws), ptr(out), M, N, K,
+           device=x.device)
     INT8_FUSED_COUNTS.launches += 1
     return out
 
@@ -564,10 +562,9 @@ def fp8_matmul_kernel(aq, a_scale, bt, b_scale, out_dtype=torch.bfloat16):
     # the codes as bf16, written by the kernel's prologue
     a16 = torch.empty((M, K), dtype=torch.bfloat16, device=aq.device)
     b16 = torch.empty((N, K), dtype=torch.bfloat16, device=aq.device)
-    fn = loader.load("fp8_matmul").fp8_matmul_launch
-    rc = fn(ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(a16), ptr(b16),
-            ptr(out), M, N, K, stream_ptr(aq.device))
-    raise_on_error("fp8_matmul_kernel", rc)
+    launch("fp8_matmul_kernel", loader.load("fp8_matmul").fp8_matmul_launch,
+           ptr(aq), ptr(bt), ptr(a_s), ptr(b_s), ptr(a16), ptr(b16),
+           ptr(out), M, N, K, device=aq.device)
     COUNTS.launches += 1
     return out
 

@@ -1,11 +1,12 @@
-"""The collectives one DDP or ZeRO step issues, as the shim
+"""The collectives one DDP, ZeRO or pipeline step issues, as the shim
 ``ops.collectives.COLLECTIVES`` counts them.
 
 The port's copy of the JAX package's ``analysis/contracts.py`` formulas
 for these steps (``ddp``, ``ddp_bucketed``, ``ddp_q8``, ``zero1``,
-``zero2``, ``zero3``), read as calls.  The CPU tests and
-``chip_smoke.py`` hold the steps of ``parallel/ddp.py`` and
-``parallel/zero.py`` to them.
+``zero2``, ``zero3``) and for the pipeline's stage programs (``gpipe``,
+``1f1b``), read as calls.  The CPU tests and ``chip_smoke.py`` hold the
+steps of ``parallel/ddp.py``, ``parallel/zero.py`` and
+``parallel/pipeline.py`` to them.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 from ..ops.collectives import CollectiveCounts
 from .ddp import DEFAULT_Q8_BUCKET_MB
 
-STEP_KINDS = ("ddp", "zero1", "zero2", "zero3")
+STEP_KINDS = ("ddp", "zero1", "zero2", "zero3", "gpipe", "1f1b")
 
 
 def ddp_bucket_count(param_bytes: int, bucket_mb: float,
@@ -38,16 +39,13 @@ def step_collectives(kind: str, n_leaves: int, param_bytes: int = 0, *,
     all_reduces with the masked all_reduce rebuild, else n + 2 and n
     all_gathers; ``zero2`` n reduce_scatters and n + 2 all_reduces, or 2
     and n all_gathers; ``zero3`` 2 all_reduces, n reduce_scatters (each
-    gather's backward) and 2n all_gathers.
-
-    The ``zero3`` contract counts 2n - 1 gather *sites*: XLA drops the
-    last bias's backward gather, as no recomputed value after it is
-    needed (no ReLU mask follows the last layer).  The shim counts
-    *calls*: the non-reentrant checkpoint recomputes each layer up to
-    its last saved tensor, and in the last layer that is the product's
-    operands, after both gathers of the layer (``w`` and ``b`` are
-    gathered before ``x @ w + b``, as in the reference's layer body).
-    So every layer's two gathers run again in the backward: 2n calls."""
+    gather's backward) and 2n - 1 all_gathers: every leaf gathered in
+    the forward, and again in the backward's recompute of its layer but
+    for the last layer's bias, which ``parallel.zero`` gathers outside
+    that layer's checkpoint (nothing in the backward needs it again, as
+    XLA finds for the reference).  ``gpipe`` and ``1f1b`` (the
+    interleaved schedule too) issue none: the stages hand activations
+    over by device copies, not collectives."""
     if kind not in STEP_KINDS:
         raise ValueError(f"kind={kind!r}; choose from {STEP_KINDS}")
     n, out = n_leaves, dict.fromkeys(CollectiveCounts.KINDS, 0)
@@ -68,6 +66,6 @@ def step_collectives(kind: str, n_leaves: int, param_bytes: int = 0, *,
     elif kind == "zero2":
         out.update(all_reduce=2 if gather else n + 2,
                    all_gather=n if gather else 0, reduce_scatter=n)
-    else:
-        out.update(all_reduce=2, all_gather=2 * n, reduce_scatter=n)
+    elif kind == "zero3":
+        out.update(all_reduce=2, all_gather=2 * n - 1, reduce_scatter=n)
     return out

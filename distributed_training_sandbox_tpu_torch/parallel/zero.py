@@ -16,8 +16,10 @@ tensors over ``ops/collectives.py``.  The JAX package's design is kept:
     and / ws (no ws-fold concatenation);
   * ZeRO-3: params at rest as chunks; each layer's ``w`` and ``b``
     gathered inside a non-reentrant ``torch.utils.checkpoint``, so the
-    backward gathers them again; the grads arrive through the gather's
-    backward, a reduce_scatter, and are divided by ws.
+    backward gathers them again (the last layer's ``b`` is gathered
+    outside it, once, as the reference's compiled step gathers it); the
+    grads arrive through the gather's backward, a reduce_scatter, and
+    are divided by ws.
 
 Adam (``optim.adam_update``) writes in place, so a chunk of a replicated
 param is always a copy (:func:`local_chunk`): the update never touches
@@ -190,23 +192,33 @@ def init_zero_opt_state(params, axis="dp") -> optim.AdamState:
 def make_zero3_mlp_loss(shapes: list[dict], axis="dp"):
     """The layered MLP's loss over *chunked* params: each layer's ``w``
     and ``b`` gathered (all_gather) inside a non-reentrant checkpoint, so
-    the backward gathers them again.  ``shapes``: per-layer ``{"w": (in,
-    out), "b": (out,)}`` shapes of the full params.  The gather's
-    backward, a reduce_scatter, sums the ranks' grads into each chunk."""
+    the backward gathers them again, except the last layer's ``b``.  That
+    one is gathered before the last layer's checkpoint: the backward
+    needs no recomputed value after ``x @ w`` there (no ReLU follows),
+    so the recompute stops before any gather of ``b``, and a step issues
+    the 2n - 1 gathers that the reference compiles.  ``shapes``:
+    per-layer ``{"w": (in, out), "b": (out,)}`` shapes of the full
+    params.  The gather's backward, a reduce_scatter, sums the ranks'
+    grads into each chunk."""
 
-    def layer_call(cw, cb, x, meta, is_last):
-        w = rebuild_param(cw, meta["w"], math.prod(meta["w"]), axis,
-                          "all_gather")
-        b = rebuild_param(cb, meta["b"], math.prod(meta["b"]), axis,
-                          "all_gather")
+    def gather(chunk, shape):
+        return rebuild_param(chunk, shape, math.prod(shape), axis,
+                             "all_gather")
+
+    def layer_call(cw, b, x, meta, is_last):
+        w = gather(cw, meta["w"])
+        if not is_last:
+            b = gather(b, meta["b"])
         x = x @ w + b
         return x if is_last else torch.relu(x)
 
     def loss_fn(chunk_params, batch):
         x, y = batch
+        last = len(shapes) - 1
         for i, (layer, meta) in enumerate(zip(chunk_params, shapes)):
-            fn = partial(layer_call, meta=meta, is_last=i == len(shapes) - 1)
-            x = checkpoint(fn, layer["w"], layer["b"], x, use_reentrant=False)
+            b = gather(layer["b"], meta["b"]) if i == last else layer["b"]
+            fn = partial(layer_call, meta=meta, is_last=i == last)
+            x = checkpoint(fn, layer["w"], b, x, use_reentrant=False)
         return torch.mean((x - y) ** 2)
 
     return loss_fn

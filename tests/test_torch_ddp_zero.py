@@ -317,7 +317,7 @@ def test_steps_match_jax(world, reference, case):
 def expected_counts(case: dict, n_leaves: int, param_bytes: int) -> dict:
     """The collectives one step of a ``CASES`` case issues:
     ``parallel.contracts.step_collectives``, the reference's contract
-    formulas (ZeRO-3's gathers as calls; its docstring derives 2n)."""
+    formulas (ZeRO-3's gathers as calls; its docstring derives 2n - 1)."""
     kind = f"zero{case['stage']}" if case["kind"] == "zero" else case["kind"]
     return step_collectives(kind, n_leaves, param_bytes,
                             bucket_mb=case.get("bucket_mb"),
