@@ -9,7 +9,8 @@ changes one line of one kernel source there, and runs the smoke's
 phases that read that kernel on the copy, with every gate logged
 instead of raised.  Each mutant is a step of the reference's arithmetic
 left out or done in lower precision, so that its output stays close to
-the sound kernel's:
+the sound kernel's (one, ``dot_q8_skipped``, edits a Python module of
+the port instead):
 
 - ``probs_rounding``: K1 and K3 skip the bf16 rounding of the
   normalised probabilities (``dts::round_to``); K3's bf16 kernel then
@@ -26,7 +27,10 @@ the sound kernel's:
   same phases run, and K3's count against the f64 oracle (over the plain
   path's) must fail;
 - ``fp8_bf16_accumulator``: K6 rounds its f32 accumulator to bf16 where
-  it promotes each 128-deep k-block's wgmma sum; K6's gate must fail;
+  it promotes each 128-deep k-block's wgmma sum; K6's gate, K6 on the
+  operands of phase 13c's fp8_pallas row (``precision bench
+  fp8_matmul``) and that row's step against the plain fp8 recipe
+  (``precision bench fp8_pallas step-0``) must fail;
 - ``fa_fwd_bf16_rowsum``: the flash forward sums the row's softmax
   denominator from the bf16-rounded probabilities, not the f32 ones;
   the forward's gate must fail;
@@ -37,8 +41,11 @@ the sound kernel's:
 - ``fa_fwd_pv_tile``: in the second half of the rows the flash forward
   leaves key tile 1 (64 keys) out of its wgmma PV product but not out of
   the row sum, so the logsumexp stays exact; the forward's gate, its
-  count against the f64 oracle and the pipeline's step-0 gate against
-  plain attention (``pipeline plain``) must fail;
+  count against the f64 oracle, the pipeline's step-0 gate against
+  plain attention (``pipeline plain``), the flash kernels on phase
+  13a's own step inputs (``precision attention``), 13a's step against
+  plain attention (``precision plain``) and the flash kernels on 13c's
+  rows' inputs (``precision bench attention``) must fail;
 - ``fa_fwd_bf16_scores``: the flash forward rounds each tensor-core
   score to bf16 before scaling it; the forward's count against the f64
   oracle (over the plain path's) must fail;
@@ -57,8 +64,11 @@ the sound kernel's:
   ``amax / 127`` (the reference's eager form) instead of
   ``amax · f32(1/127)``; K5's gate and the int8 step-0 parity must fail;
 - ``k5_dropped_k_block``: K5's consumers leave the last k-block of the
-  TMA ring out of the sum; K5's gate and the int8 step-0 parity must
-  fail;
+  TMA ring out of the sum; K5's gate, the int8 step-0 parity, the
+  precision tier's step-0 parity (``precision step-0``, phase 13a:
+  quantised gathers and grads, int8 moments) and 13c's int8_pallas_bwd
+  row against the plain int8 products (``precision bench
+  int8_pallas_bwd step-0``) must fail;
 - ``k5_scale_product``: K5's epilogue applies ``acc · (xs · ws)``; K5's
   gate and the int8 step-0 parity must fail;
 - ``k4_scale_product``: K4's epilogue, shared by its three designs,
@@ -80,7 +90,12 @@ the sound kernel's:
 - ``k7_bf16_accumulator``: K7 rounds its f32 accumulators to bf16 after
   every 64-deep k-block; K7's gate must fail;
 - ``k7_dropped_k_tile``: K7 leaves the chunk's last K tile out of the
-  sum; K7's gate and the FSDP step-0 parity must fail.
+  sum; K7's gate and the FSDP step-0 parity must fail;
+- ``dot_q8_skipped``: the ``save_dots_q8`` projection
+  (``ops/quant.py``, ``dot_q8``) hands on the bf16 product instead of
+  its int8 round-trip, while the policy still keeps the codes; phase
+  13b's ``save_dots_q8`` gate (its loss must differ from ``full``'s)
+  must fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -108,8 +123,9 @@ MUTANTS = [
       "flash_prefill oracle:", "prefill logits", "decode logits")),
     ("fp8_bf16_accumulator", "csrc/fp8_matmul.cu",
      "  return acc + part;",
-     f"  return {ROUND.format('acc + part')};", "train",
-     ("fp8_matmul:",)),
+     f"  return {ROUND.format('acc + part')};", "train_precision",
+     ("fp8_matmul:", "precision bench fp8_matmul",
+      "precision bench fp8_pallas step-0")),
     ("fa_fwd_bf16_rowsum", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float lsum_term(float p) { return p; }",
      "__device__ __forceinline__ float lsum_term(float p) { return "
@@ -124,7 +140,8 @@ MUTANTS = [
      "    if (j != 1 || q0 < S / 2) acc_rows(oacc, pa, vtile(j));   "
      "// O += P V", "train_pipeline",
      ("flash_attention_fwd:", "flash_attention_fwd oracle:",
-      "pipeline plain")),
+      "pipeline plain", "precision attention", "precision plain",
+      "precision bench attention")),
     ("fa_fwd_bf16_scores", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float fwd_score(float s, float scale) "
      "{ return s * scale; }",
@@ -157,8 +174,9 @@ MUTANTS = [
      "  const float s = amax > 0.f ? amax / 127.0f : 1.0f;", "int8_train",
      ("int8_matmul_fused:", "int8 step-0")),
     ("k5_dropped_k_block", "csrc/int8_matmul.cu",
-     "  return kb < nk;", "  return kb + 1 < nk;", "int8_train",
-     ("int8_matmul_fused:", "int8 step-0")),
+     "  return kb < nk;", "  return kb + 1 < nk;", "int8_train_precision",
+     ("int8_matmul_fused:", "int8 step-0", "precision step-0",
+      "precision bench int8_pallas_bwd step-0")),
     ("k5_scale_product", "csrc/int8_matmul.cu",
      "  return __float2bfloat16_rn((__int2float_rn(acc) * sx) * sw);",
      "  return __float2bfloat16_rn(__int2float_rn(acc) * (sx * sw));",
@@ -211,6 +229,9 @@ MUTANTS = [
      "__device__ __forceinline__ bool tile_in_sum(int kt, int nk) "
      "{ return kt + 1 < nk; }", "fsdp_train",
      ("ag_matmul:", "fsdp step-0")),
+    ("dot_q8_skipped", "ops/quant.py",
+     "        return dequantize(q, s, a.dtype)",
+     "        return torch.matmul(a, w)", "remat", ("remat save_dots_q8",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -258,6 +279,40 @@ c.attention_phase()
 c.fa_bwd_oracle_gate()
 c.train_parity_phase()
 c.pipeline_lm_parity_phase()
+try:
+    c.precision_parity_phase()
+    c.precision_bench_parity_phase()
+finally:
+    c.mesh.destroy_process_group()
+""", "train_precision": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.fp8_phase()
+c.train_parity_phase()
+try:
+    c.precision_bench_parity_phase()
+finally:
+    c.mesh.destroy_process_group()
+""", "remat": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.mesh.init_process_group("cuda")
+try:
+    c.remat_phase(c.card_line())
+finally:
+    c.mesh.destroy_process_group()
 """, "int8_train": """
 import torch
 import chip_smoke as c
@@ -269,6 +324,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 c.int8_gemm_phase()
 c.int8_train_parity_phase()
+""", "int8_train_precision": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.int8_gemm_phase()
+c.int8_train_parity_phase()
+try:
+    c.precision_parity_phase()
+    c.precision_bench_parity_phase()
+finally:
+    c.mesh.destroy_process_group()
 """, "int8_serve": """
 import numpy as np, torch
 import chip_smoke as c

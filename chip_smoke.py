@@ -2,9 +2,10 @@
 """Chip smoke of the PyTorch/CUDA port: the paged serving engine on
 SmolLM3-3B (bf16, and int8 weights over an int8 KV pool), the one-card
 trainer on SmolLM3-3B-L8 (fp8 and int8 projections), the FSDP trainer
-on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank), with the
-hand-written Hopper kernels, and DDP and ZeRO-1/2/3 on the ZeRO toy MLP
-(one NCCL rank).
+on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank; and with int8
+gathers, grads and Adam moments), with the hand-written Hopper kernels,
+DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules and the
+remat policies (one NCCL rank).
 
     python3 chip_smoke.py
 
@@ -110,7 +111,33 @@ Phases, each of which fails the run:
    last step;
 12. busbench — ``train.busbench.run`` on the one-rank group: every
    collective at 1, 16 and 128 MiB, bf16, the reference's schema and
-   sizing, each output a copy of its input (one rank measures no link).
+   sizing, each output a copy of its input (one rank measures no link);
+13. precision — on the same group: (a) SMOLLM3_3B_L8 at int8_pallas_bwd
+   with flash attention, seq 8192, batch 1, through the FSDP step with
+   int8 gathers, int8 grad reduce-scatters and int8 Adam moments: step
+   0 bit-equal to the plain int8 products, the flash kernels on the
+   step's own layer-0 attention inputs at FA's limits, the step against
+   plain attention (``PREC_PLAIN_*``), the gathered weights bit for bit
+   the int8 round-trip, launches and collectives exact (the latter
+   ``parallel.contracts.fsdp_quantized_step_collectives``), the int8
+   moments after two updates bit-equal to ``optim8.adam8_update`` on a CPU copy, the
+   update's time beside its byte bound; then 4 steps of
+   ``train_fsdp.run`` with those options (launches and collectives
+   exact, step 0 bit-equal to the parity's, the moments' bytes at rest
+   against bf16's, step time, MFU, peak, a profile of the last step);
+   (b) the same model at bf16 under each remat policy, one step after a
+   warm-up: the flash forward's launches (2·L, L under ``save_attn``),
+   ``save_attn`` and ``save_dots`` bit-equal to ``full``,
+   ``save_dots_q8``'s loss within ``REMAT_Q8_LOSS_RTOL`` and not closer
+   than ``REMAT_Q8_LOSS_MIN_RTOL``, its kept bytes at most
+   ``REMAT_Q8_SAVED_RATIO`` of ``save_dots``', each policy's peak and
+   step time; (c) ``train.precision_benchmark.run_one`` at seq 2048 for
+   bf16, int8_pallas_bwd and fp8_pallas (K6), each row's step 0 first
+   on its own inputs: the flash kernels on its layer-0 attention inputs
+   at FA's limits, int8 bit-equal to the plain products, K6 on the
+   row's operands at its tolerance and the step against the plain fp8
+   recipe; then the rows: the reference's row keys, step 0 bit-equal to
+   the parity's, launches exact.
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -166,13 +193,15 @@ from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.ops import busbench as BB
-from distributed_training_sandbox_tpu_torch.parallel import fsdp
+from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
-    step_collectives)
+    fsdp_quantized_step_collectives, step_collectives)
 from distributed_training_sandbox_tpu_torch.train import busbench as bb_run
 from distributed_training_sandbox_tpu_torch.train import ddp as ddp_run
 from distributed_training_sandbox_tpu_torch.train import flagship, train_fsdp
+from distributed_training_sandbox_tpu_torch.train import (
+    precision_benchmark as prec_bench)
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.utils import mesh
@@ -332,6 +361,66 @@ FA_BWD_PIPE_SEEDS = tuple(range(8))
 # phase 12, busbench: every collective at these payloads (MiB), bf16, on
 # the one-rank NCCL group
 BUSBENCH_MB = (1, 16, 128)
+# phase 13, the precision tier on the one-rank NCCL group.  (a) The FSDP
+# step with int8 gathers, int8 grad reduce-scatters and int8 Adam
+# moments: SMOLLM3_3B_L8 at int8_pallas_bwd (K5 forward, K4 backward),
+# flash attention, remat "full", seq 8192, batch 1, 4 steps of
+# train_fsdp.run.  Its step 0 against the same step with the plain int8
+# products (bit-equal: K5 and K4 are); the flash kernels on the step's
+# own layer-0 attention inputs and output grad against the plain
+# attention at FA's limits (FA.TOLERANCE, FA.BLOCK_REL_L2, FA.LSE_ATOL);
+# and the step against the plain int8 products with plain attention:
+# |loss difference| <= PREC_PLAIN_LOSS_ATOL, every grad leaf's relative
+# L2 error <= PREC_PLAIN_GRAD_REL_L2.  That last reading is mostly int8
+# codes flipped by the attention's last-bit differences: the sound
+# kernels read 4.4e-4 and 0.0824, the FA forward dropping a PV tile
+# 4.0e-4 and 0.0926 (chip_gate_mutation.py; PERF.md).  The grad limit
+# sits between the two; no mutant moves the loss past the sound
+# reading, so its limit is the pipeline gate's (PIPE_PLAIN_LOSS_ATOL)
+PREC_TRAIN = dict(model="smollm3-3b-l8", precision="int8_pallas_bwd",
+                  attention="flash", seq=8192, bs=1, num_steps=4, seed=42)
+PREC_CFG = train_fsdp.model_config(PREC_TRAIN["model"],
+                                   PREC_TRAIN["precision"],
+                                   PREC_TRAIN["attention"])
+PREC_PLAIN_LOSS_ATOL = PIPE_PLAIN_LOSS_ATOL
+PREC_PLAIN_GRAD_REL_L2 = 0.087
+# the FSDP step's Adam (its defaults) for the int8 moments' CPU check
+PREC_ADAM = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8)
+# (b) the remat policies: the same model at bf16 with flash attention,
+# one step after a warm-up under each policy.  save_dots_q8's loss
+# within rel REMAT_Q8_LOSS_RTOL of full's (the reference's tier,
+# tests/test_quant.py) and at least REMAT_Q8_LOSS_MIN_RTOL from it: the
+# sound round-trip reads 3.79e-5, a forward that skips it reads 0
+# (chip_gate_mutation.py's dot_q8_skipped; PERF.md).  Its saved bytes
+# (peak above the step's start, less full's) at most
+# REMAT_Q8_SAVED_RATIO of save_dots': int8 codes and f32 row scales
+# read 0.502; keeping the bf16 products, as save_dots does, reads 1.
+REMAT = dict(model="smollm3-3b-l8", seq=8192, bs=1, num_steps=1, seed=42)
+REMAT_Q8_LOSS_RTOL = 0.02
+REMAT_Q8_LOSS_MIN_RTOL = 4e-6
+REMAT_Q8_SAVED_RATIO = 0.6
+# (c) train.precision_benchmark.run_one at seq 2048, batch 1, 3 steps, for
+# each of these precisions (K6 runs in the fp8_pallas row).  Each row's
+# step 0 first, on its own inputs: the flash kernels on its layer-0
+# attention inputs at FA's limits; int8_pallas_bwd bit-equal to the
+# plain int8 products; fp8_pallas K6 on each projection's first operands
+# at K6's tolerance (Q.TOLERANCE), and the step against the plain fp8
+# recipe (flash attention on both sides): |loss difference| <=
+# PREC_BENCH_FP8_LOSS_ATOL, every grad leaf's relative L2 error <=
+# PREC_BENCH_FP8_GRAD_REL_L2; then the run's step-0 loss bit-equal to
+# the kernel path's.  At S 2048 the sound K6 reads 1.95e-3 and 0.2195
+# there, above the fp8 training phase's limits (S 8192: 1.188e-3,
+# 0.173): fewer tokens average fewer e4m3/e5m2 code flips.  K6 rounding
+# its accumulator to bf16 reads 1.41e-3 and 0.2736 (chip_gate_mutation.py;
+# PERF.md): the grad limit sits between; no mutant moves the loss past
+# the sound reading, so its limit is an end check
+PREC_BENCH = dict(model="smollm3-3b-l8", seq=2048, bs=1, num_steps=3,
+                  precisions=("bf16", "int8_pallas_bwd", "fp8_pallas"))
+PREC_BENCH_FP8_LOSS_ATOL = 2.5e-3
+PREC_BENCH_FP8_GRAD_REL_L2 = 0.24
+PREC_BENCH_KEYS = {"model", "precision", "sequence_length", "num_devices",
+                   "batch_size", "steps_per_second", "tokens_per_second",
+                   "tflops_per_device", "avg_loss", "peak_memory"}
 # One decode step's logits through the kernels vs the plain path, from
 # one pool state: max |difference| <= LOGIT_ATOL.  The kernels do the
 # plain path's operations in another summation order, so a few bf16
@@ -2761,6 +2850,594 @@ def busbench_phase(card: str) -> list[dict]:
     return doc["rows"]
 
 
+# ------------------------------------------------ phase 13: the precision tier
+
+def _prec_inputs(cfg, seed, seq, bs, num_steps):
+    """train_fsdp.run's shards (seeded init, this rank's rows) and first
+    global batch for ``cfg``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shards = fsdp.shard_params_fsdp(T.init_params(cfg, gen, "cuda"))
+    ib, lb = next(train_fsdp.fsdp_batches(cfg.vocab_size, seq, bs,
+                                          num_steps, seed))
+    return shards, (torch.as_tensor(ib, device="cuda"),
+                    torch.as_tensor(lb, device="cuda"))
+
+
+def _prec_expect(L: int) -> dict:
+    """The kernels one int8_pallas_bwd FSDP step launches (remat
+    "full"): K5 each projection's forward and its recompute, K4 its dX
+    and dW, the flash forward twice a layer and its backward once."""
+    return {"int8_matmul_fused": (Q.INT8_FUSED_COUNTS,
+                                  L * len(PROJECTIONS) * 2),
+            "int8_matmul": (Q.INT8_COUNTS, L * len(PROJECTIONS) * 2),
+            "flash_attention_fwd": (FA.FWD_COUNTS, L * 2),
+            "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+
+
+def _reset_kernel_counts():
+    for c in (Q.COUNTS, Q.BWD_COUNTS, Q.INT8_COUNTS, Q.INT8_FUSED_COUNTS,
+              FA.FWD_COUNTS, FA.BWD_COUNTS, C.COUNTS):
+        c.reset()
+    C.COLLECTIVES.reset()
+
+
+def _first_layer(tree):
+    """Layer 0 of every stacked leaf (``Q8`` moments field by field) and
+    the final norm: rows the int8 update treats alone, small enough for
+    the CPU."""
+    def cut(v):
+        if isinstance(v, optim8.Q8):
+            return optim8.Q8(v.q[:1], v.scale[:1])
+        return v[:1]
+    return {"layers": {k: cut(v) for k, v in tree["layers"].items()},
+            "final_norm": tree["final_norm"]}
+
+
+def _to(tree, device):
+    """A copy of a tree of tensors and ``Q8`` moments on ``device``."""
+    def leaf(t):
+        if isinstance(t, optim8.Q8):
+            return optim8.Q8(*(leaf(x) for x in t))
+        return t.detach().to(device, copy=True)
+    return fsdp.optim.tree_map(leaf, tree)
+
+
+def _adam8_readings(shards, grads) -> dict:
+    """The int8 moments on the card against ``optim8.adam8_update`` on a
+    CPU copy of the same params, grads and state, two updates (the second
+    dequantises the first's codes), compared on layer 0 of every stacked
+    leaf and the final norm; and the update's CUDA-event time on the
+    whole tree beside its byte bound and full-precision Adam's."""
+    params = _to(shards, "cuda")
+    state = fsdp.init_fsdp_opt_state8(params)
+    cpu_p = _to(_first_layer(params), "cpu")
+    cpu_g = _to(_first_layer(grads), "cpu")
+    cpu_s = optim8.adam8_init(cpu_p)
+    for _ in range(2):
+        optim8.adam8_update(grads, state, params, **PREC_ADAM)
+        optim8.adam8_update(cpu_g, cpu_s, cpu_p, **PREC_ADAM)
+    torch.cuda.synchronize()
+    card = _to({"p": _first_layer(params), "mu": _first_layer(state.mu),
+                "nu": _first_layer(state.nu)}, "cpu")
+    unequal = {}
+    for key, want in (("p", cpu_p), ("mu", cpu_s.mu), ("nu", cpu_s.nu)):
+        for path, a in fsdp.optim.tree_leaves(card[key]):
+            b = fsdp.optim.tree_get(want, path)
+            pairs = (zip(("q", "scale"), a, b) if isinstance(a, optim8.Q8)
+                     else (("", a, b),))
+            for field, x, y in pairs:
+                if not torch.equal(x, y):
+                    unequal["/".join((key, *path, field))] = int(
+                        (x != y).sum())
+    n_params = sum(t.numel() for _, t in fsdp.optim.tree_leaves(params))
+    # bytes: each param read and written (bf16), its grad read (bf16),
+    # each moment's code read and written and its row scale likewise
+    rows = sum(t.q.numel() // t.q.shape[-1] if isinstance(t, optim8.Q8)
+               else 0 for _, t in fsdp.optim.tree_leaves(state.mu))
+    b8 = n_params * (2 + 2 + 2 + 2 * 2) + rows * 2 * 2 * 4
+    full = fsdp.init_fsdp_opt_state(params)
+    bfull = n_params * (2 + 2 + 2 + 2 * 2 * 2)
+    ms8 = time_ms(lambda: optim8.adam8_update(grads, state, params,
+                                              **PREC_ADAM), iters=3, warmup=1)
+    msf = time_ms(lambda: fsdp.optim.adam_update(grads, full, params,
+                                                 **PREC_ADAM),
+                  iters=3, warmup=1)
+    del full
+    # why the update takes its square roots through optim8._sqrt: the
+    # CPU's vectorised torch.sqrt against the card's (correctly rounded)
+    gen = torch.Generator().manual_seed(SEED)
+    v = torch.rand(4_000_000, generator=gen) * 10.0 ** (
+        torch.rand(4_000_000, generator=gen) * 12 - 14)
+    card_root = torch.sqrt(v.cuda()).cpu()
+    sqrt_off = (int((torch.sqrt(v) != card_root).sum()),
+                int((optim8._sqrt(v) != card_root).sum()))
+    return {"unequal": unequal, "n_params": n_params, "sqrt_off": sqrt_off,
+            "adam8_ms": ms8, "adam8_bound_ms": b8 / HBM_BYTES_PER_S * 1e3,
+            "adam_ms": msf, "adam_bound_ms": bfull / HBM_BYTES_PER_S * 1e3,
+            "state8_bytes": optim8.state_bytes(state),
+            "state_full_bytes": 2 * 2 * n_params}
+
+
+def _prec_attention_reading(cap: dict) -> float:
+    """The flash forward and backward on a step's captured attention
+    inputs and output grad against the plain versions, at FA's limits
+    (``_fa_reading``): the largest gate ratio (<= 1 passes)."""
+    q, k, v, scale, do = (cap[n] for n in ("q", "k", "v", "scale", "do"))
+    o, lse = FA.flash_attention_fwd(q, k, v, scale)
+    ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+    _, r_o = _fa_reading("precision attention fwd", "O", o, ref_o, "fwd")
+    e_lse = float((lse - ref_lse).abs().max())
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    refs = FA.flash_attention_bwd_plain(q, k, v, do, scale)
+    r_g = [_fa_reading("precision attention bwd", n, g, r, "bwd")[1]
+           for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
+    ratio = max(r_o, e_lse / FA.LSE_ATOL, *r_g)
+    log(f"precision attention: layer 0 of the step (q {tuple(q.shape)}), "
+        f"logsumexp max_abs_err {e_lse:.3e} (atol {FA.LSE_ATOL}); gate "
+        f"ratio {ratio:.4f}")
+    return ratio
+
+
+def precision_parity_phase() -> float:
+    """Phase 13a's step-0 parity on the one-rank NCCL group (made here if
+    there is none, as torchrun would give it): the FSDP step with
+    quantised gathers and grads at int8_pallas_bwd through K5, K4 and the
+    flash kernels, against the same step with the plain int8 products
+    (bit-equal) and against the plain int8 products with plain attention
+    (``PREC_PLAIN_*``); the flash kernels on the step's own layer-0
+    attention inputs at FA's limits; the gathered weights bit for bit
+    the int8 round-trip; the launches and the collectives of the kernel
+    path; the int8 moments on the card against the CPU's.  Returns the
+    kernel path's loss."""
+    mesh.init_process_group("cuda")
+    p = PREC_TRAIN
+    L = PREC_CFG.num_hidden_layers
+    shards, batch = _prec_inputs(PREC_CFG, p["seed"], p["seq"], p["bs"],
+                                 p["num_steps"])
+    failures = []
+    for name, x in (("layers/wq[0]", shards["layers"]["wq"][0]),
+                    ("layers/w_down[0]", shards["layers"]["w_down"][0]),
+                    ("embed", shards["embed"])):
+        got = fsdp._gather_leaf(x, ("dp",), "dp", True)
+        want = Q.dequantize(*Q.quantize_int8(x, axis=-1), x.dtype)
+        if not torch.equal(got, want):
+            failures.append(f"precision gather: {name} is not the int8 "
+                            f"round-trip")
+    log(f"precision gather: layer and root leaves are the int8 round-trip "
+        f"bit for bit: {not failures}")
+    # the kernel path's first attention call (layer 0's forward): its
+    # inputs, and the grad its output receives in the backward
+    captured, flash = {}, T.flash_attention
+
+    def capture(q, k, v, scale):
+        o = flash(q, k, v, scale)
+        if "q" not in captured:
+            captured.update(q=q.detach().clone(), k=k.detach().clone(),
+                            v=v.detach().clone(), scale=scale)
+            o.register_hook(lambda g: captured.setdefault(
+                "do", g.detach().clone()))
+        return o
+    plain_cfg = dataclasses.replace(PREC_CFG, attention_impl="xla")
+    want_coll = fsdp_quantized_step_collectives(
+        shards, remat=PREC_CFG.remat, quantized_grads=True)
+    out = {}
+    for name, cfg, plain in (("kernel", PREC_CFG, False),
+                             ("plain int8", PREC_CFG, True),
+                             ("plain", plain_cfg, True)):
+        _reset_kernel_counts()
+        t = time.perf_counter()
+        vg = fsdp.make_fsdp_value_and_grad(shards, cfg, quantized_gather=True,
+                                           quantized_grads=True)
+        T.flash_attention = capture if name == "kernel" else flash
+        try:
+            with (Q.plain_int8_products() if plain
+                  else contextlib.nullcontext()):
+                loss, grads = vg(shards, batch)
+        finally:
+            T.flash_attention = flash
+        torch.cuda.synchronize()
+        counts = {k: (c.launches, c.plain_calls)
+                  for k, (c, _) in _prec_expect(L).items()}
+        coll = C.COLLECTIVES.read()
+        out[name] = (float(loss), grads)
+        log(f"precision parity: {name} loss {float(loss)!r} "
+            f"({time.perf_counter() - t:.1f} s); (launches, plain) "
+            f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
+        if name == "kernel":
+            for k, (_, per) in _prec_expect(L).items():
+                if counts[k] != (per, 0):
+                    failures.append(f"precision parity: {k} (launches, "
+                                    f"plain) {counts[k]} != ({per}, 0)")
+            if coll != want_coll:
+                failures.append(f"precision parity: collectives {coll} != "
+                                f"the contract's {want_coll}")
+    (lk, gk), (lp, gp), (lx, gx) = out["kernel"], out["plain int8"], \
+        out["plain"]
+    unequal = {}
+    for path, a in fsdp.optim.tree_leaves(gk):
+        b = fsdp.optim.tree_get(gp, path)
+        if not torch.equal(a, b):
+            unequal["/".join(path)] = float((a.float() - b.float()).abs()
+                                            .max())
+    rel = {}
+    for path, a in fsdp.optim.tree_leaves(gp):
+        b = fsdp.optim.tree_get(gx, path).float()
+        rel["/".join(path)] = float(torch.linalg.vector_norm(a.float() - b)
+                                    / torch.linalg.vector_norm(b))
+    worst = max(rel, key=rel.get)
+    log(f"precision step-0: loss kernel {lk!r} plain int8 {lp!r} (bit-equal "
+        f"{lk == lp}); grad leaves not bit-equal: {json.dumps(unequal)}")
+    log(f"precision plain: |loss flash - plain attention| {abs(lp - lx):.6f} "
+        f"(atol {PREC_PLAIN_LOSS_ATOL}); grad relative L2, worst leaf "
+        f"{worst} {rel[worst]:.5f} (limit {PREC_PLAIN_GRAD_REL_L2}); all "
+        f"leaves {json.dumps({k: round(v, 6) for k, v in rel.items()})}")
+    if not all(np.isfinite((lk, lp, lx))):
+        failures.append("precision step-0: non-finite loss")
+    if lk != lp or unequal:
+        failures.append(f"precision step-0: loss kernel {lk!r} vs plain int8 "
+                        f"{lp!r}, {len(unequal)} grad leaves not bit-equal")
+    if abs(lp - lx) > PREC_PLAIN_LOSS_ATOL:
+        failures.append(f"precision plain: |loss| {abs(lp - lx)} over "
+                        f"{PREC_PLAIN_LOSS_ATOL}")
+    if not rel[worst] <= PREC_PLAIN_GRAD_REL_L2:
+        failures.append(f"precision plain: {worst} relative L2 {rel[worst]} "
+                        f"over {PREC_PLAIN_GRAD_REL_L2}")
+    del out, gp, gx
+    torch.cuda.empty_cache()
+    ratio = _prec_attention_reading(captured)
+    if not ratio <= 1.0:
+        failures.append(f"precision attention: the flash kernels on the "
+                        f"step's layer-0 inputs against plain attention, "
+                        f"gate ratio {ratio:.3f}")
+    r = _adam8_readings(shards, gk)
+    log(f"precision adam8: card against the CPU after two updates, leaves "
+        f"not bit-equal (elements): {json.dumps(r['unequal'])}; square roots "
+        f"of 4 000 000 f32 draws off the card's: torch.sqrt on the CPU "
+        f"{r['sqrt_off'][0]}, optim8._sqrt {r['sqrt_off'][1]}")
+    log(f"precision adam8: {r['n_params']} params a rank; moments at rest "
+        f"int8 {r['state8_bytes']} bytes against bf16 "
+        f"{r['state_full_bytes']} ({r['state8_bytes'] / r['state_full_bytes']:.4f}); "
+        f"adam8_update {r['adam8_ms']:.3f} ms (byte bound "
+        f"{r['adam8_bound_ms']:.3f}, {r['adam8_ms'] / r['adam8_bound_ms']:.1f}x), "
+        f"adam_update {r['adam_ms']:.3f} ms (bound {r['adam_bound_ms']:.3f}, "
+        f"{r['adam_ms'] / r['adam_bound_ms']:.1f}x)")
+    if r["unequal"]:
+        failures.append(f"precision adam8: {len(r['unequal'])} leaves of the "
+                        f"card's update differ from the CPU's")
+    del shards, gk
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return lk
+
+
+def precision_train_phase(card: str, loss0: float) -> dict:
+    """Phase 13a's run: ``PREC_TRAIN["num_steps"]`` steps of
+    ``train_fsdp.run`` with quantised gathers and grads and int8 state:
+    launches exact, plain calls 0, every step's collectives the
+    contract's, the step-0 loss bit-equal to the parity's kernel path,
+    losses finite and falling; the state's bytes at rest, step time,
+    tokens/s, MFU, peak memory, and a profile of the last step.
+    Returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    p = PREC_TRAIN
+    L, n = PREC_CFG.num_hidden_layers, p["num_steps"]
+    expect = _prec_expect(L)
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(i, loss):
+        if i == n - 2:
+            prof.start()
+            marks["t"] = time.perf_counter()
+        elif i == n - 1:
+            marks["wall_us"] = (time.perf_counter() - marks["t"]) * 1e6
+            prof.stop()
+
+    res = train_fsdp.run(p["model"], precision=p["precision"],
+                         attention=p["attention"], batch_size=p["bs"],
+                         seq=p["seq"], num_steps=n, device="cuda",
+                         seed=p["seed"], quantized_gather=True,
+                         quantized_grads=True, state_precision="int8",
+                         on_step=on_step, log=log)
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    want = {k: n * per for k, (_, per) in expect.items()}
+    losses, times = res["losses"], res["step_times_s"]
+    steps = [b - a for a, b in zip([0.0] + times[:-1], times)]
+    step_s = statistics.median(steps[1:n - 1])
+    tok_s = p["seq"] * p["bs"] / step_s
+    flops_tok = res["model_flops_per_token"]
+    # the tree's shapes (drawn on the card, kept on the meta device)
+    shapes = T.init_params(PREC_CFG, torch.Generator(device="cuda"), "meta")
+    n_params = sum(t.numel() for _, t in fsdp.optim.tree_leaves(shapes))
+    full_bytes = 2 * 2 * n_params   # two bf16 moments
+    want_coll = fsdp_quantized_step_collectives(
+        shapes, remat=PREC_CFG.remat, quantized_grads=True)
+    log(f"precision train on {card}: losses {losses}; collectives a step "
+        f"{json.dumps(res['collectives'][-1])}")
+    log(f"precision train: step times (s, host clock, each ending in a "
+        f"sync) {steps}; median of steps 1-{n - 2} {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tokens/s, MFU {flops_tok * tok_s / PEAK_BF16_FLOPS:.4f}"
+        f"; peak memory {res['peak_memory_bytes'] / 2 ** 30:.3f} GiB; Adam "
+        f"moments at rest {res['opt_state_bytes']} bytes (int8) against "
+        f"{full_bytes} (bf16), ratio {res['opt_state_bytes'] / full_bytes:.4f}")
+    log(f"precision train launches (kernel, plain): {json.dumps(counts)}; "
+        f"expected kernel launches {json.dumps(want)}")
+    log(f"precision train: step-0 loss {losses[0]!r}, the parity phase's "
+        f"kernel path {loss0!r}, bit-equal {losses[0] == loss0}")
+    _step_profile(prof, marks["wall_us"], "precision train", n - 1)
+    check(losses[0] == loss0, f"precision train: step-0 loss {losses[0]!r} "
+          f"of the run is not the parity phase's {loss0!r}")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (want[name], 0),
+              f"precision train: {name} (launches, plain) "
+              f"{(launches, plain)} != ({want[name]}, 0)")
+    for i, c in enumerate(res["collectives"]):
+        check(c == want_coll, f"precision train: step {i} collectives {c} "
+              f"!= the contract's {want_coll}")
+    check(all(np.isfinite(losses)), f"precision train: non-finite loss in "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"precision train: step-{n - 1} loss "
+          f"{losses[-1]} is not below step-0 loss {losses[0]}")
+    return {k: v[0] for k, v in counts.items()}
+
+
+def remat_phase(card: str) -> dict:
+    """Phase 13b: SMOLLM3_3B_L8 at bf16 with flash attention on the
+    one-rank group, one FSDP value-and-grad after a warm-up under each
+    remat policy.  Gates: the flash forward's launches a step (2·L under
+    ``full``, ``save_dots`` and ``save_dots_q8``, whose policies keep only
+    the projections; L under ``save_attn``) and the backward's L, plain
+    calls 0; ``save_attn`` and ``save_dots`` bit-equal to ``full`` in loss
+    and grads; ``save_dots_q8``'s loss within rel ``REMAT_Q8_LOSS_RTOL``
+    of ``full``'s and not closer than ``REMAT_Q8_LOSS_MIN_RTOL``, and the
+    bytes it keeps beyond ``full``'s at most ``REMAT_Q8_SAVED_RATIO`` of
+    ``save_dots``'.  Logs each policy's step ms and its peak above the
+    step's start."""
+    cfg0 = train_fsdp.model_config(REMAT["model"])
+    L = cfg0.num_hidden_layers
+    shards, batch = _prec_inputs(cfg0, REMAT["seed"], REMAT["seq"],
+                                 REMAT["bs"], REMAT["num_steps"])
+    want_fwd = {"full": 2 * L, "save_attn": L, "save_dots": 2 * L,
+                "save_dots_q8": 2 * L}
+    rows, failures, ref = {}, [], None
+    for policy in T.REMAT_POLICIES:
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        vg = fsdp.make_fsdp_value_and_grad(shards, cfg)
+        vg(shards, batch)   # the warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        _reset_kernel_counts()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, grads = vg(shards, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = {"flash_attention_fwd": (FA.FWD_COUNTS.launches,
+                                            FA.FWD_COUNTS.plain_calls),
+                    "flash_attention_bwd": (FA.BWD_COUNTS.launches,
+                                            FA.BWD_COUNTS.plain_calls)}
+        rows[policy] = {"loss": float(loss), "ms": round(ms, 1),
+                        "peak_above_start_gib": round(peak / 2 ** 30, 3),
+                        "peak_bytes": peak, "launches": launches}
+        log(f"remat {policy} on {card}: loss {float(loss)!r}, step {ms:.1f} "
+            f"ms (host clock, one fwd+bwd), peak above the start "
+            f"{peak / 2 ** 30:.3f} GiB, FA (launches, plain) "
+            f"{json.dumps(launches)}")
+        if launches != {"flash_attention_fwd": (want_fwd[policy], 0),
+                        "flash_attention_bwd": (L, 0)}:
+            failures.append(f"remat {policy}: FA launches {launches} != "
+                            f"forward {want_fwd[policy]}, backward {L}")
+        if policy == "full":
+            ref = (float(loss), grads)
+            continue
+        if policy == "save_dots_q8":
+            rel = abs(float(loss) - ref[0]) / abs(ref[0])
+            saved = {k: (rows[k]["peak_bytes"] - rows["full"]["peak_bytes"])
+                     for k in ("save_dots", "save_dots_q8")}
+            ratio = saved["save_dots_q8"] / saved["save_dots"]
+            log(f"remat save_dots_q8: |loss - full| / full {rel:.3e} "
+                f"(limits {REMAT_Q8_LOSS_MIN_RTOL}, {REMAT_Q8_LOSS_RTOL}); "
+                f"bytes kept beyond full's {saved['save_dots_q8']} against "
+                f"save_dots' {saved['save_dots']}, ratio {ratio:.4f} (limit "
+                f"{REMAT_Q8_SAVED_RATIO})")
+            if not REMAT_Q8_LOSS_MIN_RTOL <= rel <= REMAT_Q8_LOSS_RTOL:
+                failures.append(f"remat save_dots_q8: loss rel {rel} "
+                                f"outside [{REMAT_Q8_LOSS_MIN_RTOL}, "
+                                f"{REMAT_Q8_LOSS_RTOL}]")
+            if not ratio <= REMAT_Q8_SAVED_RATIO:
+                failures.append(f"remat save_dots_q8: saved bytes ratio "
+                                f"{ratio} over {REMAT_Q8_SAVED_RATIO}")
+        else:
+            unequal = [("/".join(path)) for path, a in
+                       fsdp.optim.tree_leaves(grads)
+                       if not torch.equal(a, fsdp.optim.tree_get(ref[1],
+                                                                 path))]
+            log(f"remat {policy}: loss bit-equal to full's "
+                f"{float(loss) == ref[0]}; grad leaves not bit-equal "
+                f"{unequal}")
+            if float(loss) != ref[0] or unequal:
+                failures.append(f"remat {policy}: not bit-equal to full "
+                                f"({len(unequal)} grad leaves)")
+        del grads
+    del shards, ref
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return rows
+
+
+def _grad_rel_l2(ga, gb) -> dict:
+    """Each grad leaf's relative L2 distance of ``ga`` from ``gb``."""
+    out = {}
+    for path, a in fsdp.optim.tree_leaves(ga):
+        b = fsdp.optim.tree_get(gb, path).float()
+        out["/".join(path)] = float(torch.linalg.vector_norm(a.float() - b)
+                                    / torch.linalg.vector_norm(b))
+    return out
+
+
+def _bench_step0(cfg, shards, batch, plain: bool):
+    """One FSDP value-and-grad of a 13c row on its inputs: the kernel
+    path with the first layer's attention inputs and output grad and
+    K6's first operands at each projection shape captured, or (``plain``)
+    with the int8 products plain (``int8*``) or the plain fp8 recipe
+    (``fp8_pallas`` as ``fp8``).  Returns (loss, grads, captures)."""
+    flash, k6 = T.flash_attention, Q.fp8_matmul_kernel
+    att, ops = {}, {}
+
+    def capture(q, k, v, scale):
+        o = flash(q, k, v, scale)
+        if "q" not in att:
+            att.update(q=q.detach().clone(), k=k.detach().clone(),
+                       v=v.detach().clone(), scale=scale)
+            o.register_hook(lambda g: att.setdefault("do", g.detach()
+                                                     .clone()))
+        return o
+
+    def k6_capture(aq, a_s, bt, b_s, out_dtype=torch.bfloat16):
+        ops.setdefault((aq.shape[1], bt.shape[0]), tuple(
+            t.detach().clone() for t in (aq, a_s, bt, b_s)))
+        return k6(aq, a_s, bt, b_s, out_dtype)
+
+    if plain and cfg.matmul_precision == "fp8_pallas":
+        cfg = dataclasses.replace(cfg, matmul_precision="fp8")
+    vg = fsdp.make_fsdp_value_and_grad(shards, cfg)
+    if not plain:
+        T.flash_attention, Q.fp8_matmul_kernel = capture, k6_capture
+    try:
+        with (Q.plain_int8_products() if plain
+              else contextlib.nullcontext()):
+            loss, grads = vg(shards, batch)
+    finally:
+        T.flash_attention, Q.fp8_matmul_kernel = flash, k6
+    torch.cuda.synchronize()
+    return float(loss), grads, att, ops
+
+
+def precision_bench_parity_phase() -> dict:
+    """Phase 13c's gates, on each row's own inputs
+    (``prec_bench.row_inputs``) on the one-rank group, before the rows
+    run and uncounted: step 0 through the kernels against the plain
+    versions at the shapes the rows give them (``PREC_BENCH``'s
+    comment).  Returns each precision's kernel-path step-0 loss."""
+    b = PREC_BENCH
+    dev = mesh.init_process_group("cuda")
+    atol, rtol = Q.TOLERANCE[torch.bfloat16]
+    failures, loss0 = [], {}
+    for precision in b["precisions"]:
+        cfg, shards, batch = prec_bench.row_inputs(b["model"], precision,
+                                                   b["seq"], b["bs"], dev)
+        lk, gk, att, ops = _bench_step0(cfg, shards, batch, plain=False)
+        loss0[precision] = lk
+        ratio = _prec_attention_reading(att)
+        if not ratio <= 1.0:
+            failures.append(f"precision bench attention: {precision} row's "
+                            f"layer-0 inputs, gate ratio {ratio:.3f}")
+        if not np.isfinite(lk):
+            failures.append(f"precision bench {precision}: non-finite "
+                            f"step-0 loss")
+        for (K, N), (aq, a_s, bt, b_s) in sorted(ops.items()):
+            got = Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
+            ref = Q.fp8_matmul(aq, a_s, bt.t(), b_s, torch.bfloat16)
+            r = gate_ratio(got, ref, atol, rtol)
+            log(f"precision bench fp8_matmul ({aq.shape[0]}, {K}) x ({K}, "
+                f"{N}), the row's first operands: max_abs_err "
+                f"{float((got.float() - ref.float()).abs().max()):.3e}, gate "
+                f"ratio {r:.4f} (atol {atol}, rtol {rtol})")
+            if not r <= 1.0:
+                failures.append(f"precision bench fp8_matmul: ({K}, {N}) "
+                                f"gate ratio {r:.3f}")
+        if precision == "bf16":
+            log(f"precision bench {precision}: step-0 loss {lk!r}")
+            del gk, shards
+            continue
+        lp, gp, _, _ = _bench_step0(cfg, shards, batch, plain=True)
+        rel = _grad_rel_l2(gk, gp)
+        worst = max(rel, key=rel.get)
+        unequal = [k for k, v in rel.items() if v != 0.0]
+        log(f"precision bench {precision}: step-0 loss kernel {lk!r} plain "
+            f"{lp!r}; grad relative L2, worst leaf {worst} "
+            f"{rel[worst]:.5f}; all leaves "
+            f"{json.dumps({k: round(v, 6) for k, v in rel.items()})}")
+        if precision.startswith("int8"):
+            if lk != lp or any(not torch.equal(
+                    a, fsdp.optim.tree_get(gp, path))
+                    for path, a in fsdp.optim.tree_leaves(gk)):
+                failures.append(f"precision bench {precision} step-0: loss "
+                                f"{lk!r} vs plain {lp!r}, grad leaves not "
+                                f"bit-equal {unequal}")
+        else:
+            if ops.keys() != {(K, N) for _, K, N in PROJECTIONS}:
+                failures.append(f"precision bench fp8_matmul: captured "
+                                f"shapes {sorted(ops)}")
+            if abs(lk - lp) > PREC_BENCH_FP8_LOSS_ATOL:
+                failures.append(f"precision bench {precision} step-0: |loss "
+                                f"kernel - plain| {abs(lk - lp)} over "
+                                f"{PREC_BENCH_FP8_LOSS_ATOL}")
+            if not rel[worst] <= PREC_BENCH_FP8_GRAD_REL_L2:
+                failures.append(f"precision bench {precision} step-0: "
+                                f"{worst} relative L2 {rel[worst]} over "
+                                f"{PREC_BENCH_FP8_GRAD_REL_L2}")
+        del gk, gp, shards, ops, att
+        torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return loss0
+
+
+def precision_bench_phase(card: str, loss0: dict) -> tuple[list, dict]:
+    """Phase 13c: ``train.precision_benchmark.run_one`` at
+    ``PREC_BENCH``'s shapes for each of its precisions on the one-rank
+    group: the reference's row keys, no failure, finite losses, each
+    row's step-0 loss bit-equal to its kernel path's in
+    :func:`precision_bench_parity_phase` (``loss0``); the launches of K6
+    (fp8_pallas), K5 and K4 (int8_pallas_bwd) and the flash kernels
+    (every row) exact, plain calls 0.  Returns the rows and the launch
+    counts."""
+    b = PREC_BENCH
+    L = T.SMOLLM3_3B_L8.num_hidden_layers
+    per = len(PROJECTIONS) * L * 2 * b["num_steps"]
+    n_rows = len(b["precisions"])
+    expect = {"fp8_matmul": (Q.COUNTS, per),
+              "int8_matmul_fused": (Q.INT8_FUSED_COUNTS, per),
+              "int8_matmul": (Q.INT8_COUNTS, per),
+              "flash_attention_fwd": (FA.FWD_COUNTS,
+                                      2 * L * b["num_steps"] * n_rows),
+              "flash_attention_bwd": (FA.BWD_COUNTS,
+                                      L * b["num_steps"] * n_rows)}
+    _reset_kernel_counts()
+    rows = []
+    for precision in b["precisions"]:
+        first = {}
+        row = prec_bench.run_one(b["model"], precision, b["seq"],
+                                 b["num_steps"], b["bs"],
+                                 Path("build/precision"), device="cuda",
+                                 log=log, on_step=lambda i, loss, first=first:
+                                 first.setdefault(i, loss))
+        rows.append(row)
+        check(set(row) == PREC_BENCH_KEYS and "failure" not in row,
+              f"precision bench: row keys {sorted(row)}")
+        check(np.isfinite(row["avg_loss"]) and row["tokens_per_second"] > 0,
+              f"precision bench: {precision} row {row}")
+        check(first[0] == loss0[precision], f"precision bench: {precision} "
+              f"row's step-0 loss {first[0]!r} is not its parity's "
+              f"{loss0[precision]!r}")
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    log(f"precision bench on {card}: rows {json.dumps(rows)}")
+    log(f"precision bench launches (kernel, plain): {json.dumps(counts)}; "
+        f"expected {json.dumps({k: v for k, (_, v) in expect.items()})}")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (expect[name][1], 0),
+              f"precision bench: {name} (launches, plain) "
+              f"{(launches, plain)} != ({expect[name][1]}, 0)")
+    return rows, {k: v[0] for k, v in counts.items()}
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -3509,6 +4186,13 @@ def main(argv) -> int:
         loss0 = timed("pipeline parity", pipeline_lm_parity_phase)
         pp = timed("pipeline", pipeline_lm_phase, card, loss0)
         bus = timed("busbench", busbench_phase, card)
+        loss0 = timed("precision parity", precision_parity_phase)
+        prec = timed("precision train", precision_train_phase, card, loss0)
+        remat = timed("remat policies", remat_phase, card)
+        bench0 = timed("precision bench parity",
+                       precision_bench_parity_phase)
+        bench_rows, bench = timed("precision bench", precision_bench_phase,
+                                  card, bench0)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -3516,8 +4200,11 @@ def main(argv) -> int:
         mesh.destroy_process_group()
     # each kernel's launches on the main paths that run it, each path
     # read with its counts set to 0 just before it
+    precision = {k: prec.get(k, 0) + bench.get(k, 0)
+                 for k in {**prec, **bench}}
     paths = {"serve": launches, "int8 serve": q8, "train": fp8,
-             "int8 train": i8, "fsdp train": fs, "pipeline": pp}
+             "int8 train": i8, "fsdp train": fs, "pipeline": pp,
+             "precision": precision}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -3527,6 +4214,8 @@ def main(argv) -> int:
     log(f"ddp and zero readings on {card}: {json.dumps(ddp_zero)}")
     log(f"pipeline toy readings on {card}: {json.dumps(pipe_toy)}")
     log(f"busbench rows on {card} (one rank: copies): {json.dumps(bus)}")
+    log(f"remat policies on {card}: {json.dumps(remat)}")
+    log(f"precision bench rows on {card}: {json.dumps(bench_rows)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,16 @@ JAX pipeline's per-stage state into the port's stages in place.
 int8 decode params (``quantize_decode_params`` on either side) hold
 ``QuantizedWeight`` leaves, a NamedTuple ``(q, s)`` in both packages:
 they cross field for field, ``q`` as int8 and ``s`` as f32, whatever
-``cfg.dtype`` is, and ``unembed_q`` with them.
+``cfg.dtype`` is, and ``unembed_q`` with them.  int8 Adam moments
+(``parallel.optim8``) hold ``Q8`` leaves, a NamedTuple ``(q, scale)``
+in both packages, and cross the same way (:func:`adam_state_from_jax`,
+:func:`adam_state_to_numpy`, the pipeline's per-stage state).  One
+rank's FSDP state is one device's buffers of the reference's: read each
+leaf of the JAX state from that device's ``addressable_shards``, never
+through ``np.asarray``, which returns device 0's copy of a "replicated"
+leaf.  That matters for the scales of the leaves sharded along their
+last dim (ROADMAP.md C6), which differ from device to device;
+:func:`assemble_shards` keeps those one a rank, stacked.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch
 
 from .ops.quant import QuantizedWeight
 from .parallel.optim import AdamState, tree_leaves, tree_map, tree_unflatten
+from .parallel.optim8 import Q8
 
 
 def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -70,6 +80,11 @@ def _is_quantized(leaf) -> bool:
     return getattr(leaf, "_fields", None) == ("q", "s")
 
 
+def _is_q8(leaf) -> bool:
+    """An int8 moment of either package (a NamedTuple (q, scale))."""
+    return getattr(leaf, "_fields", None) == ("q", "scale")
+
+
 def params_from_jax(np_tree: dict, cfg, device=None) -> dict:
     """Reference params (a dict tree of numpy arrays, ``QuantizedWeight``
     leaves holding numpy arrays) → the port's params on ``device``
@@ -79,6 +94,9 @@ def params_from_jax(np_tree: dict, cfg, device=None) -> dict:
         if _is_quantized(a):
             return QuantizedWeight(_to_torch(a.q, torch.int8, device),
                                    _to_torch(a.s, torch.float32, device))
+        if _is_q8(a):
+            return Q8(_to_torch(a.q, torch.int8, device),
+                      _to_torch(a.scale, torch.float32, device))
         return _to_torch(a, cfg.dtype, device)
     return tree_map(leaf, np_tree)
 
@@ -90,6 +108,8 @@ def params_to_numpy(params: dict) -> dict:
     def leaf(t):
         if _is_quantized(t):
             return QuantizedWeight(_to_numpy(t.q), _to_numpy(t.s))
+        if _is_q8(t):
+            return Q8(_to_numpy(t.q), _to_numpy(t.scale))
         return _to_numpy(t)
     return tree_map(leaf, params)
 
@@ -97,7 +117,8 @@ def params_to_numpy(params: dict) -> dict:
 def adam_state_from_jax(mu: dict, nu: dict, count: int, cfg, device=None):
     """The reference's ``AdamState`` (its ``mu`` and ``nu`` as dict
     trees of numpy arrays, its ``count`` as an int) → the port's
-    ``parallel.optim.AdamState``, moments in ``cfg.dtype``."""
+    ``parallel.optim.AdamState``, moments in ``cfg.dtype``; ``Q8``
+    moments (``optim8``) as int8 codes and f32 scales."""
     return AdamState(mu=params_from_jax(mu, cfg, device),
                      nu=params_from_jax(nu, cfg, device), count=int(count))
 
@@ -120,15 +141,26 @@ def shards_from_jax(np_tree: dict, cfg, rank: int, world: int) -> dict:
 def assemble_shards(rank_trees: list) -> dict:
     """Every rank's shards as numpy trees, in rank order → the full
     numpy tree (dim 0 of plain leaves, dim 1 of stacked layer leaves
-    concatenated, as ``fsdp_specs`` shards them)."""
+    concatenated, as ``fsdp_specs`` shards them).  A ``Q8`` leaf (int8
+    moments) concatenates its codes so, and its scales too unless the
+    sharded dim is the last: those are one a rank (ROADMAP.md C6), and
+    come back stacked on a new leading rank axis."""
     from .parallel.fsdp import fsdp_specs
     specs = fsdp_specs(rank_trees[0])
+
+    def cat(leaves, dim):
+        return np.concatenate([np.asarray(t) for t in leaves], axis=dim)
 
     def walk(spec, leaves):
         if isinstance(spec, dict):
             return {k: walk(spec[k], [t[k] for t in leaves]) for k in spec}
-        return np.concatenate([np.asarray(t) for t in leaves],
-                              axis=len(spec) - 1)
+        dim = len(spec) - 1
+        if _is_q8(leaves[0]):
+            scales = [np.asarray(t.scale) for t in leaves]
+            last = dim == scales[0].ndim - 1
+            return Q8(cat([t.q for t in leaves], dim),
+                      np.stack(scales) if last else cat(scales, dim))
+        return cat(leaves, dim)
     return walk(specs, rank_trees)
 
 
@@ -178,7 +210,8 @@ def stack_residuals(rank_trees: list):
 def pipeline_stages_to_numpy(stages) -> list[dict]:
     """Each stage of a port pipeline (``parallel.pipeline``) as
     ``{"params", "mu", "nu", "count"}``: numpy trees in the reference's
-    layout and the Adam step count."""
+    layout (an ``opt8`` stage's moments with ``Q8`` leaves) and the Adam
+    step count."""
     return [{"params": params_to_numpy(s.params),
              "mu": params_to_numpy(s.opt_state.mu),
              "nu": params_to_numpy(s.opt_state.nu),
@@ -191,7 +224,8 @@ def load_pipeline_stages(stages, np_states: list[dict]) -> None:
     ``"params"`` and, optionally, its Adam ``"mu"``, ``"nu"`` and
     ``"count"`` (numpy trees, as ``np.asarray`` gives the reference's
     ``stage.params`` and ``stage.opt_state``); each leaf is copied in the
-    port leaf's dtype."""
+    port leaf's dtype, a ``Q8`` moment (an ``opt8`` stage) field by
+    field."""
     for stage, st in zip(stages, np_states, strict=True):
         with torch.no_grad():
             for key, tree in (("params", stage.params),
@@ -203,6 +237,8 @@ def load_pipeline_stages(stages, np_states: list[dict]) -> None:
                     a = st[key]
                     for k in path:
                         a = a[k]
-                    t.copy_(_to_torch(a, t.dtype, t.device))
+                    pairs = zip(t, a) if _is_q8(t) else ((t, a),)
+                    for dst, src in pairs:
+                        dst.copy_(_to_torch(src, dst.dtype, dst.device))
         if "count" in st:
             stage.opt_state = stage.opt_state._replace(count=int(st["count"]))

@@ -18,27 +18,34 @@ of ``hidden_states`` and ``lm_loss`` and the ``RingShard`` dispatch of
 ``_dense``.  Attention is ``"xla"`` (the plain
 ``_attention_xla``) or ``"flash"`` (the port's kernel,
 ``ops/flash_attention.py``); projections run at ``bf16``, the fp8
-recipe or the int8 recipe (``ops/quant.py``).  Ring attention, MoE and
-the other remat policies are later slices (ROADMAP.md queues A and
-B).
+recipe or the int8 recipe (``ops/quant.py``).  The remat policies
+(``resolve_remat_policy``) are the reference's four: ``"full"``,
+``"save_attn"``, ``"save_dots"`` and ``"save_dots_q8"``.  Ring
+attention, MoE and the activation offload are later slices (ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from ..ops import collectives as C
-from ..ops.flash_attention import attention_plain, flash_attention
-from ..ops.quant import QuantizedWeight, resolve_quantized_dense
+from ..ops.flash_attention import (ATTENTION_OP, attention_plain,
+                                   attention_saved, flash_attention)
+from ..ops.quant import QuantizedWeight, dot_q8, resolve_quantized_dense
 from ..utils.flops import get_model_flops_per_token
 
 _ROADMAP = ("not ported yet — see ROADMAP.md, queue A item 2 (model "
             "core) and queue B (precision kernels)")
+REMAT_POLICIES = ("full", "save_attn", "save_dots", "save_dots_q8")
 PRECISIONS = ("bf16", "fp8", "fp8_delayed", "fp8_pallas", "int8",
               "int8_pallas", "int8_bwd", "int8_pallas_bwd")
 
@@ -61,7 +68,10 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     remat: bool = True
     # "full" recomputes each layer in the backward (torch.utils.checkpoint
-    # around the layer); the reference's other policies are not ported
+    # around the layer); "save_attn" keeps the attention output, so its
+    # forward runs once; "save_dots" keeps the projection products'
+    # outputs; "save_dots_q8" keeps them as int8 codes and f32 scales
+    # (ops/quant.dot_q8), half save_dots' bytes (resolve_remat_policy)
     remat_policy: str = "full"
     # "xla" (the plain causal attention) | "flash" (the port's kernel);
     # the reference's "ring" needs the sequence-parallel slice
@@ -105,6 +115,9 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r}: not ported yet — see "
             f"ROADMAP.md, queue A item 10 (sequence parallelism)")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}; choose from "
+                         f"{REMAT_POLICIES}")
 
 
 # ------------------------------------------------------------------- init
@@ -198,10 +211,17 @@ def _dense(cfg: TransformerConfig):
     contraction dim) runs as the ring's collective matmul instead:
     ``all_gather_matmul``, or its kernel twin (K7) when the shard is
     marked ``impl="pallas"``; the precision does not apply to it, as in
-    the reference."""
+    the reference.
+
+    Under remat ``"save_dots_q8"`` each projection's output makes an int8
+    round-trip (``quantized_residual``, reference ``:446-447``) fused
+    with its product as one op (``ops.quant.dot_q8``), whose codes and
+    scales the policy keeps."""
     check_supported(cfg)
     base = resolve_quantized_dense(
         cfg.matmul_precision, fp8_history_len=cfg.fp8_amax_history_len)
+    if cfg.remat and cfg.remat_policy == "save_dots_q8":
+        base = dot_q8
 
     def dispatch(a, w):
         if isinstance(w, C.RingShard):
@@ -274,8 +294,12 @@ def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
     q, k, v = _qkv_proj(r, layer, cfg=cfg, cos=cos, sin=sin,
                         use_rope=use_rope)
     scale = 1.0 / math.sqrt(hd)
-    attend = flash_attention if cfg.attention_impl == "flash" \
-        else _attention_xla
+    if cfg.attention_impl == "flash":
+        attend = flash_attention
+    elif cfg.remat and cfg.remat_policy == "save_attn":
+        attend = attention_saved   # one op, so the policy can keep it
+    else:
+        attend = _attention_xla
     attn = attend(q, k, v, scale).to(x.dtype)
     x = x + _dense(cfg)(attn.reshape(B, S, cfg.num_attention_heads * hd),
                         layer["wo"])
@@ -283,22 +307,68 @@ def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
     return x + _mlp_block(r, layer, cfg=cfg)
 
 
-def resolve_remat_policy(cfg: TransformerConfig):
-    """``cfg.remat_policy`` → a wrapper ``(fn, *args) -> fn(*args)``.
-    ``"full"`` recomputes the whole layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant, with early stopping off,
-    so that every operation of the layer, its kernels included, runs
-    again in the backward)."""
-    if cfg.remat_policy != "full":
+def _saved_ops(cfg: TransformerConfig):
+    """The dispatcher ops whose outputs ``cfg.remat_policy`` keeps
+    (None: ``"full"``, keep none)."""
+    policy = cfg.remat_policy
+    if policy == "full":
+        return None
+    if policy == "save_attn":
+        return {ATTENTION_OP}
+    if cfg.matmul_precision != "bf16":
+        # the int8 and fp8_pallas projections launch kernels through
+        # ctypes, which no policy sees; fp8's plain recipe is no one op
         raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: not ported yet — see "
-            f"ROADMAP.md, queue A item 2 (the remat policies)")
+            f"remat_policy={policy!r} at matmul_precision="
+            f"{cfg.matmul_precision!r}: the policy keeps the bf16 "
+            f"projections only; not ported yet — see ROADMAP.md, queue A "
+            f"item A2 (the remat policies)")
+    if policy == "save_dots":
+        # dots with no batch dims: the (B·S, K) x (K, N) projections;
+        # attention's batched einsums are aten.bmm, not kept
+        return {torch.ops.aten.mm.default}
+    return {torch.ops.dtsb_torch.dot_q8.default}
 
-    def full(fn, *args):
+
+def resolve_remat_policy(cfg: TransformerConfig):
+    """``cfg.remat_policy`` → a wrapper ``(fn, *args) -> fn(*args)``
+    around one layer (the reference's mapping onto ``jax.checkpoint``
+    policies, ``:565-595``).  Each is ``torch.utils.checkpoint``,
+    non-reentrant, with early stopping off, so that every operation of
+    the layer not kept, its kernels included, runs again in the
+    backward.  ``"full"`` keeps nothing; the others are selective
+    checkpoints (``create_selective_checkpoint_contexts``) that keep the
+    outputs of named ops and recompute the rest:
+
+    * ``"save_attn"``: the attention op (``ATTENTION_OP``, the flash
+      kernel's or the plain one's), so the forward attention runs once;
+    * ``"save_dots"``: ``aten.mm``, the projections (bf16 only);
+    * ``"save_dots_q8"``: ``dtsb_torch::dot_q8``, each projection's int8
+      codes and f32 scales (bf16 only; see ``_dense``).
+
+    The recompute re-runs everything not kept: under ``save_dots`` and
+    ``save_dots_q8`` that includes the attention forward, as the
+    reference's policies do (its splash kernel is no dot and is not
+    named).  ``save_dots`` and ``save_dots_q8`` at the other precisions
+    raise.  The host offload of the kept activations (the reference's
+    ``offload_activations``) is not ported; ``parallel.fsdp`` refuses
+    its ``offload="opt_act"`` (A12)."""
+    check_supported(cfg)
+    saved = _saved_ops(cfg)
+    context_fn = None
+    if saved is not None:
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       policy)
+
+    def remat(fn, *args):
+        kw = {} if context_fn is None else {"context_fn": context_fn}
         with set_checkpoint_early_stop(False):
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
 
-    return full
+    return remat
 
 
 def hidden_states(params: dict, input_ids: torch.Tensor,

@@ -16,7 +16,11 @@ S as the reference has (``S % 128``): the kernels mask ragged tiles.
 
 Dispatch: CPU tensors take the plain version, forward and backward
 (counted in ``FWD_COUNTS.plain_calls`` and ``BWD_COUNTS.plain_calls``);
-CUDA tensors launch the kernels or raise.  ``FWD_COUNTS.launches`` counts
+CUDA tensors launch the kernels or raise.  The forward is one
+dispatcher op, ``dtsb_torch::attention_fwd`` (a
+``torch.library.custom_op`` with its backward registered), so that a
+selective-checkpoint policy can keep its output instead of launching it
+again in the recompute (the ``save_attn`` remat policy).  ``FWD_COUNTS.launches`` counts
 forward launches; ``BWD_COUNTS.launches`` counts backward launches, one
 per backward call (its three kernels: D, dK/dV, dQ).
 
@@ -67,7 +71,8 @@ import torch
 
 from ..kernels import LaunchCount, check_cuda_operands, launch, loader, ptr
 
-__all__ = ["flash_attention", "attention_plain", "attention_plain_lse",
+__all__ = ["flash_attention", "attention_saved", "ATTENTION_OP",
+           "attention_plain", "attention_plain_lse",
            "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_plain", "attention_oracle",
            "attention_bwd_oracle", "off_count", "oracle_l2_ratio",
@@ -267,42 +272,56 @@ def flash_attention_bwd(q, k, v, o, lse, dout, scale):
     return dq, dk, dv
 
 
-class _Flash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        return o
+@torch.library.custom_op(
+    "dtsb_torch::attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool kernel) "
+           "-> (Tensor, Tensor)")
+def _attention_fwd_op(q, k, v, scale, kernel):
+    """(O, logsumexp): the forward kernel when ``kernel`` and the
+    operands are on a card, else the plain version (counted)."""
+    if kernel and q.device.type == "cuda":
+        return flash_attention_fwd(q, k, v, scale)
+    return attention_plain_lse(q, k, v, scale)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, o, lse = ctx.saved_tensors
+
+def _attention_fwd_setup(ctx, inputs, output):
+    q, k, v, scale, kernel = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale, ctx.kernel = scale, kernel
+
+
+def _attention_fwd_backward(ctx, dout, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    if ctx.kernel and q.device.type == "cuda":
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout, ctx.scale)
-        return dq, dk, dv, None
+    else:
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, dout, ctx.scale)
+    return dq, dk, dv, None, None
 
 
-class _Plain(torch.autograd.Function):
-    """The CPU path: the plain forward, and a backward that counts as the
-    backward kernel's plain version."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return attention_plain(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        return (*flash_attention_bwd_plain(q, k, v, dout, ctx.scale), None)
+torch.library.register_autograd(
+    "dtsb_torch::attention_fwd", _attention_fwd_backward,
+    setup_context=_attention_fwd_setup)
+# the op a selective-checkpoint policy names to keep attention's output
+# (``models.transformer.resolve_remat_policy``, ``"save_attn"``)
+ATTENTION_OP = torch.ops.dtsb_torch.attention_fwd.default
 
 
 def flash_attention(q, k, v, scale: float):
     """Causal GQA attention (B, S, nq, hd) × (B, S, nkv, hd)² → (B, S,
     nq, hd); CPU tensors take the plain version, CUDA tensors the
-    kernels."""
-    if q.device.type == "cpu":
-        return _Plain.apply(q, k, v, scale)
-    return _Flash.apply(q, k, v, scale)
+    kernels.  One dispatcher op (``ATTENTION_OP``, with its backward
+    registered), so that a remat policy can save its output: the
+    kernel's ``ctypes`` launch is invisible to the dispatcher."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return torch.ops.dtsb_torch.attention_fwd(q, k, v, float(scale),
+                                              True)[0]
+
+
+def attention_saved(q, k, v, scale: float):
+    """The plain attention as the same dispatcher op (``ATTENTION_OP``,
+    ``kernel=False``) on any device: the form ``"xla"`` attention takes
+    under the ``save_attn`` remat policy, where its output must be one
+    op's.  Values and grads are :func:`attention_plain`'s."""
+    return torch.ops.dtsb_torch.attention_fwd(q, k, v, float(scale),
+                                              False)[0]

@@ -10,8 +10,15 @@ twin of ``int8_matmul_pallas``), the fused quantise-matmul
 (``int8_matmul_fused``, K5's plain version, and
 ``int8_matmul_fused_kernel``, the twin of ``int8_matmul_pallas_fused``),
 ``_int8_dot``, ``quantized_dense`` with the reference's custom VJP, the
-fp8 recipe (``:533-687``, K6 in ``csrc/fp8_matmul.cu``) and
-``resolve_quantized_dense`` for every name the port runs.
+fp8 recipe (``:533-687``, K6 in ``csrc/fp8_matmul.cu``),
+``resolve_quantized_dense`` for every name the port runs,
+``quantized_residual`` (the int8 round-trip with a straight-through
+backward; ``dot_q8`` fuses it with the projection for the
+``save_dots_q8`` remat policy) and the quantized collectives
+``quantized_all_gather``, ``quantized_all_reduce`` and
+``quantized_reduce_scatter`` (``:370-531``, autograd Functions over
+``ops/collectives.py`` with the reference's pinned backwards; no kernel
+in either package).
 
 **Which form of a quantizer.**  The reference divides by a constant
 (``amax / 127.0``, ``amax / fmax``), and XLA rewrites that division into
@@ -64,6 +71,7 @@ import numpy as np
 import torch
 
 from ..kernels import LaunchCount, check_cuda_operands, launch, loader, ptr
+from . import collectives as C
 
 __all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
            "dequantize", "f32_recip", "int_einsum_exact", "int8_matmul",
@@ -75,7 +83,9 @@ __all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
            "amax_history_update", "scale_from_history", "quantize_fp8",
            "quantize_fp8_kmajor",
            "fp8_matmul", "fp8_matmul_kernel", "fp8_dense",
-           "resolve_quantized_dense", "COUNTS", "BWD_COUNTS", "TOLERANCE"]
+           "resolve_quantized_dense", "COUNTS", "BWD_COUNTS", "TOLERANCE",
+           "quantized_residual", "dot_q8", "quantized_all_gather",
+           "quantized_all_reduce", "quantized_reduce_scatter"]
 
 
 def f32_recip(v: float) -> float:
@@ -650,3 +660,217 @@ def resolve_quantized_dense(precision: str, *, fp8_history_len: int = 0):
         return base_fn(a, w)
 
     return dense
+
+
+# ------------------------------------------------------- quantized residual
+
+class _QuantizedResidual(torch.autograd.Function):
+    """``quantized_residual``: the int8 round-trip forward, the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, y):
+        q, s = quantize_int8(y, axis=-1)
+        return dequantize(q, s, y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def quantized_residual(y: torch.Tensor) -> torch.Tensor:
+    """``y`` through an int8 round-trip along its last axis (per-row
+    absmax codes and f32 scales, dequantised to ``y``'s dtype), with a
+    straight-through (identity) backward: ``round``'s derivative is zero
+    almost everywhere, so the true one would null every gradient.  The
+    reference's ``checkpoint_name(·, "dot_q8")`` marks the codes and
+    scales for its ``save_dots_q8`` remat policy; here the policy saves
+    the outputs of :func:`dot_q8`, which is this round-trip fused with
+    the projection that produces ``y`` (``models.transformer``)."""
+    return _QuantizedResidual.apply(y)
+
+
+@torch.library.custom_op("dtsb_torch::dot_q8", mutates_args=(),
+                         schema="(Tensor a, Tensor w) -> (Tensor, Tensor)")
+def _dot_q8_op(a, w):
+    """``quantize_int8(a @ w, axis=-1)``: one dispatcher op, so that a
+    selective-checkpoint policy can keep its codes and scales and skip
+    the product in the recompute."""
+    return quantize_int8(torch.matmul(a, w), axis=-1)
+
+
+class _DotQ8(torch.autograd.Function):
+    """``quantized_residual(a @ w)`` on bf16 (or f32) operands: the
+    forward through :func:`_dot_q8_op`, the backward straight through the
+    round-trip and the product's own VJP."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        q, s = torch.ops.dtsb_torch.dot_q8(a, w)
+        return dequantize(q, s, a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        return (torch.einsum("...n,kn->...k", g, w),
+                torch.einsum("...k,...n->kn", a, g))
+
+
+def dot_q8(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``quantized_residual(a @ w)``, the projection of the
+    ``save_dots_q8`` remat policy (``models.transformer``): forward
+    values bit for bit the round-trip's; the policy saves the op's int8
+    codes and f32 scales, so the recompute neither keeps the bf16
+    output nor runs the product again."""
+    return _DotQ8.apply(a, w)
+
+
+# ---------------------------------------------------- quantized collectives
+#
+# The reference's EQuARX-style collectives (``ops/quant.py:370-531``):
+# int8 codes and f32 per-row scales on the wire, dequantised after it.
+# Each is an autograd Function with the reference's pinned backward.
+# The quantiser is the jitted form (the reference runs them inside its
+# jitted step).  Sums over ranks add the dequantised contributions in
+# rank order, one f32 addition a rank.
+
+def _sum_in_rank_order(t: torch.Tensor) -> torch.Tensor:
+    """``t[0] + t[1] + …`` along the leading (source-rank) axis."""
+    out = t[0]
+    for r in range(1, t.shape[0]):
+        out = out + t[r]
+    return out
+
+
+def _qag_value(x, axis_name, dim):
+    if x.ndim == 1:
+        # 1-D leaf: one scalar scale a shard, applied segment by segment
+        ws, n = C.axis_size(axis_name), x.shape[0]
+        q, s = quantize_int8(x.reshape(1, n), axis=-1)
+        qg = C.all_gather(q.reshape(n), axis_name, axis=0)
+        sg = C.all_gather(s.reshape(1), axis_name, axis=0)
+        return (qg.reshape(ws, n).float() * sg[:, None]).reshape(-1) \
+            .to(x.dtype)
+    # quantise along a dim that is not the gather dim, so that each
+    # shard's scales travel with its codes
+    qaxis = -1 if dim not in (x.ndim - 1, -1) else 0
+    q, s = quantize_int8(x, axis=qaxis)
+    qg = C.all_gather(q, axis_name, axis=dim)
+    sg = C.all_gather(s, axis_name, axis=dim)
+    return dequantize(qg, sg, x.dtype)
+
+
+class _QuantizedAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim, q8_bwd):
+        ctx.axis_name, ctx.dim, ctx.q8_bwd = axis_name, dim, q8_bwd
+        return _qag_value(x, axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the gathered output has x's dtype, so g's is x's
+        if ctx.q8_bwd:
+            gx = quantized_reduce_scatter(
+                g.float(), ctx.axis_name, axis=0 if g.ndim == 1 else ctx.dim)
+        else:
+            gx = C.reduce_scatter(g.float(), ctx.axis_name, axis=ctx.dim)
+        return gx.to(g.dtype), None, None, None
+
+
+def quantized_all_gather(x: torch.Tensor, axis_name="dp", axis: int = 0,
+                         q8_bwd: bool = False) -> torch.Tensor:
+    """All-gather a shard as int8 codes and f32 scales and dequantise
+    after the wire (the torchao fp8 all-gather twin): a 1-D ``x`` as one
+    scalar scale a shard, otherwise per row along the last dim (along
+    dim 0 when ``axis`` is the last).  The backward is a full-precision
+    f32 reduce_scatter cast back to ``x``'s dtype, or with ``q8_bwd``
+    :func:`quantized_reduce_scatter`.  At one rank it is still the
+    round-trip."""
+    return _QuantizedAllGather.apply(x, axis_name, axis, q8_bwd)
+
+
+def _qar_value(x, axis_name):
+    # rows are the last axis; a 0-D or 1-D x is one row with one scale
+    q, s = quantize_int8(x.reshape(1, -1) if x.ndim < 2 else x, axis=-1)
+    # two-shot: every rank's codes and scales on a new leading rank axis,
+    # dequantised and summed in rank order, the same on every rank
+    qg = C.all_gather(q, axis_name, axis=0, tiled=False)
+    sg = C.all_gather(s, axis_name, axis=0, tiled=False)
+    return _sum_in_rank_order(qg.float() * sg).reshape(x.shape).to(x.dtype)
+
+
+class _QuantizedAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        return _qar_value(x, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):   # psum's own transpose: a full-precision psum
+        return C.all_reduce(g, ctx.axis_name), None
+
+
+def quantized_all_reduce(x: torch.Tensor, axis_name="dp") -> torch.Tensor:
+    """EQuARX-style two-shot all-reduce: each rank's int8 codes and
+    per-row scales gathered (untiled), dequantised and summed in rank
+    order.  Within ``n_ranks · max_scale / 2`` of the full-precision sum,
+    element by element.  The backward is a full-precision all_reduce."""
+    return _QuantizedAllReduce.apply(x, axis_name)
+
+
+def _qrs_value(x, axis_name, axis):
+    n = C.axis_size(axis_name)
+    if x.ndim == 1:
+        # 1-D: one scalar scale a rank, the codes scattered by chunk
+        if x.shape[0] % n:
+            raise ValueError(f"quantized_reduce_scatter: dim of size "
+                             f"{x.shape[0]} not divisible by axis "
+                             f"{C.resolve_axis(axis_name).name!r} size {n}")
+        q, s = quantize_int8(x.reshape(1, -1), axis=-1)
+        qt = C.all_to_all(q.reshape(n, -1), axis_name, split_axis=0,
+                          concat_axis=0, tiled=False)
+        sg = C.all_gather(s.reshape(1), axis_name, axis=0, tiled=False)
+        return _sum_in_rank_order(qt.float() * sg).to(x.dtype)
+    axis = axis % x.ndim
+    if x.shape[axis] % n:
+        raise ValueError(f"quantized_reduce_scatter: dim {axis} of size "
+                         f"{x.shape[axis]} not divisible by axis "
+                         f"{C.resolve_axis(axis_name).name!r} size {n}")
+    q, s = quantize_int8(x, axis=-1 if axis != x.ndim - 1 else 0)
+
+    def route(t):
+        # the rank chunks of the scatter dim onto a new leading axis, then
+        # one untiled all_to_all: rank r holds every rank's chunk r, the
+        # leading axis indexing the source rank
+        c = t.shape[axis] // n
+        tr = t.reshape(t.shape[:axis] + (n, c) + t.shape[axis + 1:])
+        return C.all_to_all(tr.movedim(axis, 0), axis_name, split_axis=0,
+                            concat_axis=0, tiled=False)
+
+    return _sum_in_rank_order(route(q).float() * route(s)).to(x.dtype)
+
+
+class _QuantizedReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, axis):
+        ctx.axis_name, ctx.axis = axis_name, axis % max(x.ndim, 1)
+        return _qrs_value(x, axis_name, axis)
+
+    @staticmethod
+    def backward(ctx, g):   # the reduce_scatter's transpose: all_gather
+        dim = 0 if g.ndim == 1 else ctx.axis
+        return C.all_gather(g, ctx.axis_name, axis=dim), None, None
+
+
+def quantized_reduce_scatter(x: torch.Tensor, axis_name="dp",
+                             axis: int = 0) -> torch.Tensor:
+    """Two-shot quantised reduce-scatter (the FSDP grad-traffic leg):
+    each rank quantises its whole partial (per row along a dim other
+    than ``axis``), one untiled all_to_all each for the codes and the
+    scales routes chunk r of every rank to rank r, which dequantises and
+    sums them in source-rank order.  A 1-D ``x`` scatters its codes and
+    all_gathers one scalar scale a rank.  The same half-quantum bound as
+    :func:`quantized_all_reduce`; the backward is a full-precision
+    all_gather."""
+    return _QuantizedReduceScatter.apply(x, axis_name, axis)

@@ -3,10 +3,12 @@
 
 The port's copy of the JAX package's ``analysis/contracts.py`` formulas
 for these steps (``ddp``, ``ddp_bucketed``, ``ddp_q8``, ``zero1``,
-``zero2``, ``zero3``) and for the pipeline's stage programs (``gpipe``,
-``1f1b``), read as calls.  The CPU tests and ``chip_smoke.py`` hold the
-steps of ``parallel/ddp.py``, ``parallel/zero.py`` and
-``parallel/pipeline.py`` to them.
+``zero2``, ``zero3``), for the pipeline's stage programs (``gpipe``,
+``1f1b``) and for the FSDP step with quantised gathers
+(:func:`fsdp_quantized_step_collectives`), read as calls.  The CPU
+tests and ``chip_smoke.py`` hold the steps of ``parallel/ddp.py``,
+``parallel/zero.py``, ``parallel/pipeline.py`` and ``parallel/fsdp.py``
+to them.
 """
 
 from __future__ import annotations
@@ -68,4 +70,44 @@ def step_collectives(kind: str, n_leaves: int, param_bytes: int = 0, *,
                    all_gather=n if gather else 0, reduce_scatter=n)
     elif kind == "zero3":
         out.update(all_reduce=2, all_gather=2 * n - 1, reduce_scatter=n)
+    return out
+
+
+def fsdp_quantized_step_collectives(params: dict, *,
+                                    reshard_after_forward: bool = True,
+                                    remat: bool = True, accum_steps: int = 1,
+                                    quantized_grads: bool = False) -> dict:
+    """Every kind of ``CollectiveCounts.KINDS`` one FSDP step
+    (``parallel.fsdp.make_fsdp_train_step``) with ``quantized_gather``
+    at ``overlap="none"`` issues on the parameter tree ``params`` (full
+    or sharded: only the leaves' ranks count).
+
+    The root leaves are gathered once; with ``reshard_after_forward``
+    each stacked layer leaf is gathered inside each of the L layers,
+    with its layer dim gone, and once more in the backward's recompute
+    under ``remat``; without it each stacked leaf is gathered once,
+    whole.  A gathered leaf of two or more dims takes two
+    ``all_gather``s (codes, scales) and its backward one
+    ``reduce_scatter``, or with ``quantized_grads`` two ``all_to_all``s
+    (codes, scales); a 1-D leaf takes the plain gather and
+    reduce_scatter.  Each microbatch repeats the gathers and their
+    backwards; one ``all_reduce`` means the loss."""
+    layers = params["layers"]
+    L = next(iter(layers.values())).shape[0]
+    roots = [v.ndim for k, v in params.items() if k != "layers"]
+    if reshard_after_forward:
+        # (rank of the gathered leaf, forward gathers of the site)
+        sites = [(d, 1) for d in roots] + [
+            (v.ndim - 1, 2 if remat else 1) for v in layers.values()] * L
+    else:
+        sites = [(d, 1) for d in roots + [v.ndim for v in layers.values()]]
+    out = dict.fromkeys(CollectiveCounts.KINDS, 0)
+    out["all_reduce"] = 1
+    for ndim, fwd in sites:
+        q = ndim > 1
+        out["all_gather"] += (2 if q else 1) * fwd * accum_steps
+        if q and quantized_grads:
+            out["all_to_all"] += 2 * accum_steps
+        else:
+            out["reduce_scatter"] += accum_steps
     return out

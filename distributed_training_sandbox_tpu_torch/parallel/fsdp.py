@@ -18,13 +18,22 @@ grads from n - 1 hops); the ring_fused modes leave the 2-D projection
 weights sharded (``ops.collectives.RingShard``) and run their products
 as ``all_gather_matmul`` (``"ring_fused"``) or through K7
 (``"ring_fused_pallas"``).  Each rank takes its contiguous rows of the
-global batch, as the reference's ``P("dp")`` does.  Not ported:
-quantized gathers and grads, optimizer offload, sequence parallelism,
-int8 optimizer state and the auto (jit + sharding) variant; they raise.
+global batch, as the reference's ``P("dp")`` does.
 
-Without a process group the axis has one rank, every gather is the
-identity and the step is value-and-grad of ``lm_loss`` and Adam: the
-one-card flagship's step (``train/flagship.py``).
+The precision knobs: ``quantized_gather`` sends every leaf of two or
+more dims over the wire as int8 codes and f32 scales
+(``ops.quant.quantized_all_gather``; 1-D norm scales stay full
+precision), ``quantized_grads`` puts those gathers' backward
+reduce_scatter on int8 too (``quantized_reduce_scatter``), and
+``state_precision="int8"`` keeps Adam's moments int8 at rest
+(``parallel.optim8``, :func:`init_fsdp_opt_state8`).  Not ported:
+the optimizer and activation offload (``offload``, A12), sequence
+parallelism (A10) and the auto (jit + sharding) variant; they raise.
+
+Without a process group the axis has one rank, every plain gather is
+the identity (a quantised one the int8 round-trip) and the step is
+value-and-grad of ``lm_loss`` and Adam: the one-card flagship's step
+(``train/flagship.py``).
 """
 
 from __future__ import annotations
@@ -35,16 +44,16 @@ import torch
 
 from ..models import transformer as T
 from ..ops import collectives as C
+from ..ops.quant import quantized_all_gather
 from ..utils import mesh
-from . import optim
+from . import optim, optim8
 
 # the ROADMAP.md queue A item that holds each option not ported yet
-_ROADMAP_ITEMS = {"quantized_gather": "A7 (the precision tier)",
-                  "offload": "A12 (memory_plan/)",
-                  "sp_axis": "A10 (sequence parallelism)",
-                  "state_precision": "A3 (optim8)"}
+_ROADMAP_ITEMS = {"offload": "A12 (memory_plan/)",
+                  "sp_axis": "A10 (sequence parallelism)"}
 OVERLAP_MODES = ("none", "ring", "ring_fused", "ring_fused_pallas")
 OFFLOAD_MODES = ("none", "opt", "opt_act")
+STATE_PRECISIONS = ("full", "int8")
 
 
 def _keystr(path) -> str:
@@ -114,19 +123,36 @@ def init_fsdp_opt_state(params_sharded: dict,
     return optim.adam_init(params_sharded, state_dtype)
 
 
+def init_fsdp_opt_state8(params_sharded: dict) -> optim.AdamState:
+    """int8-at-rest Adam moments for the shards (``optim8.adam8_init``):
+    each rank quantises its own shard, per row along the last dim.  For
+    the stacked norm scales, sharded along that dim, each rank's scale
+    is its own (ROADMAP.md C6: the reference declares it replicated,
+    yet each device holds its own)."""
+    return optim8.adam8_init(params_sharded)
+
+
 # ---------------------------------------------------------------- explicit
 
-def _gather_leaf(x, spec, axis, overlap: str = "none", fuse_matmul=False):
+def _gather_leaf(x, spec, axis, quantized: bool = False,
+                 overlap: str = "none", fuse_matmul=False,
+                 quantized_grads: bool = False):
     """Gather a shard back to full size along its sharded dim (no-op for
-    leaves ``axis`` does not shard).  ``overlap="ring"``: through the
-    ring (``C.ring_all_gather``).  ``fuse_matmul`` (ring_fused modes,
-    layer-hook leaves only; False or the chunk-matmul impl name): a 2-D
-    projection weight sharded along its contraction dim is NOT gathered
-    but returned as a :class:`C.RingShard` for the model's collective
-    matmul."""
+    leaves ``axis`` does not shard).  ``quantized``: a leaf of two or
+    more dims goes over the wire as int8 codes and scales
+    (``quantized_all_gather``; 1-D leaves stay full precision, as
+    torchao casts only Linear weights), its backward reduce_scatter
+    quantised too under ``quantized_grads``.  ``overlap="ring"``:
+    through the ring (``C.ring_all_gather``).  ``fuse_matmul``
+    (ring_fused modes, layer-hook leaves only; False or the
+    chunk-matmul impl name): a 2-D projection weight sharded along its
+    contraction dim is NOT gathered but returned as a
+    :class:`C.RingShard` for the model's collective matmul."""
     name = mesh.resolve_axis(axis).name
     for dim, n in enumerate(spec):
         if n == name:
+            if quantized and x.ndim > 1:
+                return quantized_all_gather(x, axis, dim, quantized_grads)
             if fuse_matmul and x.ndim == 2 and dim == 0:
                 return C.RingShard(
                     x, axis, "pallas" if fuse_matmul == "pallas" else "xla")
@@ -183,7 +209,9 @@ def local_batch(batch, axis="dp"):
 
 def make_fsdp_value_and_grad(params_sharded: dict, cfg: T.TransformerConfig,
                              axis="dp", *, reshard_after_forward: bool = True,
-                             overlap: str = "none", accum_steps: int = 1):
+                             overlap: str = "none", accum_steps: int = 1,
+                             quantized_gather: bool = False,
+                             quantized_grads: bool = False):
     """``(shards, global batch) -> (loss, grad shards)``: the loss
     averaged over the ranks (one all_reduce) and the grads of the
     shards, summed over the ranks by the gathers' reduce_scatters and
@@ -196,20 +224,24 @@ def make_fsdp_value_and_grad(params_sharded: dict, cfg: T.TransformerConfig,
     fuse = {"ring_fused": "xla", "ring_fused_pallas": "pallas"}.get(
         overlap, False)
 
+    q, qg = quantized_gather, quantized_grads
+
     def layer_hook(layer):
-        return {k: _gather_leaf(v, hook_specs[k], ax, overlap, fuse)
+        return {k: _gather_leaf(v, hook_specs[k], ax, q, overlap, fuse, qg)
                 for k, v in layer.items()}
 
     def sharded_loss(shards, batch):
         # root leaves gathered up front; never matmul-fused (embed is a
         # lookup table, not a projection operand)
-        outer = {k: _gather_leaf(v, specs[k], ax, overlap)
+        outer = {k: _gather_leaf(v, specs[k], ax, q, overlap,
+                                 quantized_grads=qg)
                  for k, v in shards.items() if k != "layers"}
         if reshard_after_forward:
             return T.lm_loss({**outer, "layers": shards["layers"]}, batch,
                              cfg, layer_hook=layer_hook)
         # ZeRO-2: every layer gathered once, kept through the backward
-        full_layers = {k: _gather_leaf(v, layer_specs[k], ax, overlap)
+        full_layers = {k: _gather_leaf(v, layer_specs[k], ax, q, overlap,
+                                       quantized_grads=qg)
                        for k, v in shards["layers"].items()}
         return T.lm_loss({**outer, "layers": full_layers}, batch, cfg)
 
@@ -243,7 +275,9 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
     (``utils.mesh``).  The options are the reference's; see the module
     docstring.  ``lr_schedule(count)`` is evaluated on the optimiser's
     step counter before the update increments it.  The update runs in
-    place (``optim.adam_update``)."""
+    place: ``optim.adam_update``, or with ``state_precision="int8"``
+    ``optim8.adam8_update`` on the state of
+    :func:`init_fsdp_opt_state8`."""
     if overlap not in OVERLAP_MODES:
         raise ValueError(f"overlap={overlap!r}; choose from "
                          f"{OVERLAP_MODES}")
@@ -270,11 +304,11 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if offload not in OFFLOAD_MODES:
         raise ValueError(f"offload={offload!r}; choose from {OFFLOAD_MODES}")
-    for name, value, default in (("quantized_gather", quantized_gather, False),
-                                 ("offload", offload, "none"),
-                                 ("sp_axis", sp_axis, None),
-                                 ("state_precision", state_precision,
-                                  "full")):
+    if state_precision not in STATE_PRECISIONS:
+        raise ValueError(f"state_precision={state_precision!r}; choose "
+                         f"from {STATE_PRECISIONS}")
+    for name, value, default in (("offload", offload, "none"),
+                                 ("sp_axis", sp_axis, None)):
         if value != default:
             raise NotImplementedError(
                 f"{name}={value!r}: not ported yet — see ROADMAP.md, queue "
@@ -282,13 +316,16 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
     T.check_supported(cfg)
     value_and_grad = make_fsdp_value_and_grad(
         params_sharded, cfg, axis, reshard_after_forward=reshard_after_forward,
-        overlap=overlap, accum_steps=accum_steps)
+        overlap=overlap, accum_steps=accum_steps,
+        quantized_gather=quantized_gather, quantized_grads=quantized_grads)
+    update = (optim8.adam8_update if state_precision == "int8"
+              else optim.adam_update)
 
     def step(shards, opt_state, batch):
         loss, grads = value_and_grad(shards, batch)
         lr_t = lr_schedule(opt_state.count) if lr_schedule else lr
-        shards, opt_state = optim.adam_update(
-            grads, opt_state, shards, lr=lr_t, b1=b1, b2=b2, eps=eps)
+        shards, opt_state = update(grads, opt_state, shards, lr=lr_t, b1=b1,
+                                   b2=b2, eps=eps)
         return shards, opt_state, loss
 
     return step

@@ -79,12 +79,15 @@ def adam_init(params, state_dtype=None) -> AdamState:
 
 @torch.no_grad()
 def adam_update(grads, state: AdamState, params, *, lr=1e-3,
-                b1=0.9, b2=0.999, eps=1e-8):
+                b1=0.9, b2=0.999, eps=1e-8, lr_mults=None):
     """One Adam step; the reference's arithmetic: the moments in their
     own dtype, ``b·m + (1 - b)·g``; the step
-    ``lr · (m / bc1) / (sqrt(v / bc2) + eps)`` in f32 and the new
-    parameter rounded to its dtype.  In place (see the module
-    docstring); returns ``(params, new_state)``."""
+    ``(lr · mult) · (m / bc1) / (sqrt(v / bc2) + eps)`` in f32 and the
+    new parameter rounded to its dtype.  ``lr_mults``: a tree of
+    per-leaf multipliers of ``lr`` shaped like ``params`` (the slow MoE
+    router; grad scaling cannot do it, Adam divides it out), 1 when
+    None.  In place (see the module docstring); returns ``(params,
+    new_state)``."""
     count = state.count + 1
     c = torch.tensor(float(count))   # the bias corrections in f32
     bc1 = 1 - torch.tensor(b1) ** c
@@ -95,7 +98,9 @@ def adam_update(grads, state: AdamState, params, *, lr=1e-3,
         bc1, bc2 = bc1.to(p.device), bc2.to(p.device)
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)
-        step = (lr * (m.float() / bc1)) / (torch.sqrt(v.float() / bc2) + eps)
+        mult = 1.0 if lr_mults is None else tree_get(lr_mults, path)
+        step = ((lr * mult) * (m.float() / bc1)) / (
+            torch.sqrt(v.float() / bc2) + eps)
         p.copy_(p.float() - step)
     return params, AdamState(mu=state.mu, nu=state.nu, count=count)
 

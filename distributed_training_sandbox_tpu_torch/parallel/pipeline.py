@@ -27,7 +27,9 @@ Mechanics, and where they differ from the reference:
     overwrites it), so a step allocates no new grad buffers and the last
     step's grads stay readable (``grad_acc``);
   * each stage steps with ``optim.adam_update`` (in place), the
-    arithmetic of the reference's ``adam_step_donated``;
+    arithmetic of the reference's ``adam_step_donated``, or with
+    ``opt8`` on int8 moments with ``optim8.adam8_step`` (in place, its
+    ``adam8_step_donated``);
   * per-microbatch losses stay on the device until the step ends.
 
 GPipe (:func:`run_gpipe`): all forwards stage by stage, then all
@@ -45,8 +47,8 @@ index of its device in ``build_pipeline``'s list (stage ``s`` on
 index, so on the CPU, where every stage lives on ``cpu``, a list of D
 CPU devices still gives D logical devices.
 
-MoE stages (their aux losses) and int8 Adam moments (``opt8``) are not
-ported: ROADMAP.md queue A items A2 and A3.
+MoE stages (their aux losses) are not ported: ROADMAP.md queue A item
+A2.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ import torch
 from ..device import resolve_device
 from ..models.mlp import mlp_apply, mlp_apply_stage
 from ..utils.memory import MB, device_memory_stats, tree_size_bytes
-from . import optim
+from . import optim, optim8
 
 
 def split_stages(params: list, n_stages: int) -> list[list]:
@@ -84,14 +86,15 @@ def _mse(out, y, params):
 
 class PipelineStage:
     """One stage: a copy of its params on ``device`` (leaves that require
-    grad), its forward ``apply_fn(params, x)``, its Adam state and grad
-    buffer.  The last stage's ``loss_fn(out, y, params)`` (default: the
-    mean squared error) may read the stage params, as the transformer's
-    unembedding does."""
+    grad), its forward ``apply_fn(params, x)``, its Adam state (int8
+    moments with ``opt8``, ``optim8``) and grad buffer.  The last
+    stage's ``loss_fn(out, y, params)`` (default: the mean squared
+    error) may read the stage params, as the transformer's unembedding
+    does."""
 
     def __init__(self, stage_params, device, apply_fn: Callable = mlp_apply,
                  is_last: bool = False, loss_fn: Callable | None = None,
-                 logical_device: int = 0):
+                 logical_device: int = 0, opt8: bool = False):
         self.device = torch.device(device)
         self.logical_device = logical_device
         self.params = optim.tree_map(
@@ -101,7 +104,9 @@ class PipelineStage:
         self.apply_fn = apply_fn
         self.is_last = is_last
         self.loss_fn = loss_fn or _mse
-        self.opt_state = optim.adam_init(self.params)
+        self.opt8 = opt8
+        self.opt_state = (optim8.adam8_init(self.params) if opt8
+                          else optim.adam_init(self.params))
         self.grad_acc = None
         self._fresh = True       # the next accumulate overwrites grad_acc
         # high-water mark of stored microbatches (1F1B's ~n_stages
@@ -164,8 +169,12 @@ class PipelineStage:
         step (in place); nothing when none were."""
         if self._fresh:
             return
-        self.params, self.opt_state = optim.adam_update(
-            self.grad_acc, self.opt_state, self.params, lr=lr)
+        if self.opt8:
+            self.params, self.opt_state = optim8.adam8_step(
+                self.grad_acc, self.opt_state, self.params, lr)
+        else:
+            self.params, self.opt_state = optim.adam_update(
+                self.grad_acc, self.opt_state, self.params, lr=lr)
         self._fresh = True
 
     def memory_plan_mb(self) -> float:
@@ -175,8 +184,7 @@ class PipelineStage:
         has no torch counterpart; the port's stored graphs hold more than
         the inputs (PERF.md)."""
         state = (tree_size_bytes(self.params) * 2
-                 + tree_size_bytes(self.opt_state.mu)
-                 + tree_size_bytes(self.opt_state.nu))
+                 + optim8.state_bytes(self.opt_state))
         return (state + self.max_stored * _input_bytes(self)) / MB
 
 
@@ -199,13 +207,15 @@ def default_devices() -> list[torch.device]:
 def build_pipeline(params: list, n_stages: int,
                    devices: Sequence | None = None,
                    apply_fn: Callable | None = None,
-                   loss_fn: Callable | None = None) -> list[PipelineStage]:
+                   loss_fn: Callable | None = None,
+                   opt8: bool = False) -> list[PipelineStage]:
     """Split a layered model over ``n_stages`` stages, stage ``s`` on
     ``devices[s % len(devices)]`` (default: every card).  The default
     apply keeps the inter-stage ReLUs with their chunk
     (``mlp_apply_stage``); ``apply_fn`` is used as it is for every
     stage.  ``loss_fn(out, y)``: the last stage's loss (default: the
-    mean squared error)."""
+    mean squared error).  ``opt8``: int8 Adam moments a stage (the
+    reference builds such stages with ``PipelineStage(opt8=True)``)."""
     devs = [torch.device(d) for d in (devices if devices is not None
                                       else default_devices())]
     loss = (lambda out, y, p: loss_fn(out, y)) if loss_fn else None
@@ -215,7 +225,7 @@ def build_pipeline(params: list, n_stages: int,
         apply = apply_fn or partial(mlp_apply_stage, last_stage=is_last)
         stages.append(PipelineStage(chunk, devs[s % len(devs)], apply,
                                     is_last=is_last, loss_fn=loss,
-                                    logical_device=s % len(devs)))
+                                    logical_device=s % len(devs), opt8=opt8))
     return stages
 
 
@@ -233,17 +243,14 @@ def build_transformer_pipeline(params: dict, cfg, n_stages: int,
     untied: with one optimiser a stage the embedding would need a
     cross-stage grad sum every step, so the last stage gets its own
     ``lm_head``, ``embed.T`` copied into the ``(H, vocab)`` layout (or
-    the existing ``lm_head``)."""
+    the existing ``lm_head``).  ``opt8``: each stage steps on int8
+    Adam moments (``optim8``)."""
     from ..models import transformer as T
 
     if cfg.n_experts:
         raise NotImplementedError(
             f"n_experts={cfg.n_experts}: MoE stages are not ported yet — "
             "see ROADMAP.md, queue A item A2")
-    if opt8:
-        raise NotImplementedError(
-            "opt8: int8 Adam moments are not ported yet — see ROADMAP.md, "
-            "queue A item A3")
     L = cfg.num_hidden_layers
     if n_stages > L:
         raise ValueError(f"n_stages={n_stages} exceeds "
@@ -289,7 +296,7 @@ def build_transformer_pipeline(params: dict, cfg, n_stages: int,
             sp, devs[s % len(devs)],
             partial(apply, first=first, last=last, flags=flags[lo:hi]),
             is_last=last, loss_fn=lm_xent if last else None,
-            logical_device=s % len(devs)))
+            logical_device=s % len(devs), opt8=opt8))
     return stages
 
 

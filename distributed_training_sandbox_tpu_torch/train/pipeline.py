@@ -22,15 +22,16 @@ mean squared error) or a transformer staged by
 draws a fresh batch from one generator seeded with ``--seed`` + 1:
 randn inputs and targets for the toy, and for the transformer packed
 windows of ``--seq`` + 1 random tokens, inputs ``w[:-1]`` and labels
-``w[1:]``, as ``_pp_driver.py``'s.  The JSON printed (and written to
-``--results-file``) is ``PipeResult.as_dict()`` plus the shim's
-collectives against the ``gpipe`` / ``1f1b`` contract (zero of every
-kind), each epoch's step time and the memory of each card.
+``w[1:]``, as ``_pp_driver.py``'s.  ``--opt8`` keeps each stage's Adam
+moments int8 at rest (``parallel.optim8``).  The JSON printed (and
+written to ``--results-file``) is ``PipeResult.as_dict()`` plus the
+shim's collectives against the ``gpipe`` / ``1f1b`` contract (zero of
+every kind), each epoch's step time and the memory of each card.
 
-Not ported, with the ROADMAP.md queue A item that holds each: int8 Adam
-moments (``--opt8``, A3); resume, the supervisor and checkpoints, the
-prefetcher and the profiler (A8); ``evaluate_contract``'s verdict (A12;
-the shim's counts against ``parallel.contracts`` stand in for it).
+Not ported, with the ROADMAP.md queue A item that holds each: resume,
+the supervisor and checkpoints, the prefetcher and the profiler (A8);
+``evaluate_contract``'s verdict (A12; the shim's counts against
+``parallel.contracts`` stand in for it).
 """
 
 from __future__ import annotations
@@ -56,8 +57,6 @@ SCHEDULES = ("gpipe", "1f1b", "interleaved")
 MODELS = ("mlp",) + tuple(sorted(MODEL_REGISTRY))
 # ``_pp_driver.py``'s flags that this twin refuses: flag -> why
 NOT_PORTED = {
-    "opt8": "int8 Adam moments are not ported yet — see ROADMAP.md, "
-            "queue A item A3",
     "resume": "resume is not ported yet — see ROADMAP.md, queue A item A8",
     "checkpoint_dir": "checkpoints are not ported yet — see ROADMAP.md, "
                       "queue A item A8",
@@ -108,25 +107,26 @@ def epoch_batches(cfg, batch_size: int, seq: int, seed: int, device):
 
 
 def build_stages(model: str, schedule: str, n_stages: int,
-                 virtual_per_device: int, seed: int, device=None):
+                 virtual_per_device: int, seed: int, device=None,
+                 opt8: bool = False):
     """``(stages, cfg)``: the seeded model split over ``stage_devices``
-    (``cfg`` None for the toy)."""
+    (``cfg`` None for the toy); ``opt8``: int8 Adam moments."""
     devs = stage_devices(schedule, n_stages, virtual_per_device, device)
     gen = torch.Generator(device=devs[0]).manual_seed(seed)
     if model == "mlp":
         return PP.build_pipeline(mlp.pp_toy_mlp(gen, device=devs[0]),
-                                 n_stages, devices=devs), None
+                                 n_stages, devices=devs, opt8=opt8), None
     cfg = getattr(T, MODEL_REGISTRY[model])
     params = T.init_params(cfg, gen, devs[0])
     return PP.build_transformer_pipeline(params, cfg, n_stages,
-                                         devices=devs), cfg
+                                         devices=devs, opt8=opt8), cfg
 
 
 def run(schedule: str = "1f1b", *, model: str = "mlp", n_stages: int = 2,
         virtual_per_device: int = 2, n_micro: int = 4, lr: float = 1e-3,
         warmup_epochs: int = 0, num_epochs: int = 16, batch_size: int = 64,
-        seq: int = 256, seed: int = 42, device=None, on_step=None,
-        log=print) -> dict:
+        seq: int = 256, seed: int = 42, device=None, opt8: bool = False,
+        on_step=None, log=print) -> dict:
     """Train ``num_epochs`` pipeline steps of ``schedule``;
     ``on_step(epoch, loss)`` is called once each epoch's loss has
     reached the host.  Returns ``PipeResult.as_dict()`` plus
@@ -143,7 +143,7 @@ def run(schedule: str = "1f1b", *, model: str = "mlp", n_stages: int = 2,
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule={schedule!r}; choose from {SCHEDULES}")
     stages, cfg = build_stages(model, schedule, n_stages, virtual_per_device,
-                               seed, device)
+                               seed, device, opt8)
     cards = list(dict.fromkeys(s.device for s in stages
                                if s.device.type == "cuda"))
     start = {}
@@ -227,7 +227,8 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default=None,
                    help="default: the CUDA cards; 'cpu' for the CPU")
-    p.add_argument("--opt8", action="store_true", help="not ported (A3)")
+    p.add_argument("--opt8", action="store_true",
+                   help="int8 Adam moments at rest (parallel.optim8)")
     p.add_argument("--resume", action="store_true", help="not ported (A8)")
     for flag in ("checkpoint-dir", "max-restarts", "prefetch-depth",
                  "trace-dir"):
@@ -241,7 +242,7 @@ def main(argv=None) -> None:
               n_micro=args.n_micro, lr=args.lr,
               warmup_epochs=args.warmup_epochs, num_epochs=args.num_epochs,
               batch_size=args.batch_size, seq=args.seq, seed=args.seed,
-              device=args.device)
+              device=args.device, opt8=args.opt8)
     print(f"[{args.schedule}] {json.dumps(out)}", flush=True)
     if args.results_file:
         Path(args.results_file).write_text(json.dumps(out, indent=2))

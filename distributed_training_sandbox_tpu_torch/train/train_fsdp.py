@@ -6,6 +6,10 @@ package's ``scripts/train_fsdp.py`` (its explicit variant).
         --device cpu --model tiny
     python -m distributed_training_sandbox_tpu_torch.train.train_fsdp \\
         --model smollm3-3b-l8 --overlap ring_fused_pallas --num-steps 8
+    torchrun --nproc-per-node 4 -m \\
+        distributed_training_sandbox_tpu_torch.train.train_fsdp \\
+        --model smollm3-3b-l8 --precision int8_pallas_bwd --attention flash \\
+        --quantized-gather --quantized-grads --state-precision int8
 
 Each rank initialises the model from the seed, keeps its shards
 (``parallel.fsdp.shard_params_fsdp``) and trains them with AdamW at the
@@ -16,13 +20,20 @@ ranks come from its environment; run alone, it is one rank.  NCCL and
 the card by default, gloo with ``--device cpu``; the ring_fused_pallas
 products go through K7 on the card.  It prints the losses, the
 collectives each step issued (the shim ``ops.collectives.COLLECTIVES``),
-tokens/s and peak device memory.
+tokens/s, peak device memory and the Adam state's bytes at rest.
+
+``--remat-policy`` is the reference's flag (``models.transformer``'s
+four policies).  ``--quantized-gather``, ``--quantized-grads`` and
+``--state-precision {full,int8}`` plumb the options of the reference's
+``make_fsdp_train_step`` (int8 gathers, int8 grad reduce-scatters,
+int8 Adam moments at rest), which its script reaches only through
+``--auto-fit``; they add nothing the JAX package lacks.
 
 Not ported (ROADMAP.md): the memory planner (``--hbm-budget-gb``,
 ``--auto-fit``, the predicted waterline), ``--offload``, telemetry and
 the run manifest, collective contracts and the sharding-rules verdict,
-checkpoint and resume, the auto variant, profiling flags, the device
-prefetcher and step pump, and ``--remat-policy``.
+checkpoint and resume, the auto variant, profiling flags, and the
+device prefetcher and step pump.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from ..data import make_packed_dataset, packed_batches
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import fsdp
+from ..parallel import fsdp, optim8
 from ..utils import mesh
 
 PRECISIONS = ("bf16", "fp32", "int8", "int8_pallas", "int8_bwd",
@@ -48,12 +59,15 @@ PRECISIONS = ("bf16", "fp32", "int8", "int8_pallas", "int8_bwd",
 
 
 def model_config(model: str, precision: str = "bf16",
-                 attention: str | None = None) -> T.TransformerConfig:
+                 attention: str | None = None,
+                 remat_policy: str | None = None) -> T.TransformerConfig:
     """The run's config: int8 names set the projections' precision,
     ``fp32`` the dtype, as the reference script reads ``--precision``."""
     cfg = getattr(T, MODEL_REGISTRY[model])
     if attention:
         cfg = dataclasses.replace(cfg, attention_impl=attention)
+    if remat_policy:
+        cfg = dataclasses.replace(cfg, remat_policy=remat_policy)
     if precision.startswith("int8"):
         cfg = dataclasses.replace(cfg, matmul_precision=precision)
     elif precision == "fp32":
@@ -77,16 +91,20 @@ def run(model: str = "tiny", *, overlap: str = "none",
         batch_size: int | None = None, seq: int | None = None,
         num_steps: int = 20, attention: str | None = None,
         precision: str = "bf16", device=None, seed: int = 42,
+        remat_policy: str | None = None, quantized_gather: bool = False,
+        quantized_grads: bool = False, state_precision: str = "full",
         on_step=None, log=print) -> dict:
     """Train ``num_steps`` FSDP steps on this rank.  Joins (or makes)
     the process group (``utils.mesh.init_process_group``) and leaves it
     up.  ``on_step(i, loss)`` is called once each step's loss has
-    reached the host.  Returns the losses, each step's collective counts
-    and host-clock time, tokens/s and peak device memory (None on the
-    CPU)."""
+    reached the host.  ``quantized_gather``, ``quantized_grads`` and
+    ``state_precision`` are the reference step's options.  Returns the
+    losses, each step's collective counts and host-clock time, tokens/s,
+    peak device memory (None on the CPU) and the Adam moments' bytes at
+    rest on this rank."""
     dev = mesh.init_process_group(device)
     ws, rank = mesh.axis_size(), mesh.axis_rank()
-    cfg = model_config(model, precision, attention)
+    cfg = model_config(model, precision, attention, remat_policy)
     seq = seq or (256 if model == "tiny" else 8192)
     bs = batch_size or ws
     if bs % ws:
@@ -97,10 +115,14 @@ def run(model: str = "tiny", *, overlap: str = "none",
                          f"per-rank batch {bs // ws}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     shards = fsdp.shard_params_fsdp(T.init_params(cfg, gen, dev))
-    opt = fsdp.init_fsdp_opt_state(shards)
+    opt = (fsdp.init_fsdp_opt_state8(shards) if state_precision == "int8"
+           else fsdp.init_fsdp_opt_state(shards))
     step = fsdp.make_fsdp_train_step(
         shards, cfg, reshard_after_forward=reshard_after_forward,
-        overlap=overlap, accum_steps=accum_steps)
+        overlap=overlap, accum_steps=accum_steps,
+        quantized_gather=quantized_gather, quantized_grads=quantized_grads,
+        state_precision=state_precision)
+    state_bytes = optim8.state_bytes(opt)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if rank == 0:
@@ -108,7 +130,10 @@ def run(model: str = "tiny", *, overlap: str = "none",
             f"reshard_after_forward={reshard_after_forward} "
             f"accum_steps={accum_steps} batch={bs} seq={seq} "
             f"precision={precision} attention={cfg.attention_impl} "
-            f"device={dev}")
+            f"remat_policy={cfg.remat_policy} "
+            f"quantized_gather={quantized_gather} "
+            f"quantized_grads={quantized_grads} "
+            f"state_precision={state_precision} device={dev}")
     losses, counts, times = [], [], []
     t0 = time.perf_counter()
     batches = fsdp_batches(cfg.vocab_size, seq, bs, num_steps, seed)
@@ -134,11 +159,17 @@ def run(model: str = "tiny", *, overlap: str = "none",
     if rank == 0:
         log(f"[fsdp] tokens/s {tok_s:.1f} (global, host clock) peak "
             f"memory " + (f"{peak / 2 ** 30:.2f} GiB a rank" if peak is not
-                          None else "not measured (CPU)"))
+                          None else "not measured (CPU)")
+            + f"; Adam moments at rest {state_bytes} bytes a rank")
     return {"model": model, "world_size": ws, "overlap": overlap,
             "reshard_after_forward": reshard_after_forward,
             "accum_steps": accum_steps, "batch_size": bs,
             "sequence_length": seq, "precision": precision,
+            "remat_policy": cfg.remat_policy,
+            "quantized_gather": quantized_gather,
+            "quantized_grads": quantized_grads,
+            "state_precision": state_precision,
+            "opt_state_bytes": state_bytes,
             "device": str(dev), "losses": losses, "collectives": counts,
             "step_times_s": times, "tokens_per_second": tok_s,
             "peak_memory_bytes": peak,
@@ -159,6 +190,14 @@ def main(argv=None) -> None:
     p.add_argument("--num-steps", type=int, default=20)
     p.add_argument("--attention", choices=["xla", "flash"], default=None)
     p.add_argument("--precision", choices=PRECISIONS, default="bf16")
+    p.add_argument("--remat-policy", choices=T.REMAT_POLICIES, default=None)
+    p.add_argument("--quantized-gather", action="store_true",
+                   help="int8 codes and scales on the gathers' wire")
+    p.add_argument("--quantized-grads", action="store_true",
+                   help="the gathers' backward reduce-scatter in int8 too "
+                        "(needs --quantized-gather)")
+    p.add_argument("--state-precision", choices=fsdp.STATE_PRECISIONS,
+                   default="full", help="int8: Adam moments int8 at rest")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default=None,
                    help="default: the CUDA card (NCCL); 'cpu' for gloo and "
@@ -172,7 +211,11 @@ def main(argv=None) -> None:
                   accum_steps=args.accum_steps, batch_size=args.batch_size,
                   seq=args.sequence_length, num_steps=args.num_steps,
                   attention=args.attention, precision=args.precision,
-                  device=args.device, seed=args.seed)
+                  device=args.device, seed=args.seed,
+                  remat_policy=args.remat_policy,
+                  quantized_gather=args.quantized_gather,
+                  quantized_grads=args.quantized_grads,
+                  state_precision=args.state_precision)
         if args.out and mesh.axis_rank() == 0:
             Path(args.out).write_text(json.dumps(res))
         if mesh.axis_rank() == 0 and not all(np.isfinite(res["losses"])):

@@ -41,6 +41,8 @@ from distributed_training_sandbox_tpu.parallel import fsdp as JF
 from distributed_training_sandbox_tpu_torch import bridge
 from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import fsdp as PF
+from distributed_training_sandbox_tpu_torch.parallel.contracts import (
+    fsdp_quantized_step_collectives)
 
 REPO = Path(__file__).resolve().parent.parent
 WORLDS = (2, 4)
@@ -241,7 +243,9 @@ def test_ring_is_bitwise_none_and_pallas_is_bitwise_fused(world):
 
 
 def expected_counts(n: int, overlap: str, reshard: bool, accum: int,
-                    remat: bool, L: int = 4) -> dict:
+                    remat: bool, L: int = 4, *,
+                    quantized_gather: bool = False,
+                    quantized_grads: bool = False) -> dict:
     """The collectives one step issues, from the reference's contracts
     (``analysis/contracts.py``): ``fsdp`` (one gather and one
     reduce_scatter site per param leaf, one loss all_reduce), ``fsdp_ring``
@@ -253,7 +257,17 @@ def expected_counts(n: int, overlap: str, reshard: bool, accum: int,
     a step issues each layer site L times, its forward gathers and hops
     once more under remat, and everything but the loss mean once a
     microbatch.  Root leaves (embed, final_norm): 2; leaves a layer: 9,
-    of which 7 projections."""
+    of which 7 projections.  Quantised gathers (``quantized_gather``,
+    ``quantized_grads``) count as ``parallel.contracts`` derives them
+    (``fsdp_quantized_step_collectives``, at ``overlap="none"``) on
+    TINY_LM's tree."""
+    if quantized_gather:
+        assert overlap == "none", overlap
+        params = PT.init_params(dataclasses.replace(
+            PT.TINY_LM, num_hidden_layers=L), torch.Generator(), "meta")
+        return fsdp_quantized_step_collectives(
+            params, reshard_after_forward=reshard, remat=remat,
+            accum_steps=accum, quantized_grads=quantized_grads)
     root, layer, proj = 2, 9, 7
     fwd = 2 if remat else 1
     if not reshard:        # every stacked leaf gathered once, kept
@@ -314,10 +328,8 @@ def test_guards_raise_the_reference_messages(kw):
 
 def test_unported_options_and_bad_layouts_raise():
     pp = PT.init_params(PT.TINY_LM, torch.Generator().manual_seed(0), "cpu")
-    for kw in ({"quantized_gather": True},
-               {"quantized_gather": True, "quantized_grads": True},
-               {"offload": "opt"}, {"offload": "opt_act"},
-               {"sp_axis": "sp"}, {"state_precision": "int8"}):
+    for kw in ({"offload": "opt"}, {"offload": "opt_act"},
+               {"sp_axis": "sp"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PF.make_fsdp_train_step(pp, PT.TINY_LM, **kw)
     # the divisibility message is the reference's

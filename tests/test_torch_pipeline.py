@@ -419,8 +419,6 @@ def test_broken_layouts_and_configs_raise(inputs):
     with pytest.raises(NotImplementedError, match="A2"):
         PP.build_transformer_pipeline(
             p, dataclasses.replace(PCFG, n_experts=4), 2, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="A3"):
-        PP.build_transformer_pipeline(p, PCFG, 2, devices=["cpu"], opt8=True)
 
 
 def test_pipe_result_keys_are_the_references():
@@ -471,7 +469,5 @@ def test_twin_prints_the_result_json():
 
 def test_twin_refuses_what_is_not_ported():
     from distributed_training_sandbox_tpu_torch.train import pipeline as TP
-    with pytest.raises(NotImplementedError, match="A3"):
-        TP.main(["--device", "cpu", "--opt8"])
     with pytest.raises(NotImplementedError, match="A8"):
         TP.main(["--device", "cpu", "--resume"])

@@ -314,15 +314,16 @@ def test_forward_logits_match_jax():
 
 
 def test_unported_training_options_raise():
-    for cfg in (dataclasses.replace(PT.TINY_LM, remat_policy="save_dots"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PT.resolve_remat_policy(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.resolve_remat_policy(dataclasses.replace(
+            PT.TINY_LM, remat_policy="save_dots",
+            matmul_precision="int8_pallas"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.check_supported(dataclasses.replace(PT.TINY_LM,
                                                attention_impl="ring"))
     pp = PT.init_params(PT.TINY_LM, torch.Generator().manual_seed(0), "cpu")
-    for kw in ({"quantized_gather": True}, {"offload": "opt"},
-               {"state_precision": "int8"}):
+    for kw in ({"offload": "opt"}, {"offload": "opt_act"},
+               {"sp_axis": "sp"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PF.make_fsdp_train_step(pp, PT.TINY_LM, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
