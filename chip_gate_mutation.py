@@ -5,12 +5,12 @@
 
 Needs the card, as ``chip_smoke.py`` does.  For each mutant it copies
 the port and ``chip_smoke.py`` into ``build/gate_mutation/<mutant>/``,
-changes one line of one kernel source there, and runs the smoke's
+changes one line of one source there, and runs the smoke's
 phases that read that kernel on the copy, with every gate logged
-instead of raised.  Each mutant is a step of the reference's arithmetic
-left out or done in lower precision, so that its output stays close to
-the sound kernel's (one, ``dot_q8_skipped``, edits a Python module of
-the port instead):
+instead of raised.  Each kernel mutant is a step of the reference's
+arithmetic left out or done in lower precision, so that its output
+stays close to the sound kernel's (``dot_q8_skipped`` and the three
+resilience mutants edit a Python module of the port instead):
 
 - ``probs_rounding``: K1 and K3 skip the bf16 rounding of the
   normalised probabilities (``dts::round_to``); K3's bf16 kernel then
@@ -95,7 +95,18 @@ the port instead):
   (``ops/quant.py``, ``dot_q8``) hands on the bf16 product instead of
   its int8 round-trip, while the policy still keeps the codes; phase
   13b's ``save_dots_q8`` gate (its loss must differ from ``full``'s)
-  must fail.
+  must fail;
+- three of the resilience runtime (phase 14, the port's Python):
+  ``resume_cursor_skipped`` (``resilience/supervisor.py``: a resumed
+  run reads its batches from the start, not past its data cursor), whose
+  FSDP and DDP resumes must break (``resilience fsdp``, ``resilience
+  ddp``); ``adam_count_not_restored`` (``utils/checkpoint.py``: a
+  restore takes the host scalars, ``AdamState.count``, from the fresh
+  state), whose FSDP and ZeRO-3 resumes must break; and
+  ``ckpt_live_tensors`` (``utils/checkpoint.py``: an async save hands
+  the writer the live tensors instead of its snapshot, so the write
+  reads them after the next step's in-place update), whose DDP resume
+  from an async save (``resilience ddp crash``) must break.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -232,6 +243,18 @@ MUTANTS = [
     ("dot_q8_skipped", "ops/quant.py",
      "        return dequantize(q, s, a.dtype)",
      "        return torch.matmul(a, w)", "remat", ("remat save_dots_q8",)),
+    ("resume_cursor_skipped", "resilience/supervisor.py",
+     "        return self.restored.data_cursor if self.restored else 0",
+     "        return 0", "resilience",
+     ("resilience fsdp", "resilience ddp")),
+    ("adam_count_not_restored", "utils/checkpoint.py",
+     "            out[k] = got.to(v.device) if isinstance(v, torch.Tensor) "
+     "else got",
+     "            out[k] = got.to(v.device) if isinstance(v, torch.Tensor) "
+     "else v", "resilience", ("resilience fsdp", "resilience zero3")),
+    ("ckpt_live_tensors", "utils/checkpoint.py",
+     "            out[k] = buf", "            out[k] = v", "resilience",
+     ("resilience ddp crash",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -385,6 +408,19 @@ torch.backends.cudnn.allow_tf32 = False
 c.ag_matmul_phase()
 try:
     c.fsdp_train_parity_phase()
+finally:
+    c.mesh.destroy_process_group()
+""", "resilience": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+try:
+    c.resilience_phase(c.card_line())
 finally:
     c.mesh.destroy_process_group()
 """}

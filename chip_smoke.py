@@ -4,8 +4,9 @@ SmolLM3-3B (bf16, and int8 weights over an int8 KV pool), the one-card
 trainer on SmolLM3-3B-L8 (fp8 and int8 projections), the FSDP trainer
 on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank; and with int8
 gathers, grads and Adam moments), with the hand-written Hopper kernels,
-DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules and the
-remat policies (one NCCL rank).
+DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules, the
+remat policies and preempt → resume under the run harness (one NCCL
+rank).
 
     python3 chip_smoke.py
 
@@ -137,7 +138,27 @@ Phases, each of which fails the run:
    at FA's limits, int8 bit-equal to the plain products, K6 on the
    row's operands at its tolerance and the step against the plain fp8
    recipe; then the rows: the reference's row keys, step 0 bit-equal to
-   the parity's, launches exact.
+   the parity's, launches exact;
+14. resilience — on the same group, the run harness (supervisor, RunState
+   checkpoints over ``torch.distributed.checkpoint``, telemetry run,
+   profiler, prefetcher, async step pump): (a) ``train_fsdp.run`` as
+   phase 9 runs it (K7, the flash kernels), 6 steps with telemetry and
+   the profiler on (the third step traced), uninterrupted and then
+   preempted at step 3 (saves every 2 steps at the pump's sync points,
+   one restart): the stitched losses bit-equal to the uninterrupted
+   run's, K7's and FA's launches exact for each run and for the first
+   segment, plain calls 0, the manifest's lineage (resumed from step 2, a
+   preempted segment), every ``steps.jsonl`` line valid, checkpoint and
+   prefetch spans, a trace written; it prints each save's bytes (bf16
+   params, m and v), blocking and background ms, the restore's ms, the
+   async step ms and the tracker's tokens/s beside phase 9's sync ones,
+   and the traced step's idle share; (b) the ZeRO toy at full width:
+   ``train.ddp.run`` preempted at step 3 and crashed at step 5 (saves
+   every 2 steps), ``train.zero.run`` stage 3 preempted at step 3 of its
+   sharded leg: stitched losses and final params bit-equal to the
+   uninterrupted runs', ZeRO-3 bit-equal to its baseline Adam leg.
+   Checkpoints go under a temporary directory, removed after each run;
+   the free space is checked against the saves' bytes first.
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -172,6 +193,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -197,6 +219,8 @@ from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     fsdp_quantized_step_collectives, step_collectives)
+from distributed_training_sandbox_tpu_torch.resilience import (
+    generator_states)
 from distributed_training_sandbox_tpu_torch.train import busbench as bb_run
 from distributed_training_sandbox_tpu_torch.train import ddp as ddp_run
 from distributed_training_sandbox_tpu_torch.train import flagship, train_fsdp
@@ -204,7 +228,10 @@ from distributed_training_sandbox_tpu_torch.train import (
     precision_benchmark as prec_bench)
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
+from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
 from distributed_training_sandbox_tpu_torch.utils import mesh
+from distributed_training_sandbox_tpu_torch.utils.profiling import (
+    ProfileSchedule)
 from distributed_training_sandbox_tpu_torch.serving import engine as E
 from distributed_training_sandbox_tpu_torch.serving.accounting import (
     kv_bytes_per_step, tree_bytes, weight_read_bytes)
@@ -297,6 +324,24 @@ DDP_ZERO = dict(scale=1, num_steps=6, ddp_batch=32, zero_batch=16, seed=42)
 # written); Adam reads p, g, m, v and writes p, m, v (7 P); SGD reads p,
 # g and writes p (3 P); ZeRO-3 reads the weights once more, in the
 # backward's recompute
+# phase 14, resilience, on the same group: train_fsdp.run as phase 9 runs
+# it (SMOLLM3_3B_L8, ring_fused_pallas: K7; flash attention), 6 steps
+# under the supervisor with telemetry and the profiler (one traced step,
+# the third), async dispatch with a sync point every 2 steps, where the
+# saves of every 2 steps land; uninterrupted, then preempted at step 3
+RESILIENCE = dict(model="smollm3-3b-l8", overlap="ring_fused_pallas",
+                  seq=8192, bs=1, num_steps=6, seed=42, ckpt_every=2,
+                  sync_every=2, fault="preempt@3", fault_step=3, keep=3,
+                  profile=dict(skip_first=0, wait=2, warmup=0, active=1))
+# SMOLLM3_3B_L8's params: its bf16 Adam moments at rest read 3 550 617
+# 600 bytes on one card (PERF.md, PR 12), 2 x 2 bytes a param
+FSDP_PARAMS = 887_654_400
+# 14(b): the ZeRO toy at full width, as phase 10; DDP preempted at step 3
+# and crashed at step 5 (saves every 2 steps), ZeRO-3 preempted at step
+# 3 of its sharded leg
+RESILIENCE_TOY = dict(scale=1, num_steps=6, ddp_batch=32, zero_batch=16,
+                      seed=42, fault="preempt@3", crash="crash@5",
+                      zero_fault="preempt@3:sharded")
 STEP_BYTES_OVER_P = {"ddp": 3 + 3, "adam": 3 + 7, "zero1": 3 + 7,
                      "zero2": 3 + 7, "zero3": 4 + 7}
 # phase 11, the pipeline.  (a) The reference's PP toy at full width (50
@@ -1165,8 +1210,11 @@ def profile_phase(params, rng, engine=None, label="serve",
                   f"fewer than the window's {first + n}")
             return
         label += f", rounds {first}-{first + n - 1}"
+    # device-side entries only: a CPU op's entry repeats the device time
+    # of the kernels it launched (a profile of CPU and CUDA activity)
     dev = [(e.key, e.count, e.self_device_time_total)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
+           for e in prof.key_averages() if e.self_device_time_total > 0
+           and e.device_type != torch.autograd.DeviceType.CPU]
     busy_us = sum(d for _, _, d in dev)
     if not dev:
         log(f"profile ({label}): torch.profiler recorded no device time "
@@ -2065,8 +2113,11 @@ def train_parity_phase() -> float:
 def _step_profile(prof, wall_us, label, step) -> None:
     """Log one profiled step: the device's busy and idle share of its
     wall time and the kernels that take the most device time."""
+    # device-side entries only: a CPU op's entry repeats the device time
+    # of the kernels it launched (a profile of CPU and CUDA activity)
     dev = [(e.key, e.count, e.self_device_time_total)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
+           for e in prof.key_averages() if e.self_device_time_total > 0
+           and e.device_type != torch.autograd.DeviceType.CPU]
     busy_us = sum(d for _, _, d in dev)
     if not dev:
         log(f"{label} profile: torch.profiler recorded no device time (not "
@@ -2264,12 +2315,13 @@ def fsdp_train_parity_phase() -> float:
     return lk
 
 
-def fsdp_train_phase(card: str, loss0: float) -> dict:
+def fsdp_train_phase(card: str, loss0: float) -> tuple[dict, dict]:
     """``FSDP_TRAIN["num_steps"]`` steps of ``train_fsdp.run`` at
     ring_fused_pallas on the parity phase's process group: K7 and the
     flash attention's launch counts exact, plain counts 0, the losses
     finite and falling, step 0's loss bit-equal to the parity's K7 path;
-    the last step profiled.  Returns the launch counts."""
+    the last step profiled.  Returns the launch counts and the step's
+    readings (a host sync every step: ``step_ms``, ``tokens_per_s``)."""
     from torch.profiler import ProfilerActivity, profile
     L, n = FSDP_CFG.num_hidden_layers, FSDP_TRAIN["num_steps"]
     expect = {"ag_matmul": (C.COUNTS, L * len(PROJECTIONS) * 2),
@@ -2325,7 +2377,8 @@ def fsdp_train_phase(card: str, loss0: float) -> dict:
           f"{losses}")
     check(losses[-1] < losses[0], f"fsdp train: step-{n - 1} loss "
           f"{losses[-1]} is not below step-0 loss {losses[0]}")
-    return {k: v[0] for k, v in counts.items()}
+    return ({k: v[0] for k, v in counts.items()},
+            {"step_ms": step_s * 1e3, "tokens_per_s": tok_s})
 
 
 def _step_ms(step_s: list) -> float:
@@ -3438,6 +3491,266 @@ def precision_bench_phase(card: str, loss0: dict) -> tuple[list, dict]:
     return rows, {k: v[0] for k, v in counts.items()}
 
 
+# ------------------------------------------------ phase 14: resilience
+
+def _disk_check(label: str, directory: str, need: int) -> None:
+    """Fail, both numbers printed, when ``directory``'s file system has
+    less free space than the saves of a run need."""
+    free = shutil.disk_usage(directory).free
+    log(f"{label}: the saves need up to {need / 1e9:.2f} GB under "
+        f"{directory}, {free / 1e9:.2f} GB free")
+    check(free >= need, f"{label}: too little disk for the checkpoints: "
+          f"{need} bytes needed, {free} bytes free under {directory}")
+
+
+def _run_dirs(root: Path) -> list[Path]:
+    return sorted(p for p in root.iterdir() if p.is_dir()) \
+        if root.is_dir() else []
+
+
+def _saves_line(saves: list) -> str:
+    return "; ".join(
+        f"step {s['step']}: {s['bytes']} bytes, blocking "
+        f"{s['blocking_s'] * 1e3:.1f} ms, background "
+        + (f"{s['write_s'] * 1e3:.1f} ms" if s["write_s"] is not None
+           else "not measured") for s in saves)
+
+
+def _harness(root: Path, tag: str, **kw):
+    """The run harness's config for one leg of phase 14: run directories
+    and traces under ``root``; ``kw`` the leg's own options."""
+    return quiet_config(telemetry=True, results_dir=str(root / "runs" / tag),
+                        trace_dir=str(root / "traces" / tag), **kw)
+
+
+def _fsdp_resilience(card: str, root: Path, sync: dict) -> dict:
+    """14(a): ``train_fsdp.run`` at ``ring_fused_pallas`` with flash
+    attention, uninterrupted and preempted at step 3, telemetry and the
+    profiler on."""
+    from distributed_training_sandbox_tpu_torch.telemetry.schema import (
+        validate_step)
+    from distributed_training_sandbox_tpu_torch.telemetry.spans import (
+        read_spans)
+    r = RESILIENCE
+    L, n = FSDP_CFG.num_hidden_layers, r["num_steps"]
+    per = {"ag_matmul": (C.COUNTS, L * len(PROJECTIONS) * 2),
+           "flash_attention_fwd": (FA.FWD_COUNTS, L * 2),
+           "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+    pbytes = 2 * FSDP_PARAMS          # bf16 params
+    need = (r["keep"] + 1) * 3 * pbytes   # params, m and v, keep + 1 steps
+    _disk_check("resilience fsdp", str(root), need)
+    kw = dict(overlap=r["overlap"], attention="flash",
+              batch_size=r["bs"], seq=r["seq"], num_steps=n,
+              device="cuda", seed=r["seed"], log=log,
+              profile_schedule=ProfileSchedule(**r["profile"]))
+    runs = {}
+    for tag, fault in (("whole", {}), ("preempted", dict(
+            checkpoint_dir=str(root / "ck-fsdp"),
+            checkpoint_every=r["ckpt_every"], inject_fault=r["fault"],
+            max_restarts=1))):
+        for c, _ in per.values():
+            c.reset()
+        seg1 = {}
+
+        def on_step(i, loss, seg1=seg1):
+            if i == r["fault_step"] - 1:   # resolved at segment 1's drain
+                seg1.update({k: c.launches for k, (c, _) in per.items()})
+
+        cfg = _harness(root, f"fsdp-{tag}", profile=True, dispatch="async",
+                       sync_every=r["sync_every"], **fault)
+        t = time.perf_counter()
+        res = train_fsdp.run(r["model"], config=cfg, on_step=on_step, **kw)
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t
+        res["counts"] = {k: (c.launches, c.plain_calls)
+                         for k, (c, _) in per.items()}
+        res["seg1"] = seg1
+        runs[tag] = res
+        shutil.rmtree(root / "ck-fsdp", ignore_errors=True)
+    whole, cut = runs["whole"], runs["preempted"]
+    log(f"resilience fsdp on {card}: uninterrupted losses {whole['losses']}"
+        f"; preempted at step {r['fault_step']} and resumed "
+        f"{cut['losses']} (status {cut['status']}, this segment from step "
+        f"{cut['start_step']})")
+    check(cut["status"] == "completed" and cut["start_step"]
+          == r["fault_step"], f"resilience fsdp: the run did not resume at "
+          f"step {r['fault_step']} ({cut['status']}, {cut['start_step']})")
+    check(cut["losses"] == whole["losses"], f"resilience fsdp: stitched "
+          f"losses {cut['losses']} are not the uninterrupted run's "
+          f"{whole['losses']} bit for bit")
+    for tag, res in runs.items():
+        want = {k: (n * p, 0) for k, (_, p) in per.items()}
+        log(f"resilience fsdp {tag} launches (kernel, plain) "
+            f"{json.dumps(res['counts'])}, expected {json.dumps(want)}; "
+            f"segment 1 {json.dumps(res['seg1'])}")
+        check(res["counts"] == want, f"resilience fsdp {tag}: launches "
+              f"{res['counts']} != {want}")
+    want1 = {k: r["fault_step"] * p for k, (_, p) in per.items()}
+    check(cut["seg1"] == want1, f"resilience fsdp: segment 1 launched "
+          f"{cut['seg1']}, its {r['fault_step']} steps take {want1}")
+    # the run directories: lineage, schema, spans, trace
+    dirs = _run_dirs(root / "runs" / "fsdp-preempted")
+    mans = [json.loads((d / "manifest.json").read_text()) for d in dirs]
+    lin = mans[-1].get("lineage") or {}
+    segs = lin.get("segments") or []
+    log(f"resilience fsdp lineage: resumed_from_step "
+        f"{lin.get('resumed_from_step')}, segments {json.dumps(segs)}; "
+        f"manifest card {mans[-1].get('card')!r}, torch "
+        f"{mans[-1].get('torch_version')}, CUDA "
+        f"{mans[-1].get('cuda_version')}, NCCL {mans[-1].get('nccl_version')}")
+    check(len(dirs) == 2 and lin.get("resumed_from_step")
+          == r["fault_step"] - 1 and any(s.get("status") == "preempted"
+                                         for s in segs),
+          f"resilience fsdp: lineage {lin} in {len(dirs)} run directories")
+    bad, spans = [], []
+    for d in dirs + _run_dirs(root / "runs" / "fsdp-whole"):
+        for line in (d / "steps.jsonl").read_text().splitlines():
+            bad += validate_step(json.loads(line))
+        spans += [sp["name"] for sp in read_spans(str(d))]
+    check(not bad, f"resilience fsdp: steps.jsonl lines fail the schema: "
+          f"{bad[:5]}")
+    names = set(spans)
+    log(f"resilience fsdp spans: {sorted(names)}")
+    check({"checkpoint/save", "prefetch/wait", "prefetch/stage"} <= names,
+          f"resilience fsdp: spans.jsonl lacks checkpoint or prefetch "
+          f"spans: {sorted(names)}")
+    prof = whole["profiler"]
+    check(prof is not None and prof.trace_files and all(
+        Path(f).is_file() for f in prof.trace_files),
+        "resilience fsdp: the profiler wrote no trace")
+    _step_profile(prof.last_profile, prof.windows[-1] * 1e6,
+                  "resilience fsdp async", r["profile"]["wait"])
+    # saves, restore, async against sync
+    saves = cut["saves"]
+    log(f"resilience fsdp saves on {card} (predicted "
+        f"{3 * pbytes / 1e9:.3f} GB each: bf16 params, m and v): "
+        f"{_saves_line(saves)}; restore "
+        f"{[round(x * 1e3, 1) for x in cut['restore_s']]} ms")
+    # params, m and v (the moments in the params' dtype), and the seed's
+    # generator state
+    state = whole["opt_state_bytes"] * 3 // 2 + sum(
+        t.numel() for t in generator_states(
+            {"params": r["seed"]}, whole["device"]).values())
+    check(saves and all(s["bytes"] == state for s in saves),
+          f"resilience fsdp: a save wrote {[s['bytes'] for s in saves]} "
+          f"bytes, not {state} (params, m, v and the generator state)")
+    # steps 4 and 5 between two full sync points (steps 3 and 5), after
+    # the traced step: the async per-step time on the host clock
+    times = whole["step_times_s"]
+    async_ms = (times[n - 1] - times[n - 3]) / 2 * 1e3
+    tr = whole["tracker"] or {}
+    log(f"resilience fsdp on {card}: async step {async_ms:.1f} ms (steps "
+        f"{n - 2}-{n - 1} between the pump's sync points at steps {n - 3} "
+        f"and {n - 1}, host clock; host syncs {whole['host_syncs']}; "
+        f"the whole run {whole['wall_s']:.3f} s), tracker tokens/s "
+        f"{tr.get('tokens_per_second', float('nan')):.1f}, TFLOP/s a "
+        f"device {tr.get('tflops_per_device', float('nan')):.2f}; sync "
+        f"(phase 9, a host sync every step) step "
+        f"{sync.get('step_ms', float('nan')):.1f} ms, "
+        f"{sync.get('tokens_per_s', float('nan')):.1f} tokens/s")
+    return {"losses": whole["losses"], "async_step_ms": async_ms,
+            "tracker_tokens_per_s": tr.get("tokens_per_second"),
+            "sync_step_ms": sync.get("step_ms"), "saves": saves,
+            "restore_s": cut["restore_s"],
+            "counts": {k: v[0] for k, v in whole["counts"].items()},
+            "resumed_counts": {k: v[0] for k, v in cut["counts"].items()}}
+
+
+def _toy_resilience(card: str, root: Path) -> dict:
+    """14(b): ``train.ddp.run`` preempted at step 3 and crashed at step 5
+    (saves every 2 steps, at the pump's sync points) and
+    ``train.zero.run`` stage 3 preempted in its sharded leg, at the ZeRO
+    toy's full width, each against its uninterrupted run."""
+    t = RESILIENCE_TOY
+    sizes = [w // t["scale"] for w in MLP.ZERO_TOY_SIZES]
+    pbytes = 4 * sum(i * o + o for i, o in zip(sizes[:-1], sizes[1:]))
+    out = {}
+    ddp_kw = dict(scale=t["scale"], num_steps=t["num_steps"],
+                  batch_size=t["ddp_batch"], seed=t["seed"],
+                  device="cuda", log=log)
+    whole = ddp_run.run(config=_harness(root, "ddp", dispatch="async"),
+                        **ddp_kw)
+    for tag, kw in (("ddp", dict(inject_fault=t["fault"])),
+                    ("ddp crash", dict(inject_fault=t["crash"],
+                                       checkpoint_every=2, sync_every=2))):
+        ck = root / "ck-ddp"
+        _disk_check(f"resilience {tag}", str(root), 4 * pbytes)
+        res = ddp_run.run(config=_harness(
+            root, tag.replace(" ", "-"), dispatch="async",
+            checkpoint_dir=str(ck), max_restarts=1, **kw), **ddp_kw)
+        shutil.rmtree(ck, ignore_errors=True)
+        same = [torch.equal(a, fsdp.optim.tree_get(res["params"], p))
+                for p, a in fsdp.optim.tree_leaves(whole["params"])]
+        log(f"resilience {tag} on {card}: losses {res['losses']} against "
+            f"{whole['losses']}; final params bit-equal {all(same)}; saves "
+            f"{_saves_line(res['saves'])}; restore "
+            f"{[round(x * 1e3, 1) for x in res['restore_s']]} ms")
+        check(res["status"] == "completed" and res["losses"]
+              == whole["losses"] and all(same),
+              f"resilience {tag}: stitched losses {res['losses']} or final "
+              f"params (bit-equal {all(same)}) are not the uninterrupted "
+              f"run's {whole['losses']}")
+        out[tag] = {"saves": res["saves"], "restore_s": res["restore_s"]}
+        del res
+    del whole
+    torch.cuda.empty_cache()
+    zkw = dict(scale=t["scale"], num_steps=t["num_steps"],
+               batch_size=t["zero_batch"], seed=t["seed"], device="cuda",
+               keep_params=True, log=log)
+    whole = zero_run.run(3, config=_harness(root, "zero3",
+                                            dispatch="async"), **zkw)
+    whole_params = (whole.pop("base_params"), whole.pop("shard_params"))
+    torch.cuda.empty_cache()
+    _disk_check("resilience zero3", str(root), 4 * 3 * pbytes)
+    ck = root / "ck-zero3"
+    cut = zero_run.run(3, config=_harness(
+        root, "zero3-preempted", dispatch="async", checkpoint_dir=str(ck),
+        inject_fault=t["zero_fault"], max_restarts=1), **zkw)
+    shutil.rmtree(ck, ignore_errors=True)
+    same = all(torch.equal(a, fsdp.optim.tree_get(b, p))
+               for w, b in zip(whole_params, (cut["base_params"],
+                                              cut["shard_params"]))
+               for p, a in fsdp.optim.tree_leaves(w))
+    log(f"resilience zero3 on {card}: baseline {cut['base_losses']}, "
+        f"sharded {cut['shard_losses']} against {whole['base_losses']}, "
+        f"{whole['shard_losses']}; final params bit-equal {same}; sharded "
+        f"bit-equal to baseline Adam {cut['params_bit_equal']}; saves "
+        f"{_saves_line(cut['saves'])}; restore "
+        f"{[round(x * 1e3, 1) for x in cut['restore_s']]} ms")
+    check(cut["status"] == "completed" and same
+          and cut["base_losses"] == whole["base_losses"]
+          and cut["shard_losses"] == whole["shard_losses"],
+          "resilience zero3: stitched losses or final params are not the "
+          "uninterrupted run's")
+    check(cut["params_bit_equal"] and cut["base_losses"]
+          == cut["shard_losses"], "resilience zero3: the sharded leg is not "
+          "bit-equal to baseline Adam")
+    out["zero3"] = {"saves": cut["saves"], "restore_s": cut["restore_s"]}
+    return out
+
+
+def resilience_phase(card: str, sync: dict | None = None) -> dict:
+    """Phase 14 on the one-rank NCCL group: preempt → resume of FSDP
+    (K7 and the flash kernels), DDP and ZeRO-3, bit for bit; checkpoints,
+    run directories and traces under a temporary directory, removed at
+    the end.  ``sync``: phase 9's readings (``fsdp_train_phase``), printed
+    beside the async ones.  Returns the readings and the kernels'
+    launches of both FSDP runs."""
+    import tempfile
+    torch.cuda.empty_cache()
+    mesh.init_process_group("cuda")
+    root = Path(tempfile.mkdtemp(prefix="smoke-resilience-"))
+    try:
+        a = _fsdp_resilience(card, root, sync or {})
+        torch.cuda.empty_cache()
+        b = _toy_resilience(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"resilience readings on {card}: " + json.dumps(
+        {"fsdp": {k: v for k, v in a.items() if k != "counts"}, **b}))
+    return a
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -4180,7 +4493,7 @@ def main(argv) -> int:
                        "flash_attention_bwd": (FA.BWD_COUNTS, L8)},
                    "int8 train")
         loss0 = timed("fsdp train parity", fsdp_train_parity_phase)
-        fs = timed("fsdp train", fsdp_train_phase, card, loss0)
+        fs, fs_sync = timed("fsdp train", fsdp_train_phase, card, loss0)
         ddp_zero = timed("ddp and zero", ddp_zero_phase, card)
         pipe_toy = timed("pipeline toy", pipeline_toy_phase, card)
         loss0 = timed("pipeline parity", pipeline_lm_parity_phase)
@@ -4193,6 +4506,7 @@ def main(argv) -> int:
                        precision_bench_parity_phase)
         bench_rows, bench = timed("precision bench", precision_bench_phase,
                                   card, bench0)
+        res14 = timed("resilience", resilience_phase, card, fs_sync)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -4202,9 +4516,11 @@ def main(argv) -> int:
     # read with its counts set to 0 just before it
     precision = {k: prec.get(k, 0) + bench.get(k, 0)
                  for k in {**prec, **bench}}
+    resilience = {k: v + res14["resumed_counts"][k]
+                  for k, v in res14["counts"].items()}
     paths = {"serve": launches, "int8 serve": q8, "train": fp8,
              "int8 train": i8, "fsdp train": fs, "pipeline": pp,
-             "precision": precision}
+             "precision": precision, "resilience": resilience}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())

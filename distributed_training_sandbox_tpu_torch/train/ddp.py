@@ -17,15 +17,30 @@ environment; run alone, it is one rank.  NCCL and the card by default,
 gloo with ``--device cpu``.  It prints the losses, the collectives a
 step (the shim ``ops.collectives.COLLECTIVES``) and peak device memory.
 
+The run harness (``train.harness``): the supervisor (``--checkpoint-dir``,
+``--checkpoint-every``, ``--resume``, ``--max-restarts``,
+``--inject-fault``), RunState checkpoints of the params, the SGD state,
+the EF residual and the generators' seeds, a run directory
+(``--results-dir``, default ``./runs``) with the manifest,
+``steps.jsonl``, ``spans.jsonl`` and ``summary.json``, the profiler
+(``--trace-dir``), the device prefetcher, and the step pump
+(``--dispatch``, ``--sync-every``).  A resumed run rebuilds the seeded
+batch stream and skips the batches it already consumed.
+
+    torchrun --nproc-per-node 2 -m \\
+        distributed_training_sandbox_tpu_torch.train.ddp --device cpu \\
+        --checkpoint-dir /tmp/ck --checkpoint-every 2 \\
+        --inject-fault preempt@5 --max-restarts 1
+
 Not ported: the classification leg (``--model smollm3-350m|tiny``, which
-needs ROADMAP.md queue A items A2 and A4), the supervisor and
-checkpoints, telemetry, the profiler, the prefetcher and step pump (A8),
-and the contract and rules verdicts (A12).
+needs ROADMAP.md queue A items A2 and A4), and the contract and rules
+verdicts (A12).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
 from pathlib import Path
@@ -36,7 +51,13 @@ import torch
 from ..models import mlp
 from ..ops import collectives as C
 from ..parallel import ddp, optim
+from ..resilience import RunState, generator_states
+from ..runtime import DevicePrefetcher
 from ..utils import mesh
+from ..utils.config import TrainConfig
+from ..utils.profiling import ProfileSchedule
+from ..utils.tracker import PerformanceTracker
+from . import harness as H
 
 LR = 1e-3
 CLASSIFICATION_MODELS = ("smollm3-350m", "tiny")
@@ -55,15 +76,22 @@ def randn_batches(width: int, batch_size: int, seed: int, device):
 def run(*, scale: int = 20, num_steps: int = 20, batch_size: int = 32,
         bucket_mb: float | None = None, quantize_grads: bool = False,
         error_feedback: bool = False, seed: int = 42, device=None,
-        model: str = "mlp", on_step=None, log=print) -> dict:
-    """Train ``num_steps`` DDP steps on this rank.  Joins (or makes) the
-    process group (``utils.mesh.init_process_group``) and leaves it up.
-    ``on_step(i, loss)`` is called once each step's loss has reached the
-    host.  Returns the losses, each step's collectives and host-clock
-    seconds (from the step's call until its loss reaches the host, as
-    ``train.zero`` times its legs), the collectives of the init broadcast and of the sync check,
-    the first batch's loss under the final params
-    (``final_loss_batch0``) and peak device memory (None on the CPU)."""
+        model: str = "mlp", config: TrainConfig | None = None,
+        profile_schedule=None, on_step=None, log=print) -> dict:
+    """Train ``num_steps`` DDP steps on this rank under the supervisor.
+    Joins (or makes) the process group (``utils.mesh.init_process_group``)
+    and leaves it up.  ``config`` holds the harness's options
+    (``train.harness.quiet_config`` when None: nothing written, a host
+    sync every step).  ``on_step(i, loss)`` is called once each step's
+    loss has reached the host.  Returns the losses (stitched across
+    restarts), ``status``, each step's collectives and host-clock seconds
+    of this segment (from the step's call until the pump returns; with
+    ``dispatch="sync"`` the loss has then reached the host), the
+    collectives of the init broadcast and of the sync check, the first
+    batch's loss under the final params (``final_loss_batch0``), peak
+    device memory (None on the CPU), the pump's host syncs and the
+    checkpoint saves (``ckpt_saves``: bytes, blocking and write seconds)
+    and restore seconds."""
     if model in CLASSIFICATION_MODELS:
         raise NotImplementedError(
             f"--model {model}: the classification leg is not ported yet — "
@@ -72,6 +100,20 @@ def run(*, scale: int = 20, num_steps: int = 20, batch_size: int = 32,
     if model != "mlp":
         raise ValueError(f"model={model!r}; choose from "
                          f"{('mlp',) + CLASSIFICATION_MODELS}")
+    cfg = H.run_config(config, num_steps=num_steps, batch_size=batch_size,
+                       seed=seed)
+    fp = {"scale": scale, "bucket_mb": bucket_mb,
+          "quantize_grads": quantize_grads, "error_feedback": error_feedback}
+    return H.supervise(cfg, "ddp", lambda ctx, holder: _run(
+        ctx, holder, cfg, scale=scale, bucket_mb=bucket_mb,
+        quantize_grads=quantize_grads, error_feedback=error_feedback,
+        device=device, profile_schedule=profile_schedule, on_step=on_step,
+        log=log), extra_fingerprint=fp)
+
+
+def _run(ctx, holder, cfg, *, scale, bucket_mb, quantize_grads,
+         error_feedback, device, profile_schedule, on_step, log) -> dict:
+    num_steps, batch_size, seed = cfg.num_steps, cfg.batch_size, cfg.seed
     dev = mesh.init_process_group(device)
     ws, rank = mesh.axis_size(), mesh.axis_rank()
     width = mlp.ZERO_TOY_SIZES[0] // scale
@@ -91,6 +133,11 @@ def run(*, scale: int = 20, num_steps: int = 20, batch_size: int = 32,
     opt = optim.sgd_init(params)
     if quantize_grads and error_feedback:
         opt = (opt, ddp.init_grad_residual(params))
+    key = generator_states({"params": seed, "data": seed + 1}, dev)
+    H.track(holder, ctx)
+    rs = ctx.restore(RunState(params=params, opt_state=opt, prng_key=key))
+    if rs is not None:
+        params, opt = rs.params, rs.opt_state
     step = ddp.make_ddp_train_step(
         mlp.mse_loss, lambda g, s, p: optim.sgd_update(g, s, p, lr=LR),
         bucket_mb=bucket_mb, quantize_grads=quantize_grads,
@@ -105,27 +152,52 @@ def run(*, scale: int = 20, num_steps: int = 20, batch_size: int = 32,
         sync = f"{n_leaves} per-leaf all_reduces"
     if rank == 0:
         log(f"[ddp] world={ws} width={width} leaves={n_leaves} "
-            f"batch={batch_size} sync={sync} device={dev}")
+            f"batch={batch_size} sync={sync} dispatch={cfg.dispatch} "
+            f"device={dev}")
         nz = C.COLLECTIVES.nonzero
         log(f"[ddp] param sync check passed (divergence {err}); init "
             f"broadcast {json.dumps(nz(init_counts))}, sync check "
             f"{json.dumps(nz(sync_counts))}")
-    batches = randn_batches(width, batch_size, seed, dev)
-    losses, counts, step_s = [], [], []
-    for i, batch in zip(range(num_steps), batches):
-        if i == 0:
-            first = batch
-        C.COLLECTIVES.reset()
-        t = time.perf_counter()
-        params, opt, loss = step(params, opt, batch)
-        losses.append(float(loss))   # a host sync: the step has ended
-        step_s.append(time.perf_counter() - t)
-        counts.append(C.COLLECTIVES.read())
-        if rank == 0:
-            log(f"[ddp] step {i:3d} loss {losses[-1]:.6f} collectives "
-                f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1]))}")
-        if on_step is not None:
-            on_step(i, losses[-1])
+    first = next(randn_batches(width, batch_size, seed, dev))
+    stream = randn_batches(width, batch_size, seed, dev)
+    if ctx.data_cursor:
+        # resume: the seeded stream, past the batches already consumed
+        stream = itertools.islice(stream, ctx.data_cursor, None)
+    tracker = PerformanceTracker(
+        warmup_steps=min(5, num_steps - 1) if num_steps > 1 else 0,
+        num_devices=ws, device=dev)
+    prof = H.profiler(cfg, profile_schedule, ProfileSchedule(
+        skip_first=5, wait=1, warmup=2, active=5))
+    counts, step_s = [], []
+
+    def logger(i):
+        def cb(lf):
+            if rank == 0:
+                log(f"[ddp] step {i:3d} loss {lf:.6f} collectives "
+                    f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1]))}")
+            if on_step is not None:
+                on_step(i, lf)
+        return cb
+
+    pref = DevicePrefetcher(stream, device=dev, depth=cfg.prefetch_depth)
+    with pref, H.telemetry("ddp", cfg, ctx, dev, model="mlp",
+                           profiler=prof) as telem:
+        H.wire(telem, ctx, pref)
+        with H.pump(cfg, telem, tracker, ctx) as pump:
+            for i, batch in zip(range(ctx.start_step, num_steps), pref):
+                if ctx.should_stop(i):
+                    break
+                C.COLLECTIVES.reset()
+                t = time.perf_counter()
+                params, opt, loss = step(params, opt, batch)
+                counts.append(C.COLLECTIVES.read())
+                synced = pump.emit(loss, tokens=batch_size, log=logger(i))
+                step_s.append(time.perf_counter() - t)
+                ctx.after_step(i, synced, lambda i=i: RunState(
+                    params=params, opt_state=opt, step=i, data_cursor=i + 1,
+                    prng_key=key, loss_log=ctx.full_losses(pump.losses)))
+        holder["losses"] = losses = ctx.full_losses(pump.losses)
+        ctx.finalize(telem)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
     # the first batch again under the final params: the losses of new
@@ -135,48 +207,51 @@ def run(*, scale: int = 20, num_steps: int = 20, batch_size: int = 32,
             params, ddp.local_batch(first)), mean=True))
     if rank == 0:
         log(f"[ddp] step ms (host clock) "
-            f"{[round(t * 1e3, 3) for t in step_s]}")
+            f"{[round(t * 1e3, 3) for t in step_s]}; host syncs "
+            f"{pump.host_sync_count} {pump.sync_breakdown}")
         log(f"[ddp] first batch's loss: step 0 {losses[0]:.6f}, under the "
             f"final params {final0:.6f}")
         log("[ddp] peak memory " + (f"{peak / 2 ** 30:.2f} GiB a rank"
                                     if peak is not None
                                     else "not measured (CPU)"))
+        if telem.run_dir:
+            log(f"[ddp] telemetry in {telem.run_dir}")
     return {"world_size": ws, "scale": scale, "width": width,
             "n_leaves": n_leaves, "batch_size": batch_size,
             "bucket_mb": bucket_mb, "quantize_grads": quantize_grads,
             "error_feedback": error_feedback, "device": str(dev),
             "sync_error": err, "init_collectives": init_counts,
             "sync_check_collectives": sync_counts, "losses": losses,
+            "status": "completed", "start_step": ctx.start_step,
             "collectives": counts, "step_s": step_s,
-            "final_loss_batch0": final0, "peak_memory_bytes": peak}
+            "final_loss_batch0": final0, "peak_memory_bytes": peak,
+            "params": params, "host_syncs": dict(pump.sync_breakdown),
+            "tracker": pump.metrics, "run_dir": telem.run_dir,
+            **H.ckpt_report(holder)}
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
+                                allow_abbrev=False)
     p.add_argument("--model", default="mlp",
                    choices=("mlp",) + CLASSIFICATION_MODELS)
     p.add_argument("--scale", type=int, default=20,
                    help="divide the 10k toy width by this")
-    p.add_argument("--num-steps", type=int, default=20)
-    p.add_argument("--batch-size", type=int, default=32,
-                   help="the global batch")
-    p.add_argument("--bucket-mb", type=float, default=None)
-    p.add_argument("--quantize-grads", action="store_true")
-    p.add_argument("--error-feedback", action="store_true")
-    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default=None,
                    help="default: the CUDA card (NCCL); 'cpu' for gloo")
     p.add_argument("--out", default=None, help="rank 0 writes the result "
                                                "as JSON")
-    args = p.parse_args(argv)
+    args, rest = p.parse_known_args(argv)
+    cfg = TrainConfig.from_args(rest, batch_size=32)
     try:
-        res = run(scale=args.scale, num_steps=args.num_steps,
-                  batch_size=args.batch_size, bucket_mb=args.bucket_mb,
-                  quantize_grads=args.quantize_grads,
-                  error_feedback=args.error_feedback, seed=args.seed,
-                  device=args.device, model=args.model)
+        res = run(scale=args.scale, num_steps=cfg.num_steps,
+                  batch_size=cfg.batch_size, bucket_mb=cfg.bucket_mb,
+                  quantize_grads=cfg.quantize_grads,
+                  error_feedback=cfg.error_feedback, seed=cfg.seed,
+                  device=args.device, model=args.model, config=cfg)
+        res.pop("params", None)
         if args.out and mesh.axis_rank() == 0:
-            Path(args.out).write_text(json.dumps(res))
+            Path(args.out).write_text(json.dumps(res, default=str))
         if mesh.axis_rank() == 0 and not all(np.isfinite(res["losses"])):
             raise SystemExit(f"non-finite loss in {res['losses']}")
     finally:

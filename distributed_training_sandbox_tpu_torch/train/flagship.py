@@ -13,14 +13,22 @@ the int8 precisions the int8 kernels (K5 forward under
 selects its TPU kernels.  ``--precision`` takes every name of
 ``models.transformer.PRECISIONS``.  The data comes from the numpy
 engine (the reference script uses its native engine, whose stream
-differs).  Not ported: checkpointing and resume, ``--plan``,
-``--spike-demo``, corpus data and the loss plot (ROADMAP.md).
+differs).  ``--ckpt-dir D --checkpoint-every N`` saves RunState
+checkpoints (params, Adam state, the seed's generator state, the data
+cursor and the losses) under ``D/runstate`` every N steps, and
+``--resume`` continues from the newest intact one: the batch stream is
+rebuilt and fast-forwarded, the lr series' prefix rebuilt from the
+schedule, and the stitched losses equal an uninterrupted run's bit for
+bit.  Not ported: the params-only final save beside it (its reader,
+``scripts/eval_lm.py``, is not ported), ``--plan``, ``--spike-demo``,
+corpus data and the loss plot (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import time
 from pathlib import Path
@@ -33,6 +41,7 @@ from ..device import resolve_device
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..parallel import fsdp, optim
+from ..resilience import Checkpointer, RunState, generator_states
 
 
 def leg_batches(vocab_size: int, seq: int, bs: int, num_steps: int,
@@ -47,12 +56,18 @@ def leg_batches(vocab_size: int, seq: int, bs: int, num_steps: int,
 
 def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
             warmup_steps: int, peak_lr: float, *, seed: int = 42,
-            device=None, on_step=None) -> dict:
+            device=None, on_step=None, ckpt_dir=None, ckpt_every: int = 0,
+            resume: bool = False) -> dict:
     """Train ``num_steps`` steps; returns the reference's result keys
     (``losses``, ``lrs``, ``tokens_per_second``, ``loss_first``,
     ``loss_max_first20``, ``loss_final_mean20``) and the run's shape.
     ``on_step(i, loss)`` is called after each step's loss has reached
-    the host."""
+    the host.  With ``ckpt_dir`` and ``ckpt_every`` or ``resume``,
+    RunState checkpoints live under ``<ckpt_dir>/runstate``: every
+    ``ckpt_every`` steps (asynchronously: this loop syncs every step)
+    and once at the end; ``resume`` starts from the newest intact one,
+    and ``losses`` and ``lrs`` are then the stitched series
+    (``start_step`` says where this segment began)."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(
         getattr(T, MODEL_REGISTRY[model]), matmul_precision=precision,
@@ -64,20 +79,55 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
              if warmup_steps else None)
     step = fsdp.make_fsdp_train_step(params, cfg, lr=peak_lr,
                                      lr_schedule=sched)
-    losses, lrs, times = [], [], []
-    t0 = time.perf_counter()
-    for i, (ib, lb) in enumerate(leg_batches(cfg.vocab_size, seq, bs,
-                                             num_steps, seed)):
-        if i >= num_steps:
-            break
-        batch = (torch.as_tensor(ib, device=dev),
-                 torch.as_tensor(lb, device=dev))
-        params, opt, loss = step(params, opt, batch)
-        losses.append(float(loss))   # a host sync: the step has ended
-        lrs.append(sched(i) if sched else peak_lr)
-        times.append(time.perf_counter() - t0)
-        if on_step is not None:
-            on_step(i, losses[-1])
+    key = generator_states({"params": seed}, dev)
+    ckptr = Checkpointer(Path(ckpt_dir) / "runstate", every=ckpt_every,
+                         fingerprint={"strategy": "flagship",
+                                      "model": model, "seed": seed,
+                                      "precision": precision,
+                                      "batch_size": bs, "seq": seq}) \
+        if ckpt_dir and (ckpt_every or resume) else None
+    start, prior = 0, []
+    if resume and ckptr is not None:
+        rs = ckptr.restore_latest(RunState(params=params, opt_state=opt,
+                                           prng_key=key))
+        if rs is not None:
+            params, opt, start = rs.params, rs.opt_state, rs.step + 1
+            prior = list(rs.loss_log)
+            print(f"[flagship] resumed from step {rs.step} "
+                  f"({len(prior)} losses) in {ckptr.directory}")
+    # the lr series is the schedule's: rebuild the restored prefix
+    losses = list(prior)
+    lrs = [sched(i) if sched else peak_lr for i in range(start)]
+    times = []
+    batches = leg_batches(cfg.vocab_size, seq, bs, num_steps, seed)
+    try:
+        t0 = time.perf_counter()
+        for i, (ib, lb) in enumerate(itertools.islice(batches, start, None),
+                                     start=start):
+            if i >= num_steps:
+                break
+            batch = (torch.as_tensor(ib, device=dev),
+                     torch.as_tensor(lb, device=dev))
+            params, opt, loss = step(params, opt, batch)
+            losses.append(float(loss))   # a host sync: the step has ended
+            lrs.append(sched(i) if sched else peak_lr)
+            times.append(time.perf_counter() - t0)
+            if ckptr is not None:
+                # every step is a sync point of this loop
+                ckptr.maybe_save(i, lambda i=i: RunState(
+                    params=params, opt_state=opt, step=i,
+                    data_cursor=i + 1, prng_key=key,
+                    loss_log=list(losses)), synced=True)
+            if on_step is not None:
+                on_step(i, losses[-1])
+        if ckptr is not None and losses:
+            ckptr.save_final(RunState(
+                params=params, opt_state=opt, step=len(losses) - 1,
+                data_cursor=len(losses), prng_key=key,
+                loss_log=list(losses)))
+    finally:
+        if ckptr is not None:
+            ckptr.close()
     # tokens/s over the steps after the first two (the reference's
     # window: compile there, kernel builds and allocator warm-up here).
     # The reference counts len - 1 steps' tokens over that window of
@@ -85,7 +135,7 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
     n_timed, dt = ((len(times) - 2, times[-1] - times[1]) if len(times) > 2
                    else (len(times), times[-1] if times else 0.0))
     tok_s = n_timed * bs * seq / dt if dt > 0 else 0.0
-    return {
+    return {"start_step": start,
         "model": model, "precision": precision, "sequence_length": seq,
         "batch_size": bs, "num_steps": len(losses),
         "warmup_steps": warmup_steps, "peak_lr": peak_lr,
@@ -107,6 +157,11 @@ def main(argv=None) -> None:
     p.add_argument("--num-steps", type=int, default=500)
     p.add_argument("--warmup-steps", type=int, default=50)
     p.add_argument("--peak-lr", type=float, default=3e-4)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="RunState checkpoints under DIR/runstate")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest intact checkpoint")
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' for the plain path")
     p.add_argument("--out", default=None, help="write the result as JSON")
@@ -114,6 +169,8 @@ def main(argv=None) -> None:
     result = run_leg(
         args.model, args.precision, args.sequence_length, args.batch_size,
         args.num_steps, args.warmup_steps, args.peak_lr, device=args.device,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.checkpoint_every,
+        resume=args.resume,
         on_step=lambda i, loss: print(f"[flagship] step {i:4d} loss "
                                       f"{loss:8.4f}", flush=True))
     print(f"[flagship] first {result['loss_first']:.3f} max(first20) "

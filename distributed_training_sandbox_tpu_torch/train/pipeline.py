@@ -28,8 +28,10 @@ written to ``--results-file``) is ``PipeResult.as_dict()`` plus the
 shim's collectives against the ``gpipe`` / ``1f1b`` contract (zero of
 every kind), each epoch's step time and the memory of each card.
 
-Not ported, with the ROADMAP.md queue A item that holds each: resume,
-the supervisor and checkpoints, the prefetcher and the profiler (A8);
+Not wired yet, with the ROADMAP.md queue A item that holds each: the run
+harness that the other twins run under (``train.harness``: the
+supervisor, RunState checkpoints, the prefetcher, the profiler) with
+resume by the epoch cursor of ``scripts/_pp_driver.py`` (A8);
 ``evaluate_contract``'s verdict (A12; the shim's counts against
 ``parallel.contracts`` stand in for it).
 """
@@ -57,15 +59,16 @@ SCHEDULES = ("gpipe", "1f1b", "interleaved")
 MODELS = ("mlp",) + tuple(sorted(MODEL_REGISTRY))
 # ``_pp_driver.py``'s flags that this twin refuses: flag -> why
 NOT_PORTED = {
-    "resume": "resume is not ported yet — see ROADMAP.md, queue A item A8",
-    "checkpoint_dir": "checkpoints are not ported yet — see ROADMAP.md, "
-                      "queue A item A8",
-    "max_restarts": "the supervisor is not ported yet — see ROADMAP.md, "
-                    "queue A item A8",
-    "prefetch_depth": "the prefetcher is not ported yet — see ROADMAP.md, "
-                      "queue A item A8",
-    "trace_dir": "the profiler is not ported yet — see ROADMAP.md, queue A "
-                 "item A8",
+    "resume": "resume by the epoch cursor is not wired into the pipeline "
+              "twin yet — see ROADMAP.md, queue A item A8",
+    "checkpoint_dir": "the pipeline twin does not write RunState "
+                      "checkpoints yet — see ROADMAP.md, queue A item A8",
+    "max_restarts": "the pipeline twin does not run under the supervisor "
+                    "yet — see ROADMAP.md, queue A item A8",
+    "prefetch_depth": "the pipeline twin does not use the device "
+                      "prefetcher yet — see ROADMAP.md, queue A item A8",
+    "trace_dir": "the pipeline twin does not run the profiler yet — see "
+                 "ROADMAP.md, queue A item A8",
 }
 
 

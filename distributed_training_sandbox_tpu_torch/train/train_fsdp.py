@@ -29,17 +29,34 @@ four policies).  ``--quantized-gather``, ``--quantized-grads`` and
 int8 Adam moments at rest), which its script reaches only through
 ``--auto-fit``; they add nothing the JAX package lacks.
 
+The run harness (``train.harness``) as the reference script wires it:
+the supervisor (``--checkpoint-dir``, ``--checkpoint-every``,
+``--resume``, ``--max-restarts``, ``--inject-fault``), RunState
+checkpoints of this rank's shards and Adam state (int8 moments too) and
+the seed's generator state, a run directory (``--results-dir``) with the
+manifest, ``steps.jsonl``, ``spans.jsonl`` and ``summary.json``, the
+profiler (``--trace-dir``; the reference's schedule wait 5, warmup 5,
+active 10), the tracker's tokens/s and TFLOP/s a device, the device
+prefetcher (``--prefetch-depth``) over the packed batches, fast-forwarded
+past the batches a resumed run already consumed, and the step pump
+(``--dispatch async|sync``, ``--sync-every``, ``--max-in-flight``):
+
+    python -m distributed_training_sandbox_tpu_torch.train.train_fsdp \\
+        --model smollm3-3b-l8 --overlap ring_fused_pallas \\
+        --attention flash --checkpoint-dir D --checkpoint-every 2 \\
+        --inject-fault preempt@3 --max-restarts 1
+
 Not ported (ROADMAP.md): the memory planner (``--hbm-budget-gb``,
-``--auto-fit``, the predicted waterline), ``--offload``, telemetry and
-the run manifest, collective contracts and the sharding-rules verdict,
-checkpoint and resume, the auto variant, profiling flags, and the
-device prefetcher and step pump.
+``--auto-fit``, the predicted waterline) and ``--offload`` (A12),
+collective contracts and the sharding-rules verdict (A12), the auto
+variant (A10).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import time
 from pathlib import Path
@@ -52,7 +69,13 @@ from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
 from ..parallel import fsdp, optim8
+from ..resilience import RunState, generator_states
+from ..runtime import DevicePrefetcher
 from ..utils import mesh
+from ..utils.config import TrainConfig
+from ..utils.profiling import ProfileSchedule
+from ..utils.tracker import PerformanceTracker
+from . import harness as H
 
 PRECISIONS = ("bf16", "fp32", "int8", "int8_pallas", "int8_bwd",
               "int8_pallas_bwd")
@@ -93,18 +116,23 @@ def run(model: str = "tiny", *, overlap: str = "none",
         precision: str = "bf16", device=None, seed: int = 42,
         remat_policy: str | None = None, quantized_gather: bool = False,
         quantized_grads: bool = False, state_precision: str = "full",
+        config: TrainConfig | None = None, profile_schedule=None,
         on_step=None, log=print) -> dict:
-    """Train ``num_steps`` FSDP steps on this rank.  Joins (or makes)
-    the process group (``utils.mesh.init_process_group``) and leaves it
-    up.  ``on_step(i, loss)`` is called once each step's loss has
-    reached the host.  ``quantized_gather``, ``quantized_grads`` and
-    ``state_precision`` are the reference step's options.  Returns the
-    losses, each step's collective counts and host-clock time, tokens/s,
-    peak device memory (None on the CPU) and the Adam moments' bytes at
-    rest on this rank."""
+    """Train ``num_steps`` FSDP steps on this rank under the supervisor.
+    Joins (or makes) the process group (``utils.mesh.init_process_group``)
+    and leaves it up.  ``config`` holds the harness's options
+    (``train.harness.quiet_config`` when None: nothing written, a host
+    sync every step).  ``on_step(i, loss)`` is called once each step's
+    loss has reached the host.  ``quantized_gather``,
+    ``quantized_grads`` and ``state_precision`` are the reference step's
+    options.  Returns the losses (stitched across restarts), ``status``,
+    this segment's collective counts and host-clock times a step (since
+    the segment's start, when the pump returned), tokens/s (host clock)
+    and the tracker's metrics, peak device memory (None on the CPU), the
+    Adam moments' bytes at rest on this rank, the pump's host syncs, the
+    checkpoint saves and the restore's seconds."""
     dev = mesh.init_process_group(device)
-    ws, rank = mesh.axis_size(), mesh.axis_rank()
-    cfg = model_config(model, precision, attention, remat_policy)
+    ws = mesh.axis_size()
     seq = seq or (256 if model == "tiny" else 8192)
     bs = batch_size or ws
     if bs % ws:
@@ -113,10 +141,38 @@ def run(model: str = "tiny", *, overlap: str = "none",
     if (bs // ws) % accum_steps:
         raise ValueError(f"accum_steps={accum_steps} must divide the "
                          f"per-rank batch {bs // ws}")
+    cfg_run = H.run_config(config, num_steps=num_steps, seed=seed,
+                           batch_size=bs, sequence_length=seq,
+                           precision=precision, accum_steps=accum_steps)
+    fp = {"model": model, "overlap": overlap,
+          "state_precision": state_precision}
+    return H.supervise(cfg_run, "fsdp", lambda ctx, holder: _run(
+        ctx, holder, cfg_run, model, overlap=overlap,
+        reshard_after_forward=reshard_after_forward, device=dev,
+        attention=attention, remat_policy=remat_policy, quantized_gather=quantized_gather,
+        quantized_grads=quantized_grads, state_precision=state_precision,
+        profile_schedule=profile_schedule, on_step=on_step, log=log),
+        extra_fingerprint=fp)
+
+
+def _run(ctx, holder, rc, model, *, overlap, reshard_after_forward,
+         device, attention, remat_policy, quantized_gather,
+         quantized_grads, state_precision, profile_schedule, on_step,
+         log) -> dict:
+    num_steps, seed, precision = rc.num_steps, rc.seed, rc.precision
+    bs, seq, accum_steps = rc.batch_size, rc.sequence_length, rc.accum_steps
+    dev = mesh.init_process_group(device)
+    ws, rank = mesh.axis_size(), mesh.axis_rank()
+    cfg = model_config(model, precision, attention, remat_policy)
     gen = torch.Generator(device=dev).manual_seed(seed)
     shards = fsdp.shard_params_fsdp(T.init_params(cfg, gen, dev))
     opt = (fsdp.init_fsdp_opt_state8(shards) if state_precision == "int8"
            else fsdp.init_fsdp_opt_state(shards))
+    key = generator_states({"params": seed}, dev)
+    H.track(holder, ctx)
+    rs = ctx.restore(RunState(params=shards, opt_state=opt, prng_key=key))
+    if rs is not None:
+        shards, opt = rs.params, rs.opt_state
     step = fsdp.make_fsdp_train_step(
         shards, cfg, reshard_after_forward=reshard_after_forward,
         overlap=overlap, accum_steps=accum_steps,
@@ -133,23 +189,53 @@ def run(model: str = "tiny", *, overlap: str = "none",
             f"remat_policy={cfg.remat_policy} "
             f"quantized_gather={quantized_gather} "
             f"quantized_grads={quantized_grads} "
-            f"state_precision={state_precision} device={dev}")
-    losses, counts, times = [], [], []
-    t0 = time.perf_counter()
+            f"state_precision={state_precision} dispatch={rc.dispatch} "
+            f"device={dev}")
+    flops_tok = T.model_flops_per_token(cfg, seq)
+    tracker = PerformanceTracker(
+        warmup_steps=min(5, max(num_steps - 1, 0)),
+        flops_per_token=flops_tok, num_devices=ws, device=dev)
+    prof = H.profiler(rc, profile_schedule, ProfileSchedule(
+        skip_first=0, wait=5, warmup=5, active=10))
     batches = fsdp_batches(cfg.vocab_size, seq, bs, num_steps, seed)
-    for i, (ib, lb) in zip(range(num_steps), batches):
-        batch = (torch.as_tensor(ib, device=dev),
-                 torch.as_tensor(lb, device=dev))
-        C.COLLECTIVES.reset()
-        shards, opt, loss = step(shards, opt, batch)
-        losses.append(float(loss))   # a host sync: the step has ended
-        counts.append(C.COLLECTIVES.read())
-        times.append(time.perf_counter() - t0)
-        if rank == 0:
-            log(f"[fsdp] step {i:3d} loss {losses[-1]:.4f} collectives "
-                f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1]))}")
-        if on_step is not None:
-            on_step(i, losses[-1])
+    if ctx.data_cursor:
+        # resume: the seeded dataset, past the batches already consumed
+        batches = itertools.islice(batches, ctx.data_cursor, None)
+    counts, times = [], []
+
+    def logger(i):
+        def cb(lf):
+            if rank == 0:
+                log(f"[fsdp] step {i:3d} loss {lf:.4f} collectives "
+                    f"{json.dumps(C.COLLECTIVES.nonzero(counts[i - ctx.start_step]))}")
+            if on_step is not None:
+                on_step(i, lf)
+        return cb
+
+    pref = DevicePrefetcher(batches, device=dev, depth=rc.prefetch_depth)
+    t0 = time.perf_counter()
+    with pref, H.telemetry("fsdp", rc, ctx, dev, model=model, profiler=prof,
+                           extra={"reshard_after_forward":
+                                  reshard_after_forward,
+                                  "overlap": overlap,
+                                  "state_precision": state_precision}
+                           ) as telem:
+        H.wire(telem, ctx, pref)
+        with H.pump(rc, telem, tracker, ctx) as pump:
+            for i, batch in zip(range(ctx.start_step, num_steps), pref):
+                if ctx.should_stop(i):
+                    break
+                C.COLLECTIVES.reset()
+                shards, opt, loss = step(shards, opt, batch)
+                counts.append(C.COLLECTIVES.read())
+                synced = pump.emit(loss, tokens=bs * seq, log=logger(i))
+                times.append(time.perf_counter() - t0)
+                ctx.after_step(i, synced, lambda i=i: RunState(
+                    params=shards, opt_state=opt, step=i, data_cursor=i + 1,
+                    prng_key=key, loss_log=ctx.full_losses(pump.losses)))
+        wall = time.perf_counter() - t0   # the pump drained: work done
+        holder["losses"] = losses = ctx.full_losses(pump.losses)
+        ctx.finalize(telem)
     # tokens/s over the steps after the first two, as run_leg counts
     n_timed, dt = ((len(times) - 2, times[-1] - times[1]) if len(times) > 2
                    else (len(times), times[-1] if times else 0.0))
@@ -160,7 +246,10 @@ def run(model: str = "tiny", *, overlap: str = "none",
         log(f"[fsdp] tokens/s {tok_s:.1f} (global, host clock) peak "
             f"memory " + (f"{peak / 2 ** 30:.2f} GiB a rank" if peak is not
                           None else "not measured (CPU)")
-            + f"; Adam moments at rest {state_bytes} bytes a rank")
+            + f"; Adam moments at rest {state_bytes} bytes a rank; host "
+            f"syncs {pump.host_sync_count} {pump.sync_breakdown}")
+        if telem.run_dir:
+            log(f"[fsdp] telemetry in {telem.run_dir}")
     return {"model": model, "world_size": ws, "overlap": overlap,
             "reshard_after_forward": reshard_after_forward,
             "accum_steps": accum_steps, "batch_size": bs,
@@ -169,27 +258,28 @@ def run(model: str = "tiny", *, overlap: str = "none",
             "quantized_gather": quantized_gather,
             "quantized_grads": quantized_grads,
             "state_precision": state_precision,
-            "opt_state_bytes": state_bytes,
+            "opt_state_bytes": state_bytes, "status": "completed",
+            "start_step": ctx.start_step,
             "device": str(dev), "losses": losses, "collectives": counts,
-            "step_times_s": times, "tokens_per_second": tok_s,
-            "peak_memory_bytes": peak,
-            "model_flops_per_token": T.model_flops_per_token(cfg, seq)}
+            "step_times_s": times, "wall_s": wall,
+            "tokens_per_second": tok_s,
+            "tracker": pump.metrics, "host_syncs": dict(pump.sync_breakdown),
+            "peak_memory_bytes": peak, "run_dir": telem.run_dir,
+            "profiler": prof,
+            **H.ckpt_report(holder),
+            "model_flops_per_token": flops_tok}
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
+                                allow_abbrev=False)
     p.add_argument("--model", choices=sorted(MODEL_REGISTRY), default="tiny")
     p.add_argument("--overlap", choices=fsdp.OVERLAP_MODES, default="none")
     p.add_argument("--no-reshard-after-forward", dest="reshard",
                    action="store_false", default=True)
-    p.add_argument("--accum-steps", type=int, default=1)
-    p.add_argument("--batch-size", type=int, default=None,
-                   help="global batch (default: one row a rank)")
     p.add_argument("--sequence-length", type=int, default=None,
                    help="default 256 for tiny, else 8192")
-    p.add_argument("--num-steps", type=int, default=20)
     p.add_argument("--attention", choices=["xla", "flash"], default=None)
-    p.add_argument("--precision", choices=PRECISIONS, default="bf16")
     p.add_argument("--remat-policy", choices=T.REMAT_POLICIES, default=None)
     p.add_argument("--quantized-gather", action="store_true",
                    help="int8 codes and scales on the gathers' wire")
@@ -198,26 +288,32 @@ def main(argv=None) -> None:
                         "(needs --quantized-gather)")
     p.add_argument("--state-precision", choices=fsdp.STATE_PRECISIONS,
                    default="full", help="int8: Adam moments int8 at rest")
-    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default=None,
                    help="default: the CUDA card (NCCL); 'cpu' for gloo and "
                         "the plain path")
     p.add_argument("--out", default=None, help="rank 0 writes the result "
                                                "as JSON")
-    args = p.parse_args(argv)
+    args, rest = p.parse_known_args(argv)
+    batch_given = "--batch-size" in rest
+    cfg = TrainConfig.from_args(rest)
+    if cfg.offload != "none" or cfg.auto_fit or cfg.hbm_budget_gb:
+        raise SystemExit("--offload, --auto-fit and --hbm-budget-gb: the "
+                         "memory planner is not ported yet — see "
+                         "ROADMAP.md queue A item A12")
     try:
         res = run(args.model, overlap=args.overlap,
                   reshard_after_forward=args.reshard,
-                  accum_steps=args.accum_steps, batch_size=args.batch_size,
-                  seq=args.sequence_length, num_steps=args.num_steps,
-                  attention=args.attention, precision=args.precision,
-                  device=args.device, seed=args.seed,
+                  accum_steps=cfg.accum_steps,
+                  batch_size=cfg.batch_size if batch_given else None,
+                  seq=args.sequence_length, num_steps=cfg.num_steps,
+                  attention=args.attention, precision=cfg.precision,
+                  device=args.device, seed=cfg.seed,
                   remat_policy=args.remat_policy,
                   quantized_gather=args.quantized_gather,
                   quantized_grads=args.quantized_grads,
-                  state_precision=args.state_precision)
+                  state_precision=args.state_precision, config=cfg)
         if args.out and mesh.axis_rank() == 0:
-            Path(args.out).write_text(json.dumps(res))
+            Path(args.out).write_text(json.dumps(res, default=str))
         if mesh.axis_rank() == 0 and not all(np.isfinite(res["losses"])):
             raise SystemExit(f"non-finite loss in {res['losses']}")
     finally:
