@@ -33,7 +33,8 @@ resilience mutants edit a Python module of the port instead):
   (``precision bench fp8_pallas step-0``) must fail;
 - ``fa_fwd_bf16_rowsum``: the flash forward sums the row's softmax
   denominator from the bf16-rounded probabilities, not the f32 ones;
-  the forward's gate must fail;
+  the forward's gate and phase 15b's MoE step against plain attention
+  (``moe bf16 step-0``) must fail;
 - ``fa_bwd_bf16_lse``: the flash backward reads the logsumexp rounded to
   bf16, not f32; the backward's gate and its L2 distance from the exact
   gradient at a pipeline stage's microbatch (over the plain path's)
@@ -44,11 +45,13 @@ resilience mutants edit a Python module of the port instead):
   count against the f64 oracle, the pipeline's step-0 gate against
   plain attention (``pipeline plain``), the flash kernels on phase
   13a's own step inputs (``precision attention``), 13a's step against
-  plain attention (``precision plain``) and the flash kernels on 13c's
-  rows' inputs (``precision bench attention``) must fail;
+  plain attention (``precision plain``), the flash kernels on 13c's
+  rows' inputs (``precision bench attention``) and 15b's MoE step
+  against plain attention (``moe bf16 step-0``) must fail;
 - ``fa_fwd_bf16_scores``: the flash forward rounds each tensor-core
   score to bf16 before scaling it; the forward's count against the f64
-  oracle (over the plain path's) must fail;
+  oracle (over the plain path's) and 15b (``moe bf16 step-0``) must
+  fail;
 - ``k1_last_key``: K1's last visible key is ``apos - 1``, not ``apos``
   (``t < apos``), so each slot loses its own new key; the serve phases
   run, and K1's gate and the decode-logit gate must fail;
@@ -106,7 +109,23 @@ resilience mutants edit a Python module of the port instead):
   ``ckpt_live_tensors`` (``utils/checkpoint.py``: an async save hands
   the writer the live tensors instead of its snapshot, so the write
   reads them after the next step's in-place update), whose DDP resume
-  from an async save (``resilience ddp crash``) must break.
+  from an async save (``resilience ddp crash``) must break;
+- four of the MoE model (phase 15, the port's Python; child ``moe``
+  runs 15a, the oracle gates and 15b): ``moe_capacity_plus_one``
+  (``parallel/expert.py``: a group's bucket admits one assignment more,
+  ``pos <= capg``), whose oracle gates at the tight capacities (``moe
+  oracle top-1 cf 0.75``, ``moe oracle top-2 cf 1.0``) must fail;
+  ``moe_token_major_top2`` (the bucket positions counted token by token
+  instead of every first choice before any second), whose top-2 oracle
+  gate must fail; ``moe_shared_int8_scale`` (the experts' products as
+  one product over the bank, block-diagonal, so the int8 backward's
+  scales are shared across experts), whose int8 oracle gate must fail
+  (the forward's scales are per row and per column, so they stay each
+  expert's own, and 15a stays bit-equal: both sides share the mutant);
+  and ``moe_aux_dropped`` (``models/transformer.py``: ``lm_loss``
+  leaves the aux term out), whose loss recomposition (``moe loss sum``)
+  must fail.  The all_to_all's backward cannot show at one rank; a
+  two-rank CPU test removes it (``tests/test_torch_expert_ranks.py``).
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -140,7 +159,8 @@ MUTANTS = [
     ("fa_fwd_bf16_rowsum", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float lsum_term(float p) { return p; }",
      "__device__ __forceinline__ float lsum_term(float p) { return "
-     f"{ROUND.format('p')}; }}", "train", ("flash_attention_fwd:",)),
+     f"{ROUND.format('p')}; }}", "train",
+     ("flash_attention_fwd:", "moe bf16 step-0")),
     ("fa_bwd_bf16_lse", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float lse_in(float x) { return x; }",
      "__device__ __forceinline__ float lse_in(float x) { return "
@@ -152,13 +172,13 @@ MUTANTS = [
      "// O += P V", "train_pipeline",
      ("flash_attention_fwd:", "flash_attention_fwd oracle:",
       "pipeline plain", "precision attention", "precision plain",
-      "precision bench attention")),
+      "precision bench attention", "moe bf16 step-0")),
     ("fa_fwd_bf16_scores", "csrc/flash_attention.cu",
      "__device__ __forceinline__ float fwd_score(float s, float scale) "
      "{ return s * scale; }",
      "__device__ __forceinline__ float fwd_score(float s, float scale) "
      f"{{ return {ROUND.format('s')} * scale; }}", "train",
-     ("flash_attention_fwd oracle:",)),
+     ("flash_attention_fwd oracle:", "moe bf16 step-0")),
     ("fa_bwd_dv_tile", "csrc/flash_attention.cu",
      "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, true);   // dV, dK",
      "    accumulate_dv_dk(dva, pa, dos, dka, da, qs, "
@@ -255,6 +275,28 @@ MUTANTS = [
     ("ckpt_live_tensors", "utils/checkpoint.py",
      "            out[k] = buf", "            out[k] = v", "resilience",
      ("resilience ddp crash",)),
+    ("moe_capacity_plus_one", "parallel/expert.py",
+     "            kept = (pos < capg) & (onehot > 0)",
+     "            kept = (pos <= capg) & (onehot > 0)", "moe",
+     ("moe oracle top-1 cf 0.75", "moe oracle top-2 cf 1.0")),
+    ("moe_token_major_top2", "parallel/expert.py",
+     "            onehot, pos = _group_slot_positions(eg, E)",
+     "            onehot, pos = _group_slot_positions(eg, E); "
+     "pos = torch.cumsum(onehot.reshape(NG, top_k, G, E).transpose(1, 2)"
+     ".reshape(NG, G * top_k, E), dim=1, dtype=torch.int32).reshape("
+     "NG, G, top_k, E).transpose(1, 2).reshape(NG, top_k * G, E) "
+     "* onehot - 1", "moe", ("moe oracle top-2 cf 1.0",)),
+    ("moe_shared_int8_scale", "parallel/expert.py",
+     "    return torch.stack([dense(toks[e], bank[e]) for e in "
+     "range(len(bank))])",
+     "    E, M, N = len(bank), toks.shape[1], bank.shape[2]; "
+     "full = dense(toks.reshape(E * M, -1), bank.transpose(0, 1).reshape("
+     "bank.shape[1], E * N)); return torch.stack([full[e * M:(e + 1) * M, "
+     "e * N:(e + 1) * N] for e in range(E)])", "moe",
+     ("moe oracle top-1 cf 2.0 int8_pallas_bwd",)),
+    ("moe_aux_dropped", "models/transformer.py",
+     "        loss = loss + cfg.moe_aux_weight * aux",
+     "        loss = loss + 0.0 * aux", "moe", ("moe loss sum",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -288,6 +330,10 @@ c.fp8_phase()
 c.attention_phase()
 c.fa_bwd_oracle_gate()
 c.train_parity_phase()
+try:
+    c.moe_bf16_phase()
+finally:
+    c.mesh.destroy_process_group()
 """, "train_pipeline": """
 import torch
 import chip_smoke as c
@@ -305,6 +351,7 @@ c.pipeline_lm_parity_phase()
 try:
     c.precision_parity_phase()
     c.precision_bench_parity_phase()
+    c.moe_bf16_phase()
 finally:
     c.mesh.destroy_process_group()
 """, "train_precision": """
@@ -408,6 +455,21 @@ torch.backends.cudnn.allow_tf32 = False
 c.ag_matmul_phase()
 try:
     c.fsdp_train_parity_phase()
+finally:
+    c.mesh.destroy_process_group()
+""", "moe": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+try:
+    c.moe_parity_phase()
+    c.moe_oracle_phase()
+    c.moe_bf16_phase()
 finally:
     c.mesh.destroy_process_group()
 """, "resilience": """

@@ -5,8 +5,8 @@ trainer on SmolLM3-3B-L8 (fp8 and int8 projections), the FSDP trainer
 on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank; and with int8
 gathers, grads and Adam moments), with the hand-written Hopper kernels,
 DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules, the
-remat policies and preempt → resume under the run harness (one NCCL
-rank).
+remat policies, preempt → resume under the run harness and the
+mixture-of-experts model (one NCCL rank).
 
     python3 chip_smoke.py
 
@@ -158,7 +158,28 @@ Phases, each of which fails the run:
    sharded leg: stitched losses and final params bit-equal to the
    uninterrupted runs', ZeRO-3 bit-equal to its baseline Adam leg.
    Checkpoints go under a temporary directory, removed after each run;
-   the free space is checked against the saves' bytes first.
+   the free space is checked against the saves' bytes first;
+15. moe — on the same group, SMOLLM3_3B_L8_MOE (8 experts of ffn 2752,
+   top-1, grouped dispatch, cf 2.0) at full width, seq 8192, batch 1,
+   flash attention, remat ``"full"``, through
+   ``parallel.expert.make_moe_lm_train_step`` at dp 1 x ep 1: (a) step 0
+   at int8_pallas_bwd through K5 and K4 bit-equal to the plain int8
+   products (loss and every grad leaf, router and expert banks too),
+   launches exact, each layer's drop fraction at init, and the loss the
+   cross-entropy plus the weighted aux recomposed apart; (oracle)
+   ``moe_mlp`` on layer 0's weights and normed embeddings against the
+   script's own ``moe_oracle`` (capacity claimed first choices first,
+   token by token on the host; each expert's products on its kept
+   tokens only): top-1 at cf 0.75 and top-2 at cf 1.0 in f32, top-1 at
+   cf 2.0 through K5 and K4, output and grads within
+   ``MOE_ORACLE_REL_L2``; (b) step 0 at bf16 with the flash kernels
+   against plain attention (``MOE_BF16_*``), the tokens routed to
+   another expert logged; (c) 6 steps of ``train.moe.run`` at ep 1:
+   launches exact, plain calls 0, every step's collectives the ``moe``
+   contract's (``parallel.contracts.moe_step_collectives``), step 0
+   bit-equal to (a), losses finite and falling; step ms, tokens/s, MFU
+   on active FLOPs, peak memory and a ``torch.profiler`` breakdown of
+   the last step by kernel and by the MoE layer's ranges.
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -216,6 +237,7 @@ from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.ops import busbench as BB
 from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8
+from distributed_training_sandbox_tpu_torch.parallel import expert as EX
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     fsdp_quantized_step_collectives, step_collectives)
@@ -224,6 +246,7 @@ from distributed_training_sandbox_tpu_torch.resilience import (
 from distributed_training_sandbox_tpu_torch.train import busbench as bb_run
 from distributed_training_sandbox_tpu_torch.train import ddp as ddp_run
 from distributed_training_sandbox_tpu_torch.train import flagship, train_fsdp
+from distributed_training_sandbox_tpu_torch.train import moe as moe_run
 from distributed_training_sandbox_tpu_torch.train import (
     precision_benchmark as prec_bench)
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
@@ -466,6 +489,51 @@ PREC_BENCH_FP8_GRAD_REL_L2 = 0.24
 PREC_BENCH_KEYS = {"model", "precision", "sequence_length", "num_devices",
                    "batch_size", "steps_per_second", "tokens_per_second",
                    "tflops_per_device", "avg_loss", "peak_memory"}
+# phase 15, the MoE model on the one-rank NCCL group: SMOLLM3_3B_L8_MOE
+# (8 experts of ffn 2752, top-1, grouped dispatch, group 128, cf 2.0)
+# with flash attention, the streamed loss, remat "full", seq 8192, batch
+# 1, through parallel.expert.make_moe_lm_train_step at dp 1 x ep 1.
+# (a) Step 0 at int8_pallas_bwd through K5 and K4 bit-equal to the plain
+# int8 products, and the loss equal to xent + aux_weight x aux recomposed
+# apart (within MOE_LOSS_SUM_ATOL: the same operations, so 0 expected).
+# (oracle) moe_mlp against chip_smoke's own moe_oracle on layer 0's
+# weights and normed embeddings: each of the output and the probe loss's
+# grads within relative L2 MOE_ORACLE_REL_L2, the aux within
+# MOE_AUX_RTOL, for each case (dtype, precision, cf, top_k).
+# (b) Step 0 at bf16 with the flash kernels against plain attention:
+# MOE_BF16_LOSS_ATOL and MOE_BF16_GRAD_REL_L2 on the dense leaves, set
+# between the sound kernels' reading (8.1e-5, 0.01095 on an H100) and
+# the FA mutants' (chip_gate_mutation.py: PV tile dropped 1.55e-4 and
+# 0.0307; rowsum from rounded p 4.16e-4; scores rounded to bf16
+# 3.43e-4; the dV tile and the bf16 logsumexp read 8.1e-5 and 0.0127,
+# 0.0116, which this gate cannot tell from sound; PERF.md).
+# (c) 6 steps of train.moe.run at int8_pallas_bwd: at the reference
+# step's constant lr 3e-4 the random router already crowds most tokens
+# into few experts (15a's drop fraction 0.30-0.74 a layer at step 0 on
+# an H100); the loss rises at steps 2-3 and is below step 0's again by
+# step 5, so 4 steps would not show it falling.
+MOE_TRAIN = dict(model="smollm3-3b-l8", experts=8, precision="int8_pallas_bwd",
+                 seq=8192, bs=1, num_steps=6, seed=42)
+MOE_CFG = moe_run.model_config(MOE_TRAIN["model"],
+                               experts=MOE_TRAIN["experts"],
+                               precision=MOE_TRAIN["precision"])
+assert MOE_CFG == dataclasses.replace(T.SMOLLM3_3B_L8_MOE,
+                                      matmul_precision="int8_pallas_bwd")
+MOE_LOSS_SUM_ATOL = 1e-5
+MOE_ORACLE_CASES = {
+    "top-1 cf 0.75 f32": (torch.float32, "bf16", 0.75, 1),
+    "top-2 cf 1.0 f32": (torch.float32, "bf16", 1.0, 2),
+    "top-1 cf 2.0 int8_pallas_bwd": (torch.bfloat16, "int8_pallas_bwd", 2.0,
+                                     1)}
+MOE_ORACLE_REL_L2 = 1e-4
+MOE_AUX_RTOL = 1e-6
+MOE_BF16_LOSS_ATOL = 1.2e-4
+MOE_BF16_GRAD_REL_L2 = 0.02
+MOE_SCOPES = ("moe_route", "moe_dispatch", "moe_a2a_out", "moe_expert_mlp",
+              "moe_a2a_back", "moe_combine", "moe_aux_loss")
+# the record_function ranges of the port's steps (parallel/expert.py)
+STEP_SCOPES = MOE_SCOPES + ("forward_backward", "loss_mean", "grad_sync",
+                            "opt_step")
 # One decode step's logits through the kernels vs the plain path, from
 # one pool state: max |difference| <= LOGIT_ATOL.  The kernels do the
 # plain path's operations in another summation order, so a few bf16
@@ -2114,10 +2182,13 @@ def _step_profile(prof, wall_us, label, step) -> None:
     """Log one profiled step: the device's busy and idle share of its
     wall time and the kernels that take the most device time."""
     # device-side entries only: a CPU op's entry repeats the device time
-    # of the kernels it launched (a profile of CPU and CUDA activity)
+    # of the kernels it launched (a profile of CPU and CUDA activity),
+    # and so does a record_function range's annotation on the device
     dev = [(e.key, e.count, e.self_device_time_total)
            for e in prof.key_averages() if e.self_device_time_total > 0
-           and e.device_type != torch.autograd.DeviceType.CPU]
+           and e.device_type != torch.autograd.DeviceType.CPU
+           and not getattr(e, "is_user_annotation", False)
+           and e.key not in STEP_SCOPES]
     busy_us = sum(d for _, _, d in dev)
     if not dev:
         log(f"{label} profile: torch.profiler recorded no device time (not "
@@ -3751,6 +3822,360 @@ def resilience_phase(card: str, sync: dict | None = None) -> dict:
     return a
 
 
+# ------------------------------------------------- phase 15: the MoE model
+
+def _moe_expect(cfg) -> dict:
+    """The kernels one int8_pallas_bwd MoE step launches (remat "full"):
+    K5 each attention projection's and each expert's three products'
+    forward and recompute, K4 their dX and dW, the flash forward twice a
+    layer and its backward once."""
+    L, E = cfg.num_hidden_layers, cfg.n_experts
+    products = 4 + 3 * E
+    return {"int8_matmul_fused": (Q.INT8_FUSED_COUNTS, L * products * 2),
+            "int8_matmul": (Q.INT8_COUNTS, L * products * 2),
+            "flash_attention_fwd": (FA.FWD_COUNTS, L * 2),
+            "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+
+
+def _moe_inputs(cfg):
+    """train.moe.run's params (seeded init on the card, whole at ep 1)
+    and first global batch, and the one-rank dp x ep axes."""
+    mesh.init_process_group("cuda")
+    axes = mesh.dp_ep_axes(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(MOE_TRAIN["seed"])
+    params = T.init_params(cfg, gen, "cuda")
+    ib, lb = next(train_fsdp.fsdp_batches(
+        cfg.vocab_size, MOE_TRAIN["seq"], MOE_TRAIN["bs"],
+        MOE_TRAIN["num_steps"], MOE_TRAIN["seed"]))
+    return params, (torch.as_tensor(ib, device="cuda"),
+                    torch.as_tensor(lb, device="cuda")), axes
+
+
+def moe_parity_phase() -> float:
+    """Phase 15a: SMOLLM3_3B_L8_MOE's step-0 loss and grads at
+    int8_pallas_bwd, the MoE step's forward and backward at dp 1 x ep 1
+    (flash attention on both sides), through K5 and K4 against the plain
+    int8 products: every product is exact and both sides round at the
+    same points, so the loss and every grad leaf (router and expert
+    banks too) must be bit-equal.  The kernel path's launches must be
+    ``_moe_expect``'s, and the loss the streamed cross-entropy plus
+    ``moe_aux_weight`` times the layers' aux, recomposed apart.  Returns
+    the kernel path's loss."""
+    params, batch, (_, ep_ax) = _moe_inputs(MOE_CFG)
+    cfg = dataclasses.replace(MOE_CFG, ep_axis=ep_ax)
+    expect = _moe_expect(MOE_CFG)
+    out, counts = {}, {}
+    for name in ("kernel", "plain"):
+        _reset_kernel_counts()
+        t = time.perf_counter()
+        seen, undo = _capture_routes()
+        try:
+            with (Q.plain_int8_products() if name == "plain"
+                  else contextlib.nullcontext()):
+                loss, grads = fsdp.microbatch_value_and_grad(
+                    lambda p, b: T.lm_loss(p, b, cfg), params, batch, 1)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        if name == "kernel":   # the forward's L routes, as dispatched
+            drops = [float(EX.grouped_drop_fraction(
+                e, cfg.n_experts, cfg.moe_group_size,
+                cfg.moe_capacity_factor)) for e in seen[:cfg.num_hidden_layers]]
+            log(f"moe parity: {MOE_TRAIN['model']} with {cfg.n_experts} "
+                f"experts of ffn {cfg.moe_ffn}, {cfg.param_count()} params; "
+                f"the grouped dispatch's drop fraction at init by layer "
+                f"(group {cfg.moe_group_size}, cf "
+                f"{cfg.moe_capacity_factor}) {drops}")
+        counts[name] = {k: (c.launches, c.plain_calls)
+                        for k, (c, _) in expect.items()}
+        out[name] = (float(loss), grads)
+        log(f"moe parity: {name} path loss {float(loss)!r} "
+            f"({time.perf_counter() - t:.1f} s); launches (kernel, plain) "
+            f"{json.dumps(counts[name])}")
+    with torch.no_grad():
+        x, aux = T.hidden_states(params, batch[0], cfg, return_aux=True)
+        xent = T.xent_from_hidden(x, T._output_embedding(params, cfg),
+                                  batch[1], chunk=cfg.loss_vocab_chunk)
+        composed = float(xent + cfg.moe_aux_weight * aux)
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    unequal = {}
+    for path, a in fsdp.optim.tree_leaves(gk):
+        b = fsdp.optim.tree_get(gp, path)
+        if not torch.equal(a, b):
+            unequal["/".join(path)] = float((a.float() - b.float()).abs().max())
+    log(f"moe parity: loss kernel {lk!r} plain {lp!r} (bit-equal {lk == lp})"
+        f"; grad leaves not bit-equal: {json.dumps(unequal)}; the loss "
+        f"recomposed: xent {float(xent)!r} + {cfg.moe_aux_weight} x aux "
+        f"{float(aux)!r} = {composed!r}, |difference| {abs(composed - lk)!r}"
+        f" (atol {MOE_LOSS_SUM_ATOL})")
+    want = {k: per for k, (_, per) in expect.items()}
+    failures = []
+    if not (np.isfinite(lk) and np.isfinite(lp)):
+        failures.append("moe int8 step-0 loss: non-finite")
+    if lk != lp:
+        failures.append(f"moe int8 step-0 loss: kernel {lk!r} != plain "
+                        f"{lp!r}")
+    if unequal:
+        failures.append(f"moe int8 step-0 grads: {len(unequal)} leaves not "
+                        f"bit-equal, max |kernel - plain| "
+                        f"{max(unequal.values())}")
+    if not abs(composed - lk) <= MOE_LOSS_SUM_ATOL:
+        failures.append(f"moe loss sum: lm_loss {lk!r} is not xent + "
+                        f"aux_weight x aux {composed!r}")
+    for k, (launches, plain) in counts["kernel"].items():
+        if (launches, plain) != (want[k], 0):
+            failures.append(f"moe parity: {k} (launches, plain) "
+                            f"{(launches, plain)} != ({want[k]}, 0)")
+    del params, out, gk, gp, grads
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return lk
+
+
+def moe_oracle(x, w_router, w_gate, w_up, w_down, *, capacity_factor,
+               group_size, top_k, dense):
+    """The grouped MoE MLP computed apart from ``parallel.expert`` (its
+    router ``_route_topk`` aside): each group's assignments claim their
+    experts' ``ceil(cf · k · G / E)`` slots first choices first, in token
+    order, counted one by one on the host; each expert's products
+    (``dense``) run on its kept tokens only, and each output row is the
+    sum of its kept assignments' outputs times their gates, in the
+    tokens' dtype.  Returns ``(y (N, H), aux)``."""
+    N, H = x.shape
+    E = w_router.shape[1]
+    gates, experts, probs = EX._route_topk(x, w_router, top_k)
+    G = EX._resolve_group(N, group_size)
+    capg = math.ceil(capacity_factor * top_k * G / E)
+    ex = experts.cpu().numpy()
+    kept = np.zeros(ex.shape, dtype=bool)
+    for g0 in range(0, N, G):
+        claimed = [0] * E
+        for j in range(top_k):
+            for t in range(g0, g0 + G):
+                e = ex[t, j]
+                kept[t, j] = claimed[e] < capg
+                claimed[e] += 1
+    y = torch.zeros((N, H), dtype=x.dtype, device=x.device)
+    for e in range(E):
+        tok, j = np.nonzero((ex == e) & kept)
+        if not len(tok):
+            continue
+        tok = torch.as_tensor(tok, device=x.device)
+        xe = x[tok]
+        h = dense(torch.nn.functional.silu(dense(xe, w_gate[e]))
+                  * dense(xe, w_up[e]), w_down[e])
+        g = gates[tok, torch.as_tensor(j, device=x.device)]
+        y = y.index_add(0, tok, h * g[:, None].to(h.dtype))
+    frac = torch.bincount(experts.reshape(-1), minlength=E).float() / (
+        N * top_k)
+    aux = E * torch.sum(frac * probs.mean(dim=0))
+    return y, aux
+
+
+def moe_oracle_phase() -> dict:
+    """Phase 15 (oracle): ``parallel.expert.moe_mlp`` on layer 0's
+    weights and the normed embeddings of the first batch (full width,
+    8192 tokens) at dp 1 x ep 1, against :func:`moe_oracle`: the output
+    and the grads of a probe loss (``Σ y · probe + aux``) with respect
+    to the tokens, the router and each expert bank, each at relative L2
+    distance <= ``MOE_ORACLE_REL_L2``, the aux within ``MOE_AUX_RTOL``.
+    Cases (``MOE_ORACLE_CASES``): top-1 at cf 0.75 and top-2 at cf 1.0
+    in f32 (the capacities drop assignments, so the capacity rule and
+    the first-choices-first priority show) and top-1 at cf 2.0 at
+    int8_pallas_bwd through K5 and K4 (each expert's int8 scales its
+    own).  Returns the readings."""
+    params, batch, (_, ep_ax) = _moe_inputs(MOE_CFG)
+    lay = T.layer_params(params, 0)
+    with torch.no_grad():
+        x0 = T.rms_norm(params["embed"][batch[0].long()][0],
+                        lay["ln1"], MOE_CFG.rms_norm_eps)
+    weights = [lay[k] for k in ("w_router", "w_gate", "w_up", "w_down")]
+    del params
+    probe = torch.randn(x0.shape, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 15), device="cuda")
+    readings, failures = {}, []
+    for name, (dtype, precision, cf, k) in MOE_ORACLE_CASES.items():
+        leaves = [t.detach().to(dtype).requires_grad_() for t in
+                  [x0] + weights]
+        kw = dict(capacity_factor=cf, top_k=k,
+                  group_size=MOE_CFG.moe_group_size)
+        y, aux = EX.moe_mlp(leaves[0][None], *leaves[1:], axis=ep_ax,
+                            matmul_precision=precision, **kw)
+        y = y[0]
+        g = torch.autograd.grad((y.float() * probe).sum() + aux, leaves)
+        oleaves = [t.detach().clone().requires_grad_() for t in leaves]
+        yo, auxo = moe_oracle(*oleaves, dense=Q.resolve_quantized_dense(
+            precision), **kw)
+        go = torch.autograd.grad((yo.float() * probe).sum() + auxo, oleaves)
+        rel = {n: float(torch.linalg.vector_norm(a.float() - b.float())
+                        / torch.linalg.vector_norm(b.float()))
+               for n, a, b in zip(("y", "x", "w_router", "w_gate", "w_up",
+                                   "w_down"), [y] + list(g), [yo] + list(go))}
+        aux_rel = abs(float(aux) - float(auxo)) / abs(float(auxo))
+        readings[name] = {"rel_l2": rel, "aux_rel": aux_rel}
+        log(f"moe oracle {name}: relative L2 off the oracle "
+            f"{json.dumps({n: float(f'{v:.3e}') for n, v in rel.items()})} "
+            f"(limit {MOE_ORACLE_REL_L2}); aux {float(aux)!r} oracle "
+            f"{float(auxo)!r} (rtol {MOE_AUX_RTOL})")
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= MOE_ORACLE_REL_L2:
+            failures.append(f"moe oracle {name}: {worst} relative L2 "
+                            f"{rel[worst]} over {MOE_ORACLE_REL_L2}")
+        if not aux_rel <= MOE_AUX_RTOL:
+            failures.append(f"moe oracle {name}: aux {float(aux)!r} off the "
+                            f"oracle's {float(auxo)!r}")
+    check(not failures, "; ".join(failures))
+    return readings
+
+
+def _capture_routes():
+    """Patch ``parallel.expert._route_topk`` to keep every call's expert
+    choices; returns the list and the undo."""
+    seen, orig = [], EX._route_topk
+
+    def route(x2d, w_router, k):
+        out = orig(x2d, w_router, k)
+        seen.append(out[1].detach().clone())
+        return out
+    EX._route_topk = route
+    return seen, lambda: setattr(EX, "_route_topk", orig)
+
+
+def moe_bf16_phase() -> dict:
+    """Phase 15b: the same model at bf16, step 0 with the flash kernels
+    against plain attention (``attention_impl="xla"``), the rest plain
+    on both sides: |loss difference| <= ``MOE_BF16_LOSS_ATOL`` and every
+    dense leaf's grad (the expert banks and the router aside: a token
+    whose near-tie route moves carries its grads to another expert)
+    within relative L2 ``MOE_BF16_GRAD_REL_L2``; logs how many tokens
+    chose another expert in any layer."""
+    bf16 = dataclasses.replace(MOE_CFG, matmul_precision="bf16")
+    params, batch, (_, ep_ax) = _moe_inputs(bf16)
+    out = {}
+    for name, attn in (("flash", "flash"), ("plain", "xla")):
+        cfg = dataclasses.replace(bf16, attention_impl=attn, ep_axis=ep_ax)
+        seen, undo = _capture_routes()
+        t = time.perf_counter()
+        try:
+            loss, grads = fsdp.microbatch_value_and_grad(
+                lambda p, b: T.lm_loss(p, b, cfg), params, batch, 1)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        # the forward's L calls (the recomputes follow in the backward)
+        out[name] = (float(loss), grads, seen[:bf16.num_hidden_layers])
+        log(f"moe bf16: {name} attention loss {float(loss)!r} "
+            f"({time.perf_counter() - t:.1f} s)")
+    (lf, gf, rf), (lp, gp, rp) = out["flash"], out["plain"]
+    moved = [int((a != b).any(dim=-1).sum()) for a, b in zip(rf, rp)]
+    rel = {k: v for k, v in _grad_rel_l2(gf, gp).items()
+           if k.split("/")[-1] not in EX.EXPERT_LEAVES + ("w_router",)}
+    worst = max(rel, key=rel.get)
+    log(f"moe bf16: |loss flash - plain| {abs(lf - lp)!r} (atol "
+        f"{MOE_BF16_LOSS_ATOL}); dense grad relative L2, worst leaf {worst} "
+        f"{rel[worst]:.5f} (limit {MOE_BF16_GRAD_REL_L2}); all "
+        f"{json.dumps({k: round(v, 6) for k, v in rel.items()})}; tokens "
+        f"routed to another expert, by layer: {moved} of "
+        f"{batch[0].numel()}")
+    del params, out, gf, gp
+    torch.cuda.empty_cache()
+    check(np.isfinite(lf) and abs(lf - lp) <= MOE_BF16_LOSS_ATOL,
+          f"moe bf16 step-0 loss: |flash - plain| {abs(lf - lp)} over "
+          f"{MOE_BF16_LOSS_ATOL}")
+    check(rel[worst] <= MOE_BF16_GRAD_REL_L2,
+          f"moe bf16 step-0 grads: {worst} relative L2 {rel[worst]} over "
+          f"{MOE_BF16_GRAD_REL_L2}")
+    return {"loss_diff": abs(lf - lp), "worst_rel_l2": rel[worst],
+            "moved_tokens": moved}
+
+
+def _scope_profile(prof, label) -> None:
+    """Log the MoE layer's ``record_function`` ranges of a profiled
+    step: calls and each range's device span (its annotation on the
+    device timeline, the gaps between its kernels included)."""
+    rows = {e.key: e for e in prof.key_averages() if e.key in MOE_SCOPES}
+    if not rows:
+        log(f"{label} scopes: torch.profiler recorded none (not measured)")
+        return
+    for key in MOE_SCOPES:
+        e = rows.get(key)
+        if e is not None:
+            log(f"{label} scope {key}: {e.count} calls, device span "
+                f"{e.device_time_total / 1e3:.2f} ms")
+
+
+def moe_train_phase(card: str, loss0: float) -> dict:
+    """Phase 15c: ``train.moe.run`` at ep 1, ``MOE_TRAIN["num_steps"]``
+    steps at int8_pallas_bwd under the harness (quiet config): launches
+    exact, plain calls 0, every step's collectives the ``moe``
+    contract's, the step-0 loss bit-equal to the parity's kernel path,
+    losses finite and falling; step time, tokens/s, MFU on active FLOPs,
+    peak memory and a ``torch.profiler`` breakdown of the last step by
+    kernel and by the MoE layer's ranges.  Returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+    p = MOE_TRAIN
+    n = p["num_steps"]
+    expect = _moe_expect(MOE_CFG)
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(i, loss):
+        if i == n - 2:
+            prof.start()
+            marks["t"] = time.perf_counter()
+        elif i == n - 1:
+            marks["wall_us"] = (time.perf_counter() - marks["t"]) * 1e6
+            prof.stop()
+
+    res = moe_run.run(p["model"], ep=1, experts=p["experts"],
+                      precision=p["precision"], batch_size=p["bs"],
+                      seq=p["seq"], num_steps=n, device="cuda",
+                      seed=p["seed"], on_step=on_step, log=log)
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    want = {k: n * per for k, (_, per) in expect.items()}
+    losses, times = res["losses"], res["step_times_s"]
+    steps = [b - a for a, b in zip([0.0] + times[:-1], times)]
+    step_s = statistics.median(steps[1:n - 1])
+    tok_s = p["seq"] * p["bs"] / step_s
+    flops_tok = res["model_flops_per_token"]
+    log(f"moe train on {card}: losses {losses}; collectives a step "
+        f"{json.dumps(res['collectives'][-1])}, the moe contract's "
+        f"{json.dumps(res['contract'])}")
+    log(f"moe train: step times (s, host clock, each ending in a sync) "
+        f"{steps}; median of steps 1-{n - 2} {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tokens/s, MFU {flops_tok * tok_s / PEAK_BF16_FLOPS:.4f}"
+        f" ({flops_tok:.4e} active model FLOP/token over the 989 TFLOP/s "
+        f"bf16 dense peak); peak memory "
+        f"{res['peak_memory_bytes'] / 2 ** 30:.3f} GiB")
+    log(f"moe train launches (kernel, plain): {json.dumps(counts)}; "
+        f"expected kernel launches {json.dumps(want)}")
+    log(f"moe train: step-0 loss {losses[0]!r}, the parity phase's kernel "
+        f"path {loss0!r}, bit-equal {losses[0] == loss0}")
+    # CPU activity slows the traced step's host (its wall read 2.3 s
+    # against 1.1 s untraced on an H100): the idle share is read against
+    # the median untraced step, whose device work is the same
+    log(f"moe train: the traced step's wall "
+        f"{marks['wall_us'] / 1e3:.1f} ms (CPU and CUDA activity)")
+    _step_profile(prof, step_s * 1e6, "moe train", n - 1)
+    _scope_profile(prof, "moe train")
+    check(losses[0] == loss0, f"moe train: step-0 loss {losses[0]!r} of the "
+          f"run is not the parity phase's {loss0!r}")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (want[name], 0),
+              f"moe train: {name} (launches, plain) {(launches, plain)} != "
+              f"({want[name]}, 0)")
+    for i, c in enumerate(res["collectives"]):
+        check(c == res["contract"], f"moe train: step {i} collectives {c} "
+              f"!= the moe contract's {res['contract']}")
+    check(all(np.isfinite(losses)), f"moe train: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"moe train: step-{n - 1} loss "
+          f"{losses[-1]} is not below step-0 loss {losses[0]}")
+    return {k: v[0] for k, v in counts.items()}
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -4507,6 +4932,10 @@ def main(argv) -> int:
         bench_rows, bench = timed("precision bench", precision_bench_phase,
                                   card, bench0)
         res14 = timed("resilience", resilience_phase, card, fs_sync)
+        loss0 = timed("moe parity", moe_parity_phase)
+        timed("moe oracle", moe_oracle_phase)
+        timed("moe bf16", moe_bf16_phase)
+        moe = timed("moe train", moe_train_phase, card, loss0)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -4520,7 +4949,7 @@ def main(argv) -> int:
                   for k, v in res14["counts"].items()}
     paths = {"serve": launches, "int8 serve": q8, "train": fp8,
              "int8 train": i8, "fsdp train": fs, "pipeline": pp,
-             "precision": precision, "resilience": resilience}
+             "precision": precision, "resilience": resilience, "moe": moe}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())

@@ -25,6 +25,13 @@ reference's full parameters into one rank's shards (the rows
 concatenates every rank's shards, in rank order, back into the full
 tree.
 
+MoE params cross leaf for leaf as well (the router ``(L, H, E)``, the
+expert banks ``(L, E, H, F)`` and ``(L, E, F, H)``); one rank of a dp ×
+ep layout keeps its ``E / ep`` slice of each bank
+(:func:`moe_shards_from_jax`, back through :func:`assemble_moe_shards`),
+and the toy layer's ``MoEParams`` cross field for field
+(:func:`moe_params_from_jax`).
+
 A pipeline's stages cross one by one: :func:`pipeline_stages_to_numpy`
 gives each stage's params and Adam state as numpy trees in the
 reference's layout (the MLP stages' lists of ``{"w", "b"}``, the
@@ -162,6 +169,40 @@ def assemble_shards(rank_trees: list) -> dict:
                       np.stack(scales) if last else cat(scales, dim))
         return cat(leaves, dim)
     return walk(specs, rank_trees)
+
+
+def moe_shards_from_jax(np_tree: dict, cfg, ep_rank: int, ep: int) -> dict:
+    """Reference MoE params (numpy, full size) → the params of a rank at
+    ``ep_rank`` on a ``ep``-rank expert axis: its ``E / ep`` slice of
+    each expert bank, every other leaf whole, on the CPU, in
+    ``cfg.dtype``."""
+    from .parallel.expert import shard_moe_lm_params
+    return shard_moe_lm_params(params_from_jax(np_tree, cfg), "ep", ep_rank,
+                               ep)
+
+
+def assemble_moe_shards(rank_trees: list) -> dict:
+    """The ranks of one dp row (one ep group), in ep order, as numpy
+    trees → the full numpy tree: the expert banks concatenated along E,
+    every other leaf rank 0's."""
+    from .parallel.expert import moe_lm_specs
+    specs = moe_lm_specs(rank_trees[0])
+
+    def walk(spec, leaves):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], [t[k] for t in leaves]) for k in spec}
+        if spec:
+            return np.concatenate([np.asarray(t) for t in leaves],
+                                  axis=spec.index("ep"))
+        return np.asarray(leaves[0])
+    return walk(specs, rank_trees)
+
+
+def moe_params_from_jax(np_params, device=None):
+    """The reference's toy ``MoEParams`` (numpy fields) → the port's,
+    each field in its own dtype."""
+    from .parallel.expert import MoEParams
+    return MoEParams(*(_to_torch(a, None, device) for a in np_params))
 
 
 def mlp_params_from_jax(np_tree, device=None):

@@ -69,17 +69,21 @@ def init_cache(cfg: T.TransformerConfig, batch: int, max_len: int,
 # Projection leaves stored int8 for decode (stacked (L, K, N) leaves get
 # per-layer scales); the norm scales stay in cfg.dtype.
 _QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# an MoE config quantises its attention projections only
+_QUANT_ATTN_KEYS = ("wq", "wk", "wv", "wo")
 
 
 def quantize_decode_params(params: dict, cfg: T.TransformerConfig) -> dict:
     """Training params → decode params with every projection weight
     stored int8 (``ops.quant.QuantizedWeight``, per output column over
     the contraction dim) and an int8 copy of the unembedding, (H, vocab),
-    under ``"unembed_q"``; ``lm_head`` is dropped.  The reference runs
-    this eagerly, so the scales take the division form
+    under ``"unembed_q"``; ``lm_head`` is dropped.  An MoE config keeps
+    its expert banks and router in ``cfg.dtype`` and quantises ``wq``,
+    ``wk``, ``wv`` and ``wo`` only, as the reference does.  The
+    reference runs this eagerly, so the scales take the division form
     (``quantize_weight(..., eager=True)``)."""
     layers = dict(params["layers"])
-    for k in _QUANT_LAYER_KEYS:
+    for k in _QUANT_ATTN_KEYS if cfg.n_experts else _QUANT_LAYER_KEYS:
         if k in layers:
             layers[k] = quantize_weight(layers[k], contract_axis=-2,
                                         eager=True)
@@ -146,7 +150,8 @@ def _cached_layer_body(x, layer, *, cfg, cos, sin, use_rope, ck, cv,
     attn = attn.to(x.dtype).reshape(B, S, nq * hd)
     x = x + dense(attn, layer["wo"])
     r = T.rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-    return x + T._mlp_block(r, layer, cfg=cfg)
+    mlp, _ = T._mlp_block(r, layer, cfg=cfg)
+    return x + mlp
 
 
 def _forward_cached(params, ids, cfg, cache: KVCache, start: int):

@@ -15,13 +15,17 @@ under ``torch.utils.checkpoint`` for remat ``"full"``), ``forward``,
 the dense and streamed-vocab cross-entropy, ``lm_loss`` and
 ``model_flops_per_token``; the FSDP slice added the ``layer_hook`` seam
 of ``hidden_states`` and ``lm_loss`` and the ``RingShard`` dispatch of
-``_dense``.  Attention is ``"xla"`` (the plain
+``_dense``; the MoE slice the mixture-of-experts MLP
+(``parallel/expert.py``): the config's MoE fields, the expert leaves of
+``init_params``, ``_mlp_block``'s MoE branch (every caller takes its
+``(mlp, aux)``), ``hidden_states(return_aux=True)`` and the weighted aux
+loss of ``lm_loss``.  Attention is ``"xla"`` (the plain
 ``_attention_xla``) or ``"flash"`` (the port's kernel,
 ``ops/flash_attention.py``); projections run at ``bf16``, the fp8
 recipe or the int8 recipe (``ops/quant.py``).  The remat policies
 (``resolve_remat_policy``) are the reference's four: ``"full"``,
 ``"save_attn"``, ``"save_dots"`` and ``"save_dots_q8"``.  Ring
-attention, MoE and the activation offload are later slices (ROADMAP.md
+attention and the activation offload are later slices (ROADMAP.md
 queue A).
 """
 
@@ -45,6 +49,7 @@ from ..utils.flops import get_model_flops_per_token
 
 _ROADMAP = ("not ported yet — see ROADMAP.md, queue A item 2 (model "
             "core) and queue B (precision kernels)")
+MOE_DISPATCHES = ("grouped", "einsum", "sort")
 REMAT_POLICIES = ("full", "save_attn", "save_dots", "save_dots_q8")
 PRECISIONS = ("bf16", "fp8", "fp8_delayed", "fp8_pallas", "int8",
               "int8_pallas", "int8_bwd", "int8_pallas_bwd")
@@ -83,11 +88,57 @@ class TransformerConfig:
     # "int8_pallas" | "int8_bwd" | "int8_pallas_bwd" (ops/quant.py)
     matmul_precision: str = "bf16"
     fp8_amax_history_len: int = 16
+    # Mixture-of-experts MLP (parallel/expert.py): 0 = dense.  With
+    # n_experts > 0 every layer's MLP is a top-k switch MoE of
+    # ``n_experts`` experts of hidden width ``moe_ffn`` (default
+    # intermediate_size); ``ep_axis`` (a name or a utils.mesh.Axis)
+    # shards the experts over that axis (None: all experts local).  The
+    # layers' load-balance losses are summed and added to lm_loss with
+    # ``moe_aux_weight``.
     n_experts: int = 0
+    moe_ffn: int | None = None
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    # "grouped" (per-group one-hot products) | "sort" (global-capacity
+    # sort dispatch) | "einsum" (the whole-chunk one-hot oracle)
+    moe_dispatch: str = "grouped"
+    moe_group_size: int = 128   # tokens per dispatch group ("grouped")
+    # experts per token: 1 = Switch, 2+ = GShard top-k (normalised gates;
+    # requires the grouped dispatch)
+    moe_top_k: int = 1
+    # router health (ST-MoE): z-loss weight on mean logsumexp(logits)^2,
+    # and the router's learning-rate multiplier
+    moe_router_z_weight: float = 0.0
+    moe_router_lr_mult: float = 1.0
+    ep_axis: Any = None
+
+    def __post_init__(self):
+        if self.moe_top_k > 1 and self.moe_dispatch != "grouped":
+            raise ValueError(
+                f"moe_top_k={self.moe_top_k} requires moe_dispatch="
+                f"'grouped' (got {self.moe_dispatch!r})")
+        if self.moe_router_z_weight and not self.moe_aux_weight:
+            raise ValueError(
+                "moe_router_z_weight rides the aux-loss channel scaled "
+                "by moe_aux_weight — set moe_aux_weight > 0 too")
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    def param_count(self) -> int:
+        h, hd = self.hidden_size, self.resolved_head_dim
+        attn = h * hd * (self.num_attention_heads * 2
+                         + self.num_key_value_heads * 2)
+        if self.n_experts:
+            F = self.moe_ffn or self.intermediate_size
+            mlp = self.n_experts * 3 * h * F + h * self.n_experts
+        else:
+            mlp = 3 * h * self.intermediate_size
+        per_layer = attn + mlp + 2 * h
+        embed = self.vocab_size * h
+        head = 0 if self.tie_word_embeddings else embed
+        return self.num_hidden_layers * per_layer + embed + head + h
 
 
 # SmolLM3-3B-class config (~3.1 B params).
@@ -97,6 +148,12 @@ SMOLLM3_3B = TransformerConfig()
 # flash attention and the streamed-vocab loss.
 SMOLLM3_3B_L8 = TransformerConfig(
     num_hidden_layers=8, attention_impl="flash", loss_vocab_chunk=16_032)
+
+# Switch-MoE flagship: the 3B-L8 geometry with its MLP split into 8
+# experts of ffn 2752 (the dense MLP's FLOPs, 4 ways active).
+SMOLLM3_3B_L8_MOE = TransformerConfig(
+    num_hidden_layers=8, attention_impl="flash", loss_vocab_chunk=16_032,
+    n_experts=8, moe_ffn=2752, moe_dispatch="grouped")
 
 TINY_LM = TransformerConfig(
     vocab_size=512, hidden_size=64, intermediate_size=160,
@@ -109,8 +166,8 @@ def check_supported(cfg: TransformerConfig) -> None:
     if cfg.matmul_precision not in PRECISIONS:
         raise NotImplementedError(
             f"matmul_precision={cfg.matmul_precision!r}: {_ROADMAP}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"n_experts={cfg.n_experts}: {_ROADMAP}")
+    if cfg.moe_dispatch not in MOE_DISPATCHES:
+        raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
     if cfg.attention_impl not in ("xla", "flash"):
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r}: not ported yet — see "
@@ -159,10 +216,18 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         },
         "final_norm": ones((h,)),
     }
-    params["layers"].update(
-        w_gate=tn((L, h, cfg.intermediate_size)),
-        w_up=tn((L, h, cfg.intermediate_size)),
-        w_down=tn((L, cfg.intermediate_size, h), out_std))
+    if cfg.n_experts:
+        E, F = cfg.n_experts, cfg.moe_ffn or cfg.intermediate_size
+        params["layers"].update(
+            w_router=tn((L, h, E)),
+            w_gate=tn((L, E, h, F)),
+            w_up=tn((L, E, h, F)),
+            w_down=tn((L, E, F, h), out_std))
+    else:
+        params["layers"].update(
+            w_gate=tn((L, h, cfg.intermediate_size)),
+            w_up=tn((L, h, cfg.intermediate_size)),
+            w_down=tn((L, cfg.intermediate_size, h), out_std))
     if not cfg.tie_word_embeddings:
         params["lm_head"] = tn((h, cfg.vocab_size))
     return params
@@ -248,10 +313,25 @@ def _qkv_proj(r, layer, *, cfg: TransformerConfig, cos, sin, use_rope: bool):
 
 
 def _mlp_block(r, layer, *, cfg: TransformerConfig):
-    """Dense SwiGLU MLP on the normed residual."""
+    """Post-attention MLP (dense SwiGLU or top-k MoE) on the normed
+    residual, shared by training, ``generate`` and the serving engine:
+    ``(mlp, aux)``, ``aux`` the MoE load-balance loss (an f32 scalar;
+    None for the dense MLP, which adds no device op a layer)."""
+    if cfg.n_experts:
+        from ..parallel.expert import moe_mlp
+        return moe_mlp(r, layer["w_router"], layer["w_gate"],
+                       layer["w_up"], layer["w_down"], axis=cfg.ep_axis,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       dispatch=cfg.moe_dispatch,
+                       group_size=cfg.moe_group_size, top_k=cfg.moe_top_k,
+                       matmul_precision=cfg.matmul_precision,
+                       router_z_ratio=(cfg.moe_router_z_weight
+                                       / cfg.moe_aux_weight
+                                       if cfg.moe_router_z_weight else 0.0))
     dense = _dense(cfg)
-    return dense(torch.nn.functional.silu(dense(r, layer["w_gate"]))
-                 * dense(r, layer["w_up"]), layer["w_down"])
+    mlp = dense(torch.nn.functional.silu(dense(r, layer["w_gate"]))
+                * dense(r, layer["w_up"]), layer["w_down"])
+    return mlp, None
 
 
 def rope_flags(cfg: TransformerConfig) -> list[bool]:
@@ -285,9 +365,10 @@ def _attention_xla(q, k, v, scale: float) -> torch.Tensor:
 
 def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
                 use_rope: bool):
-    """One decoder layer on the residual stream x (B, S, H).  The
-    reference's tensor-parallel arguments and MoE aux loss are not
-    ported, so it returns the new residual only."""
+    """One decoder layer on the residual stream x (B, S, H): ``(new
+    residual, aux)``, ``aux`` the MLP's load-balance loss (None for
+    the dense MLP).  The reference's tensor-parallel arguments are not
+    ported."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     r = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
@@ -304,7 +385,8 @@ def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
     x = x + _dense(cfg)(attn.reshape(B, S, cfg.num_attention_heads * hd),
                         layer["wo"])
     r = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-    return x + _mlp_block(r, layer, cfg=cfg)
+    mlp, aux = _mlp_block(r, layer, cfg=cfg)
+    return x + mlp, aux
 
 
 def _saved_ops(cfg: TransformerConfig):
@@ -372,11 +454,13 @@ def resolve_remat_policy(cfg: TransformerConfig):
 
 
 def hidden_states(params: dict, input_ids: torch.Tensor,
-                  cfg: TransformerConfig, *, layer_hook=None
-                  ) -> torch.Tensor:
-    """Trunk only: (B, S) ids → final-norm hidden states (B, S, H).
-    The reference scans the stacked layers; here a Python loop slices
-    them, each layer checkpointed when ``cfg.remat``.
+                  cfg: TransformerConfig, *, layer_hook=None,
+                  return_aux: bool = False):
+    """Trunk only: (B, S) ids → final-norm hidden states (B, S, H);
+    with ``return_aux`` also the layers' aux losses summed (the MoE
+    load-balance term; 0 for dense layers).  The reference scans the
+    stacked layers; here a Python loop slices them, each layer
+    checkpointed when ``cfg.remat``.
 
     ``layer_hook(layer_params) -> layer_params`` runs inside the
     checkpointed layer body, before the layer computes: the seam where
@@ -389,6 +473,7 @@ def hidden_states(params: dict, input_ids: torch.Tensor,
     cos, sin = _rope_tables(S, cfg.resolved_head_dim, cfg.rope_theta,
                             device=x.device)
     remat = resolve_remat_policy(cfg) if cfg.remat else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, use_rope in enumerate(rope_flags(cfg)):
         layer = layer_params(params, li)
 
@@ -398,8 +483,11 @@ def hidden_states(params: dict, input_ids: torch.Tensor,
             return _layer_body(x, layer, cfg=cfg, cos=cos, sin=sin,
                                use_rope=use_rope)
 
-        x = remat(body, x, layer) if remat else body(x, layer)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        x, a = remat(body, x, layer) if remat else body(x, layer)
+        if a is not None:
+            aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return (x, aux) if return_aux else x
 
 
 def forward(params: dict, input_ids: torch.Tensor,
@@ -464,11 +552,17 @@ def xent_from_hidden(x: torch.Tensor, w_vocab: torch.Tensor,
 def lm_loss(params: dict, batch, cfg: TransformerConfig, *,
             layer_hook=None) -> torch.Tensor:
     """Causal-LM cross-entropy of ``batch`` = (input_ids, labels), both
-    (B, S) (``layer_hook``: see :func:`hidden_states`)."""
+    (B, S) (``layer_hook``: see :func:`hidden_states`), plus
+    ``moe_aux_weight`` times the layers' summed aux loss for an MoE
+    config."""
     input_ids, labels = batch
-    x = hidden_states(params, input_ids, cfg, layer_hook=layer_hook)
-    return xent_from_hidden(x, _output_embedding(params, cfg), labels,
+    x, aux = hidden_states(params, input_ids, cfg, layer_hook=layer_hook,
+                           return_aux=True)
+    loss = xent_from_hidden(x, _output_embedding(params, cfg), labels,
                             chunk=cfg.loss_vocab_chunk)
+    if cfg.n_experts:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 def model_flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:

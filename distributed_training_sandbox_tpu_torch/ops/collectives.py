@@ -15,9 +15,10 @@ to a process group) and issues one ``torch.distributed`` call:
 
 Without an initialised process group an axis has one rank and every
 collective is the identity.  ``all_gather``, ``reduce_scatter``,
-``ppermute_ring`` and the ``"sum"`` all_reduce are autograd Functions
-whose backward is the JAX transpose (reduce_scatter, all_gather, the
-reverse permutation, all_reduce); the other reductions carry no grad.
+``ppermute_ring``, ``all_to_all`` and the ``"sum"`` all_reduce are
+autograd Functions whose backward is the JAX transpose (reduce_scatter,
+all_gather, the reverse permutation, the inverse all_to_all,
+all_reduce); the other reductions carry no grad.
 
 The ring family of the FSDP slice: ``RingShard``, ``ring_all_gather``
 (bitwise ``all_gather``, backward pinned to one monolithic
@@ -281,31 +282,51 @@ def ppermute_ring(x, axis_name="dp", *, shift: int = 1):
     return _Permute.apply(x, axis_name, shift)
 
 
-def all_to_all(x, axis_name="dp", *, split_axis: int = 0,
-               concat_axis: int = 0, tiled: bool = True):
-    """Twin of ``lax.all_to_all``: ``x`` split along ``split_axis`` into
-    one chunk per rank, chunk j sent to rank j, the received chunks
-    concatenated along ``concat_axis`` in rank order (``tiled=False``:
-    ``split_axis`` has the axis size and is removed; the received
-    chunks stack along a new ``concat_axis``).  No grad."""
-    n = axis_size(axis_name)
+def _all_to_all_raw(x, axis, split_axis, concat_axis, tiled):
+    n = axis_size(axis)
     if x.shape[split_axis] % n:
         raise ValueError(f"all_to_all: dim {split_axis} of size "
                          f"{x.shape[split_axis]} not divisible by axis "
-                         f"{resolve_axis(axis_name).name!r} size {n}")
+                         f"{resolve_axis(axis).name!r} size {n}")
     chunks = x.detach().chunk(n, split_axis)
     if not tiled:
         chunks = [c.squeeze(split_axis) for c in chunks]
     inp = torch.stack([c.contiguous() for c in chunks])
     out = torch.empty_like(inp)
     if initialized():
-        dist.all_to_all_single(out, inp, group=_group(axis_name))
+        dist.all_to_all_single(out, inp, group=_group(axis))
         COLLECTIVES.record("all_to_all")
     else:
         out.copy_(inp)
     if tiled:
         return torch.cat(list(out), dim=concat_axis)
     return torch.stack(list(out), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis, tiled):
+        ctx.args = axis, split_axis, concat_axis, tiled
+        return _all_to_all_raw(x, axis, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):   # the inverse all_to_all: split and concat swap
+        axis, split_axis, concat_axis, tiled = ctx.args
+        return (_all_to_all_raw(g, axis, concat_axis, split_axis, tiled),
+                None, None, None, None)
+
+
+def all_to_all(x, axis_name="dp", *, split_axis: int = 0,
+               concat_axis: int = 0, tiled: bool = True):
+    """Twin of ``lax.all_to_all``: ``x`` split along ``split_axis`` into
+    one chunk per rank, chunk j sent to rank j, the received chunks
+    concatenated along ``concat_axis`` in rank order (``tiled=False``:
+    ``split_axis`` has the axis size and is removed; the received
+    chunks stack along a new ``concat_axis``).  Its backward is the
+    transpose ``lax.all_to_all`` gets under ``shard_map``: the inverse
+    all_to_all of the cotangent, ``split_axis`` and ``concat_axis``
+    swapped (one more ``all_to_all`` record)."""
+    return _AllToAll.apply(x, axis_name, split_axis, concat_axis, tiled)
 
 
 def barrier(axis_name="dp"):

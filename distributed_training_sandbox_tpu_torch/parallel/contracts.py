@@ -5,10 +5,11 @@ The port's copy of the JAX package's ``analysis/contracts.py`` formulas
 for these steps (``ddp``, ``ddp_bucketed``, ``ddp_q8``, ``zero1``,
 ``zero2``, ``zero3``), for the pipeline's stage programs (``gpipe``,
 ``1f1b``) and for the FSDP step with quantised gathers
-(:func:`fsdp_quantized_step_collectives`), read as calls.  The CPU
-tests and ``chip_smoke.py`` hold the steps of ``parallel/ddp.py``,
-``parallel/zero.py``, ``parallel/pipeline.py`` and ``parallel/fsdp.py``
-to them.
+(:func:`fsdp_quantized_step_collectives`), read as calls, and the
+port's own count for the MoE step (:func:`moe_step_collectives`).  The
+CPU tests and ``chip_smoke.py`` hold the steps of ``parallel/ddp.py``,
+``parallel/zero.py``, ``parallel/pipeline.py``, ``parallel/fsdp.py``
+and ``parallel/expert.py`` to them.
 """
 
 from __future__ import annotations
@@ -110,4 +111,53 @@ def fsdp_quantized_step_collectives(params: dict, *,
             out["all_to_all"] += 2 * accum_steps
         else:
             out["reduce_scatter"] += accum_steps
+    return out
+
+
+def moe_step_collectives(params: dict, *, remat: bool = True,
+                         z_loss: bool = False) -> dict:
+    """Every kind of ``CollectiveCounts.KINDS`` one dp × ep MoE step
+    (``parallel.expert.make_moe_lm_train_step``) issues on the
+    parameter tree ``params`` (full or sharded: only the leaf count and
+    the layer count L matter), at any dp and ep (an axis of one rank
+    still makes its calls).
+
+    The reference counts 4 all_to_all sites in its scanned layer body
+    (``analysis/contracts.py:387-395``); the shim counts calls, derived
+    from the port's structure:
+
+    * a layer's forward issues 2 all_to_alls (the buckets out, the
+      outputs back) and 2 all_reduces (the aux loss's ``frac`` and
+      ``mean_p`` means over ep; a third, ``z``, with the z-loss);
+    * its backward issues 2 all_to_alls (each one's inverse) and one
+      all_reduce for ``mean_p`` (``frac`` is a count and carries no
+      grad; ``z`` adds one);
+    * under remat ``"full"`` the checkpoint's recompute runs the layer's
+      forward again before its backward: its 2 all_to_alls and 2 (3)
+      all_reduces once more;
+    * the step then means the loss (one all_reduce over dp · ep) and
+      syncs every grad leaf with one all_reduce (over dp for the expert
+      banks, over dp · ep for the rest).
+
+    So L · (4 + 2·remat) all_to_alls and L · ((2 + z)(1 + remat) + 1 +
+    z) + 1 + n_leaves all_reduces."""
+    layers = params["layers"]
+    L = next(iter(layers.values())).shape[0]
+    n_leaves = sum(1 for k in params if k != "layers") + len(layers)
+    z, r = int(z_loss), int(remat)
+    out = dict.fromkeys(CollectiveCounts.KINDS, 0)
+    out["all_to_all"] = L * (4 + 2 * r)
+    out["all_reduce"] = L * ((2 + z) * (1 + r) + 1 + z) + 1 + n_leaves
+    return out
+
+
+def ep_step_collectives() -> dict:
+    """One toy EP step (``parallel.expert.make_ep_train_step``): the
+    layer's 2 all_to_alls and the inverse of the second only (the first
+    carries the buckets of the input data, which needs no grad, as XLA
+    drops that transpose for the reference); 2 aux all_reduces in the
+    forward and ``mean_p``'s in the backward, the loss mean and the
+    router's grad mean (the expert grads stay local)."""
+    out = dict.fromkeys(CollectiveCounts.KINDS, 0)
+    out.update(all_to_all=3, all_reduce=5)
     return out

@@ -26,7 +26,14 @@ more dims over the wire as int8 codes and f32 scales
 precision), ``quantized_grads`` puts those gathers' backward
 reduce_scatter on int8 too (``quantized_reduce_scatter``), and
 ``state_precision="int8"`` keeps Adam's moments int8 at rest
-(``parallel.optim8``, :func:`init_fsdp_opt_state8`).  Not ported:
+(``parallel.optim8``, :func:`init_fsdp_opt_state8`).
+
+MoE configs (``cfg.n_experts``) train at ``overlap="none"`` and
+``"ring"``: the stacked expert leaves ``(L, E, …)`` shard on E (dim 1,
+as every layer leaf), the router ``(L, H, E)`` on H, each layer runs all
+its experts locally, and ``moe_router_lr_mult`` scales the router's
+learning rate.  The fused modes refuse MoE, as the reference does.  Not
+ported:
 the optimizer and activation offload (``offload``, A12), sequence
 parallelism (A10) and the auto (jit + sharding) variant; they raise.
 
@@ -47,6 +54,7 @@ from ..ops import collectives as C
 from ..ops.quant import quantized_all_gather
 from ..utils import mesh
 from . import optim, optim8
+from .expert import router_lr_mults
 
 # the ROADMAP.md queue A item that holds each option not ported yet
 _ROADMAP_ITEMS = {"offload": "A12 (memory_plan/)",
@@ -198,13 +206,7 @@ def microbatch_value_and_grad(loss_fn, params: dict, batch,
 
 def local_batch(batch, axis="dp"):
     """This rank's contiguous rows of the global ``batch``."""
-    n, r = mesh.axis_size(axis), mesh.axis_rank(axis)
-    B = batch[0].shape[0]
-    if B % n:
-        raise ValueError(f"batch of {B} rows is not divisible by mesh axis "
-                         f"{mesh.resolve_axis(axis).name!r} size {n}")
-    m = B // n
-    return tuple(t[r * m:(r + 1) * m] for t in batch)
+    return mesh.shard_rows(batch, axis)
 
 
 def make_fsdp_value_and_grad(params_sharded: dict, cfg: T.TransformerConfig,
@@ -320,12 +322,14 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
         quantized_gather=quantized_gather, quantized_grads=quantized_grads)
     update = (optim8.adam8_update if state_precision == "int8"
               else optim.adam_update)
+    # the MoE router's learning-rate multiplier (moe_router_lr_mult)
+    lr_mults = router_lr_mults(params_sharded, cfg.moe_router_lr_mult)
 
     def step(shards, opt_state, batch):
         loss, grads = value_and_grad(shards, batch)
         lr_t = lr_schedule(opt_state.count) if lr_schedule else lr
         shards, opt_state = update(grads, opt_state, shards, lr=lr_t, b1=b1,
-                                   b2=b2, eps=eps)
+                                   b2=b2, eps=eps, lr_mults=lr_mults)
         return shards, opt_state, loss
 
     return step

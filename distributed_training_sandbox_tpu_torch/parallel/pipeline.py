@@ -47,8 +47,11 @@ index of its device in ``build_pipeline``'s list (stage ``s`` on
 index, so on the CPU, where every stage lives on ``cpu``, a list of D
 CPU devices still gives D logical devices.
 
-MoE stages (their aux losses) are not ported: ROADMAP.md queue A item
-A2.
+MoE stages: a stage built with ``aux_weight`` yields ``(out, aux)``,
+``aux`` its layers' summed load-balance losses.  The aux cotangent
+``aux_weight / n_micro`` enters each stage's backward locally beside
+the output's; only the values travel, to the reported loss (reference
+``:84-95``).
 """
 
 from __future__ import annotations
@@ -84,17 +87,25 @@ def _mse(out, y, params):
     return torch.mean((out - y) ** 2)
 
 
+def _hidden(out):
+    """The activation a stage hands on: its output, without the aux of
+    an MoE stage's ``(out, aux)``."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 class PipelineStage:
     """One stage: a copy of its params on ``device`` (leaves that require
     grad), its forward ``apply_fn(params, x)``, its Adam state (int8
     moments with ``opt8``, ``optim8``) and grad buffer.  The last
     stage's ``loss_fn(out, y, params)`` (default: the mean squared
     error) may read the stage params, as the transformer's unembedding
-    does."""
+    does.  With ``aux_weight`` (an MoE stage) ``apply_fn`` returns
+    ``(out, aux)`` and ``aux_weight · aux`` joins the objective."""
 
     def __init__(self, stage_params, device, apply_fn: Callable = mlp_apply,
                  is_last: bool = False, loss_fn: Callable | None = None,
-                 logical_device: int = 0, opt8: bool = False):
+                 logical_device: int = 0, opt8: bool = False,
+                 aux_weight: float | None = None):
         self.device = torch.device(device)
         self.logical_device = logical_device
         self.params = optim.tree_map(
@@ -102,6 +113,10 @@ class PipelineStage:
             .requires_grad_(p.is_floating_point()), stage_params)
         self._leaves = [p for _, p in optim.tree_leaves(self.params)]
         self.apply_fn = apply_fn
+        self.aux_weight = aux_weight
+        # each backward's weighted aux value · 1/n_micro (MoE stages),
+        # summed into the reported loss at the step's end
+        self.aux_values: list = []
         self.is_last = is_last
         self.loss_fn = loss_fn or _mse
         self.opt8 = opt8
@@ -134,20 +149,37 @@ class PipelineStage:
         with torch.enable_grad():
             return xin, self.apply_fn(self.params, xin)
 
-    def backward(self, xin, out, gout):
+    def backward(self, xin, out, gout, inv_n_micro: float = 1.0):
         """Back through a stored microbatch: the param grads accumulate,
-        the input grad (None for integer inputs) is returned."""
-        gx, gp = self._grads(out, xin, gout)
+        the input grad (None for integer inputs) is returned.  An MoE
+        stage's ``(out, aux)`` takes the aux cotangent ``aux_weight ·
+        inv_n_micro`` beside ``gout``."""
+        if isinstance(out, tuple):
+            hidden, aux = out
+            ct = self.aux_weight * inv_n_micro
+            self.aux_values.append(aux.detach() * ct)
+            gx, gp = self._grads([hidden, aux], xin,
+                                 [gout, torch.full_like(aux, ct)])
+        else:
+            gx, gp = self._grads(out, xin, gout)
         self.accumulate(gp)
         return gx
+
+    def objective(self, out, y):
+        """The last stage's loss on its output: ``loss_fn`` plus
+        ``aux_weight · aux`` for an MoE stage."""
+        if isinstance(out, tuple):
+            return (self.loss_fn(out[0], y, self.params)
+                    + self.aux_weight * out[1])
+        return self.loss_fn(out, y, self.params)
 
     def last_forward_backward(self, x, y, inv_n_micro: float):
         """The last stage's forward, ``loss · inv_n_micro`` and backward
         on one microbatch: ``(scaled loss, input grad or None)``."""
         xin = self._input(x)
         with torch.enable_grad():
-            loss = self.loss_fn(self.apply_fn(self.params, xin), y,
-                                self.params) * inv_n_micro
+            loss = self.objective(self.apply_fn(self.params, xin),
+                                  y) * inv_n_micro
         gx, gp = self._grads(loss, xin)
         self.accumulate(gp)
         return loss.detach(), gx
@@ -247,10 +279,11 @@ def build_transformer_pipeline(params: dict, cfg, n_stages: int,
     Adam moments (``optim8``)."""
     from ..models import transformer as T
 
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"n_experts={cfg.n_experts}: MoE stages are not ported yet — "
-            "see ROADMAP.md, queue A item A2")
+    if cfg.n_experts and cfg.ep_axis is not None:
+        raise ValueError(
+            "MoE×PP stages run one process per stage — experts must be "
+            "stage-local (cfg.ep_axis=None); shard experts with the "
+            "dp×ep step instead (parallel.expert.make_moe_lm_train_step)")
     L = cfg.num_hidden_layers
     if n_stages > L:
         raise ValueError(f"n_stages={n_stages} exceeds "
@@ -268,14 +301,18 @@ def build_transformer_pipeline(params: dict, cfg, n_stages: int,
         cos, sin = T._rope_tables(x.shape[1], cfg.resolved_head_dim,
                                   cfg.rope_theta, device=x.device)
         remat = T.resolve_remat_policy(cfg) if cfg.remat else None
+        aux = 0.0
         for i, use_rope in enumerate(flags):
             body = partial(T._layer_body, cfg=cfg, cos=cos, sin=sin,
                            use_rope=use_rope)
             layer = T.layer_params(p, i)
-            x = remat(body, x, layer) if remat else body(x, layer)
+            x, a = remat(body, x, layer) if remat else body(x, layer)
+            if a is not None:
+                aux = aux + a
         if last:
             x = T.rms_norm(x, p["final_norm"], cfg.rms_norm_eps)
-        return x
+        # an MoE stage's aux: its layers' balance losses
+        return (x, aux) if cfg.n_experts else x
 
     def lm_xent(hidden, labels, p):
         # lm_head is (H, vocab); xent takes (vocab, H) rows
@@ -296,7 +333,8 @@ def build_transformer_pipeline(params: dict, cfg, n_stages: int,
             sp, devs[s % len(devs)],
             partial(apply, first=first, last=last, flags=flags[lo:hi]),
             is_last=last, loss_fn=lm_xent if last else None,
-            logical_device=s % len(devs), opt8=opt8))
+            logical_device=s % len(devs), opt8=opt8,
+            aux_weight=cfg.moe_aux_weight if cfg.n_experts else None))
     return stages
 
 
@@ -319,9 +357,16 @@ def _note_stored(stage: PipelineStage, n: int) -> None:
 
 
 def _step_all(stages, mb_losses, lr) -> float:
+    """Each stage's Adam step; the batch loss: the microbatches' scaled
+    losses, plus the earlier MoE stages' weighted aux values (the last
+    stage's are inside its losses), summed on the host."""
+    aux = []
     for stage in stages:
         stage.step(lr)
-    return float(torch.stack(mb_losses).sum())
+        aux.extend(stage.aux_values)
+        stage.aux_values.clear()
+    return (float(torch.stack(mb_losses).sum())
+            + sum(float(a) for a in aux))
 
 
 @torch.no_grad()
@@ -329,10 +374,15 @@ def pipeline_loss(stages: list[PipelineStage], x, y) -> float:
     """The loss of the whole batch ``(x, y)`` under the stages' params:
     every stage's forward in turn, then the last stage's loss; no grad,
     no microbatches, no step."""
-    for stage in stages:
-        x = stage.apply_fn(stage.params, _to_stage(x, stage))
+    aux = 0.0
+    for stage in stages[:-1]:
+        out = stage.apply_fn(stage.params, _to_stage(x, stage))
+        if isinstance(out, tuple):
+            aux += stage.aux_weight * float(out[1])
+        x = _hidden(out)
     last = stages[-1]
-    return float(last.loss_fn(x, _to_stage(y, last), last.params))
+    out = last.apply_fn(last.params, _to_stage(x, last))
+    return float(last.objective(out, _to_stage(y, last))) + aux
 
 
 def run_gpipe(stages: list[PipelineStage], x, y, n_micro: int = 4,
@@ -353,7 +403,7 @@ def run_gpipe(stages: list[PipelineStage], x, y, n_micro: int = 4,
             else:
                 xin, out = stage.forward(xin)
                 stored[s].append((xin, out))
-                fwd_q[s + 1].append(out.detach())
+                fwd_q[s + 1].append(_hidden(out).detach())
             _note_stored(stage, len(stored[s]))
 
     mb_losses = []
@@ -367,7 +417,7 @@ def run_gpipe(stages: list[PipelineStage], x, y, n_micro: int = 4,
         for s in range(n_stages - 2, -1, -1):
             xin, out = stored[s][mb]
             stored[s][mb] = None
-            g = stages[s].backward(xin, out, _to_stage(g, stages[s]))
+            g = stages[s].backward(xin, out, _to_stage(g, stages[s]), inv)
     return _step_all(stages, mb_losses, lr)
 
 
@@ -405,7 +455,7 @@ def run_1f1b(stages: list[PipelineStage], x, y, n_micro: int = 4,
                 else:
                     xin, out = stage.forward(xin)
                     stored[s][mb] = (xin, out)
-                    fwd_q[s + 1].append((mb, out.detach()))
+                    fwd_q[s + 1].append((mb, _hidden(out).detach()))
                 _note_stored(stage, len(stored[s]))
                 if schedule_trace is not None:
                     schedule_trace.append((tick, s, "fwd", mb))
@@ -417,7 +467,7 @@ def run_1f1b(stages: list[PipelineStage], x, y, n_micro: int = 4,
                         xin, _to_stage(ys[mb], stage), inv)
                     mb_losses.append(loss)
                 else:
-                    gx = stage.backward(xin, out, _to_stage(gout, stage))
+                    gx = stage.backward(xin, out, _to_stage(gout, stage), inv)
                 if s > 0:
                     bwd_q[s - 1].append((mb, gx))
                 if schedule_trace is not None:
@@ -492,7 +542,7 @@ def run_interleaved_1f1b(stages: list[PipelineStage], x, y,
                         xin, _to_stage(ys[mb], stage), inv)
                     mb_losses.append(loss)
                 else:
-                    gx = stage.backward(xin, out, _to_stage(gout, stage))
+                    gx = stage.backward(xin, out, _to_stage(gout, stage), inv)
                 if q > 0:
                     pending.append((bwd_q, q - 1, (mb, gx)))
                 if schedule_trace is not None:
@@ -510,7 +560,7 @@ def run_interleaved_1f1b(stages: list[PipelineStage], x, y,
                 else:
                     xin, out = stage.forward(xin)
                     stored[q][mb] = (xin, out)
-                    pending.append((fwd_q, q + 1, (mb, out.detach())))
+                    pending.append((fwd_q, q + 1, (mb, _hidden(out).detach())))
                 _note_stored(stage, len(stored[q]))
                 if schedule_trace is not None:
                     schedule_trace.append((tick, d, q, "fwd", mb))

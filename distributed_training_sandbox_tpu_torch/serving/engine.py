@@ -157,7 +157,8 @@ def _paged_layer_body(x, layer, *, cfg, cos, sin, use_rope, pk, pv, pages,
     attn = attn.to(x.dtype).reshape(B, S, nq * hd)
     x = x + dense(attn, layer["wo"])
     r = T.rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
-    return x + T._mlp_block(r, layer, cfg=cfg)
+    mlp, _ = T._mlp_block(r, layer, cfg=cfg)
+    return x + mlp
 
 
 def _paged_forward(params, ids, cfg, bufs: PoolBuffers, pages, apos, valid,

@@ -11,7 +11,10 @@ so single-process code runs the same functions.
 :func:`init_process_group` reads what ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); run
 alone it makes a one-rank group on a free local port.  NCCL serves CUDA
-devices and gloo the CPU.  The named-mesh grammar (several axes, their
+devices and gloo the CPU.  :func:`dp_ep_axes` lays the ranks out as
+the MoE step's ``dp`` × ``ep`` mesh (two axes over subgroups) and
+:func:`shard_rows` takes a rank's rows of a batch sharded over several
+axes at once.  The named-mesh grammar (MeshPlan: any axes, their
 products) belongs to the composable slice (ROADMAP.md queue A item 10).
 """
 
@@ -67,6 +70,50 @@ def global_rank(axis, rank: int) -> int:
     if group is None or group is dist.group.WORLD:
         return rank
     return dist.get_global_rank(group, rank)
+
+
+def dp_ep_axes(dp: int, ep: int) -> tuple[Axis, Axis]:
+    """The ``("dp", "ep")`` axes of a ``dp`` × ``ep`` layout of the
+    default group: global rank ``r = dp_index · ep + ep_index``, the
+    order of the reference's ``Mesh(devices.reshape(dp, ep), ("dp",
+    "ep"))``.  An ``ep`` group is ``ep`` consecutive ranks, a ``dp``
+    group the ranks ``ep`` apart.  Every rank makes every subgroup (in
+    one order, as ``dist.new_group`` requires) and keeps its own two.
+    Without a process group both axes have one rank."""
+    if not initialized():
+        if dp * ep != 1:
+            raise ValueError(f"dp={dp} x ep={ep} needs a process group of "
+                             f"{dp * ep} ranks")
+        return Axis("dp"), Axis("ep")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp * ep != world:
+        raise ValueError(f"dp={dp} x ep={ep} != world size {world}")
+    ep_groups = [dist.new_group(list(range(d * ep, (d + 1) * ep)))
+                 for d in range(dp)]
+    dp_groups = [dist.new_group(list(range(e, world, ep)))
+                 for e in range(ep)]
+    return (Axis("dp", dp_groups[rank % ep]),
+            Axis("ep", ep_groups[rank // ep]))
+
+
+def shard_rows(batch, *axes):
+    """This rank's contiguous rows of every tensor of ``batch``, the
+    leading dim sharded over ``axes`` flattened in order (the
+    reference's ``P(("dp", "ep"))``): shard index ``Σ rank_a ·
+    Π size_b`` over the later axes b."""
+    index, count = 0, 1
+    for ax in axes:
+        index = index * axis_size(ax) + axis_rank(ax)
+        count *= axis_size(ax)
+    B = batch[0].shape[0]
+    if B % count:
+        names = [resolve_axis(a).name for a in axes]
+        over = (f"mesh axis {names[0]!r} size" if len(names) == 1
+                else f"mesh axes {tuple(names)} of")
+        raise ValueError(f"batch of {B} rows is not divisible by {over} "
+                         f"{count}")
+    m = B // count
+    return tuple(t[index * m:(index + 1) * m] for t in batch)
 
 
 def free_port() -> int:

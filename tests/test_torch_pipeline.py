@@ -416,9 +416,16 @@ def test_broken_layouts_and_configs_raise(inputs):
     p = bridge.params_from_jax(params, PCFG)
     with pytest.raises(ValueError, match="n_stages"):
         PP.build_transformer_pipeline(p, PCFG, 99, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="A2"):
+    # MoE stages build (the MoE pipeline is held against the reference's
+    # in test_torch_moe_lm.py); expert-sharded ones are refused
+    moe = dataclasses.replace(PCFG, n_experts=4, moe_ffn=32)
+    moe_p = PT.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    stages = PP.build_transformer_pipeline(moe_p, moe, 2, devices=["cpu"])
+    assert [s.aux_weight for s in stages] == [moe.moe_aux_weight] * 2
+    with pytest.raises(ValueError, match="ep_axis"):
         PP.build_transformer_pipeline(
-            p, dataclasses.replace(PCFG, n_experts=4), 2, devices=["cpu"])
+            moe_p, dataclasses.replace(moe, ep_axis="ep"), 2,
+            devices=["cpu"])
 
 
 def test_pipe_result_keys_are_the_references():

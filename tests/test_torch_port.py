@@ -131,8 +131,9 @@ def _mlp(rng, weights):
     r = rng.standard_normal((2, 3, 64)).astype(np.float32)
     jl = jax.tree.map(lambda p: p[1], jp["layers"])
     ref, _ = JT._mlp_block(jnp.asarray(r), jl, cfg=JT.TINY_LM)
-    got = PT._mlp_block(torch.from_numpy(r), PT.layer_params(pp, 1),
-                        cfg=PT.TINY_LM)
+    got, aux = PT._mlp_block(torch.from_numpy(r), PT.layer_params(pp, 1),
+                             cfg=PT.TINY_LM)
+    assert aux is None   # the dense MLP has no aux loss
     return ref, got
 
 
@@ -419,7 +420,14 @@ def test_entry_points_raise_without_a_card(weights, monkeypatch):
 
 def test_unported_configurations_raise():
     import dataclasses
-    for cfg in (dataclasses.replace(PT.TINY_LM, n_experts=4),
-                dataclasses.replace(PT.TINY_LM, attention_impl="ring")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PT.init_params(cfg, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.init_params(dataclasses.replace(PT.TINY_LM, attention_impl="ring"),
+                       torch.Generator(), "cpu")
+    # MoE is ported: init_params draws the expert leaves at their shapes
+    moe = dataclasses.replace(PT.TINY_LM, n_experts=4, moe_ffn=32)
+    layers = PT.init_params(moe, torch.Generator(), "cpu")["layers"]
+    L, h = moe.num_hidden_layers, moe.hidden_size
+    assert {k: tuple(v.shape) for k, v in layers.items()
+            if k.startswith("w_") and k not in ("wq", "wk", "wv", "wo")} == {
+        "w_router": (L, h, 4), "w_gate": (L, 4, h, 32),
+        "w_up": (L, 4, h, 32), "w_down": (L, 4, 32, h)}
