@@ -126,6 +126,18 @@ resilience mutants edit a Python module of the port instead):
   leaves the aux term out), whose loss recomposition (``moe loss sum``)
   must fail.  The all_to_all's backward cannot show at one rank; a
   two-rank CPU test removes it (``tests/test_torch_expert_ranks.py``).
+- three of tensor and sequence parallelism (phase 16, the port's
+  Python; child ``tp`` runs 16b and 16c): ``ring_causal_off_by_one``
+  (``ops/ring_attention.py``: the contiguous ring takes its own block
+  as fully visible, ``src <= my``), whose ring fold against the flash
+  kernels and the f64 oracle (``ring contiguous O``) must fail;
+  ``zigzag_stripe_swapped`` (``zigzag_positions`` lists the late stripe
+  first, so RoPE and the local mask see swapped positions), whose
+  zigzag fold (``ring zigzag O``) must fail; and ``tp_rejoin_dropped``
+  (``models/transformer.py``: the attention's rejoin left out; at one
+  rank it is a copy, so only the count can see it), whose TP step's
+  collectives against the ``tp`` contract (``tp step: collectives``)
+  must fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -297,6 +309,17 @@ MUTANTS = [
     ("moe_aux_dropped", "models/transformer.py",
      "        loss = loss + cfg.moe_aux_weight * aux",
      "        loss = loss + 0.0 * aux", "moe", ("moe loss sum",)),
+    ("ring_causal_off_by_one", "ops/ring_attention.py",
+     "    if src < my:      # an earlier block: every key visible",
+     "    if src <= my:      # an earlier block: every key visible", "tp",
+     ("ring contiguous O",)),
+    ("zigzag_stripe_swapped", "ops/ring_attention.py",
+     "    return torch.cat([my * w + ar, (2 * n - 1 - my) * w + ar])",
+     "    return torch.cat([(2 * n - 1 - my) * w + ar, my * w + ar])", "tp",
+     ("ring zigzag O",)),
+    ("tp_rejoin_dropped", "models/transformer.py",
+     "            attn_out = rejoin(attn_out)",
+     "            attn_out = attn_out", "tp", ("tp step: collectives",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -470,6 +493,20 @@ try:
     c.moe_parity_phase()
     c.moe_oracle_phase()
     c.moe_bf16_phase()
+finally:
+    c.mesh.destroy_process_group()
+""", "tp": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+try:
+    c.tp_parity_phase()
+    c.ring_fold_phase()
 finally:
     c.mesh.destroy_process_group()
 """, "resilience": """

@@ -5,8 +5,9 @@ trainer on SmolLM3-3B-L8 (fp8 and int8 projections), the FSDP trainer
 on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank; and with int8
 gathers, grads and Adam moments), with the hand-written Hopper kernels,
 DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules, the
-remat policies, preempt → resume under the run harness and the
-mixture-of-experts model (one NCCL rank).
+remat policies, preempt → resume under the run harness, the
+mixture-of-experts model and tensor and sequence parallelism (one NCCL
+rank).
 
     python3 chip_smoke.py
 
@@ -179,7 +180,37 @@ Phases, each of which fails the run:
    contract's (``parallel.contracts.moe_step_collectives``), step 0
    bit-equal to (a), losses finite and falling; step ms, tokens/s, MFU
    on active FLOPs, peak memory and a ``torch.profiler`` breakdown of
-   the last step by kernel and by the MoE layer's ranges.
+   the last step by kernel and by the MoE layer's ranges;
+16. tensor and sequence parallelism — on the same group: (a) layer 0 of
+   the seeded SMOLLM3_3B_L8 cut by ``parallel.tensor.tp_specs`` for tp 2
+   and 4, every rank, at M 8192: each shard's product at
+   int8_pallas_bwd through K5 and K4 (dX, dW) bit-equal to the plain
+   int8 products, one K5 and two K4 launches a product; the flash
+   kernels on a rank's local heads (16/tp query, 4/tp KV: 4 and 1 at tp
+   4) within FA's limits of plain attention (the grads by block and by
+   their L2 distance from the exact f64 gradient over the plain path's,
+   as at a pipeline stage); the row-parallel shards'
+   f32 partials summed over the ranks within ``TP_PARTIAL_REL`` of the
+   whole product; (b) ``tensor.make_tp_train_step`` at dp 1 x tp 1,
+   int8_pallas_bwd, seq 8192: ``tp_lm_loss``'s step-0 loss and every
+   grad leaf bit-equal to the plain int8 products, the step's loss the
+   same, launches exact, its collectives the ``tp`` contract's; (c) ring
+   attention at seq 16384 (B 1, 16 query and 4 KV heads, hd 128, bf16)
+   over 4 virtual ranks in one process, every rank's blocks folded in
+   hop order through ``ring_attention.contiguous_hop`` / ``zigzag_hop``
+   (zigzag shuffled in, unshuffled out), forward and backward: O, dq,
+   dk, dv against the flash kernels on the whole sequence (FA's limits)
+   and against the exact f64 attention on slices of rows
+   (``RING_ORACLE_TOL``), the merges counted (zigzag's score elements
+   10/16 of the contiguous fold's at 4 ranks, the contiguous fold's
+   unmasked share); (d) 6 steps each of ``train.train_tp.run`` at tp 1
+   (bf16, flash), ``train.train_sp.run`` at sp 1 with
+   ``overlap="ring_fused_pallas"`` (K7; the ring on its own block) and
+   the dp x sp x ep MoE step at dp 1 x sp 1 x ep 1 on SMOLLM3_3B_L8_MOE
+   at int8_pallas_bwd (K5, K4; the ring in place of the flash
+   kernels): launches exact, plain calls 0, every step's collectives
+   the contract's (``parallel.contracts``), losses finite and falling;
+   step ms, tokens/s, MFU, peak memory; phase 16's wall time.
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -236,11 +267,14 @@ from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.ops import busbench as BB
-from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8
+from distributed_training_sandbox_tpu_torch.ops import ring_attention as RA
+from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8, tensor
 from distributed_training_sandbox_tpu_torch.parallel import expert as EX
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
+from distributed_training_sandbox_tpu_torch.parallel import sequence as PS
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
-    fsdp_quantized_step_collectives, step_collectives)
+    fsdp_quantized_step_collectives, moe_step_collectives, step_collectives,
+    tp_step_collectives)
 from distributed_training_sandbox_tpu_torch.resilience import (
     generator_states)
 from distributed_training_sandbox_tpu_torch.train import busbench as bb_run
@@ -250,6 +284,7 @@ from distributed_training_sandbox_tpu_torch.train import moe as moe_run
 from distributed_training_sandbox_tpu_torch.train import (
     precision_benchmark as prec_bench)
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
+from distributed_training_sandbox_tpu_torch.train import train_sp, train_tp
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
 from distributed_training_sandbox_tpu_torch.utils import mesh
@@ -529,6 +564,24 @@ MOE_ORACLE_REL_L2 = 1e-4
 MOE_AUX_RTOL = 1e-6
 MOE_BF16_LOSS_ATOL = 1.2e-4
 MOE_BF16_GRAD_REL_L2 = 0.02
+# Phase 16 (tensor and sequence parallelism), on the one-rank
+# group: (a) layer 0 of SmolLM3-3B-L8 cut into tp 2 and tp 4 shards at M
+# 8192 through K5/K4 (bit-equal) and the flash kernels on local heads;
+# (b) the TP step at dp 1 x tp 1, int8_pallas_bwd, seq 8192; (d) the
+# twins and the dp x sp x ep step, 6 steps each.
+TP_TRAIN = dict(model="smollm3-3b-l8", seq=8192, bs=1, num_steps=6, seed=42)
+TP_PARITY_CFG = dataclasses.replace(T.SMOLLM3_3B_L8,
+                                    matmul_precision="int8_pallas_bwd")
+TP_SHARD_TPS = (2, 4)
+# the row-parallel shards' f32 partial products summed over the ranks
+# against the whole product: max |difference| / max |product|, f32
+# reassociation of a K-sum of 2048 or 11 008 terms
+TP_PARTIAL_REL = 1e-5
+# (c) the ring fold: seq 16384 over 4 virtual ranks; against the exact
+# f64 attention on slices of rows, elementwise (atol as a fraction of
+# the tensor's max |value|, rtol)
+RING = dict(seq=16384, sp=4, seed=SEED + 16)
+RING_ORACLE_TOL = (4e-4, 2 ** -6)
 MOE_SCOPES = ("moe_route", "moe_dispatch", "moe_a2a_out", "moe_expert_mlp",
               "moe_a2a_back", "moe_combine", "moe_aux_loss")
 # the record_function ranges of the port's steps (parallel/expert.py)
@@ -1233,8 +1286,9 @@ def profile_phase(params, rng, engine=None, label="serve",
     (default: the bf16 serve's ``ENGINE``): the device's busy share of
     the run's wall time and the kernels that take it.  ``window =
     (first, n)`` profiles scheduler rounds first .. first + n - 1 only
-    (each a prefill chunk or two and a decode burst): the int8 run
-    launches ~50 000 kernels, whose trace takes minutes to post-process.
+    (each a prefill chunk or two and a decode burst), and the run stops
+    after them: the int8 run launches ~50 000 kernels, whose trace takes
+    minutes to post-process.
     It comes after every gate, so profiler overhead touches none of the
     gated numbers; it reports and gates nothing."""
     from torch.profiler import ProfilerActivity, profile
@@ -1267,11 +1321,12 @@ def profile_phase(params, rng, engine=None, label="serve",
                 prof.start()
                 t = time.perf_counter()
             eng.step_round(time.perf_counter() - eng._t0)
-            if i == first + n - 1:
+            i += 1
+            if i == first + n:
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t) * 1e6
                 prof.stop()
-            i += 1
+                break   # the rounds after the window read nothing
         eng.close_pump()
         if i < first + n:
             check(False, f"profile ({label}): the run took {i} rounds, "
@@ -4176,6 +4231,470 @@ def moe_train_phase(card: str, loss0: float) -> dict:
     return {k: v[0] for k, v in counts.items()}
 
 
+# ------------------------------- phase 16: tensor and sequence parallelism
+
+def _tp_axes(*names):
+    """The one-rank grid of ``names`` on the smoke's NCCL group."""
+    mesh.init_process_group("cuda")
+    return mesh.grid_axes(names, (1,) * len(names))
+
+
+def _rel_max(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+def tp_shards_phase() -> dict:
+    """Phase 16a: layer 0 of the seeded SMOLLM3_3B_L8 sliced by
+    ``tensor.tp_specs`` for tp 2 and 4, every rank, at M = 8192 (seq
+    8192, batch 1): each projection shard's product at int8_pallas_bwd
+    through K5 (forward) and K4 (dX, dW) bit-equal to the plain int8
+    products; the flash kernels on a rank's local heads (16/tp query,
+    4/tp KV) within FA's limits of plain attention (the forward
+    elementwise and by block; the grads by block and by their L2
+    distance from the exact f64 gradient over the plain path's, as a
+    pipeline stage's are: a dK element summed over 4 query heads and
+    8192 queries reads up to 1.02 of the elementwise limit against the
+    plain path on an H100, which rounds P to bf16 itself); the row-parallel
+    shards' f32 partial products (wo, w_down), summed over the ranks,
+    within ``TP_PARTIAL_REL`` of the whole layer's product."""
+    p = TP_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(p["seed"])
+    params = T.init_params(T.SMOLLM3_3B_L8, gen, "cuda")
+    M = p["seq"] * p["bs"]
+    H, F = T.SMOLLM3_3B_L8.hidden_size, T.SMOLLM3_3B_L8.intermediate_size
+    ins = {"h": torch.randn((M, H), generator=gen, device="cuda"),
+           "f": torch.randn((M, F), generator=gen, device="cuda")}
+    ins = {k: v.to(torch.bfloat16) for k, v in ins.items()}
+    dense = Q.resolve_quantized_dense("int8_pallas_bwd")
+    unequal, launches, partial, fa = [], {}, {}, {}
+    for tp in TP_SHARD_TPS:
+        ranks = [tensor.shard_tree_tp(
+            {"layers": {k: v[:1] for k, v in params["layers"].items()}},
+            r, tp)["layers"] for r in range(tp)]
+        sums = {}
+        for r, shard in enumerate(ranks):
+            for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+                w = shard[name][0]
+                if name in tensor.ROW:
+                    full = ins["h" if name == "wo" else "f"]
+                    x = full[:, r * w.shape[0]:(r + 1) * w.shape[0]]
+                    part = x.float() @ w.float()
+                    sums[name] = sums.get(name, 0) + part
+                else:
+                    x = ins["h"]
+                dy = torch.randn((M, w.shape[1]), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                outs = {}
+                for path in ("kernel", "plain"):
+                    _reset_kernel_counts()
+                    xx, ww = (t.detach().clone().requires_grad_(True)
+                              for t in (x, w))
+                    with (Q.plain_int8_products() if path == "plain"
+                          else contextlib.nullcontext()):
+                        y = dense(xx, ww)
+                        dx, dw = torch.autograd.grad(y, (xx, ww), dy)
+                    outs[path] = (y.detach(), dx, dw)
+                    if path == "kernel":
+                        key = f"{name} {tuple(w.shape)}"
+                        launches[key] = (Q.INT8_FUSED_COUNTS.launches,
+                                         Q.INT8_COUNTS.launches)
+                for what, a, b in zip(("y", "dX", "dW"), outs["kernel"],
+                                      outs["plain"]):
+                    if not torch.equal(a, b):
+                        unequal.append(f"tp {tp} rank {r} {name} {what}: "
+                                       f"{float((a.float() - b.float()).abs().max())}")
+        for name in tensor.ROW:
+            w = params["layers"][name][0]
+            whole = ins["h" if name == "wo" else "f"].float() @ w.float()
+            partial[f"tp {tp} {name}"] = _rel_max(sums[name], whole)
+        # the flash kernels on each rank's local heads
+        hd = T.SMOLLM3_3B_L8.resolved_head_dim
+        nq = T.SMOLLM3_3B_L8.num_attention_heads // tp
+        nkv = T.SMOLLM3_3B_L8.num_key_value_heads // tp
+        for r in range(tp):
+            mk = lambda n: torch.randn((p["bs"], p["seq"], n, hd),
+                                       generator=gen,
+                                       device="cuda").to(torch.bfloat16)
+            q, k, v, do = mk(nq), mk(nkv), mk(nkv), mk(nq)
+            scale = hd ** -0.5
+            o, lse = FA.flash_attention_fwd(q, k, v, scale)
+            ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+            _, r_o = _fa_reading("flash_attention_fwd",
+                                 f"tp {tp} rank {r} O ({nq}/{nkv} heads)",
+                                 o, ref_o, "fwd")
+            r_o = max(r_o, float((lse - ref_lse).abs().max()) / FA.LSE_ATOL)
+            grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
+            ref_g = FA.flash_attention_bwd_plain(q, k, v, do, scale)
+            exact = FA.attention_bwd_oracle(q, k, v, do, scale)
+            r_g, elem = 0.0, {}
+            for n, g, rg, ex in zip(("dq", "dk", "dv"), grads, ref_g, exact):
+                _fa_reading("flash_attention_bwd", f"tp {tp} rank {r} {n}",
+                            g, rg, "bwd")
+                blk = FA.block_rel_l2(g, rg) / FA.BLOCK_REL_L2
+                l2 = FA.oracle_l2_ratio(g, rg, ex) / FA.BWD_ORACLE_L2_RATIO
+                r_g = max(r_g, blk, l2)
+                elem[n] = (gate_ratio(g, rg, *FA.TOLERANCE["bwd"]),
+                           gate_ratio(g.double(), ex, *FA.TOLERANCE["bwd"]),
+                           gate_ratio(rg.double(), ex, *FA.TOLERANCE["bwd"]))
+            log(f"flash_attention_bwd: tp {tp} rank {r} elementwise ratios "
+                f"at FA's limits (kernel - plain, kernel - exact, plain - "
+                f"exact) {json.dumps(elem)}")
+            fa[f"tp {tp} rank {r}"] = (r_o, r_g)
+            del o, lse, ref_o, ref_lse, grads, ref_g, exact
+    del params, ins
+    torch.cuda.empty_cache()
+    log(f"tp shards: K5/K4 launches (fused, K4) for each shard product "
+        f"{json.dumps(launches)}; not bit-equal: {unequal}")
+    log(f"tp shards: row-parallel partials summed over the ranks against "
+        f"the whole product, max |difference| / max |product| (f32) "
+        f"{json.dumps(partial)} (limit {TP_PARTIAL_REL})")
+    log(f"tp shards: FA gate ratios on local heads: (forward at FA's "
+        f"limits; backward, the larger of each grad's block relative L2 "
+        f"over {FA.BLOCK_REL_L2} and its L2 distance from the exact f64 "
+        f"gradient over the plain path's, over {FA.BWD_ORACLE_L2_RATIO}) "
+        f"{json.dumps(fa)}")
+    check(not unequal, f"tp shards int8: {len(unequal)} products not "
+          f"bit-equal to the plain int8 products: {unequal[:4]}")
+    check(all(v == (1, 2) for v in launches.values()),
+          f"tp shards int8: launches (K5, K4) {launches} != (1, 2) a product")
+    check(all(v <= TP_PARTIAL_REL for v in partial.values()),
+          f"tp shards partial sums: {partial} above {TP_PARTIAL_REL}")
+    check(all(max(v) <= 1.0 for v in fa.values()),
+          f"tp shards flash attention: gate ratios {fa} above 1")
+    return {"partial": partial, "fa": fa}
+
+
+def tp_parity_phase() -> float:
+    """Phase 16b: ``tensor.make_tp_train_step`` at dp 1 x tp 1 on
+    SMOLLM3_3B_L8 at int8_pallas_bwd (flash attention), seq 8192: the
+    step-0 loss and every grad leaf of ``tp_lm_loss`` through K5 and K4
+    bit-equal to the plain int8 products (the rejoins at one rank copy),
+    the launches exact; then one step: its loss bit-equal to the kernel
+    path's, its launches exact and its collectives the ``tp`` contract's
+    (``contracts.tp_step_collectives``).  Returns the step-0 loss."""
+    p = TP_TRAIN
+    axes = _tp_axes("dp", "tp")
+    shards, batch = _prec_inputs(TP_PARITY_CFG, p["seed"], p["seq"], p["bs"],
+                                 p["num_steps"])
+    # the TP layer at tp 1 launches what the FSDP step's does
+    expect = _prec_expect(TP_PARITY_CFG.num_hidden_layers)
+    out, counts = {}, {}
+    for name in ("kernel", "plain"):
+        _reset_kernel_counts()
+        with (Q.plain_int8_products() if name == "plain"
+              else contextlib.nullcontext()):
+            loss, grads = fsdp.microbatch_value_and_grad(
+                lambda q, b: tensor.tp_lm_loss(q, b, TP_PARITY_CFG,
+                                               axis=axes["tp"]),
+                shards, batch, 1)
+        torch.cuda.synchronize()
+        counts[name] = {k: (c.launches, c.plain_calls)
+                        for k, (c, _) in expect.items()}
+        out[name] = (float(loss), grads)
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    unequal = {"/".join(path): float((a.float() - fsdp.optim.tree_get(
+        gp, path).float()).abs().max())
+        for path, a in fsdp.optim.tree_leaves(gk)
+        if not torch.equal(a, fsdp.optim.tree_get(gp, path))}
+    del out, gk, gp, grads
+    torch.cuda.empty_cache()
+    step = tensor.make_tp_train_step(shards, TP_PARITY_CFG,
+                                     dp_axis=axes["dp"], tp_axis=axes["tp"])
+    opt = fsdp.init_fsdp_opt_state(shards)
+    _reset_kernel_counts()
+    shards, opt, loss = step(shards, opt, batch)
+    ls = float(loss)
+    step_counts = {k: (c.launches, c.plain_calls)
+                   for k, (c, _) in expect.items()}
+    coll = C.COLLECTIVES.read()
+    contract = tp_step_collectives(shards, 1, remat=True)
+    want = {k: per for k, (_, per) in expect.items()}
+    log(f"tp parity: loss kernel {lk!r} plain {lp!r} (bit-equal "
+        f"{lk == lp}); grad leaves not bit-equal {json.dumps(unequal)}; "
+        f"launches (kernel, plain) {json.dumps(counts['kernel'])}, the "
+        f"step's {json.dumps(step_counts)}, expected {json.dumps(want)}")
+    log(f"tp parity: the step's loss {ls!r}; its collectives "
+        f"{json.dumps(C.COLLECTIVES.nonzero(coll))}, the tp contract's "
+        f"{json.dumps(C.COLLECTIVES.nonzero(contract))}")
+    del shards, opt
+    torch.cuda.empty_cache()
+    check(np.isfinite(lk) and lk == lp, f"tp int8 step-0 loss: kernel "
+          f"{lk!r} != plain {lp!r}")
+    check(not unequal, f"tp int8 step-0 grads: {len(unequal)} leaves not "
+          f"bit-equal: {unequal}")
+    check(ls == lk, f"tp step: loss {ls!r} is not the parity's {lk!r}")
+    for k, c in (("parity", counts["kernel"]), ("step", step_counts)):
+        for name, (launches, plain) in c.items():
+            check((launches, plain) == (want[name], 0),
+                  f"tp {k}: {name} (launches, plain) {(launches, plain)} "
+                  f"!= ({want[name]}, 0)")
+    check(coll == contract, f"tp step: collectives {coll} != the tp "
+          f"contract's {contract}")
+    return lk
+
+
+def _rows_oracle(q, k, v, do, scale, qrows, krows, chunk=512):
+    """The exact f64 output and grads of causal GQA attention on slices:
+    O and dQ on the query rows ``qrows``, dK and dV on the key rows
+    ``krows`` (each a range), for (B, S, n, hd) inputs.  The row
+    normalisers and ``rowsum(dO · O)`` of every query row come from a
+    pass over chunks of ``chunk`` rows, so nothing S x S is held."""
+    B, S, nq, hd = q.shape
+    rep = nq // k.shape[2]
+    q64, do64 = q.double(), do.double()
+    k64 = k.double().repeat_interleave(rep, 2)
+    v64 = v.double().repeat_interleave(rep, 2)
+    cols = torch.arange(S, device=q.device)
+    lse = torch.empty((B, nq, S), dtype=torch.float64, device=q.device)
+    dsum = torch.empty_like(lse)
+    for c0 in range(0, S, chunk):
+        rows = cols[c0:c0 + chunk]
+        s = torch.einsum("bqnh,bknh->bnqk", q64[:, rows], k64) * scale
+        s = s.masked_fill(cols[None, :] > rows[:, None], -math.inf)
+        lse[:, :, rows] = torch.logsumexp(s, -1)
+        o = torch.einsum("bnqk,bknh->bqnh", torch.exp(
+            s - lse[:, :, rows, None]), v64)
+        dsum[:, :, rows] = (do64[:, rows] * o).sum(-1).transpose(1, 2)
+    # O and dQ on the query rows
+    s = torch.einsum("bqnh,bknh->bnqk", q64[:, qrows], k64) * scale
+    s = s.masked_fill(cols[None, :] > cols[qrows][:, None], -math.inf)
+    pq = torch.exp(s - lse[:, :, qrows, None])
+    o = torch.einsum("bnqk,bknh->bqnh", pq, v64)
+    dp = torch.einsum("bqnh,bknh->bnqk", do64[:, qrows], v64)
+    ds = pq * (dp - dsum[:, :, qrows, None])
+    dq = torch.einsum("bnqk,bknh->bqnh", ds, k64) * scale
+    # dK and dV on the key rows, summed over each KV head's query heads
+    s = torch.einsum("bqnh,bknh->bnqk", q64, k64[:, krows]) * scale
+    s = s.masked_fill(cols[krows][None, :] > cols[:, None], -math.inf)
+    pk = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bnqk,bqnh->bknh", pk, do64)
+    dp = torch.einsum("bqnh,bknh->bnqk", do64, v64[:, krows])
+    ds = pk * (dp - dsum[..., None])
+    dk = torch.einsum("bnqk,bqnh->bknh", ds, q64) * scale
+    fold = lambda t: t.reshape(B, t.shape[1], -1, rep, hd).sum(3)
+    return o, dq, fold(dk), fold(dv)
+
+
+def ring_fold_phase() -> dict:
+    """Phase 16c: ring attention at full width in one process: seq
+    16384, batch 1, SMOLLM3_3B_L8's heads (16 query, 4 KV, hd 128) in
+    bf16, over ``RING["sp"]`` virtual ranks (S_local 4096).  Each rank's
+    output is folded from every rank's K/V block in hop order through
+    the module-level hops (``ring_attention.contiguous_hop`` /
+    ``zigzag_hop``), then its backward runs, for the contiguous layout
+    and for zigzag (shuffled in, unshuffled out).  The output and dq,
+    dk, dv are held against the flash kernels on the whole sequence (at
+    FA's limits) and against the exact f64 attention on slices of rows
+    (``RING_ORACLE_TOL``); the merges are counted: the zigzag fold
+    computes D + D(D - 1)/2 stripe-pair blocks of S_local² scores where
+    the contiguous one computes D², D(D - 1)/2 of them fully masked."""
+    S, D = RING["seq"], RING["sp"]
+    cfg = T.SMOLLM3_3B_L8
+    nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                   cfg.resolved_head_dim)
+    scale = hd ** -0.5
+    Sl = S // D
+    gen = torch.Generator(device="cuda").manual_seed(RING["seed"])
+    mk = lambda n: torch.randn((1, S, n, hd), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+    q, k, v, do = mk(nq), mk(nkv), mk(nkv), mk(nq)
+    t0 = time.perf_counter()
+    o_fa, lse = FA.flash_attention_fwd(q, k, v, scale)
+    g_fa = FA.flash_attention_bwd(q, k, v, o_fa, lse, do, scale)
+    qrows = torch.cat([torch.arange(Sl - 128, Sl + 128),
+                       torch.arange(S - 128, S)]).cuda()
+    krows = torch.cat([torch.arange(0, 128),
+                       torch.arange(2 * Sl - 64, 2 * Sl + 64)]).cuda()
+    orc = _rows_oracle(q, k, v, do, scale, qrows, krows)
+    log(f"ring fold: FA on the whole sequence and the f64 oracle on "
+        f"{len(qrows)} query rows and {len(krows)} key rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    readings, merges = {}, {}
+    for layout in RA.LAYOUTS:
+        t0 = time.perf_counter()
+        zig = layout == "zigzag"
+        shuf = (lambda t: PS.zigzag_shuffle(t, D)) if zig else (lambda t: t)
+        unshuf = (lambda t: PS.zigzag_unshuffle(t, D)) if zig else (
+            lambda t: t)
+        qs, ks, vs = (shuf(t).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        dos = shuf(do)
+        RA.MERGES.reset()
+        outs = []
+        for r in range(D):
+            qf = qs[:, r * Sl:(r + 1) * Sl].float()
+            acc = RA.init_acc(qf, Sl // 2 if zig else Sl)
+            for t in range(D):
+                src = (r - t) % D
+                kb, vb = (x[:, src * Sl:(src + 1) * Sl] for x in (ks, vs))
+                acc = (RA.zigzag_hop(qf, kb, vb, src, r, D, acc, scale=scale)
+                       if zig else RA.contiguous_hop(qf, kb, vb, src, r, acc,
+                                                     scale=scale))
+            out = RA.finish(acc, q.dtype)
+            out.backward(dos[:, r * Sl:(r + 1) * Sl])
+            outs.append(out.detach())
+            del acc, out
+        merges[layout] = RA.MERGES.read()
+        got = [unshuf(torch.cat(outs, 1))] + [unshuf(x.grad)
+                                              for x in (qs, ks, vs)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read = {}
+        for i, name in enumerate(("O", "dq", "dk", "dv")):
+            which = "fwd" if i == 0 else "bwd"
+            fa_ref = o_fa if i == 0 else g_fa[i - 1]
+            _, r_fa = _fa_reading(f"ring {layout}", f"{name} vs FA", got[i],
+                                  fa_ref, which)
+            rows = qrows if i < 2 else krows
+            atol, rtol = RING_ORACLE_TOL
+            ref = orc[i]
+            r_or = gate_ratio(got[i][:, rows].double(), ref,
+                              atol * float(ref.abs().max()), rtol)
+            read[name] = (r_fa, r_or)
+        readings[layout] = read
+        log(f"ring fold {layout}: {wall:.1f} s (forward and backward, "
+            f"{D} ranks); merges {json.dumps(merges[layout])}; gate ratios "
+            f"(vs FA at FA's limits, vs the f64 oracle at "
+            f"{RING_ORACLE_TOL} of each tensor's max) {json.dumps(read)}")
+        del qs, ks, vs, dos, outs, got
+        torch.cuda.empty_cache()
+    block = nq * Sl * Sl
+    c, z = merges["contiguous"], merges["zigzag"]
+    log(f"ring fold: score elements computed, zigzag over contiguous "
+        f"{z['scores'] / c['scores']:.4f}; over the contiguous merges not "
+        f"fully masked {z['scores'] / (c['scores'] - c['masked'] * block):.4f}")
+    del q, k, v, do, o_fa, lse, g_fa, orc
+    torch.cuda.empty_cache()
+    check(c["calls"] == D * D and c["masked"] == D * (D - 1) // 2
+          and c["scores"] == D * D * block,
+          f"ring fold contiguous merges {c}: expected {D * D} calls, "
+          f"{D * (D - 1) // 2} masked")
+    check(z["masked"] == 0 and z["scores"] == (D + D * (D - 1) // 2) * block,
+          f"ring fold zigzag merges {z}: expected {D + D * (D - 1) // 2} "
+          f"blocks of S_local^2 scores, none masked")
+    for layout, read in readings.items():
+        for name, (r_fa, r_or) in read.items():
+            check(r_fa <= 1.0, f"ring {layout} {name}: gate ratio {r_fa:.3f} "
+                  f"against the flash kernels above 1")
+            check(r_or <= 1.0, f"ring {layout} {name}: gate ratio {r_or:.3f} "
+                  f"against the f64 oracle above 1")
+    return {"readings": readings, "merges": merges}
+
+
+def _run_steps(step, shards, opt, batches, n, on_step=None):
+    """``n`` steps of ``step``, each ending in a sync: (losses, host
+    seconds a step, collectives a step)."""
+    losses, times, colls = [], [], []
+    for i, batch in zip(range(n), batches):
+        C.COLLECTIVES.reset()
+        t = time.perf_counter()
+        shards, opt, loss = step(shards, opt, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+        colls.append(C.COLLECTIVES.read())
+        if on_step is not None:
+            on_step(i, losses[-1])
+    return losses, times, colls
+
+
+def _train_reading(label, card, losses, step_s, tokens, flops_tok, peak,
+                   counts, want, colls, contract) -> dict:
+    """Log one phase-16d leg and check it: launches exact, plain 0,
+    collectives the contract's, losses finite and falling."""
+    n = len(losses)
+    ms = statistics.median(step_s[1:n - 1]) * 1e3
+    tok_s = tokens / ms * 1e3
+    log(f"{label} on {card}: losses {losses}; step times (s) {step_s}; "
+        f"median of steps 1-{n - 2} {ms:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{flops_tok * tok_s / PEAK_BF16_FLOPS:.4f}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; launches (kernel, plain) "
+        f"{json.dumps(counts)}, expected {json.dumps(want)}; collectives a "
+        f"step {json.dumps(C.COLLECTIVES.nonzero(colls[-1]))}, the "
+        f"contract's {json.dumps(C.COLLECTIVES.nonzero(contract))}")
+    for name, (launches, plain) in counts.items():
+        check((launches, plain) == (want[name], 0),
+              f"{label}: {name} (launches, plain) {(launches, plain)} != "
+              f"({want[name]}, 0)")
+    for i, c in enumerate(colls):
+        check(c == contract, f"{label}: step {i} collectives {c} != the "
+              f"contract's {contract}")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"{label}: step-{n - 1} loss "
+          f"{losses[-1]} is not below step-0 loss {losses[0]}")
+    return {"step_ms": ms, "tokens_per_s": tok_s,
+            "mfu": flops_tok * tok_s / PEAK_BF16_FLOPS,
+            "peak_gib": peak / 2 ** 30}
+
+
+def tp_sp_train_phase(card: str) -> tuple[dict, dict]:
+    """Phase 16d, ``TP_TRAIN["num_steps"]`` steps each on the one-rank
+    group: ``train.train_tp.run`` at tp 1 (SMOLLM3_3B_L8, bf16, flash),
+    ``train.train_sp.run`` at sp 1 with ``overlap="ring_fused_pallas"``
+    (every projection through K7, attention the ring's own block), and
+    ``expert.make_moe_lm_train_step(sp_axis=...)`` at dp 1 x sp 1 x ep 1
+    on SMOLLM3_3B_L8_MOE at int8_pallas_bwd (K5, K4; the ring in place
+    of the flash kernels).  Each: launches exact, plain calls 0, every
+    step's collectives the contract's, losses finite and falling; step
+    ms, tokens/s, MFU, peak memory.  Returns the readings and each
+    leg's launches."""
+    p = TP_TRAIN
+    n, L = p["num_steps"], T.SMOLLM3_3B_L8.num_hidden_layers
+    out, launches = {}, {}
+    legs = {"tp": (train_tp, dict(attention="flash"),
+                   {"flash_attention_fwd": (FA.FWD_COUNTS, 2 * L),
+                    "flash_attention_bwd": (FA.BWD_COUNTS, L),
+                    "ag_matmul": (C.COUNTS, 0)}),
+            "sp": (train_sp, dict(overlap="ring_fused_pallas"),
+                   {"ag_matmul": (C.COUNTS, 2 * 7 * L),
+                    "flash_attention_fwd": (FA.FWD_COUNTS, 0)})}
+    for mode, (twin, kw, expect) in legs.items():
+        _reset_kernel_counts()
+        torch.cuda.synchronize()
+        res = twin.run(p["model"], second=1, seq=p["seq"],
+                       batch_size=p["bs"], num_steps=n, device="cuda",
+                       seed=p["seed"], log=log, **kw)
+        torch.cuda.synchronize()
+        counts = {k: (c.launches, c.plain_calls)
+                  for k, (c, _) in expect.items()}
+        steps = [b - a for a, b in zip([0.0] + res["step_times_s"][:-1],
+                                       res["step_times_s"])]
+        out[f"train_{mode}"] = _train_reading(
+            f"train_{mode}", card, res["losses"], steps, p["seq"] * p["bs"],
+            res["model_flops_per_token"], res["peak_memory_bytes"], counts,
+            {k: n * per for k, (_, per) in expect.items()},
+            res["collectives"], res["contract"])
+        launches[f"train_{mode}"] = {k: c[0] for k, c in counts.items()}
+    # dp x sp x ep
+    axes = _tp_axes("dp", "sp", "ep")
+    gen = torch.Generator(device="cuda").manual_seed(p["seed"])
+    params = T.init_params(MOE_CFG, gen, "cuda")
+    opt = fsdp.optim.adam_init(params)
+    step = EX.make_moe_lm_train_step(params, MOE_CFG, dp_axis=axes["dp"],
+                                     ep_axis=axes["ep"], sp_axis=axes["sp"])
+    batches = ((torch.as_tensor(i, device="cuda"),
+                torch.as_tensor(lb, device="cuda"))
+               for i, lb in train_fsdp.fsdp_batches(
+                   MOE_CFG.vocab_size, p["seq"], p["bs"], n, p["seed"]))
+    exp_moe = _moe_expect(MOE_CFG)
+    exp_moe["flash_attention_fwd"] = (FA.FWD_COUNTS, 0)
+    exp_moe["flash_attention_bwd"] = (FA.BWD_COUNTS, 0)
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, colls = _run_steps(step, params, opt, batches, n)
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in exp_moe.items()}
+    out["moe_sp"] = _train_reading(
+        "moe dp x sp x ep", card, losses, step_s, p["seq"] * p["bs"],
+        T.model_flops_per_token(MOE_CFG, p["seq"]),
+        torch.cuda.max_memory_allocated(), counts,
+        {k: n * per for k, (_, per) in exp_moe.items()}, colls,
+        moe_step_collectives(params, remat=True, sp=1))
+    launches["moe_sp"] = {k: c[0] for k, c in counts.items()}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -4936,6 +5455,14 @@ def main(argv) -> int:
         timed("moe oracle", moe_oracle_phase)
         timed("moe bf16", moe_bf16_phase)
         moe = timed("moe train", moe_train_phase, card, loss0)
+        t16 = time.perf_counter()
+        tp_shards = timed("tp shards", tp_shards_phase)
+        timed("tp parity", tp_parity_phase)
+        ring = timed("ring fold", ring_fold_phase)
+        tpsp, tpsp_launches = timed("tp and sp train", tp_sp_train_phase,
+                                    card)
+        log(f"phase 16 (tensor and sequence parallelism): "
+            f"{time.perf_counter() - t16:.1f} s")
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -4949,7 +5476,8 @@ def main(argv) -> int:
                   for k, v in res14["counts"].items()}
     paths = {"serve": launches, "int8 serve": q8, "train": fp8,
              "int8 train": i8, "fsdp train": fs, "pipeline": pp,
-             "precision": precision, "resilience": resilience, "moe": moe}
+             "precision": precision, "resilience": resilience, "moe": moe,
+             **tpsp_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -4961,6 +5489,8 @@ def main(argv) -> int:
     log(f"busbench rows on {card} (one rank: copies): {json.dumps(bus)}")
     log(f"remat policies on {card}: {json.dumps(remat)}")
     log(f"precision bench rows on {card}: {json.dumps(bench_rows)}")
+    log(f"tp and sp readings on {card}: shards {json.dumps(tp_shards)}; "
+        f"ring fold {json.dumps(ring)}; train {json.dumps(tpsp)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

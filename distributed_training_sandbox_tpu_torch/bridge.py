@@ -25,6 +25,12 @@ reference's full parameters into one rank's shards (the rows
 concatenates every rank's shards, in rank order, back into the full
 tree.
 
+Tensor-parallel shards cross the same way: :func:`tp_shards_from_jax`
+cuts one tp rank's Megatron shards (``parallel.tensor.tp_specs``) from
+the reference's full parameters, and :func:`assemble_tp_shards` puts the
+tp ranks' shards back together; sequence parallelism keeps the FSDP
+shards (:func:`shards_from_jax`).
+
 MoE params cross leaf for leaf as well (the router ``(L, H, E)``, the
 expert banks ``(L, E, H, F)`` and ``(L, E, F, H)``); one rank of a dp ×
 ep layout keeps its ``E / ep`` slice of each bank
@@ -168,6 +174,30 @@ def assemble_shards(rank_trees: list) -> dict:
             return Q8(cat([t.q for t in leaves], dim),
                       np.stack(scales) if last else cat(scales, dim))
         return cat(leaves, dim)
+    return walk(specs, rank_trees)
+
+
+def tp_shards_from_jax(np_tree: dict, cfg, rank: int, tp: int) -> dict:
+    """Reference params (numpy, full size) → tp rank ``rank``'s Megatron
+    shards over a ``tp``-rank axis, on the CPU, in ``cfg.dtype``."""
+    from .parallel.tensor import shard_tree_tp
+    return shard_tree_tp(params_from_jax(np_tree, cfg), rank, tp)
+
+
+def assemble_tp_shards(rank_trees: list) -> dict:
+    """The tp ranks' shards (numpy trees, in tp order) → the full numpy
+    tree: each sharded leaf concatenated along its ``tp_specs`` dim,
+    every replicated leaf rank 0's."""
+    from .parallel.tensor import tp_specs
+    specs = tp_specs(rank_trees[0])
+
+    def walk(spec, leaves):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], [t[k] for t in leaves]) for k in spec}
+        if spec:
+            return np.concatenate([np.asarray(t) for t in leaves],
+                                  axis=spec.index("tp"))
+        return np.asarray(leaves[0])
     return walk(specs, rank_trees)
 
 

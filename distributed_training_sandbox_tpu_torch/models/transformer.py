@@ -24,9 +24,14 @@ loss of ``lm_loss``.  Attention is ``"xla"`` (the plain
 ``ops/flash_attention.py``); projections run at ``bf16``, the fp8
 recipe or the int8 recipe (``ops/quant.py``).  The remat policies
 (``resolve_remat_policy``) are the reference's four: ``"full"``,
-``"save_attn"``, ``"save_dots"`` and ``"save_dots_q8"``.  Ring
-attention and the activation offload are later slices (ROADMAP.md
-queue A).
+``"save_attn"``, ``"save_dots"`` and ``"save_dots_q8"``.  The
+tensor- and sequence-parallel slice added ``attention_impl="ring"``
+(``ops/ring_attention.py``) with the config's ``sp_axis``,
+``ring_block_q`` and ``ring_layout``, the global RoPE positions of a
+rank's sequence chunk, ``_layer_body``'s Megatron arguments
+(``tp_axis``, ``tp_overlap``) and the ``layer_body`` seam of
+``hidden_states`` and ``lm_loss`` (``parallel/tensor.py``).  The
+activation offload is a later slice (ROADMAP.md queue A, A12).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     set_checkpoint_early_stop)
@@ -44,8 +50,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops import collectives as C
 from ..ops.flash_attention import (ATTENTION_OP, attention_plain,
                                    attention_saved, flash_attention)
-from ..ops.quant import QuantizedWeight, dot_q8, resolve_quantized_dense
+from ..ops.quant import (QuantizedWeight, dot_q8, quantized_all_reduce,
+                         resolve_quantized_dense)
+from ..ops.ring_attention import LAYOUTS, ring_attention, zigzag_positions
 from ..utils.flops import get_model_flops_per_token
+from ..utils.mesh import axis_rank, axis_size, resolve_axis
 
 _ROADMAP = ("not ported yet — see ROADMAP.md, queue A item 2 (model "
             "core) and queue B (precision kernels)")
@@ -78,9 +87,18 @@ class TransformerConfig:
     # outputs; "save_dots_q8" keeps them as int8 codes and f32 scales
     # (ops/quant.dot_q8), half save_dots' bytes (resolve_remat_policy)
     remat_policy: str = "full"
-    # "xla" (the plain causal attention) | "flash" (the port's kernel);
-    # the reference's "ring" needs the sequence-parallel slice
+    # "xla" (the plain causal attention) | "flash" (the port's kernel) |
+    # "ring" (exact causal attention over the sequence sharded on
+    # ``sp_axis``, a name or a utils.mesh.Axis: parallel/sequence.py)
     attention_impl: str = "xla"
+    sp_axis: Any = None
+    # ring q-chunk: bound each merge's f32 score buffer to (B, n,
+    # ring_block_q, S_local); 0 = unchunked.  Must divide S_local
+    # (S_local/2 for the zigzag layout)
+    ring_block_q: int = 0
+    # ring KV layout: "contiguous" (rank-order chunks) or "zigzag"
+    # (balanced stripes; batches through parallel.sequence.zigzag_shuffle)
+    ring_layout: str = "contiguous"
     # None: dense f32 log-softmax over (B, S, vocab) logits; an int
     # streams the vocab in chunks of that size (chunked_softmax_xent)
     loss_vocab_chunk: int | None = None
@@ -113,6 +131,20 @@ class TransformerConfig:
     ep_axis: Any = None
 
     def __post_init__(self):
+        # a sequence-sharded config with a local-chunk attention would
+        # never attend across chunk boundaries
+        if self.sp_axis is not None and self.attention_impl != "ring":
+            raise ValueError(
+                f"sp_axis={_axis_name(self.sp_axis)!r} (sequence sharded) "
+                f"requires attention_impl='ring', got "
+                f"{self.attention_impl!r} (parallel.sequence.sp_config "
+                f"sets both)")
+        if self.attention_impl == "ring" and self.sp_axis is None:
+            raise ValueError(
+                "attention_impl='ring' needs sp_axis set to the axis the "
+                "sequence is sharded on (see parallel.sequence.sp_config)")
+        if self.ring_layout not in LAYOUTS:
+            raise ValueError(f"unknown ring_layout {self.ring_layout!r}")
         if self.moe_top_k > 1 and self.moe_dispatch != "grouped":
             raise ValueError(
                 f"moe_top_k={self.moe_top_k} requires moe_dispatch="
@@ -168,10 +200,8 @@ def check_supported(cfg: TransformerConfig) -> None:
             f"matmul_precision={cfg.matmul_precision!r}: {_ROADMAP}")
     if cfg.moe_dispatch not in MOE_DISPATCHES:
         raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
-    if cfg.attention_impl not in ("xla", "flash"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r}: not ported yet — see "
-            f"ROADMAP.md, queue A item 10 (sequence parallelism)")
+    if cfg.attention_impl not in ("xla", "flash", "ring"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy={cfg.remat_policy!r}; choose from "
                          f"{REMAT_POLICIES}")
@@ -248,12 +278,16 @@ def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def _rope_tables(seq_len: int, head_dim: int, theta: float, offset=0,
-                 device=None):
-    """cos/sin (seq_len, hd/2) f32 for positions ``offset + arange``."""
+                 device=None, positions=None):
+    """cos/sin (seq_len, hd/2) f32 for positions ``offset + arange``
+    (under sequence parallelism a contiguous chunk starts at rank · S),
+    or for the explicit global ``positions`` (the zigzag layout's two
+    stripes)."""
     inv_freq = _inv_freq(head_dim, theta, device)
-    positions = offset + torch.arange(seq_len, dtype=torch.float32,
-                                      device=device)
-    ang = positions[:, None] * inv_freq[None, :]
+    if positions is None:
+        positions = offset + torch.arange(seq_len, dtype=torch.float32,
+                                          device=device)
+    ang = positions.float()[:, None] * inv_freq[None, :]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -298,14 +332,19 @@ def _dense(cfg: TransformerConfig):
     return dispatch
 
 
-def _qkv_proj(r, layer, *, cfg: TransformerConfig, cos, sin, use_rope: bool):
-    """Normed residual → RoPE'd (q, k, v), each (B, S, heads, hd)."""
+def _qkv_proj(r, layer, *, cfg: TransformerConfig, cos, sin, use_rope: bool,
+              tp: int = 1):
+    """Normed residual → RoPE'd (q, k, v), each (B, S, heads, hd); under
+    ``tp`` ranks of tensor parallelism the rank's local heads."""
     B, S, _ = r.shape
     hd = cfg.resolved_head_dim
     dense = _dense(cfg)
-    q = dense(r, layer["wq"]).reshape(B, S, cfg.num_attention_heads, hd)
-    k = dense(r, layer["wk"]).reshape(B, S, cfg.num_key_value_heads, hd)
-    v = dense(r, layer["wv"]).reshape(B, S, cfg.num_key_value_heads, hd)
+    q = dense(r, layer["wq"]).reshape(B, S, cfg.num_attention_heads // tp,
+                                      hd)
+    k = dense(r, layer["wk"]).reshape(B, S, cfg.num_key_value_heads // tp,
+                                      hd)
+    v = dense(r, layer["wv"]).reshape(B, S, cfg.num_key_value_heads // tp,
+                                      hd)
     if use_rope:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -363,29 +402,79 @@ def _attention_xla(q, k, v, scale: float) -> torch.Tensor:
     return attention_plain(q, k, v, scale)
 
 
+def _axis_name(axis) -> str:
+    return resolve_axis(axis).name
+
+
+TP_OVERLAPS = ("none", "ring", "q8")
+
+
+def _rejoin(tp_axis, tp_overlap: str):
+    """The Megatron rejoin of the row-parallel partial sums over
+    ``tp_axis``: ``all_reduce``, ``decomposed_all_reduce`` over the
+    hidden dim (``"ring"``) or the two-shot int8 all-reduce (``"q8"``);
+    every backward a full-precision all_reduce of the cotangent."""
+    if tp_overlap == "ring":
+        return lambda v: C.decomposed_all_reduce(v, tp_axis, axis=-1)
+    if tp_overlap == "q8":
+        return lambda v: quantized_all_reduce(v, tp_axis)
+    if tp_overlap != "none":
+        raise ValueError(f"tp_overlap={tp_overlap!r}; choose from "
+                         f"{TP_OVERLAPS}")
+    return lambda v: C.all_reduce(v, tp_axis)
+
+
 def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
-                use_rope: bool):
+                use_rope: bool, tp_axis=None, tp_overlap: str = "none"):
     """One decoder layer on the residual stream x (B, S, H): ``(new
     residual, aux)``, ``aux`` the MLP's load-balance loss (None for
-    the dense MLP).  The reference's tensor-parallel arguments are not
-    ported."""
+    the dense MLP).
+
+    ``tp_axis``: Megatron tensor parallelism (``parallel/tensor.py``).
+    ``layer`` holds this rank's shards (wq, wk, wv, w_gate, w_up split
+    along their output dim, wo and w_down along their input dim; an
+    expert bank inside each expert), attention runs on the rank's
+    ``nq/tp`` query and ``nkv/tp`` KV heads, and the two row-parallel
+    outputs are rejoined over ``tp_axis`` (:func:`_rejoin`) before they
+    enter the residual stream.  Without ``tp_axis`` the layer makes no
+    collective call."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    tp = axis_size(tp_axis) if tp_axis is not None else 1
     r = rms_norm(x, layer["ln1"], cfg.rms_norm_eps)
     q, k, v = _qkv_proj(r, layer, cfg=cfg, cos=cos, sin=sin,
-                        use_rope=use_rope)
+                        use_rope=use_rope, tp=tp)
     scale = 1.0 / math.sqrt(hd)
     if cfg.attention_impl == "flash":
         attend = flash_attention
+    elif cfg.attention_impl == "ring":
+        def attend(q, k, v, scale):
+            return ring_attention(q, k, v, cfg.sp_axis, scale=scale,
+                                  block_q=cfg.ring_block_q or None,
+                                  layout=cfg.ring_layout)
     elif cfg.remat and cfg.remat_policy == "save_attn":
         attend = attention_saved   # one op, so the policy can keep it
     else:
         attend = _attention_xla
     attn = attend(q, k, v, scale).to(x.dtype)
-    x = x + _dense(cfg)(attn.reshape(B, S, cfg.num_attention_heads * hd),
-                        layer["wo"])
+    attn_out = _dense(cfg)(attn.reshape(B, S, q.shape[2] * hd), layer["wo"])
+    if tp_axis is not None:
+        rejoin = _rejoin(tp_axis, tp_overlap)
+        with record_function("tp_attn_psum"):
+            attn_out = rejoin(attn_out)
+    x = x + attn_out
     r = rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
+    if tp_axis is not None and cfg.n_experts and cfg.ep_axis is not None:
+        raise ValueError("shard experts over ep OR split them over "
+                         "tp, not both (ep_axis and tp_axis set)")
+    # under TP each rank holds every expert's F/tp slice: routing and
+    # dispatch are replicated over the tp group, the expert products give
+    # partial sums, and one rejoin after the combine adds them
     mlp, aux = _mlp_block(r, layer, cfg=cfg)
+    if tp_axis is not None:
+        with record_function("tp_moe_psum" if cfg.n_experts
+                             else "tp_mlp_psum"):
+            mlp = rejoin(mlp)
     return x + mlp, aux
 
 
@@ -455,7 +544,7 @@ def resolve_remat_policy(cfg: TransformerConfig):
 
 def hidden_states(params: dict, input_ids: torch.Tensor,
                   cfg: TransformerConfig, *, layer_hook=None,
-                  return_aux: bool = False):
+                  layer_body=None, return_aux: bool = False):
     """Trunk only: (B, S) ids → final-norm hidden states (B, S, H);
     with ``return_aux`` also the layers' aux losses summed (the MoE
     load-balance term; 0 for dense layers).  The reference scans the
@@ -466,12 +555,27 @@ def hidden_states(params: dict, input_ids: torch.Tensor,
     checkpointed layer body, before the layer computes: the seam where
     FSDP gathers a layer's full weights from its shards.  Under remat
     the hook, its gathers included, runs again in the backward, and the
-    gathered weights do not outlive the layer."""
+    gathered weights do not outlive the layer.
+
+    ``layer_body`` replaces ``_layer_body`` (same signature): the seam
+    where tensor parallelism runs the layer on its shards
+    (``parallel.tensor.tp_lm_loss``).  Under sequence parallelism
+    (``cfg.sp_axis``) S is the rank's chunk and RoPE sees its global
+    positions: ``rank · S`` onward for a contiguous chunk, the stripe pair's
+    (``ops.ring_attention.zigzag_positions``) for zigzag."""
     check_supported(cfg)
     S = input_ids.shape[1]
+    apply_layer = layer_body or _layer_body
     x = params["embed"].to(cfg.dtype)[input_ids.long()]
-    cos, sin = _rope_tables(S, cfg.resolved_head_dim, cfg.rope_theta,
-                            device=x.device)
+    if cfg.sp_axis is not None and cfg.ring_layout == "zigzag":
+        cos, sin = _rope_tables(S, cfg.resolved_head_dim, cfg.rope_theta,
+                                device=x.device,
+                                positions=zigzag_positions(cfg.sp_axis, S,
+                                                           device=x.device))
+    else:
+        offset = axis_rank(cfg.sp_axis) * S if cfg.sp_axis is not None else 0
+        cos, sin = _rope_tables(S, cfg.resolved_head_dim, cfg.rope_theta,
+                                offset, device=x.device)
     remat = resolve_remat_policy(cfg) if cfg.remat else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, use_rope in enumerate(rope_flags(cfg)):
@@ -480,7 +584,7 @@ def hidden_states(params: dict, input_ids: torch.Tensor,
         def body(x, layer, use_rope=use_rope):
             if layer_hook is not None:
                 layer = layer_hook(layer)
-            return _layer_body(x, layer, cfg=cfg, cos=cos, sin=sin,
+            return apply_layer(x, layer, cfg=cfg, cos=cos, sin=sin,
                                use_rope=use_rope)
 
         x, a = remat(body, x, layer) if remat else body(x, layer)
@@ -550,14 +654,14 @@ def xent_from_hidden(x: torch.Tensor, w_vocab: torch.Tensor,
 
 
 def lm_loss(params: dict, batch, cfg: TransformerConfig, *,
-            layer_hook=None) -> torch.Tensor:
+            layer_hook=None, layer_body=None) -> torch.Tensor:
     """Causal-LM cross-entropy of ``batch`` = (input_ids, labels), both
-    (B, S) (``layer_hook``: see :func:`hidden_states`), plus
-    ``moe_aux_weight`` times the layers' summed aux loss for an MoE
+    (B, S) (``layer_hook``, ``layer_body``: see :func:`hidden_states`),
+    plus ``moe_aux_weight`` times the layers' summed aux loss for an MoE
     config."""
     input_ids, labels = batch
     x, aux = hidden_states(params, input_ids, cfg, layer_hook=layer_hook,
-                           return_aux=True)
+                           layer_body=layer_body, return_aux=True)
     loss = xent_from_hidden(x, _output_embedding(params, cfg), labels,
                             chunk=cfg.loss_vocab_chunk)
     if cfg.n_experts:

@@ -27,8 +27,12 @@ reversed-ring dW) and ``all_gather_matmul_pallas``, whose chunk product
 is K7: ``ag_matmul_kernel``, a persistent bf16 wgmma GEMM fed by TMA
 in ``csrc/ag_matmul.cu`` (replacing ``_agmm_tile_call``'s
 ``pl.pallas_call``), beside its plain version ``ag_matmul_plain``.
-``decomposed_all_reduce`` and ``matmul_reduce_scatter`` belong to the
-tensor-parallel ring (ROADMAP.md queue A item 10).
+The tensor-parallel ring: ``decomposed_all_reduce`` (a reduce_scatter,
+then ``ring_all_gather``'s hops: the all_reduce's value from n - 1
+schedulable hops, its backward pinned to the all_reduce of the
+cotangent) and ``matmul_reduce_scatter`` (the scatter side of the
+collective matmul, exported as the reference exports it; no step uses
+it).
 
 The recording shim :data:`COLLECTIVES` counts each wire call by kind,
 named as the reference's ``count_collectives`` names HLO ops (a ring
@@ -61,7 +65,8 @@ from ..utils.mesh import (axis_rank, axis_size, global_rank, initialized,
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "scatter", "ppermute_ring", "all_to_all", "barrier",
            "tree_all_reduce", "tree_all_gather", "RingShard",
-           "ring_all_gather", "all_gather_matmul", "all_gather_matmul_pallas",
+           "ring_all_gather", "decomposed_all_reduce", "all_gather_matmul",
+           "matmul_reduce_scatter", "all_gather_matmul_pallas",
            "ag_matmul_kernel", "ag_matmul_layout", "ag_matmul_plain",
            "COLLECTIVES", "COUNTS",
            "TOLERANCE"]
@@ -432,6 +437,35 @@ def ring_all_gather(x, axis_name="dp", axis: int = 0):
     return _RingAllGather.apply(x, axis_name, axis % x.ndim)
 
 
+class _DecomposedAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.axis = axis_name
+        return _ring_gather_impl(_reduce_scatter_raw(x, axis_name, dim),
+                                 axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):   # pinned to the all_reduce's transpose
+        return _all_reduce_raw(g, ctx.axis, dist.ReduceOp.SUM), None, None
+
+
+def decomposed_all_reduce(x, axis_name="dp", axis: int = -1):
+    """The sum over ranks as a reduce_scatter along ``axis`` then the
+    ring all-gather of the summed chunks (n - 1 ``collective_permute``
+    hops): the reduction stays in one monolithic reduce_scatter and the
+    re-assembly moves data only, so the value is the all_reduce's where
+    the two collectives add in one order.  The backward is the
+    all_reduce of the cotangent, as the reference pins it.  ``axis``
+    must divide by the ring size; at one rank this is the identity."""
+    n = axis_size(axis_name)
+    if n == 1:
+        return x
+    dim = axis % x.ndim
+    _check_chunk("decomposed_all_reduce", f"scatter dim {dim}",
+                 x.shape[dim], n, axis_name)
+    return _DecomposedAllReduce.apply(x, axis_name, dim)
+
+
 def all_gather_matmul(a, w_shard, axis_name="dp"):
     """``a @ W`` where ``W`` is the rank-order concatenation of every
     rank's ``w_shard`` rows: at ring step t the chunk on hand multiplies
@@ -462,6 +496,35 @@ def all_gather_matmul(a, w_shard, axis_name="dp"):
         if t < n - 1:
             cur = ppermute_ring(cur, axis_name)
     return acc.to(a.dtype)
+
+
+def matmul_reduce_scatter(a, b, axis_name="dp", *, axis: int = 0):
+    """The scatter side of the collective matmul: the reduce_scatter of
+    ``a @ b`` over row chunks, each chunk's partial product computed
+    just before the travelling accumulator needs it.  The ring adds the
+    ranks' partials in its own order: equal to ``reduce_scatter(a @ b)``
+    up to f32 reassociation, not bit for bit.  ``axis`` must be 0."""
+    n = axis_size(axis_name)
+    if n == 1:
+        return a @ b
+    if axis % a.ndim != 0:
+        raise ValueError("matmul_reduce_scatter: only axis=0 (row chunks "
+                         "of the result) is supported")
+    _check_chunk("matmul_reduce_scatter", "result row dim", a.shape[0], n,
+                 axis_name)
+    idx = axis_rank(axis_name)
+    chunk = a.shape[0] // n
+
+    def partial_product(c):
+        return a.narrow(0, c * chunk, chunk) @ b
+
+    # the accumulator for chunk (idx - s - 1) at step s lands fully summed
+    # on its owner after n - 1 hops
+    acc = partial_product((idx - 1) % n)
+    for s in range(1, n):
+        acc = ppermute_ring(acc, axis_name)
+        acc = acc + partial_product((idx - s - 1) % n)
+    return acc
 
 
 # ---------------------------------------------------------------- K7

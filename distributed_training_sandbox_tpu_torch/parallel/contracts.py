@@ -6,10 +6,22 @@ for these steps (``ddp``, ``ddp_bucketed``, ``ddp_q8``, ``zero1``,
 ``zero2``, ``zero3``), for the pipeline's stage programs (``gpipe``,
 ``1f1b``) and for the FSDP step with quantised gathers
 (:func:`fsdp_quantized_step_collectives`), read as calls, and the
-port's own count for the MoE step (:func:`moe_step_collectives`).  The
-CPU tests and ``chip_smoke.py`` hold the steps of ``parallel/ddp.py``,
-``parallel/zero.py``, ``parallel/pipeline.py``, ``parallel/fsdp.py``
-and ``parallel/expert.py`` to them.
+port's own count for the MoE step (:func:`moe_step_collectives`, also
+over dp × sp × ep), the FSDP step (:func:`fsdp_step_collectives`),
+the reference's ``sp`` contract (:func:`sp_step_collectives`, FSDP ×
+SP) and its ``tp``, ``tp_ring`` and ``tp_q8`` contracts
+(:func:`tp_step_collectives`, also over dp × sp × tp).  The CPU tests
+and ``chip_smoke.py`` hold the steps of ``parallel/ddp.py``,
+``parallel/zero.py``, ``parallel/pipeline.py``, ``parallel/fsdp.py``,
+``parallel/expert.py`` and ``parallel/tensor.py`` to them.
+
+The reference counts the sites of one compiled step, where the scanned
+layer body stands once and a transpose is one more site; the shim
+counts the calls a step makes, so each layer's calls count L times,
+its forward's once more under remat ``"full"`` (the recompute), each
+microbatch's once more, and a ring of n ranks n - 1 hops a site.  An
+axis of one rank still makes its calls, as ``ops.collectives`` makes
+them on an initialised group; a ring of one rank makes none.
 """
 
 from __future__ import annotations
@@ -114,8 +126,115 @@ def fsdp_quantized_step_collectives(params: dict, *,
     return out
 
 
+def _layers_and_leaves(params: dict) -> tuple[int, int]:
+    layers = params["layers"]
+    L = next(iter(layers.values())).shape[0]
+    return L, sum(1 for k in params if k != "layers") + len(layers)
+
+
+def ring_hops(L: int, sp: int, remat: bool = True) -> int:
+    """The ``collective_permute`` calls of a step's ring attention over
+    ``sp`` ranks: a layer's K and V each make sp - 1 hops forward, as
+    many reverse hops backward, and under remat the forward's again."""
+    return L * 2 * (sp - 1) * (2 + int(remat))
+
+
+def fsdp_step_collectives(params: dict, n: int, *, overlap: str = "none",
+                          reshard_after_forward: bool = True,
+                          remat: bool = True,
+                          accum_steps: int = 1) -> dict:
+    """Every kind of ``CollectiveCounts.KINDS`` one FSDP step
+    (``parallel.fsdp.make_fsdp_train_step``, full-precision gathers) over
+    ``n`` dp ranks issues on ``params``: the reference's ``fsdp``,
+    ``fsdp_ring`` and ``fsdp_ring_fused_pallas`` contracts (one gather and
+    one reduce_scatter site a leaf; a ring gather n - 1 hops and a
+    reduce_scatter; a fused projection n - 1 hops forward and n - 1
+    backward) as calls: the root leaves gathered once, each layer leaf in
+    each of the L layers and again in its recompute under remat, every
+    microbatch again, and one all_reduce for the loss.  The fused
+    projections are the layer leaves of two dims; at one rank a ring
+    makes no call."""
+    layers = params["layers"]
+    L, _ = _layers_and_leaves(params)
+    root = sum(1 for k in params if k != "layers")
+    layer, proj = len(layers), sum(1 for v in layers.values() if v.ndim == 3)
+    fwd = 2 if remat else 1
+    if not reshard_after_forward:    # every stacked leaf gathered once
+        sites_fwd = sites_bwd = root + layer
+    else:
+        sites_fwd, sites_bwd = root + layer * L * fwd, root + layer * L
+    out = dict.fromkeys(CollectiveCounts.KINDS, 0)
+    out["all_reduce"] = 1
+    if overlap == "none":
+        out["all_gather"] = accum_steps * sites_fwd
+        out["reduce_scatter"] = accum_steps * sites_bwd
+    elif n == 1:
+        pass
+    elif overlap == "ring":
+        out["collective_permute"] = accum_steps * sites_fwd * (n - 1)
+        out["reduce_scatter"] = accum_steps * sites_bwd
+    else:                  # ring_fused, ring_fused_pallas
+        unfused_fwd = root + (layer - proj) * L * fwd
+        out["reduce_scatter"] = accum_steps * (root + (layer - proj) * L)
+        out["collective_permute"] = accum_steps * (n - 1) * (
+            unfused_fwd + proj * L * fwd + proj * L)
+    return out
+
+
+def sp_step_collectives(params: dict, dp: int, sp: int, *,
+                        overlap: str = "none", remat: bool = True,
+                        accum_steps: int = 1) -> dict:
+    """One FSDP × SP step (``parallel.sequence.make_sp_train_step``):
+    the reference's ``sp`` contract (the fsdp sites, 4 K/V ring
+    ``ppermute`` sites, a psum over sp a leaf) as calls:
+    :func:`fsdp_step_collectives` over dp, :func:`ring_hops` for each
+    microbatch, and all_reduces over sp for the loss and for each leaf's
+    grads."""
+    L, n_leaves = _layers_and_leaves(params)
+    out = fsdp_step_collectives(params, dp, overlap=overlap, remat=remat,
+                                accum_steps=accum_steps)
+    out["all_reduce"] += 1 + n_leaves
+    out["collective_permute"] += accum_steps * ring_hops(L, sp, remat)
+    return out
+
+
+def tp_step_collectives(params: dict, tp: int, *, sp: int = 1,
+                        overlap: str = "none", remat: bool = True,
+                        accum_steps: int = 1) -> dict:
+    """One dp × tp (or dp × sp × tp) step
+    (``parallel.tensor.make_tp_train_step``): the reference's ``tp``,
+    ``tp_ring`` and ``tp_q8`` contracts (two rejoin sites a layer, their
+    backward psums, a grad psum a leaf and the loss mean) as calls.  A
+    layer's two rejoins, forward and again in the recompute under remat:
+    two all_reduces (``"none"``), or two reduce_scatters and 2 (tp - 1)
+    hops (``"ring"``; none at one rank), or four all_gathers, codes and
+    scales (``"q8"``); their backward two all_reduces (none for the ring
+    at one rank); with ``sp`` the ring attention's :func:`ring_hops`;
+    each microbatch again; then one all_reduce for the loss and one a
+    leaf for the grads."""
+    L, n_leaves = _layers_and_leaves(params)
+    fwd = 1 + int(remat)
+    out = dict.fromkeys(CollectiveCounts.KINDS, 0)
+    if overlap == "none":
+        out["all_reduce"] = L * 2 * (fwd + 1)
+    elif overlap == "ring":
+        if tp > 1:
+            out["reduce_scatter"] = L * 2 * fwd
+            out["collective_permute"] = L * 2 * (tp - 1) * fwd
+            out["all_reduce"] = L * 2
+    elif overlap == "q8":
+        out["all_gather"] = L * 4 * fwd
+        out["all_reduce"] = L * 2
+    else:
+        raise ValueError(f"overlap={overlap!r}")
+    out["collective_permute"] += ring_hops(L, sp, remat)
+    out = {k: v * accum_steps for k, v in out.items()}
+    out["all_reduce"] += 1 + n_leaves
+    return out
+
+
 def moe_step_collectives(params: dict, *, remat: bool = True,
-                         z_loss: bool = False) -> dict:
+                         z_loss: bool = False, sp: int = 1) -> dict:
     """Every kind of ``CollectiveCounts.KINDS`` one dp × ep MoE step
     (``parallel.expert.make_moe_lm_train_step``) issues on the
     parameter tree ``params`` (full or sharded: only the leaf count and
@@ -140,14 +259,15 @@ def moe_step_collectives(params: dict, *, remat: bool = True,
       banks, over dp · ep for the rest).
 
     So L · (4 + 2·remat) all_to_alls and L · ((2 + z)(1 + remat) + 1 +
-    z) + 1 + n_leaves all_reduces."""
-    layers = params["layers"]
-    L = next(iter(layers.values())).shape[0]
-    n_leaves = sum(1 for k in params if k != "layers") + len(layers)
+    z) + 1 + n_leaves all_reduces.  Over dp × sp × ep (``sp`` ranks of
+    ring attention) the step adds :func:`ring_hops`; the loss and the
+    grads take the same calls over the larger groups."""
+    L, n_leaves = _layers_and_leaves(params)
     z, r = int(z_loss), int(remat)
     out = dict.fromkeys(CollectiveCounts.KINDS, 0)
     out["all_to_all"] = L * (4 + 2 * r)
     out["all_reduce"] = L * ((2 + z) * (1 + r) + 1 + z) + 1 + n_leaves
+    out["collective_permute"] = ring_hops(L, sp, remat)
     return out
 
 

@@ -39,8 +39,8 @@ Where the port differs in form, not in value:
 (``moe_route``, ``moe_dispatch``, ``moe_a2a_out``, ``moe_expert_mlp``,
 ``moe_a2a_back``, ``moe_combine``, ``moe_aux_loss``), so a
 ``torch.profiler`` trace splits the dispatch from the experts.  The
-reference's dp × sp × ep step (ring attention) is not ported: ROADMAP.md
-queue A item A10.
+MoE transformer's step runs over dp × ep, or with ``sp_axis`` over dp ×
+sp × ep (ring attention over the sequence chunks).
 """
 
 from __future__ import annotations
@@ -457,17 +457,6 @@ def router_lr_mults(params: dict, mult: float):
             for k, v in params.items()}
 
 
-def _world_axis(dp_axis, ep_axis) -> mesh.Axis:
-    """The flattened ``("dp", "ep")`` axis: the default group, which
-    the dp × ep layout must fill."""
-    n = mesh.axis_size(dp_axis) * mesh.axis_size(ep_axis)
-    world = mesh.Axis("dp_ep")
-    if n != mesh.axis_size(world):
-        raise ValueError(f"dp x ep = {n} ranks must fill the process group "
-                         f"of {mesh.axis_size(world)}")
-    return world
-
-
 def make_moe_lm_train_step(params_sharded: dict, cfg, *, dp_axis="dp",
                            ep_axis="ep", sp_axis=None, lr: float = 3e-4,
                            b1: float = 0.9, b2: float = 0.95,
@@ -483,38 +472,58 @@ def make_moe_lm_train_step(params_sharded: dict, cfg, *, dp_axis="dp",
     over dp and ep (one all_reduce over the whole group); every leaf is
     then divided by the dp · ep ranks.  The loss is their mean (one
     all_reduce).  ``cfg.moe_router_lr_mult`` sets the router's
-    learning rate multiplier.  Adam runs in place."""
+    learning rate multiplier.  Adam runs in place.
+
+    ``sp_axis`` makes it the dp × sp × ep step: each rank also takes its
+    sequence chunk and attention is the ring over ``sp_axis``; routing
+    is per token, so the expert choreography is unchanged (each rank
+    routes its B_local × S_local tokens).  The grads sum over dp and sp
+    for the expert leaves, over the whole grid for the rest, and divide
+    by every rank.  The axes are those of one ``utils.mesh.grid_axes``
+    grid (``("dp", "sp", "ep")``; ``dp_ep_axes`` without sp), which
+    fills the process group."""
     from ..models import transformer as T
     from .fsdp import microbatch_value_and_grad
 
     if not cfg.n_experts:
         raise ValueError("cfg.n_experts must be > 0 for the MoE step")
-    if sp_axis is not None:
-        raise NotImplementedError(
-            f"sp_axis={sp_axis!r}: the dp x sp x ep step (ring attention) "
-            f"is not ported yet — see ROADMAP.md, queue A item A10 "
-            f"(sequence parallelism)")
     ws_dp, ws_ep = mesh.axis_size(dp_axis), mesh.axis_size(ep_axis)
     if cfg.n_experts % ws_ep:
         raise ValueError(f"n_experts={cfg.n_experts} must be divisible "
                          f"by ep={ws_ep}")
+    if sp_axis is None and cfg.sp_axis is not None:
+        name = T._axis_name(cfg.sp_axis)
+        raise ValueError(
+            f"cfg.sp_axis={name!r} (ring attention) but "
+            f"make_moe_lm_train_step got sp_axis=None — the batch would "
+            f"replicate over {name!r} and sp grads would never sync.  "
+            f"Pass sp_axis (the step sets the ring config itself).")
     T.check_supported(cfg)
     cfg = dataclasses.replace(cfg, ep_axis=ep_axis)
-    world = _world_axis(dp_axis, ep_axis)
     n_total = ws_dp * ws_ep
+    rep_axes = [dp_axis]
+    if sp_axis is not None:
+        cfg = dataclasses.replace(cfg, attention_impl="ring",
+                                  sp_axis=sp_axis)
+        n_total *= mesh.axis_size(sp_axis)
+        rep_axes.append(sp_axis)
+    world = mesh.span(*rep_axes, ep_axis)
+    experts_sync = mesh.span(*rep_axes)
     specs = moe_lm_specs(params_sharded, ep_axis)
     ep_name = mesh.resolve_axis(ep_axis).name
     lr_mults = router_lr_mults(params_sharded, cfg.moe_router_lr_mult)
 
     def step(shards, opt_state, batch):
         local = mesh.shard_rows(batch, dp_axis, ep_axis)
+        if sp_axis is not None:
+            local = mesh.shard_seq(local, sp_axis)
         with record_function("forward_backward"):
             loss, grads = microbatch_value_and_grad(
                 lambda p, b: T.lm_loss(p, b, cfg), shards, local, 1)
         with record_function("loss_mean"):
             loss = C.all_reduce(loss, world, mean=True)
         with record_function("grad_sync"):
-            synced = [C.all_reduce(g, dp_axis if ep_name in
+            synced = [C.all_reduce(g, experts_sync if ep_name in
                                    optim.tree_get(specs, path) else world)
                       / n_total
                       for path, g in optim.tree_leaves(grads)]

@@ -32,10 +32,17 @@ MoE configs (``cfg.n_experts``) train at ``overlap="none"`` and
 ``"ring"``: the stacked expert leaves ``(L, E, …)`` shard on E (dim 1,
 as every layer leaf), the router ``(L, H, E)`` on H, each layer runs all
 its experts locally, and ``moe_router_lr_mult`` scales the router's
-learning rate.  The fused modes refuse MoE, as the reference does.  Not
-ported:
-the optimizer and activation offload (``offload``, A12), sequence
-parallelism (A10) and the auto (jit + sharding) variant; they raise.
+learning rate.  The fused modes refuse MoE, as the reference does.
+
+``sp_axis`` makes it the FSDP × SP step (``parallel/sequence.py``): the
+config switches to ring attention over ``sp_axis``, each rank takes its
+dp rows and its sp chunk of the sequence, the loss is averaged over dp
+and then over sp, and each grad, replicated over sp, is averaged over
+sp (one all_reduce a leaf) before the division by the dp ranks.  It
+composes with every ``overlap`` mode, ``ring_fused_pallas`` (K7)
+included, as the reference's does.  Not ported: the optimizer and
+activation offload (``offload``, A12) and the auto (jit + sharding)
+variant (A10's second half); they raise.
 
 Without a process group the axis has one rank, every plain gather is
 the identity (a quantised one the int8 round-trip) and the step is
@@ -45,6 +52,7 @@ value-and-grad of ``lm_loss`` and Adam: the one-card flagship's step
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -56,9 +64,6 @@ from ..utils import mesh
 from . import optim, optim8
 from .expert import router_lr_mults
 
-# the ROADMAP.md queue A item that holds each option not ported yet
-_ROADMAP_ITEMS = {"offload": "A12 (memory_plan/)",
-                  "sp_axis": "A10 (sequence parallelism)"}
 OVERLAP_MODES = ("none", "ring", "ring_fused", "ring_fused_pallas")
 OFFLOAD_MODES = ("none", "opt", "opt_act")
 STATE_PRECISIONS = ("full", "int8")
@@ -213,11 +218,13 @@ def make_fsdp_value_and_grad(params_sharded: dict, cfg: T.TransformerConfig,
                              axis="dp", *, reshard_after_forward: bool = True,
                              overlap: str = "none", accum_steps: int = 1,
                              quantized_gather: bool = False,
-                             quantized_grads: bool = False):
+                             quantized_grads: bool = False, sp_axis=None):
     """``(shards, global batch) -> (loss, grad shards)``: the loss
     averaged over the ranks (one all_reduce) and the grads of the
     shards, summed over the ranks by the gathers' reduce_scatters and
-    divided by the world size — the step before its Adam update."""
+    divided by the world size — the step before its Adam update.  With
+    ``sp_axis`` each rank takes its sequence chunk too, and the loss and
+    every grad are averaged over sp first (one all_reduce each)."""
     ax = mesh.resolve_axis(axis)
     specs = fsdp_specs(params_sharded, ax)
     layer_specs = specs["layers"]
@@ -249,10 +256,19 @@ def make_fsdp_value_and_grad(params_sharded: dict, cfg: T.TransformerConfig,
 
     def value_and_grad(shards, batch):
         ws = mesh.axis_size(ax)
+        local = local_batch(batch, ax)
+        if sp_axis is not None:
+            local = mesh.shard_seq(local, sp_axis)
         loss, grads = microbatch_value_and_grad(
-            sharded_loss, shards, local_batch(batch, ax), accum_steps)
+            sharded_loss, shards, local, accum_steps)
         loss = C.all_reduce(loss, ax, mean=True)
-        if ws > 1:   # the ranks' sum → their mean, in place
+        if sp_axis is not None:
+            # params are replicated over sp: their grads need the mean
+            # over the ring too
+            loss = C.all_reduce(loss, sp_axis, mean=True)
+            grads = optim.tree_map(
+                lambda g: C.all_reduce(g, sp_axis, mean=True) / ws, grads)
+        elif ws > 1:   # the ranks' sum → their mean, in place
             for _, g in optim.tree_leaves(grads):
                 g.div_(ws)
         return loss, grads
@@ -309,17 +325,19 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
     if state_precision not in STATE_PRECISIONS:
         raise ValueError(f"state_precision={state_precision!r}; choose "
                          f"from {STATE_PRECISIONS}")
-    for name, value, default in (("offload", offload, "none"),
-                                 ("sp_axis", sp_axis, None)):
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r}: not ported yet — see ROADMAP.md, queue "
-                f"A item {_ROADMAP_ITEMS[name]}")
+    if offload != "none":
+        raise NotImplementedError(
+            f"offload={offload!r}: not ported yet — see ROADMAP.md, queue "
+            f"A item A12 (memory_plan/)")
+    if sp_axis is not None:
+        cfg = dataclasses.replace(cfg, attention_impl="ring",
+                                  sp_axis=sp_axis)
     T.check_supported(cfg)
     value_and_grad = make_fsdp_value_and_grad(
         params_sharded, cfg, axis, reshard_after_forward=reshard_after_forward,
         overlap=overlap, accum_steps=accum_steps,
-        quantized_gather=quantized_gather, quantized_grads=quantized_grads)
+        quantized_gather=quantized_gather, quantized_grads=quantized_grads,
+        sp_axis=sp_axis)
     update = (optim8.adam8_update if state_precision == "int8"
               else optim.adam_update)
     # the MoE router's learning-rate multiplier (moe_router_lr_mult)

@@ -34,7 +34,10 @@ beside ``parallel.contracts.moe_step_collectives``, tokens/s and
 peak memory.
 
 Not ported (ROADMAP.md): the collective-contract and sharding-rules
-verdicts over compiled text (A12) and the dp × sp × ep step (A10).
+verdicts over compiled text (A12).  The reference's script has no flag
+for the dp × sp × ep step; it runs through the library
+(``parallel.expert.make_moe_lm_train_step(sp_axis=...)``,
+``train.layouts --layout dp_sp_ep``).
 """
 
 from __future__ import annotations

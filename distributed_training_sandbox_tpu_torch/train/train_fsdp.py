@@ -49,7 +49,7 @@ past the batches a resumed run already consumed, and the step pump
 Not ported (ROADMAP.md): the memory planner (``--hbm-budget-gb``,
 ``--auto-fit``, the predicted waterline) and ``--offload`` (A12),
 collective contracts and the sharding-rules verdict (A12), the auto
-variant (A10).
+variant (A10's second half).
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+# an H100 SXM's dense bf16 peak, the denominator of the port's MFU
+PEAK_BF16_FLOPS = 989e12
+
 
 @dataclass(frozen=True)
 class FlopsConfig:

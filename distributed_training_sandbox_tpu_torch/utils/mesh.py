@@ -1,7 +1,7 @@
-"""Process-group bring-up and the data-parallel axis.
+"""Process-group bring-up and the mesh axes.
 
-Port of the JAX package's ``utils/mesh.py`` for the one axis the FSDP
-slice needs.  The reference names mesh axes (``"dp"``) and asks
+Port of the JAX package's ``utils/mesh.py`` for the axes the training
+steps need.  The reference names mesh axes (``"dp"``) and asks
 ``lax.axis_size`` / ``lax.axis_index`` inside ``shard_map``; here an
 axis is a name bound to a ``torch.distributed`` process group
 (:class:`Axis`), and :func:`axis_size` / :func:`axis_rank` ask the group.
@@ -11,18 +11,24 @@ so single-process code runs the same functions.
 :func:`init_process_group` reads what ``torchrun`` sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); run
 alone it makes a one-rank group on a free local port.  NCCL serves CUDA
-devices and gloo the CPU.  :func:`dp_ep_axes` lays the ranks out as
-the MoE step's ``dp`` × ``ep`` mesh (two axes over subgroups) and
+devices and gloo the CPU.  :func:`grid_axes` lays the ranks out as a
+grid of named axes over subgroups, in the JAX mesh's device order (the
+tensor- and sequence-parallel steps' ``("dp", "sp", "tp")``, the MoE
+step's ``("dp", "sp", "ep")``; :func:`dp_ep_axes` is its two-axis
+case), and :func:`span` finds the subgroup over several of them;
 :func:`shard_rows` takes a rank's rows of a batch sharded over several
-axes at once.  The named-mesh grammar (MeshPlan: any axes, their
-products) belongs to the composable slice (ROADMAP.md queue A item 10).
+axes at once and :func:`shard_seq` its chunk of the sequence.  The
+named-mesh grammar (MeshPlan: any axes, their products) belongs to the
+composable step (ROADMAP.md queue A item A10, its second half).
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import socket
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
 
 import torch
@@ -34,9 +40,12 @@ from ..device import resolve_device
 @dataclass(frozen=True)
 class Axis:
     """A mesh axis: its name (what error messages call it) and the
-    process group that spans it (None: the default group)."""
+    process group that spans it (None: the default group).  ``grid``:
+    the axes over every subset of its grid's axes (:func:`grid_axes`),
+    keyed by the set of their names, for :func:`span`."""
     name: str = "dp"
     group: object = None
+    grid: dict | None = field(default=None, compare=False, repr=False)
 
 
 def resolve_axis(axis) -> Axis:
@@ -72,28 +81,82 @@ def global_rank(axis, rank: int) -> int:
     return dist.get_global_rank(group, rank)
 
 
-def dp_ep_axes(dp: int, ep: int) -> tuple[Axis, Axis]:
-    """The ``("dp", "ep")`` axes of a ``dp`` × ``ep`` layout of the
-    default group: global rank ``r = dp_index · ep + ep_index``, the
-    order of the reference's ``Mesh(devices.reshape(dp, ep), ("dp",
-    "ep"))``.  An ``ep`` group is ``ep`` consecutive ranks, a ``dp``
-    group the ranks ``ep`` apart.  Every rank makes every subgroup (in
-    one order, as ``dist.new_group`` requires) and keeps its own two.
-    Without a process group both axes have one rank."""
+def grid_axes(names, sizes) -> dict:
+    """Lay the default group out as a grid of named axes, as the
+    reference's ``Mesh(devices.reshape(*sizes), names)`` orders its
+    devices: global rank ``r`` is the row-major index of its
+    coordinates, the last axis fastest.  Returns ``{name: Axis}``, each
+    axis bound to the subgroup of the ranks that differ from this one
+    in that coordinate only, in rank order (so ``axis_rank`` is the
+    coordinate), and ``{"dp_sp": Axis, ...}`` for every subset of two or
+    more axes (the whole grid: the default group), which :func:`span`
+    finds: one collective over several axes, as ``lax.psum(x, ("dp",
+    "sp"))`` is one.  Every rank makes every subgroup, in one order, as
+    ``dist.new_group`` requires.  Without a process group every axis
+    has one rank."""
+    names, sizes = tuple(names), tuple(int(s) for s in sizes)
+    n = math.prod(sizes)
+    subsets = [s for k in range(1, len(names) + 1)
+               for s in itertools.combinations(names, k)]
     if not initialized():
-        if dp * ep != 1:
-            raise ValueError(f"dp={dp} x ep={ep} needs a process group of "
-                             f"{dp * ep} ranks")
-        return Axis("dp"), Axis("ep")
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if dp * ep != world:
-        raise ValueError(f"dp={dp} x ep={ep} != world size {world}")
-    ep_groups = [dist.new_group(list(range(d * ep, (d + 1) * ep)))
-                 for d in range(dp)]
-    dp_groups = [dist.new_group(list(range(e, world, ep)))
-                 for e in range(ep)]
-    return (Axis("dp", dp_groups[rank % ep]),
-            Axis("ep", ep_groups[rank // ep]))
+        if n != 1:
+            raise ValueError(f"{_grid_str(names, sizes)} needs a process "
+                             f"group of {n} ranks")
+        return {"_".join(s): Axis("_".join(s)) for s in subsets}
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f"{_grid_str(names, sizes)} != world size {world}")
+    coords = [dict(zip(names, idx))
+              for idx in itertools.product(*(range(s) for s in sizes))]
+    mine = coords[dist.get_rank()]
+    groups = {}
+    for subset in subsets:
+        others = [a for a in names if a not in subset]
+        groups[subset] = None     # the whole grid: the default group
+        for fixed in itertools.product(*(range(sizes[names.index(a)])
+                                         for a in others)) if others else ():
+            ranks = [r for r, c in enumerate(coords)
+                     if all(c[a] == i for a, i in zip(others, fixed))]
+            group = dist.new_group(ranks)
+            if all(mine[a] == i for a, i in zip(others, fixed)):
+                groups[subset] = group
+    spans: dict = {}
+    for subset in subsets:
+        spans[frozenset(subset)] = Axis("_".join(subset), groups[subset],
+                                        spans)
+    return {"_".join(s): spans[frozenset(s)] for s in subsets}
+
+
+def _grid_str(names, sizes) -> str:
+    return " x ".join(f"{a}={s}" for a, s in zip(names, sizes))
+
+
+def span(*axes) -> Axis:
+    """The axis spanning ``axes`` of one grid (:func:`grid_axes`): one
+    collective over it is one over all of them.  A single axis is
+    itself; without a process group the span has one rank."""
+    axes = tuple(resolve_axis(a) for a in axes)
+    if len(axes) == 1:
+        return axes[0]
+    if not initialized():
+        return Axis("_".join(a.name for a in axes))
+    grid = axes[0].grid
+    key = frozenset(a.name for a in axes)
+    if grid is None or any(a.grid is not grid for a in axes) \
+            or key not in grid:
+        raise ValueError(f"axes {[a.name for a in axes]} are not axes of "
+                         f"one grid (utils.mesh.grid_axes)")
+    return grid[key]
+
+
+def dp_ep_axes(dp: int, ep: int) -> tuple[Axis, Axis]:
+    """The ``("dp", "ep")`` axes of a ``dp`` × ``ep`` grid
+    (:func:`grid_axes`): global rank ``r = dp_index · ep + ep_index``,
+    the order of the reference's ``Mesh(devices.reshape(dp, ep),
+    ("dp", "ep"))``.  An ``ep`` group is ``ep`` consecutive ranks, a
+    ``dp`` group the ranks ``ep`` apart."""
+    g = grid_axes(("dp", "ep"), (dp, ep))
+    return g["dp"], g["ep"]
 
 
 def shard_rows(batch, *axes):
@@ -114,6 +177,19 @@ def shard_rows(batch, *axes):
                          f"{count}")
     m = B // count
     return tuple(t[index * m:(index + 1) * m] for t in batch)
+
+
+def shard_seq(batch, axis, dim: int = 1):
+    """This rank's contiguous chunk of the sequence dim ``dim`` of every
+    tensor of ``batch``, sharded over ``axis`` (the reference's
+    ``P(..., "sp")``): chunk ``axis_rank(axis)`` of ``axis_size(axis)``."""
+    n, r = axis_size(axis), axis_rank(axis)
+    S = batch[0].shape[dim]
+    if S % n:
+        raise ValueError(f"sequence of {S} positions is not divisible by "
+                         f"mesh axis {resolve_axis(axis).name!r} size {n}")
+    m = S // n
+    return tuple(t.narrow(dim, r * m, m) for t in batch)
 
 
 def free_port() -> int:

@@ -328,8 +328,7 @@ def test_guards_raise_the_reference_messages(kw):
 
 def test_unported_options_and_bad_layouts_raise():
     pp = PT.init_params(PT.TINY_LM, torch.Generator().manual_seed(0), "cpu")
-    for kw in ({"offload": "opt"}, {"offload": "opt_act"},
-               {"sp_axis": "sp"}):
+    for kw in ({"offload": "opt"}, {"offload": "opt_act"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PF.make_fsdp_train_step(pp, PT.TINY_LM, **kw)
     # the divisibility message is the reference's

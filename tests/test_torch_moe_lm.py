@@ -5,8 +5,8 @@ expert equal to dense, the config's fields, ``param_count`` and FLOPs,
 and the MoE step's refusals.  The MoE pipeline, ``generate`` and the
 serve are in ``test_torch_moe_pipeline.py``; the dp × ep step (every
 case of the reference's ``tests/test_moe_lm.py`` but the dp × sp × ep
-one, ring attention, not ported: ROADMAP.md A10) and FSDP with MoE, on
-2 and 4 gloo ranks, in ``test_torch_moe_ranks.py``.
+one, which ``test_torch_2d.py`` holds) and FSDP with MoE, on 2 and 4
+gloo ranks, in ``test_torch_moe_ranks.py``.
 
 Weights come from the reference's ``init_params`` through the bridge;
 batches from ``jax.random`` as the reference's tests draw them.  Tiers:
@@ -168,5 +168,8 @@ def test_moe_step_refusals():
         dataclasses.replace(PCFG, n_experts=6))
     with pytest.raises(ValueError, match="n_experts must be > 0"):
         PE.make_moe_lm_train_step(params, PT.TINY_LM)
-    with pytest.raises(NotImplementedError, match="A10"):
-        PE.make_moe_lm_train_step(params, PCFG, sp_axis="sp")
+    # the dp x sp x ep step is ported; a ring config handed to the step
+    # without its sp_axis is refused, as the reference refuses it
+    ring = dataclasses.replace(PCFG, attention_impl="ring", sp_axis="sp")
+    with pytest.raises(ValueError, match="sp_axis"):
+        PE.make_moe_lm_train_step(params, ring)

@@ -1,7 +1,7 @@
 """The MoE transformer's dp × ep step and FSDP with MoE on 2 and 4 gloo
 ranks against the JAX reference's ``shard_map`` steps on as many CPU
 devices: every case of the reference's ``tests/test_moe_lm.py`` but
-the dp × sp × ep one (ring attention, not ported: ROADMAP.md A10),
+the dp × sp × ep one (ring attention; ``test_torch_2d.py`` holds it),
 with top-2, the router's lr multiplier and z-loss, the no-drop loss
 against the all-local model, the shim's counts against
 ``contracts.moe_step_collectives`` and the ``train.moe`` twin under

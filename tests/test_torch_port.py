@@ -420,7 +420,9 @@ def test_entry_points_raise_without_a_card(weights, monkeypatch):
 
 def test_unported_configurations_raise():
     import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ring attention is ported: a ring config without its sequence axis
+    # is refused, as the reference's __post_init__ refuses it
+    with pytest.raises(ValueError, match="needs sp_axis"):
         PT.init_params(dataclasses.replace(PT.TINY_LM, attention_impl="ring"),
                        torch.Generator(), "cpu")
     # MoE is ported: init_params draws the expert leaves at their shapes

@@ -318,12 +318,13 @@ def test_unported_training_options_raise():
         PT.resolve_remat_policy(dataclasses.replace(
             PT.TINY_LM, remat_policy="save_dots",
             matmul_precision="int8_pallas"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ring attention is ported; a ring config without its sequence axis
+    # is refused, as the reference's __post_init__ refuses it
+    with pytest.raises(ValueError, match="needs sp_axis"):
         PT.check_supported(dataclasses.replace(PT.TINY_LM,
                                                attention_impl="ring"))
     pp = PT.init_params(PT.TINY_LM, torch.Generator().manual_seed(0), "cpu")
-    for kw in ({"offload": "opt"}, {"offload": "opt_act"},
-               {"sp_axis": "sp"}):
+    for kw in ({"offload": "opt"}, {"offload": "opt_act"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PF.make_fsdp_train_step(pp, PT.TINY_LM, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
