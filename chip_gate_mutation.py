@@ -138,6 +138,18 @@ resilience mutants edit a Python module of the port instead):
   rank it is a copy, so only the count can see it), whose TP step's
   collectives against the ``tp`` contract (``tp step: collectives``)
   must fail.
+- three of the composable step (phase 17, the port's Python; child
+  ``composable`` runs 17a's steps and 17d's two-rank laws):
+  ``composable_tp_sync_forgotten`` (``parallel/composable.py``: the grad
+  sync of a tp-replicated leaf sums over dp only), whose law at tp 2
+  (``composable law t2``) must fail; ``composable_row_rule_swapped``
+  (``analysis/rules.py``: the row-parallel rule shards fsdp on the in
+  dim and tp on the out dim), whose generated contract then counts no
+  rejoin, so 17a's collectives against it (``composable step: step 0
+  collectives``) and the law at tp 2 must fail; and
+  ``auto_grad_divide_skipped`` (``parallel/fsdp.py``: the auto variant
+  hands Adam the ranks' sum), whose law at two ranks (``auto law``)
+  must fail.  At one rank none of them changes a value.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -320,6 +332,19 @@ MUTANTS = [
     ("tp_rejoin_dropped", "models/transformer.py",
      "            attn_out = rejoin(attn_out)",
      "            attn_out = attn_out", "tp", ("tp step: collectives",)),
+    ("composable_tp_sync_forgotten", "parallel/composable.py",
+     "                optim.tree_get(specs, path)) else dp_tp) / n_total",
+     "                optim.tree_get(specs, path)) else dp_axis) / n_total",
+     "composable", ("composable law t2",)),
+    ("composable_row_rule_swapped", "analysis/rules.py",
+     "        Rule(rf\"^layers/({row})$\", (None, tp_axis, fsdp_axis),",
+     "        Rule(rf\"^layers/({row})$\", (None, fsdp_axis, tp_axis),",
+     "composable", ("composable step: step 0 collectives",
+                    "composable law t2")),
+    ("auto_grad_divide_skipped", "parallel/fsdp.py",
+     "            grads = [p.grad.to_local() / ws for p in params]",
+     "            grads = [p.grad.to_local() for p in params]",
+     "composable", ("auto law",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -507,6 +532,20 @@ torch.backends.cudnn.allow_tf32 = False
 try:
     c.tp_parity_phase()
     c.ring_fold_phase()
+finally:
+    c.mesh.destroy_process_group()
+""", "composable": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+try:
+    c.composable_train_phase(c.card_line(), c.composable_parity_phase())
+    c.composable_law_phase()
 finally:
     c.mesh.destroy_process_group()
 """, "resilience": """

@@ -6,7 +6,8 @@ on SmolLM3-3B-L8 (``ring_fused_pallas``, one NCCL rank; and with int8
 gathers, grads and Adam moments), with the hand-written Hopper kernels,
 DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules, the
 remat policies, preempt → resume under the run harness, the
-mixture-of-experts model and tensor and sequence parallelism (one NCCL
+mixture-of-experts model, tensor and sequence parallelism and the
+composable dp x fsdp x tp step with FSDP's auto variant (one NCCL
 rank).
 
     python3 chip_smoke.py
@@ -210,7 +211,27 @@ Phases, each of which fails the run:
    at int8_pallas_bwd (K5, K4; the ring in place of the flash
    kernels): launches exact, plain calls 0, every step's collectives
    the contract's (``parallel.contracts``), losses finite and falling;
-   step ms, tokens/s, MFU, peak memory; phase 16's wall time.
+   step ms, tokens/s, MFU, peak memory; phase 16's wall time;
+17. the composable step — on the same group, SMOLLM3_3B_L8 at seq 8192:
+   (a) ``parallel.composable``'s dp x fsdp x tp step at 1 x 1 x 1
+   (int8_pallas_bwd, flash): step-0 loss and every grad leaf bit-equal
+   to the TP step's at dp 1 x tp 1 on phase 16b's shards and batch (K5,
+   K4, FA), then 6 steps: launches exact, plain calls 0, every step's
+   collectives the generated contract's (``analysis.contract_gen``),
+   losses finite and falling; (b) the twin ``train.train_composable``
+   at ``--mesh dp1xw3named --overlap ring_fused_pallas`` (K7, FA), its
+   losses bit-equal to ``train.train_fsdp``'s with the same flags; (c)
+   FSDP's auto variant over ``fully_shard`` (bf16, flash): step-0 loss
+   and grads bit-equal to the explicit step's, then 6 steps as (a); (d)
+   the laws more than one rank shows, on two gloo ranks of the host's
+   CPU (TINY_LM): the 3-axis step's grads at tp 2 and at fsdp 2 and the
+   auto variant's at 2 ranks against the one-process grads; step ms,
+   tokens/s, MFU, peak memory; phase 17's wall time.  17d uses no card:
+   ``tests/test_torch_composable_ranks.py`` and
+   ``tests/test_torch_fsdp_auto.py`` hold the same laws against the JAX
+   package.  It is hosted here so that ``chip_gate_mutation.py``'s three
+   composable mutants, which change no value at one rank, have a gate of
+   their own in the smoke (about 10 s).
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -269,6 +290,8 @@ from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.ops import busbench as BB
 from distributed_training_sandbox_tpu_torch.ops import ring_attention as RA
 from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8, tensor
+from distributed_training_sandbox_tpu_torch.parallel import composable as CP
+from distributed_training_sandbox_tpu_torch.analysis import contract_gen as CG
 from distributed_training_sandbox_tpu_torch.parallel import expert as EX
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.parallel import sequence as PS
@@ -284,7 +307,8 @@ from distributed_training_sandbox_tpu_torch.train import moe as moe_run
 from distributed_training_sandbox_tpu_torch.train import (
     precision_benchmark as prec_bench)
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
-from distributed_training_sandbox_tpu_torch.train import train_sp, train_tp
+from distributed_training_sandbox_tpu_torch.train import (
+    train_composable, train_sp, train_tp)
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
 from distributed_training_sandbox_tpu_torch.utils import mesh
@@ -4695,6 +4719,323 @@ def tp_sp_train_phase(card: str) -> tuple[dict, dict]:
     return out, launches
 
 
+
+# ------------------------------------------------ phase 17: composable
+
+def _phase_steps(res) -> list:
+    t = res["step_times_s"]
+    return [b - a for a, b in zip([0.0] + t[:-1], t)]
+
+
+def composable_parity_phase() -> float:
+    """Phase 17a: ``composable.make_dp_fsdp_tp_value_and_grad`` at dp 1
+    x fsdp 1 x tp 1 on SMOLLM3_3B_L8 at int8_pallas_bwd (flash), seq
+    8192, on phase 16b's shards and batch: the step-0 loss and every
+    synced grad leaf bit-equal to ``tensor.tp_lm_loss``'s at dp 1 x tp 1
+    (the TP step's grads, the all_reduces at one rank copies), both
+    through K5, K4 and the flash kernels, launches exact.  Returns the
+    step-0 loss."""
+    p = TP_TRAIN
+    cfg = TP_PARITY_CFG
+    ax3 = _tp_axes("dp", "fsdp", "tp")
+    ax2 = _tp_axes("dp", "tp")
+    shards, batch = _prec_inputs(cfg, p["seed"], p["seq"], p["bs"],
+                                 p["num_steps"])
+    expect = _prec_expect(cfg.num_hidden_layers)
+    vg3 = CP.make_dp_fsdp_tp_value_and_grad(
+        shards, cfg, dp_axis=ax3["dp"], fsdp_axis=ax3["fsdp"],
+        tp_axis=ax3["tp"])
+    runs = {"3-axis": lambda: vg3(shards, batch),
+            "tp": lambda: fsdp.microbatch_value_and_grad(
+                lambda q, b: tensor.tp_lm_loss(q, b, cfg, axis=ax2["tp"]),
+                shards, batch, 1)}
+    out, counts = {}, {}
+    for name, fn in runs.items():
+        _reset_kernel_counts()
+        loss, grads = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: (c.launches, c.plain_calls)
+                        for k, (c, _) in expect.items()}
+        out[name] = (float(loss), grads)
+    (l3, g3), (lt, gt) = out["3-axis"], out["tp"]
+    unequal = {"/".join(path): float((a.float() - fsdp.optim.tree_get(
+        gt, path).float()).abs().max())
+        for path, a in fsdp.optim.tree_leaves(g3)
+        if not torch.equal(a, fsdp.optim.tree_get(gt, path))}
+    want = {k: per for k, (_, per) in expect.items()}
+    log(f"composable parity: the 3-axis step's loss {l3!r}, the TP "
+        f"step's {lt!r} (bit-equal {l3 == lt}); grad leaves not bit-equal "
+        f"{json.dumps(unequal)}; launches (kernel, plain) "
+        f"{json.dumps(counts)}, expected {json.dumps(want)}")
+    del out, g3, gt, shards
+    torch.cuda.empty_cache()
+    check(np.isfinite(l3) and l3 == lt, f"composable step-0 loss: 3-axis "
+          f"{l3!r} != TP {lt!r}")
+    check(not unequal, f"composable step-0 grads: {len(unequal)} leaves "
+          f"not bit-equal to the TP step's: {unequal}")
+    for k, c in counts.items():
+        for name, (launches, plain) in c.items():
+            check((launches, plain) == (want[name], 0),
+                  f"composable step-0 {k}: {name} (launches, plain) "
+                  f"{(launches, plain)} != ({want[name]}, 0)")
+    return l3
+
+
+def composable_train_phase(card: str, loss0: float) -> tuple[dict, dict]:
+    """Phase 17a's steps: ``TP_TRAIN["num_steps"]`` steps of
+    ``composable.make_dp_fsdp_tp_step`` at dp 1 x fsdp 1 x tp 1
+    (int8_pallas_bwd, flash) on the seeded shards, one global batch a
+    step: step 0's loss the parity's, launches exact, plain calls 0,
+    every step's collectives the generated contract's
+    (``analysis.contract_gen``), losses finite and falling; step ms,
+    tokens/s, MFU, peak memory."""
+    p = TP_TRAIN
+    cfg, n = TP_PARITY_CFG, p["num_steps"]
+    ax = _tp_axes("dp", "fsdp", "tp")
+    gen = torch.Generator(device="cuda").manual_seed(p["seed"])
+    shards = CP.shard_params_by_rules(T.init_params(cfg, gen, "cuda"),
+                                      "composable_dp_fsdp_tp", ax)
+    step = CP.make_dp_fsdp_tp_step(shards, cfg, dp_axis=ax["dp"],
+                                   fsdp_axis=ax["fsdp"], tp_axis=ax["tp"])
+    opt = fsdp.init_fsdp_opt_state(shards)
+    contract = CG.generate_counts(
+        "composable_dp_fsdp_tp", shards,
+        CG.Ctx({"dp": 1, "fsdp": 1, "tp": 1}, remat=cfg.remat))
+    batches = ((torch.as_tensor(i, device="cuda"),
+                torch.as_tensor(lb, device="cuda"))
+               for i, lb in train_fsdp.fsdp_batches(
+                   cfg.vocab_size, p["seq"], p["bs"], n, p["seed"]))
+    expect = _prec_expect(cfg.num_hidden_layers)
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, colls = _run_steps(step, shards, opt, batches, n)
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    reading = _train_reading(
+        "composable step", card, losses, step_s, p["seq"] * p["bs"],
+        T.model_flops_per_token(cfg, p["seq"]),
+        torch.cuda.max_memory_allocated(), counts,
+        {k: n * per for k, (_, per) in expect.items()}, colls, contract)
+    check(losses[0] == loss0, f"composable step: step-0 loss {losses[0]!r} "
+          f"is not the parity's {loss0!r} (same shards and batch)")
+    del shards, opt, step
+    torch.cuda.empty_cache()
+    return reading, {k: c[0] for k, c in counts.items()}
+
+
+def composable_twin_phase(card: str) -> tuple[dict, dict]:
+    """Phase 17b: ``train.train_composable.run`` at ``--mesh
+    dp1xw3named --overlap ring_fused_pallas`` (the FSDP replay: K7, the
+    flash kernels) for ``FSDP_TRAIN["num_steps"]`` steps, its losses bit
+    for bit ``train.train_fsdp.run``'s with the same flags, which runs
+    next; the twin's launches exact, plain calls 0, every step's
+    collectives the generated contract's, its rules verdict ok."""
+    f = FSDP_TRAIN
+    n, L = f["num_steps"], FSDP_CFG.num_hidden_layers
+    expect = {"ag_matmul": (C.COUNTS, 2 * len(PROJECTIONS) * L),
+              "flash_attention_fwd": (FA.FWD_COUNTS, 2 * L),
+              "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+    kw = dict(overlap=f["overlap"], seq=f["seq"], batch_size=f["bs"],
+              num_steps=n, device="cuda", seed=f["seed"], log=log)
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    twin = train_composable.run("dp1xw3named", f["model"], **kw)
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    reading = _train_reading(
+        "composable twin", card, twin["losses"], _phase_steps(twin),
+        f["seq"] * f["bs"], twin["model_flops_per_token"],
+        twin["peak_memory_bytes"], counts,
+        {k: n * per for k, (_, per) in expect.items()},
+        twin["collectives"], twin["contract"])
+    ref = train_fsdp.run(f["model"], **kw)
+    log(f"composable twin: losses {twin['losses']}, train_fsdp's "
+        f"{ref['losses']} (bit-equal {twin['losses'] == ref['losses']}); "
+        f"strategy {twin['strategy']}, rules ok {twin['rules']['ok']} "
+        f"({twin['rules']['checked']} leaves checked)")
+    check(twin["losses"] == ref["losses"], f"composable twin: losses "
+          f"{twin['losses']} != train_fsdp's {ref['losses']}")
+    check(twin["strategy"] == "fsdp" and twin["rules"]["ok"],
+          f"composable twin: strategy {twin['strategy']}, rules "
+          f"{twin['rules']}")
+    torch.cuda.empty_cache()
+    return reading, {k: c[0] for k, c in counts.items()}
+
+
+def auto_phase(card: str) -> tuple[dict, dict]:
+    """Phase 17c: FSDP's auto variant (``fsdp.fully_shard_params``,
+    ``make_fsdp_auto_train_step``) at one rank on SMOLLM3_3B_L8, bf16,
+    flash, seq 8192: the step-0 loss and every grad leaf (its divide
+    factor at one rank, 1) bit-equal to the explicit step's
+    (``make_fsdp_value_and_grad``: the same ``lm_loss``, identity
+    gathers) on the same params and batch, the flash kernels fed the
+    plain tensors ``fully_shard`` gathers; then
+    ``TP_TRAIN["num_steps"]`` steps: launches exact, plain calls 0, each
+    step's shim calls the loss mean only (the library's gathers are its
+    own), losses finite and falling; step ms, tokens/s, MFU, peak."""
+    p, cfg = TP_TRAIN, FSDP_CFG
+    n, L = p["num_steps"], cfg.num_hidden_layers
+    mesh.init_process_group("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(p["seed"])
+    full = T.init_params(cfg, gen, "cuda")
+    expl = fsdp.shard_params_fsdp(fsdp.optim.tree_map(
+        lambda x: x.clone(), full))
+    module = fsdp.fully_shard_params(full, cfg)
+    del full
+    auto = fsdp.auto_shards(module)
+    batches = [(torch.as_tensor(i, device="cuda"),
+                torch.as_tensor(lb, device="cuda"))
+               for i, lb in train_fsdp.fsdp_batches(
+                   cfg.vocab_size, p["seq"], p["bs"], n, p["seed"])]
+    expect = {"flash_attention_fwd": (FA.FWD_COUNTS, 2 * L),
+              "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+    out, counts = {}, {}
+    for name, vg in (("auto", fsdp.make_fsdp_auto_value_and_grad(module)),
+                     ("explicit", fsdp.make_fsdp_value_and_grad(expl, cfg))):
+        _reset_kernel_counts()
+        loss, grads = vg(auto if name == "auto" else expl, batches[0])
+        torch.cuda.synchronize()
+        counts[name] = {k: (c.launches, c.plain_calls)
+                        for k, (c, _) in expect.items()}
+        out[name] = (float(loss), grads)
+    (la, ga), (le, ge) = out["auto"], out["explicit"]
+    unequal = {"/".join(path): float((a.float() - fsdp.optim.tree_get(
+        ge, path).float()).abs().max())
+        for path, a in fsdp.optim.tree_leaves(ga)
+        if not torch.equal(a, fsdp.optim.tree_get(ge, path))}
+    log(f"auto step-0: loss {la!r}, the explicit step's {le!r} (bit-equal "
+        f"{la == le}); grad leaves not bit-equal {json.dumps(unequal)}; "
+        f"launches (kernel, plain) {json.dumps(counts)}")
+    del out, ga, ge, expl
+    torch.cuda.empty_cache()
+    check(np.isfinite(la) and la == le, f"auto step-0 loss: {la!r} != "
+          f"the explicit step's {le!r}")
+    check(not unequal, f"auto step-0 grads: {len(unequal)} leaves not "
+          f"bit-equal to the explicit step's: {unequal}")
+    step = fsdp.make_fsdp_auto_train_step(module)
+    opt = fsdp.init_fsdp_opt_state(auto)
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, colls = _run_steps(step, auto, opt, iter(batches), n)
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    loss_mean = dict.fromkeys(C.CollectiveCounts.KINDS, 0)
+    loss_mean["all_reduce"] = 1
+    reading = _train_reading(
+        "auto step", card, losses, step_s, p["seq"] * p["bs"],
+        T.model_flops_per_token(cfg, p["seq"]),
+        torch.cuda.max_memory_allocated(), counts,
+        {k: n * per for k, (_, per) in expect.items()}, colls, loss_mean)
+    check(losses[0] == la, f"auto step: step-0 loss {losses[0]!r} is not "
+          f"the parity's {la!r}")
+    del module, auto, opt, step
+    torch.cuda.empty_cache()
+    return reading, {k: c[0] for k, c in counts.items()}
+
+
+# the laws only more than one rank shows, on two gloo ranks of the
+# host's CPU (one card holds one NCCL rank): TINY_LM (2 layers, f32,
+# remat), one global batch of 4 rows; each rank's synced grads against
+# the one-process grads of the global mean loss, cut as the rules cut
+# the params, at rtol = atol = COMPOSABLE_LAW_TOL (f32 sums in another
+# order: the row-parallel partials, the gathers' reduce_scatters)
+COMPOSABLE_LAW_TOL = 1e-5
+LAW_WORKER = r"""
+import dataclasses, json, sys
+from pathlib import Path
+import torch
+from distributed_training_sandbox_tpu_torch.models import transformer as T
+from distributed_training_sandbox_tpu_torch.parallel import composable as CP
+from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim
+from distributed_training_sandbox_tpu_torch.utils import mesh
+
+tol = float(sys.argv[2])
+mesh.init_process_group("cpu")
+r = mesh.axis_rank()
+cfg = dataclasses.replace(T.TINY_LM, num_hidden_layers=2, remat=True)
+params = T.init_params(cfg, torch.Generator().manual_seed(0))
+ids = torch.randint(0, cfg.vocab_size, (4, 32),
+                    generator=torch.Generator().manual_seed(1))
+batch = (ids, ids.roll(-1, 1))
+ref_loss, ref = fsdp.microbatch_value_and_grad(
+    lambda p, b: T.lm_loss(p, b, cfg),
+    optim.tree_map(lambda x: x.clone(), params), batch, 1)
+
+def ratio(loss, grads, want):
+    worst = abs(float(loss) - float(ref_loss)) / (tol + tol * abs(
+        float(ref_loss)))
+    for path, g in optim.tree_leaves(grads):
+        w = optim.tree_get(want, path)
+        worst = max(worst, float(((g - w).abs() / (tol + tol * w.abs())
+                                  ).max()))
+    return worst
+
+out = {}
+S = "composable_dp_fsdp_tp"
+for name, sizes in (("t2", (1, 1, 2)), ("f2", (1, 2, 1))):
+    try:
+        ax = mesh.grid_axes(("dp", "fsdp", "tp"), sizes)
+        shards = CP.shard_params_by_rules(params, S, ax)
+        vg = CP.make_dp_fsdp_tp_value_and_grad(
+            shards, cfg, dp_axis=ax["dp"], fsdp_axis=ax["fsdp"],
+            tp_axis=ax["tp"])
+        out[name] = ratio(*vg(shards, batch),
+                          CP.shard_params_by_rules(ref, S, ax))
+    except Exception as e:
+        out[name] = f"{type(e).__name__}: {e}"
+try:
+    module = fsdp.fully_shard_params(params, cfg)
+    vg = fsdp.make_fsdp_auto_value_and_grad(module)
+    out["auto"] = ratio(*vg(fsdp.auto_shards(module), batch),
+                        fsdp.shard_params_fsdp(ref))
+except Exception as e:
+    out["auto"] = f"{type(e).__name__}: {e}"
+(Path(sys.argv[1]) / f"law{r}.json").write_text(json.dumps(out))
+mesh.destroy_process_group()
+"""
+
+
+def composable_law_phase() -> dict:
+    """Phase 17d: the laws at two ranks, on two gloo ranks of the host's
+    CPU (``LAW_WORKER``): the 3-axis step's loss and synced grads at dp
+    1 x fsdp 1 x tp 2 (``composable law t2``: the tp-replicated leaves'
+    grads summed over tp) and at 1 x 2 x 1 (``composable law f2``: the
+    gathers' reduce_scatters over fsdp), and the auto variant's at two
+    ranks (``auto law``: ``fully_shard``'s sum divided by the ranks),
+    each against the one-process grads of the global mean loss within
+    ``COMPOSABLE_LAW_TOL``.  The processes are stopped on return."""
+    import os
+    import tempfile
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as work:
+        env = {**os.environ, "PYTHONPATH": str(here), "WORLD_SIZE": "2",
+               "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(mesh.free_port()), "OMP_NUM_THREADS": "2",
+               "CUDA_VISIBLE_DEVICES": ""}
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", LAW_WORKER, work,
+             str(COMPOSABLE_LAW_TOL)], cwd=here,
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"composable law: rank {r} exited "
+                  f"{p.returncode}: {o[-2000:]}")
+        ranks = [json.loads((Path(work) / f"law{r}.json").read_text())
+                 for r in range(2)]
+    res = {k: [rk[k] for rk in ranks] for k in ranks[0]}
+    log(f"composable law (2 gloo ranks, TINY_LM f32): worst |Δ| / (atol + "
+        f"rtol |want|) at {COMPOSABLE_LAW_TOL} a rank {json.dumps(res)}")
+    for key, gate in (("t2", "composable law t2"),
+                      ("f2", "composable law f2"), ("auto", "auto law")):
+        vals = res[key]
+        check(all(isinstance(v, float) and v <= 1.0 for v in vals),
+              f"{gate}: {vals}")
+    return res
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -5463,6 +5804,16 @@ def main(argv) -> int:
                                     card)
         log(f"phase 16 (tensor and sequence parallelism): "
             f"{time.perf_counter() - t16:.1f} s")
+        t17 = time.perf_counter()
+        loss0 = timed("composable parity", composable_parity_phase)
+        comp, comp_launches = timed("composable train",
+                                    composable_train_phase, card, loss0)
+        twin, twin_launches = timed("composable twin",
+                                    composable_twin_phase, card)
+        auto, auto_launches = timed("fsdp auto", auto_phase, card)
+        law = timed("composable law", composable_law_phase)
+        log(f"phase 17 (the composable step, its twin, FSDP's auto "
+            f"variant): {time.perf_counter() - t17:.1f} s")
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -5477,7 +5828,8 @@ def main(argv) -> int:
     paths = {"serve": launches, "int8 serve": q8, "train": fp8,
              "int8 train": i8, "fsdp train": fs, "pipeline": pp,
              "precision": precision, "resilience": resilience, "moe": moe,
-             **tpsp_launches}
+             **tpsp_launches, "composable step": comp_launches,
+             "composable twin": twin_launches, "fsdp auto": auto_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -5491,6 +5843,9 @@ def main(argv) -> int:
     log(f"precision bench rows on {card}: {json.dumps(bench_rows)}")
     log(f"tp and sp readings on {card}: shards {json.dumps(tp_shards)}; "
         f"ring fold {json.dumps(ring)}; train {json.dumps(tpsp)}")
+    log(f"composable readings on {card}: 3-axis step {json.dumps(comp)}; "
+        f"twin {json.dumps(twin)}; fsdp auto {json.dumps(auto)}; laws "
+        f"{json.dumps(law)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

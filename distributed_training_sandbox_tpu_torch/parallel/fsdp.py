@@ -41,8 +41,21 @@ and then over sp, and each grad, replicated over sp, is averaged over
 sp (one all_reduce a leaf) before the division by the dp ranks.  It
 composes with every ``overlap`` mode, ``ring_fused_pallas`` (K7)
 included, as the reference's does.  Not ported: the optimizer and
-activation offload (``offload``, A12) and the auto (jit + sharding)
-variant (A10's second half); they raise.
+activation offload (``offload``, A12); it raises.
+
+The auto variant (:func:`make_fsdp_auto_train_step`, the reference's
+``make_fsdp_auto_train_step``): the reference leaves its collectives to
+XLA; here ``torch.distributed.fsdp.fully_shard`` owns them.  The param
+tree is wrapped in a thin module (:class:`FullyShardedParams`) whose
+placement puts each rank on the rows ``shard_tree`` gives it, and the
+step runs ``lm_loss`` and ``optim.adam_update`` on the tensors the
+library hands over.  The module is one ``fully_shard`` group: the
+library gathers the whole model before the forward and frees it after
+the backward, so at every depth its peak holds the full params, unlike
+the explicit step's per-layer gathers.  A group a layer needs a module
+a layer, and so a tree of per-layer leaves instead of the stacked
+``(L, …)`` ones that ``shard_tree``, the checkpoints and the bridge
+share (ROADMAP B0).
 
 Without a process group the axis has one rank, every plain gather is
 the identity (a quantised one the int8 round-trip) and the step is
@@ -56,6 +69,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..models import transformer as T
 from ..ops import collectives as C
@@ -348,6 +362,127 @@ def make_fsdp_train_step(params_sharded: dict, cfg: T.TransformerConfig,
         lr_t = lr_schedule(opt_state.count) if lr_schedule else lr
         shards, opt_state = update(grads, opt_state, shards, lr=lr_t, b1=b1,
                                    b2=b2, eps=eps, lr_mults=lr_mults)
+        return shards, opt_state, loss
+
+    return step
+
+
+# -------------------------------------------------------------------- auto
+
+class FullyShardedParams(torch.nn.Module):
+    """The param tree as a module for ``fully_shard``: each leaf one
+    parameter (``layers/wq`` registered as ``layers__wq``).  Its forward
+    is ``lm_loss`` on the tree of the parameters the library has
+    gathered, plain tensors; outside it the parameters are the
+    library's sharded DTensors."""
+
+    SEP = "__"
+
+    def __init__(self, params: dict, cfg: T.TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.paths = [path for path, _ in optim.tree_leaves(params)]
+        for path, x in optim.tree_leaves(params):
+            self.register_parameter(self.SEP.join(path),
+                                    torch.nn.Parameter(x.detach().clone()))
+
+    def tree(self) -> dict:
+        """The params as the model's tree, as they stand now."""
+        out: dict = {}
+        for path in self.paths:
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = getattr(self, self.SEP.join(path))
+        return out
+
+    def forward(self, batch):
+        return T.lm_loss(self.tree(), batch, self.cfg)
+
+
+def fully_shard_params(params: dict, cfg: T.TransformerConfig, axis="dp"
+                       ) -> FullyShardedParams:
+    """Full (replicated) params → a :class:`FullyShardedParams` under
+    ``fully_shard`` over ``axis``'s group: plain leaves ``Shard(0)``,
+    the stacked layer leaves ``Shard(1)``, so each rank's local shard
+    is :func:`shard_tree`'s, row for row."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    if not mesh.initialized():
+        raise ValueError("the auto variant shards through fully_shard, "
+                         "which needs a process group "
+                         "(utils.mesh.init_process_group)")
+    ax = mesh.resolve_axis(axis)
+    specs = fsdp_specs(params, ax)
+    check_divisibility(params, specs, {ax.name: mesh.axis_size(ax)})
+    module = FullyShardedParams(params, cfg)
+    dims = {id(getattr(module, FullyShardedParams.SEP.join(path))):
+            len(optim.tree_get(specs, path)) - 1 for path in module.paths}
+    device = next(module.parameters()).device
+    dmesh = DeviceMesh.from_group(ax.group or dist.group.WORLD,
+                                  device.type)
+    fully_shard(module, mesh=dmesh,
+                shard_placement_fn=lambda p: Shard(dims[id(p)]))
+    # the grads' reduce_scatter a plain sum, divided by the step
+    # (make_fsdp_auto_value_and_grad), as the explicit step divides it
+    module.set_force_sum_reduction_for_comms(True)
+    module.set_gradient_divide_factor(1.0)
+    return module
+
+
+def auto_shards(module: FullyShardedParams) -> dict:
+    """This rank's local shards of the module's params, as a tree of
+    plain tensors that alias the library's storage (an in-place update
+    of one is the update of the param)."""
+    with torch.no_grad():
+        flat = [getattr(module, FullyShardedParams.SEP.join(p)).to_local()
+                for p in module.paths]
+    return optim.tree_unflatten(module.tree(), flat)
+
+
+def make_fsdp_auto_value_and_grad(module: FullyShardedParams, axis="dp"):
+    """``(shards, global batch) -> (loss, grads)`` of the auto variant:
+    each rank runs ``module`` on its rows; ``fully_shard`` gathers the
+    params before the forward and reduce_scatters the grads after the
+    backward (a sum, :func:`fully_shard_params`), which are divided
+    here by the rank count, the grad divide factor; the loss is the
+    mean over the ranks (one all_reduce: what the shim sees, the
+    library's own calls being its choice, as XLA's are the
+    reference's)."""
+    ax = mesh.resolve_axis(axis)
+    params = [getattr(module, FullyShardedParams.SEP.join(p))
+              for p in module.paths]
+
+    def value_and_grad(shards, batch):
+        ws = mesh.axis_size(ax)
+        loss = module(local_batch(batch, ax))
+        loss.backward()
+        with torch.no_grad():
+            grads = [p.grad.to_local() / ws for p in params]
+        for p in params:
+            p.grad = None
+        loss = C.all_reduce(loss.detach(), ax, mean=True)
+        return loss, optim.tree_unflatten(shards, grads)
+
+    return value_and_grad
+
+
+def make_fsdp_auto_train_step(module: FullyShardedParams, axis="dp", *,
+                              lr: float = 3e-4, b1: float = 0.9,
+                              b2: float = 0.95, eps: float = 1e-8):
+    """``step(shards, opt_state, batch) -> (shards, opt_state, loss)``
+    over ``module`` (:func:`fully_shard_params`), ``shards`` its
+    :func:`auto_shards`, ``batch`` the GLOBAL batch: the grads of
+    :func:`make_fsdp_auto_value_and_grad`, then Adam in place on the
+    local shards."""
+    value_and_grad = make_fsdp_auto_value_and_grad(module, axis)
+
+    def step(shards, opt_state, batch):
+        loss, grads = value_and_grad(shards, batch)
+        shards, opt_state = optim.adam_update(grads, opt_state, shards,
+                                              lr=lr, b1=b1, b2=b2, eps=eps)
         return shards, opt_state, loss
 
     return step

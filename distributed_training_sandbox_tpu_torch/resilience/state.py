@@ -182,11 +182,14 @@ class Checkpointer:
     finally)."""
 
     def __init__(self, directory, *, every: int = 0, keep: int = 3,
-                 fingerprint: dict | None = None):
+                 fingerprint: dict | None = None,
+                 refusals: dict | None = None):
         self.directory = os.path.abspath(os.fspath(directory))
         self.every = max(int(every), 0)
         self.keep = keep
         self.fingerprint = dict(fingerprint or {})
+        # fingerprint key -> why a resume across its values is refused
+        self.refusals = dict(refusals or {})
         self._mgr = None
         self._due = False
         self._saved_steps: set[int] = set()
@@ -226,6 +229,11 @@ class Checkpointer:
         for k, want in fp.items():
             have = saved_fp.get(k)
             if have is not None and want is not None and have != want:
+                if k in self.refusals:
+                    raise SystemExit(
+                        f"cannot resume from {self.directory}: checkpoint "
+                        f"was written with {k}={have!r}, this run has "
+                        f"{k}={want!r} — {self.refusals[k]}")
                 raise SystemExit(
                     f"cannot resume from {self.directory}: checkpoint "
                     f"was written with {k}={have!r}, this run has "

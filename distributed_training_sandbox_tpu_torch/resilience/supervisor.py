@@ -139,7 +139,8 @@ class ResilienceContext:
             ckptr=Checkpointer(os.path.join(self.ckptr.directory, label),
                                every=self.ckptr.every,
                                keep=self.ckptr.keep,
-                               fingerprint=self.ckptr.fingerprint)
+                               fingerprint=self.ckptr.fingerprint,
+                               refusals=self.ckptr.refusals)
             if self.ckptr else None,
             injector=self.injector, shutdown=self.shutdown,
             lineage=self._lineage, label=label, supervisor=self._sup,
@@ -320,7 +321,8 @@ class Supervisor:
     def __init__(self, *, checkpoint_dir=None, checkpoint_every: int = 0,
                  resume: bool = False, max_restarts: int = 0,
                  fault: str | None = None, strategy: str = "",
-                 fingerprint: dict | None = None, keep: int = 3,
+                 fingerprint: dict | None = None,
+                 refusals: dict | None = None, keep: int = 3,
                  backoff_s: float = 0.25, watchdog_timeout: float = 0.0,
                  heartbeat_dir: str | None = None):
         self.checkpoint_dir = checkpoint_dir
@@ -330,6 +332,7 @@ class Supervisor:
         self.spec = parse_fault_spec(fault)
         self.strategy = strategy
         self.fingerprint = dict(fingerprint or {})
+        self.refusals = dict(refusals or {})
         self.keep = keep
         self.backoff_s = backoff_s
         self.watchdog_timeout = float(watchdog_timeout or 0.0)
@@ -339,7 +342,8 @@ class Supervisor:
 
     @classmethod
     def from_config(cls, cfg, strategy: str,
-                    extra_fingerprint: dict | None = None) -> "Supervisor":
+                    extra_fingerprint: dict | None = None,
+                    refusals: dict | None = None) -> "Supervisor":
         fp = {"strategy": strategy,
               "seed": getattr(cfg, "seed", None),
               "batch_size": getattr(cfg, "batch_size", None),
@@ -357,7 +361,7 @@ class Supervisor:
             resume=getattr(cfg, "resume", False),
             max_restarts=getattr(cfg, "max_restarts", 0),
             fault=getattr(cfg, "inject_fault", None),
-            strategy=strategy, fingerprint=fp,
+            strategy=strategy, fingerprint=fp, refusals=refusals,
             watchdog_timeout=getattr(cfg, "watchdog_timeout", 0.0) or 0.0,
             heartbeat_dir=getattr(cfg, "heartbeat_dir", None)
             or os.environ.get("DTS_HEARTBEAT_DIR"))
@@ -372,7 +376,8 @@ class Supervisor:
         ckptr = Checkpointer(self.checkpoint_dir,
                              every=self.checkpoint_every,
                              keep=self.keep,
-                             fingerprint=self.fingerprint) \
+                             fingerprint=self.fingerprint,
+                             refusals=self.refusals) \
             if self.checkpoint_dir else None
         lineage = {"schema": LINEAGE_SCHEMA_VERSION,
                    "attempt": attempt,

@@ -38,13 +38,15 @@ def run_config(config: TrainConfig | None, **fields) -> TrainConfig:
 
 
 def supervise(cfg: TrainConfig, strategy: str, leg,
-              extra_fingerprint: dict | None = None) -> dict:
+              extra_fingerprint: dict | None = None,
+              refusals: dict | None = None) -> dict:
     """``leg(ctx, holder)`` under ``Supervisor.from_config``.  The leg
     stores its stitched losses in ``holder["losses"]`` before
     ``ctx.finalize``, so a run preempted with no restart budget left
-    still returns them beside ``status="preempted"``."""
+    still returns them beside ``status="preempted"``.  ``refusals``:
+    fingerprint key -> why a resume across its values is refused."""
     holder: dict = {}
-    sup = Supervisor.from_config(cfg, strategy, extra_fingerprint)
+    sup = Supervisor.from_config(cfg, strategy, extra_fingerprint, refusals)
     res = sup.run(lambda ctx: leg(ctx, holder))
     if res.get("status") == "preempted" and "losses" not in res:
         res["losses"] = holder.get("losses", [])
@@ -85,11 +87,14 @@ def profiler(cfg: TrainConfig, schedule: ProfileSchedule | None,
 
 
 def telemetry(strategy: str, cfg: TrainConfig, ctx, dev, *, model: str,
-              profiler=None, extra: dict | None = None) -> TelemetryRun:
-    """The leg's ``TelemetryRun``, its lineage the context's."""
+              profiler=None, extra: dict | None = None,
+              **manifest) -> TelemetryRun:
+    """The leg's ``TelemetryRun``, its lineage the context's;
+    ``manifest``: more of its manifest's fields (``contract``,
+    ``rules``)."""
     return TelemetryRun(strategy, config=cfg, device=dev, model=model,
                         lineage=ctx.manifest_lineage(), profiler=profiler,
-                        extra=extra)
+                        extra=extra, **manifest)
 
 
 def wire(telem: TelemetryRun, ctx, pref=None) -> None:

@@ -1,5 +1,5 @@
 """Fully-sharded training of the transformer LM: the twin of the JAX
-package's ``scripts/train_fsdp.py`` (its explicit variant).
+package's ``scripts/train_fsdp.py``, explicit and auto variants.
 
     torchrun --nproc-per-node 2 -m \\
         distributed_training_sandbox_tpu_torch.train.train_fsdp \\
@@ -46,10 +46,14 @@ past the batches a resumed run already consumed, and the step pump
         --attention flash --checkpoint-dir D --checkpoint-every 2 \\
         --inject-fault preempt@3 --max-restarts 1
 
+``--variant auto`` runs ``parallel.fsdp.make_fsdp_auto_train_step``:
+``torch.distributed.fsdp.fully_shard`` owns the gathers and the grads'
+reduce_scatters (the reference leaves them to XLA), each rank holding
+the same rows as the explicit step's; the shim sees the loss mean only.
+It takes none of the explicit step's wire or memory knobs.
+
 Not ported (ROADMAP.md): the memory planner (``--hbm-budget-gb``,
-``--auto-fit``, the predicted waterline) and ``--offload`` (A12),
-collective contracts and the sharding-rules verdict (A12), the auto
-variant (A10's second half).
+``--auto-fit``, the predicted waterline) and ``--offload`` (A12).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from ..data import make_packed_dataset, packed_batches
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import fsdp, optim8
+from ..parallel import fsdp, optim, optim8
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -79,6 +83,7 @@ from . import harness as H
 
 PRECISIONS = ("bf16", "fp32", "int8", "int8_pallas", "int8_bwd",
               "int8_pallas_bwd")
+VARIANTS = ("explicit", "auto")
 
 
 def model_config(model: str, precision: str = "bf16",
@@ -116,6 +121,7 @@ def run(model: str = "tiny", *, overlap: str = "none",
         precision: str = "bf16", device=None, seed: int = 42,
         remat_policy: str | None = None, quantized_gather: bool = False,
         quantized_grads: bool = False, state_precision: str = "full",
+        variant: str = "explicit",
         config: TrainConfig | None = None, profile_schedule=None,
         on_step=None, log=print) -> dict:
     """Train ``num_steps`` FSDP steps on this rank under the supervisor.
@@ -125,12 +131,23 @@ def run(model: str = "tiny", *, overlap: str = "none",
     sync every step).  ``on_step(i, loss)`` is called once each step's
     loss has reached the host.  ``quantized_gather``,
     ``quantized_grads`` and ``state_precision`` are the reference step's
-    options.  Returns the losses (stitched across restarts), ``status``,
+    options; ``variant="auto"`` trains through ``fully_shard`` and
+    refuses them.  Returns the losses (stitched across restarts), ``status``,
     this segment's collective counts and host-clock times a step (since
     the segment's start, when the pump returned), tokens/s (host clock)
     and the tracker's metrics, peak device memory (None on the CPU), the
     Adam moments' bytes at rest on this rank, the pump's host syncs, the
     checkpoint saves and the restore's seconds."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant={variant!r}; choose from {VARIANTS}")
+    if variant == "auto" and (overlap != "none" or not reshard_after_forward
+                              or quantized_gather or quantized_grads
+                              or state_precision != "full"):
+        raise ValueError("the auto variant's gathers and memory belong to "
+                         "fully_shard: --overlap, "
+                         "--no-reshard-after-forward, --quantized-gather, "
+                         "--quantized-grads and --state-precision are the "
+                         "explicit step's (drop --variant auto)")
     dev = mesh.init_process_group(device)
     ws = mesh.axis_size()
     seq = seq or (256 if model == "tiny" else 8192)
@@ -145,9 +162,9 @@ def run(model: str = "tiny", *, overlap: str = "none",
                            batch_size=bs, sequence_length=seq,
                            precision=precision, accum_steps=accum_steps)
     fp = {"model": model, "overlap": overlap,
-          "state_precision": state_precision}
+          "state_precision": state_precision, "variant": variant}
     return H.supervise(cfg_run, "fsdp", lambda ctx, holder: _run(
-        ctx, holder, cfg_run, model, overlap=overlap,
+        ctx, holder, cfg_run, model, overlap=overlap, variant=variant,
         reshard_after_forward=reshard_after_forward, device=dev,
         attention=attention, remat_policy=remat_policy, quantized_gather=quantized_gather,
         quantized_grads=quantized_grads, state_precision=state_precision,
@@ -155,7 +172,7 @@ def run(model: str = "tiny", *, overlap: str = "none",
         extra_fingerprint=fp)
 
 
-def _run(ctx, holder, rc, model, *, overlap, reshard_after_forward,
+def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
          device, attention, remat_policy, quantized_gather,
          quantized_grads, state_precision, profile_schedule, on_step,
          log) -> dict:
@@ -165,24 +182,39 @@ def _run(ctx, holder, rc, model, *, overlap, reshard_after_forward,
     ws, rank = mesh.axis_size(), mesh.axis_rank()
     cfg = model_config(model, precision, attention, remat_policy)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shards = fsdp.shard_params_fsdp(T.init_params(cfg, gen, dev))
+    if variant == "auto":
+        module = fsdp.fully_shard_params(T.init_params(cfg, gen, dev), cfg)
+        shards = fsdp.auto_shards(module)
+    else:
+        shards = fsdp.shard_params_fsdp(T.init_params(cfg, gen, dev))
     opt = (fsdp.init_fsdp_opt_state8(shards) if state_precision == "int8"
            else fsdp.init_fsdp_opt_state(shards))
     key = generator_states({"params": seed}, dev)
     H.track(holder, ctx)
     rs = ctx.restore(RunState(params=shards, opt_state=opt, prng_key=key))
     if rs is not None:
-        shards, opt = rs.params, rs.opt_state
-    step = fsdp.make_fsdp_train_step(
-        shards, cfg, reshard_after_forward=reshard_after_forward,
-        overlap=overlap, accum_steps=accum_steps,
-        quantized_gather=quantized_gather, quantized_grads=quantized_grads,
-        state_precision=state_precision)
+        if variant == "auto":   # into the library's storage
+            with torch.no_grad():
+                for path, x in optim.tree_leaves(shards):
+                    x.copy_(optim.tree_get(rs.params, path))
+            opt = rs.opt_state
+        else:
+            shards, opt = rs.params, rs.opt_state
+    if variant == "auto":
+        step = fsdp.make_fsdp_auto_train_step(module)
+    else:
+        step = fsdp.make_fsdp_train_step(
+            shards, cfg, reshard_after_forward=reshard_after_forward,
+            overlap=overlap, accum_steps=accum_steps,
+            quantized_gather=quantized_gather,
+            quantized_grads=quantized_grads,
+            state_precision=state_precision)
     state_bytes = optim8.state_bytes(opt)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if rank == 0:
-        log(f"[fsdp] model={model} world={ws} overlap={overlap} "
+        log(f"[fsdp] model={model} world={ws} variant={variant} "
+            f"overlap={overlap} "
             f"reshard_after_forward={reshard_after_forward} "
             f"accum_steps={accum_steps} batch={bs} seq={seq} "
             f"precision={precision} attention={cfg.attention_impl} "
@@ -215,7 +247,8 @@ def _run(ctx, holder, rc, model, *, overlap, reshard_after_forward,
     pref = DevicePrefetcher(batches, device=dev, depth=rc.prefetch_depth)
     t0 = time.perf_counter()
     with pref, H.telemetry("fsdp", rc, ctx, dev, model=model, profiler=prof,
-                           extra={"reshard_after_forward":
+                           extra={"variant": variant,
+                                  "reshard_after_forward":
                                   reshard_after_forward,
                                   "overlap": overlap,
                                   "state_precision": state_precision}
@@ -250,7 +283,8 @@ def _run(ctx, holder, rc, model, *, overlap, reshard_after_forward,
             f"syncs {pump.host_sync_count} {pump.sync_breakdown}")
         if telem.run_dir:
             log(f"[fsdp] telemetry in {telem.run_dir}")
-    return {"model": model, "world_size": ws, "overlap": overlap,
+    return {"model": model, "world_size": ws, "variant": variant,
+            "overlap": overlap,
             "reshard_after_forward": reshard_after_forward,
             "accum_steps": accum_steps, "batch_size": bs,
             "sequence_length": seq, "precision": precision,
@@ -274,6 +308,9 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                 allow_abbrev=False)
     p.add_argument("--model", choices=sorted(MODEL_REGISTRY), default="tiny")
+    p.add_argument("--variant", choices=VARIANTS, default="explicit",
+                   help="auto: the gathers and grad reduce_scatters of "
+                        "torch.distributed.fsdp.fully_shard")
     p.add_argument("--overlap", choices=fsdp.OVERLAP_MODES, default="none")
     p.add_argument("--no-reshard-after-forward", dest="reshard",
                    action="store_false", default=True)
@@ -311,7 +348,8 @@ def main(argv=None) -> None:
                   remat_policy=args.remat_policy,
                   quantized_gather=args.quantized_gather,
                   quantized_grads=args.quantized_grads,
-                  state_precision=args.state_precision, config=cfg)
+                  state_precision=args.state_precision,
+                  variant=args.variant, config=cfg)
         if args.out and mesh.axis_rank() == 0:
             Path(args.out).write_text(json.dumps(res, default=str))
         if mesh.axis_rank() == 0 and not all(np.isfinite(res["losses"])):

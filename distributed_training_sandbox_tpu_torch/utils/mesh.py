@@ -18,8 +18,9 @@ step's ``("dp", "sp", "ep")``; :func:`dp_ep_axes` is its two-axis
 case), and :func:`span` finds the subgroup over several of them;
 :func:`shard_rows` takes a rank's rows of a batch sharded over several
 axes at once and :func:`shard_seq` its chunk of the sequence.  The
-named-mesh grammar (MeshPlan: any axes, their products) belongs to the
-composable step (ROADMAP.md queue A item A10, its second half).
+composable step's ``("dp", "fsdp", "tp")`` grid is a :func:`grid_axes`
+too; the named-mesh grammar (``MeshPlan``: the axes' sizes and the
+weight-update-sharding degree) is ``parallel/composable.py``'s.
 """
 
 from __future__ import annotations
