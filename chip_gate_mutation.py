@@ -150,6 +150,25 @@ resilience mutants edit a Python module of the port instead):
   ``auto_grad_divide_skipped`` (``parallel/fsdp.py``: the auto variant
   hands Adam the ranks' sum), whose law at two ranks (``auto law``)
   must fail.  At one rank none of them changes a value.
+- four of the serving frontier (phase 18, the port's Python; child
+  ``frontier`` runs the serve phase for its requests and then phase
+  18): ``spec_accept_no_cumprod`` (``serving/engine.py``: the accept
+  rule counts every matching proposal, not the matching prefix, so it
+  accepts past a mismatch), whose near-argmax law at 36 draft layers
+  and on the int8 frontier (``frontier spec 36 near-argmax``, ``int8
+  frontier near-argmax``) must fail (at 4 draft layers no proposal
+  after a mismatch ever matches, so nothing is accepted past one);
+  ``prefix_prefill_from_zero`` (``serving/scheduler.py``: admission
+  aliases the cached pages but prefills from position 0, writing into
+  them), whose CoW law (``frontier cache CoW law``) and chunk count
+  (``frontier cache prefix chunks``) must fail; ``trie_keeps_duplicate``
+  (``serving/kv_pool.py``: an insert that finds a concurrent twin keeps
+  its own page instead of swapping to the twin's and freeing it), whose
+  allocator law after 18c's first run (``int8 frontier run 1 allocator
+  law``) must fail; and ``verify_rows_at_lengths``
+  (``serving/engine.py``: the verify writes every row of its block at
+  ``lengths``, not ``lengths + i``), whose near-argmax law at 4 and 36
+  draft layers and the acceptance limit at 36 must fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -345,6 +364,23 @@ MUTANTS = [
      "            grads = [p.grad.to_local() / ws for p in params]",
      "            grads = [p.grad.to_local() for p in params]",
      "composable", ("auto law",)),
+    ("spec_accept_no_cumprod", "serving/engine.py",
+     "    e = 1 + torch.cumprod(match, dim=1).sum(dim=1)",
+     "    e = 1 + match.sum(dim=1)", "frontier",
+     ("frontier spec 36 near-argmax", "int8 frontier near-argmax")),
+    ("prefix_prefill_from_zero", "serving/scheduler.py",
+     "            req.prefill_pos = len(nodes) * self.page_size",
+     "            req.prefill_pos = 0", "frontier",
+     ("frontier cache CoW law", "frontier cache prefix chunks")),
+    ("trie_keeps_duplicate", "serving/kv_pool.py",
+     "                self.allocator.free([pages[i]])",
+     "                swaps.pop(i)", "frontier",
+     ("int8 frontier run 1 allocator law",)),
+    ("verify_rows_at_lengths", "serving/engine.py",
+     "    apos = lengths[:, None] + ar[None, :]",
+     "    apos = lengths[:, None] + 0 * ar[None, :]", "frontier",
+     ("frontier spec 4 near-argmax", "frontier spec 36 near-argmax",
+      "frontier spec 36 acceptance")),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -548,6 +584,27 @@ try:
     c.composable_law_phase()
 finally:
     c.mesh.destroy_process_group()
+""", "frontier": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+rng = np.random.default_rng(c.SEED)
+gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+c.kernel_phase(rng, gen)
+c.q8_decode_phase(rng, gen)   # the smoke's draws: the same prompts
+params = c.build_params()
+card = c.card_line()
+eng, reqs, _ = c.serve_phase(params, rng, card)
+prompts, vanilla = [r.prompt for r in reqs], eng.slo_report()
+del eng, reqs
+c.frontier_phase(params, c.quantize_decode_params(params, c.CFG), prompts,
+                 vanilla, card)
 """, "resilience": """
 import torch
 import chip_smoke as c

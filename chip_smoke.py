@@ -8,7 +8,8 @@ DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules, the
 remat policies, preempt → resume under the run harness, the
 mixture-of-experts model, tensor and sequence parallelism and the
 composable dp x fsdp x tp step with FSDP's auto variant (one NCCL
-rank).
+rank), and the serving frontier (the prefix cache and speculative
+decoding).
 
     python3 chip_smoke.py
 
@@ -231,7 +232,32 @@ Phases, each of which fails the run:
    ``tests/test_torch_fsdp_auto.py`` hold the same laws against the JAX
    package.  It is hosted here so that ``chip_gate_mutation.py``'s three
    composable mutants, which change no value at one rank, have a gate of
-   their own in the smoke (about 10 s).
+   their own in the smoke (about 10 s);
+18. the serving frontier — SmolLM3-3B at full width and depth (built
+   again, weights x3), ``ENGINE``'s flags: (a) the prefix cache on
+   ``frontier_trace`` (two tenants' 512-token system prompts, eight
+   requests, one a tenant first, then the other six): hit pages 6 x 32
+   and the lookups' sum, prefill chunks and K3's and K1's launches as
+   the suffixes predict, plain calls 0, the CoW law (no write lands on a
+   cached page, which keeps its bytes), the allocator law (free + cached
+   = n_pages - 1), the six requests' TTFT beside an uncached engine's;
+   (b) speculative decoding, k = ``SPEC_K``, on phase 3's requests at 4
+   and at 36 draft layers: K1 = draft steps x draft layers, K3 = chunks
+   x (36 + draft layers) + verifies x 36, plain calls 0, one host sync a
+   burst (the pump's, at its last macro-step; none inside the chain,
+   read in ``torch.cuda``'s sync-debug mode), at 36 layers the
+   acceptance over ``ACCEPT_RATE_MIN``, at 4 rollbacks; (c)
+   ``INT8_ENGINE`` with the cache and speculation at 4 draft layers on
+   (a)'s trace, two twins of each tenant prefilled together first: K2
+   and K4 exact, plain calls 0, the allocator law (the twins' swapped
+   pages freed) and the CoW law on the int8 pools and their scales; (d)
+   ``train.serve_bench`` at ``TWIN_ARGS``: exit 0 and the reference's
+   serving keys (``SERVING_KEYS``).  Every path is held to the
+   near-argmax law: each request's prompt and emitted tokens
+   teacher-forced through ``generate``'s cached forward, every emitted
+   token within ``FRONTIER_ARGMAX_ATOL`` of its row's maximum logit.
+   Phase 2 holds K3 at the verify's (8, 4) block and K4 at its M 32 rows
+   (``K4_VERIFY_M``, the ``mma.sync`` design) too.
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -272,6 +298,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -309,6 +336,7 @@ from distributed_training_sandbox_tpu_torch.train import (
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
 from distributed_training_sandbox_tpu_torch.train import (
     train_composable, train_sp, train_tp)
+from distributed_training_sandbox_tpu_torch.train import serve_bench
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
 from distributed_training_sandbox_tpu_torch.utils import mesh
@@ -646,6 +674,58 @@ PARITY_PROMPT_SEEDS = (SEED + 6, SEED + 7, SEED + 8, SEED + 9)
 # a rank's partial PV sums 32.875, each block requantising with its own
 # absmax 50.5; K4's GEMV losing a split 47.125 (PERF.md).
 INT8_LOGIT_ATOL = 0.25
+# Phase 18, the serving frontier.  18a's trace (frontier_trace): two
+# tenants, each a 512-token system prompt (32 full pages), eight requests
+# with private suffixes of 256-1024 tokens; requests 0 and 1 (one a
+# tenant) are served first.  18b speculates SPEC_K tokens a macro-step
+# with the target's first 4 layers and with all 36 (the draft is the
+# target).
+FRONTIER = dict(tenants=2, sys_len=512, suffix=(256, 1024), requests=8,
+                first=(0, 1))
+SPEC_K = 3
+SPEC_DRAFT_LAYERS = (4, CFG.num_hidden_layers)
+# The near-argmax law (serve_bench.argmax_gaps): every emitted token's
+# teacher-forced logit within this of its row's maximum.  The card's
+# kernels sum in other orders than generate's plain path, and the draft's
+# S = 1 step and the verify's S = k+1 step run different kernels and GEMM
+# shapes, so the frontier's tokens cannot be held bit-equal to vanilla
+# decode; a token the engine emits is the argmax of a forward an ulp away.
+# On an H100 the sound paths read 1.75 (bf16: 18a, 18b; 68-77 of 512
+# tokens not the exact argmax), 0.0 (18c) and 0.625 (18d); accepting past
+# a mismatch 53.0 and 20.19, a verify writing every row at ``lengths``
+# 45.1-47.9 (chip_gate_mutation.py).  The limit, PREFILL_LOGIT_ATOL, lies
+# between.
+FRONTIER_ARGMAX_ATOL = serve_bench.FRONTIER_ARGMAX_ATOL
+# 18b at 36 draft layers: the acceptance rate must pass this.  The sound
+# engine reads 0.4943 on an H100 (the draft's K1 steps and the verify's
+# K3 block flip near-ties of the x3 weights; the stop clamp), the verify
+# mutant 0.0815; the limit lies between.
+ACCEPT_RATE_MIN = 0.25
+# 18d: the serve bench twin at SmolLM3-3B, the tenant trace with the
+# cache and speculation on
+TWIN_ARGS = ["--model", "SMOLLM3_3B", "--requests", "16", "--tenants", "2",
+             "--prefix-cache", "--spec-k", str(SPEC_K), "--draft-layers",
+             "4", "--check-parity", "4"]
+# the keys of the reference's serving block (its engine's SLO report with
+# the cache and speculation on, and serve_bench's own two), but the
+# recompile watch, which has no eager counterpart; a dict's value lists
+# its keys (tests/test_torch_serve_traces.py holds it to the reference)
+SERVING_KEYS = {
+    "requests": None, "completed": None,
+    "ttft_ms": ["mean", "p50", "p99"], "per_token_ms": ["p50", "p99"],
+    "tokens_total": None, "tokens_per_s": None,
+    "tokens_per_s_per_device": None, "devices": None,
+    "pool": ["n_pages", "page_size", "peak_util"],
+    "scheduler": ["admit_ms_total", "bookkeep_ms_total", "decode_ms_total",
+                  "decode_steps", "decode_steps_per_token", "host_syncs",
+                  "mean_occupancy", "prefill_chunks", "prefill_ms_total",
+                  "rounds"],
+    "disaggregated": None, "kv_quant": None, "flash_prefill": None,
+    "prefix_cache": ["cached_pages", "evictions", "hit_pages", "hit_rate",
+                     "inserted_pages", "lookup_pages"],
+    "speculative": ["acceptance_rate", "accepted", "draft_layers",
+                    "draft_steps", "k", "proposed"],
+    "parity_checked": None, "failures": None}
 
 
 class SmokeFailure(RuntimeError):
@@ -845,10 +925,71 @@ def kernel_phase(rng, gen) -> list[dict]:
             "bound_by": b_by, "library_ms": l_ms, "eager_ms": k_eager,
             "max_err": err, "kernel_ms": k_ms})
         del sd
+    results[1]["verify"] = k3_verify_reading(pools)
     del pools
     torch.cuda.empty_cache()
     k3_draws_reading(FP.paged_flash_prefill)
     return results
+
+
+def k3_verify_reading(pools) -> dict:
+    """K3 at the speculative verify's shape (phase 18b): the serve's 8
+    slots, S = SPEC_K + 1 rows at apos = lengths + i, contexts 256-1600
+    (a KV group then fills 16 of the kernel's 64 query vectors); against
+    its plain version at its one-draw tolerance, twice bit-equal, timed in
+    CUDA-graph replays beside SDPA and its bound.  Its own draws, so the
+    serve's prompts stay the ones earlier runs drew."""
+    vr = np.random.default_rng(SEED + 18)
+    vgen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    B, page = ENGINE["max_batch"], ENGINE["page_size"]
+    P = ENGINE["max_seq_len"] // page
+    nkv, hd = CFG.num_key_value_heads, CFG.resolved_head_dim
+    rep = CFG.num_attention_heads // nkv
+    n_pages, V, S = B * P + 1, P * page, SPEC_K + 1
+    apos_np = vr.integers(256, 1601, size=B)[:, None] + np.arange(S)
+    apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
+    pages = _page_table(vr, apos_np.max(axis=1), page, P, n_pages)
+    qg = torch.randn((B, S, nkv, rep, hd), generator=vgen, device="cuda",
+                     dtype=CFG.dtype)
+    pk, pv = pools[0]
+    got = FP.paged_flash_prefill(qg, pk, pv, pages, apos)
+    torch.cuda.synchronize()
+    ref = FP.paged_flash_prefill_plain(qg, pk, pv, pages, apos)
+    err = float((got - ref).abs().max())
+    atol, rtol = FP.TOLERANCE[CFG.dtype]
+    check(torch.isfinite(got).all() and torch.allclose(got, ref, atol=atol,
+                                                       rtol=rtol),
+          f"flash_prefill verify: max |kernel - plain| = {err} over atol "
+          f"{atol} rtol {rtol} at S {S}")
+    _twice_equal("flash_prefill verify",
+                 lambda: FP.paged_flash_prefill(qg, pk, pv, pages, apos))
+    it = iter(range(10 ** 9))
+
+    def cyc():
+        return pools[next(it) % len(pools)]
+
+    k_ms = graph_ms(lambda: FP.paged_flash_prefill(qg, *cyc(), pages, apos))
+    p_ms = time_ms(lambda: FP.paged_flash_prefill_plain(qg, *cyc(), pages,
+                                                        apos), iters=5)
+    sd = [_sdpa_inputs(qg, k_, v_, pages, apos) for k_, v_ in pools]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l_ms = graph_ms(lambda: sdpa(*sd[next(it) % len(pools)][:3],
+                                 attn_mask=sd[0][3], enable_gqa=True))
+    del sd
+    vis_rows = np.minimum(apos_np, V - 1) + 1
+    item = qg.element_size()
+    nbytes = (qg.numel() * item + vis_rows.max(axis=1).sum() * nkv * hd
+              * item * 2 + got.numel() * 4 + pages.numel() * 4
+              + apos.numel() * 4)
+    flops = float(vis_rows.sum()) * nkv * rep * hd * 4
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"flash_prefill verify (B {B}, S {S}, contexts "
+        f"{int(apos_np.min())}-{int(apos_np.max())}): max_abs_err {err:.3e} "
+        f"(atol {atol}); kernel {k_ms:.5f} ms (graph replays), plain "
+        f"{p_ms:.4f} ms, SDPA {l_ms:.5f} ms (graph), bound {b_ms:.6f} ms by "
+        f"{b_by}")
+    return {"S": S, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def k3_draws(seed, n=COMPARE_DRAWS):
@@ -1076,12 +1217,7 @@ def q8_decode_phase(rng, gen) -> dict:
 # ------------------------------------------------------------- serve phase
 
 def build_params():
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = T.init_params(CFG, gen, "cuda")
-    for leaf in [params["embed"], params["final_norm"],
-                 *params["layers"].values()]:
-        leaf.mul_(PARAM_SCALE)
-    return params
+    return serve_bench.build_params(CFG, SEED, PARAM_SCALE, "cuda")
 
 
 def serve_phase(params, rng, card: str):
@@ -1657,6 +1793,9 @@ K4_DECODE_SHAPES = PROJECTIONS + [("unembed", CFG.hidden_size,
                                    CFG.vocab_size)]
 # K4 at the int8 prefill: one chunk of 256 rows (the mma.sync design)
 K4_PREFILL_M = ENGINE["prefill_chunk"]
+# K4 at the speculative verify: the serve's 8 slots x (SPEC_K + 1) rows,
+# the mma.sync design (M > GEMV_MAX_M)
+K4_VERIFY_M = ENGINE["max_batch"] * (SPEC_K + 1)
 
 
 def _decode_operands(gen, M, K, N, copies=3):
@@ -1895,6 +2034,47 @@ def int8_gemm_phase() -> list[dict]:
     log(f"int8_matmul at prefill, one layer's 7 projections (M = {Mp}): "
         f"kernel {pre['k']:.4f} ms, plain {pre['p']:.4f} ms, _int_mm "
         f"{pre['l']:.4f} ms, bound {pb[0]:.5f} ms by {pb[1]}")
+
+    # K4 at the speculative verify (phase 18c): M = 32 rows, every
+    # projection and the unembedding, the mma.sync design
+    ver = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, ops=0.0)
+    Mv = K4_VERIFY_M
+    for name, K, N in K4_DECODE_SHAPES:
+        sets = _decode_operands(gen, Mv, K, N)
+        it = iter(range(10 ** 9))
+        shape = f"verify {name} ({Mv}, {K}) x ({K}, {N})"
+        check(Q.k4_design(Mv, N, K, False) == "mma",
+              f"int8_matmul verify: {shape} does not take the mma.sync GEMM")
+        e4 = max(e4, _gate_bitwise("int8_matmul verify", shape,
+                                   Q.int8_matmul_kernel(*sets[0]),
+                                   Q.int8_matmul(*sets[0], bf16)))
+        _twice_equal("int8_matmul verify",
+                     lambda: Q.int8_matmul_kernel(*sets[0]))
+        k_ms = graph_ms(lambda: Q.int8_matmul_kernel(*sets[next(it) % 3]))
+        p_ms = time_ms(lambda: Q.int8_matmul(*sets[next(it) % 3], bf16))
+        l_ms = _int_mm_ms([d[0] for d in sets],
+                          [_col_major(d[2]) for d in sets], it, 3, graph_ms)
+        nbytes = Mv * K + K * N + 4 * (Mv + N) + 2 * Mv * N
+        b_ms = bound(nbytes, 2 * Mv * K * N, PEAK_INT8_OPS)[0]
+        log(f"int8_matmul {shape}: bit-equal; kernel {k_ms:.5f} ms (graph "
+            f"replays), plain {p_ms:.4f} ms, _int_mm {l_ms} ms (graph), "
+            f"bound {b_ms:.5f} ms")
+        if name == "unembed":
+            ver_unembed = (k_ms, p_ms, l_ms, b_ms)
+        else:
+            ver["k"] += k_ms
+            ver["p"] += p_ms
+            ver["l"] += l_ms or 0.0
+            ver["nbytes"] += nbytes
+            ver["ops"] += 2 * Mv * K * N
+        del sets
+    torch.cuda.empty_cache()
+    vb = bound(ver["nbytes"], ver["ops"], PEAK_INT8_OPS)
+    log(f"int8_matmul at the verify, one layer's 7 projections (M = {Mv}): "
+        f"kernel {ver['k']:.5f} ms, plain {ver['p']:.4f} ms, _int_mm "
+        f"{ver['l']:.5f} ms, bound {vb[0]:.5f} ms by {vb[1]}; the "
+        f"unembedding: kernel {ver_unembed[0]:.5f} ms, _int_mm "
+        f"{ver_unembed[2]} ms, bound {ver_unembed[3]:.5f} ms")
     k5 = _entry("int8_matmul_fused", "int8_matmul.cu",
                 "distributed_training_sandbox_tpu/ops/quant.py:226 "
                 "(int8_matmul_pallas_fused, _fused_qmm_kernel :210)", e5, 0.0,
@@ -1915,7 +2095,12 @@ def int8_gemm_phase() -> list[dict]:
               unembed_bound_ms=unembed[3], prefill_layer_ms=pre["k"],
               prefill_layer_plain_ms=pre["p"],
               prefill_layer_library_ms=pre["l"],
-              prefill_layer_bound_ms=pb[0], bwd_quantisers_layer_ms=quant_ms,
+              prefill_layer_bound_ms=pb[0], verify_layer_ms=ver["k"],
+              verify_layer_plain_ms=ver["p"],
+              verify_layer_library_ms=ver["l"], verify_layer_bound_ms=vb[0],
+              verify_unembed_ms=ver_unembed[0],
+              verify_unembed_library_ms=ver_unembed[2],
+              bwd_quantisers_layer_ms=quant_ms,
               bwd_quantisers_copy_layer_ms=quant_copy_ms)
     return [k4, k5]
 
@@ -5036,6 +5221,429 @@ def composable_law_phase() -> dict:
               f"{gate}: {vals}")
     return res
 
+# ------------------------------------------- phase 18: the serving frontier
+
+def frontier_trace():
+    """Phase 18a's trace: ``FRONTIER["tenants"]`` tenants, each with a
+    ``sys_len``-token system prompt (32 full pages), and
+    ``FRONTIER["requests"]`` requests alternating between them, each the
+    tenant's system prompt and a private suffix of ``suffix`` tokens.
+    Returns the prompts (request i belongs to tenant i % tenants)."""
+    rng = np.random.default_rng(SEED + 18)
+    heads = [rng.integers(1, CFG.vocab_size, size=FRONTIER["sys_len"])
+             .astype(np.int32) for _ in range(FRONTIER["tenants"])]
+    lo, hi = FRONTIER["suffix"]
+    return [np.concatenate([heads[i % FRONTIER["tenants"]], rng.integers(
+        1, CFG.vocab_size, size=int(rng.integers(lo, hi + 1))).astype(
+            np.int32)]) for i in range(FRONTIER["requests"])]
+
+
+def _serve(eng, prompts):
+    new = NEW_TOKENS
+    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    for r in reqs:
+        check(len(r.tokens) == new and all(0 <= t < CFG.vocab_size
+                                           for t in r.tokens),
+              f"frontier request {r.rid}: {len(r.tokens)} tokens, or one "
+              f"out of the vocabulary")
+    return reqs
+
+
+def near_argmax_law(label, params, reqs, eng, kv_quant=False) -> dict:
+    """The near-argmax law: every request's prompt and emitted tokens
+    teacher-forced through ``generate``'s cached forward
+    (``serve_bench.argmax_gaps``); every emitted token's logit within
+    ``FRONTIER_ARGMAX_ATOL`` of its row's maximum.  Logged: the largest
+    gap and how many tokens are the exact argmax."""
+    gaps = torch.cat([serve_bench.argmax_gaps(
+        params, eng.cfg, r.prompt, r.tokens, capacity=eng.view_capacity,
+        kv_quant=kv_quant).cpu() for r in reqs])
+    read = {"tokens": int(gaps.numel()), "argmax": int((gaps == 0).sum()),
+            "max_gap": float(gaps.max()),
+            "gaps_over_0.25": int((gaps > 0.25).sum())}
+    log(f"{label} near-argmax law: {json.dumps(read)} (limit "
+        f"{FRONTIER_ARGMAX_ATOL})")
+    check(torch.isfinite(gaps).all() and read["max_gap"]
+          <= FRONTIER_ARGMAX_ATOL,
+          f"{label} near-argmax: an emitted token's logit lies "
+          f"{read['max_gap']} under its row's maximum, over "
+          f"{FRONTIER_ARGMAX_ATOL}")
+    return read
+
+
+def _pool_tensors_of(eng):
+    pools = [eng.pool] + ([eng.draft_pool] if eng.draft_pool else [])
+    return [t for p in pools for t in _pool_tensors(p)]
+
+
+@contextlib.contextmanager
+def _written_pages():
+    """Every page a ``_paged_forward`` in the block writes a valid row
+    into (both pools; the positions' pages read from the page tables),
+    gathered on the device and read once at the end."""
+    seen = []
+    fwd = E._paged_forward
+
+    def watch(params, ids, cfg, bufs, pages, apos, valid, **kw):
+        pi = (apos // bufs.k[0].shape[1]).clamp(0, pages.shape[1] - 1)
+        seen.append(torch.where(valid, torch.gather(pages, 1, pi.long()),
+                                0).flatten())
+        return fwd(params, ids, cfg, bufs, pages, apos, valid, **kw)
+
+    out = set()
+    E._paged_forward = watch
+    try:
+        yield out
+    finally:
+        E._paged_forward = fwd
+        if seen:
+            out.update(torch.cat(seen).unique().tolist())
+        out.discard(0)
+
+
+def allocator_law(label, eng) -> None:
+    """With no request resident, every usable page is free or the
+    trie's: free + cached = n_pages - 1."""
+    a, c = eng.pool.allocator.free_pages, eng.prefix_cache.cached_pages
+    check(not eng.batcher.has_work() and a + c == eng.n_pages - 1,
+          f"{label} allocator law: {a} free + {c} cached != "
+          f"{eng.n_pages - 1} usable pages")
+
+
+def cow_law(label, eng, cached, snap, written) -> dict:
+    """Copy-on-write: no write of the block landed on a cached page, and
+    every cached page's K and V (and an int8 pool's scales; the draft's
+    pool too) in every layer is bit-equal to its snapshot."""
+    hit = sorted(set(cached) & written)
+    now = [t[cached] for t in _pool_tensors_of(eng)]
+    same = all(torch.equal(a, b) for a, b in zip(now, snap))
+    log(f"{label} CoW law: {len(cached)} cached pages, {len(written)} "
+        f"pages written, {len(hit)} of them cached; bytes "
+        f"{'equal' if same else 'CHANGED'}")
+    check(not hit and same,
+          f"{label} CoW law: writes on cached pages {hit[:8]}, bytes "
+          f"{'equal' if same else 'changed'}")
+    return {"cached": len(cached), "written": len(written)}
+
+
+def _snapshot(eng):
+    cached = sorted(n.page for n in eng.prefix_cache._nodes)
+    return cached, [t[cached].clone() for t in _pool_tensors_of(eng)]
+
+
+def _p50(reqs, attr):
+    return float(np.percentile([getattr(r, attr) for r in reqs], 50)) * 1e3
+
+
+def prefix_phase(params, card: str) -> tuple[dict, dict]:
+    """18a: the prefix cache on ``ENGINE``.  One request per tenant is
+    served first, then the other six: their 32 system-prompt pages come
+    from the trie.  Gates: hit and lookup pages, prefill chunks and K3's
+    and K1's launches exactly as the suffixes predict, plain calls 0, the
+    CoW and allocator laws, the near-argmax law.  Then the six again
+    through an engine without the cache, for their TTFT."""
+    prompts = frontier_trace()
+    page, Ck, L = ENGINE["page_size"], ENGINE["prefill_chunk"], \
+        CFG.num_hidden_layers
+    first = list(FRONTIER["first"])
+    rest = [i for i in range(len(prompts)) if i not in first]
+    eng = E.ServingEngine(params, CFG, prefix_cache=True, **ENGINE)
+    PA.COUNTS.reset()
+    FP.COUNTS.reset()
+    reqs = _serve(eng, [prompts[i] for i in first])
+    allocator_law("frontier cache run 1", eng)
+    cached, snap = _snapshot(eng)
+    with _written_pages() as written:
+        reqs += _serve(eng, [prompts[i] for i in rest])
+    counts = {"paged_decode": (PA.COUNTS.launches, PA.COUNTS.plain_calls),
+              "flash_prefill": (FP.COUNTS.launches, FP.COUNTS.plain_calls)}
+    cow = cow_law("frontier cache", eng, cached, snap, written)
+    allocator_law("frontier cache run 2", eng)
+    st = eng.prefix_cache.stats()
+    sys_pages = FRONTIER["sys_len"] // page
+    want_hits = len(rest) * sys_pages
+    want_lookup = sum((len(p) - 1) // page for p in prompts)
+    # batched prefill: every resident advances a chunk a step, so a run
+    # takes as many chunks as its longest uncached part
+    want_chunks = (max(-(-len(prompts[i]) // Ck) for i in first)
+                   + max(-(-(len(prompts[i]) - FRONTIER["sys_len"]) // Ck)
+                         for i in rest))
+    steps = eng.stats["decode_steps"]
+    chunks = eng.stats["prefill_chunks"]
+    log(f"frontier cache on {card}: trie {json.dumps(st)}; {chunks} prefill "
+        f"chunks (predicted {want_chunks}), {steps} decode steps; (launches, "
+        f"plain) {json.dumps(counts)}")
+    check(st["hit_pages"] == want_hits and st["lookup_pages"] == want_lookup,
+          f"frontier cache: hit / lookup pages {st['hit_pages']} / "
+          f"{st['lookup_pages']} != {want_hits} / {want_lookup}")
+    check(chunks == want_chunks,
+          f"frontier cache prefix chunks: {chunks} prefill chunks, the "
+          f"suffixes predict {want_chunks}")
+    check(counts["flash_prefill"] == (chunks * L, 0),
+          f"frontier cache: flash_prefill (launches, plain) "
+          f"{counts['flash_prefill']} != ({chunks} x {L}, 0)")
+    check(counts["paged_decode"] == (steps * L, 0),
+          f"frontier cache: paged_decode (launches, plain) "
+          f"{counts['paged_decode']} != ({steps} x {L}, 0)")
+    law = near_argmax_law("frontier cache", params, reqs, eng)
+    hits = reqs[len(first):]
+    ttft = _p50(hits, "ttft_s")
+    del eng
+    plain = E.ServingEngine(params, CFG, **ENGINE)
+    again = _serve(plain, [prompts[i] for i in rest])
+    ttft_plain = _p50(again, "ttft_s")
+    del plain
+    torch.cuda.empty_cache()
+    log(f"frontier cache on {card}: the six hit requests' TTFT p50 "
+        f"{ttft} ms with the cache, {ttft_plain} ms without (ratio "
+        f"{ttft / ttft_plain:.4f})")
+    read = {"trie": st, "prefill_chunks": chunks, "decode_steps": steps,
+            "ttft_p50_ms": ttft, "ttft_p50_uncached_ms": ttft_plain,
+            "cow": cow, "near_argmax": law}
+    return read, {k: v[0] for k, v in counts.items()}
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """The speculative chain's device functions (each draft step, the
+    verify, the accept) run under ``torch.cuda`` sync-debug mode
+    ``warn``: a synchronising operation inside them is recorded."""
+    caught = []
+    saved = {n: getattr(E, n) for n in ("_decode_core", "_spec_verify_core",
+                                        "_spec_accept_core")}
+
+    def guard(fn):
+        def run(*a, **kw):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+                    # the mode's own notice ("a prototype feature") is
+                    # not a sync
+                    caught.extend(str(x.message) for x in w if
+                                  "called a synchronizing" in str(x.message))
+        return run
+
+    for n, fn in saved.items():
+        setattr(E, n, guard(fn))
+    try:
+        yield caught
+    finally:
+        for n, fn in saved.items():
+            setattr(E, n, fn)
+
+
+def spec_phase(params, prompts, vanilla: dict, card: str) -> tuple[dict,
+                                                                 dict]:
+    """18b: speculative decoding (``SPEC_K``) on the serve phase's
+    requests at each of ``SPEC_DRAFT_LAYERS``: K1 launches = draft steps x
+    draft layers, K3 launches = prefill chunks x (36 + draft layers) +
+    verify steps x 36, plain calls 0; one host sync a burst (the pump's,
+    at its last macro-step) and none inside the chain; the near-argmax
+    law; at 36 layers (the draft is the target) fewer steps than tokens
+    and the acceptance over ``ACCEPT_RATE_MIN``; at 4, rollbacks."""
+    L = CFG.num_hidden_layers
+    reads, launches = {}, {}
+    for dl in SPEC_DRAFT_LAYERS:
+        label = f"frontier spec {dl}"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = E.ServingEngine(params, CFG, spec_k=SPEC_K, draft_layers=dl,
+                              **ENGINE)
+        bursts = []
+        burst = eng._spec_burst
+        eng._spec_burst = lambda *a: (bursts.append(1), burst(*a))[1]
+        eng.start()
+        pump = eng._pump
+        PA.COUNTS.reset()
+        FP.COUNTS.reset()
+        with _no_host_sync() as synced:
+            reqs = _serve(eng, prompts)
+        counts = {"paged_decode": (PA.COUNTS.launches,
+                                   PA.COUNTS.plain_calls),
+                  "flash_prefill": (FP.COUNTS.launches,
+                                    FP.COUNTS.plain_calls)}
+        st, slo = eng.stats, eng.slo_report()
+        sp, sch = slo["speculative"], slo["scheduler"]
+        # the engine's own peak with the (already resident) weights: the
+        # prediction prices the draft's weights as resident, though a
+        # truncated draft is views of the target's
+        gib = 2 ** 30
+        peak = (torch.cuda.max_memory_allocated() - base
+                + tree_bytes(params)) / gib
+        draft_gib = tree_bytes(eng._draft_params) / gib
+        log(f"{label} memory: peak {peak:.3f} GiB with the weights, "
+            f"predicted {slo['pool']['predicted_gb']:.3f} GiB, of which "
+            f"the draft's weights (views) {draft_gib:.3f} GiB")
+        want = {"paged_decode": (st["draft_steps"] * dl, 0),
+                "flash_prefill": (st["prefill_chunks"] * (L + dl)
+                                  + st["decode_steps"] * L, 0)}
+        log(f"{label} on {card}: {json.dumps(sp)}; {st['decode_steps']} "
+            f"verify steps, {st['prefill_chunks']} prefill chunks, "
+            f"{len(bursts)} bursts, pump syncs "
+            f"{json.dumps(pump.sync_breakdown)}, syncs inside the chain "
+            f"{len(synced)} {synced[:3]}; (launches, plain) "
+            f"{json.dumps(counts)}, expected {json.dumps(want)}")
+        log(f"{label} on {card}: per-token p50 {slo['per_token_ms']['p50']} "
+            f"ms, {slo['tokens_per_s']} tok/s, acceptance "
+            f"{sp['acceptance_rate']}, {sch['decode_steps_per_token']} "
+            f"steps a token, TTFT p50 {slo['ttft_ms']['p50']} ms; phase 3's "
+            f"vanilla serve: per-token p50 {vanilla['per_token_ms']['p50']} "
+            f"ms, {vanilla['tokens_per_s']} tok/s, "
+            f"{vanilla['scheduler']['decode_steps_per_token']} steps a token")
+        for k in want:
+            check(counts[k] == want[k],
+                  f"{label}: {k} (launches, plain) {counts[k]} != {want[k]}")
+        check(not synced and pump.sync_breakdown.get("sync_every") ==
+              len(bursts) and "throttle" not in pump.sync_breakdown,
+              f"{label} sync law: {len(synced)} syncs inside the chain, pump "
+              f"syncs {pump.sync_breakdown} over {len(bursts)} bursts")
+        law = near_argmax_law(label, params, reqs, eng)
+        if dl == L:
+            check(sch["decode_steps_per_token"] < 1.0
+                  and sp["acceptance_rate"] > ACCEPT_RATE_MIN,
+                  f"{label} acceptance: {sp['acceptance_rate']} (limit "
+                  f"{ACCEPT_RATE_MIN}), {sch['decode_steps_per_token']} "
+                  f"steps a token")
+        else:
+            check(sp["proposed"] > sp["accepted"],
+                  f"{label}: no rollback ({sp['accepted']} of "
+                  f"{sp['proposed']} accepted)")
+        reads[dl] = {"speculative": sp, "scheduler": sch,
+                     "per_token_p50_ms": slo["per_token_ms"]["p50"],
+                     "tokens_per_s": slo["tokens_per_s"],
+                     "ttft_p50_ms": slo["ttft_ms"]["p50"],
+                     "bursts": len(bursts), "near_argmax": law,
+                     "peak_gib": peak, "draft_weights_gib": draft_gib,
+                     "predicted_gib": slo["pool"]["predicted_gb"]}
+        launches[label] = {k: v[0] for k, v in counts.items()}
+        del eng
+        torch.cuda.empty_cache()
+    return reads, launches
+
+
+def int8_frontier_phase(params_q8, card: str) -> tuple[dict, dict]:
+    """18c: ``INT8_ENGINE`` with the prefix cache and ``SPEC_K`` at 4
+    draft layers on 18a's trace: the first four requests (two a tenant,
+    prefilled together: the later finisher swaps to its twin's pages),
+    then the other four on the cached system prompts.  K2 = draft steps x
+    4, K4 exact, plain calls 0; the allocator and CoW laws (the int8
+    pools and their scales, the draft's too); the near-argmax law through
+    the int8 ``generate``."""
+    prompts = frontier_trace()
+    page, L, dl = ENGINE["page_size"], CFG.num_hidden_layers, 4
+    eng = E.ServingEngine(params_q8, CFG, prefix_cache=True, spec_k=SPEC_K,
+                          draft_layers=dl, **INT8_ENGINE)
+    counters = (PA.Q8_COUNTS, Q.INT8_COUNTS, PA.COUNTS, FP.COUNTS)
+    for c in counters:
+        c.reset()
+    half = len(prompts) // 2
+    reqs = _serve(eng, prompts[:half])
+    allocator_law("int8 frontier run 1", eng)
+    inserted = eng.prefix_cache.inserted_pages
+    twins = half - FRONTIER["tenants"]
+    want_ins = (sum((len(p) - 1) // page for p in prompts[:half])
+                - twins * (FRONTIER["sys_len"] // page))
+    cached, snap = _snapshot(eng)
+    with _written_pages() as written:
+        reqs += _serve(eng, prompts[half:])
+    counts = {"paged_decode_q8": (PA.Q8_COUNTS.launches,
+                                  PA.Q8_COUNTS.plain_calls),
+              "int8_matmul": (Q.INT8_COUNTS.launches,
+                              Q.INT8_COUNTS.plain_calls),
+              "paged_decode": (PA.COUNTS.launches, PA.COUNTS.plain_calls),
+              "flash_prefill": (FP.COUNTS.launches, FP.COUNTS.plain_calls)}
+    cow = cow_law("int8 frontier", eng, cached, snap, written)
+    allocator_law("int8 frontier run 2", eng)
+    st, slo = eng.stats, eng.slo_report()
+    P7 = len(PROJECTIONS)
+    chunks, verifies, drafts = (st["prefill_chunks"], st["decode_steps"],
+                                st["draft_steps"])
+    want = {"paged_decode_q8": (drafts * dl, 0),
+            "int8_matmul": ((chunks + verifies) * (P7 * L + 1)
+                            + (chunks + drafts) * (P7 * dl + 1), 0),
+            "paged_decode": (0, 0), "flash_prefill": (0, 0)}
+    trie = eng.prefix_cache.stats()
+    log(f"int8 frontier on {card}: trie {json.dumps(trie)} (run 1 inserted "
+        f"{inserted}, predicted {want_ins} with {twins} twins swapped); "
+        f"{json.dumps(slo['speculative'])}; {chunks} prefill chunks, "
+        f"{verifies} verify steps; (launches, plain) {json.dumps(counts)}, "
+        f"expected {json.dumps(want)}")
+    log(f"int8 frontier on {card}: per-token p50 "
+        f"{slo['per_token_ms']['p50']} ms, TTFT p50 {slo['ttft_ms']['p50']}"
+        f" ms, {slo['tokens_per_s']} tok/s, peak pool util "
+        f"{slo['pool']['peak_util']}")
+    for k in want:
+        check(counts[k] == want[k],
+              f"int8 frontier: {k} (launches, plain) {counts[k]} != {want[k]}")
+    check(inserted == want_ins and trie["hit_pages"] == (
+        len(prompts) - half) * (FRONTIER["sys_len"] // page),
+          f"int8 frontier: run 1 inserted {inserted} pages (predicted "
+          f"{want_ins}); {trie['hit_pages']} hit pages")
+    law = near_argmax_law("int8 frontier", params_q8, reqs, eng,
+                          kv_quant=True)
+    read = {"trie": trie, "speculative": slo["speculative"],
+            "per_token_p50_ms": slo["per_token_ms"]["p50"],
+            "ttft_p50_ms": slo["ttft_ms"]["p50"],
+            "tokens_per_s": slo["tokens_per_s"], "cow": cow,
+            "near_argmax": law}
+    del eng
+    torch.cuda.empty_cache()
+    return read, {k: v[0] for k, v in counts.items() if v[0]}
+
+
+def twin_phase(card: str) -> tuple[dict, dict]:
+    """18d: one run of the serve bench twin at SmolLM3-3B (``TWIN_ARGS``):
+    exit 0 (its own gates: every request completed, the first tokens and
+    the near-argmax law against ``generate``), and its ``serving`` block
+    with the reference's keys (``SERVING_KEYS``)."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="serve_twin_"))
+    PA.COUNTS.reset()
+    FP.COUNTS.reset()
+    try:
+        rc = serve_bench.main([*TWIN_ARGS, "--results-dir", str(out)])
+        torch.cuda.synchronize()
+        counts = {"paged_decode": PA.COUNTS.launches,
+                  "flash_prefill": FP.COUNTS.launches}
+        runs = [p for p in out.iterdir() if p.is_dir()]
+        serving = json.loads((runs[0] / "summary.json").read_text()).get(
+            "serving", {}) if len(runs) == 1 else {}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    missing = [k for k, sub in SERVING_KEYS.items() if k not in serving or (
+        sub is not None and not set(sub) <= set(serving[k]))]
+    shown = ("completed", "ttft_ms", "per_token_ms", "tokens_per_s",
+             "prefix_cache", "speculative", "parity", "failures")
+    log(f"serve twin on {card}: rc {rc}, launches {json.dumps(counts)}, "
+        f"serving {json.dumps({k: serving.get(k) for k in shown})}")
+    check(rc == 0 and not missing,
+          f"serve twin: exit {rc}; serving keys missing {missing}")
+    return serving, counts
+
+
+def frontier_phase(params, params_q8, serve_prompts, vanilla, card):
+    """Phase 18 (the serving frontier): 18a-18d.  Returns the readings
+    and each path's launches."""
+    t18 = time.perf_counter()
+    a, la = prefix_phase(params, card)
+    b, lb = spec_phase(params, serve_prompts, vanilla, card)
+    c, lc = int8_frontier_phase(params_q8, card)
+    d, ld = twin_phase(card)
+    wall = time.perf_counter() - t18
+    log(f"phase 18 (the serving frontier): {wall:.1f} s")
+    return ({"cache": a, "spec": b, "int8": c, "twin": d, "wall_s": wall},
+            {"frontier cache": la, **lb, "int8 frontier": lc,
+             "serve twin": ld})
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -5748,6 +6356,8 @@ def main(argv) -> int:
         kernels.append(timed("kernel K7", ag_matmul_phase))
         params = timed("SMOLLM3_3B params", build_params)
         eng, reqs, launches = timed("serve", serve_phase, params, rng, card)
+        # phase 18b serves the same requests, beside this serve's report
+        serve_prompts, vanilla = [r.prompt for r in reqs], eng.slo_report()
         timed("parity", parity_phase, params, reqs, eng)
         timed("decode profile", decode_step_profile, eng, reqs, "serve",
               ENGINE["flash_prefill"])
@@ -5814,6 +6424,13 @@ def main(argv) -> int:
         law = timed("composable law", composable_law_phase)
         log(f"phase 17 (the composable step, its twin, FSDP's auto "
             f"variant): {time.perf_counter() - t17:.1f} s")
+        params = timed("SMOLLM3_3B params again", build_params)
+        params_q8 = quantize_decode_params(params, CFG)
+        frontier, frontier_launches = timed(
+            "serving frontier", frontier_phase, params, params_q8,
+            serve_prompts, vanilla, card)
+        del params, params_q8
+        torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -5829,7 +6446,8 @@ def main(argv) -> int:
              "int8 train": i8, "fsdp train": fs, "pipeline": pp,
              "precision": precision, "resilience": resilience, "moe": moe,
              **tpsp_launches, "composable step": comp_launches,
-             "composable twin": twin_launches, "fsdp auto": auto_launches}
+             "composable twin": twin_launches, "fsdp auto": auto_launches,
+             **frontier_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -5846,6 +6464,7 @@ def main(argv) -> int:
     log(f"composable readings on {card}: 3-axis step {json.dumps(comp)}; "
         f"twin {json.dumps(twin)}; fsdp auto {json.dumps(auto)}; laws "
         f"{json.dumps(law)}")
+    log(f"serving frontier readings on {card}: {json.dumps(frontier)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -154,8 +154,9 @@ def _cached_layer_body(x, layer, *, cfg, cos, sin, use_rope, ck, cv,
     return x + mlp
 
 
-def _forward_cached(params, ids, cfg, cache: KVCache, start: int):
-    """ids (B, S) → (last-position logits (B, V) f32, cache')."""
+def _hidden_cached(params, ids, cfg, cache: KVCache, start: int):
+    """ids (B, S) → hidden x (B, S, H) before the final norm, writing
+    every layer's new K/V rows into ``cache`` at ``start``."""
     B, S = ids.shape
     x = params["embed"].to(cfg.dtype)[ids]
     cos, sin = T._rope_tables(S, cfg.resolved_head_dim, cfg.rope_theta,
@@ -167,13 +168,26 @@ def _forward_cached(params, ids, cfg, cache: KVCache, start: int):
             use_rope=use_rope, ck=cache.k[li], cv=cache.v[li], start=start,
             ck_s=cache.k_scale[li] if q8 else None,
             cv_s=cache.v_scale[li] if q8 else None)
-    x = T.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_norm_eps)
+    return x
+
+
+def _unembed(params, x, cfg):
+    """(B, S, H) hidden → (B, S, V) f32 logits: the final norm, then the
+    int8 copy of the unembedding (``unembed_q``) when the params carry
+    one, else the output embedding.  Per-row, so any row's logits are
+    the ones a forward ending at that row computes."""
+    x = T.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     uq = params.get("unembed_q")
     if uq is not None:       # int8 decode: the (H, vocab) int8 copy
-        logits = prequantized_dense(x, uq)[:, 0]
-    else:
-        logits = (x @ T._output_embedding(params, cfg).T)[:, 0]
-    return logits.float(), cache._replace(length=start + S)
+        return prequantized_dense(x, uq).float()
+    return (x @ T._output_embedding(params, cfg).T).float()
+
+
+def _forward_cached(params, ids, cfg, cache: KVCache, start: int):
+    """ids (B, S) → (last-position logits (B, V) f32, cache')."""
+    x = _hidden_cached(params, ids, cfg, cache, start)
+    return _unembed(params, x[:, -1:], cfg)[:, 0], \
+        cache._replace(length=start + ids.shape[1])
 
 
 def _decode_cfg(cfg: T.TransformerConfig) -> T.TransformerConfig:

@@ -1,6 +1,8 @@
 """Serving byte accounting — the port of the JAX package's
-``serving/accounting.py`` formulas the engine and the measurements use.
-Sizes come from the torch dtype of the config."""
+``serving/accounting.py``: the per-step read formulas of the decode
+roofline, and the pool capacity planner (weights + pool + headroom, the
+draft model's terms included).  Sizes come from the torch dtype of the
+config; ``tp`` stays 1 on the single-card engine."""
 
 from __future__ import annotations
 
@@ -37,10 +39,14 @@ def weight_read_bytes(cfg, params, wb: int) -> int:
     return wb
 
 
-def page_bytes(cfg, page_size: int, *, kv_quant: bool = False) -> int:
-    """Bytes ONE page occupies across every layer's K and V pool, plus
-    the f32 row scales of an int8 pool."""
-    elems = page_size * cfg.num_hidden_layers * cfg.num_key_value_heads \
+def page_bytes(cfg, page_size: int, *, kv_quant: bool = False,
+               tp: int = 1) -> int:
+    """Bytes ONE page occupies across every layer's K and V pool:
+    page_size × layers × (n_kv/tp local heads) × hd × 2 × itemsize,
+    plus the f32 row scales of an int8 pool.  The unit the capacity
+    planner divides the budget by."""
+    nkv = cfg.num_key_value_heads // tp
+    elems = page_size * cfg.num_hidden_layers * nkv \
         * cfg.resolved_head_dim * 2
     if kv_quant:
         return elems + (elems // cfg.resolved_head_dim) * 4
@@ -48,11 +54,43 @@ def page_bytes(cfg, page_size: int, *, kv_quant: bool = False) -> int:
 
 
 def serve_waterline_gb(cfg, n_pages: int, page_size: int, *,
-                       weight_bytes: int = 0, kv_quant: bool = False) -> float:
+                       weight_bytes: int = 0, kv_quant: bool = False,
+                       tp: int = 1, draft_weight_bytes: int = 0,
+                       draft_cfg=None) -> float:
     """Static serving memory waterline: resident weights + the paged KV
-    pool."""
-    return (weight_bytes + n_pages * page_bytes(cfg, page_size,
-                                                kv_quant=kv_quant)) / GB
+    pool.  Speculative decoding adds the draft's weights and the draft's
+    own pool, which mirrors the target's page table (same ``n_pages``
+    and ``page_size``, the draft config's layers).  Prefix sharing adds
+    nothing: aliased pages are the same physical pages."""
+    pool = n_pages * page_bytes(cfg, page_size, kv_quant=kv_quant, tp=tp)
+    if draft_cfg is not None:
+        pool += n_pages * page_bytes(draft_cfg, page_size,
+                                     kv_quant=kv_quant, tp=tp)
+    return (weight_bytes + draft_weight_bytes + pool) / GB
+
+
+def pool_capacity_pages(cfg, page_size: int, *, budget_gb: float,
+                        weight_bytes: int = 0, kv_quant: bool = False,
+                        tp: int = 1,
+                        headroom_fraction: float = 0.10,
+                        draft_weight_bytes: int = 0,
+                        draft_cfg=None) -> int:
+    """Pages that fit ``budget_gb`` once the weights are resident, with
+    ``headroom_fraction`` of the budget held back for the decode step's
+    working set — the inverse of :func:`serve_waterline_gb`: at the
+    returned page count the waterline stays within the usable budget.
+    Returns 0 when the weights alone exceed it.  With a draft resident,
+    its weights come off the top and each page costs its target page
+    plus its draft-pool twin."""
+    usable = budget_gb * GB * (1.0 - headroom_fraction) \
+        - weight_bytes - draft_weight_bytes
+    if usable <= 0:
+        return 0
+    per_page = page_bytes(cfg, page_size, kv_quant=kv_quant, tp=tp)
+    if draft_cfg is not None:
+        per_page += page_bytes(draft_cfg, page_size, kv_quant=kv_quant,
+                               tp=tp)
+    return int(usable // per_page)
 
 
 def tree_bytes(tree) -> int:

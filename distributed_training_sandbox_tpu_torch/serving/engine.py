@@ -1,6 +1,6 @@
 """Continuous-batching decode engine over the paged KV pool — the port of
 the JAX package's ``serving/engine.py`` (single device, float or int8
-pool).
+pool, the radix prefix cache and speculative decoding).
 
 Same layer math as ``models/generate.py``, different cache substrate and
 driver:
@@ -12,7 +12,7 @@ over the FIXED pool view (``pages_per_request × page_size`` positions,
 masked tails contributing exact zeros) — the extent ``generate`` pins
 with ``cache_capacity``.  So with matched capacity a request's tokens
 are ``generate``'s tokens for its prompt; the test suite asserts it per
-request.
+request, with the prefix cache and speculation on too.
 
 **Host blocks only at sync points.**  Decode bursts chain
 ``sync_every`` steps through :class:`..runtime.StepPump`'s bounded
@@ -21,21 +21,38 @@ and admits new ones once per burst.  Prefill is synchronous at admission
 (TTFT is stamped at first-token resolution) and chunked, so a long
 prompt shares rounds with decode instead of stalling it.
 
-Kernels: ``paged_kernel=True`` sends S == 1 decode attention to the
-paged-decode CUDA kernel (``ops/paged_attention.py``), and
-``flash_prefill=True`` sends batched chunked prefill to the flash-prefill
-CUDA kernel (``ops/flash_prefill.py``); both read the pages in place
-through the page table.  Without them attention gathers the slot's pages
-into a contiguous view and runs the reference's einsums — the kernels'
-plain versions, each counted in its kernel's ``COUNTS.plain_calls``.  On
-CPU tensors the kernel entry points take those plain versions too.
+**The decode-speed frontier.**  ``prefix_cache=True`` keeps committed
+full prompt pages in a radix trie (``kv_pool.RadixPrefixCache``):
+admission aliases a request's longest cached page prefix and prefill
+starts at its boundary, so aliased pages are never written.
+``spec_k=k`` decodes speculatively: a draft model (``draft_params`` /
+``draft_cfg``, or the target's first ``draft_layers`` layers) proposes
+``k`` tokens per slot with its own pool addressed by the target's page
+tables, one ``(B, k+1)`` target verify scores them, and a device-side
+accept keeps the longest verified prefix — the whole macro-step chain
+dispatches without a host sync.  At temperature 0 the emitted stream is
+the target's greedy stream whatever the draft proposes.
+
+Kernels: ``paged_kernel=True`` sends S == 1 decode attention (and every
+draft decode step) to the paged-decode CUDA kernel
+(``ops/paged_attention.py``), and ``flash_prefill=True`` sends batched
+chunked prefill, the draft's too, and the speculative verify's
+``(B, k+1)`` block to the flash-prefill CUDA kernel
+(``ops/flash_prefill.py``); both read the pages in place through the
+page table.  Without them attention gathers the slot's pages into a
+contiguous view and runs the reference's einsums — the kernels' plain
+versions, each counted in its kernel's ``COUNTS.plain_calls``.  (The
+reference's verify always took its gather path, whose counterpart here
+is K3's plain version; the port's verify follows ``flash_prefill`` as
+its prefill does.)  On CPU tensors the kernel entry points take those
+plain versions too.
 
 ``kv_quant=True`` stores the pool int8 with per-row scales: new K/V rows
 are quantised as they are written, and decode attention (S == 1) runs
 the int8 core — through K2 under ``paged_kernel``, else its plain
-version.  Prefill (S > 1) on an int8 pool takes the gather path, which
-has no kernel (the reference refuses ``kv_quant`` with
-``flash_prefill``, and so does this engine).  Params from
+version.  Prefill and the verify (S > 1) on an int8 pool take the
+gather path, which has no kernel (the reference refuses ``kv_quant``
+with ``flash_prefill``, and so does this engine).  Params from
 ``models.generate.quantize_decode_params`` serve int8 weights: every
 projection and the unembedding go through ``prequantized_dense`` (K4 on
 the card).
@@ -45,10 +62,13 @@ with donated pool buffers and held a zero-retrace contract
 (``recompiles_after_warmup`` in its SLO report).  PyTorch runs eagerly,
 so there is nothing to retrace and the report leaves that key out; the
 pool is updated in place where JAX donated and returned new buffers.
+Tensor-parallel serving (``mesh``, ``tp_axis``), ``disaggregate`` and
+the ``watchdog`` are refused: ROADMAP.md queue A item A11's second half.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -56,18 +76,21 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as T
-from ..models.generate import _decode_cfg, _quant_kv
+from ..models.generate import _decode_cfg, _quant_kv, _unembed
 from ..ops.flash_prefill import paged_flash_prefill, paged_flash_prefill_plain
 from ..ops.paged_attention import (gather_attention_q8, paged_attention_decode,
                                    paged_attention_plain,
                                    paged_attention_plain_q8)
-from ..ops.quant import QuantizedWeight, prequantized_dense
+from ..ops.quant import QuantizedWeight
 from ..runtime.pump import StepPump
-from .accounting import serve_waterline_gb, tree_bytes
-from .kv_pool import PagedKVPool, PoolBuffers
+from ..telemetry.metrics import maybe_inc
+from .accounting import pool_capacity_pages, serve_waterline_gb, tree_bytes
+from .kv_pool import PagedKVPool, PoolBuffers, RadixPrefixCache
 from .scheduler import DECODE, PREFILL, ContinuousBatcher, Request
 
-__all__ = ["ServingEngine", "serve"]
+__all__ = ["ServingEngine", "serve", "make_draft_params"]
+
+A11_REST = "ROADMAP.md queue A item A11 (its second half)"
 
 
 # ---------------------------------------------------------------- layer math
@@ -180,19 +203,10 @@ def _paged_forward(params, ids, cfg, bufs: PoolBuffers, pages, apos, valid,
     return x
 
 
-def _all_logits(params, x, cfg):
-    """(B, S, H) hidden → (B, S, vocab) f32 logits, through the int8
-    unembedding (``unembed_q``) when the params carry one."""
-    x = T.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    uq = params.get("unembed_q")
-    if uq is not None:
-        return prequantized_dense(x, uq).float()
-    return (x @ T._output_embedding(params, cfg).T).float()
-
-
 def _last_logits(params, x_last, cfg):
-    """(B, 1, H) hidden → (B, vocab) f32 logits."""
-    return _all_logits(params, x_last, cfg)[:, 0]
+    """(B, 1, H) hidden → (B, vocab) f32 logits: ``generate``'s tail
+    (the int8 unembedding ``unembed_q`` when the params carry one)."""
+    return _unembed(params, x_last, cfg)[:, 0]
 
 
 @torch.no_grad()
@@ -248,6 +262,73 @@ def _prefill_batch_core(bufs, params, pages, ids, pos, plen, *, cfg,
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+@torch.no_grad()
+def _spec_verify_core(bufs, params, pages, toks_blk, lengths, stop_at,
+                      active, *, cfg, flash_prefill=False):
+    """The speculative VERIFY step: one fixed-shape target forward over a
+    (B, k+1) token block per slot — the last accepted token plus the
+    draft's k proposals.  Row ``i`` writes its K/V at ``lengths + i``
+    (the write precedes the attention in every layer, so each row
+    attends over exactly the committed prefix plus proposal rows ``<=
+    i``, the visible set a sequential greedy decode would see).  Rows at
+    positions ``>= stop_at`` divert to the null page, so the device never
+    writes past a request's page grant.  Returns each row's greedy
+    argmax (B, k+1) int32 and the occupancy, both on the device."""
+    B, S = toks_blk.shape
+    ar = torch.arange(S, dtype=torch.int32, device=toks_blk.device)
+    apos = lengths[:, None] + ar[None, :]
+    valid = active[:, None] & (apos < stop_at[:, None])
+    x = _paged_forward(params, toks_blk, cfg, bufs, pages, apos, valid,
+                       flash_prefill=flash_prefill)
+    greedy = torch.argmax(_unembed(params, x, cfg),
+                          dim=-1).to(torch.int32)
+    return greedy, active.sum()
+
+
+@torch.no_grad()
+def _spec_accept_core(toks_blk, greedy, toks, lengths, stop_at, active):
+    """Device-side acceptance: the longest verified prefix per slot.
+    Proposal ``toks_blk[:, i+1]`` is accepted iff it equals the target's
+    greedy continuation ``greedy[:, i]`` and every earlier proposal
+    matched, so the emitted stream ``greedy[:, :e]`` is what sequential
+    greedy decode would emit (the rejected tail's pool rows sit past the
+    committed length, masked, and the next macro-step overwrites them).
+    ``e`` is capped at ``stop_at - lengths``; inactive slots freeze with
+    e = 0.  Returns (next token, new lengths, new active, e)."""
+    k = toks_blk.shape[1] - 1
+    match = (toks_blk[:, 1:] == greedy[:, :-1]).to(torch.int32)
+    e = 1 + torch.cumprod(match, dim=1).sum(dim=1)
+    e = torch.minimum(e, stop_at - lengths)
+    e = torch.where(active, e, torch.zeros_like(e)).to(torch.int32)
+    new_len = lengths + e
+    new_active = active & (new_len < stop_at)
+    idx = (e - 1).clamp(0, k).long()
+    nxt = torch.gather(greedy, 1, idx[:, None])[:, 0]
+    nxt = torch.where(active, nxt, toks).to(torch.int32)
+    return nxt, new_len, new_active, e
+
+
+def make_draft_params(params, cfg, n_layers: int):
+    """A truncated-target draft: the target's first ``n_layers`` decoder
+    layers with the embedding, final norm and unembedding kept.  The
+    layer leaves are views of the target's storage (a ``QuantizedWeight``
+    leaf is sliced field by field, as ``transformer.layer_params`` does:
+    slicing the NamedTuple itself would pick its fields).  Parity never
+    depends on the draft: at temperature 0 any draft yields the target's
+    greedy stream, a poor one only lowers the acceptance rate.  Returns
+    ``(draft_params, draft_cfg)``."""
+    n = int(n_layers)
+    if not 1 <= n <= cfg.num_hidden_layers:
+        raise ValueError(f"draft of {n_layers} layers from a "
+                         f"{cfg.num_hidden_layers}-layer target")
+    draft = dict(params)
+    draft["layers"] = {
+        k: (QuantizedWeight(v.q[:n], v.s[:n])
+            if isinstance(v, QuantizedWeight) else v[:n])
+        for k, v in params["layers"].items()}
+    return draft, dataclasses.replace(cfg, num_hidden_layers=n)
+
+
 # ------------------------------------------------------------------- engine
 
 class ServingEngine:
@@ -258,15 +339,33 @@ class ServingEngine:
     finished :class:`.scheduler.Request` records; ``slo_report()``
     aggregates them into TTFT / per-token percentiles and throughput.
     Runs on ``device`` (default ``cuda``; raises without a card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``).  ``telem``: a ``telemetry.TelemetryRun`` that the
+    rounds stream into (prefill events carry each request's TTFT, decode
+    bursts the occupancy and pool gauges and the latency of the requests
+    they complete; ``serve/*`` spans)."""
 
-    def __init__(self, params, cfg, *, max_batch: int = 4,
-                 page_size: int = 8, max_seq_len: int = 64,
-                 n_pages: int | None = None, prefill_chunk: int = 16,
+    def __init__(self, params, cfg, *, mesh=None, tp_axis=None,
+                 max_batch: int = 4, page_size: int = 8,
+                 max_seq_len: int = 64, n_pages: int | None = None,
+                 prefill_chunk: int = 16,
                  prefill_chunks_per_round: int = 2, sync_every: int = 4,
                  max_in_flight: int = 8, kv_quant: bool = False,
-                 paged_kernel: bool = False, flash_prefill: bool = False,
-                 device=None):
+                 paged_kernel: bool = False, prefix_cache: bool = False,
+                 spec_k: int = 0, draft_params=None, draft_cfg=None,
+                 draft_layers: int | None = None,
+                 flash_prefill: bool = False,
+                 hbm_budget_gb: float | None = None,
+                 disaggregate: bool = False, device=None, watchdog=None,
+                 telem=None):
+        for given, name in ((mesh is not None, "mesh"),
+                            (tp_axis is not None, "tp_axis"),
+                            (disaggregate, "disaggregate"),
+                            (watchdog is not None, "watchdog")):
+            if given:
+                raise NotImplementedError(
+                    f"ServingEngine({name}=...) is not ported yet: "
+                    f"tensor-parallel serving, the disaggregated handoff "
+                    f"and the serving watchdog are {A11_REST}")
         self.device = resolve_device(device)
         self.cfg = _decode_cfg(cfg)
         T.check_supported(self.cfg)
@@ -283,24 +382,66 @@ class ServingEngine:
         self.kv_quant = bool(kv_quant)
         self.paged_kernel = bool(paged_kernel)
         self.flash_prefill = bool(flash_prefill)
+        self.spec_k = int(spec_k)
         if self.flash_prefill and self.kv_quant:
             raise ValueError("the flash prefill kernel is float-only — "
                              "drop kv_quant or flash_prefill")
+        if self.spec_k:
+            if draft_params is None and draft_layers is None:
+                raise ValueError(
+                    "spec_k > 0 needs draft_params + draft_cfg, or "
+                    "draft_layers to truncate the target")
+            if draft_params is not None and draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+        self.telem = telem
+        # fleet replica index, stamped into this engine's serve spans
+        self.replica = None
 
+        self._params = _to_device(params, self.device)
+        self.draft_cfg = self._draft_params = None
+        if self.spec_k:
+            if draft_params is None:
+                # truncated from the target on the device: views of its
+                # storage
+                draft_params, draft_cfg = make_draft_params(
+                    self._params, self.cfg, draft_layers)
+            self._draft_params = _to_device(draft_params, self.device)
+            self.draft_cfg = _decode_cfg(draft_cfg)
+            T.check_supported(self.draft_cfg)
+        # the draft's weights are priced as resident, as the reference
+        # prices them, even where they are views of the target's
+        wb = tree_bytes(self._params)
+        dwb = tree_bytes(self._draft_params) if self.spec_k else 0
         if n_pages is None:
             n_pages = self.max_batch * self.pages_per_request + 1
+            if hbm_budget_gb is not None:
+                fit = pool_capacity_pages(
+                    self.cfg, self.page_size, budget_gb=hbm_budget_gb,
+                    weight_bytes=wb, kv_quant=self.kv_quant,
+                    draft_weight_bytes=dwb, draft_cfg=self.draft_cfg) + 1
+                n_pages = min(n_pages, fit)
         if n_pages < self.pages_per_request + 1:
             raise ValueError(
                 f"pool of {n_pages} pages cannot hold one request "
-                f"({self.pages_per_request} pages + null); shrink "
-                f"max_seq_len")
+                f"({self.pages_per_request} pages + null); raise the "
+                f"HBM budget or shrink max_seq_len")
         self.n_pages = int(n_pages)
-        self._params = _to_device(params, self.device)
         self.pool = PagedKVPool(self.cfg, self.n_pages, self.page_size,
                                 kv_quant=self.kv_quant, device=self.device)
+        # the draft's own pool, addressed by the SAME page tables as the
+        # target's (no second allocator): a request's draft KV at
+        # position p lives at the same (page, offset) as its target KV,
+        # so admission, retirement and prefix aliasing are shared and a
+        # cached page's draft rows stay valid as long as the page does
+        self.draft_pool = None
+        if self.spec_k:
+            self.draft_pool = PagedKVPool(
+                self.draft_cfg, self.n_pages, self.page_size,
+                kv_quant=self.kv_quant, device=self.device)
         self._mem_prediction_gb = serve_waterline_gb(
-            self.cfg, self.n_pages, self.page_size,
-            weight_bytes=tree_bytes(self._params), kv_quant=self.kv_quant)
+            self.cfg, self.n_pages, self.page_size, weight_bytes=wb,
+            kv_quant=self.kv_quant, draft_weight_bytes=dwb,
+            draft_cfg=self.draft_cfg)
 
         B, P = self.max_batch, self.pages_per_request
         self._h_tokens = np.zeros(B, np.int32)
@@ -312,6 +453,12 @@ class ServingEngine:
         self.batcher = ContinuousBatcher(self.max_batch,
                                          self.pool.allocator,
                                          self.page_size)
+        self.batcher.metrics = getattr(telem, "metrics", None)
+        self.prefix_cache = None
+        if prefix_cache:
+            self.prefix_cache = RadixPrefixCache(self.pool.allocator,
+                                                 self.page_size)
+            self.batcher.prefix_cache = self.prefix_cache
         self._pending: list[Request] = []
         self.completed: list[Request] = []
         self._rid = 0
@@ -321,7 +468,9 @@ class ServingEngine:
                       "admit_s": 0.0, "bookkeep_s": 0.0,
                       "prefill_s": 0.0, "decode_s": 0.0,
                       "occupancy_sum": 0, "peak_pool_util": 0.0,
-                      "wall_s": 0.0, "host_sync_count": 0}
+                      "wall_s": 0.0, "host_sync_count": 0,
+                      "draft_steps": 0, "spec_proposed": 0,
+                      "spec_accepted": 0}
 
     # ---- request intake ----------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
@@ -338,9 +487,39 @@ class ServingEngine:
                       max_new_tokens=int(max_new_tokens),
                       arrival_s=(None if arrival_s is None
                                  else float(arrival_s)))
+        # a single engine has no router in front: mint the trace id here,
+        # in the shape the fleet's router uses
+        req.trace_id = f"tr-{req.rid:06d}"
         self._rid += 1
         self._pending.append(req)
         return req
+
+    def enqueue(self, req: Request, now: float) -> None:
+        """Hand an externally built request straight to the batcher (a
+        fleet router's dispatch path: rids are the fleet's, admission
+        control already ran)."""
+        self.batcher.submit(req, now)
+
+    # ---- fleet queries -----------------------------------------------
+    def can_accept(self, req: Request) -> bool:
+        """True when ``req`` would be admitted at the next round: a free
+        slot AND its full page grant, with nothing already queued.  The
+        trie's evictable pages count as free: ``admit`` evicts under
+        pressure, and without the credit a saturated prefix cache would
+        wedge dispatch while the engine sits idle."""
+        if self.batcher.waiting:
+            return False
+        if not any(r is None for r in self.batcher.slots):
+            return False
+        free = self.pool.allocator.free_pages
+        if self.prefix_cache is not None:
+            free += self.prefix_cache.reclaimable_pages
+        return free >= self.batcher.pages_needed(req)
+
+    def in_flight(self) -> int:
+        """Unfinished requests resident here (queued or in a slot)."""
+        return len(self.batcher.waiting) + sum(
+            r is not None for r in self.batcher.slots)
 
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -355,9 +534,14 @@ class ServingEngine:
         row = np.zeros((1, self.pages_per_request), np.int32)
         row[0, :len(req.pages)] = req.pages
         t_chunk = time.perf_counter()
-        tok_d = _prefill_core(self.pool.bufs, self._params, self._put(row),
-                              self._put(ids), pos, req.n_prompt,
-                              cfg=self.cfg)
+        row_d, ids_d = self._put(row), self._put(ids)
+        tok_d = _prefill_core(self.pool.bufs, self._params, row_d, ids_d,
+                              pos, req.n_prompt, cfg=self.cfg)
+        if self.spec_k:
+            # the draft needs the prompt's KV in ITS pool to propose: it
+            # rides the same chunk (same pages, draft params)
+            _prefill_core(self.draft_pool.bufs, self._draft_params, row_d,
+                          ids_d, pos, req.n_prompt, cfg=self.draft_cfg)
         req.prefill_pos = min(pos + Ck, req.n_prompt)
         self.stats["prefill_chunks"] += 1
         if req.prefill_pos < req.n_prompt:
@@ -365,15 +549,45 @@ class ServingEngine:
             return
         first = int(tok_d.cpu()[0])     # sync: TTFT resolution
         self.stats["host_sync_count"] += 1
-        self._finish_prefill(req, first, t0)
+        self._finish_prefill(req, first, t_chunk, t0)
         self.stats["prefill_s"] += time.perf_counter() - t_chunk
 
-    def _finish_prefill(self, req: Request, first: int, t0: float) -> None:
-        """Final-chunk bookkeeping: stamp TTFT and flip the slot into
+    def _finish_prefill(self, req: Request, first: int, t_chunk: float,
+                        t0: float) -> None:
+        """Final-chunk bookkeeping: donate the full prompt pages to the
+        prefix cache, stamp TTFT, emit telemetry and flip the slot into
         DECODE (or retire it when ``max_new == 1``)."""
         now = time.perf_counter() - t0
+        if self.prefix_cache is not None:
+            # the full prompt pages hold committed KV now.  A concurrent
+            # twin that finished first won the trie slot: our duplicate
+            # page is freed and the page-table entry swaps to the twin's
+            # (the same bits, so decode cannot tell)
+            nodes, swaps = self.prefix_cache.insert(
+                req.prompt, req.pages, req.cache_nodes)
+            req.cache_nodes = nodes
+            for i, pg in swaps.items():
+                req.pages[i] = pg
+                self._h_pages[req.slot, i] = pg
         req.tokens.append(first)
         req.t_first = now
+        spans = getattr(self.telem, "spans", None)
+        if spans is not None:
+            spans.record("serve/prefill_chunk", start_perf=t_chunk,
+                         end_perf=time.perf_counter(), cat="serve",
+                         rid=req.rid, n_prompt=int(req.n_prompt),
+                         request_id=req.rid, trace_id=req.trace_id,
+                         replica=self.replica,
+                         t_submit_s=req.t_submit, t_admit_s=req.t_admit,
+                         t_first_s=req.t_first)
+        if self.telem is not None:
+            self.telem.step(
+                loss=None, tokens=req.n_prompt,
+                tracker_metrics={
+                    "last_step_time_s": time.perf_counter() - t_chunk},
+                phase="prefill", rid=req.rid, request_id=req.rid,
+                trace_id=req.trace_id, ttft_ms=1e3 * (req.ttft_s or 0.0),
+                pool_util=self.pool.utilization)
         b = req.slot
         stop = req.n_prompt + req.max_new_tokens - 1
         req.state = DECODE
@@ -404,10 +618,15 @@ class ServingEngine:
             pos[i] = req.prefill_pos
             plen[i] = req.n_prompt
         t_chunk = time.perf_counter()
-        tok_d = _prefill_batch_core(
-            self.pool.bufs, self._params, self._put(pages), self._put(ids),
-            self._put(pos), self._put(plen), cfg=self.cfg,
-            flash_prefill=self.flash_prefill)
+        args = (self._put(pages), self._put(ids), self._put(pos),
+                self._put(plen))
+        tok_d = _prefill_batch_core(self.pool.bufs, self._params, *args,
+                                    cfg=self.cfg,
+                                    flash_prefill=self.flash_prefill)
+        if self.spec_k:
+            _prefill_batch_core(self.draft_pool.bufs, self._draft_params,
+                                *args, cfg=self.draft_cfg,
+                                flash_prefill=self.flash_prefill)
         self.stats["prefill_chunks"] += 1
         finishing = []
         for i, req in enumerate(reqs):
@@ -418,19 +637,48 @@ class ServingEngine:
             toks = tok_d.cpu().numpy()   # sync: TTFT resolution for all
             self.stats["host_sync_count"] += 1
             for i, req in finishing:
-                self._finish_prefill(req, int(toks[i]), t0)
+                self._finish_prefill(req, int(toks[i]), t_chunk, t0)
         self.stats["prefill_s"] += time.perf_counter() - t_chunk
 
     # ---- decode -------------------------------------------------------
+    def _burst_inputs(self):
+        return (self._put(self._h_tokens), self._put(self._h_lengths),
+                self._put(self._h_stop), self._put(self._h_active),
+                self._put(self._h_pages))
+
+    def _retire_finished(self, active, t0: float) -> list[Request]:
+        now = time.perf_counter() - t0
+        finished = []
+        for b in range(self.max_batch):
+            req = self.batcher.slot_request(b)
+            if req is not None and req.state == DECODE and not active[b]:
+                self.batcher.retire(req, now)
+                self._h_pages[b] = 0     # slot back to the null page
+                self.completed.append(req)
+                finished.append(req)
+        return finished
+
+    def _decode_step_event(self, burst_s: float, sync: int, occ_burst,
+                           emitted: int, finished, **extra) -> None:
+        self.telem.step(
+            loss=None, tokens=emitted,
+            tracker_metrics={"last_step_time_s": burst_s / sync},
+            phase="decode", active=float(np.mean(occ_burst)),
+            admitted=self.batcher.admitted_total,
+            completed=self.batcher.completed_total,
+            kv_pages_in_use=self.pool.allocator.pages_in_use,
+            pool_util=self.pool.utilization, **extra,
+            completed_requests=[
+                {"rid": r.rid, "trace_id": r.trace_id,
+                 "ttft_ms": 1e3 * (r.ttft_s or 0.0),
+                 "per_token_ms": 1e3 * (r.per_token_s or 0.0),
+                 "tokens": len(r.tokens)} for r in finished])
+
     def _decode_burst(self, pump: StepPump, t0: float) -> None:
         sync = self.sync_every
         L0 = self._h_lengths.copy()
         A0 = self._h_active.copy()
-        toks_d = self._put(self._h_tokens)
-        len_d = self._put(self._h_lengths)
-        stop_d = self._put(self._h_stop)
-        act_d = self._put(self._h_active)
-        pages_d = self._put(self._h_pages)
+        toks_d, len_d, stop_d, act_d, pages_d = self._burst_inputs()
         t_burst = time.perf_counter()
         step_tokens = []
         for _ in range(sync):
@@ -444,32 +692,131 @@ class ServingEngine:
         # deterministic active chain on the host
         mats = torch.stack(step_tokens).cpu().numpy()
         self.stats["host_sync_count"] += 1
-        self.stats["decode_s"] += time.perf_counter() - t_burst
+        burst_s = time.perf_counter() - t_burst
+        self.stats["decode_s"] += burst_s
+        spans = getattr(self.telem, "spans", None)
+        if spans is not None:
+            spans.record("serve/decode_burst", start_perf=t_burst,
+                         end_perf=time.perf_counter(), cat="serve",
+                         steps=int(sync), replica=self.replica)
         t_book = time.perf_counter()
         active, lengths = A0.copy(), L0.copy()
+        occ_burst, emitted = [], 0
         for j in range(sync):
+            occ_burst.append(int(active.sum()))
             for b in np.nonzero(active)[0]:
                 self.batcher.slot_request(int(b)).tokens.append(
                     int(mats[j][b]))
+                emitted += 1
             lengths = lengths + active
             active = active & (lengths < self._h_stop)
         self._h_tokens = mats[-1].copy()
         self._h_lengths = lengths.astype(np.int32)
         self._h_active = active
-        now = time.perf_counter() - t0
-        for b in range(self.max_batch):
-            req = self.batcher.slot_request(b)
-            if req is not None and req.state == DECODE and not active[b]:
-                self.batcher.retire(req, now)
-                self._h_pages[b] = 0     # slot back to the null page
-                self.completed.append(req)
+        finished = self._retire_finished(active, t0)
         self.stats["bookkeep_s"] += time.perf_counter() - t_book
+        if self.telem is not None:
+            self._decode_step_event(burst_s, sync, occ_burst, emitted,
+                                    finished)
+
+    def _spec_burst(self, pump: StepPump, t0: float) -> None:
+        """Speculative decode burst: ``sync_every`` macro-steps, each k
+        draft decode steps + one (B, k+1) target verify + the device-side
+        acceptance update.  The whole chain dispatches without a host
+        sync (no ``.item()``, no ``.cpu()``); ONE sync at the end
+        resolves every macro-step's greedy rows and acceptance counts,
+        and the host replays the acceptance chain to append tokens and
+        retire finished requests.  Rolling back a rejected draft tail is
+        free: its pool rows sit past the committed length, masked from
+        every live query, and the next macro-step overwrites them before
+        any read — in both pools."""
+        sync, k = self.sync_every, self.spec_k
+        L0 = self._h_lengths.copy()
+        A0 = self._h_active.copy()
+        toks_d, len_d, stop_d, act_d, pages_d = self._burst_inputs()
+        # the reference's ledger join (telem.attach_step_hlo) is skipped
+        # here: the collective and memory ledgers are ROADMAP.md queue A
+        # item A12, and the port's TelemetryRun raises there
+        t_burst = time.perf_counter()
+        g_steps, e_steps = [], []
+        for _ in range(sync):
+            # k draft self-decode steps propose a chain per slot, against
+            # the draft's pool at the same page table and the same stop_at
+            d_toks, d_len, d_act = toks_d, len_d, act_d
+            props = [toks_d]
+            for _i in range(k):
+                d_toks, d_len, d_act, _docc = _decode_core(
+                    self.draft_pool.bufs, self._draft_params, pages_d,
+                    d_toks, d_len, stop_d, d_act, cfg=self.draft_cfg,
+                    paged_kernel=self.paged_kernel)
+                props.append(d_toks)
+            blk = torch.stack(props, dim=1)          # (B, k+1)
+            g_d, occ = _spec_verify_core(
+                self.pool.bufs, self._params, pages_d, blk, len_d, stop_d,
+                act_d, cfg=self.cfg, flash_prefill=self.flash_prefill)
+            pump.emit(occ)
+            toks_d, len_d, act_d, e_d = _spec_accept_core(
+                blk, g_d, toks_d, len_d, stop_d, act_d)
+            g_steps.append(g_d)
+            e_steps.append(e_d)
+        self.stats["decode_steps"] += sync
+        self.stats["draft_steps"] += sync * k
+        # the burst's one sync: every macro-step's greedy rows and
+        # acceptance counts, and the last committed tokens, in one copy
+        B = self.max_batch
+        flat = torch.cat([torch.stack(g_steps).flatten(),
+                          torch.stack(e_steps).flatten(), toks_d])
+        flat = flat.cpu().numpy()
+        n_g = sync * B * (k + 1)
+        gs = flat[:n_g].reshape(sync, B, k + 1)
+        es = flat[n_g:n_g + sync * B].reshape(sync, B)
+        last = flat[n_g + sync * B:]
+        self.stats["host_sync_count"] += 1
+        burst_s = time.perf_counter() - t_burst
+        self.stats["decode_s"] += burst_s
+        spans = getattr(self.telem, "spans", None)
+        if spans is not None:
+            spans.record("serve/spec_burst", start_perf=t_burst,
+                         end_perf=time.perf_counter(), cat="serve",
+                         steps=int(sync), k=int(k), replica=self.replica)
+        t_book = time.perf_counter()
+        active, lengths = A0.copy(), L0.copy()
+        occ_burst, emitted = [], 0
+        proposed = accepted = 0
+        for j in range(sync):
+            occ_burst.append(int(active.sum()))
+            for b in np.nonzero(active)[0]:
+                e_b = int(es[j][b])
+                self.batcher.slot_request(int(b)).tokens.extend(
+                    int(t) for t in gs[j][b, :e_b])
+                emitted += e_b
+                proposed += k
+                accepted += e_b - 1
+            lengths = lengths + es[j]
+            active = active & (lengths < self._h_stop)
+        self.stats["spec_proposed"] += proposed
+        self.stats["spec_accepted"] += accepted
+        maybe_inc(self.batcher.metrics, "spec_proposed_total", proposed)
+        maybe_inc(self.batcher.metrics, "spec_accepted_total", accepted)
+        self._h_tokens = last.astype(np.int32)
+        self._h_lengths = lengths.astype(np.int32)
+        self._h_active = active
+        finished = self._retire_finished(active, t0)
+        self.stats["bookkeep_s"] += time.perf_counter() - t_book
+        if self.telem is not None:
+            self._decode_step_event(
+                burst_s, sync, occ_burst, emitted, finished,
+                spec_accept_rate=(accepted / proposed if proposed
+                                  else None))
 
     # ---- round loop ---------------------------------------------------
-    def start(self) -> None:
-        """Arm the engine clock and the pump."""
+    def start(self, t0: float | None = None) -> None:
+        """Arm the engine clock and the pump without driving the loop.
+        ``run()`` calls it; a fleet calls it with a SHARED ``t0`` so that
+        every replica's timestamps live on one clock, then drives rounds
+        through :meth:`step_round`."""
         if self._t0 is None:
-            self._t0 = time.perf_counter()
+            self._t0 = time.perf_counter() if t0 is None else t0
         if self._pump is None:
             self._pump = StepPump(sync_every=self.sync_every,
                                   max_in_flight=self.max_in_flight)
@@ -481,11 +828,16 @@ class ServingEngine:
             pump.close()
             self.stats["host_sync_count"] += pump.host_sync_count
 
+    def abandon_pump(self) -> None:
+        """Drop the pump WITHOUT draining: the failover path of a replica
+        whose in-flight work will never resolve."""
+        self._pump = None
+
     def step_round(self, now: float) -> list[Request]:
         """One scheduler round at elapsed time ``now``: admit, run up to
         ``prefill_chunks_per_round`` prefill chunks, then one decode
-        burst if any slot is active.  Returns the requests that finished
-        this round."""
+        burst (speculative when ``spec_k``) if any slot is active.
+        Returns the requests that finished this round."""
         self.start()
         t0 = self._t0
         done_base = len(self.completed)
@@ -510,7 +862,10 @@ class ServingEngine:
                     break
                 self._prefill_one_chunk(req, t0)
         if self._h_active.any():
-            self._decode_burst(self._pump, t0)
+            if self.spec_k:
+                self._spec_burst(self._pump, t0)
+            else:
+                self._decode_burst(self._pump, t0)
         self.stats["rounds"] += 1
         self.stats["occupancy_sum"] += int(self._h_active.sum())
         self.stats["peak_pool_util"] = max(self.stats["peak_pool_util"],
@@ -541,11 +896,33 @@ class ServingEngine:
         self.stats["wall_s"] += time.perf_counter() - t0
         return self.completed[base:]
 
+    # ---- failover / hot-swap -----------------------------------------
+    def release_all(self) -> list[Request]:
+        """Failover teardown: every unfinished request leaves reset for
+        replay (``scheduler.reset_for_replay``), slots and pages are
+        freed, the host mirrors zeroed.  The device pool is not touched."""
+        orphans = self.batcher.release_all()
+        self._h_active[:] = False
+        self._h_pages[:] = 0
+        return orphans
+
+    def swap_params(self, params) -> None:
+        """Install new weights on a DRAINED engine (the fleet's hot-swap
+        lands here once the engine has no request in flight).  As in the
+        reference, the draft keeps the weights it was built with: any
+        draft leaves the emitted stream the target's."""
+        if self.batcher.has_work():
+            raise RuntimeError(
+                f"swap_params with {self.in_flight()} request(s) in "
+                f"flight — drain the engine first")
+        self._params = _to_device(params, self.device)
+
     # ---- reporting ----------------------------------------------------
     def slo_report(self) -> dict:
         """TTFT / per-token percentiles + throughput + pool/scheduler
-        health for the finished requests.  Times are host-clock seconds
-        around work that ends in a host sync."""
+        health for the finished requests (the dict ``train.serve_bench``
+        files under summary.json's ``serving`` key).  Times are
+        host-clock seconds around work that ends in a host sync."""
         done = [r for r in self.completed if r.t_done is not None]
         ttft = np.array([r.ttft_s for r in done
                          if r.ttft_s is not None]) * 1e3
@@ -557,8 +934,10 @@ class ServingEngine:
 
         toks = int(sum(len(r.tokens) for r in done))
         wall = self.stats["wall_s"] or 1e-9
+        # tokens emitted by decode steps (each request's first comes from
+        # prefill): the steps-per-token the speculative leg is judged on
         dec_toks = max(toks - len(done), 1)
-        return {
+        rep = {
             "requests": self.batcher.admitted_total,
             "completed": len(done),
             "ttft_ms": {"p50": pct(ttft, 50), "p99": pct(ttft, 99),
@@ -566,6 +945,8 @@ class ServingEngine:
             "per_token_ms": {"p50": pct(ptl, 50), "p99": pct(ptl, 99)},
             "tokens_total": toks,
             "tokens_per_s": toks / wall,
+            "tokens_per_s_per_device": toks / wall,
+            "devices": 1,
             "device": str(self.device),
             "pool": {"n_pages": self.n_pages, "page_size": self.page_size,
                      "peak_util": self.stats["peak_pool_util"],
@@ -584,10 +965,25 @@ class ServingEngine:
                 "decode_steps_per_token": (self.stats["decode_steps"]
                                            / dec_toks),
             },
+            "disaggregated": False,
             "kv_quant": self.kv_quant,
             "paged_kernel": self.paged_kernel,
             "flash_prefill": self.flash_prefill,
         }
+        if self.prefix_cache is not None:
+            rep["prefix_cache"] = self.prefix_cache.stats()
+        if self.spec_k:
+            prop = self.stats["spec_proposed"]
+            rep["speculative"] = {
+                "k": self.spec_k,
+                "draft_layers": self.draft_cfg.num_hidden_layers,
+                "draft_steps": self.stats["draft_steps"],
+                "proposed": prop,
+                "accepted": self.stats["spec_accepted"],
+                "acceptance_rate": (self.stats["spec_accepted"] / prop
+                                    if prop else None),
+            }
+        return rep
 
 
 def _to_device(params, device):

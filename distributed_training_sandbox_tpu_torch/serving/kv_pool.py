@@ -1,6 +1,7 @@
 """Paged KV cache pool — the port of the JAX package's
-``serving/kv_pool.py`` (float and int8 pools; the radix prefix cache is
-a later slice).
+``serving/kv_pool.py``: float and int8 pools, the page allocator and the
+radix prefix cache over committed pages (host Python, line for line the
+reference's, so its decisions can be held against it bit for bit).
 
   * per-layer POOLS of page blocks, ``(n_pages, page_size, n_kv, hd)``
     tensors in ``cfg.dtype`` on one device, or int8 with f32
@@ -73,6 +74,211 @@ class PageAllocator:
     def utilization(self) -> float:
         usable = self.n_pages - 1
         return self.pages_in_use / usable if usable else 0.0
+
+
+class _TrieNode:
+    """One cached full page of prompt KV: the page-size token chunk that
+    keys it under its parent, the pool page holding those positions'
+    K/V rows, and the in-flight refcount."""
+    __slots__ = ("key", "page", "parent", "children", "refs", "last_used")
+
+    def __init__(self, key: tuple, page: int, parent):
+        self.key = key
+        self.page = page
+        self.parent = parent          # _TrieNode | None (root child)
+        self.children: dict = {}
+        self.refs = 0
+        self.last_used = 0
+
+    @property
+    def depth(self) -> int:
+        d, n = 1, self.parent
+        while n is not None:
+            d, n = d + 1, n.parent
+        return d
+
+
+class RadixPrefixCache:
+    """Token-trie over committed KV pages — the prefix-reuse substrate.
+
+    Nodes are PAGE-granular: each trie edge is an exact ``page_size``
+    token chunk, so a node's path from the root spells out a full-page
+    prompt prefix and its ``page`` holds exactly those positions' K/V
+    rows.  Content identity is positional: K/V at absolute position
+    ``p`` depends only on the token at ``p`` and ``p`` itself (per-row
+    bitwise independence, the engine's parity invariant), so two
+    requests sharing a page-aligned token prefix can alias the same
+    pages and stay bitwise-identical to their private-cache runs.
+
+    Ownership: pages referenced by the trie are OWNED by the trie —
+    they are never on the allocator's free list and are returned to it
+    only by :meth:`evict`.  Requests hold refcounts on the nodes they
+    alias (``acquire``/``release``); eviction takes refcount-0 LEAF
+    nodes in LRU order, so an in-flight request can never lose a page
+    under it and interior nodes never orphan their children.
+
+    Copy-on-write falls out of page granularity: the first divergent
+    page has a different token chunk, so it simply isn't in the trie —
+    admission allocates a fresh page for it and prefill recomputes from
+    the matched boundary.  Aliased pages are never scatter targets
+    (prefill starts at the matched page boundary; decode writes at
+    positions past the prompt), which the CoW test pins byte-for-byte.
+
+    The last prompt page is never cached even when full: prefill must
+    run at least the final prompt position to produce the first token's
+    logits, so matchable pages are capped at ``(n_prompt - 1) //
+    page_size``.
+    """
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self.allocator = allocator
+        self.page_size = int(page_size)
+        self._root: dict = {}         # key chunk -> _TrieNode
+        self._nodes: list[_TrieNode] = []
+        self._clock = 0
+        # counters the engine mirrors into telemetry / slo_report
+        self.hit_pages = 0
+        self.lookup_pages = 0
+        self.evictions = 0
+        self.inserted_pages = 0
+        # refcount-0 node count, maintained O(1) at every transition.
+        # Exact reclaimability: a holder always refs its node's whole
+        # prefix path, so a refs-0 node's subtree is refs-0 throughout
+        # and :meth:`evict` can drain all of it leaf-first.
+        self._idle_pages = 0
+
+    # ---- queries ------------------------------------------------------
+    @property
+    def cached_pages(self) -> int:
+        """Pages owned by the trie (not in the allocator free list)."""
+        return len(self._nodes)
+
+    @property
+    def reclaimable_pages(self) -> int:
+        """Pages :meth:`evict` could free right now (refcount-0 nodes).
+        ``can_accept`` credits these against a request's page grant —
+        without the credit a saturated trie wedges dispatch forever
+        while every replica sits idle (the fleet-sim-discovered
+        livelock)."""
+        return self._idle_pages
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hit_pages / self.lookup_pages if self.lookup_pages \
+            else 0.0
+
+    def _chunks(self, tokens) -> list[tuple]:
+        p = self.page_size
+        n_full = (len(tokens) - 1) // p
+        return [tuple(int(t) for t in tokens[i * p:(i + 1) * p])
+                for i in range(n_full)]
+
+    def match(self, tokens) -> list[_TrieNode]:
+        """Longest cached full-page prefix of ``tokens`` — the nodes
+        whose pages an admitted request will alias.  Pure lookup: no
+        refcounts taken, no counters (admission may retry the same
+        head-of-line request many rounds; it calls :meth:`note_lookup`
+        once on success)."""
+        nodes: list[_TrieNode] = []
+        kids = self._root
+        for key in self._chunks(tokens):
+            node = kids.get(key)
+            if node is None:
+                break
+            nodes.append(node)
+            kids = node.children
+        return nodes
+
+    def note_lookup(self, hit_pages: int, lookup_pages: int) -> None:
+        self.hit_pages += hit_pages
+        self.lookup_pages += lookup_pages
+
+    # ---- refcounts ----------------------------------------------------
+    def acquire(self, nodes: list[_TrieNode]) -> None:
+        self._clock += 1
+        for n in nodes:
+            if n.refs == 0:
+                self._idle_pages -= 1
+            n.refs += 1
+            n.last_used = self._clock
+
+    def release(self, nodes: list[_TrieNode]) -> None:
+        for n in nodes:
+            if n.refs <= 0:
+                raise ValueError("prefix-cache refcount underflow — "
+                                 "double release")
+            n.refs -= 1
+            if n.refs == 0:
+                self._idle_pages += 1
+
+    # ---- growth -------------------------------------------------------
+    def insert(self, tokens, pages: list[int],
+               matched: list[_TrieNode]):
+        """Donate a just-prefilled request's full-prompt pages into the
+        trie.  ``pages`` is the request's page list (cached prefix
+        first, then granted pages); ``matched`` the nodes it acquired at
+        admission.  Returns ``(nodes, swaps)``: the full prefix-aligned
+        node list (refs held by the caller) and a ``{page_index: page}``
+        map for chunks a CONCURRENT twin already cached — the caller's
+        duplicate page is freed and its page-table entry must be
+        rewritten to the cached twin (contents are bitwise-identical,
+        so the swap is invisible to decode)."""
+        chunks = self._chunks(tokens)
+        nodes = list(matched)
+        swaps: dict[int, int] = {}
+        self._clock += 1
+        for i in range(len(matched), len(chunks)):
+            kids = nodes[-1].children if nodes else self._root
+            node = kids.get(chunks[i])
+            if node is None:
+                node = _TrieNode(chunks[i], pages[i],
+                                 nodes[-1] if nodes else None)
+                kids[chunks[i]] = node
+                self._nodes.append(node)
+                self.inserted_pages += 1
+                self._idle_pages += 1   # born refs-0; claimed below
+            elif node.page != pages[i]:
+                # two requests with the same prefix prefilled
+                # concurrently; adopt the cached twin, free ours
+                swaps[i] = node.page
+                self.allocator.free([pages[i]])
+            if node.refs == 0:
+                self._idle_pages -= 1
+            node.refs += 1
+            node.last_used = self._clock
+            nodes.append(node)
+        return nodes, swaps
+
+    # ---- pressure -----------------------------------------------------
+    def evict(self, n: int) -> int:
+        """Free up to ``n`` pages by evicting refcount-0 LEAF nodes in
+        LRU order (ties broken deepest-first so chains drain tail-in).
+        Returns the number actually freed — the caller retries its
+        allocation and sheds load if the trie couldn't give enough."""
+        freed = 0
+        while freed < n:
+            victims = [nd for nd in self._nodes
+                       if nd.refs == 0 and not nd.children]
+            if not victims:
+                break
+            v = min(victims, key=lambda nd: (nd.last_used, -nd.depth))
+            kids = v.parent.children if v.parent is not None \
+                else self._root
+            del kids[v.key]
+            self._nodes.remove(v)
+            self.allocator.free([v.page])
+            self.evictions += 1
+            self._idle_pages -= 1
+            freed += 1
+        return freed
+
+    def stats(self) -> dict:
+        return {"cached_pages": self.cached_pages,
+                "hit_pages": self.hit_pages,
+                "lookup_pages": self.lookup_pages,
+                "hit_rate": round(self.hit_rate, 4),
+                "evictions": self.evictions,
+                "inserted_pages": self.inserted_pages}
 
 
 class PagedKVPool:

@@ -1,0 +1,352 @@
+"""Serving benchmark: Poisson traffic through the continuous-batching
+engine, with the latency-SLO report — the twin of the JAX package's
+``scripts/serve_bench.py`` (its single-engine path).
+
+    python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
+        --model SMOLLM3_3B --requests 16 --tenants 2 --prefix-cache \\
+        --spec-k 3 --draft-layers 4
+    python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
+        --device cpu --tenants 3 --overlap-frac 0.7 --prefix-cache
+    python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
+        --device cpu --spec-k 3 --draft-layers 1
+
+Drives ``serving.ServingEngine`` with the seeded open-loop trace of
+``serving.traces.build_trace`` (exponential inter-arrivals at
+``--rate``, bimodal prompt lengths; with ``--tenants N`` an
+``--overlap-frac`` share of the requests opens with one of N shared
+``--sys-len`` system prompts) and files the engine's SLO report under
+the run directory's ``summary.json`` ``serving`` key; per-request TTFT
+and per-burst latency stream into ``steps.jsonl``.  The weights are the
+port's seeded ``init_params`` scaled by ``--param-scale`` (×3 makes the
+greedy trajectories chaotic, so the parity check discriminates).
+
+Routes.  On the card the engine serves with ``paged_kernel=True`` (K1,
+or K2 on an int8 pool) and, unless ``--kv-quant``, with
+``flash_prefill`` (K3: batched prefill, the draft's and the verify's
+block): the plain routes are the kernels' plain versions, which the
+card's main path never takes.  On the CPU every route is the plain one
+and ``--flash-prefill`` picks the batched prefill, as in the reference.
+
+Gates (exit 1): every request completed, and ``--check-parity N``, the
+first N requests against the port's one-shot ``generate`` at the
+engine's ``view_capacity``: on the CPU their tokens bit for bit (the
+reference's law); on the card, where the kernels sum in other orders
+than ``generate``'s plain path, every emitted token, the first
+included, within ``FRONTIER_ARGMAX_ATOL`` of its row's maximum logit
+when prompt and emitted tokens are teacher-forced through
+``generate``'s cached forward (:func:`argmax_gaps`); the first tokens
+equal to ``generate``'s are counted, not gated (K3's prefill flips a
+near-tie of ``generate``'s now and then).  The reference's third gate, no jit-cache growth
+after warm-up, has no counterpart: PyTorch runs eagerly and nothing
+retraces, so the twin omits it.
+
+Refused (exit 2): the fleet and everything that needs it (``--replicas``
+> 1, ``--inject-fault``, ``--deadline-ms``, ``--swap-at``,
+``--swap-ckpt``, ``--watchdog-timeout``, ``--max-queue``,
+``--burst-ms``, ``--export-timeline``), ``--tp`` > 1 and
+``--disaggregate`` — ROADMAP.md queue A item A11's second half — and
+``--plan``, item A12.  The reference's ``--cpu-devices`` (a simulated
+JAX mesh) has no counterpart; ``--device cpu`` runs the plain path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import MODEL_REGISTRY
+from ..models import transformer as T
+from ..models.generate import _hidden_cached, _unembed, generate, init_cache
+from ..serving.engine import A11_REST, ServingEngine
+from ..serving.traces import build_trace
+from ..telemetry.run import A12, TelemetryRun
+from ..utils.profiling import ProfileSchedule, Profiler
+
+# Every emitted token's teacher-forced logit lies within this of its
+# row's maximum (the card's parity law, :func:`argmax_gaps`): the largest
+# difference between K3's prefill logits and the plain path's that the
+# chip smoke admits (its PREFILL_LOGIT_ATOL).  On an H100 the sound
+# frontier reads 0.0-1.75 and its mutants 20.19-53.0 (chip_smoke.py phase
+# 18, chip_gate_mutation.py; PERF.md §6).
+FRONTIER_ARGMAX_ATOL = 3.5
+
+SERVE_SCHEDULE = ProfileSchedule(skip_first=2, wait=1, warmup=2, active=8)
+
+
+def model_config(name: str) -> T.TransformerConfig:
+    """A config by the reference's attribute name (``TINY_LM``,
+    ``SMOLLM3_3B``) or the port's CLI name (``tiny``, ``smollm3-3b``)."""
+    cfg = getattr(T, MODEL_REGISTRY.get(name, name), None)
+    if not isinstance(cfg, T.TransformerConfig):
+        raise ValueError(f"unknown model {name!r}")
+    return cfg
+
+
+def build_params(cfg, seed: int, scale: float, device) -> dict:
+    """The port's seeded ``init_params`` on ``device``, every leaf
+    multiplied by ``scale`` in place."""
+    dev = torch.device(device)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    if scale != 1.0:
+        for leaf in [params["embed"], params["final_norm"],
+                     *params["layers"].values(),
+                     *([params["lm_head"]] if "lm_head" in params else [])]:
+            leaf.mul_(scale)
+    return params
+
+
+@torch.no_grad()
+def argmax_gaps(params, cfg, prompt, tokens, *, capacity: int,
+                kv_quant: bool = False) -> torch.Tensor:
+    """Teacher-force ``prompt`` and the emitted ``tokens`` through the
+    one-shot ``generate``'s cached forward in one pass; for each emitted
+    token, its row's maximum logit minus the token's logit (0 where the
+    token is the argmax).  The row predicting ``tokens[j]`` is the one
+    at position ``len(prompt) - 1 + j``.  Returns f32 (len(tokens),) on
+    the params' device."""
+    dev = params["embed"].device
+    ids = np.concatenate([np.asarray(prompt, np.int64),
+                          np.asarray(tokens[:-1], np.int64)])
+    cache = init_cache(cfg, 1, capacity, device=dev, quantized=kv_quant)
+    x = _hidden_cached(params, torch.as_tensor(ids[None], device=dev), cfg,
+                       cache, 0)
+    n = len(tokens)
+    logits = _unembed(params, x[:, -n:], cfg)[0]
+    tok = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)
+    return logits.max(dim=-1).values - logits.gather(1, tok[:, None])[:, 0]
+
+
+def check_parity(params, cfg, reqs, *, capacity: int, kv_quant: bool,
+                 exact: bool) -> tuple[list[str], dict]:
+    """The parity gate on ``reqs`` (see the module docstring): bitwise
+    against ``generate`` when ``exact``, else first tokens equal and the
+    near-argmax law.  Returns (failures, readings)."""
+    failures, firsts, gaps = [], [], []
+    for req in reqs:
+        got = np.asarray(req.tokens, np.int64)
+        if exact:
+            ref = generate(params, req.prompt[None], cfg,
+                           max_new_tokens=req.max_new_tokens,
+                           kv_quant=kv_quant, cache_capacity=capacity,
+                           device=params["embed"].device)[0].cpu().numpy()
+            if got.shape != ref.shape or not (got == ref).all():
+                failures.append(
+                    f"rid {req.rid}: tokens diverge from one-shot generate "
+                    f"(got {got.tolist()[:8]}..., ref {ref.tolist()[:8]}...)")
+            continue
+        # the first token is gated by the near-argmax law with the rest:
+        # K3's prefill and generate's plain one differ in their last bits,
+        # which flips a near-tie (a 0.625-logit gap on an H100; PERF.md)
+        ref0 = int(generate(params, req.prompt[None], cfg, max_new_tokens=1,
+                            kv_quant=kv_quant, cache_capacity=capacity,
+                            device=params["embed"].device)[0, 0])
+        firsts.append((int(got[0]), ref0))
+        gaps.append(argmax_gaps(params, cfg, req.prompt, got,
+                                capacity=capacity, kv_quant=kv_quant).cpu())
+    if exact:
+        return failures, {"checked": len(reqs), "exact": True}
+    g = torch.cat(gaps) if gaps else torch.zeros(0)
+    worst = float(g.max()) if g.numel() else 0.0
+    read = {"checked": len(reqs), "exact": False, "first_tokens": firsts,
+            "first_tokens_equal": sum(a == b for a, b in firsts),
+            "tokens": int(g.numel()), "argmax_tokens": int((g == 0).sum()),
+            "max_gap": worst, "atol": FRONTIER_ARGMAX_ATOL}
+    if not worst <= FRONTIER_ARGMAX_ATOL:
+        failures.append(f"near-argmax law: an emitted token's logit lies "
+                        f"{worst} under its row's maximum, over "
+                        f"{FRONTIER_ARGMAX_ATOL}")
+    return failures, read
+
+
+def _refusal(args) -> str | None:
+    second_half = [
+        ("--replicas", args.replicas not in (None, 1)),
+        ("--tp", args.tp not in (None, 0, 1)),
+        ("--disaggregate", args.disaggregate),
+        ("--inject-fault", args.inject_fault is not None),
+        ("--deadline-ms", args.deadline_ms is not None),
+        ("--swap-at", args.swap_at is not None),
+        ("--swap-ckpt", args.swap_ckpt is not None),
+        ("--watchdog-timeout", args.watchdog_timeout is not None),
+        ("--max-queue", args.max_queue is not None),
+        ("--burst-ms", args.burst_ms is not None),
+        ("--export-timeline", args.export_timeline)]
+    for flag, given in second_half:
+        if given:
+            return (f"{flag} is not ported yet: the fleet, tensor-parallel "
+                    f"serving and the disaggregated handoff are {A11_REST}")
+    if args.plan is not None:
+        return f"--plan is not ported yet: the tuner is {A12}"
+    return None
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Poisson traffic through the serving engine + SLO "
+                    "report")
+    p.add_argument("--model", default="TINY_LM")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (the plain path)")
+    p.add_argument("--requests", type=int, default=64)
+    p.add_argument("--rate", type=float, default=16.0,
+                   help="mean arrival rate, requests/s (default 16)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--page-size", type=int, default=8)
+    p.add_argument("--max-seq-len", type=int, default=80)
+    p.add_argument("--prefill-chunk", type=int, default=16)
+    p.add_argument("--sync-every", type=int, default=4)
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 paged KV pool (+f32 row scales)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="radix prefix cache over KV pages")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative decoding: K draft proposals a "
+                        "macro-step, one (B, K+1) verify (0 = off)")
+    p.add_argument("--draft-layers", type=int, default=1,
+                   help="draft depth for --spec-k: the target's first N "
+                        "layers")
+    p.add_argument("--flash-prefill", action="store_true",
+                   help="batched multi-request prefill (on the card it is "
+                        "on unless --kv-quant)")
+    p.add_argument("--tenants", type=int, default=0,
+                   help="tenant-skewed trace: N tenants with shared "
+                        "system prompts (0 = plain bimodal trace)")
+    p.add_argument("--overlap-frac", type=float, default=0.6,
+                   help="share of requests opening with a tenant's system "
+                        "prompt (needs --tenants)")
+    p.add_argument("--sys-len", type=int, default=16,
+                   help="shared system-prompt length for --tenants")
+    p.add_argument("--hbm-budget-gb", type=float, default=None,
+                   help="cap the pool through the capacity planner "
+                        "(serving.accounting.pool_capacity_pages)")
+    p.add_argument("--param-scale", type=float, default=3.0)
+    p.add_argument("--check-parity", type=int, default=4, metavar="N",
+                   help="hold the first N requests against one-shot "
+                        "generate (0 disables)")
+    p.add_argument("--profile", action="store_true",
+                   help="torch.profiler window over the run's early "
+                        "rounds (utils.profiling.Profiler)")
+    p.add_argument("--trace-dir", default="profiler_traces")
+    p.add_argument("--results-dir", default=None,
+                   help="where the run directory goes (default RESULTS_DIR "
+                        "or ./runs)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve live Prometheus metrics on this port for "
+                        "the run (0 = an ephemeral port)")
+    # refused: the fleet, TP serving, disaggregation (A11's second half)
+    # and the tuner (A12)
+    p.add_argument("--replicas", type=int, default=None)
+    p.add_argument("--tp", type=int, default=None)
+    p.add_argument("--disaggregate", action="store_true")
+    p.add_argument("--inject-fault", default=None)
+    p.add_argument("--deadline-ms", type=float, default=None)
+    p.add_argument("--swap-at", type=int, default=None)
+    p.add_argument("--swap-ckpt", default=None)
+    p.add_argument("--watchdog-timeout", type=float, default=None)
+    p.add_argument("--max-queue", type=int, default=None)
+    p.add_argument("--burst-ms", type=float, default=None)
+    p.add_argument("--export-timeline", action="store_true")
+    p.add_argument("--plan", default=None)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    refused = _refusal(args)
+    if refused is not None:
+        print(f"[serve] {refused}", file=sys.stderr)
+        return 2
+    dev = resolve_device(args.device)
+    card = dev.type == "cuda"
+    cfg = model_config(args.model)
+    params = build_params(cfg, args.seed, args.param_scale, dev)
+    rng = np.random.default_rng(args.seed)
+    trace = build_trace(rng, args.requests, args.rate, cfg.vocab_size,
+                        args.max_seq_len, tenants=args.tenants,
+                        overlap_frac=args.overlap_frac, sys_len=args.sys_len)
+    flash = (not args.kv_quant) if card else args.flash_prefill
+    run_cfg = {"num_steps": 0, "batch_size": args.max_batch,
+               "sequence_length": args.max_seq_len, "seed": args.seed,
+               "requests": args.requests, "rate": args.rate,
+               "page_size": args.page_size, "tp": 1,
+               "kv_quant": args.kv_quant, "disaggregate": False,
+               "prefix_cache": args.prefix_cache, "spec_k": args.spec_k,
+               "draft_layers": args.draft_layers if args.spec_k else None,
+               "flash_prefill": flash, "paged_kernel": card,
+               "tenants": args.tenants,
+               "overlap_frac": args.overlap_frac if args.tenants else None}
+    prof = None
+    if args.profile:
+        # serving has no fixed step count: trace a window early enough to
+        # catch steady decode bursts
+        prof = Profiler(trace_dir=args.trace_dir, schedule=SERVE_SCHEDULE)
+    failures = []
+    with TelemetryRun("serving", model=args.model, config=run_cfg,
+                      device=dev, profiler=prof,
+                      results_dir=args.results_dir,
+                      metrics_port=args.metrics_port) as telem:
+        if telem.metrics_server is not None:
+            print(f"[serve] metrics: {telem.metrics_server.url}", flush=True)
+        eng = ServingEngine(
+            params, cfg, max_batch=args.max_batch, page_size=args.page_size,
+            max_seq_len=args.max_seq_len, prefill_chunk=args.prefill_chunk,
+            sync_every=args.sync_every, kv_quant=args.kv_quant,
+            hbm_budget_gb=args.hbm_budget_gb,
+            prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+            draft_layers=args.draft_layers if args.spec_k else None,
+            paged_kernel=card, flash_prefill=flash, device=dev,
+            telem=telem)
+        reqs = [eng.submit(prompt, max_new_tokens=new, arrival_s=t)
+                for t, prompt, new in trace]
+        eng.run()
+        slo = eng.slo_report()
+        print(f"[serve] {slo['completed']}/{slo['requests']} requests on "
+              f"{dev}, TTFT p50 {slo['ttft_ms']['p50']} ms p99 "
+              f"{slo['ttft_ms']['p99']} ms, per-token p50 "
+              f"{slo['per_token_ms']['p50']} ms, {slo['tokens_per_s']} "
+              f"tok/s", flush=True)
+        if "prefix_cache" in slo:
+            pc = slo["prefix_cache"]
+            print(f"[serve] prefix cache: hit rate {pc['hit_rate']} "
+                  f"({pc['hit_pages']}/{pc['lookup_pages']} pages), "
+                  f"{pc['evictions']} evictions", flush=True)
+        if "speculative" in slo:
+            sp = slo["speculative"]
+            print(f"[serve] speculative k={sp['k']}: acceptance "
+                  f"{sp['acceptance_rate']} ({sp['accepted']}/"
+                  f"{sp['proposed']}), "
+                  f"{slo['scheduler']['decode_steps_per_token']} decode "
+                  f"steps/token", flush=True)
+        if slo["completed"] != args.requests:
+            failures.append(f"only {slo['completed']}/{args.requests} "
+                            f"requests completed")
+        checked = reqs[:args.check_parity]
+        fails, parity = check_parity(params, cfg, checked,
+                                     capacity=eng.view_capacity,
+                                     kv_quant=args.kv_quant,
+                                     exact=not card)
+        failures += fails
+        if checked:
+            law = "first tokens, near-argmax" if card else "bitwise"
+            print(f"[serve] parity vs generate ({law}): "
+                  f"{json.dumps(parity)}", flush=True)
+        slo["parity_checked"] = len(checked)
+        slo["parity"] = parity
+        slo["failures"] = failures
+        telem.finalize(serving=slo)
+
+    print(json.dumps(slo, indent=1))
+    for f in failures:
+        print(f"[serve] FAIL: {f}", file=sys.stderr, flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
