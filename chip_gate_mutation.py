@@ -169,6 +169,25 @@ resilience mutants edit a Python module of the port instead):
   (``serving/engine.py``: the verify writes every row of its block at
   ``lengths``, not ``lengths + i``), whose near-argmax law at 4 and 36
   draft layers and the acceptance limit at 36 must fail.
+- four of the serving fleet, TP serving and the handoff (phase 19, the
+  port's Python; each child runs only its sub-phase):
+  ``failover_no_replay_reset`` (``serving/scheduler.py``: a failover
+  requeues the dead replica's requests without ``reset_for_replay``, so
+  they keep their partial tokens), whose bit-equality against the
+  undisturbed fleet after the kill and after the hang (``fleet kill
+  tokens``, ``fleet hang tokens``, 19a) must fail;
+  ``serve_tp_rejoin_dropped`` (``serving/engine.py``: the layer body
+  leaves out the rejoin after attention, which changes no value at one
+  rank), whose count against the generated ``serve_decode`` contract
+  (``tp serve collectives``, 19d) must fail; ``handoff_page_off``
+  (``serving/engine.py``: the handoff writes each prompt page's rows
+  into the decode page one before its own), whose bit-equality against
+  the engine without ``disaggregate`` on both pools (``disaggregated
+  float tokens``, ``disaggregated int8 tokens``, 19e) must fail; and
+  ``swap_in_flight`` (``serving/engine.py``: ``drained()`` says yes with
+  requests in flight, so the hot-swap installs the new weights under
+  them), whose old-or-new law (``fleet swap old-or-new``, 19c) must
+  fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -381,6 +400,20 @@ MUTANTS = [
      "    apos = lengths[:, None] + 0 * ar[None, :]", "frontier",
      ("frontier spec 4 near-argmax", "frontier spec 36 near-argmax",
       "frontier spec 36 acceptance")),
+    ("failover_no_replay_reset", "serving/scheduler.py",
+     "            reset_for_replay(req)", "            pass",
+     "fleet_failover", ("fleet kill tokens", "fleet hang tokens")),
+    ("serve_tp_rejoin_dropped", "serving/engine.py",
+     "        attn_out = C.all_reduce(attn_out, tp_axis)",
+     "        attn_out = attn_out", "fleet_tp", ("tp serve collectives",)),
+    ("handoff_page_off", "serving/engine.py",
+     "        pre = torch.as_tensor(src, device=self._prefill_dev)",
+     "        pre = torch.as_tensor(src[1:] + src[:1], "
+     "device=self._prefill_dev)", "fleet_disagg",
+     ("disaggregated float tokens", "disaggregated int8 tokens")),
+    ("swap_in_flight", "serving/engine.py",
+     "        return not self.batcher.has_work()", "        return True",
+     "fleet_swap", ("fleet swap old-or-new",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -618,6 +651,71 @@ try:
     c.resilience_phase(c.card_line())
 finally:
     c.mesh.destroy_process_group()
+""", "fleet_failover": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+card = c.card_line()
+c.failover_phase(c.build_params(), card)
+""", "fleet_swap": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+card = c.card_line()
+c.swap_phase(card)
+""", "fleet_tp": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+card = c.card_line()
+c.mesh.init_process_group("cuda")
+try:
+    params = c.build_params()
+    eng, reqs, _ = c.serve_phase(params, np.random.default_rng(c.SEED), card)
+    serve = ([r.prompt for r in reqs], [list(r.tokens) for r in reqs])
+    del eng, reqs
+    c.tp_serve_phase(params, serve, card)
+finally:
+    c.mesh.destroy_process_group()
+""", "fleet_disagg": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+card = c.card_line()
+rng = np.random.default_rng(c.SEED)
+params = c.build_params()
+eng, reqs, _ = c.serve_phase(params, rng, card)
+serve = ([r.prompt for r in reqs], [list(r.tokens) for r in reqs])
+del eng, reqs
+params_q8 = c.quantize_decode_params(params, c.CFG)
+eng, reqs, _ = c.int8_serve_phase(params_q8, rng, card)
+q8 = ([r.prompt for r in reqs], [list(r.tokens) for r in reqs])
+del eng, reqs
+c.disagg_phase(params, params_q8, serve, q8, card)
 """}
 
 

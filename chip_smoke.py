@@ -8,8 +8,9 @@ DDP and ZeRO-1/2/3 on the ZeRO toy MLP, the pipeline schedules, the
 remat policies, preempt → resume under the run harness, the
 mixture-of-experts model, tensor and sequence parallelism and the
 composable dp x fsdp x tp step with FSDP's auto variant (one NCCL
-rank), and the serving frontier (the prefix cache and speculative
-decoding).
+rank), the serving frontier (the prefix cache and speculative
+decoding), and the serving fleet (failover, shedding, hot-swap),
+tensor-parallel and disaggregated serving and the MoE serve.
 
     python3 chip_smoke.py
 
@@ -258,6 +259,35 @@ Phases, each of which fails the run:
    token within ``FRONTIER_ARGMAX_ATOL`` of its row's maximum logit.
    Phase 2 holds K3 at the verify's (8, 4) block and K4 at its M 32 rows
    (``K4_VERIFY_M``, the ``mma.sync`` design) too.
+19. the fleet, TP serving, disaggregation and the MoE serve — on
+   phase 18's SmolLM3-3B and ``ENGINE``'s flags unless named: (a) two
+   replicas on cuda:0 (``serving.Fleet``) serve ``fleet_trace`` (phase
+   18d's tenant trace, 16 requests of 64 new tokens, every arrival at
+   virtual time 0) undisturbed, then with ``kill_replica@1:1``, then with
+   ``hang_decode@1:0`` under a 2 s watchdog: zero dropped, one
+   ``replica_dead`` event with the fault's trigger, the survivor's pool
+   empty, K1 and K3 exact over both replicas' dispatched steps and
+   chunks, plain calls 0, the hang bounded, every request's tokens
+   bit-equal to the undisturbed fleet's; (b) one replica, a modeled
+   queue two deep and a deadline on the odd requests: the shed set and
+   its ``Rejection`` records equal to the port's router replayed on the
+   host, both reasons, every admitted request complete; (c) two replicas
+   of SmolLM3-3B-L8 (full width) hot-swap to new weights (x3, another
+   seed) saved with the port's ``Checkpointer``: zero dropped, each
+   request on one weight set by the near-argmax law (``_weights_law``),
+   both sets served, the requests after the swap on the new ones; then
+   ``corrupt_swap``: the old weights kept, the warning printed; (d) the
+   engine under ``mesh`` at tp 1 on the one-rank group: phase 3's
+   tokens bit for bit and the shim's calls equal to the generated
+   ``serve_decode`` contract (2 x 36 all_reduces a pass); (e)
+   ``disaggregate`` on ``("cuda:0", "cuda:0")``: phase 3's tokens
+   (``ENGINE``) and phase 7's (``INT8_ENGINE``, K2 and K4 exact) bit for
+   bit, each handoff's device time and bytes logged; (f) ``MOE_SERVE_CFG``
+   (SmolLM3-3B-L8-MoE, no drops) at bf16 and with int8 projections (K4):
+   launches exact and the near-argmax law against ``generate``; (g)
+   ``train.serve_bench`` at ``TWIN_FLEET_ARGS``: exit 0 and the
+   reference's fleet keys (``FLEET_KEYS``).  Phase 2 holds K1, K2 and K3
+   on a tensor-parallel rank's local heads (``LOCAL_KV_HEADS``) too.
 
 After each serving path's gates, a second serve run of the same shape
 under ``torch.profiler`` reports the device's busy share and its top
@@ -290,6 +320,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import shutil
@@ -342,10 +373,15 @@ from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
 from distributed_training_sandbox_tpu_torch.utils import mesh
 from distributed_training_sandbox_tpu_torch.utils.profiling import (
     ProfileSchedule)
+from distributed_training_sandbox_tpu_torch.resilience import (
+    Checkpointer, RunState)
 from distributed_training_sandbox_tpu_torch.serving import engine as E
+from distributed_training_sandbox_tpu_torch.serving import (
+    AdmissionController, Fleet, Rejection, Request, Router)
 from distributed_training_sandbox_tpu_torch.serving.accounting import (
     kv_bytes_per_step, tree_bytes, weight_read_bytes)
 from distributed_training_sandbox_tpu_torch.serving.kv_pool import PagedKVPool
+from distributed_training_sandbox_tpu_torch.serving.traces import build_trace
 
 SEED = 0
 CFG = T.SMOLLM3_3B
@@ -726,6 +762,47 @@ SERVING_KEYS = {
     "speculative": ["acceptance_rate", "accepted", "draft_layers",
                     "draft_steps", "k", "proposed"],
     "parity_checked": None, "failures": None}
+# the keys of the reference fleet's report (serve_bench's ``fleet``
+# block) but its recompile watch; a dict's value lists its keys
+# (tests/test_torch_fleet.py holds it to the reference)
+FLEET_KEYS = {
+    "replicas": None, "live": None, "submitted": None, "shed": None,
+    "completed": None, "dropped": None, "ttft_ms": ["p50", "p99"],
+    "per_token_ms": ["p50", "p99"],
+    "admission": ["burst_s_prior", "max_queue", "offered", "shed",
+                  "total_slots"],
+    "rejections": None, "replica_slo": None, "events": None}
+# Phase 19.  19a, 19c, 19g's trace (fleet_trace): phase 18d's tenant trace
+# (TWIN_ARGS), every request NEW_TOKENS new, every arrival at virtual time
+# 0 so that dispatch does not depend on the host's clock; 19a's hang leg
+# under a 2 s watchdog, bounded by the watchdog + 60 s
+FLEET = dict(requests=16, tenants=2, max_seq_len=80, watchdog_s=2.0,
+             hang_slack_s=60.0)
+# 19b: one replica, a modeled queue two deep, a frozen 50 ms prior; the
+# odd requests carry an 80 ms deadline, under two modeled bursts, so that
+# both reasons shed
+SHED = dict(requests=24, max_queue=2, burst_s=0.05, deadline_s=0.08, new=16)
+# 19c: the hot-swap's model (full width, 8 layers: the save stays short),
+# the new weights' seed, the trigger, the requests that arrive after it,
+# the replicas' slots (4: the first wave's 12 requests outnumber them, so
+# that the swap finds requests in flight)
+SWAP_CFG = T.SMOLLM3_3B_L8
+SWAP = dict(seed=SEED + 19, after=2, wave2=4, max_batch=4)
+# 19f: SmolLM3-3B-L8-MoE with its capacity factor at its expert count, so
+# that no token is dropped: at 2.0 a token's expert would depend on its
+# batch neighbours and a request's tokens on where it ran
+MOE_SERVE_CFG = dataclasses.replace(T.SMOLLM3_3B_L8_MOE,
+                                    moe_capacity_factor=8.0)
+# 19f's batching law: these first requests, each served alone, against
+# the batched run
+MOE_ALONE = 3
+# 19g: the serve bench twin's fleet on one card, a replica killed
+TWIN_FLEET_ARGS = ["--model", "SMOLLM3_3B", "--requests", "16", "--replicas",
+                   "2", "--inject-fault", "kill_replica@2:1", "--device",
+                   "cuda:0"]
+# Phase 2's tensor-parallel shapes: SmolLM3-3B's 16 query and 4 KV heads
+# at tp 2 and 4 leave a rank 2 and 1 KV heads of 4 query rows each
+LOCAL_KV_HEADS = (2, 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -1212,6 +1289,107 @@ def q8_decode_phase(rng, gen) -> dict:
                    b_ms, b_by)
     entry.update(eager_ms=k_eager, library_eager_ms=l_eager)
     return entry
+
+
+def local_heads_phase() -> dict:
+    """K1, K2 and K3 on a tensor-parallel rank's local heads
+    (``LOCAL_KV_HEADS`` KV heads of 4 query rows: SmolLM3-3B at tp 2 and
+    4) at the serve's B, pages and contexts: each against its plain
+    version at its module's tolerance (K2 at ``TOLERANCE_Q8``), timed in
+    CUDA-graph replays beside SDPA on the gathered view and its byte
+    bound.  Draws from its own seed, so that the phases after it see
+    the smoke's draws."""
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    B, page = ENGINE["max_batch"], ENGINE["page_size"]
+    P, chunk = ENGINE["max_seq_len"] // page, ENGINE["prefill_chunk"]
+    hd = CFG.resolved_head_dim
+    rep = CFG.num_attention_heads // CFG.num_key_value_heads
+    n_pages, V, copies = B * P + 1, P * page, 4
+    plen = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=B)
+    dec = (plen + rng.integers(0, NEW_TOKENS, size=B))[:, None]
+    pre = ((plen - 1) // chunk * chunk)[:, None] + np.arange(chunk)[None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for nkv in LOCAL_KV_HEADS:
+        floats = _pools(gen, n_pages, page, nkv, hd, copies)
+        ints = _q8_pools(gen, n_pages, page, nkv, hd, copies)
+        for name, apos_np in (("paged_decode", dec), ("flash_prefill", pre),
+                              ("paged_decode_q8", dec)):
+            S = apos_np.shape[1]
+            apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
+            pages = _page_table(rng, apos_np.max(axis=1), page, P, n_pages)
+            q = torch.randn((B, S, nkv, rep, hd), generator=gen,
+                            device="cuda", dtype=CFG.dtype)
+            if name == "paged_decode_q8":
+                qq, qs = Q.quantize_int8(q.float())
+                pools, (atol, rtol), item = ints, PA.TOLERANCE_Q8, 1
+
+                def fn(kq, ks, vq, vs):
+                    return PA.paged_attention_decode(
+                        qq, kq, vq, pages, apos, q_scale=qs, pk_s=ks,
+                        pv_s=vs)
+
+                def plain(kq, ks, vq, vs):
+                    return PA.paged_attention_plain_q8(qq, qs, kq, vq, ks,
+                                                       vs, pages, apos)
+
+                sd = [_sdpa_inputs((qq.float() * qs).to(CFG.dtype),
+                                   (kq.float() * ks).to(CFG.dtype),
+                                   (vq.float() * vs).to(CFG.dtype), pages,
+                                   apos) for kq, ks, vq, vs in pools]
+            else:
+                mod = PA if name == "paged_decode" else FP
+                kern = (PA.paged_attention_decode if name == "paged_decode"
+                        else FP.paged_flash_prefill)
+                ref_fn = (PA.paged_attention_plain if name == "paged_decode"
+                          else FP.paged_flash_prefill_plain)
+                pools, (atol, rtol) = floats, mod.TOLERANCE[CFG.dtype]
+                item = q.element_size()
+
+                def fn(k, v, kern=kern):
+                    return kern(q, k, v, pages, apos)
+
+                def plain(k, v, ref_fn=ref_fn):
+                    return ref_fn(q, k, v, pages, apos)
+
+                sd = [_sdpa_inputs(q, k, v, pages, apos) for k, v in pools]
+            got = fn(*pools[0])
+            torch.cuda.synchronize()
+            ref = plain(*pools[0])
+            err = float((got - ref).abs().max())
+            ratio = gate_ratio(got, ref, atol, rtol)
+            label = f"{name} on {nkv} local KV heads"
+            check(torch.isfinite(got).all(), f"{label}: non-finite output")
+            check(ratio <= 1.0, f"{label}: max |kernel - plain| = {err} "
+                  f"over atol {atol} rtol {rtol} (gate ratio {ratio:.3f})")
+            it = iter(range(10 ** 9))
+            k_ms = graph_ms(lambda: fn(*pools[next(it) % copies]))
+            p_ms = time_ms(lambda: plain(*pools[next(it) % copies]), iters=5)
+            l_ms = graph_ms(lambda: sdpa(*sd[next(it) % copies][:3],
+                                         attn_mask=sd[0][3],
+                                         enable_gqa=True))
+            vis = np.minimum(apos_np, V - 1) + 1
+            kv_rows = vis.max(axis=1).sum()
+            scales = 4 if name == "paged_decode_q8" else 0
+            nbytes = (q.numel() * item + kv_rows * nkv * (hd * item + scales)
+                      * 2 + got.numel() * 4 + pages.numel() * 4
+                      + apos.numel() * 4)
+            flops = float(vis.sum()) * nkv * rep * hd * 4
+            b_ms, b_by = bound(nbytes, flops,
+                               PEAK_INT8_OPS if scales else PEAK_BF16_FLOPS)
+            log(f"{label}: max_abs_err {err:.3e} (gate ratio {ratio:.4f}); "
+                f"kernel {k_ms:.5f} ms (graph replays), plain {p_ms:.4f} "
+                f"ms, SDPA {l_ms:.5f} ms (graph), bound {b_ms:.6f} ms by "
+                f"{b_by}")
+            out[f"{name}@nkv{nkv}"] = {
+                "max_abs_err": err, "ratio": ratio, "ms": k_ms,
+                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+            del sd
+        del floats, ints
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------- serve phase
@@ -5644,6 +5822,497 @@ def frontier_phase(params, params_q8, serve_prompts, vanilla, card):
              "serve twin": ld})
 
 
+# ------------------- phase 19: the fleet, TP, disaggregation, MoE serve
+
+def fleet_trace(n=None):
+    """Phase 19's prompts: phase 18d's tenant trace (``TWIN_ARGS``: two
+    tenants' 16-token system prompts, prompts capped by the twin's 80
+    positions), ``n`` requests."""
+    rng = np.random.default_rng(SEED)
+    return [p for _, p, _ in build_trace(
+        rng, n or FLEET["requests"], 16.0, CFG.vocab_size,
+        FLEET["max_seq_len"], tenants=FLEET["tenants"], overlap_frac=0.6)]
+
+
+def _reset_serve_counts():
+    for c in (PA.COUNTS, PA.Q8_COUNTS, FP.COUNTS, Q.INT8_COUNTS):
+        c.reset()
+
+
+def _serve_launches(label, engines, L, *, q8=False, int8_w=0) -> dict:
+    """The launches and plain calls since the last reset against what the
+    engines' dispatched decode steps and prefill chunks predict: K1 (K2
+    on an int8 pool) a layer a step, K3 a layer a chunk (none on an int8
+    pool: its prefill gathers), K4 ``int8_w`` a step and a chunk; plain
+    calls 0.  Returns each kernel's launches."""
+    steps = sum(e.stats["decode_steps"] for e in engines)
+    chunks = sum(e.stats["prefill_chunks"] for e in engines)
+    got = {"paged_decode": (PA.COUNTS.launches, PA.COUNTS.plain_calls),
+           "paged_decode_q8": (PA.Q8_COUNTS.launches,
+                               PA.Q8_COUNTS.plain_calls),
+           "flash_prefill": (FP.COUNTS.launches, FP.COUNTS.plain_calls),
+           "int8_matmul": (Q.INT8_COUNTS.launches,
+                           Q.INT8_COUNTS.plain_calls)}
+    want = {"paged_decode": (0 if q8 else steps * L, 0),
+            "paged_decode_q8": (steps * L if q8 else 0, 0),
+            "flash_prefill": (0 if q8 else chunks * L, 0),
+            "int8_matmul": ((steps + chunks) * int8_w, 0)}
+    log(f"{label} launches (kernel, plain): {json.dumps(got)} for {steps} "
+        f"decode steps and {chunks} prefill chunks")
+    check(got == want, f"{label} launches: {json.dumps(got)} != "
+          f"{json.dumps(want)}")
+    return {k: v[0] for k, v in got.items() if v[0]}
+
+
+def _fleet_run(params, prompts, **kw):
+    """Two replicas of ``CFG`` on cuda:0 with ``ENGINE``'s flags, every
+    prompt submitted at virtual time 0 with ``NEW_TOKENS`` new and
+    driven to the end; the kernels' counts are reset just before the
+    run."""
+    fleet = Fleet(params, CFG, replicas=2, device="cuda:0", **kw, **ENGINE)
+    reqs = [fleet.submit(p, max_new_tokens=NEW_TOKENS, arrival_s=0.0)
+            for p in prompts]
+    torch.cuda.synchronize()
+    _reset_serve_counts()
+    t = time.perf_counter()
+    fleet.run()
+    torch.cuda.synchronize()
+    return fleet, reqs, time.perf_counter() - t
+
+
+def _fleet_reading(fleet, reqs, wall) -> dict:
+    slo = fleet.slo_report()
+    toks = sum(len(r.tokens) for r in reqs)
+    return {"wall_s": wall, "tokens_per_s": toks / wall,
+            "ttft_ms": slo["ttft_ms"], "per_token_ms": slo["per_token_ms"],
+            "events": [e["event"] for e in slo["events"]],
+            "bursts": [r.bursts for r in fleet.replicas]}
+
+
+def failover_phase(params, card: str) -> tuple[dict, dict]:
+    """19a: two replicas on cuda:0 serve ``fleet_trace`` undisturbed,
+    then with ``kill_replica@1:1``, then with ``hang_decode@1:0`` under
+    a ``FLEET["watchdog_s"]`` watchdog.  Gates: zero dropped, one
+    ``replica_dead`` event with the fault's trigger, the survivor's pool
+    empty at the end, launches exact over both replicas' dispatched
+    steps (the victim's included), plain calls 0, the hang bounded, and
+    every request's tokens bit-equal to the undisturbed fleet's."""
+    prompts, L = fleet_trace(), CFG.num_hidden_layers
+    base, breqs, wall = _fleet_run(params, prompts, watchdog_timeout_s=0.0)
+    check(base.dropped() == [] and not base.events,
+          f"fleet undisturbed: dropped {base.dropped()}, events "
+          f"{base.events}")
+    launches = _serve_launches("fleet undisturbed",
+                               [r.engine for r in base.replicas], L)
+    want = {r.rid: list(r.tokens) for r in breqs}
+    out = {"undisturbed": _fleet_reading(base, breqs, wall)}
+    del base
+    for label, fault, trigger, victim, wd in (
+            ("kill", "kill_replica@1:1", "WorkerLost", 1, 0.0),
+            ("hang", "hang_decode@1:0", "StepTimeoutError", 0,
+             FLEET["watchdog_s"])):
+        fleet, reqs, wall = _fleet_run(params, prompts,
+                                       watchdog_timeout_s=wd, fault=fault)
+        dead = [e for e in fleet.events if e["event"] == "replica_dead"]
+        survivor = fleet.replicas[1 - victim].engine
+        check(fleet.dropped() == [],
+              f"fleet {label}: dropped {fleet.dropped()}")
+        check(len(dead) == 1 and dead[0]["replica"] == victim
+              and dead[0]["trigger"] == trigger,
+              f"fleet {label}: replica_dead events {dead}")
+        check(survivor.pool.allocator.free_pages == survivor.n_pages - 1,
+              f"fleet {label}: the survivor's pool holds "
+              f"{survivor.pool.allocator.pages_in_use} pages at the end")
+        got = _serve_launches(f"fleet {label}",
+                              [r.engine for r in fleet.replicas], L)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if label == "hang":
+            check(wall < wd + FLEET["hang_slack_s"],
+                  f"fleet hang: {wall:.1f} s, over the watchdog's {wd} s "
+                  f"+ {FLEET['hang_slack_s']} s")
+        diff = [r.rid for r in reqs if list(r.tokens) != want[r.rid]]
+        check(not diff, f"fleet {label} tokens: requests {diff} are not "
+              f"bit-equal to the undisturbed fleet's")
+        out[label] = {**_fleet_reading(fleet, reqs, wall),
+                      "requeued": dead[0]["requeued"] if dead else None}
+        del fleet
+    log(f"fleet failover on {card}: {json.dumps(out)}")
+    return out, launches
+
+
+def shed_phase(params, card: str) -> tuple[dict, dict]:
+    """19b: one replica, a ``SHED["max_queue"]``-deep modeled queue, a
+    frozen prior, ``SHED["requests"]`` arrivals at virtual time 0, the
+    odd ones with a deadline.  Gates: the shed set and every
+    ``Rejection`` record equal to the port's router replayed on the host
+    over the same arrivals, both reasons shed, every admitted request
+    completed."""
+    prompts = fleet_trace(SHED["requests"])
+    dl = [SHED["deadline_s"] if i % 2 else None for i in range(len(prompts))]
+    kw = dict(max_queue=SHED["max_queue"], calibrate=False)
+    fleet = Fleet(params, CFG, replicas=1, device="cuda:0",
+                  watchdog_timeout_s=0.0, burst_s_prior=SHED["burst_s"],
+                  max_queue=kw["max_queue"], calibrate_admission=False,
+                  **ENGINE)
+    out = [fleet.submit(p, max_new_tokens=SHED["new"], arrival_s=0.0,
+                        deadline_s=d) for p, d in zip(prompts, dl)]
+    router = Router(AdmissionController(
+        ENGINE["max_batch"], burst_s=SHED["burst_s"],
+        steps_per_burst=ENGINE["sync_every"], **kw))
+    for i, (p, d) in enumerate(zip(prompts, dl)):
+        router.submit(Request(rid=i, prompt=p, max_new_tokens=SHED["new"],
+                              arrival_s=0.0), d)
+    shed = [r.as_dict() for r in out if isinstance(r, Rejection)]
+    check(shed == [r.as_dict() for r in router.rejections],
+          f"fleet shed: {shed} != the host router's "
+          f"{[r.as_dict() for r in router.rejections]}")
+    reasons = sorted({r["reason"] for r in shed})
+    check(reasons == ["deadline", "queue_full"],
+          f"fleet shed: reasons {reasons}, not both")
+    admitted = [r for r in out if isinstance(r, Request)]
+    torch.cuda.synchronize()
+    _reset_serve_counts()
+    t = time.perf_counter()
+    fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(fleet.dropped() == [] and all(
+        len(r.tokens) == SHED["new"] for r in admitted),
+        f"fleet shed: dropped {fleet.dropped()}")
+    launches = _serve_launches("fleet shed", [fleet.replicas[0].engine],
+                               CFG.num_hidden_layers)
+    read = {"admitted": len(admitted), "shed": len(shed),
+            "reasons": {x: sum(r["reason"] == x for r in shed)
+                        for x in reasons}, "wall_s": wall}
+    log(f"fleet shed on {card}: {json.dumps(read)}")
+    return read, launches
+
+
+def _weights_law(label, params_by_tag, cfg, reqs, capacity) -> dict:
+    """The old-or-new law: each request's tokens keep the near-argmax law
+    (``FRONTIER_ARGMAX_ATOL``) against ``generate`` on exactly one of the
+    weight sets.  Returns rid -> that set's tag."""
+    on = {}
+    for r in reqs:
+        gaps = {tag: float(serve_bench.argmax_gaps(
+            p, cfg, r.prompt, r.tokens, capacity=capacity).max())
+            for tag, p in params_by_tag.items()}
+        held = [t for t, g in gaps.items() if g <= FRONTIER_ARGMAX_ATOL]
+        check(len(held) == 1, f"{label} old-or-new: request {r.rid}'s "
+              f"largest gaps {json.dumps(gaps)} hold the law on {held}")
+        on[r.rid] = held[0] if len(held) == 1 else None
+    return on
+
+
+def swap_phase(card: str) -> tuple[dict, dict]:
+    """19c: two replicas of ``SWAP_CFG`` (full width, 8 layers) with
+    ``SWAP["max_batch"]`` slots each serve ``fleet_trace``; new weights
+    (x3, another seed) saved with the port's ``Checkpointer`` are
+    hot-swapped in after ``SWAP["after"]`` completions, with requests in
+    flight; ``SWAP["wave2"]`` more requests arrive after the swap ended.
+    Gates: the swap's events, zero dropped, launches exact, the
+    old-or-new law (each request wholly on one weight set), the later
+    wave on the new weights.
+    Then ``corrupt_swap``: the fleet keeps the old weights (the law on
+    every request), prints its warning, drops nothing."""
+    import tempfile
+    L = SWAP_CFG.num_hidden_layers
+    old = serve_bench.build_params(SWAP_CFG, SEED, PARAM_SCALE, "cuda")
+    new = serve_bench.build_params(SWAP_CFG, SWAP["seed"], PARAM_SCALE,
+                                   "cuda")
+    root = Path(tempfile.mkdtemp(prefix="swap19_"))
+    read = {}
+    try:
+        t = time.perf_counter()
+        ck = Checkpointer(root / "ckpt")
+        ck.save(RunState(params=new, step=0), wait=True)
+        ck.close()
+        read["save_s"] = time.perf_counter() - t
+        prompts = fleet_trace()
+        first, later = prompts[:-SWAP["wave2"]], prompts[-SWAP["wave2"]:]
+        eng = dict(ENGINE, max_batch=SWAP["max_batch"])
+        fleet = Fleet(old, SWAP_CFG, replicas=2, device="cuda:0",
+                      watchdog_timeout_s=0.0, max_queue=32, **eng)
+        wave1 = [fleet.submit(p, max_new_tokens=NEW_TOKENS, arrival_s=0.0)
+                 for p in first]
+        fleet.schedule_swap(root / "ckpt", after_completed=SWAP["after"])
+        torch.cuda.synchronize()
+        _reset_serve_counts()
+        t = time.perf_counter()
+        fleet.run()
+        names = [e["event"] for e in fleet.events]
+        check("swap_complete" in names and names.count("swap_replica") == 2
+              and names.index("swap_started") < names.index("swap_complete"),
+              f"fleet swap: events {names}")
+        wave2 = [fleet.submit(p, max_new_tokens=NEW_TOKENS, arrival_s=0.0)
+                 for p in later]
+        fleet.run()
+        torch.cuda.synchronize()
+        read["wall_s"] = time.perf_counter() - t
+        check(fleet.dropped() == [], f"fleet swap: dropped "
+              f"{fleet.dropped()}")
+        launches = _serve_launches("fleet swap",
+                                   [r.engine for r in fleet.replicas], L)
+        ev = {e["event"]: e["t_s"] for e in fleet.events}
+        read["swap_window_s"] = (ev.get("swap_complete", 0.0)
+                                 - ev.get("swap_started", 0.0))
+        check(read["swap_window_s"] > 0, f"fleet swap: the swap found no "
+              f"request in flight (events {fleet.events})")
+        cap = fleet.view_capacity
+        on = _weights_law("fleet swap", {"old": old, "new": new}, SWAP_CFG,
+                          wave1 + wave2, cap)
+        n1 = {t: sum(on[r.rid] == t for r in wave1) for t in ("old", "new")}
+        n2 = sum(on[r.rid] == "new" for r in wave2)
+        read.update(wave1=n1, wave2_new=n2)
+        check(n2 == len(wave2), f"fleet swap: {n2} of the {len(wave2)} "
+              f"requests after the swap ended are on the new weights")
+        del fleet
+        # the torn swap: the fleet keeps serving on the old weights
+        buf = io.StringIO()
+        fleet = Fleet(old, SWAP_CFG, replicas=2, device="cuda:0",
+                      watchdog_timeout_s=0.0, max_queue=32,
+                      fault="corrupt_swap", **eng)
+        reqs = [fleet.submit(p, max_new_tokens=NEW_TOKENS, arrival_s=0.0)
+                for p in first]
+        fleet.schedule_swap(root / "ckpt", after_completed=SWAP["after"])
+        with contextlib.redirect_stderr(buf):
+            fleet.run()
+        torch.cuda.synchronize()
+        warning = [ln for ln in buf.getvalue().splitlines()
+                   if "fleet keeps serving on the previous weights" in ln]
+        print(buf.getvalue(), end="", file=sys.stderr, flush=True)
+        names = [e["event"] for e in fleet.events]
+        check(bool(warning) and "swap_fault_injected" in names
+              and "swap_failed" in names and "swap_replica" not in names,
+              f"fleet corrupt swap: events {names}, warning {warning}")
+        check(fleet.dropped() == [], f"fleet corrupt swap: dropped "
+              f"{fleet.dropped()}")
+        on = _weights_law("fleet corrupt swap", {"old": old, "new": new},
+                          SWAP_CFG, reqs, cap)
+        check(all(v == "old" for v in on.values()),
+              f"fleet corrupt swap: {on}")
+        read["corrupt_warning"] = warning[0][:160] if warning else None
+        del fleet
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"fleet swap on {card}: {json.dumps(read)}")
+    return read, launches
+
+
+def tp_serve_phase(params, serve, card: str) -> tuple[dict, dict]:
+    """19d: the engine under ``mesh`` (a ``grid_axes`` of one tp rank, on
+    the one-rank group) and ``ENGINE``'s flags serves phase 3's requests:
+    tokens bit-equal to phase 3's engine, launches exact, and the shim's
+    calls equal to the generated ``serve_decode`` contract (2 · 36
+    all_reduces a layer-stack pass, nothing else) times the passes."""
+    prompts, want = serve
+    L = CFG.num_hidden_layers
+    grid = mesh.grid_axes(("tp",), (1,))
+    eng = E.ServingEngine(params, CFG, mesh=grid, tp_axis="tp", **ENGINE)
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    _reset_serve_counts()
+    C.COLLECTIVES.reset()
+    eng.run()
+    torch.cuda.synchronize()
+    counts = C.COLLECTIVES.read()
+    per = CG.generate_counts("serve_decode", params, CG.Ctx({"tp": 1}))
+    passes = eng.stats["decode_steps"] + eng.stats["prefill_chunks"]
+    expect = {k: v * passes for k, v in per.items()}
+    log(f"tp serve collectives: {json.dumps(C.COLLECTIVES.nonzero(counts))}"
+        f" over {passes} passes; the serve_decode contract "
+        f"{json.dumps(C.COLLECTIVES.nonzero(per))} a pass")
+    check(per["all_reduce"] == 2 * L and counts == expect,
+          f"tp serve collectives: {json.dumps(counts)} != "
+          f"{json.dumps(expect)}")
+    diff = [r.rid for r, w in zip(reqs, want) if list(r.tokens) != w]
+    check(not diff, f"tp serve tokens: requests {diff} differ from phase "
+          f"3's engine")
+    launches = _serve_launches("tp serve", [eng], L)
+    slo = eng.slo_report()
+    read = {"per_token_ms": slo["per_token_ms"], "ttft_ms": slo["ttft_ms"],
+            "tokens_per_s": slo["tokens_per_s"],
+            "all_reduce_per_step": per["all_reduce"]}
+    log(f"tp serve (tp 1) on {card}: {json.dumps(read)}")
+    return read, launches
+
+
+def disagg_phase(params, params_q8, serve, q8, card: str
+                 ) -> tuple[dict, dict]:
+    """19e: ``disaggregate`` on ``device=("cuda:0", "cuda:0")``: phase 3's
+    requests on ``ENGINE`` and phase 7's on ``INT8_ENGINE`` (int8
+    weights, the int8 pool), each against its phase's tokens bit for
+    bit (the handoff is pure data movement), launches exact (K2 and K4
+    on the int8 leg).  Each handoff's device time (CUDA events) and
+    bytes, logged beside the bytes' bound (read once, written once)."""
+    L = CFG.num_hidden_layers
+    launches, read = {}, {}
+    for label, p, kw, (prompts, want), q8_leg in (
+            ("float", params, ENGINE, serve, False),
+            ("int8", params_q8, INT8_ENGINE, q8, True)):
+        eng = E.ServingEngine(p, CFG, disaggregate=True,
+                              device=("cuda:0", "cuda:0"), **kw)
+        events, handoff = [], eng._handoff
+
+        def timed_handoff(req, handoff=handoff, events=events):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            handoff(req)
+            b.record()
+            events.append((a, b))
+
+        eng._handoff = timed_handoff
+        reqs = [eng.submit(x, max_new_tokens=NEW_TOKENS) for x in prompts]
+        torch.cuda.synchronize()
+        _reset_serve_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        diff = [r.rid for r, w in zip(reqs, want) if list(r.tokens) != w]
+        check(not diff, f"disaggregated {label} tokens: requests {diff} "
+              f"differ from the engine without disaggregate")
+        got = _serve_launches(f"disaggregated {label}", [eng], L, q8=q8_leg,
+                              int8_w=len(PROJECTIONS) * L + 1 if q8_leg
+                              else 0)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ms = [a.elapsed_time(b) for a, b in events]
+        h = eng.slo_report()["handoff"]
+        check(h["requests"] == len(prompts) == len(ms),
+              f"disaggregated {label}: {h['requests']} handoffs")
+        per = h["bytes_per_request"]
+        read[label] = {"bytes_per_request": per,
+                       "device_ms_per_request": statistics.mean(ms),
+                       "device_ms_max": max(ms),
+                       "host_ms_per_request": h["ms_total"] / len(ms),
+                       "bound_ms_per_request":
+                           2 * per / HBM_BYTES_PER_S * 1e3,
+                       "per_token_ms": eng.slo_report()["per_token_ms"]}
+        del eng
+    log(f"disaggregated handoff on {card}: {json.dumps(read)}")
+    return read, launches
+
+
+def _gap_reading(label, params, reqs, eng) -> dict:
+    """The near-argmax reading of ``reqs`` against ``generate`` (logged,
+    not gated): the largest gap and how many tokens are the exact
+    argmax."""
+    gaps = torch.cat([serve_bench.argmax_gaps(
+        params, eng.cfg, r.prompt, r.tokens, capacity=eng.view_capacity
+    ).cpu() for r in reqs])
+    read = {"tokens": int(gaps.numel()), "argmax": int((gaps == 0).sum()),
+            "max_gap": float(gaps.max()),
+            "gaps_over_atol": int((gaps > FRONTIER_ARGMAX_ATOL).sum())}
+    log(f"{label} near-argmax reading (not gated): {json.dumps(read)}")
+    return read
+
+
+def moe_serve_phase(prompts, card: str) -> tuple[dict, dict]:
+    """19f: ``MOE_SERVE_CFG`` (SmolLM3-3B-L8-MoE, full width, no drops)
+    served through the engine with ``ENGINE``'s flags at bf16 and with
+    ``quantize_decode_params`` (the attention projections and the
+    unembedding int8: K4).  Gates: launches exact, plain calls 0, and
+    the batching law: the first ``MOE_ALONE`` requests, each served
+    alone by the same engine, emit the batched run's tokens bit for bit
+    (slots, padding rows and the experts' buckets leave a row's
+    arithmetic alone).  The near-argmax reading against ``generate`` is
+    logged, and an f32 serve of the same model is read beside it."""
+    L = MOE_SERVE_CFG.num_hidden_layers
+    launches, read = {}, {}
+    legs = (("bf16", MOE_SERVE_CFG, False), ("int8", MOE_SERVE_CFG, True),
+            ("f32", dataclasses.replace(MOE_SERVE_CFG,
+                                        dtype=torch.float32), False))
+    for label, cfg, q8w in legs:
+        p = serve_bench.build_params(cfg, SEED, PARAM_SCALE, "cuda")
+        if q8w:
+            p = quantize_decode_params(p, cfg)
+        eng = E.ServingEngine(p, cfg, **ENGINE)
+        reqs = [eng.submit(x, max_new_tokens=NEW_TOKENS) for x in prompts]
+        torch.cuda.synchronize()
+        _reset_serve_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        got = _serve_launches(f"moe serve {label}", [eng], L,
+                              int8_w=4 * L + 1 if q8w else 0)
+        if label != "f32":
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            diff = []
+            for r in reqs[:MOE_ALONE]:
+                alone = E.ServingEngine(p, cfg, **ENGINE)
+                q = alone.submit(r.prompt, max_new_tokens=NEW_TOKENS)
+                alone.run()
+                if list(q.tokens) != list(r.tokens):
+                    diff.append(r.rid)
+            check(not diff, f"moe serve {label} batching law: requests "
+                  f"{diff} served alone differ from the batched run")
+        slo = eng.slo_report()
+        read[label] = {**_gap_reading(f"moe serve {label}", p, reqs, eng),
+                       "per_token_ms": slo["per_token_ms"],
+                       "ttft_ms": slo["ttft_ms"],
+                       "tokens_per_s": slo["tokens_per_s"]}
+        del eng, p
+        torch.cuda.empty_cache()
+    log(f"moe serve on {card}: {json.dumps(read)}")
+    return read, launches
+
+
+def fleet_twin_phase(card: str) -> tuple[dict, dict]:
+    """19g: ``train.serve_bench.main`` at ``TWIN_FLEET_ARGS`` (SmolLM3-3B,
+    two replicas on cuda:0, a replica killed): exit 0 (its own gates:
+    nothing dropped, completed + shed = offered, the first requests'
+    near-argmax law) and its ``fleet`` block with the reference's keys
+    (``FLEET_KEYS``)."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="fleet_twin_"))
+    _reset_serve_counts()
+    try:
+        rc = serve_bench.main([*TWIN_FLEET_ARGS, "--results-dir", str(out)])
+        torch.cuda.synchronize()
+        counts = {"paged_decode": PA.COUNTS.launches,
+                  "flash_prefill": FP.COUNTS.launches}
+        runs = [p for p in out.iterdir() if p.is_dir()]
+        block = json.loads((runs[0] / "summary.json").read_text()).get(
+            "fleet", {}) if len(runs) == 1 else {}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    missing = [k for k, sub in FLEET_KEYS.items() if k not in block or (
+        sub is not None and not set(sub) <= set(block[k]))]
+    shown = ("completed", "shed", "dropped", "live", "ttft_ms",
+             "per_token_ms", "parity", "failures")
+    log(f"fleet twin on {card}: rc {rc}, launches {json.dumps(counts)}, "
+        f"fleet {json.dumps({k: block.get(k) for k in shown})}, events "
+        f"{[e.get('event') for e in block.get('events', [])]}")
+    check(rc == 0 and not missing,
+          f"fleet twin: exit {rc}; fleet keys missing {missing}")
+    return block, counts
+
+
+def fleet_phase(params, params_q8, serve, q8, card):
+    """Phase 19 (the fleet, TP serving, disaggregation, the MoE serve):
+    19a-19g.  Returns the readings and each path's launches."""
+    t19 = time.perf_counter()
+    a, la = failover_phase(params, card)
+    b, lb = shed_phase(params, card)
+    d, ld = tp_serve_phase(params, serve, card)
+    e, le = disagg_phase(params, params_q8, serve, q8, card)
+    g, lg = fleet_twin_phase(card)
+    c, lc = swap_phase(card)
+    f, lf = moe_serve_phase(serve[0], card)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t19
+    log(f"phase 19 (the fleet, TP, disaggregation, MoE serve): "
+        f"{wall:.1f} s")
+    return ({"failover": a, "shed": b, "swap": c, "tp": d, "disagg": e,
+             "moe": f, "twin": {k: g.get(k) for k in (
+                 "completed", "shed", "dropped", "ttft_ms",
+                 "per_token_ms")}, "wall_s": wall},
+            {"fleet failover": la, "fleet shed": lb, "fleet swap": lc,
+             "tp serve": ld, "disaggregated": le, "moe serve": lf,
+             "fleet twin": lg})
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -6354,10 +7023,18 @@ def main(argv) -> int:
         kernels.extend(timed("kernels FA", attention_phase))
         timed("FA backward oracle", fa_bwd_oracle_gate)
         kernels.append(timed("kernel K7", ag_matmul_phase))
+        local = timed("kernels K1 K2 K3 on local heads", local_heads_phase)
+        for k in kernels:
+            mine = {key.split("@")[1]: v for key, v in local.items()
+                    if key.split("@")[0] == k["name"]}
+            if mine:
+                k["local_heads"] = mine
         params = timed("SMOLLM3_3B params", build_params)
         eng, reqs, launches = timed("serve", serve_phase, params, rng, card)
         # phase 18b serves the same requests, beside this serve's report
         serve_prompts, vanilla = [r.prompt for r in reqs], eng.slo_report()
+        # phase 19d and 19e hold their tokens to this serve's
+        serve = (serve_prompts, [list(r.tokens) for r in reqs])
         timed("parity", parity_phase, params, reqs, eng)
         timed("decode profile", decode_step_profile, eng, reqs, "serve",
               ENGINE["flash_prefill"])
@@ -6366,9 +7043,10 @@ def main(argv) -> int:
         params_q8 = timed("int8 params", quantize_decode_params, params, CFG)
         del params
         torch.cuda.empty_cache()
-        eng, reqs, q8 = timed("int8 serve", int8_serve_phase, params_q8, rng,
-                              card)
+        eng, reqs, q8_counts = timed("int8 serve", int8_serve_phase,
+                                     params_q8, rng, card)
         timed("int8 parity", int8_parity_phase, params_q8, reqs, eng)
+        q8 = ([r.prompt for r in reqs], [list(r.tokens) for r in reqs])
         timed("int8 decode profile", decode_step_profile, eng, reqs,
               "int8 serve", INT8_ENGINE["flash_prefill"])
         timed("int8 profile", profile_phase, params_q8, rng, INT8_ENGINE,
@@ -6429,6 +7107,9 @@ def main(argv) -> int:
         frontier, frontier_launches = timed(
             "serving frontier", frontier_phase, params, params_q8,
             serve_prompts, vanilla, card)
+        fleet, fleet_launches = timed(
+            "fleet, TP, disaggregation, MoE serve", fleet_phase, params,
+            params_q8, serve, q8, card)
         del params, params_q8
         torch.cuda.empty_cache()
     except SmokeFailure as e:
@@ -6442,12 +7123,12 @@ def main(argv) -> int:
                  for k in {**prec, **bench}}
     resilience = {k: v + res14["resumed_counts"][k]
                   for k, v in res14["counts"].items()}
-    paths = {"serve": launches, "int8 serve": q8, "train": fp8,
+    paths = {"serve": launches, "int8 serve": q8_counts, "train": fp8,
              "int8 train": i8, "fsdp train": fs, "pipeline": pp,
              "precision": precision, "resilience": resilience, "moe": moe,
              **tpsp_launches, "composable step": comp_launches,
              "composable twin": twin_launches, "fsdp auto": auto_launches,
-             **frontier_launches}
+             **frontier_launches, **fleet_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -6465,6 +7146,8 @@ def main(argv) -> int:
         f"twin {json.dumps(twin)}; fsdp auto {json.dumps(auto)}; laws "
         f"{json.dumps(law)}")
     log(f"serving frontier readings on {card}: {json.dumps(frontier)}")
+    log(f"fleet, TP, disaggregation and MoE serve readings on {card}: "
+        f"{json.dumps(fleet)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

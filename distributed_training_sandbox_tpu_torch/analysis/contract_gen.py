@@ -19,6 +19,8 @@ says how the two differ).  What the derivation reads from the rules:
 * the expert-sharded leaves: a layer that has them dispatches over ep
   (two all_to_alls and their inverses);
 * the axes a leaf is replicated on: one grad all_reduce a leaf;
+* for the serving steps (inference, the layer stack unrolled): only
+  the forward's rejoins, once a step;
 
 and the config (``overlap``, the wire format) rewrites the calls.
 
@@ -277,12 +279,25 @@ def _composable(rs: RuleSet, params, c: Ctx) -> dict:
     return out
 
 
+def _serve(rs: RuleSet, params, c: Ctx) -> dict:
+    """A serving step (the reference's ``_serve_counts``): inference
+    only, the layer stack unrolled, so a layer's rejoins — one a
+    row-parallel leaf — are made once a step and nothing else is."""
+    leaves, L = _leaves(rs, params), _n_layers(params)
+    out = _zero()
+    out["all_reduce"] = L * sum(1 for x in leaves if x.layer
+                                and len(x.spec) > 1
+                                and x.spec[1] == rs.axes[0])
+    return out
+
+
 def _pipeline(rs: RuleSet, params, c: Ctx) -> dict:
     return _zero()      # stages hand activations over by device copies
 
 
 _FAMILY = {"data": _data, "fsdp": _fsdp, "sp": _sp, "tp": _tp,
-           "moe": _moe, "composable": _composable, "pipeline": _pipeline}
+           "moe": _moe, "serve": _serve, "composable": _composable,
+           "pipeline": _pipeline}
 
 
 def generate_counts(strategy: str, params, ctx: Ctx | None = None,
@@ -370,6 +385,8 @@ HAND = {
     "tp_ring": _hand_tp("ring"),
     "tp_q8": _hand_tp("q8"),
     "moe": _hand_moe,
+    **{k: lambda params, c: HC.serve_step_collectives(params)
+       for k in HC.SERVE_STRATEGIES},
     "gpipe": _hand_pipeline("gpipe"),
     "1f1b": _hand_pipeline("1f1b"),
     # the replay exemplar: the generator's own, held against zero1's
@@ -451,6 +468,13 @@ def context_grid(strategy: str) -> list:
                                 out.append((tree, Ctx(
                                     {"dp": 2, "sp": sp, "tp": tp},
                                     remat=remat, accum_steps=accum)))
+    elif rs.family == "serve":
+        for L in (1, 2, 4):
+            for experts in (0, 4):
+                for tied in (True, False):
+                    tree = _tiny_tree(L, experts=experts, tied=tied)
+                    for tp in (1, 2, 4):
+                        out.append((tree, Ctx({"tp": tp}, remat=False)))
     elif rs.family == "moe":
         for L in (1, 2, 4):
             tree = _tiny_tree(L, experts=8)

@@ -29,8 +29,10 @@ rule already claimed (**shadowed**) an error;
 Trees are the port's: dicts (walked in sorted key order, as the
 reference's flatten walks them), lists and tuples (the index), and
 ``optim.AdamState`` (``mu``, ``nu``, ``count``).  Only ``.shape`` is
-read.  The serving rulesets wait for tensor-parallel serving (ROADMAP.md
-queue A item A11).
+read.  The serving rulesets (``serve_decode``, ``serve_decode_paged_
+kernel``, ``serve_decode_spec``, ``serve_prefill_flash``) place the
+tensor-parallel serving engine's weights (``serving/engine.py`` with
+``mesh``).
 """
 
 from __future__ import annotations
@@ -279,7 +281,7 @@ class RuleSet:
     fsdp)."""
     strategy: str
     family: str              # "data" | "fsdp" | "tp" | "sp" | "moe"
-    #                          | "composable" | "pipeline"
+    #                          | "serve" | "composable" | "pipeline"
     axes: tuple              # the axes the strategy's collectives span
     param_rules: tuple
     opt_rules: tuple = ()
@@ -427,6 +429,26 @@ def moe_ruleset(strategy: str, *, axis: str = "ep",
         description="switch-moe, experts sharded over ep")
 
 
+def serve_ruleset(strategy: str, *, axis: str = "tp",
+                  paged_kernel: bool = False,
+                  step: str = "decode") -> RuleSet:
+    """Serving steps: the Megatron weights at rest over tp, inference
+    only (no optimizer state; the KV pool and the request vectors ride
+    outside the rule universe).  ``step`` names the engine step —
+    "decode" (one token a slot), "spec_verify" (the (B, k+1)
+    speculative verify) or "prefill_flash" (the batched flash prefill
+    chunk); all share the layer body's two rejoins, unrolled over
+    depth."""
+    base = tp_ruleset(strategy, axis=axis)
+    return RuleSet(
+        strategy=strategy, family="serve", axes=(axis,),
+        param_rules=base.param_rules,
+        weight_update_sharding=0,
+        config={"paged_kernel": paged_kernel, "step": step},
+        description=f"serving {step} over tp"
+                    + (", paged-attention kernel" if paged_kernel else ""))
+
+
 def composable_ruleset(strategy: str, *, dp_axis: str = "dp",
                        fsdp_axis: str = "fsdp", tp_axis: str = "tp",
                        overlap: str = "none") -> RuleSet:
@@ -494,6 +516,13 @@ RULESETS: dict[str, RuleSet] = {
     "tp": tp_ruleset("tp"),
     "sp": sp_ruleset("sp"),
     "moe": moe_ruleset("moe"),
+    "serve_decode": serve_ruleset("serve_decode"),
+    "serve_decode_paged_kernel": serve_ruleset(
+        "serve_decode_paged_kernel", paged_kernel=True),
+    "serve_decode_spec": serve_ruleset(
+        "serve_decode_spec", step="spec_verify"),
+    "serve_prefill_flash": serve_ruleset(
+        "serve_prefill_flash", paged_kernel=True, step="prefill_flash"),
     "gpipe": pipeline_ruleset("gpipe"),
     "1f1b": pipeline_ruleset("1f1b"),
     # the composable step's: their contracts come from the generator

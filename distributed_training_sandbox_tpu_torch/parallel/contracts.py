@@ -10,10 +10,12 @@ port's own count for the MoE step (:func:`moe_step_collectives`, also
 over dp × sp × ep), the FSDP step (:func:`fsdp_step_collectives`),
 the reference's ``sp`` contract (:func:`sp_step_collectives`, FSDP ×
 SP) and its ``tp``, ``tp_ring`` and ``tp_q8`` contracts
-(:func:`tp_step_collectives`, also over dp × sp × tp).  The CPU tests
-and ``chip_smoke.py`` hold the steps of ``parallel/ddp.py``,
-``parallel/zero.py``, ``parallel/pipeline.py``, ``parallel/fsdp.py``,
-``parallel/expert.py`` and ``parallel/tensor.py`` to them.
+(:func:`tp_step_collectives`, also over dp × sp × tp), and its four
+serving contracts (:func:`serve_step_collectives`, ``SERVE_STRATEGIES``).
+The CPU tests and ``chip_smoke.py`` hold the steps of
+``parallel/ddp.py``, ``parallel/zero.py``, ``parallel/pipeline.py``,
+``parallel/fsdp.py``, ``parallel/expert.py``, ``parallel/tensor.py`` and
+the tensor-parallel ``serving/engine.py`` to them.
 
 The reference counts the sites of one compiled step, where the scanned
 layer body stands once and a transpose is one more site; the shim
@@ -280,4 +282,26 @@ def ep_step_collectives() -> dict:
     router's grad mean (the expert grads stay local)."""
     out = dict.fromkeys(CollectiveCounts.KINDS, 0)
     out.update(all_to_all=3, all_reduce=5)
+    return out
+
+
+# the reference's serving contracts (``analysis/contracts.py:396-440``):
+# the decode step, with the paged-attention kernel, the speculative verify
+# and the batched flash prefill chunk share one wire choreography
+SERVE_STRATEGIES = ("serve_decode", "serve_decode_paged_kernel",
+                    "serve_decode_spec", "serve_prefill_flash")
+
+
+def serve_step_collectives(params: dict) -> dict:
+    """One step of the tensor-parallel serving engine (``serving.engine``
+    with ``mesh``): a decode step, a speculative verify or a prefill
+    chunk.  Inference only, and the layer stack unrolled over its
+    per-layer pools, so the layer body's two rejoins (after attention,
+    after the MLP) are 2 all_reduces a layer, 2 · L a step, and nothing
+    else: a gather would mean a weight went replicated, a dp collective
+    that requests leaked across slots.  The kernels (paged decode, flash
+    prefill) read pages in place and add no call."""
+    L, _ = _layers_and_leaves(params)
+    out = dict.fromkeys(CollectiveCounts.KINDS, 0)
+    out["all_reduce"] = 2 * L
     return out

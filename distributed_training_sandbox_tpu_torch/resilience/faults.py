@@ -14,16 +14,25 @@ JAX package's ``resilience/faults.py``.
     N: the next pump sync point blocks and the watchdog converts it into
     a :class:`~.elastic.StepTimeoutError` (needs ``--watchdog-timeout``);
   * ``--inject-fault slow@N:ms`` — a straggler: sleep ``ms`` at step N;
+  * the serving-fleet kinds, checked at each replica's decode *burst*
+    (:meth:`FaultInjector.check_serving`), not at a training step:
+    ``kill_replica@N:k`` — replica ``k`` dies at its burst N (raises
+    :class:`~.elastic.WorkerLost`; the fleet re-enqueues its requests
+    onto the survivors); ``hang_decode@N:k`` — replica ``k``'s watchdog
+    is wedged at burst N, so that burst's sync point converts into a
+    :class:`~.elastic.StepTimeoutError`; ``slow_replica@N:ms`` — a
+    straggler burst: sleep ``ms`` at burst N; ``corrupt_swap`` — no
+    step: the hot-swap checkpoint is torn before the fleet restores it
+    (:meth:`FaultInjector.wants_corrupt_swap`), which must leave the
+    fleet serving on the old weights;
   * :func:`truncate_checkpoint` / :func:`corrupt_checkpoint` — tamper
     with a saved step's files on disk (the port's DCP files), for
     pinning that a torn restore fails with a readable error.
 
 The grammar (``FAULT_REGISTRY``, :func:`parse_fault_spec`) is the
 reference's whole, so a spec parses alike in both packages.  Not ported:
-the elastic kind ``kill_worker`` (ROADMAP.md queue A item A12) and the
-serving-fleet kinds ``kill_replica``, ``hang_decode``, ``slow_replica``
-and ``corrupt_swap`` (item A11): an injector given one raises
-``NotImplementedError``.
+the elastic kind ``kill_worker`` (ROADMAP.md queue A item A12): an
+injector given one raises ``NotImplementedError``.
 
 Faults fire exactly once per process (the injector is shared across
 in-process restart attempts), so a resumed segment runs to completion.
@@ -136,10 +145,6 @@ class FaultInjector:
                 f"--inject-fault {spec}: worker loss is the elastic "
                 f"runtime's, not ported yet — see ROADMAP.md queue A item "
                 f"A12")
-        if spec is not None and spec.kind in SERVING_FAULT_KINDS:
-            raise NotImplementedError(
-                f"--inject-fault {spec}: the serving fleet's faults are "
-                f"not ported yet — see ROADMAP.md queue A item A11")
         self.spec = spec
         self.fired = False
 
@@ -152,6 +157,8 @@ class FaultInjector:
         ``watchdog``; ``slow`` sleeps its target ms."""
         if self.fired or self.spec is None or step != self.spec.step:
             return
+        if self.spec.kind in SERVING_FAULT_KINDS:
+            return  # the fleet's: fired by check_serving / the swap path
         if self.spec.kind in ("crash", "preempt") \
                 and self.spec.target and self.spec.target != scope:
             return
@@ -189,9 +196,40 @@ class FaultInjector:
 
     def check_serving(self, replica: int, burst: int,
                       watchdog=None) -> None:
-        raise NotImplementedError(
-            "the serving fleet's faults are not ported yet — see "
-            "ROADMAP.md queue A item A11")
+        """The serving fleet's twin of :meth:`check`, called before each
+        replica's round with that replica's own burst counter.
+        ``kill_replica`` raises :class:`~.elastic.WorkerLost` for the
+        targeted replica (the fleet's failover consumes it);
+        ``hang_decode`` wedges the replica's watchdog, so the burst's
+        sync point converts into a :class:`~.elastic.StepTimeoutError`;
+        ``slow_replica`` sleeps its target ms on whichever replica
+        reaches burst N first.  ``corrupt_swap`` never fires here: the
+        fleet consumes it at swap time (:meth:`wants_corrupt_swap`)."""
+        if self.fired or self.spec is None:
+            return
+        kind = self.spec.kind
+        if kind not in ("kill_replica", "hang_decode", "slow_replica"):
+            return
+        if burst != self.spec.step:
+            return
+        if kind in ("kill_replica", "hang_decode") \
+                and int(self.spec.target or "0") != replica:
+            return
+        self.fired = True
+        if kind == "slow_replica":
+            time.sleep(int(self.spec.target or "100") / 1000.0)
+            return
+        if kind == "hang_decode":
+            if watchdog is None:
+                raise SystemExit(
+                    f"--inject-fault hang_decode@{burst} needs a "
+                    f"decode watchdog — pass --watchdog-timeout "
+                    f"SECONDS > 0, otherwise the injected hang would "
+                    f"block forever")
+            watchdog.wedge()
+            return
+        from .elastic import WorkerLost
+        raise WorkerLost([replica], step=burst, trigger="kill_replica")
 
     @staticmethod
     def unreaped(procs) -> list[int]:
@@ -200,9 +238,14 @@ class FaultInjector:
         return unreaped_workers(procs)
 
     def wants_corrupt_swap(self) -> bool:
-        raise NotImplementedError(
-            "the serving fleet's hot swap is not ported yet — see "
-            "ROADMAP.md queue A item A11")
+        """True exactly once when the configured fault is
+        ``corrupt_swap``: the fleet asks at swap time and, if true,
+        tears the incoming checkpoint before restoring it."""
+        if self.fired or self.spec is None \
+                or self.spec.kind != "corrupt_swap":
+            return False
+        self.fired = True
+        return True
 
 
 # ---- reap verification (coordinator side) --------------------------------

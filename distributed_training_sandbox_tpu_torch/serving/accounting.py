@@ -2,7 +2,8 @@
 ``serving/accounting.py``: the per-step read formulas of the decode
 roofline, and the pool capacity planner (weights + pool + headroom, the
 draft model's terms included).  Sizes come from the torch dtype of the
-config; ``tp`` stays 1 on the single-card engine."""
+config; ``tp`` prices one tensor-parallel rank's pool, which holds
+``n_kv / tp`` local heads (the engine under ``mesh``)."""
 
 from __future__ import annotations
 

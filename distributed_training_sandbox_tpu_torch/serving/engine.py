@@ -1,6 +1,7 @@
 """Continuous-batching decode engine over the paged KV pool — the port of
-the JAX package's ``serving/engine.py`` (single device, float or int8
-pool, the radix prefix cache and speculative decoding).
+the JAX package's ``serving/engine.py``: float or int8 pool, the radix
+prefix cache and speculative decoding, on one device, over a
+tensor-parallel group, or with prefill and decode disaggregated.
 
 Same layer math as ``models/generate.py``, different cache substrate and
 driver:
@@ -57,13 +58,27 @@ with ``flash_prefill``, and so does this engine).  Params from
 projection and the unembedding go through ``prequantized_dense`` (K4 on
 the card).
 
+**Modes.**  ``mesh`` (a ``utils.mesh.grid_axes`` dict) and ``tp_axis``
+(the name of its tensor-parallel axis) serve tensor-parallel: one
+process a rank, each rank's engine holding its Megatron shards
+(``parallel.tensor.shard_tree_tp``) and a pool of its ``n_kv / tp``
+local heads, the layer body's two rejoins ``all_reduce``d over the axis
+(the ``serve_decode`` contract: 2 a layer a step); every rank makes the
+same host decisions.  ``disaggregate=True`` prefills on one device's
+params and pool and decodes on another's (``device=(prefill, decode)``;
+by default ``cuda:0`` and ``cuda:1``): after a request's last prefill
+chunk its prompt pages' rows, an int8 pool's scales with them, are
+copied into its decode pages (:meth:`ServingEngine._handoff`).  A pair
+naming one device twice still copies between two pools.  ``watchdog``
+(a ``resilience.elastic.Watchdog``) guards every decode burst's sync
+point and the pump's, so a wedged burst raises ``StepTimeoutError`` for
+the fleet's failover instead of hanging.
+
 What does not carry over from JAX: the reference's steps were jitted
 with donated pool buffers and held a zero-retrace contract
 (``recompiles_after_warmup`` in its SLO report).  PyTorch runs eagerly,
 so there is nothing to retrace and the report leaves that key out; the
 pool is updated in place where JAX donated and returned new buffers.
-Tensor-parallel serving (``mesh``, ``tp_axis``), ``disaggregate`` and
-the ``watchdog`` are refused: ROADMAP.md queue A item A11's second half.
 """
 
 from __future__ import annotations
@@ -77,20 +92,21 @@ import torch
 from ..device import resolve_device
 from ..models import transformer as T
 from ..models.generate import _decode_cfg, _quant_kv, _unembed
+from ..ops import collectives as C
 from ..ops.flash_prefill import paged_flash_prefill, paged_flash_prefill_plain
 from ..ops.paged_attention import (gather_attention_q8, paged_attention_decode,
                                    paged_attention_plain,
                                    paged_attention_plain_q8)
 from ..ops.quant import QuantizedWeight
+from ..parallel.tensor import check_tp_divisibility, shard_tree_tp
 from ..runtime.pump import StepPump
 from ..telemetry.metrics import maybe_inc
+from ..utils import mesh as M
 from .accounting import pool_capacity_pages, serve_waterline_gb, tree_bytes
 from .kv_pool import PagedKVPool, PoolBuffers, RadixPrefixCache
 from .scheduler import DECODE, PREFILL, ContinuousBatcher, Request
 
 __all__ = ["ServingEngine", "serve", "make_draft_params"]
-
-A11_REST = "ROADMAP.md queue A item A11 (its second half)"
 
 
 # ---------------------------------------------------------------- layer math
@@ -116,20 +132,24 @@ def _apply_rope_ragged(x, cos, sin):
 
 def _paged_layer_body(x, layer, *, cfg, cos, sin, use_rope, pk, pv, pages,
                       apos, valid, paged_kernel=False, flash_prefill=False,
-                      pk_s=None, pv_s=None):
+                      pk_s=None, pv_s=None, tp_axis=None):
     """One decoder layer against the PAGED pool.  New K/V rows are
     written token by token into their page-table slots (rows with
     ``valid`` False divert to the null page 0); attention then reads the
     slot's pages — through a kernel, or by gathering them into the
     contiguous view whose position ``t`` is absolute position ``t``.
     An int8 pool (``pk.dtype == int8``) comes with its row scales
-    ``pk_s``/``pv_s``.
+    ``pk_s``/``pv_s``.  ``tp_axis``: ``layer`` holds this rank's
+    Megatron shards and the pool its ``n_kv / tp`` local heads; the
+    attention output and the MLP's are partial sums, each rejoined with
+    one ``all_reduce`` over the axis.
 
     x (B, S, H); pages (B, P) int32; apos (B, S) int32 absolute
     positions of x's rows; valid (B, S) bool."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    tp = M.axis_size(tp_axis) if tp_axis is not None else 1
+    nq, nkv = cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp
     dense = T._dense(cfg)
     page = pk.shape[1]
     P = pages.shape[1]
@@ -178,14 +198,19 @@ def _paged_layer_body(x, layer, *, cfg, cos, sin, use_rope, pk, pv, pages,
                 else paged_flash_prefill_plain
         attn = attend(qg, pk, pv, pages, apos)
     attn = attn.to(x.dtype).reshape(B, S, nq * hd)
-    x = x + dense(attn, layer["wo"])
+    attn_out = dense(attn, layer["wo"])
+    if tp_axis is not None:
+        attn_out = C.all_reduce(attn_out, tp_axis)
+    x = x + attn_out
     r = T.rms_norm(x, layer["ln2"], cfg.rms_norm_eps)
     mlp, _ = T._mlp_block(r, layer, cfg=cfg)
+    if tp_axis is not None:
+        mlp = C.all_reduce(mlp, tp_axis)
     return x + mlp
 
 
 def _paged_forward(params, ids, cfg, bufs: PoolBuffers, pages, apos, valid,
-                   paged_kernel=False, flash_prefill=False):
+                   paged_kernel=False, flash_prefill=False, tp_axis=None):
     """ids (B, S) → hidden x (B, S, H), writing every layer's new K/V
     rows into ``bufs``."""
     x = params["embed"].to(cfg.dtype)[ids.long()]
@@ -199,7 +224,7 @@ def _paged_forward(params, ids, cfg, bufs: PoolBuffers, pages, apos, valid,
             apos=apos, valid=valid, paged_kernel=paged_kernel,
             flash_prefill=flash_prefill,
             pk_s=bufs.k_scale[li] if q8 else None,
-            pv_s=bufs.v_scale[li] if q8 else None)
+            pv_s=bufs.v_scale[li] if q8 else None, tp_axis=tp_axis)
     return x
 
 
@@ -211,7 +236,7 @@ def _last_logits(params, x_last, cfg):
 
 @torch.no_grad()
 def _decode_core(bufs, params, pages, toks, lengths, stop_at, active, *,
-                 cfg, paged_kernel=False):
+                 cfg, paged_kernel=False, tp_axis=None):
     """One fixed-shape decode step over every slot.  toks/lengths/
     stop_at (B,) int32, active (B,) bool.  Emits the next greedy token
     per ACTIVE slot (inactive slots freeze); a slot retires ON DEVICE
@@ -219,7 +244,7 @@ def _decode_core(bufs, params, pages, toks, lengths, stop_at, active, *,
     page grant mid-burst."""
     x = _paged_forward(params, toks[:, None], cfg, bufs, pages,
                        lengths[:, None], active[:, None],
-                       paged_kernel=paged_kernel)
+                       paged_kernel=paged_kernel, tp_axis=tp_axis)
     logits = _last_logits(params, x[:, -1:], cfg)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     nxt = torch.where(active, nxt, toks)
@@ -230,7 +255,7 @@ def _decode_core(bufs, params, pages, toks, lengths, stop_at, active, *,
 
 @torch.no_grad()
 def _prefill_core(bufs, params, pages_row, ids, pos: int, plen: int, *,
-                  cfg):
+                  cfg, tp_axis=None):
     """One prefill CHUNK for one request: ids (1, C) padded with zeros,
     ``pos`` the chunk start, ``plen`` the prompt length.  Rows past the
     prompt divert to the null page.  Returns the greedy token at the
@@ -238,7 +263,8 @@ def _prefill_core(bufs, params, pages_row, ids, pos: int, plen: int, *,
     Ck = ids.shape[1]
     apos = pos + torch.arange(Ck, dtype=torch.int32,
                               device=ids.device)[None, :]
-    x = _paged_forward(params, ids, cfg, bufs, pages_row, apos, apos < plen)
+    x = _paged_forward(params, ids, cfg, bufs, pages_row, apos, apos < plen,
+                       tp_axis=tp_axis)
     last = min(max(plen - 1 - pos, 0), Ck - 1)
     logits = _last_logits(params, x[:, last:last + 1], cfg)
     return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -246,7 +272,7 @@ def _prefill_core(bufs, params, pages_row, ids, pos: int, plen: int, *,
 
 @torch.no_grad()
 def _prefill_batch_core(bufs, params, pages, ids, pos, plen, *, cfg,
-                        flash_prefill=False):
+                        flash_prefill=False, tp_axis=None):
     """One prefill chunk for a BATCH of requests: ids (Bp, C), pages
     (Bp, P), pos/plen (Bp,) int32.  Pad rows carry ``plen == 0``: every
     position is invalid and their token is never read.  Returns each
@@ -255,7 +281,8 @@ def _prefill_batch_core(bufs, params, pages, ids, pos, plen, *, cfg,
     apos = pos[:, None] + torch.arange(Ck, dtype=torch.int32,
                                        device=ids.device)[None, :]
     x = _paged_forward(params, ids, cfg, bufs, pages, apos,
-                       apos < plen[:, None], flash_prefill=flash_prefill)
+                       apos < plen[:, None], flash_prefill=flash_prefill,
+                       tp_axis=tp_axis)
     last = (plen - 1 - pos).clamp(0, Ck - 1).long()
     xl = x[torch.arange(Bp, device=x.device), last][:, None]
     logits = _last_logits(params, xl, cfg)
@@ -264,7 +291,7 @@ def _prefill_batch_core(bufs, params, pages, ids, pos, plen, *, cfg,
 
 @torch.no_grad()
 def _spec_verify_core(bufs, params, pages, toks_blk, lengths, stop_at,
-                      active, *, cfg, flash_prefill=False):
+                      active, *, cfg, flash_prefill=False, tp_axis=None):
     """The speculative VERIFY step: one fixed-shape target forward over a
     (B, k+1) token block per slot — the last accepted token plus the
     draft's k proposals.  Row ``i`` writes its K/V at ``lengths + i``
@@ -279,7 +306,7 @@ def _spec_verify_core(bufs, params, pages, toks_blk, lengths, stop_at,
     apos = lengths[:, None] + ar[None, :]
     valid = active[:, None] & (apos < stop_at[:, None])
     x = _paged_forward(params, toks_blk, cfg, bufs, pages, apos, valid,
-                       flash_prefill=flash_prefill)
+                       flash_prefill=flash_prefill, tp_axis=tp_axis)
     greedy = torch.argmax(_unembed(params, x, cfg),
                           dim=-1).to(torch.int32)
     return greedy, active.sum()
@@ -339,12 +366,16 @@ class ServingEngine:
     finished :class:`.scheduler.Request` records; ``slo_report()``
     aggregates them into TTFT / per-token percentiles and throughput.
     Runs on ``device`` (default ``cuda``; raises without a card unless
-    ``device="cpu"``).  ``telem``: a ``telemetry.TelemetryRun`` that the
-    rounds stream into (prefill events carry each request's TTFT, decode
-    bursts the occupancy and pool gauges and the latency of the requests
-    they complete; ``serve/*`` spans)."""
+    ``device="cpu"``); under ``mesh`` on the rank's device (its process
+    group's: ``cuda:LOCAL_RANK`` over NCCL, the CPU over gloo); with
+    ``disaggregate`` on the ``(prefill, decode)`` pair.  ``watchdog``:
+    a ``resilience.elastic.Watchdog`` around every burst's sync point.
+    ``telem``: a ``telemetry.TelemetryRun`` that the rounds stream into
+    (prefill events carry each request's TTFT, decode bursts the
+    occupancy and pool gauges and the latency of the requests they
+    complete; ``serve/*`` spans)."""
 
-    def __init__(self, params, cfg, *, mesh=None, tp_axis=None,
+    def __init__(self, params, cfg, *, mesh=None, tp_axis: str = "tp",
                  max_batch: int = 4, page_size: int = 8,
                  max_seq_len: int = 64, n_pages: int | None = None,
                  prefill_chunk: int = 16,
@@ -357,16 +388,6 @@ class ServingEngine:
                  hbm_budget_gb: float | None = None,
                  disaggregate: bool = False, device=None, watchdog=None,
                  telem=None):
-        for given, name in ((mesh is not None, "mesh"),
-                            (tp_axis is not None, "tp_axis"),
-                            (disaggregate, "disaggregate"),
-                            (watchdog is not None, "watchdog")):
-            if given:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet: "
-                    f"tensor-parallel serving, the disaggregated handoff "
-                    f"and the serving watchdog are {A11_REST}")
-        self.device = resolve_device(device)
         self.cfg = _decode_cfg(cfg)
         T.check_supported(self.cfg)
         self.max_batch = int(max_batch)
@@ -386,6 +407,15 @@ class ServingEngine:
         if self.flash_prefill and self.kv_quant:
             raise ValueError("the flash prefill kernel is float-only — "
                              "drop kv_quant or flash_prefill")
+        if prefix_cache and disaggregate:
+            raise ValueError(
+                "prefix_cache aliases decode-pool pages across "
+                "requests; the disaggregated handoff injects full page "
+                "rows and would overwrite shared pages — not wired")
+        if self.spec_k and disaggregate:
+            raise ValueError("speculative decoding needs a resident "
+                             "draft pool; the disaggregated handoff is "
+                             "not wired for it")
         if self.spec_k:
             if draft_params is None and draft_layers is None:
                 raise ValueError(
@@ -396,16 +426,42 @@ class ServingEngine:
         self.telem = telem
         # fleet replica index, stamped into this engine's serve spans
         self.replica = None
+        self.disaggregate = bool(disaggregate)
+        self.watchdog = watchdog
 
-        self._params = _to_device(params, self.device)
+        self.mesh = mesh
+        self.tp_axis = None
+        tp = 1
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass mesh or device, not both")
+            if disaggregate:
+                raise ValueError("disaggregate splits devices into "
+                                 "single-program slices; pass mesh=None")
+            self.tp_axis = mesh[tp_axis]
+            tp = M.axis_size(self.tp_axis)
+            check_tp_divisibility(self.cfg, tp)
+            if "unembed_q" in params:
+                raise ValueError("tensor-parallel serving takes bf16 "
+                                 "params (int8 weight sharding is not "
+                                 "wired)")
+        self.tp = tp
+        self._prefill_dev, self._decode_dev = self._placement(device)
+        self.device = self._decode_dev
+
+        self._params, self._params_pre = self._place(params)
         self.draft_cfg = self._draft_params = None
         if self.spec_k:
             if draft_params is None:
                 # truncated from the target on the device: views of its
-                # storage
+                # storage (of this rank's shards under tp)
                 draft_params, draft_cfg = make_draft_params(
                     self._params, self.cfg, draft_layers)
-            self._draft_params = _to_device(draft_params, self.device)
+                self._draft_params = draft_params
+            else:
+                if self.tp_axis is not None:
+                    check_tp_divisibility(_decode_cfg(draft_cfg), tp)
+                self._draft_params = self._place(draft_params)[0]
             self.draft_cfg = _decode_cfg(draft_cfg)
             T.check_supported(self.draft_cfg)
         # the draft's weights are priced as resident, as the reference
@@ -417,7 +473,7 @@ class ServingEngine:
             if hbm_budget_gb is not None:
                 fit = pool_capacity_pages(
                     self.cfg, self.page_size, budget_gb=hbm_budget_gb,
-                    weight_bytes=wb, kv_quant=self.kv_quant,
+                    weight_bytes=wb, kv_quant=self.kv_quant, tp=tp,
                     draft_weight_bytes=dwb, draft_cfg=self.draft_cfg) + 1
                 n_pages = min(n_pages, fit)
         if n_pages < self.pages_per_request + 1:
@@ -427,7 +483,8 @@ class ServingEngine:
                 f"HBM budget or shrink max_seq_len")
         self.n_pages = int(n_pages)
         self.pool = PagedKVPool(self.cfg, self.n_pages, self.page_size,
-                                kv_quant=self.kv_quant, device=self.device)
+                                kv_quant=self.kv_quant, device=self.device,
+                                tp=tp)
         # the draft's own pool, addressed by the SAME page tables as the
         # target's (no second allocator): a request's draft KV at
         # position p lives at the same (page, offset) as its target KV,
@@ -437,10 +494,18 @@ class ServingEngine:
         if self.spec_k:
             self.draft_pool = PagedKVPool(
                 self.draft_cfg, self.n_pages, self.page_size,
-                kv_quant=self.kv_quant, device=self.device)
+                kv_quant=self.kv_quant, device=self.device, tp=tp)
+        # disaggregated: the prefill device's own pool, sized like the
+        # decode pool, and each prefilling request's pages in it
+        self.pool_pre = None
+        self._pre_pages: dict[int, list[int]] = {}
+        if self.disaggregate:
+            self.pool_pre = PagedKVPool(
+                self.cfg, self.n_pages, self.page_size,
+                kv_quant=self.kv_quant, device=self._prefill_dev)
         self._mem_prediction_gb = serve_waterline_gb(
             self.cfg, self.n_pages, self.page_size, weight_bytes=wb,
-            kv_quant=self.kv_quant, draft_weight_bytes=dwb,
+            kv_quant=self.kv_quant, tp=tp, draft_weight_bytes=dwb,
             draft_cfg=self.draft_cfg)
 
         B, P = self.max_batch, self.pages_per_request
@@ -470,7 +535,8 @@ class ServingEngine:
                       "occupancy_sum": 0, "peak_pool_util": 0.0,
                       "wall_s": 0.0, "host_sync_count": 0,
                       "draft_steps": 0, "spec_proposed": 0,
-                      "spec_accepted": 0}
+                      "spec_accepted": 0, "handoffs": 0,
+                      "handoff_bytes": 0, "handoff_s": 0.0}
 
     # ---- request intake ----------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
@@ -516,13 +582,90 @@ class ServingEngine:
             free += self.prefix_cache.reclaimable_pages
         return free >= self.batcher.pages_needed(req)
 
+    def drained(self) -> bool:
+        """No request in flight: the state :meth:`swap_params` needs."""
+        return not self.batcher.has_work()
+
     def in_flight(self) -> int:
         """Unfinished requests resident here (queued or in a slot)."""
         return len(self.batcher.waiting) + sum(
             r is not None for r in self.batcher.slots)
 
-    def _put(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+    # ---- placement ----------------------------------------------------
+    def _placement(self, device):
+        """``(prefill device, decode device)``.  Under ``mesh`` the rank's
+        device; with ``disaggregate`` the ``device`` pair (one device
+        named twice is allowed), by default ``cuda:0`` and ``cuda:1``;
+        else ``device`` for both."""
+        if self.mesh is not None:
+            if M.initialized():
+                import torch.distributed as dist
+                if dist.get_backend() != "nccl":
+                    return (torch.device("cpu"),) * 2
+                dev = torch.device("cuda", torch.cuda.current_device())
+                return dev, dev
+            dev = resolve_device(None)
+            return dev, dev
+        if not self.disaggregate:
+            dev = resolve_device(device)
+            return dev, dev
+        if device is None:
+            resolve_device(None)              # raises without a card
+            if torch.cuda.device_count() < 2:
+                raise ValueError("disaggregate needs >= 2 devices")
+            device = ("cuda:0", "cuda:1")
+        if isinstance(device, (str, torch.device)) or len(device) != 2:
+            raise ValueError("device commits the whole engine to one "
+                             "device; disaggregate splits it — pick one "
+                             "(or pass a (prefill, decode) pair)")
+        return resolve_device(device[0]), resolve_device(device[1])
+
+    def _place(self, params):
+        """``params`` as this engine serves them: this rank's Megatron
+        shards under ``mesh``, on the decode device and on the prefill
+        device (the same tensors when they are one device)."""
+        if self.tp_axis is not None:
+            params = shard_tree_tp(params, M.axis_rank(self.tp_axis),
+                                   self.tp)
+        dec = _to_device(params, self._decode_dev)
+        if self._prefill_dev == self._decode_dev:
+            return dec, dec
+        return dec, _to_device(params, self._prefill_dev)
+
+    def _put(self, a, device=None) -> torch.Tensor:
+        return torch.as_tensor(a, device=device or self.device)
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """The burst's sync point: ``t`` on the host, through the
+        watchdog when there is one (a wedged burst then raises
+        ``StepTimeoutError`` instead of blocking)."""
+        if self.watchdog is not None:
+            return self.watchdog.block(lambda x: x.cpu().numpy(), t,
+                                       step=self.stats["decode_steps"])
+        return t.cpu().numpy()
+
+    def _handoff(self, req: Request) -> None:
+        """Disaggregated KV handoff after ``req``'s last prefill chunk:
+        the rows of its prompt pages in every layer of the prefill pool
+        (an int8 pool's scales with its codes) are copied into its first
+        decode pages, then its prefill pages are freed.  Pure data
+        movement: the decode pool then holds what the engine without
+        ``disaggregate`` would have written there."""
+        t = time.perf_counter()
+        src = self._pre_pages.pop(req.rid)
+        pre = torch.as_tensor(src, device=self._prefill_dev)
+        dec = torch.as_tensor(req.pages[:len(src)], device=self.device)
+        a, b = self.pool_pre.bufs, self.pool.bufs
+        pairs = list(zip(a.k + a.v, b.k + b.v))
+        if a.k_scale is not None:
+            pairs += list(zip(a.k_scale + a.v_scale, b.k_scale + b.v_scale))
+        for s_buf, d_buf in pairs:
+            rows = s_buf[pre].to(self.device, non_blocking=True)
+            d_buf[dec] = rows
+            self.stats["handoff_bytes"] += rows.numel() * rows.element_size()
+        self.pool_pre.allocator.free(src)
+        self.stats["handoffs"] += 1
+        self.stats["handoff_s"] += time.perf_counter() - t
 
     # ---- prefill ------------------------------------------------------
     def _prefill_one_chunk(self, req: Request, t0: float) -> None:
@@ -531,22 +674,30 @@ class ServingEngine:
         chunk = req.prompt[pos:pos + Ck]
         ids = np.zeros((1, Ck), np.int32)
         ids[0, :chunk.shape[0]] = chunk
+        src = (self._pre_pages[req.rid] if self.disaggregate
+               else req.pages)
         row = np.zeros((1, self.pages_per_request), np.int32)
-        row[0, :len(req.pages)] = req.pages
+        row[0, :len(src)] = src
         t_chunk = time.perf_counter()
-        row_d, ids_d = self._put(row), self._put(ids)
-        tok_d = _prefill_core(self.pool.bufs, self._params, row_d, ids_d,
-                              pos, req.n_prompt, cfg=self.cfg)
+        dev = self._prefill_dev
+        row_d, ids_d = self._put(row, dev), self._put(ids, dev)
+        bufs = self.pool_pre.bufs if self.disaggregate else self.pool.bufs
+        tok_d = _prefill_core(bufs, self._params_pre, row_d, ids_d,
+                              pos, req.n_prompt, cfg=self.cfg,
+                              tp_axis=self.tp_axis)
         if self.spec_k:
             # the draft needs the prompt's KV in ITS pool to propose: it
             # rides the same chunk (same pages, draft params)
             _prefill_core(self.draft_pool.bufs, self._draft_params, row_d,
-                          ids_d, pos, req.n_prompt, cfg=self.draft_cfg)
+                          ids_d, pos, req.n_prompt, cfg=self.draft_cfg,
+                          tp_axis=self.tp_axis)
         req.prefill_pos = min(pos + Ck, req.n_prompt)
         self.stats["prefill_chunks"] += 1
         if req.prefill_pos < req.n_prompt:
             self.stats["prefill_s"] += time.perf_counter() - t_chunk
             return
+        if self.disaggregate:
+            self._handoff(req)
         first = int(tok_d.cpu()[0])     # sync: TTFT resolution
         self.stats["host_sync_count"] += 1
         self._finish_prefill(req, first, t_chunk, t0)
@@ -614,19 +765,25 @@ class ServingEngine:
         for i, req in enumerate(reqs):
             chunk = req.prompt[req.prefill_pos:req.prefill_pos + Ck]
             ids[i, :chunk.shape[0]] = chunk
-            pages[i, :len(req.pages)] = req.pages
+            src = (self._pre_pages[req.rid] if self.disaggregate
+                   else req.pages)
+            pages[i, :len(src)] = src
             pos[i] = req.prefill_pos
             plen[i] = req.n_prompt
         t_chunk = time.perf_counter()
-        args = (self._put(pages), self._put(ids), self._put(pos),
-                self._put(plen))
-        tok_d = _prefill_batch_core(self.pool.bufs, self._params, *args,
+        dev = self._prefill_dev
+        args = (self._put(pages, dev), self._put(ids, dev),
+                self._put(pos, dev), self._put(plen, dev))
+        bufs = self.pool_pre.bufs if self.disaggregate else self.pool.bufs
+        tok_d = _prefill_batch_core(bufs, self._params_pre, *args,
                                     cfg=self.cfg,
-                                    flash_prefill=self.flash_prefill)
+                                    flash_prefill=self.flash_prefill,
+                                    tp_axis=self.tp_axis)
         if self.spec_k:
             _prefill_batch_core(self.draft_pool.bufs, self._draft_params,
                                 *args, cfg=self.draft_cfg,
-                                flash_prefill=self.flash_prefill)
+                                flash_prefill=self.flash_prefill,
+                                tp_axis=self.tp_axis)
         self.stats["prefill_chunks"] += 1
         finishing = []
         for i, req in enumerate(reqs):
@@ -634,6 +791,9 @@ class ServingEngine:
             if req.prefill_pos >= req.n_prompt:
                 finishing.append((i, req))
         if finishing:
+            if self.disaggregate:
+                for _, req in finishing:
+                    self._handoff(req)
             toks = tok_d.cpu().numpy()   # sync: TTFT resolution for all
             self.stats["host_sync_count"] += 1
             for i, req in finishing:
@@ -684,13 +844,14 @@ class ServingEngine:
         for _ in range(sync):
             toks_d, len_d, act_d, occ = _decode_core(
                 self.pool.bufs, self._params, pages_d, toks_d, len_d,
-                stop_d, act_d, cfg=self.cfg, paged_kernel=self.paged_kernel)
+                stop_d, act_d, cfg=self.cfg, paged_kernel=self.paged_kernel,
+                tp_axis=self.tp_axis)
+            self.stats["decode_steps"] += 1     # dispatched steps
             pump.emit(occ)
             step_tokens.append(toks_d)
-        self.stats["decode_steps"] += sync
         # sync point: resolve the burst's tokens and replay the device's
         # deterministic active chain on the host
-        mats = torch.stack(step_tokens).cpu().numpy()
+        mats = self._host(torch.stack(step_tokens))
         self.stats["host_sync_count"] += 1
         burst_s = time.perf_counter() - t_burst
         self.stats["decode_s"] += burst_s
@@ -748,25 +909,26 @@ class ServingEngine:
                 d_toks, d_len, d_act, _docc = _decode_core(
                     self.draft_pool.bufs, self._draft_params, pages_d,
                     d_toks, d_len, stop_d, d_act, cfg=self.draft_cfg,
-                    paged_kernel=self.paged_kernel)
+                    paged_kernel=self.paged_kernel, tp_axis=self.tp_axis)
                 props.append(d_toks)
             blk = torch.stack(props, dim=1)          # (B, k+1)
             g_d, occ = _spec_verify_core(
                 self.pool.bufs, self._params, pages_d, blk, len_d, stop_d,
-                act_d, cfg=self.cfg, flash_prefill=self.flash_prefill)
+                act_d, cfg=self.cfg, flash_prefill=self.flash_prefill,
+                tp_axis=self.tp_axis)
+            self.stats["decode_steps"] += 1     # dispatched macro-steps
+            self.stats["draft_steps"] += k
             pump.emit(occ)
             toks_d, len_d, act_d, e_d = _spec_accept_core(
                 blk, g_d, toks_d, len_d, stop_d, act_d)
             g_steps.append(g_d)
             e_steps.append(e_d)
-        self.stats["decode_steps"] += sync
-        self.stats["draft_steps"] += sync * k
         # the burst's one sync: every macro-step's greedy rows and
         # acceptance counts, and the last committed tokens, in one copy
         B = self.max_batch
         flat = torch.cat([torch.stack(g_steps).flatten(),
                           torch.stack(e_steps).flatten(), toks_d])
-        flat = flat.cpu().numpy()
+        flat = self._host(flat)
         n_g = sync * B * (k + 1)
         gs = flat[:n_g].reshape(sync, B, k + 1)
         es = flat[n_g:n_g + sync * B].reshape(sync, B)
@@ -819,7 +981,8 @@ class ServingEngine:
             self._t0 = time.perf_counter() if t0 is None else t0
         if self._pump is None:
             self._pump = StepPump(sync_every=self.sync_every,
-                                  max_in_flight=self.max_in_flight)
+                                  max_in_flight=self.max_in_flight,
+                                  watchdog=self.watchdog)
 
     def close_pump(self) -> None:
         """Drain and drop the pump."""
@@ -845,6 +1008,14 @@ class ServingEngine:
         for req in self.batcher.admit(now):
             self._h_pages[req.slot] = 0
             self._h_pages[req.slot, :len(req.pages)] = req.pages
+            if self.disaggregate:
+                pre = self.pool_pre.allocator.alloc(
+                    -(-req.n_prompt // self.page_size))
+                if pre is None:
+                    raise RuntimeError(
+                        "prefill pool exhausted — it is sized like the "
+                        "decode pool, so this is a leak, not load")
+                self._pre_pages[req.rid] = pre
         self.stats["admit_s"] += time.perf_counter() - t_admit
         for _ in range(self.prefill_chunks_per_round):
             if self.flash_prefill:
@@ -902,20 +1073,24 @@ class ServingEngine:
         replay (``scheduler.reset_for_replay``), slots and pages are
         freed, the host mirrors zeroed.  The device pool is not touched."""
         orphans = self.batcher.release_all()
+        for rid in list(self._pre_pages):
+            self.pool_pre.allocator.free(self._pre_pages.pop(rid))
         self._h_active[:] = False
         self._h_pages[:] = 0
         return orphans
 
     def swap_params(self, params) -> None:
         """Install new weights on a DRAINED engine (the fleet's hot-swap
-        lands here once the engine has no request in flight).  As in the
-        reference, the draft keeps the weights it was built with: any
-        draft leaves the emitted stream the target's."""
-        if self.batcher.has_work():
+        lands here once the engine has no request in flight), placed as
+        ``__init__`` placed the first (this rank's shards under ``mesh``,
+        both devices when disaggregated).  As in the reference, the
+        draft keeps the weights it was built with: any draft leaves the
+        emitted stream the target's."""
+        if not self.drained():
             raise RuntimeError(
                 f"swap_params with {self.in_flight()} request(s) in "
                 f"flight — drain the engine first")
-        self._params = _to_device(params, self.device)
+        self._params, self._params_pre = self._place(params)
 
     # ---- reporting ----------------------------------------------------
     def slo_report(self) -> dict:
@@ -934,6 +1109,8 @@ class ServingEngine:
 
         toks = int(sum(len(r.tokens) for r in done))
         wall = self.stats["wall_s"] or 1e-9
+        ndev = self.tp if self.tp_axis is not None else len(
+            {self._prefill_dev, self._decode_dev})
         # tokens emitted by decode steps (each request's first comes from
         # prefill): the steps-per-token the speculative leg is judged on
         dec_toks = max(toks - len(done), 1)
@@ -945,8 +1122,8 @@ class ServingEngine:
             "per_token_ms": {"p50": pct(ptl, 50), "p99": pct(ptl, 99)},
             "tokens_total": toks,
             "tokens_per_s": toks / wall,
-            "tokens_per_s_per_device": toks / wall,
-            "devices": 1,
+            "tokens_per_s_per_device": toks / wall / ndev,
+            "devices": ndev,
             "device": str(self.device),
             "pool": {"n_pages": self.n_pages, "page_size": self.page_size,
                      "peak_util": self.stats["peak_pool_util"],
@@ -965,11 +1142,18 @@ class ServingEngine:
                 "decode_steps_per_token": (self.stats["decode_steps"]
                                            / dec_toks),
             },
-            "disaggregated": False,
+            "disaggregated": self.disaggregate,
             "kv_quant": self.kv_quant,
             "paged_kernel": self.paged_kernel,
             "flash_prefill": self.flash_prefill,
         }
+        if self.disaggregate:
+            n = self.stats["handoffs"]
+            rep["handoff"] = {
+                "requests": n, "bytes": self.stats["handoff_bytes"],
+                "ms_total": 1e3 * self.stats["handoff_s"],
+                "bytes_per_request": (self.stats["handoff_bytes"] / n
+                                      if n else None)}
         if self.prefix_cache is not None:
             rep["prefix_cache"] = self.prefix_cache.stats()
         if self.spec_k:

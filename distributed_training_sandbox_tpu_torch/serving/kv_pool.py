@@ -284,17 +284,20 @@ class RadixPrefixCache:
 class PagedKVPool:
     """Per-layer device pools + the page allocator.  ``kv_quant`` stores
     K and V as int8 with per-row f32 scales, initialised to ones like
-    ``generate.init_cache``'s, so unwritten rows dequantise to zeros."""
+    ``generate.init_cache``'s, so unwritten rows dequantise to zeros.
+    ``tp``: the pool of one tensor-parallel rank, which holds its
+    ``n_kv / tp`` local heads (the reference shards the head axis of one
+    pool over its ``tp`` mesh axis)."""
 
     def __init__(self, cfg, n_pages: int, page_size: int, *,
-                 kv_quant: bool = False, device):
+                 kv_quant: bool = False, device, tp: int = 1):
         self.cfg = cfg
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
         self.kv_quant = bool(kv_quant)
         self.device = torch.device(device)
-        shape = (self.n_pages, self.page_size, cfg.num_key_value_heads,
-                 cfg.resolved_head_dim)
+        shape = (self.n_pages, self.page_size,
+                 cfg.num_key_value_heads // int(tp), cfg.resolved_head_dim)
         L = cfg.num_hidden_layers
         dt = torch.int8 if self.kv_quant else cfg.dtype
 

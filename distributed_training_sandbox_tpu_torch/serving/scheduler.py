@@ -213,12 +213,11 @@ class ContinuousBatcher:
                 continue
             self.slots[b] = None
             self._release_pages(req)
-            reset_for_replay(req)
             orphans.append(req)
         while self.waiting:
-            req = self.waiting.popleft()
+            orphans.append(self.waiting.popleft())
+        for req in orphans:
             reset_for_replay(req)
-            orphans.append(req)
         return orphans
 
 

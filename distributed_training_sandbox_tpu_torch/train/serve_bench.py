@@ -1,6 +1,6 @@
 """Serving benchmark: Poisson traffic through the continuous-batching
-engine, with the latency-SLO report — the twin of the JAX package's
-``scripts/serve_bench.py`` (its single-engine path).
+engine or a fleet of engine replicas, with the latency-SLO report — the
+twin of the JAX package's ``scripts/serve_bench.py``.
 
     python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
         --model SMOLLM3_3B --requests 16 --tenants 2 --prefix-cache \\
@@ -8,7 +8,12 @@ engine, with the latency-SLO report — the twin of the JAX package's
     python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
         --device cpu --tenants 3 --overlap-frac 0.7 --prefix-cache
     python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
-        --device cpu --spec-k 3 --draft-layers 1
+        --device cpu --replicas 2 --inject-fault kill_replica@2:1
+    python -m distributed_training_sandbox_tpu_torch.train.serve_bench \\
+        --device cpu --requests 8 --disaggregate
+    torchrun --nproc-per-node 2 -m \\
+        distributed_training_sandbox_tpu_torch.train.serve_bench \\
+        --device cpu --tp 2
 
 Drives ``serving.ServingEngine`` with the seeded open-loop trace of
 ``serving.traces.build_trace`` (exponential inter-arrivals at
@@ -20,6 +25,22 @@ and per-burst latency stream into ``steps.jsonl``.  The weights are the
 port's seeded ``init_params`` scaled by ``--param-scale`` (×3 makes the
 greedy trajectories chaotic, so the parity check discriminates).
 
+``--replicas N`` (N >= 2) drives a ``serving.Fleet`` instead: N
+replicas behind SLO-driven admission control (``--max-queue``,
+``--burst-ms``, ``--deadline-ms``: structured rejections; a
+``queue_full`` shed pushes the driver's later arrivals back by one
+modeled burst), failover (``--inject-fault kill_replica@N:k`` /
+``hang_decode@N:k`` / ``slow_replica@N:ms`` under
+``--watchdog-timeout``) and zero-drop weight hot-swap (``--swap-at K``
+[+ ``--swap-ckpt DIR``; by default a seed+1 init saved to a temporary
+directory]; ``corrupt_swap`` tears it).  Its report goes under
+``summary.json``'s ``fleet`` key.  By default replica ``i`` serves on
+``cuda:i·stride``; ``--device cuda:0`` puts every replica on one card.
+``--tp N`` serves tensor-parallel over a dp × tp grid of the process
+group (run under ``torchrun``; one process a rank).  ``--disaggregate``
+prefills on one device and decodes on another (``--device P,D``; by
+default ``cuda:0,cuda:1``, the CPU's pair under ``--device cpu``).
+
 Routes.  On the card the engine serves with ``paged_kernel=True`` (K1,
 or K2 on an int8 pool) and, unless ``--kv-quant``, with
 ``flash_prefill`` (K3: batched prefill, the draft's and the verify's
@@ -27,33 +48,36 @@ block): the plain routes are the kernels' plain versions, which the
 card's main path never takes.  On the CPU every route is the plain one
 and ``--flash-prefill`` picks the batched prefill, as in the reference.
 
-Gates (exit 1): every request completed, and ``--check-parity N``, the
-first N requests against the port's one-shot ``generate`` at the
-engine's ``view_capacity``: on the CPU their tokens bit for bit (the
-reference's law); on the card, where the kernels sum in other orders
-than ``generate``'s plain path, every emitted token, the first
+Gates (exit 1): every request completed (the fleet: none dropped, and
+completed + shed = offered), and ``--check-parity N``, the first N
+requests against the port's one-shot ``generate`` at the engine's
+``view_capacity`` (the fleet's only when no swap changed the weights):
+on the CPU their tokens bit for bit (the reference's law); on the card,
+and over tp > 1 ranks, where the kernels or the rejoins sum in other
+orders than ``generate``'s plain path, every emitted token, the first
 included, within ``FRONTIER_ARGMAX_ATOL`` of its row's maximum logit
 when prompt and emitted tokens are teacher-forced through
 ``generate``'s cached forward (:func:`argmax_gaps`); the first tokens
 equal to ``generate``'s are counted, not gated (K3's prefill flips a
-near-tie of ``generate``'s now and then).  The reference's third gate, no jit-cache growth
-after warm-up, has no counterpart: PyTorch runs eagerly and nothing
-retraces, so the twin omits it.
+near-tie of ``generate``'s now and then).  The reference's other gate,
+no jit-cache growth after warm-up, has no counterpart: PyTorch runs
+eagerly and nothing retraces, so the twin omits it.
 
-Refused (exit 2): the fleet and everything that needs it (``--replicas``
-> 1, ``--inject-fault``, ``--deadline-ms``, ``--swap-at``,
-``--swap-ckpt``, ``--watchdog-timeout``, ``--max-queue``,
-``--burst-ms``, ``--export-timeline``), ``--tp`` > 1 and
-``--disaggregate`` — ROADMAP.md queue A item A11's second half — and
-``--plan``, item A12.  The reference's ``--cpu-devices`` (a simulated
-JAX mesh) has no counterpart; ``--device cpu`` runs the plain path.
+Refused (exit 2): ``--export-timeline`` (the report tooling,
+``scripts/export_timeline.py``: ROADMAP.md queue A item A8), ``--plan``
+(the tuner, item A12), the fleet's flags without ``--replicas`` >= 2,
+and ``--tp`` / ``--disaggregate`` inside a fleet's replicas, as in the
+reference.  The reference's ``--cpu-devices`` (a simulated JAX mesh)
+has no counterpart; ``--device cpu`` runs the plain path.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -62,9 +86,10 @@ from ..device import resolve_device
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..models.generate import _hidden_cached, _unembed, generate, init_cache
-from ..serving.engine import A11_REST, ServingEngine
+from ..serving import Fleet, Rejection, ServingEngine
 from ..serving.traces import build_trace
 from ..telemetry.run import A12, TelemetryRun
+from ..utils import mesh
 from ..utils.profiling import ProfileSchedule, Profiler
 
 # Every emitted token's teacher-forced logit lies within this of its
@@ -165,34 +190,37 @@ def check_parity(params, cfg, reqs, *, capacity: int, kv_quant: bool,
 
 
 def _refusal(args) -> str | None:
-    second_half = [
-        ("--replicas", args.replicas not in (None, 1)),
-        ("--tp", args.tp not in (None, 0, 1)),
-        ("--disaggregate", args.disaggregate),
-        ("--inject-fault", args.inject_fault is not None),
-        ("--deadline-ms", args.deadline_ms is not None),
-        ("--swap-at", args.swap_at is not None),
-        ("--swap-ckpt", args.swap_ckpt is not None),
-        ("--watchdog-timeout", args.watchdog_timeout is not None),
-        ("--max-queue", args.max_queue is not None),
-        ("--burst-ms", args.burst_ms is not None),
-        ("--export-timeline", args.export_timeline)]
-    for flag, given in second_half:
-        if given:
-            return (f"{flag} is not ported yet: the fleet, tensor-parallel "
-                    f"serving and the disaggregated handoff are {A11_REST}")
+    if args.export_timeline:
+        return ("--export-timeline is not ported yet: the timeline export "
+                "(scripts/export_timeline.py) is the report tooling of "
+                "ROADMAP.md queue A item A8")
     if args.plan is not None:
         return f"--plan is not ported yet: the tuner is {A12}"
+    if args.replicas > 1:
+        if args.tp > 1 or args.disaggregate:
+            return ("--replicas composes whole-engine device slices; "
+                    "--tp/--disaggregate inside a replica is not wired "
+                    "yet")
+        return None
+    for flag, name in ((args.inject_fault, "--inject-fault"),
+                       (args.deadline_ms, "--deadline-ms"),
+                       (args.swap_at, "--swap-at")):
+        if flag is not None:
+            return f"{name} needs --replicas >= 2"
+    if args.tp > 1 and args.disaggregate:
+        return ("disaggregate splits devices into single-program slices; "
+                "drop --tp")
     return None
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Poisson traffic through the serving engine + SLO "
+        description="Poisson traffic through the serving runtime + SLO "
                     "report")
     p.add_argument("--model", default="TINY_LM")
     p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu (the plain path)")
+                   help="cuda (default) or cpu (the plain path); with "
+                        "--disaggregate a PREFILL,DECODE pair")
     p.add_argument("--requests", type=int, default=64)
     p.add_argument("--rate", type=float, default=16.0,
                    help="mean arrival rate, requests/s (default 16)")
@@ -202,8 +230,15 @@ def parse_args(argv=None):
     p.add_argument("--max-seq-len", type=int, default=80)
     p.add_argument("--prefill-chunk", type=int, default=16)
     p.add_argument("--sync-every", type=int, default=4)
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel degree (0 = one program; N "
+                        "shards heads over a dp × tp grid of the process "
+                        "group, under torchrun)")
     p.add_argument("--kv-quant", action="store_true",
                    help="int8 paged KV pool (+f32 row scales)")
+    p.add_argument("--disaggregate", action="store_true",
+                   help="prefill and decode on separate devices with the "
+                        "page-row KV handoff")
     p.add_argument("--prefix-cache", action="store_true",
                    help="radix prefix cache over KV pages")
     p.add_argument("--spec-k", type=int, default=0,
@@ -240,21 +275,108 @@ def parse_args(argv=None):
     p.add_argument("--metrics-port", type=int, default=None,
                    help="serve live Prometheus metrics on this port for "
                         "the run (0 = an ephemeral port)")
-    # refused: the fleet, TP serving, disaggregation (A11's second half)
-    # and the tuner (A12)
-    p.add_argument("--replicas", type=int, default=None)
-    p.add_argument("--tp", type=int, default=None)
-    p.add_argument("--disaggregate", action="store_true")
-    p.add_argument("--inject-fault", default=None)
-    p.add_argument("--deadline-ms", type=float, default=None)
-    p.add_argument("--swap-at", type=int, default=None)
-    p.add_argument("--swap-ckpt", default=None)
-    p.add_argument("--watchdog-timeout", type=float, default=None)
-    p.add_argument("--max-queue", type=int, default=None)
-    p.add_argument("--burst-ms", type=float, default=None)
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve through a Fleet of N engine replicas "
+                        "(failover, admission control, hot-swap; 1 = one "
+                        "engine)")
+    p.add_argument("--inject-fault", default=None, metavar="SPEC",
+                   help="serving fault: kill_replica@N:k / "
+                        "hang_decode@N:k / slow_replica@N:ms / "
+                        "corrupt_swap (needs --replicas >= 2)")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="per-request TTFT deadline; arrivals whose modeled "
+                        "TTFT exceeds it are shed at submit")
+    p.add_argument("--swap-at", type=int, default=None, metavar="K",
+                   help="hot-swap weights after K completed requests "
+                        "(zero-drop drain, one replica at a time)")
+    p.add_argument("--swap-ckpt", default=None, metavar="DIR",
+                   help="checkpoint directory for --swap-at (default: a "
+                        "seed+1 init saved to a temporary directory)")
+    p.add_argument("--watchdog-timeout", type=float, default=5.0,
+                   help="per-replica decode watchdog budget, seconds (a "
+                        "wedged burst becomes a failover)")
+    p.add_argument("--max-queue", type=int, default=8,
+                   help="admission bound on the modeled waiting line; "
+                        "deeper arrivals are shed queue_full")
+    p.add_argument("--burst-ms", type=float, default=50.0,
+                   help="the admission controller's per-burst latency "
+                        "prior (EWMA-calibrated as bursts complete)")
+    # refused: the timeline export (A8) and the tuner (A12)
     p.add_argument("--export-timeline", action="store_true")
     p.add_argument("--plan", default=None)
     return p.parse_args(argv)
+
+
+def _routes(args, card: bool) -> dict:
+    """The engine's kernel flags (module docstring, Routes)."""
+    return {"paged_kernel": card,
+            "flash_prefill": (not args.kv_quant) if card
+            else args.flash_prefill}
+
+
+def _engine_kwargs(args, card: bool) -> dict:
+    return dict(max_batch=args.max_batch, page_size=args.page_size,
+                max_seq_len=args.max_seq_len,
+                prefill_chunk=args.prefill_chunk,
+                sync_every=args.sync_every, kv_quant=args.kv_quant,
+                hbm_budget_gb=args.hbm_budget_gb,
+                prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+                draft_layers=args.draft_layers if args.spec_k else None,
+                **_routes(args, card))
+
+
+def _trace(args, cfg):
+    rng = np.random.default_rng(args.seed)
+    return build_trace(rng, args.requests, args.rate, cfg.vocab_size,
+                       args.max_seq_len, tenants=args.tenants,
+                       overlap_frac=args.overlap_frac, sys_len=args.sys_len)
+
+
+def _profiler(args):
+    # serving has no fixed step count: trace a window early enough to
+    # catch steady decode bursts
+    if not args.profile:
+        return None
+    return Profiler(trace_dir=args.trace_dir, schedule=SERVE_SCHEDULE)
+
+
+def _parity(params, cfg, reqs, args, capacity, exact) -> tuple[list, dict]:
+    checked = reqs[:args.check_parity]
+    fails, parity = check_parity(params, cfg, checked, capacity=capacity,
+                                 kv_quant=args.kv_quant, exact=exact)
+    if checked:
+        law = "bitwise" if exact else "first tokens, near-argmax"
+        print(f"[serve] parity vs generate ({law}): {json.dumps(parity)}",
+              flush=True)
+    return fails, parity
+
+
+def _placement(args):
+    """``(engine device, params device, grid)``: the rank's device and a
+    dp × tp grid under ``--tp``, the (prefill, decode) pair under
+    ``--disaggregate``, else ``--device``."""
+    if args.tp > 1:
+        dev = mesh.init_process_group(args.device)
+        world = torch.distributed.get_world_size()
+        if world % args.tp:
+            raise ValueError(f"{world} ranks not divisible by tp={args.tp} "
+                             f"(run under torchrun --nproc-per-node N)")
+        return None, dev, mesh.grid_axes(("dp", "tp"),
+                                         (world // args.tp, args.tp))
+    names = (args.device or "").split(",")
+    if args.disaggregate:
+        if len(names) == 2:
+            pair = tuple(resolve_device(n) for n in names)
+        elif args.device is not None:
+            pair = (resolve_device(args.device),) * 2
+        else:
+            pair = None            # the engine's cuda:0, cuda:1
+        return pair, pair[1] if pair else resolve_device("cuda:1"), None
+    if len(names) > 1:
+        raise ValueError(f"--device {args.device}: a device pair needs "
+                         f"--disaggregate")
+    dev = resolve_device(args.device)
+    return dev, dev, None
 
 
 def main(argv=None) -> int:
@@ -263,55 +385,57 @@ def main(argv=None) -> int:
     if refused is not None:
         print(f"[serve] {refused}", file=sys.stderr)
         return 2
-    dev = resolve_device(args.device)
+    if args.replicas > 1:
+        return _fleet_main(args)
+    try:
+        device, dev, grid = _placement(args)
+    except ValueError as e:
+        print(f"[serve] {e}", file=sys.stderr)
+        mesh.destroy_process_group()
+        return 2
+    try:
+        return _engine_main(args, device, dev, grid)
+    finally:
+        if grid is not None:
+            mesh.destroy_process_group()
+
+
+def _engine_main(args, device, dev, grid) -> int:
     card = dev.type == "cuda"
     cfg = model_config(args.model)
     params = build_params(cfg, args.seed, args.param_scale, dev)
-    rng = np.random.default_rng(args.seed)
-    trace = build_trace(rng, args.requests, args.rate, cfg.vocab_size,
-                        args.max_seq_len, tenants=args.tenants,
-                        overlap_frac=args.overlap_frac, sys_len=args.sys_len)
-    flash = (not args.kv_quant) if card else args.flash_prefill
+    trace = _trace(args, cfg)
+    routes = _routes(args, card)
     run_cfg = {"num_steps": 0, "batch_size": args.max_batch,
                "sequence_length": args.max_seq_len, "seed": args.seed,
                "requests": args.requests, "rate": args.rate,
-               "page_size": args.page_size, "tp": 1,
-               "kv_quant": args.kv_quant, "disaggregate": False,
+               "page_size": args.page_size, "tp": args.tp,
+               "kv_quant": args.kv_quant, "disaggregate": args.disaggregate,
                "prefix_cache": args.prefix_cache, "spec_k": args.spec_k,
                "draft_layers": args.draft_layers if args.spec_k else None,
-               "flash_prefill": flash, "paged_kernel": card,
                "tenants": args.tenants,
-               "overlap_frac": args.overlap_frac if args.tenants else None}
-    prof = None
-    if args.profile:
-        # serving has no fixed step count: trace a window early enough to
-        # catch steady decode bursts
-        prof = Profiler(trace_dir=args.trace_dir, schedule=SERVE_SCHEDULE)
+               "overlap_frac": args.overlap_frac if args.tenants else None,
+               **routes}
     failures = []
     with TelemetryRun("serving", model=args.model, config=run_cfg,
-                      device=dev, profiler=prof,
+                      device=dev, profiler=_profiler(args),
                       results_dir=args.results_dir,
                       metrics_port=args.metrics_port) as telem:
         if telem.metrics_server is not None:
             print(f"[serve] metrics: {telem.metrics_server.url}", flush=True)
-        eng = ServingEngine(
-            params, cfg, max_batch=args.max_batch, page_size=args.page_size,
-            max_seq_len=args.max_seq_len, prefill_chunk=args.prefill_chunk,
-            sync_every=args.sync_every, kv_quant=args.kv_quant,
-            hbm_budget_gb=args.hbm_budget_gb,
-            prefix_cache=args.prefix_cache, spec_k=args.spec_k,
-            draft_layers=args.draft_layers if args.spec_k else None,
-            paged_kernel=card, flash_prefill=flash, device=dev,
-            telem=telem)
+        eng = ServingEngine(params, cfg, mesh=grid, device=device,
+                            disaggregate=args.disaggregate, telem=telem,
+                            **_engine_kwargs(args, card))
         reqs = [eng.submit(prompt, max_new_tokens=new, arrival_s=t)
                 for t, prompt, new in trace]
         eng.run()
         slo = eng.slo_report()
         print(f"[serve] {slo['completed']}/{slo['requests']} requests on "
-              f"{dev}, TTFT p50 {slo['ttft_ms']['p50']} ms p99 "
+              f"{slo['device']}, TTFT p50 {slo['ttft_ms']['p50']} ms p99 "
               f"{slo['ttft_ms']['p99']} ms, per-token p50 "
               f"{slo['per_token_ms']['p50']} ms, {slo['tokens_per_s']} "
-              f"tok/s", flush=True)
+              f"tok/s ({slo['tokens_per_s_per_device']}/device)",
+              flush=True)
         if "prefix_cache" in slo:
             pc = slo["prefix_cache"]
             print(f"[serve] prefix cache: hit rate {pc['hit_rate']} "
@@ -324,25 +448,145 @@ def main(argv=None) -> int:
                   f"{sp['proposed']}), "
                   f"{slo['scheduler']['decode_steps_per_token']} decode "
                   f"steps/token", flush=True)
+        if "handoff" in slo:
+            print(f"[serve] handoff: {json.dumps(slo['handoff'])}",
+                  flush=True)
         if slo["completed"] != args.requests:
             failures.append(f"only {slo['completed']}/{args.requests} "
                             f"requests completed")
-        checked = reqs[:args.check_parity]
-        fails, parity = check_parity(params, cfg, checked,
-                                     capacity=eng.view_capacity,
-                                     kv_quant=args.kv_quant,
-                                     exact=not card)
+        fails, parity = _parity(params, cfg, reqs, args, eng.view_capacity,
+                                exact=not card and args.tp <= 1)
         failures += fails
-        if checked:
-            law = "first tokens, near-argmax" if card else "bitwise"
-            print(f"[serve] parity vs generate ({law}): "
-                  f"{json.dumps(parity)}", flush=True)
-        slo["parity_checked"] = len(checked)
+        slo["parity_checked"] = parity["checked"]
         slo["parity"] = parity
+        if card:
+            slo["peak_memory_gib"] = _peaks({eng._prefill_dev,
+                                             eng.device})
         slo["failures"] = failures
         telem.finalize(serving=slo)
 
     print(json.dumps(slo, indent=1))
+    for f in failures:
+        print(f"[serve] FAIL: {f}", file=sys.stderr, flush=True)
+    return 1 if failures else 0
+
+
+def _peaks(devices) -> dict:
+    """Each card's peak allocated memory in the run, GiB."""
+    return {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 30
+            for d in sorted(devices, key=str)}
+
+
+def _save_swap_weights(args, cfg, dev) -> str:
+    """A seed+1 init, scaled as the served weights, saved as step 0 of a
+    new temporary checkpoint directory: the new weights a train loop
+    would have produced."""
+    from ..resilience.state import Checkpointer, RunState
+    swap_dir = tempfile.mkdtemp(prefix="serve_swap_")
+    new = build_params(cfg, args.seed + 1, args.param_scale, dev)
+    ck = Checkpointer(swap_dir)
+    ck.save(RunState(params=new, step=0), wait=True)
+    ck.close()
+    return swap_dir
+
+
+def _fleet_main(args) -> int:
+    """The ``--replicas N`` path: the trace through a Fleet with
+    admission control, optional fault injection and hot-swap, gated on
+    drops and bookkeeping (and parity when the weights never change)."""
+    dev = resolve_device(args.device)
+    card = dev.type == "cuda"
+    cfg = model_config(args.model)
+    params = build_params(cfg, args.seed, args.param_scale, dev)
+    swap_dir = own_swap = None
+    if args.swap_at is not None:
+        swap_dir = args.swap_ckpt
+        if swap_dir is None:
+            swap_dir = own_swap = _save_swap_weights(args, cfg, dev)
+    trace = _trace(args, cfg)
+    deadline_s = (None if args.deadline_ms is None
+                  else args.deadline_ms / 1e3)
+    backoff_s = args.burst_ms / 1e3
+    run_cfg = {"num_steps": 0, "batch_size": args.max_batch,
+               "sequence_length": args.max_seq_len, "seed": args.seed,
+               "requests": args.requests, "rate": args.rate,
+               "page_size": args.page_size, "replicas": args.replicas,
+               "inject_fault": args.inject_fault,
+               "deadline_ms": args.deadline_ms, "swap_at": args.swap_at,
+               "max_queue": args.max_queue,
+               # what a simulator needs to rebuild this run's trace and
+               # knobs
+               "tenants": args.tenants, "overlap_frac": args.overlap_frac,
+               "sys_len": args.sys_len, "prefill_chunk": args.prefill_chunk,
+               "sync_every": args.sync_every, "burst_ms": args.burst_ms,
+               "prefix_cache": args.prefix_cache, "spec_k": args.spec_k,
+               **_routes(args, card)}
+    failures = []
+    try:
+        with TelemetryRun("fleet", model=args.model, config=run_cfg,
+                          device=dev, profiler=_profiler(args),
+                          results_dir=args.results_dir,
+                          metrics_port=args.metrics_port) as telem:
+            if telem.metrics_server is not None:
+                print(f"[serve] metrics: {telem.metrics_server.url}",
+                      flush=True)
+            fleet = Fleet(
+                params, cfg, replicas=args.replicas,
+                watchdog_timeout_s=args.watchdog_timeout,
+                fault=args.inject_fault, telem=telem,
+                max_queue=args.max_queue, burst_s_prior=backoff_s,
+                device=args.device, **_engine_kwargs(args, card))
+            admitted = []
+            offset = 0.0
+            for t, prompt, new in trace:
+                # queue_full backpressure into the driver: the open loop
+                # slows by one modeled burst an overflow, as a load
+                # balancer's 429s pace real clients
+                r = fleet.submit(prompt, max_new_tokens=new,
+                                 arrival_s=t + offset, deadline_s=deadline_s)
+                if isinstance(r, Rejection):
+                    if r.reason == "queue_full":
+                        offset += backoff_s
+                else:
+                    admitted.append(r)
+            if swap_dir is not None:
+                fleet.schedule_swap(swap_dir, after_completed=args.swap_at)
+            fleet.run()
+            slo = fleet.slo_report()
+            print(f"[serve] fleet x{args.replicas}: {slo['completed']} "
+                  f"completed / {slo['shed']} shed / {slo['dropped']} "
+                  f"dropped of {args.requests}; live "
+                  f"{slo['live']}/{slo['replicas']}, TTFT p50 "
+                  f"{slo['ttft_ms']['p50']} ms p99 {slo['ttft_ms']['p99']} "
+                  f"ms; events: "
+                  f"{[e['event'] for e in slo['events']] or 'none'}",
+                  flush=True)
+            if slo["dropped"] > 0:
+                failures.append(
+                    f"{slo['dropped']} admitted request(s) dropped (rids "
+                    f"{fleet.dropped()[:8]}) — the zero-drop invariant is "
+                    f"broken")
+            if slo["completed"] + slo["shed"] != args.requests:
+                failures.append(
+                    f"bookkeeping leak: {slo['completed']} completed + "
+                    f"{slo['shed']} shed != {args.requests} offered")
+            if swap_dir is None:
+                fails, parity = _parity(params, cfg, admitted, args,
+                                        fleet.view_capacity, exact=not card)
+                failures += fails
+                slo["parity_checked"] = parity["checked"]
+                slo["parity"] = parity
+            if card:
+                slo["peak_memory_gib"] = _peaks(
+                    {r.engine.device for r in fleet.replicas})
+            slo["failures"] = failures
+            telem.finalize(fleet=slo)
+    finally:
+        if own_swap is not None:
+            shutil.rmtree(own_swap, ignore_errors=True)
+
+    print(json.dumps({k: v for k, v in slo.items()
+                      if k not in ("rejections", "events")}, indent=1))
     for f in failures:
         print(f"[serve] FAIL: {f}", file=sys.stderr, flush=True)
     return 1 if failures else 0

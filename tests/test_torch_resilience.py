@@ -510,9 +510,16 @@ def test_injector_fires_once_scopes_and_refuses_unported_kinds():
     inj.check(2, scope="legB")          # one-shot
     with pytest.raises(NotImplementedError, match="A12"):
         RZ.FaultInjector(RZ.parse_fault_spec("kill_worker@1:0"))
-    for spec in ("kill_replica@2:1", "corrupt_swap"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            RZ.FaultInjector(RZ.parse_fault_spec(spec))
+    # the serving kinds are the fleet's: a loop step never fires them
+    inj = RZ.FaultInjector(RZ.parse_fault_spec("kill_replica@2:1"))
+    inj.check(2)
+    inj.check_serving(0, 2)             # wrong replica: no fire
+    inj.check_serving(1, 1)             # wrong burst: no fire
+    with pytest.raises(EL.WorkerLost, match="kill_replica"):
+        inj.check_serving(1, 2)
+    inj.check_serving(1, 2)             # one-shot
+    swap = RZ.FaultInjector(RZ.parse_fault_spec("corrupt_swap"))
+    assert swap.wants_corrupt_swap() and not swap.wants_corrupt_swap()
     with pytest.raises(NotImplementedError, match="A12"):
         EL.shrink_plan(8, [1])
     with pytest.raises(NotImplementedError, match="A12"):

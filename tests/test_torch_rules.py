@@ -94,16 +94,21 @@ def test_specs_equal_the_references(strategy):
 
 
 def test_serve_rulesets_wait_for_tp_serving():
-    """The reference's serving rulesets are the only ones the port
-    lacks (tensor-parallel serving, ROADMAP.md A11); the port's
-    ``fsdp_q8`` (int8 gathers) has no reference twin, and its offload
-    and fp8 FSDP rulesets wait for A12."""
-    missing = set(JR.RULESETS) - set(R.RULESETS)
-    assert {s for s in missing if s.startswith("serve_")} == {
-        "serve_decode", "serve_decode_paged_kernel", "serve_decode_spec",
-        "serve_prefill_flash"}
-    assert missing - {s for s in missing if s.startswith("serve_")} == {
-        "fsdp_offload", "fsdp_fp8"}
+    """The reference's four serving rulesets are the port's too (with
+    tensor-parallel serving), their family, axes and config equal; the
+    port lacks only the offload and fp8 FSDP rulesets (A12), and its
+    ``fsdp_q8`` (int8 gathers) has no reference twin."""
+    assert set(JR.RULESETS) - set(R.RULESETS) == {"fsdp_offload",
+                                                  "fsdp_fp8"}
+    serve = [s for s in JR.RULESETS if s.startswith("serve_")]
+    assert sorted(serve) == ["serve_decode", "serve_decode_paged_kernel",
+                             "serve_decode_spec", "serve_prefill_flash"]
+    for s in serve:
+        j, p = JR.RULESETS[s], R.RULESETS[s]
+        assert (p.family, p.axes, dict(p.config), p.description) == (
+            j.family, j.axes, dict(j.config), j.description)
+        _, pp = _lm(True)
+        assert p.partition_specs(pp) == tensor.tp_specs(pp, "tp")
 
 
 @pytest.mark.parametrize("tied", [True, False])

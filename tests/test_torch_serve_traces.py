@@ -9,7 +9,8 @@ equal the reference's, with the planner's inverse law.  The twins run
 in-process: ``train.serve_bench`` exits 0 with the prefix cache and with
 speculation, its ``summary.json`` ``serving`` block has the reference's
 keys (but the recompile watch, which has no eager counterpart), and
-each flag of A11's second half (and ``--plan``) exits 2;
+the fleet's, TP's and disaggregation's flags pinned, ``--export-timeline``
+(A8) and ``--plan`` (A12) exit 2;
 ``train.decode_bench`` writes rows with the reference's keys.
 """
 
@@ -189,22 +190,40 @@ def test_serve_bench_serving_keys_are_the_reference_engines(reference_keys):
     assert chip_smoke.SERVING_KEYS == want
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--replicas", "2"], "A11"), (["--tp", "2"], "A11"),
-    (["--disaggregate"], "A11"),
-    (["--inject-fault", "kill_replica@2:1"], "A11"),
-    (["--deadline-ms", "400"], "A11"), (["--swap-at", "4"], "A11"),
-    (["--swap-ckpt", "x"], "A11"), (["--watchdog-timeout", "5"], "A11"),
-    (["--max-queue", "8"], "A11"), (["--burst-ms", "50"], "A11"),
-    (["--export-timeline"], "A11"), (["--plan", "p.json"], "A12"),
+@pytest.mark.parametrize("flags,rc,match", [
+    (["--replicas", "2"], 0, "fleet x2: 6 completed / 0 shed / 0 dropped"),
+    (["--tp", "2"], 2, "1 ranks not divisible by tp=2"),
+    (["--disaggregate"], 0, "handoff"),
+    (["--inject-fault", "kill_replica@2:1"], 2, "needs --replicas >= 2"),
+    (["--deadline-ms", "400"], 2, "needs --replicas >= 2"),
+    (["--swap-at", "4"], 2, "needs --replicas >= 2"),
+    (["--replicas", "2", "--swap-at", "2", "--swap-ckpt", "{tmp}/none"], 0,
+     "no checkpoint steps found"),
+    (["--replicas", "2", "--watchdog-timeout", "1", "--inject-fault",
+      "hang_decode@1:0"], 0, "'replica_dead'"),
+    (["--replicas", "2", "--max-queue", "0"], 0, "0 completed / 6 shed"),
+    (["--replicas", "2", "--burst-ms", "1000", "--deadline-ms", "500"], 0,
+     "0 completed / 6 shed"),
+    (["--export-timeline"], 2, "A8"), (["--plan", "p.json"], 2, "A12"),
 ])
-def test_serve_bench_refuses_the_second_half(tmp_path, capsys, flags,
+def test_serve_bench_refuses_the_second_half(tmp_path, capsys, flags, rc,
                                              match):
-    rc = serve_bench.main(["--device", "cpu", "--results-dir",
-                           str(tmp_path), *flags])
-    assert rc == 2
-    assert match in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())
+    """What the twin refuses (exit 2, no run directory): the timeline
+    export (A8), the tuner's plan (A12), the fleet's flags without a
+    fleet, more tp ranks than the group has; and what it runs now that
+    the fleet, TP serving and disaggregation are ported: the fleet, a
+    missing swap checkpoint (the fleet keeps its weights), a wedged
+    decode burst failed over, every arrival shed by a zero queue or a
+    deadline under the modeled TTFT."""
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    got = serve_bench.main(["--device", "cpu", "--requests", "6",
+                            "--max-batch", "2", "--sync-every", "2",
+                            "--check-parity", "2", "--results-dir",
+                            str(tmp_path / "runs"), *flags])
+    out = capsys.readouterr()
+    assert got == rc, out.err[-2000:]
+    assert match in out.out + out.err
+    assert (tmp_path / "runs").exists() == (rc == 0)
 
 
 def test_serve_bench_model_names_and_params():

@@ -266,10 +266,12 @@ def test_verify_attention_goes_through_k3_under_flash_prefill(
 # ---- refusals, host API, telemetry ----------------------------------------
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mesh=object()), NotImplementedError, "A11"),
-    (dict(tp_axis="tp"), NotImplementedError, "A11"),
-    (dict(disaggregate=True), NotImplementedError, "A11"),
-    (dict(watchdog=object()), NotImplementedError, "A11"),
+    (dict(mesh=object()), ValueError, "pass mesh or device, not both"),
+    (dict(disaggregate=True), ValueError, "disaggregate splits it"),
+    (dict(disaggregate=True, prefix_cache=True), ValueError,
+     "prefix_cache aliases"),
+    (dict(disaggregate=True, spec_k=2, draft_layers=1), ValueError,
+     "resident draft pool"),
     (dict(spec_k=2), ValueError, "draft_layers"),
     (dict(spec_k=2, draft_params={}), ValueError, "draft_cfg"),
     (dict(spec_k=2, draft_layers=9), ValueError, "draft of 9 layers"),
