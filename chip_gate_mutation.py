@@ -188,6 +188,21 @@ resilience mutants edit a Python module of the port instead):
   requests in flight, so the hot-swap installs the new weights under
   them), whose old-or-new law (``fleet swap old-or-new``, 19c) must
   fail.
+- C9's route-aware law (phase 19f, child ``moe_serve``):
+  ``moe_route_decode_skew`` (``parallel/expert.py``: the router's
+  probabilities of a decode step's rows, at most 8 of them, taken from
+  logits raised by 2 · expert index, so a row's route depends on the
+  batch it runs in), whose router-probability gates (``moe serve bf16
+  router probabilities``, ``... int8 ...``: the RMS ratio against the
+  f32 pass; ``... f32 ...``) and the f32 near-argmax law with
+  ``generate`` teacher-forced on the engine's experts must fail.
+- two of the flash kernels at hd 64 (phase 2's hd-64 shapes, child
+  ``fa_hd64``): ``fa_hd64_qk_kstep`` (QKᵀ and the backward's S and dP
+  leave the last of their four k16 steps out), whose forward and
+  backward gates and forward oracle count must fail; and
+  ``fa_hd64_pv_block_unscaled`` (the forward's online softmax leaves
+  O's last 8-column block unrescaled when the row maximum moves), whose
+  forward gate and oracle count must fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -414,10 +429,57 @@ MUTANTS = [
     ("swap_in_flight", "serving/engine.py",
      "        return not self.batcher.has_work()", "        return True",
      "fleet_swap", ("fleet swap old-or-new",)),
+    ("moe_route_decode_skew", "parallel/expert.py",
+     "    probs = torch.softmax(logits, dim=-1)",
+     "    probs = torch.softmax(logits + 2.0 * (x2d.shape[0] <= 8) * "
+     "torch.arange(logits.shape[-1], device=logits.device), dim=-1)",
+     "moe_serve", ("moe serve bf16 router probabilities",
+                   "moe serve int8 router probabilities",
+                   "moe serve f32 router probabilities",
+                   "moe serve f32 route-aware near-argmax")),
+    ("fa_hd64_qk_kstep", "csrc/flash_attention.cu",
+     "__host__ __device__ constexpr int qk_steps(int hd) "
+     "{ return hd / 16; }",
+     "__host__ __device__ constexpr int qk_steps(int hd) "
+     "{ return hd == 64 ? hd / 16 - 1 : hd / 16; }", "fa_hd64",
+     ("flash_attention_fwd:", "flash_attention_fwd oracle:",
+      "flash_attention_bwd:")),
+    ("fa_hd64_pv_block_unscaled", "csrc/flash_attention.cu",
+     "    for (int i = 0; i < acc_regs(HD); ++i) "
+     "oacc[i] *= corr[(i / 2) % 2];",
+     "    for (int i = 0; i < (HD == 64 ? acc_regs(HD) - 4 : acc_regs(HD)); "
+     "++i) oacc[i] *= corr[(i / 2) % 2];", "fa_hd64",
+     ("flash_attention_fwd:", "flash_attention_fwd oracle:")),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
-CHILD = {"serve": """
+CHILD = {"fa_hd64": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+c.attention_hd64_phase()
+c.family_parity("llama3.2-1b", c.FAMILY_TRAINS[0])
+""", "moe_serve": """
+import numpy as np, torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+rng = np.random.default_rng(c.SEED)
+prompts = [rng.integers(1, c.CFG.vocab_size, size=int(rng.integers(
+    *c.PROMPT_LEN))).astype(np.int32) for _ in range(c.N_REQUESTS)]
+c.moe_serve_phase(prompts, c.card_line())
+""", "serve": """
 import numpy as np, torch
 import chip_smoke as c
 def check(cond, msg):
@@ -447,6 +509,7 @@ c.fp8_phase()
 c.attention_phase()
 c.fa_bwd_oracle_gate()
 c.train_parity_phase()
+c.family_parity("llama3.2-1b", c.FAMILY_TRAINS[0])
 try:
     c.moe_bf16_phase()
 finally:

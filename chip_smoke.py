@@ -10,7 +10,10 @@ mixture-of-experts model, tensor and sequence parallelism and the
 composable dp x fsdp x tp step with FSDP's auto variant (one NCCL
 rank), the serving frontier (the prefix cache and speculative
 decoding), and the serving fleet (failover, shedding, hot-swap),
-tensor-parallel and disaggregated serving and the MoE serve.
+tensor-parallel and disaggregated serving and the MoE serve, the data
+tier (the corpus and its held-out eval, the native data engine),
+sentence-pair classification on the DDP twin, and the model families
+of the JAX package's registry (the flash kernels at hd 64 and 128).
 
     python3 chip_smoke.py
 
@@ -39,7 +42,10 @@ Phases, each of which fails the run:
    (wgmma), decode at M 1, 8 and 16 and the unembedding (the split-K
    GEMV, timed at M 8 in CUDA-graph replays beside ``torch._int_mm`` on
    the rows zero-padded to the fewest it takes) and one prefill chunk
-   (M 256, mma.sync);
+   (M 256, mma.sync); at phase 20's shapes (``new_shapes_phase``): the
+   flash kernels at hd 64 (``FA_HD64``; the oracle readings, the
+   backward at B 16, S 256 over ``FA_HD64_BWD_SEEDS``), K6, K5 and K4
+   at ``WIDE_CFGS``' projections;
 3. serve — ``ServingEngine`` with K1 and K3 on SMOLLM3_3B (full width,
    all 36 layers, seeded random weights scaled ×3) answers 8 requests;
    launch counts must equal the steps × layers, plain counts must be 0;
@@ -283,15 +289,41 @@ Phases, each of which fails the run:
    ``disaggregate`` on ``("cuda:0", "cuda:0")``: phase 3's tokens
    (``ENGINE``) and phase 7's (``INT8_ENGINE``, K2 and K4 exact) bit for
    bit, each handoff's device time and bytes logged; (f) ``MOE_SERVE_CFG``
-   (SmolLM3-3B-L8-MoE, no drops) at bf16 and with int8 projections (K4):
-   launches exact and the near-argmax law against ``generate``; (g)
+   (SmolLM3-3B-L8-MoE, no drops) at bf16, with int8 projections (K4)
+   and at f32: launches exact, the batching law, and C9's route-aware
+   law: the first ``MOE_ALONE`` requests served alone with the engine's
+   experts recorded, ``generate`` teacher-forced on them (its own
+   gates): at f32 every token within ``MOE_F32_GAP_ATOL``, the router
+   probabilities within ``MOE_F32_PROB_ATOL``, every route within
+   ``MOE_ROUTE_FLIP_MARGIN`` of the pass's top-1; at bf16 and int8 the
+   router probabilities' RMS distance from an f32 pass within
+   ``MOE_ROUTER_RMS_RATIO`` times generate's own; (g)
    ``train.serve_bench`` at ``TWIN_FLEET_ARGS``: exit 0 and the
    reference's fleet keys (``FLEET_KEYS``).  Phase 2 holds K1, K2 and K3
-   on a tensor-parallel rank's local heads (``LOCAL_KV_HEADS``) too.
+   on a tensor-parallel rank's local heads (``LOCAL_KV_HEADS``) too;
+20. data, classification and the model families (on the one-rank
+   group): (a) ``CORPUS_TRAIN``: corpus-70m on the committed corpus
+   through ``flagship.run_leg`` (step 0 against plain attention at
+   ``LOSS_ATOL`` and ``FAMILY_GRAD_REL_L2``, launches exact, the final
+   params saved), then ``train.eval_lm`` on the held-out tail from that
+   save (finite, restored at the last step, no held-out window among the
+   trained ones); (b) ``FAMILY_TRAINS`` (Llama-3.2-1B at hd 64,
+   Qwen3-4B-L6 at hd 128 and vocab 151 936), gated the same way, then
+   ``FP8_FAMILY`` (corpus-350m at fp8_pallas, K6) by its launches; (c)
+   ``train.ddp.run`` at ``CLS`` (SmolLM3-350M's full width): the sync
+   check exactly 0.0, the ``ddp`` contract's collectives every step,
+   padded widths multiples of 8 (two at least), finite losses, and the
+   same with int8 grads and error feedback; (d) the native data engine
+   built from ``native/dtsdata.cpp``: its Zipf stream's digest
+   (``NATIVE_ZIPF_DIGEST``) and its packer bit-equal to numpy's.
 
-After each serving path's gates, a second serve run of the same shape
-under ``torch.profiler`` reports the device's busy share and its top
-kernels, and a profile of ``DECODE_PROFILE_STEPS`` decode steps over the
+After every phase a full garbage collection may free at most
+``CYCLIC_LIMIT_BYTES`` of card memory: a finished phase leaves none of
+its state in reference cycles.
+
+After each serving path's gates, a second serve run of the same shape,
+its scheduler rounds 4-5 under ``torch.profiler``, reports the device's
+busy share and its top kernels, and a profile of ``DECODE_PROFILE_STEPS`` decode steps over the
 serve's slots reports the decode step's device time beside its host
 clock.
 
@@ -320,6 +352,8 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
+import importlib
 import io
 import json
 import math
@@ -336,6 +370,7 @@ import numpy as np
 import torch
 
 from distributed_training_sandbox_tpu_torch.kernels import loader
+from distributed_training_sandbox_tpu_torch.models import MODEL_REGISTRY
 from distributed_training_sandbox_tpu_torch.models import mlp as MLP
 from distributed_training_sandbox_tpu_torch.models import transformer as T
 from distributed_training_sandbox_tpu_torch.models.generate import (
@@ -424,6 +459,19 @@ K3_DRAW_SEEDS = (SEED, SEED + 5)
 # each from FA_ORACLE_SEED (the default run and --parent-csrc read the
 # same draws)
 FA_ORACLE_SEQ, FA_ORACLE_DRAWS, FA_ORACLE_SEED = 2048, 4, SEED + 100
+# Phase 20's step-0 parity of the flash kernels against plain attention
+# at bf16: every grad leaf's relative L2 (LOSS_ATOL for the loss).  The
+# 16 layers of Llama-3.2-1B read more than SmolLM3-3B-L8's 8
+# (BF16_GRAD_REL_L2): on an H100 its embed leaf reads 0.0206 (corpus-70m
+# 0.0083, Qwen3-4B-L6 0.0095); the hd-64 mutants read 0.265 (O's last
+# column block unrescaled) and 0.779 (a QKᵀ k-step lost).  The limit lies
+# between; the subtle FA mutants (0.0203, 0.0222) stay inside it, and
+# phase 2's kernel gates catch them.
+FAMILY_GRAD_REL_L2 = 0.03
+# ... its plain attention runs this many KV heads at a time: after the
+# earlier phases, Llama-3.2-1B's 32 heads at S 8192 at once ran out of
+# the card's memory in the whole smoke
+FAMILY_PLAIN_KV_HEADS = 2
 # Step-0 parity, kernel path vs plain path on the same params and batch:
 # |loss difference| <= LOSS_ATOL, and every grad leaf's relative L2
 # error <= GRAD_REL_L2; the same without fp8 (bf16 projections, so only
@@ -794,8 +842,35 @@ SWAP = dict(seed=SEED + 19, after=2, wave2=4, max_batch=4)
 MOE_SERVE_CFG = dataclasses.replace(T.SMOLLM3_3B_L8_MOE,
                                     moe_capacity_factor=8.0)
 # 19f's batching law: these first requests, each served alone, against
-# the batched run
+# the batched run; C9's route-aware law on the same requests
 MOE_ALONE = 3
+# C9's route-aware law (route_aware_law): generate teacher-forced on the
+# engine's experts, each gate generate's own router probability.  At f32
+# (the kernels' f32 noise): every emitted token's logit within
+# MOE_F32_GAP_ATOL of its row's maximum, the engine's router
+# probabilities within MOE_F32_PROB_ATOL of generate's, and a route the
+# engine took apart from the pass's own top-1 only where that top-1's
+# router log-probability lies at most MOE_ROUTE_FLIP_MARGIN over the
+# engine's expert's.  On an H100 over three prompt draws the sound
+# engine reads gaps 0-0.0225, probabilities 0.020-0.107 and margins
+# 0.001-0.039; a router whose decode rows' logits are raised by 2 ·
+# expert index reads 49.3, 1.0 and 35.3.
+MOE_F32_GAP_ATOL = 0.5
+MOE_F32_PROB_ATOL = 0.5
+MOE_ROUTE_FLIP_MARGIN = 5.0
+# At bf16 and int8 the router probabilities of the decode rows, as RMS
+# distances from an f32 pass teacher-forced on the same experts: the
+# engine's at most this times generate's own (the witness of the
+# dtype's noise).  Sound 0.9992-1.0046 (generate's own 0.140-0.208); the
+# skewed router 1.68 (bf16) and 1.38 (int8).  The gaps and margins are
+# logged there, not gated: the gates' noise alone moves emitted tokens by
+# up to 13.1 and routes by margins up to 9.5 in the sound engine.
+MOE_ROUTER_RMS_RATIO = 1.2
+# After every phase a full collection may free at most this much card
+# memory: a finished phase leaves nothing of its state in reference
+# cycles (tests/test_torch_cycles.py holds the port's runs to none on the
+# CPU).  A leg's params and optimizer state are gigabytes.
+CYCLIC_LIMIT_BYTES = 256 * 2 ** 20
 # 19g: the serve bench twin's fleet on one card, a replica killed
 TWIN_FLEET_ARGS = ["--model", "SMOLLM3_3B", "--requests", "16", "--replicas",
                    "2", "--inject-fault", "kill_replica@2:1", "--device",
@@ -803,6 +878,35 @@ TWIN_FLEET_ARGS = ["--model", "SMOLLM3_3B", "--requests", "16", "--replicas",
 # Phase 2's tensor-parallel shapes: SmolLM3-3B's 16 query and 4 KV heads
 # at tp 2 and 4 leave a rank 2 and 1 KV heads of 4 query rows each
 LOCAL_KV_HEADS = (2, 1)
+# phase 20d: the native data engine's Zipf stream at (n, vocab, seed) and
+# its SHA-256 digest, which tests/test_torch_data.py reads off the JAX
+# package's engine (the stream is a pure function of its arguments)
+NATIVE_ZIPF = (1_000_000, 8192, 42)
+NATIVE_ZIPF_DIGEST = ("800868051b5cb5bdd5b0a936b416e0a458a99521b99ecadd7d1f"
+                      "43d5fb60e8a7")
+# phase 2's new shapes: the flash kernels at hd 64 (B 1, S 8192) at
+# Llama-3.2-1B's 32 / 8 and corpus-350m's 15 / 5 heads, the backward at
+# a pipeline stage's microbatch against the exact gradient over these
+# seeds at the first; K6, K5 and K4 at these configs' projections
+FA_HD64 = (("llama3.2-1b", T.LLAMA32_1B), ("corpus-350m", T.CORPUS_350M))
+FA_HD64_BWD_SEEDS = tuple(range(4))
+WIDE_CFGS = (("corpus-350m", T.CORPUS_350M), ("qwen3-4b-l6", T.QWEN3_4B_L6))
+# phase 20a: corpus-70m (8 layers, 12 / 4 heads at hd 64) on the committed
+# corpus through the flagship twin, then train.eval_lm on the held-out
+# tail from its final params
+CORPUS_TRAIN = dict(model="corpus-70m", precision="bf16", seq=2048, bs=8,
+                    num_steps=6, warmup_steps=0, peak_lr=3e-4, seed=42,
+                    data="corpus")
+# 20b: the families the port had not run, 3 steps at seq 8192, batch 1,
+# then corpus-350m at the twin's default fp8_pallas
+FAMILY_TRAINS = tuple(
+    dict(CORPUS_TRAIN, model=m, seq=8192, bs=1, num_steps=3,
+         data="synthetic") for m in ("llama3.2-1b", "qwen3-4b-l6"))
+FP8_FAMILY = dict(FAMILY_TRAINS[0], model="corpus-350m",
+                  precision="fp8_pallas", num_steps=2)
+# 20c: the DDP twin's classification leg at SmolLM3-350M's full width
+CLS = dict(model="smollm3-350m", batch=32, num_steps=10, q8_steps=3,
+           source="synthetic")
 
 
 class SmokeFailure(RuntimeError):
@@ -1864,10 +1968,11 @@ def _entry(name, source, replaces, err, ratio, k_ms, p_ms, l_ms, b_ms,
             "max_err": err, "kernel_ms": k_ms}
 
 
-def fp8_phase() -> dict:
-    """K6 at one layer's seven projections (M = 8192): each against the
-    plain version, then times summed over the seven.  Operands cycle
-    through 3 copies so that no launch finds the last one's in L2."""
+def fp8_phase(projections=PROJECTIONS, label="SmolLM3-3B") -> dict:
+    """K6 at one layer's seven projections (M = 8192; ``projections``,
+    by default SmolLM3-3B's): each against the plain version, then times
+    summed over the seven.  Operands cycle through 3 copies so that no
+    launch finds the last one's in L2."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     M = TRAIN["seq"] * TRAIN["bs"]
     atol, rtol = Q.TOLERANCE[torch.bfloat16]
@@ -1878,7 +1983,7 @@ def fp8_phase() -> dict:
     tot = dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, flops=0.0)
     err = ratio = 0.0
     times = {}
-    for name, K, N in PROJECTIONS:
+    for name, K, N in projections:
         if (K, N) not in times:
             ops = []
             for _ in range(3):
@@ -1924,7 +2029,7 @@ def fp8_phase() -> dict:
         tot["nbytes"] += M * K + K * N + 2 * M * N
         tot["flops"] += 2 * M * K * N
     b_ms, b_by = bound(tot["nbytes"], tot["flops"], PEAK_FP8_FLOPS)
-    log(f"fp8_matmul, one layer's 7 projections: kernel {tot['k']:.4f} ms, "
+    log(f"fp8_matmul, {label}'s 7 projections: kernel {tot['k']:.4f} ms, "
         f"plain {tot['p']:.4f} ms, _scaled_mm {tot['l']:.4f} ms, bound "
         f"{b_ms:.4f} ms by {b_by} ({tot['nbytes'] / 1e6:.1f} MB, "
         f"{tot['flops'] / 1e12:.3f} TFLOP at fp8)")
@@ -2013,29 +2118,26 @@ def k4_decode_gates() -> float:
     return err
 
 
-def int8_gemm_phase() -> list[dict]:
-    """K5 (forward) and K4 (the backward's dX and dW, both K-major, on
-    its wgmma GEMM) at one layer's seven projections at M = 8192, then K4
-    at decode (the split-K GEMV: :func:`k4_decode_gates`, then times at
-    M = 8, the seven projections and the unembedding, in CUDA-graph
-    replays) and at one prefill chunk (M = 256, mma.sync): bit-equal to
-    the plain versions and twice-launch equal; times summed over the
-    shapes.  Operands cycle through 3 copies so that no launch finds the
-    last one's in L2."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+def int8_train_products(gen, projections, label: str = "",
+                        copies: int = 3) -> dict:
+    """K5 (the forward, the weight K-major as the training path passes
+    it and in the reference's (K, N) layout) and K4 (the backward's dX
+    and dW, both K-major, on its wgmma GEMM) at one layer's
+    ``projections`` at M = 8192: bit-equal to the plain versions and
+    twice-launch equal; CUDA-event times beside ``torch._int_mm`` and
+    the bytes and operations of the bound, summed over the shapes, and
+    the backward's quantisers timed.  Operands cycle through ``copies``
+    copies so that no launch finds the last one's in L2."""
     M = TRAIN["seq"] * TRAIN["bs"]
     bf16 = torch.bfloat16
+    pre = f"{label} " if label else ""
     zero = lambda: dict(k=0.0, p=0.0, l=0.0, nbytes=0.0, ops=0.0)  # noqa
-    t5, t4 = zero(), zero()
-    e5 = e4 = 0.0
-    # the backward's quantisers of X and g along M into K-major codes,
-    # and the same codes from a layout-keeping quantiser and an int8
-    # transposed copy (the parent's dW operand)
-    quant_ms = quant_copy_ms = 0.0
-    lib_missing = set()
-    for name, K, N in PROJECTIONS:
+    out = dict(t5=zero(), t4=zero(), e5=0.0, e4=0.0, lib_missing=set(),
+               quant_ms=0.0, quant_copy_ms=0.0)
+    t5, t4 = out["t5"], out["t4"]
+    for name, K, N in projections:
         sets = []
-        for _ in range(3):
+        for _ in range(copies):
             x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
             w = (torch.randn((K, N), generator=gen, device="cuda")
                  * 0.02).to(bf16)
@@ -2056,26 +2158,28 @@ def int8_gemm_phase() -> list[dict]:
                              dw=(xq_t, xs_t, gq_t, gs_t.T, (1, 1))))
             del w
         it = iter(range(10 ** 9))
-        c = lambda: sets[next(it) % 3]  # noqa: E731
+        c = lambda: sets[next(it) % copies]  # noqa: E731
         s0 = sets[0]
-        shape = f"({M}, {K}) x ({K}, {N})"
-        quant_ms += time_ms(lambda: (lambda d: (
+        shape = f"{pre}({M}, {K}) x ({K}, {N})"
+        # the backward's quantisers of X and g along M into K-major
+        # codes, and the same codes from a layout-keeping quantiser and
+        # an int8 transposed copy (the parent's dW operand)
+        out["quant_ms"] += time_ms(lambda: (lambda d: (
             Q.quantize_int8(d["x"].t(), axis=-1),
             Q.quantize_int8(d["g"].t(), axis=-1)))(c()), iters=5)
-        quant_copy_ms += time_ms(lambda: (lambda d: (
+        out["quant_copy_ms"] += time_ms(lambda: (lambda d: (
             Q.quantize_int8(d["x"], axis=0)[0].t().contiguous(),
             Q.quantize_int8(d["g"], axis=0)[0].t().contiguous()))(c()),
             iters=5)
-        # K5: the forward, the weight K-major as the training path passes
-        # it, and in the reference's (K, N) layout (transposed by the
-        # wrapper), both bit for bit
+
         def k5(d):
             return Q.int8_matmul_fused_kernel(d["x"], d["wq_t"], d["ws_t"],
                                               b_kmajor=True)
 
         ref = Q.int8_matmul_fused(s0["x"], s0["wq"], s0["ws"], bf16)
-        e5 = max(e5, _gate_bitwise("int8_matmul_fused", shape, k5(s0), ref))
-        e5 = max(e5, _gate_bitwise(
+        out["e5"] = max(out["e5"], _gate_bitwise(
+            "int8_matmul_fused", shape, k5(s0), ref))
+        out["e5"] = max(out["e5"], _gate_bitwise(
             "int8_matmul_fused", f"{shape}, weight (K, N)",
             Q.int8_matmul_fused_kernel(s0["x"], s0["wq"], s0["ws"]), ref))
         del ref
@@ -2084,24 +2188,28 @@ def int8_gemm_phase() -> list[dict]:
         p_ms = time_ms(lambda: (lambda d: Q.int8_matmul_fused(
             d["x"], d["wq"], d["ws"], bf16))(c()), iters=3, warmup=1)
         l_ms = _int_mm_ms([d["xq"] for d in sets],
-                          [_col_major(d["wq"]) for d in sets], it, 3)
+                          [_col_major(d["wq"]) for d in sets], it, copies)
         t5["k"] += k_ms
         t5["p"] += p_ms
         t5["l"] += l_ms or 0.0
-        lib_missing |= {"int8_matmul_fused"} if l_ms is None else set()
-        # x read, its codes written and read back (the scratch), the
-        # K-major weight and scales read, the row scales written and
-        # read, the bf16 output written
-        t5["nbytes"] += 4 * M * K + K * N + 4 * N + 8 * M + 2 * M * N
+        if l_ms is None:
+            out["lib_missing"].add("int8_matmul_fused")
+        # what the function must move: bf16 x read once, the K-major
+        # weight codes and their scales read, the bf16 output written
+        # (x's codes and row scales are the kernel's own scratch; the
+        # TPU kernel quantises inside its body)
+        t5["nbytes"] += 2 * M * K + K * N + 4 * N + 2 * M * N
         t5["ops"] += 2 * M * K * N
         log(f"int8_matmul_fused {shape}: bit-equal; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, _int_mm {l_ms} ms")
         # K4: dX = g · Wᵀ and dW = Xᵀ · g, both operands K-major
         for prod, Mo, No, Kc in (("dx", M, K, N), ("dw", K, N, M)):
-            sh = f"{prod} ({Mo}, {Kc}) x ({Kc}, {No})"
+            sh = f"{pre}{prod} ({Mo}, {Kc}) x ({Kc}, {No})"
             got = Q._int8_dot(*s0[prod], bf16, plain=False)
-            e4 = max(e4, _gate_bitwise("int8_matmul", sh, got, Q._int8_dot(
-                *s0[prod], bf16, plain=True)))
+            out["e4"] = max(out["e4"], _gate_bitwise(
+                "int8_matmul", sh, got,
+                Q._int8_dot(*s0[prod], bf16, plain=True)))
+            del got
             _twice_equal("int8_matmul", lambda: Q._int8_dot(
                 *s0[prod], bf16, plain=False))
             k_ms = time_ms(lambda: Q._int8_dot(*c()[prod], bf16, plain=False))
@@ -2110,19 +2218,37 @@ def int8_gemm_phase() -> list[dict]:
             # the library's layout, B column-major, is B's K-major codes'
             # transposed view
             l_ms = _int_mm_ms([d[prod][0] for d in sets],
-                              [d[prod][2].t() for d in sets], it, 3)
+                              [d[prod][2].t() for d in sets], it, copies)
             t4["k"] += k_ms
             t4["p"] += p_ms
             t4["l"] += l_ms or 0.0
-            lib_missing |= {"int8_matmul"} if l_ms is None else set()
+            if l_ms is None:
+                out["lib_missing"].add("int8_matmul")
             # int8 operands read once, bf16 output written once, scales
             t4["nbytes"] += (Mo * Kc + Kc * No + 4 * (Mo + No)
                              + 2 * Mo * No)
             t4["ops"] += 2 * Mo * No * Kc
             log(f"int8_matmul {sh}: bit-equal; kernel {k_ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms, _int_mm {l_ms} ms")
-        del sets, got
+        del sets
         torch.cuda.empty_cache()
+    return out
+
+
+def int8_gemm_phase() -> list[dict]:
+    """K5 and K4 at one layer's seven projections at M = 8192
+    (:func:`int8_train_products`), then K4 at decode (the split-K GEMV:
+    :func:`k4_decode_gates`, then times at M = 8, the seven projections
+    and the unembedding, in CUDA-graph replays) and at one prefill chunk
+    (M = 256, mma.sync): bit-equal to the plain versions and
+    twice-launch equal; times summed over the shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    M = TRAIN["seq"] * TRAIN["bs"]
+    bf16 = torch.bfloat16
+    tr = int8_train_products(gen, PROJECTIONS)
+    t5, t4, e5, e4 = tr["t5"], tr["t4"], tr["e5"], tr["e4"]
+    lib_missing = tr["lib_missing"]
+    quant_ms, quant_copy_ms = tr["quant_ms"], tr["quant_copy_ms"]
     b5 = bound(t5["nbytes"], t5["ops"], PEAK_INT8_OPS)
     b4 = bound(t4["nbytes"], t4["ops"], PEAK_INT8_OPS)
     for nm, t, b in (("int8_matmul_fused", t5, b5), ("int8_matmul", t4, b4)):
@@ -2303,11 +2429,17 @@ def _fa_reading(kernel, name, got, ref, which) -> tuple[float, float]:
     return err, max(ratio, blk / FA.BLOCK_REL_L2)
 
 
-def fa_draws():
+def _heads(cfg) -> tuple[int, int, int]:
+    """(nq, nkv, hd) of a config."""
+    return (cfg.num_attention_heads, cfg.num_key_value_heads,
+            cfg.resolved_head_dim)
+
+
+def fa_draws(heads=None):
     """``FA_ORACLE_DRAWS`` draws of (q, k, v): B 1, S ``FA_ORACLE_SEQ``,
-    the training shape's 16 / 4 heads, hd 128, bf16."""
-    nq, nkv = TRAIN_CFG.num_attention_heads, TRAIN_CFG.num_key_value_heads
-    hd = TRAIN_CFG.resolved_head_dim
+    bf16, at ``heads`` (nq, nkv, hd; default the training shape's 16 / 4
+    heads at hd 128)."""
+    nq, nkv, hd = heads or _heads(TRAIN_CFG)
     for d in range(FA_ORACLE_DRAWS):
         gen = torch.Generator(device="cuda").manual_seed(FA_ORACLE_SEED + d)
         yield tuple(torch.randn((1, FA_ORACLE_SEQ, n, hd), generator=gen,
@@ -2316,7 +2448,7 @@ def fa_draws():
 
 
 def fa_oracle_reading(kernels, label="flash_attention_fwd",
-                      gated=None) -> dict:
+                      gated=None, heads=None) -> dict:
     """The FA forward over :func:`fa_draws` beside the f64 oracle of the
     reference's arithmetic (``FA.attention_oracle``): for each kernel of
     ``kernels`` (name -> fn(q, k, v, scale) -> (O, lse)) and the plain
@@ -2325,13 +2457,14 @@ def fa_oracle_reading(kernels, label="flash_attention_fwd",
     and each kernel's count off the plain path; the max |difference| of
     each.  Gates the kernels named in ``gated`` (all by default): their
     count off the oracle over the plain path's, at most
-    ``FA.ORACLE_COUNT_RATIO``."""
+    ``FA.ORACLE_COUNT_RATIO``.  ``heads``: :func:`fa_draws`'."""
     gated = set(kernels) if gated is None else set(gated)
-    scale = TRAIN_CFG.resolved_head_dim ** -0.5
+    nq, nkv, hd = heads or _heads(TRAIN_CFG)
+    scale = hd ** -0.5
     read = {f"{n} - {r}": [0.0, 0] for n in kernels
             for r in ("oracle", "plain")}
     read["plain - oracle"] = [0.0, 0]
-    for q, k, v in fa_draws():
+    for q, k, v in fa_draws(heads):
         orc = FA.attention_oracle(q, k, v, scale)
         ref = FA.attention_plain_lse(q, k, v, scale)[0]
         pairs = [("plain - oracle", ref, orc)]
@@ -2347,7 +2480,8 @@ def fa_oracle_reading(kernels, label="flash_attention_fwd",
         torch.cuda.empty_cache()
     plain = read["plain - oracle"][1]
     ratios = {n: read[f"{n} - oracle"][1] / max(plain, 1) for n in kernels}
-    log(f"{label} over {FA_ORACLE_DRAWS} draws (B 1, S {FA_ORACLE_SEQ}), "
+    log(f"{label} over {FA_ORACLE_DRAWS} draws (B 1, S {FA_ORACLE_SEQ}, "
+        f"{nq} / {nkv} heads, hd {hd}), "
         f"(max |difference|, outputs off by > a quarter of the elementwise "
         f"tolerance): {json.dumps(read)}; each kernel's count off the "
         f"oracle over the plain path's {json.dumps(ratios)} (limit "
@@ -2360,15 +2494,17 @@ def fa_oracle_reading(kernels, label="flash_attention_fwd",
     return {"readings": read, "oracle_ratio": ratios}
 
 
-def attention_phase() -> list[dict]:
-    """The flash attention at the training shape (B 1, S 8192, 16 query
-    and 4 kv heads, hd 128, bf16), forward and backward, against the
-    plain version; inputs cycle through 3 copies."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+def attention_phase(heads=None, seed=SEED + 2) -> list[dict]:
+    """The flash attention at the training shape (B 1, S 8192, bf16; at
+    ``heads`` (nq, nkv, hd), by default the 16 query and 4 kv heads at
+    hd 128 of ``TRAIN_CFG``), forward and backward, against the plain
+    version, the forward over its f64 oracle reading too; inputs cycle
+    through 3 copies."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     B, S = TRAIN["bs"], TRAIN["seq"]
-    nq, nkv = TRAIN_CFG.num_attention_heads, TRAIN_CFG.num_key_value_heads
-    hd = TRAIN_CFG.resolved_head_dim
+    nq, nkv, hd = heads or _heads(TRAIN_CFG)
     scale = hd ** -0.5
+    log(f"flash attention at B {B}, S {S}, {nq} / {nkv} heads, hd {hd}")
     mk = lambda n: torch.randn((B, S, n, hd), generator=gen,
                                device="cuda").to(torch.bfloat16)
     sets = [(mk(nq), mk(nkv), mk(nkv), mk(nq)) for _ in range(3)]
@@ -2387,7 +2523,8 @@ def attention_phase() -> list[dict]:
                  lambda: FA.flash_attention_fwd(q, k, v, scale))
     del ref_o, ref_lse
     torch.cuda.empty_cache()
-    oracle = fa_oracle_reading({"flash_attention_fwd": FA.flash_attention_fwd})
+    oracle = fa_oracle_reading({"flash_attention_fwd": FA.flash_attention_fwd},
+                               heads=(nq, nkv, hd))
     grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
     ref_g = FA.flash_attention_bwd_plain(q, k, v, do, scale)
     e_g, r_g = zip(*(_fa_reading("flash_attention_bwd", n, g, r, "bwd")
@@ -3253,7 +3390,7 @@ def pipeline_lm_parity_phase() -> float:
     return lf
 
 
-def fa_bwd_oracle_gate() -> dict:
+def fa_bwd_oracle_gate(heads=None, seeds=FA_BWD_PIPE_SEEDS) -> dict:
     """The FA backward at a pipeline stage's microbatch over
     ``FA_BWD_PIPE_SEEDS``, on the forward kernel's O and logsumexp.
     Gates each grad's L2 distance from the exact f64 gradient
@@ -3263,15 +3400,15 @@ def fa_bwd_oracle_gate() -> dict:
     ratio against plain (``FA.TOLERANCE["bwd"]``) and its block relative
     L2, and at the element where the kernel and plain differ most
     against the tolerance, |kernel - exact| and |plain - exact| in bf16
-    ulps of the exact value."""
-    cfg = PIPE_LM_CFG
+    ulps of the exact value.  ``heads`` (nq, nkv, hd): default the
+    pipeline's (``PIPE_LM_CFG``)."""
     B = PIPE_LM["batch"] // PIPE_LM["n_micro"]
-    S, hd = PIPE_LM["seq"], cfg.resolved_head_dim
-    nq, nkv, scale = cfg.num_attention_heads, cfg.num_key_value_heads, \
-        hd ** -0.5
+    S = PIPE_LM["seq"]
+    nq, nkv, hd = heads or _heads(PIPE_LM_CFG)
+    scale = hd ** -0.5
     atol, rtol = FA.TOLERANCE["bwd"]
     out = {}
-    for seed in FA_BWD_PIPE_SEEDS:
+    for seed in seeds:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         q, k, v, do = (torch.randn((B, S, n, hd), generator=gen,
                                    device="cuda").to(torch.bfloat16)
@@ -3300,8 +3437,8 @@ def fa_bwd_oracle_gate() -> dict:
         del q, k, v, do, o, lse, got, ref, exact
     worst = max(out, key=lambda n: out[n]["ratio"])
     over = [n for n, r in out.items() if r["vs_plain"] > 1]
-    log(f"flash_attention_bwd at B {B}, S {S} over seeds "
-        f"{list(FA_BWD_PIPE_SEEDS)}: {json.dumps(out)}; worst L2 ratio "
+    log(f"flash_attention_bwd at B {B}, S {S}, {nq} / {nkv} heads, hd {hd}"
+        f" over seeds {list(seeds)}: {json.dumps(out)}; worst L2 ratio "
         f"{out[worst]['ratio']} at {worst} (limit {FA.BWD_ORACLE_L2_RATIO});"
         f" elementwise ratio against plain over 1 at {over}")
     check(out[worst]["ratio"] <= FA.BWD_ORACLE_L2_RATIO,
@@ -5290,6 +5427,7 @@ def auto_phase(card: str) -> tuple[dict, dict]:
     check(losses[0] == la, f"auto step: step-0 loss {losses[0]!r} is not "
           f"the parity's {la!r}")
     del module, auto, opt, step
+    gc.collect()   # fully_shard's module and state refer to each other
     torch.cuda.empty_cache()
     return reading, {k: c[0] for k, c in counts.items()}
 
@@ -5702,6 +5840,7 @@ def spec_phase(params, prompts, vanilla: dict, card: str) -> tuple[dict,
                      "peak_gib": peak, "draft_weights_gib": draft_gib,
                      "predicted_gib": slo["pool"]["predicted_gb"]}
         launches[label] = {k: v[0] for k, v in counts.items()}
+        del eng._spec_burst   # the counting wrapper holds the engine
         del eng
         torch.cuda.empty_cache()
     return reads, launches
@@ -6189,6 +6328,7 @@ def disagg_phase(params, params_q8, serve, q8, card: str
                        "bound_ms_per_request":
                            2 * per / HBM_BYTES_PER_S * 1e3,
                        "per_token_ms": eng.slo_report()["per_token_ms"]}
+        del eng._handoff   # the timing wrapper holds the engine
         del eng
     log(f"disaggregated handoff on {card}: {json.dumps(read)}")
     return read, launches
@@ -6208,23 +6348,162 @@ def _gap_reading(label, params, reqs, eng) -> dict:
     return read
 
 
+@contextlib.contextmanager
+def _engine_routes():
+    """Record the top-1 routes the engine takes: ``serving.engine.
+    _paged_forward`` notes each forward's positions and valid rows,
+    ``parallel.expert._route_topk`` (one call a layer, in layer order)
+    the valid rows' expert and router probabilities.  Yields a dict
+    layer -> list of (positions, experts, probs) on the device; serve one
+    request at a time under it, so that every valid row is that
+    request's."""
+    rec, state = {}, {}
+    fwd0, route0 = E._paged_forward, EX._route_topk
+
+    def fwd(params, ids, cfg, bufs, pages, apos, valid, *a, **kw):
+        state.update(apos=apos.reshape(-1), valid=valid.reshape(-1), li=0)
+        try:
+            return fwd0(params, ids, cfg, bufs, pages, apos, valid, *a, **kw)
+        finally:
+            state.clear()
+
+    def route(x2d, w_router, k):
+        out = route0(x2d, w_router, k)
+        if state:
+            li, sel = state["li"], state["valid"]
+            state["li"] += 1
+            rec.setdefault(li, []).append(
+                (state["apos"][sel].long(), out[1][sel, 0], out[2][sel]))
+        return out
+
+    E._paged_forward, EX._route_topk = fwd, route
+    try:
+        yield rec
+    finally:
+        E._paged_forward, EX._route_topk = fwd0, route0
+
+
+def _route_tables(rec: dict, n: int) -> dict:
+    """``_engine_routes``' record as per-layer tables over positions 0 ..
+    n - 1: expert (n,) and probabilities (n, E); every position recorded
+    once."""
+    out = {}
+    for li, parts in rec.items():
+        pos = torch.cat([p[0] for p in parts])
+        keep = pos < n
+        pos = pos[keep]
+        check(pos.numel() == n and torch.equal(pos.sort().values,
+                                               torch.arange(n, device=pos.device)),
+              f"moe routes: layer {li} recorded {pos.numel()} of {n} "
+              f"positions, or one twice")
+        out[li] = tuple(
+            torch.empty_like(t).index_copy_(0, pos, t) for t in (
+                torch.cat([p[j] for p in parts])[keep] for j in (1, 2)))
+    return out
+
+
+def _forced_pass(params, cfg, req, experts, capacity):
+    """``req``'s prompt and emitted tokens teacher-forced through
+    ``generate``'s cached forward (``serve_bench.argmax_gaps``) with every
+    layer's top-1 expert forced to ``experts`` (layer -> (n,)) and its
+    gate the pass's own router probability of that expert.  Returns the
+    gaps and the pass's router probabilities, layer -> (n, E)."""
+    L = cfg.num_hidden_layers
+    route0, state, probs_by = EX._route_topk, {"i": 0}, {}
+
+    def forced(x2d, w_router, k):
+        li = state["i"] % L
+        state["i"] += 1
+        _, _, probs = route0(x2d, w_router, k)
+        ex = experts[li][:x2d.shape[0], None]
+        probs_by[li] = probs
+        return probs.gather(-1, ex), ex, probs
+
+    EX._route_topk = forced
+    try:
+        gaps = serve_bench.argmax_gaps(params, cfg, req.prompt, req.tokens,
+                                       capacity=capacity).cpu()
+    finally:
+        EX._route_topk = route0
+    return gaps, probs_by
+
+
+def _f32_tree(tree):
+    """A copy of a params tree with every floating leaf in f32."""
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def route_aware_law(params, cfg, req, routes, capacity,
+                    oracle=None) -> dict:
+    """C9's law for one request served alone, with ``routes`` the
+    engine's (:func:`_route_tables`): ``generate`` teacher-forced on the
+    engine's experts (:func:`_forced_pass`; nothing of the engine's
+    arithmetic is copied, the gates are the pass's own) and, with
+    ``oracle`` (f32 params and config), the same pass in f32 as the
+    witness of the serve dtype's noise.  Returns the gaps, the largest
+    difference between the engine's router probabilities and the pass's
+    at any row and expert, the sums of squares at the decode rows of the
+    engine's and the pass's distances from the oracle's (and their
+    count), the rows (layer and position) where the engine's expert is
+    not the pass's own top-1 (a route flip), and the largest margin the
+    pass's top-1 holds there: ``log p(own) - log p(engine's)`` of the
+    pass's router probabilities, 0 at an exact tie."""
+    experts = {li: ex for li, (ex, _) in routes.items()}
+    gaps, probs = _forced_pass(params, cfg, req, experts, capacity)
+    ref = (_forced_pass(*oracle, req, experts, capacity)[1]
+           if oracle else None)
+    first = len(req.prompt)
+    out = {"gaps": gaps, "prob_diff": 0.0, "sq_engine": 0.0,
+           "sq_pass": 0.0, "count": 0, "flips": 0, "flip_margin": 0.0}
+    for li, (ex, pe) in routes.items():
+        pg = probs[li]
+        out["prob_diff"] = max(out["prob_diff"],
+                               float((pe - pg).abs().max()))
+        own = pg.argmax(dim=-1)
+        flip = own != ex
+        out["flips"] += int(flip.sum())
+        if flip.any():
+            lp = pg[flip].log()
+            out["flip_margin"] = max(out["flip_margin"], float((
+                lp.gather(-1, own[flip, None])
+                - lp.gather(-1, ex[flip, None])).max()))
+        if ref is not None:
+            po = ref[li][first:]
+            out["sq_engine"] += float(((pe[first:] - po) ** 2).sum())
+            out["sq_pass"] += float(((pg[first:] - po) ** 2).sum())
+            out["count"] += po.numel()
+    return out
+
+
 def moe_serve_phase(prompts, card: str) -> tuple[dict, dict]:
     """19f: ``MOE_SERVE_CFG`` (SmolLM3-3B-L8-MoE, full width, no drops)
-    served through the engine with ``ENGINE``'s flags at bf16 and with
+    served through the engine with ``ENGINE``'s flags at bf16, with
     ``quantize_decode_params`` (the attention projections and the
-    unembedding int8: K4).  Gates: launches exact, plain calls 0, and
-    the batching law: the first ``MOE_ALONE`` requests, each served
+    unembedding int8: K4) and at f32.  Gates: launches exact, plain calls
+    0; the batching law: the first ``MOE_ALONE`` requests, each served
     alone by the same engine, emit the batched run's tokens bit for bit
     (slots, padding rows and the experts' buckets leave a row's
-    arithmetic alone).  The near-argmax reading against ``generate`` is
-    logged, and an f32 serve of the same model is read beside it."""
+    arithmetic alone); and C9's route-aware law on those requests
+    (:func:`route_aware_law`), ``generate`` teacher-forced on the
+    engine's experts: at f32 every emitted token within
+    ``MOE_F32_GAP_ATOL`` of its row's maximum, the engine's router
+    probabilities within ``MOE_F32_PROB_ATOL`` of the pass's, and every
+    expert the engine took within ``MOE_ROUTE_FLIP_MARGIN`` of the
+    pass's own top-1 (a flip only at a near tie); at bf16 and int8 the
+    engine's router probabilities at the decode rows no farther (RMS)
+    from an f32 pass than ``MOE_ROUTER_RMS_RATIO`` times generate's own.
+    The near-argmax reading against ``generate``'s own routes is
+    logged."""
     L = MOE_SERVE_CFG.num_hidden_layers
+    f32_cfg = dataclasses.replace(MOE_SERVE_CFG, dtype=torch.float32)
     launches, read = {}, {}
     legs = (("bf16", MOE_SERVE_CFG, False), ("int8", MOE_SERVE_CFG, True),
-            ("f32", dataclasses.replace(MOE_SERVE_CFG,
-                                        dtype=torch.float32), False))
+            ("f32", f32_cfg, False))
     for label, cfg, q8w in legs:
         p = serve_bench.build_params(cfg, SEED, PARAM_SCALE, "cuda")
+        oracle = (None if label == "f32" else (_f32_tree(p), f32_cfg))
         if q8w:
             p = quantize_decode_params(p, cfg)
         eng = E.ServingEngine(p, cfg, **ENGINE)
@@ -6238,17 +6517,75 @@ def moe_serve_phase(prompts, card: str) -> tuple[dict, dict]:
         if label != "f32":
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
-            diff = []
-            for r in reqs[:MOE_ALONE]:
-                alone = E.ServingEngine(p, cfg, **ENGINE)
-                q = alone.submit(r.prompt, max_new_tokens=NEW_TOKENS)
+        diff, laws = [], []
+        for r in reqs[:MOE_ALONE]:
+            alone = E.ServingEngine(p, cfg, **ENGINE)
+            q = alone.submit(r.prompt, max_new_tokens=NEW_TOKENS)
+            with _engine_routes() as rec:
                 alone.run()
-                if list(q.tokens) != list(r.tokens):
-                    diff.append(r.rid)
-            check(not diff, f"moe serve {label} batching law: requests "
-                  f"{diff} served alone differ from the batched run")
+            torch.cuda.synchronize()
+            if list(q.tokens) != list(r.tokens):
+                diff.append(r.rid)
+            n = len(q.prompt) + len(q.tokens) - 1
+            laws.append(route_aware_law(p, cfg, q, _route_tables(rec, n),
+                                        alone.view_capacity, oracle))
+            del alone, rec
+        del oracle
+        check(not diff, f"moe serve {label} batching law: requests "
+              f"{diff} served alone differ from the batched run")
+        gaps = torch.cat([w["gaps"] for w in laws])
+        law = {"tokens": int(gaps.numel()),
+               "argmax": int((gaps == 0).sum()),
+               "max_gap": float(gaps.max()),
+               "gaps_over_2": int((gaps > 2).sum()),
+               "worst_token": [int(gaps.argmax()) // NEW_TOKENS,
+                               int(gaps.argmax()) % NEW_TOKENS],
+               "prob_diff": max(w["prob_diff"] for w in laws),
+               "route_flips": sum(w["flips"] for w in laws),
+               "flip_margin": max(w["flip_margin"] for w in laws)}
+        count = sum(w["count"] for w in laws)
+        if count:
+            law["rms_engine"] = math.sqrt(
+                sum(w["sq_engine"] for w in laws) / count)
+            law["rms_pass"] = math.sqrt(
+                sum(w["sq_pass"] for w in laws) / count)
+            law["rms_ratio"] = law["rms_engine"] / max(law["rms_pass"],
+                                                       1e-30)
+        read[f"{label} route-aware"] = law
+        log(f"moe serve {label} route-aware law (C9) over the first "
+            f"{MOE_ALONE} requests: {json.dumps(law)} (limits: "
+            + (f"rms ratio {MOE_ROUTER_RMS_RATIO}; gaps and margins not "
+               f"gated)" if count else
+               f"gap {MOE_F32_GAP_ATOL}, router probabilities "
+               f"{MOE_F32_PROB_ATOL}, a flip's margin "
+               f"{MOE_ROUTE_FLIP_MARGIN})"))
+        check(bool(torch.isfinite(gaps).all()),
+              f"moe serve {label} route-aware near-argmax: a gap is not "
+              f"finite")
+        if count:
+            check(law["rms_ratio"] <= MOE_ROUTER_RMS_RATIO,
+                  f"moe serve {label} router probabilities: the engine's "
+                  f"lie {law['rms_engine']} (RMS) from the f32 pass's at "
+                  f"the decode rows, {law['rms_ratio']} times generate's "
+                  f"{law['rms_pass']}, over {MOE_ROUTER_RMS_RATIO}")
+        else:
+            check(law["max_gap"] <= MOE_F32_GAP_ATOL,
+                  f"moe serve {label} route-aware near-argmax: an emitted "
+                  f"token's logit lies {law['max_gap']} under its row's "
+                  f"maximum with the engine's experts, over "
+                  f"{MOE_F32_GAP_ATOL}")
+            check(law["prob_diff"] <= MOE_F32_PROB_ATOL,
+                  f"moe serve {label} router probabilities: the engine's "
+                  f"differ from generate's by {law['prob_diff']}, over "
+                  f"{MOE_F32_PROB_ATOL}")
+            check(law["flip_margin"] <= MOE_ROUTE_FLIP_MARGIN,
+                  f"moe serve {label} route flips: the engine took an "
+                  f"expert whose router log-probability lies "
+                  f"{law['flip_margin']} under the teacher-forced pass's "
+                  f"top-1, over {MOE_ROUTE_FLIP_MARGIN}")
         slo = eng.slo_report()
-        read[label] = {**_gap_reading(f"moe serve {label}", p, reqs, eng),
+        read[label] = {**read.get(label, {}),
+                       **_gap_reading(f"moe serve {label}", p, reqs, eng),
                        "per_token_ms": slo["per_token_ms"],
                        "ttft_ms": slo["ttft_ms"],
                        "tokens_per_s": slo["tokens_per_s"]}
@@ -6311,6 +6648,349 @@ def fleet_phase(params, params_q8, serve, q8, card):
             {"fleet failover": la, "fleet shed": lb, "fleet swap": lc,
              "tp serve": ld, "disaggregated": le, "moe serve": lf,
              "fleet twin": lg})
+
+
+# ------------------------------- new shapes (phase 2) and phase 20
+
+def projections_of(cfg) -> list:
+    """One layer's seven projections (name, K, N) of ``cfg``, as
+    ``PROJECTIONS`` lists SmolLM3-3B's."""
+    H, hd = cfg.hidden_size, cfg.resolved_head_dim
+    q, kv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    F = cfg.intermediate_size
+    return [("wq", H, q), ("wk", H, kv), ("wv", H, kv), ("wo", q, H),
+            ("w_gate", H, F), ("w_up", H, F), ("w_down", F, H)]
+
+
+def int8_wide_phase(projections, label) -> dict:
+    """K5 and K4 at one layer's ``projections`` at M = 8192
+    (:func:`int8_train_products`, 2 operand copies): each kernel's
+    readings as ``kernels`` lists them."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    tr = int8_train_products(gen, projections, label, copies=2)
+    M, out = TRAIN["seq"] * TRAIN["bs"], {}
+    for n, t, e in (("int8_matmul_fused", tr["t5"], tr["e5"]),
+                    ("int8_matmul", tr["t4"], tr["e4"])):
+        b_ms, b_by = bound(t["nbytes"], t["ops"], PEAK_INT8_OPS)
+        lib = None if n in tr["lib_missing"] else t["l"]
+        out[n] = {"max_abs_err": e, "gate_ratio": 0.0, "ms": t["k"],
+                  "plain_ms": t["p"], "library_ms": lib, "bound_ms": b_ms,
+                  "bound_by": b_by}
+        log(f"{n}, {label}'s 7 projections at M = {M}: bit-equal; kernel "
+            f"{t['k']:.4f} ms, plain {t['p']:.4f} ms, _int_mm {lib} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}")
+    return out
+
+
+def _shape_reading(entry: dict) -> dict:
+    keys = ("max_abs_err", "gate_ratio", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "oracle_ratio")
+    return {k: entry[k] for k in keys if k in entry}
+
+
+def attention_hd64_phase() -> dict:
+    """The flash kernels at hd 64 (``FA_HD64``: B 1, S 8192, forward and
+    backward against the plain version at FA's limits, the forward over
+    its f64 oracle reading, a second launch bit-equal, times beside
+    SDPA) and the backward at a pipeline stage's microbatch against the
+    exact gradient (``FA_HD64_BWD_SEEDS``).  Returns each kernel's
+    readings by config."""
+    out = {}
+    for i, (label, cfg) in enumerate(FA_HD64):
+        fwd, bwd = attention_phase(_heads(cfg), seed=SEED + 30 + i)
+        out.setdefault("flash_attention_fwd", {})[label] = _shape_reading(fwd)
+        out.setdefault("flash_attention_bwd", {})[label] = _shape_reading(bwd)
+    fa_bwd_oracle_gate(_heads(FA_HD64[0][1]), FA_HD64_BWD_SEEDS)
+    return out
+
+
+def new_shapes_phase() -> dict:
+    """Phase 2's shapes of phase 20's configs: :func:`attention_hd64_phase`,
+    then K6, K5 and K4 at ``WIDE_CFGS``' projections against their plain
+    versions.  Returns each kernel's readings by config."""
+    out = attention_hd64_phase()
+    for label, cfg in WIDE_CFGS:
+        projs = projections_of(cfg)
+        out.setdefault("fp8_matmul", {})[label] = _shape_reading(
+            fp8_phase(projs, label))
+        for n, r in int8_wide_phase(projs, label).items():
+            out.setdefault(n, {})[label] = r
+    log(f"new shapes: {json.dumps(out)}")
+    return out
+
+
+def _leg_cfg(train):
+    return dataclasses.replace(getattr(T, MODEL_REGISTRY[train["model"]]),
+                               matmul_precision=train["precision"],
+                               attention_impl="flash")
+
+
+def _leg_first_batch(train, cfg):
+    """run_leg's first batch of ``train``."""
+    if train.get("data") == "corpus":
+        it = flagship.corpus_batches(cfg.vocab_size, train["seq"],
+                                     train["bs"], train["num_steps"])
+    else:
+        it = flagship.leg_batches(cfg.vocab_size, train["seq"], train["bs"],
+                                  train["num_steps"], train["seed"])
+    return tuple(torch.as_tensor(a, device="cuda") for a in next(it))
+
+
+@contextlib.contextmanager
+def _plain_attention_by_kv_heads(group: int):
+    """``T.attention_plain`` over ``group`` KV heads at a time, each with
+    its query heads: every head's arithmetic as the plain path's, in a
+    fraction of its (B, n, S, S) f32 buffers (32 heads at S 8192 hold
+    8.6 GB each, and their backward several)."""
+    orig = T.attention_plain
+
+    def by_heads(q, k, v, scale):
+        rep = q.shape[2] // k.shape[2]
+        return torch.cat([orig(q[:, :, i * rep:(i + group) * rep],
+                               k[:, :, i:i + group], v[:, :, i:i + group],
+                               scale)
+                          for i in range(0, k.shape[2], group)], dim=2)
+    T.attention_plain = by_heads
+    try:
+        yield
+    finally:
+        T.attention_plain = orig
+
+
+def family_parity(label, train) -> float:
+    """Step 0 of ``train``'s run on its params and first batch: the flash
+    kernels against plain attention (``FAMILY_PLAIN_KV_HEADS`` KV heads
+    at a time), the rest the same on both sides: |loss difference| <=
+    ``LOSS_ATOL`` and every grad leaf's relative L2 <=
+    ``FAMILY_GRAD_REL_L2``.  Returns the kernel path's loss."""
+    cfg = _leg_cfg(train)
+    gen = torch.Generator(device="cuda").manual_seed(train["seed"])
+    params = T.init_params(cfg, gen, "cuda")
+    batch = _leg_first_batch(train, cfg)
+    got = {}
+    for name, c in (("flash", cfg), ("plain", dataclasses.replace(
+            cfg, attention_impl="xla"))):
+        with _plain_attention_by_kv_heads(FAMILY_PLAIN_KV_HEADS):
+            loss, grads = fsdp.microbatch_value_and_grad(
+                lambda p, b, c=c: T.lm_loss(p, b, c), params, batch, 1)
+        got[name] = (float(loss), grads)
+    (lk, gk), (lp, gp) = got["flash"], got["plain"]
+    rel = _grad_rel_l2(gk, gp)
+    worst = max(rel, key=rel.get)
+    log(f"{label} step-0 parity (flash against plain attention): |loss "
+        f"difference| {abs(lk - lp):.6f} (atol {LOSS_ATOL}), losses {lk!r},"
+        f" {lp!r}; grad relative L2, worst leaf {worst} {rel[worst]:.5f} "
+        f"(limit {FAMILY_GRAD_REL_L2}); all leaves "
+        f"{json.dumps({k: round(v, 6) for k, v in rel.items()})}")
+    check(np.isfinite(lk) and abs(lk - lp) <= LOSS_ATOL,
+          f"{label} step-0 loss: flash {lk} against plain {lp}, over "
+          f"{LOSS_ATOL}")
+    check(rel[worst] <= FAMILY_GRAD_REL_L2,
+          f"{label} step-0 grads: {worst} relative L2 {rel[worst]} over "
+          f"{FAMILY_GRAD_REL_L2}")
+    del params, got, gk, gp
+    torch.cuda.empty_cache()
+    return lk
+
+
+def family_train(label, train, card, loss0=None, ckpt_dir=None) -> tuple:
+    """``train["num_steps"]`` steps of ``flagship.run_leg`` at ``train``;
+    the kernels' launches exact (per step: the flash forward 2 · L under
+    the full remat, its backward L, K6 14 · L at fp8_pallas) with no
+    plain call, the step-0 loss bit-equal to ``loss0`` when given.
+    Returns (readings, launches)."""
+    cfg = _leg_cfg(train)
+    L, n = cfg.num_hidden_layers, train["num_steps"]
+    expect = {"flash_attention_fwd": (FA.FWD_COUNTS, 2 * L),
+              "flash_attention_bwd": (FA.BWD_COUNTS, L)}
+    if train["precision"] == "fp8_pallas":
+        expect["fp8_matmul"] = (Q.COUNTS, 2 * L * len(PROJECTIONS))
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = flagship.run_leg(
+        train["model"], train["precision"], train["seq"], train["bs"], n,
+        train["warmup_steps"], train["peak_lr"], seed=train["seed"],
+        device="cuda", data=train.get("data", "synthetic"),
+        ckpt_dir=ckpt_dir,
+        on_step=lambda i, loss: log(f"{label} step {i}: loss {loss!r}"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: (c.launches, c.plain_calls) for k, (c, _) in expect.items()}
+    times = res["step_times_s"]
+    steps = [b - a for a, b in zip([0.0] + times[:-1], times)]
+    step_s = statistics.median(steps[1:]) if n > 1 else steps[0]
+    tok_s = train["seq"] * train["bs"] / step_s
+    mfu = T.model_flops_per_token(cfg, train["seq"]) * tok_s \
+        / PEAK_BF16_FLOPS
+    read = {"losses": res["losses"], "step_ms": step_s * 1e3,
+            "tokens_per_s": tok_s, "mfu": mfu, "peak_gib": peak / 2 ** 30,
+            "launches": counts}
+    log(f"{label} on {card}: {json.dumps(read)} (step ms the median after "
+        f"step 0, host clock, each step ending in a sync; MFU over 989 "
+        f"TFLOP/s bf16)")
+    for k, (c, per) in expect.items():
+        check(counts[k] == (n * per, 0),
+              f"{label}: {k} (launches, plain) {counts[k]} != ({n * per}, 0)")
+    check(all(np.isfinite(res["losses"])),
+          f"{label}: non-finite loss in {res['losses']}")
+    if loss0 is not None:
+        check(res["losses"][0] == loss0, f"{label}: step-0 loss "
+              f"{res['losses'][0]!r} is not the parity phase's {loss0!r}")
+    return read, {k: v[0] for k, v in counts.items()}
+
+
+def corpus_phase(card: str) -> tuple[dict, dict]:
+    """20a: ``corpus-70m`` on the committed corpus (``CORPUS_TRAIN``):
+    step-0 parity, the run with its final params saved, then
+    ``train.eval_lm`` on the held-out tail from that save: restored at
+    the run's last step, a finite loss, the flash forward launched L a
+    batch, and no held-out window among the trained ones."""
+    import tempfile
+    from distributed_training_sandbox_tpu_torch.train import eval_lm
+    train = CORPUS_TRAIN
+    loss0 = family_parity("corpus-70m", train)
+    ck = Path(tempfile.mkdtemp(prefix="corpus_ck_"))
+    try:
+        read, launches = family_train("corpus-70m", train, card, loss0, ck)
+        _reset_kernel_counts()
+        ev = eval_lm.run(train["model"], "corpus", train["seq"], train["bs"],
+                         ck, train["precision"], "cuda")
+        torch.cuda.synchronize()
+        ev_fa = (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    cfg = _leg_cfg(train)
+    (tr, _), (ho, _) = flagship.corpus_windows(cfg.vocab_size, train["seq"])
+    seen = {r.tobytes() for r in tr[:train["num_steps"] * train["bs"]]}
+    shared = sum(r.tobytes() in seen for r in ho)
+    read.update(eval=ev, eval_launches=ev_fa, heldout_in_trained=shared)
+    L = cfg.num_hidden_layers
+    log(f"corpus-70m eval on {card}: {json.dumps(ev)}; flash forward "
+        f"(launches, plain) {ev_fa}; held-out windows among the trained "
+        f"{shared} of {len(ho)}")
+    check(ev["restored_step"] == train["num_steps"]
+          and np.isfinite(ev["eval_loss"]),
+          f"corpus eval: restored step {ev['restored_step']}, loss "
+          f"{ev['eval_loss']}")
+    check(ev_fa == (L * ev["eval_steps"], 0),
+          f"corpus eval: flash forward (launches, plain) {ev_fa} != "
+          f"({L * ev['eval_steps']}, 0)")
+    check(shared == 0, f"corpus eval: {shared} held-out windows were "
+          f"trained on")
+    return read, launches
+
+
+def families_phase(card: str) -> tuple[dict, dict]:
+    """20b: ``FAMILY_TRAINS`` (Llama-3.2-1B at hd 64, Qwen3-4B-L6 at hd
+    128 and vocab 151 936) through the flagship twin, each gated at step
+    0 and by its launches; then ``FP8_FAMILY`` (corpus-350m at
+    fp8_pallas: K6 and the hd-64 flash kernels) by its launches."""
+    read, launches = {}, {}
+    for train in FAMILY_TRAINS:
+        loss0 = family_parity(train["model"], train)
+        read[train["model"]], launches[train["model"]] = family_train(
+            train["model"], train, card, loss0)
+    m = FP8_FAMILY["model"]
+    read[m], launches[m] = family_train(m, FP8_FAMILY, card)
+    return read, launches
+
+
+def classification_phase(card: str) -> dict:
+    """20c: ``train.ddp.run`` on the one-rank group at ``CLS``
+    (SmolLM3-350M's full width, its own plain attention, synthetic
+    pairs), per-leaf sync, then ``CLS["q8_steps"]`` steps with int8
+    grads and error feedback.  Gates: the sync check exactly 0.0, every
+    step's collectives the ``ddp`` contract's (an all_reduce a leaf, the
+    loss mean, the barrier; q8: two all_gathers a bucket), every padded
+    width a multiple of 8 and at least two widths, finite losses."""
+    out = {}
+    for label, kw in (("per-leaf", {}), ("q8 ef", dict(
+            quantize_grads=True, error_feedback=True))):
+        steps = CLS["q8_steps"] if kw else CLS["num_steps"]
+        res = ddp_run.run(model=CLS["model"], source=CLS["source"],
+                          num_steps=steps, batch_size=CLS["batch"],
+                          device="cuda", log=log, **kw)
+        params = res.pop("params")
+        nbytes = sum(p.numel() * p.element_size()
+                     for _, p in fsdp.optim.tree_leaves(params))
+        want = C.COLLECTIVES.nonzero(step_collectives(
+            "ddp", res["n_leaves"], nbytes, q8=bool(kw)))
+        got = [C.COLLECTIVES.nonzero(c) for c in res["collectives"]]
+        widths = res["widths"]
+        r = {"losses": res["losses"], "widths": widths,
+             "step_ms": [round(t * 1e3, 3) for t in res["step_s"]],
+             "peak_gib": res["peak_memory_bytes"] / 2 ** 30,
+             "accuracy_batch0": res["accuracy_batch0"],
+             "collectives": got[0], "contract": want,
+             "sync_error": res["sync_error"]}
+        out[label] = r
+        log(f"classification {label} on {card}: {json.dumps(r)}")
+        check(res["sync_error"] == 0.0, f"classification {label}: params "
+              f"sync error {res['sync_error']}")
+        check(all(g == want for g in got) and len(got) == steps,
+              f"classification {label}: collectives {got} against the "
+              f"contract's {want} a step")
+        check(all(w % 8 == 0 for w in widths) and len(set(widths)) >= 2,
+              f"classification {label}: padded widths {widths}")
+        check(all(np.isfinite(res["losses"])),
+              f"classification {label}: non-finite loss in {res['losses']}")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def native_phase() -> dict:
+    """20d: the native data engine built on the card's host from
+    ``native/dtsdata.cpp``: its Zipf stream at ``NATIVE_ZIPF`` hashes to
+    ``NATIVE_ZIPF_DIGEST`` and its packer's windows equal the numpy
+    packer's bit for bit; host times beside numpy's."""
+    import hashlib
+    from distributed_training_sandbox_tpu_torch.data import native as NV
+    from distributed_training_sandbox_tpu_torch.data import packing
+    t = time.perf_counter()
+    ok = NV.available()
+    build_s = time.perf_counter() - t
+    check(ok, f"native engine: {NV.build_error()}")
+    t = time.perf_counter()
+    stream = NV.synthetic_token_stream(*NATIVE_ZIPF)
+    zipf_s = time.perf_counter() - t
+    digest = hashlib.sha256(stream.tobytes()).hexdigest()
+    out = {"build_s": build_s, "zipf_s": zipf_s, "digest": digest}
+    for seq in (2048, 8192):
+        t = time.perf_counter()
+        got = NV.pack_tokens(stream, seq)
+        t_nv = time.perf_counter() - t
+        t = time.perf_counter()
+        want = packing.pack_tokens(stream, seq)
+        t_np = time.perf_counter() - t
+        same = all(np.array_equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(got, want))
+        out[f"pack {seq}"] = {"equal": same, "native_s": t_nv,
+                              "numpy_s": t_np}
+        check(same, f"native engine: pack_tokens at seq {seq} differs "
+              f"from the numpy packer")
+    log(f"native engine on the card's host: {json.dumps(out)}")
+    check(digest == NATIVE_ZIPF_DIGEST, f"native engine: Zipf stream "
+          f"digest {digest}, expected {NATIVE_ZIPF_DIGEST}")
+    return out
+
+
+def phase20(card: str) -> tuple[dict, dict]:
+    """Phase 20 (the data tier, classification and the model families):
+    20a-20d.  Returns the readings and each path's launches."""
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    a, la = corpus_phase(card)
+    b, lb = families_phase(card)
+    c = classification_phase(card)
+    d = native_phase()
+    wall = time.perf_counter() - t20
+    log(f"phase 20 (data, classification and the model families): "
+        f"{wall:.1f} s")
+    return ({"corpus": a, "families": b, "classification": c, "native": d,
+             "wall_s": wall},
+            {"corpus": la, **{f"family {k}": v for k, v in lb.items()}})
 
 
 # ------------------------------------------- parent-versus-change timing
@@ -6968,6 +7648,15 @@ def _serve_reading(params, attend) -> dict:
             "tokens_per_s": slo["tokens_per_s"]}
 
 
+def cyclic_card_bytes() -> int:
+    """The card memory that only reference cycles held: a full
+    collection here, and the allocated bytes it freed."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    return before - torch.cuda.memory_allocated()
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
@@ -7004,7 +7693,11 @@ def main(argv) -> int:
                 log(f"{name}: {line.strip()}")
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    walls = {}
+    walls, cyclic = {}, {}
+    # torch.utils.checkpoint imports torch._dynamo at its first call, and
+    # that import leaves the calling frames in a reference cycle, once a
+    # process; imported here, it holds nothing of a phase's
+    importlib.import_module("torch._dynamo")
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -7012,6 +7705,11 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         walls[name] = round(time.perf_counter() - t, 1)
         log(f"phase {name}: {walls[name]} s")
+        cyclic[name] = cyclic_card_bytes()
+        check(cyclic[name] <= CYCLIC_LIMIT_BYTES,
+              f"cyclic garbage: phase {name} left {cyclic[name]} bytes of "
+              f"card memory held only by reference cycles, over "
+              f"{CYCLIC_LIMIT_BYTES}")
         return out
 
     L, L8 = CFG.num_hidden_layers, INT8_TRAIN_CFG.num_hidden_layers
@@ -7022,6 +7720,7 @@ def main(argv) -> int:
         kernels.append(timed("kernel K6", fp8_phase))
         kernels.extend(timed("kernels FA", attention_phase))
         timed("FA backward oracle", fa_bwd_oracle_gate)
+        new_shapes = timed("kernels at phase 20's shapes", new_shapes_phase)
         kernels.append(timed("kernel K7", ag_matmul_phase))
         local = timed("kernels K1 K2 K3 on local heads", local_heads_phase)
         for k in kernels:
@@ -7029,6 +7728,8 @@ def main(argv) -> int:
                     if key.split("@")[0] == k["name"]}
             if mine:
                 k["local_heads"] = mine
+            if k["name"] in new_shapes:
+                k["new_shapes"] = new_shapes[k["name"]]
         params = timed("SMOLLM3_3B params", build_params)
         eng, reqs, launches = timed("serve", serve_phase, params, rng, card)
         # phase 18b serves the same requests, beside this serve's report
@@ -7038,7 +7739,9 @@ def main(argv) -> int:
         timed("parity", parity_phase, params, reqs, eng)
         timed("decode profile", decode_step_profile, eng, reqs, "serve",
               ENGINE["flash_prefill"])
-        timed("profile", profile_phase, params, rng)
+        # rounds 4-5 of the serve, as the int8 profile: the whole run
+        # under the profiler took 51 s of the smoke's limit
+        timed("profile", profile_phase, params, rng, None, "serve", (4, 2))
         del eng, reqs
         params_q8 = timed("int8 params", quantize_decode_params, params, CFG)
         del params
@@ -7112,6 +7815,8 @@ def main(argv) -> int:
             params_q8, serve, q8, card)
         del params, params_q8
         torch.cuda.empty_cache()
+        p20, p20_launches = timed(
+            "data, classification and the model families", phase20, card)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -7128,13 +7833,15 @@ def main(argv) -> int:
              "precision": precision, "resilience": resilience, "moe": moe,
              **tpsp_launches, "composable step": comp_launches,
              "composable twin": twin_launches, "fsdp auto": auto_launches,
-             **frontier_launches, **fleet_launches}
+             **frontier_launches, **fleet_launches, **p20_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
         k["launches_by_path"] = per
     log(f"phase wall times (s): {json.dumps(walls)}; total "
         f"{time.perf_counter() - t_all:.1f} s")
+    log(f"card memory freed by a collection after each phase (bytes; "
+        f"limit {CYCLIC_LIMIT_BYTES}): {json.dumps(cyclic)}")
     log(f"ddp and zero readings on {card}: {json.dumps(ddp_zero)}")
     log(f"pipeline toy readings on {card}: {json.dumps(pipe_toy)}")
     log(f"busbench rows on {card} (one rank: copies): {json.dumps(bus)}")
@@ -7148,6 +7855,7 @@ def main(argv) -> int:
     log(f"serving frontier readings on {card}: {json.dumps(frontier)}")
     log(f"fleet, TP, disaggregation and MoE serve readings on {card}: "
         f"{json.dumps(fleet)}")
+    log(f"phase 20 readings on {card}: {json.dumps(p20)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,9 @@ ep layout keeps its ``E / ep`` slice of each bank
 and the toy layer's ``MoEParams`` cross field for field
 (:func:`moe_params_from_jax`).
 
+The classifier's tree crosses as its trunk and its head
+(:func:`classifier_params_from_jax`, :func:`classifier_params_to_numpy`).
+
 A pipeline's stages cross one by one: :func:`pipeline_stages_to_numpy`
 gives each stage's params and Adam state as numpy trees in the
 reference's layout (the MLP stages' lists of ``{"w", "b"}``, the
@@ -125,6 +128,21 @@ def params_to_numpy(params: dict) -> dict:
             return Q8(_to_numpy(t.q), _to_numpy(t.scale))
         return _to_numpy(t)
     return tree_map(leaf, params)
+
+
+def classifier_params_from_jax(np_tree: dict, cfg, device=None) -> dict:
+    """The reference's classifier tree (``models/classifier.py``:
+    ``{"trunk": <LM tree>, "cls_head": (H, num_labels)}``) → the port's:
+    the trunk through :func:`params_from_jax`, the head one leaf in
+    ``cfg.dtype``."""
+    return {"trunk": params_from_jax(np_tree["trunk"], cfg, device),
+            "cls_head": _to_torch(np_tree["cls_head"], cfg.dtype, device)}
+
+
+def classifier_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`classifier_params_from_jax`."""
+    return {"trunk": params_to_numpy(params["trunk"]),
+            "cls_head": _to_numpy(params["cls_head"])}
 
 
 def adam_state_from_jax(mu: dict, nu: dict, count: int, cfg, device=None):

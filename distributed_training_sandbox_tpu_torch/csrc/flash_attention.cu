@@ -5,8 +5,8 @@
 // pallas_calls and its dq / dkv backward pallas_calls), the attention of
 // every layer under attention_impl="flash".
 //
-// Computes, for q (B, S, nq, hd) and k, v (B, S, nkv, hd) with nkv
-// dividing nq (query head h reads kv head h / (nq / nkv); K and V are
+// Computes, for q (B, S, nq, hd) and k, v (B, S, nkv, hd), hd 64 or 128
+// (every kernel and launcher is a template on HD), with nkv dividing nq (query head h reads kv head h / (nq / nkv); K and V are
 // never repeated): scores q·k in f32 times `scale` (the plain path's
 // order: the f32 scores are scaled, q is not pre-scaled in bf16 as the
 // splash path does), key t visible to query s iff t <= s, softmax in
@@ -21,6 +21,11 @@
 // as this backward computes it: dQ forms S and dP again), against a few
 // passes over 8 MB tensors.  Only wgmma reaches the bf16 tensor cores'
 // 989 TFLOP/s.
+//
+// At hd 64 (Llama-3.2-1B's and the corpus configs' heads) a tile's row
+// is one 128-byte swizzled column block instead of two, QKᵀ takes four
+// k16 steps instead of eight, and PV, dV, dK and dQ run on wgmma
+// m64n64k16 instead of m64n128k16; the numerics are the hd-128 path's.
 //
 // Design, for Hopper: one warpgroup a block, two blocks an SM, the
 // streamed tiles through rings of 4-D TMA loads (hopper.cuh heads_map,
@@ -88,6 +93,10 @@ __device__ __forceinline__ float lsum_term(float p) { return p; }
 __device__ __forceinline__ float fwd_score(float s, float scale) { return s * scale; }
 // the backward reads the forward's f32 logsumexp as stored
 __device__ __forceinline__ float lse_in(float x) { return x; }
+// the k16 steps of a product over hd (QKᵀ, dO Vᵀ)
+__host__ __device__ constexpr int qk_steps(int hd) { return hd / 16; }
+// the accumulator registers of a 64 x hd product (O, dK, dV, dQ) a thread
+__host__ __device__ constexpr int acc_regs(int hd) { return hd / 2; }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -136,8 +145,8 @@ fa_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 // tiles come through a 2-stage ring of TMA loads (4-D maps over (B, S,
 // heads, hd), zeros past S) that one thread issues, completing on an
 // mbarrier a stage; the block's resident tiles come by cp.async.  A 64
-// x 128 bf16 tile is two 128-byte swizzled column blocks of 64 rows x
-// 128 bytes (hopper.cuh); the same tile serves as a K-major operand (a
+// x hd bf16 tile is hd / 64 128-byte swizzled column blocks of 64 rows
+// x 128 bytes (hopper.cuh); the same tile serves as a K-major operand (a
 // product over hd) and as an MN-major B (a product over its rows, the
 // descriptor's transpose).
 
@@ -147,8 +156,9 @@ constexpr int kBwdStages = 2;     // ring depth
 constexpr int kQt = 64;           // dK/dV: queries a ring step
 constexpr int kKt = 64;           // dQ: keys a ring step
 
-// bytes of a rows x 128 bf16 tile, and its column block cb
-__host__ __device__ constexpr int tile_bytes(int rows) { return rows * 256; }
+// bytes of a rows x HD bf16 tile, and its column block cb
+template <int HD>
+__host__ __device__ constexpr int tile_bytes(int rows) { return rows * HD * 2; }
 __device__ __forceinline__ uint8_t* col_block(uint8_t* t, int rows, int cb) {
   return t + cb * rows * 128;
 }
@@ -162,19 +172,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
-// Issue the copies of rows [s0, s0 + R) of head hh of a (B, S, nh, 128)
+// Issue the copies of rows [s0, s0 + R) of head hh of a (B, S, nh, HD)
 // tensor into the swizzled tile dst (rows past S are zeros), spread over
 // the block's threads.
-template <int R>
+template <int HD, int R>
 __device__ __forceinline__ void load_tile(uint8_t* dst,
                                           const bf16* __restrict__ src,
                                           int b, int S, int nh, int hh,
                                           int s0) {
-  for (int i = threadIdx.x; i < R * 16; i += kWgThreads) {
-    const int r = i / 16, c = i % 16, s = s0 + r;
+  constexpr int kChunks = HD / 8;   // 16-byte chunks of a row
+  for (int i = threadIdx.x; i < R * kChunks; i += kWgThreads) {
+    const int r = i / kChunks, c = i % kChunks, s = s0 + r;
     const bool ok = s < S;
     const bf16* p =
-        ok ? src + ((static_cast<int64_t>(b) * S + s) * nh + hh) * 128 + c * 8
+        ok ? src + ((static_cast<int64_t>(b) * S + s) * nh + hh) * HD + c * 8
            : src;
     hop::cp_async16(col_block(dst, R, c / 8) + hop::sw128(r, c % 8), p, ok);
   }
@@ -187,14 +198,15 @@ __device__ __forceinline__ uint64_t over_hd(const uint8_t* t, int kk) {
 }
 
 // Descriptor of k16 step kk of a product over the tile's 64 rows, B (16
-// rows x 128 of hd) MN-major
+// rows x hd) MN-major
 __device__ __forceinline__ uint64_t over_rows(const uint8_t* t, int kk) {
   return hop::sw128_desc(t + kk * 16 * 128, 64 * 128, 1024);
 }
 
 // d1 = A1 · B1ᵀ and d2 = A2 · B2ᵀ over hd, each operand a 64-row tile:
-// the two chains of 8 wgmma k16 steps interleaved, so that neither
+// the two chains of hd / 16 wgmma k16 steps interleaved, so that neither
 // waits on its own last step
+template <int HD>
 __device__ __forceinline__ void scores64x2(float (&d1)[32], const uint8_t* a1,
                                            const uint8_t* b1,
                                            float (&d2)[32], const uint8_t* a2,
@@ -205,33 +217,46 @@ __device__ __forceinline__ void scores64x2(float (&d1)[32], const uint8_t* a1,
   hop::fence_regs(d2);
   hop::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < qk_steps(HD); ++kk) {
     hop::wgmma_m64n64k16_bf16_ss(d1, over_hd(a1, kk), over_hd(b1, kk));
     hop::wgmma_m64n64k16_bf16_ss(d2, over_hd(a2, kk), over_hd(b2, kk));
   }
 }
 
-// acc (64 x 128) += A (64 x 64, bf16 fragments in registers) times the
+// acc (64 x hd) += A (64 x 16, bf16 fragments in registers) times B (16
+// x hd, shared, MN-major); the accumulator's N = hd / 2 registers a
+// thread pick the shape
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[N], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 32 || N == 64, "hd 64 or 128");
+  if constexpr (N == 32)
+    hop::wgmma_m64n64k16_bf16_rs_tb(acc, a, db);
+  else
+    hop::wgmma_m64n128k16_bf16_rs_tb(acc, a, db);
+}
+
+// acc (64 x hd) += A (64 x 64, bf16 fragments in registers) times the
 // 64-row tile t (rows the contraction, hd the columns)
-__device__ __forceinline__ void acc_rows(float (&acc)[64],
+template <int N>
+__device__ __forceinline__ void acc_rows(float (&acc)[N],
                                          const uint32_t (&a)[4][4],
                                          const uint8_t* t) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    hop::wgmma_m64n128k16_bf16_rs_tb(acc, a[kk], over_rows(t, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_pv(acc, a[kk], over_rows(t, kk));
 }
 
 // dV += Pᵀ dO (where with_dv) and dK += dSᵀ Q over one query tile, the
 // two chains interleaved
+template <int N>
 __device__ __forceinline__ void accumulate_dv_dk(
-    float (&dva)[64], const uint32_t (&pa)[4][4], const uint8_t* dos,
-    float (&dka)[64], const uint32_t (&da)[4][4], const uint8_t* qs,
+    float (&dva)[N], const uint32_t (&pa)[4][4], const uint8_t* dos,
+    float (&dka)[N], const uint32_t (&da)[4][4], const uint8_t* qs,
     bool with_dv) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if (with_dv)
-      hop::wgmma_m64n128k16_bf16_rs_tb(dva, pa[kk], over_rows(dos, kk));
-    hop::wgmma_m64n128k16_bf16_rs_tb(dka, da[kk], over_rows(qs, kk));
+    if (with_dv) wgmma_pv(dva, pa[kk], over_rows(dos, kk));
+    wgmma_pv(dka, da[kk], over_rows(qs, kk));
   }
 }
 
@@ -251,11 +276,14 @@ __device__ __forceinline__ int acc_col(int e, int lane) {
 // dimension: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ land in the A layout, where Pᵀ
 // and dSᵀ are rounded to bf16 for dV += Pᵀ dO and dK += dSᵀ Q.
 constexpr int kKvKeys = 64;
+template <int HD>
 constexpr int kKvStage =
-    ((2 * tile_bytes(kQt) + 2 * kQt * 4 + 1023) / 1024) * 1024;
+    ((2 * tile_bytes<HD>(kQt) + 2 * kQt * 4 + 1023) / 1024) * 1024;
+template <int HD>
 constexpr int kKvSmem =
-    2 * tile_bytes(kKvKeys) + kBwdStages * (kKvStage + 8) + 1008;
+    2 * tile_bytes<HD>(kKvKeys) + kBwdStages * (kKvStage<HD> + 8) + 1008;
 
+template <int HD>
 __global__ void __launch_bounds__(kWgThreads, kBlocksPerSm)
 fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
@@ -265,9 +293,9 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                    bf16* __restrict__ dv, Geom G) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const ks = hop::align1024(smem_raw);
-  uint8_t* const vs = ks + tile_bytes(kKvKeys);
+  uint8_t* const vs = ks + tile_bytes<HD>(kKvKeys);
   auto stage = [&](int j) {
-    return vs + tile_bytes(kKvKeys) + (j % kBwdStages) * kKvStage;
+    return vs + tile_bytes<HD>(kKvKeys) + (j % kBwdStages) * kKvStage<HD>;
   };
   const int S = G.S, rep = G.nq / G.nkv;
   const int k0 = blockIdx.x * kKvKeys;   // early keys have the most queries
@@ -278,15 +306,15 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_items = rep * n_qt;
   // the ring's TMA completions, one a stage, after the ring
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      vs + tile_bytes(kKvKeys) + kBwdStages * kKvStage);
+      vs + tile_bytes<HD>(kKvKeys) + kBwdStages * kKvStage<HD>);
 
   if (tid == 0) {
     for (int i = 0; i < kBwdStages; ++i) hop::mbar_init(&full[i], 1);
     hop::mbar_fence_init();
   }
   __syncthreads();
-  load_tile<kKvKeys>(ks, k, b, S, G.nkv, kh, k0);
-  load_tile<kKvKeys>(vs, v, b, S, G.nkv, kh, k0);
+  load_tile<HD, kKvKeys>(ks, k, b, S, G.nkv, kh, k0);
+  load_tile<HD, kKvKeys>(vs, v, b, S, G.nkv, kh, k0);
   hop::cp_async_commit();
 
   // ring step j: query head kh * rep + j / n_qt, queries from
@@ -298,15 +326,15 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       uint8_t* st = stage(j);
       if (tid == 0) {
         uint64_t* bar = &full[j % kBwdStages];
-        hop::mbar_expect_tx(bar, 2 * tile_bytes(kQt));
-        for (int cb = 0; cb < 2; ++cb) {
+        hop::mbar_expect_tx(bar, 2 * tile_bytes<HD>(kQt));
+        for (int cb = 0; cb < HD / 64; ++cb) {
           hop::tma_load_4d(col_block(st, kQt, cb), &tq, bar, 64 * cb, h, q0,
                            b);
-          hop::tma_load_4d(col_block(st + tile_bytes(kQt), kQt, cb), &tdo,
+          hop::tma_load_4d(col_block(st + tile_bytes<HD>(kQt), kQt, cb), &tdo,
                            bar, 64 * cb, h, q0, b);
         }
       }
-      float* ls = reinterpret_cast<float*>(st + 2 * tile_bytes(kQt));
+      float* ls = reinterpret_cast<float*>(st + 2 * tile_bytes<HD>(kQt));
       if (tid < 2 * kQt) {
         const int r = tid % kQt, s = q0 + r;
         const int64_t i = (static_cast<int64_t>(b) * G.nq + h) * S + s;
@@ -319,9 +347,9 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int j = 0; j < kBwdStages - 1; ++j) issue(j);
 
-  float dka[64], dva[64];
+  float dka[acc_regs(HD)], dva[acc_regs(HD)];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < acc_regs(HD); ++i) dka[i] = dva[i] = 0.f;
 
   for (int j = 0; j < n_items; ++j) {
     hop::cp_async_wait<kBwdStages - 2>();
@@ -331,13 +359,14 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     issue(j + kBwdStages - 1);
     const int q0 = k0 + (j % n_qt) * kQt;
     const uint8_t* qs = stage(j);
-    const uint8_t* dos = qs + tile_bytes(kQt);
-    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * tile_bytes(kQt));
+    const uint8_t* dos = qs + tile_bytes<HD>(kQt);
+    const float* lse_s =
+        reinterpret_cast<const float*>(qs + 2 * tile_bytes<HD>(kQt));
     const float* d_s = lse_s + kQt;
 
     float st[32], dpt[32];
     // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ
-    scores64x2(st, ks, qs, dpt, vs, dos);
+    scores64x2<HD>(st, ks, qs, dpt, vs, dos);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(st);
@@ -381,9 +410,9 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int h = 0; h < 2; ++h) {
     const int s = k0 + 16 * warp + lane / 4 + 8 * h;
     if (s >= S) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * S + s) * G.nkv + kh) * 128;
+    const int64_t row = ((static_cast<int64_t>(b) * S + s) * G.nkv + kh) * HD;
 #pragma unroll
-    for (int jb = 0; jb < 16; ++jb) {
+    for (int jb = 0; jb < HD / 8; ++jb) {
       const int d = 8 * jb + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
           __floats2bfloat162_rn(dka[4 * jb + 2 * h] * G.scale,
@@ -399,10 +428,13 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // S = Q Kᵀ and dP = dO Vᵀ are computed again here, so that dQ needs no
 // float atomics; dS is rounded to bf16 in the A layout for dQ += dS K.
 constexpr int kDqRows = 64;
-constexpr int kDqStage = 2 * tile_bytes(kKt);
+template <int HD>
+constexpr int kDqStage = 2 * tile_bytes<HD>(kKt);
+template <int HD>
 constexpr int kDqSmem =
-    2 * tile_bytes(kDqRows) + kBwdStages * (kDqStage + 8) + 1008;
+    2 * tile_bytes<HD>(kDqRows) + kBwdStages * (kDqStage<HD> + 8) + 1008;
 
+template <int HD>
 __global__ void __launch_bounds__(kWgThreads, kBlocksPerSm)
 fa_bwd_dq_kernel(const bf16* __restrict__ q,
                  const __grid_constant__ CUtensorMap tk,
@@ -412,9 +444,9 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
                  bf16* __restrict__ dq, Geom G) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const qs = hop::align1024(smem_raw);
-  uint8_t* const dos = qs + tile_bytes(kDqRows);
+  uint8_t* const dos = qs + tile_bytes<HD>(kDqRows);
   auto stage = [&](int j) {
-    return dos + tile_bytes(kDqRows) + (j % kBwdStages) * kDqStage;
+    return dos + tile_bytes<HD>(kDqRows) + (j % kBwdStages) * kDqStage<HD>;
   };
   const int S = G.S;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;   // longest first
@@ -426,25 +458,25 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
 
   // the ring's TMA completions, one a stage, after the ring
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      dos + tile_bytes(kDqRows) + kBwdStages * kDqStage);
+      dos + tile_bytes<HD>(kDqRows) + kBwdStages * kDqStage<HD>);
   if (tid == 0) {
     for (int i = 0; i < kBwdStages; ++i) hop::mbar_init(&full[i], 1);
     hop::mbar_fence_init();
   }
   __syncthreads();
-  load_tile<kDqRows>(qs, q, b, S, G.nq, h, q0);
-  load_tile<kDqRows>(dos, dout, b, S, G.nq, h, q0);
+  load_tile<HD, kDqRows>(qs, q, b, S, G.nq, h, q0);
+  load_tile<HD, kDqRows>(dos, dout, b, S, G.nq, h, q0);
   hop::cp_async_commit();
   // ring step j: the keys from 64 j, K and V by TMA (one thread)
   auto issue = [&](int j) {
     if (j < n_kt && tid == 0) {
       uint64_t* bar = &full[j % kBwdStages];
-      hop::mbar_expect_tx(bar, 2 * tile_bytes(kKt));
-      for (int cb = 0; cb < 2; ++cb) {
+      hop::mbar_expect_tx(bar, 2 * tile_bytes<HD>(kKt));
+      for (int cb = 0; cb < HD / 64; ++cb) {
         hop::tma_load_4d(col_block(stage(j), kKt, cb), &tk, bar, 64 * cb, kh,
                          j * kKt, b);
-        hop::tma_load_4d(col_block(stage(j) + tile_bytes(kKt), kKt, cb), &tv,
-                         bar, 64 * cb, kh, j * kKt, b);
+        hop::tma_load_4d(col_block(stage(j) + tile_bytes<HD>(kKt), kKt, cb),
+                         &tv, bar, 64 * cb, kh, j * kKt, b);
       }
     }
   };
@@ -460,9 +492,9 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
     lr[r] = row[r] < S ? lse_in(lse[i]) : 0.f;
     dr[r] = row[r] < S ? dvec[i] : 0.f;
   }
-  float dqa[64];
+  float dqa[acc_regs(HD)];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < acc_regs(HD); ++i) dqa[i] = 0.f;
 
   hop::cp_async_wait<0>();   // Q and dO
   hop::fence_proxy_async();
@@ -471,12 +503,12 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
     __syncthreads();   // tile j has landed and tile j - 1 is consumed
     issue(j + kBwdStages - 1);
     const uint8_t* kst = stage(j);
-    const uint8_t* vst = kst + tile_bytes(kKt);
+    const uint8_t* vst = kst + tile_bytes<HD>(kKt);
     const int t0 = j * kKt;
 
     float sc[32], dp[32];
     // S = Q Kᵀ and dP = dO Vᵀ
-    scores64x2(sc, qs, kst, dp, dos, vst);
+    scores64x2<HD>(sc, qs, kst, dp, dos, vst);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
@@ -517,9 +549,9 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= S) continue;
-    bf16* o = dq + ((static_cast<int64_t>(b) * S + row[r]) * G.nq + h) * 128;
+    bf16* o = dq + ((static_cast<int64_t>(b) * S + row[r]) * G.nq + h) * HD;
 #pragma unroll
-    for (int jb = 0; jb < 16; ++jb) {
+    for (int jb = 0; jb < HD / 8; ++jb) {
       const int d = 8 * jb + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(
           dqa[4 * jb + 2 * r] * G.scale, dqa[4 * jb + 2 * r + 1] * G.scale);
@@ -536,9 +568,12 @@ fa_bwd_dq_kernel(const bf16* __restrict__ q,
 // run while the tensor cores take that product; once both have
 // completed, K stage j and V stage j - 1 are refilled.
 constexpr int kFwdStages = 2;
-constexpr int kFwdSmem = tile_bytes(64) + 2 * kFwdStages * tile_bytes(kKt) +
+template <int HD>
+constexpr int kFwdSmem = tile_bytes<HD>(64) +
+                         2 * kFwdStages * tile_bytes<HD>(kKt) +
                          (2 * kFwdStages + 1) * 8 + 1008;
 
+template <int HD>
 __global__ void __launch_bounds__(kWgThreads, kBlocksPerSm)
 fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
@@ -546,18 +581,18 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
               float* __restrict__ lse, Geom G) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const qs = hop::align1024(smem_raw);
-  uint8_t* const kring = qs + tile_bytes(64);
-  uint8_t* const vring = kring + kFwdStages * tile_bytes(kKt);
+  uint8_t* const kring = qs + tile_bytes<HD>(64);
+  uint8_t* const vring = kring + kFwdStages * tile_bytes<HD>(kKt);
   // the TMA completions (K stages, V stages, then Q), after the rings
   uint64_t* const kfull =
-      reinterpret_cast<uint64_t*>(vring + kFwdStages * tile_bytes(kKt));
+      reinterpret_cast<uint64_t*>(vring + kFwdStages * tile_bytes<HD>(kKt));
   uint64_t* const vfull = kfull + kFwdStages;
   uint64_t* const qfull = vfull + kFwdStages;
   auto ktile = [&](int j) {
-    return kring + (j % kFwdStages) * tile_bytes(kKt);
+    return kring + (j % kFwdStages) * tile_bytes<HD>(kKt);
   };
   auto vtile = [&](int j) {
-    return vring + (j % kFwdStages) * tile_bytes(kKt);
+    return vring + (j % kFwdStages) * tile_bytes<HD>(kKt);
   };
   const int S = G.S;
   const int h = blockIdx.x, b = blockIdx.z, kh = h / (G.nq / G.nkv);
@@ -569,8 +604,8 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   // rows [s0, s0 + 64) of head hh of a map into dst, completing on bar
   auto load = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int hh,
                   int s0) {
-    hop::mbar_expect_tx(bar, tile_bytes(kKt));
-    for (int cb = 0; cb < 2; ++cb)
+    hop::mbar_expect_tx(bar, tile_bytes<HD>(kKt));
+    for (int cb = 0; cb < HD / 64; ++cb)
       hop::tma_load_4d(col_block(dst, kKt, cb), map, bar, 64 * cb, hh, s0, b);
   };
   if (tid == 0) {
@@ -594,10 +629,10 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) row[r] = q0 + 16 * warp + lane / 4 + 8 * r;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
-  float sc[32], oacc[64];
+  float sc[32], oacc[acc_regs(HD)];
   uint32_t pa[4][4];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < acc_regs(HD); ++i) oacc[i] = 0.f;
 
   // S = Q K_jᵀ, issued as one wgmma group
   auto scores = [&](int j) {
@@ -607,7 +642,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     hop::fence_regs(sc);
     hop::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < qk_steps(HD); ++kk)
       hop::wgmma_m64n64k16_bf16_ss(sc, over_hd(qs, kk), over_hd(ktile(j), kk));
     hop::wgmma_commit();
   };
@@ -695,7 +730,7 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     hop::fence_regs(oacc);
     refill(j);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) oacc[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < acc_regs(HD); ++i) oacc[i] *= corr[(i / 2) % 2];
     pack();
   }
   pv(n_kt - 1);
@@ -707,9 +742,9 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= S) continue;
-    bf16* out = o + ((static_cast<int64_t>(b) * S + row[r]) * G.nq + h) * 128;
+    bf16* out = o + ((static_cast<int64_t>(b) * S + row[r]) * G.nq + h) * HD;
 #pragma unroll
-    for (int jb = 0; jb < 16; ++jb) {
+    for (int jb = 0; jb < HD / 8; ++jb) {
       const int d = 8 * jb + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(out + d) =
           __floats2bfloat162_rn(oacc[4 * jb + 2 * r] / l[r],
@@ -734,47 +769,51 @@ int set_smem(Kernel kernel, int bytes, bool max_shared = false) {
   return static_cast<int>(err);
 }
 
+template <int HD>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, Geom G, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  if (!hop::heads_map(&tq, q, B, G.S, G.nq, 64) ||
-      !hop::heads_map(&tk, k, B, G.S, G.nkv, kKt) ||
-      !hop::heads_map(&tv, v, B, G.S, G.nkv, kKt))
+  if (!hop::heads_map(&tq, q, B, G.S, G.nq, HD, 64) ||
+      !hop::heads_map(&tk, k, B, G.S, G.nkv, HD, kKt) ||
+      !hop::heads_map(&tv, v, B, G.S, G.nkv, HD, kKt))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (int err = set_smem(fa_fwd_kernel, kFwdSmem, true)) return err;
-  fa_fwd_kernel<<<dim3(G.nq, (G.S + 63) / 64, B), kWgThreads, kFwdSmem,
-                  st>>>(tq, tk, tv, static_cast<bf16*>(o),
-                        static_cast<float*>(lse), G);
+  if (int err = set_smem(fa_fwd_kernel<HD>, kFwdSmem<HD>, true)) return err;
+  fa_fwd_kernel<HD><<<dim3(G.nq, (G.S + 63) / 64, B), kWgThreads,
+                      kFwdSmem<HD>, st>>>(tq, tk, tv, static_cast<bf16*>(o),
+                                          static_cast<float*>(lse), G);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
 int bwd(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const void* lse, void* dvec, void* dq, void* dk,
         void* dv, int B, Geom G, cudaStream_t st) {
   const int rows = B * G.S * G.nq, per_block = kThreads / 32;
-  fa_bwd_dot_kernel<128><<<(rows + per_block - 1) / per_block, kThreads, 0,
-                           st>>>(static_cast<const bf16*>(o),
-                                 static_cast<const bf16*>(dout),
-                                 static_cast<float*>(dvec), B, G);
+  fa_bwd_dot_kernel<HD><<<(rows + per_block - 1) / per_block, kThreads, 0,
+                          st>>>(static_cast<const bf16*>(o),
+                                static_cast<const bf16*>(dout),
+                                static_cast<float*>(dvec), B, G);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
 
   CUtensorMap tq, tdo, tk, tv;
-  if (!hop::heads_map(&tq, q, B, G.S, G.nq, kQt) ||
-      !hop::heads_map(&tdo, dout, B, G.S, G.nq, kQt) ||
-      !hop::heads_map(&tk, k, B, G.S, G.nkv, kKt) ||
-      !hop::heads_map(&tv, v, B, G.S, G.nkv, kKt))
+  if (!hop::heads_map(&tq, q, B, G.S, G.nq, HD, kQt) ||
+      !hop::heads_map(&tdo, dout, B, G.S, G.nq, HD, kQt) ||
+      !hop::heads_map(&tk, k, B, G.S, G.nkv, HD, kKt) ||
+      !hop::heads_map(&tv, v, B, G.S, G.nkv, HD, kKt))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (int err = set_smem(fa_bwd_dkdv_kernel, kKvSmem, true)) return err;
-  fa_bwd_dkdv_kernel<<<dim3((G.S + kKvKeys - 1) / kKvKeys, G.nkv, B),
-                       kWgThreads, kKvSmem, st>>>(
+  if (int err = set_smem(fa_bwd_dkdv_kernel<HD>, kKvSmem<HD>, true))
+    return err;
+  fa_bwd_dkdv_kernel<HD><<<dim3((G.S + kKvKeys - 1) / kKvKeys, G.nkv, B),
+                           kWgThreads, kKvSmem<HD>, st>>>(
       tq, tdo, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), G);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
 
-  if (int err = set_smem(fa_bwd_dq_kernel, kDqSmem, true)) return err;
-  fa_bwd_dq_kernel<<<dim3((G.S + kDqRows - 1) / kDqRows, G.nq, B),
-                     kWgThreads, kDqSmem, st>>>(
+  if (int err = set_smem(fa_bwd_dq_kernel<HD>, kDqSmem<HD>, true))
+    return err;
+  fa_bwd_dq_kernel<HD><<<dim3((G.S + kDqRows - 1) / kDqRows, G.nq, B),
+                         kWgThreads, kDqSmem<HD>, st>>>(
       static_cast<const bf16*>(q), tk, tv, static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
       static_cast<bf16*>(dq), G);
@@ -789,15 +828,18 @@ bool bad_geom(int B, int S, int nq, int nkv) {
 }  // namespace
 
 // q (B, S, nq, hd), k / v (B, S, nkv, hd) bf16; o (B, S, nq, hd) bf16;
-// lse (B, nq, S) f32.  hd is 128 (SmolLM3's).  Returns cudaGetLastError().
+// lse (B, nq, S) f32.  hd is 128 (SmolLM3's, Qwen3's) or 64 (Llama-3.2-1B's,
+// SmolLM3-350M's).  Returns cudaGetLastError().
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, void* o, void* lse, int B,
                                      int S, int nq, int nkv, int hd,
                                      float scale, void* stream) {
-  if (bad_geom(B, S, nq, nkv) || hd != 128)
+  if (bad_geom(B, S, nq, nkv) || (hd != 128 && hd != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom G{S, nq, nkv, scale};
-  return fwd(q, k, v, o, lse, B, G, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd == 64 ? fwd<64>(q, k, v, o, lse, B, G, st)
+                  : fwd<128>(q, k, v, o, lse, B, G, st);
 }
 
 // The backward from the forward's o and lse and the output grad dout
@@ -809,9 +851,11 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      void* dvec, void* dq, void* dk, void* dv,
                                      int B, int S, int nq, int nkv, int hd,
                                      float scale, void* stream) {
-  if (bad_geom(B, S, nq, nkv) || hd != 128)
+  if (bad_geom(B, S, nq, nkv) || (hd != 128 && hd != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom G{S, nq, nkv, scale};
-  return bwd(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, G,
-             static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd == 64
+             ? bwd<64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, G, st)
+             : bwd<128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, G, st);
 }

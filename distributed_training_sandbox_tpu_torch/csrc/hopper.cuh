@@ -383,19 +383,21 @@ inline bool sw128_map(CUtensorMap* map, const void* p, int rows, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A (B, S, nh, 128) bf16 tensor as boxes of 64 elements of one head's
-// row x box_rows sequence positions of one batch row (128 bytes x
-// box_rows, 128-byte swizzled), zeros past S.  False where the
-// descriptor cannot be made.
+// A (B, S, nh, hd) bf16 tensor (hd a multiple of 64) as boxes of 64
+// elements of one head's row x box_rows sequence positions of one batch
+// row (128 bytes x box_rows, 128-byte swizzled), zeros past S.  False
+// where the descriptor cannot be made.
 inline bool heads_map(CUtensorMap* map, const void* p, int B, int S, int nh,
-                      int box_rows) {
+                      int hd, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(nh),
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;   // bytes
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(nh),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {256, static_cast<cuuint64_t>(nh) * 256,
-                                 static_cast<cuuint64_t>(S) * nh * 256};
+  const cuuint64_t strides[3] = {row, static_cast<cuuint64_t>(nh) * row,
+                                 static_cast<cuuint64_t>(S) * nh * row};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),

@@ -36,6 +36,7 @@ activation offload is a later slice (ROADMAP.md queue A, A12).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -187,10 +188,57 @@ SMOLLM3_3B_L8_MOE = TransformerConfig(
     num_hidden_layers=8, attention_impl="flash", loss_vocab_chunk=16_032,
     n_experts=8, moe_ffn=2752, moe_dispatch="grouped")
 
+# Qwen3-4B geometry (hidden 2560, 32 / 8 heads at hd 128, vocab 151 936,
+# RoPE everywhere); Qwen3's QK-norm is not modelled, as in the reference.
+QWEN3_4B = TransformerConfig(
+    vocab_size=151_936, hidden_size=2560, intermediate_size=9728,
+    num_hidden_layers=36, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=1_000_000.0, nope_interval=0)
+
+# Its one-card sibling: the same layer, 6 of them.
+QWEN3_4B_L6 = TransformerConfig(
+    vocab_size=151_936, hidden_size=2560, intermediate_size=9728,
+    num_hidden_layers=6, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=1_000_000.0, nope_interval=0,
+    attention_impl="flash", loss_vocab_chunk=15_194)
+
+# Llama-3.2-1B (hd 64) and Llama-3.1-8B (an untied output head) geometry.
+LLAMA32_1B = TransformerConfig(
+    vocab_size=128_256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, rope_theta=500_000.0, nope_interval=0,
+    attention_impl="flash", loss_vocab_chunk=16_032)
+LLAMA31_8B = TransformerConfig(
+    vocab_size=128_256, hidden_size=4096, intermediate_size=14_336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=500_000.0, nope_interval=0,
+    tie_word_embeddings=False)
+
+# SmolLM3-350M geometry: 15 / 5 heads at hd 64 (GQA rep 3).
+SMOLLM3_350M = TransformerConfig(
+    vocab_size=49_152, hidden_size=960, intermediate_size=2560,
+    num_hidden_layers=32, num_attention_heads=15, num_key_value_heads=5,
+    head_dim=64)
+
 TINY_LM = TransformerConfig(
     vocab_size=512, hidden_size=64, intermediate_size=160,
     num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
     rope_theta=10_000.0, dtype=torch.float32, remat=False)
+
+# The corpus configs: vocab 8192, the committed corpus tokenizer's
+# (data/corpus/tokenizer.json), 12 / 4 and 15 / 5 heads at hd 64.
+CORPUS_LM = TransformerConfig(
+    vocab_size=8192, hidden_size=768, intermediate_size=2048,
+    num_hidden_layers=8, num_attention_heads=12, num_key_value_heads=4,
+    head_dim=64, rope_theta=10_000.0, nope_interval=0,
+    attention_impl="flash")
+CORPUS_350M = TransformerConfig(
+    vocab_size=8192, hidden_size=960, intermediate_size=2560,
+    num_hidden_layers=32, num_attention_heads=15, num_key_value_heads=5,
+    head_dim=64, nope_interval=0, attention_impl="flash")
+
+# TINY_LM at 8 layers (4-stage and interleaved pipelines).
+TINY_LM_L8 = dataclasses.replace(TINY_LM, num_hidden_layers=8)
 
 
 def check_supported(cfg: TransformerConfig) -> None:

@@ -4,7 +4,9 @@
 Counterpart of the JAX package's ``transformer._attention_flash`` (jax's
 splash kernel).  ``flash_attention(q, k, v, scale)`` takes the reference
 layout: q (B, S, nq, hd), k and v (B, S, nkv, hd) with ``nkv`` dividing
-``nq``, and returns (B, S, nq, hd) in q's dtype.
+``nq``, and returns (B, S, nq, hd) in q's dtype.  The kernels take hd
+64 and 128 (``HEAD_DIMS``), the heads of every config the JAX package
+registers.
 
 The plain version is ``transformer._attention_xla``'s math
 (:func:`attention_plain`): f32 scores scaled after the product, the
@@ -78,7 +80,7 @@ __all__ = ["flash_attention", "attention_saved", "ATTENTION_OP",
            "attention_bwd_oracle", "off_count", "oracle_l2_ratio",
            "block_rel_l2", "FWD_COUNTS", "BWD_COUNTS", "TOLERANCE",
            "BLOCK_REL_L2", "LSE_ATOL", "ORACLE_COUNT_RATIO",
-           "BWD_ORACLE_L2_RATIO"]
+           "BWD_ORACLE_L2_RATIO", "HEAD_DIMS"]
 
 FWD_COUNTS = LaunchCount()
 BWD_COUNTS = LaunchCount()
@@ -104,7 +106,10 @@ ORACLE_COUNT_RATIO = 4000.0
 # one dropping a query tile from dV 47.7-48.4 on dV.  The limit lies
 # between.
 BWD_ORACLE_L2_RATIO = 2.0
-HEAD_DIM = 128   # the kernels' head dim (csrc/flash_attention.cu)
+# the head dims the kernels take (csrc/flash_attention.cu's HD): 128
+# (SmolLM3, Qwen3) and 64 (Llama-3.2-1B, SmolLM3-350M, the corpus
+# configs); any other raises on a CUDA tensor
+HEAD_DIMS = (64, 128)
 
 
 def _attention_math(q, k, v, scale):
@@ -228,9 +233,9 @@ def _check(q, k, v):
     if nq % k.shape[2]:
         raise ValueError(f"flash_attention: nkv={k.shape[2]} must divide "
                          f"nq={nq}")
-    if hd != HEAD_DIM:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernels take hd "
-                         f"{HEAD_DIM}, got {hd}")
+                         f"{' or '.join(map(str, HEAD_DIMS))}, got {hd}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_attention: the kernels take bf16, got "
                          f"{q.dtype}")

@@ -405,7 +405,10 @@ def fully_shard_params(params: dict, cfg: T.TransformerConfig, axis="dp"
     """Full (replicated) params → a :class:`FullyShardedParams` under
     ``fully_shard`` over ``axis``'s group: plain leaves ``Shard(0)``,
     the stacked layer leaves ``Shard(1)``, so each rank's local shard
-    is :func:`shard_tree`'s, row for row."""
+    is :func:`shard_tree`'s, row for row.  The module, its FSDP state
+    and its parameters refer to one another (PyTorch's FSDP2), so a
+    dropped module's memory waits for a full garbage collection;
+    ``train.train_fsdp.run`` collects as it ends."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard

@@ -272,11 +272,15 @@ class ResilienceContext:
 
     def close(self) -> None:
         """Wait out in-flight checkpoint writes — runs in the
-        supervisor's finally, crash included (the torn-save guarantee)."""
+        supervisor's finally, crash included (the torn-save guarantee).
+        Then drop the loop's state closure: it holds the loop's params
+        and optimizer state, and, through the loop's locals, this
+        context, a cycle that would keep them alive until a collection."""
         for child in self._children:
             child.close()
         if self.ckptr is not None:
             self.ckptr.close()
+        self._state_fn = None
 
     # ---- internals -------------------------------------------------------
     def _scope_lineage(self) -> dict:

@@ -19,15 +19,25 @@ cursor and the losses) under ``D/runstate`` every N steps, and
 ``--resume`` continues from the newest intact one: the batch stream is
 rebuilt and fast-forwarded, the lr series' prefix rebuilt from the
 schedule, and the stitched losses equal an uninterrupted run's bit for
-bit.  Not ported: the params-only final save beside it (its reader,
-``scripts/eval_lm.py``, is not ported), ``--plan``, ``--spike-demo``,
-corpus data and the loss plot (ROADMAP.md).
+bit.  With ``--ckpt-dir`` the final params are also saved alone under
+``D/<steps>/`` (``utils.checkpoint``), beside ``runstate/``, for
+``train.eval_lm``.
+
+``--data corpus`` trains on the committed corpus (``data/corpus``,
+tokenized by its ``tokenizer.json``: ``corpus-70m`` and ``corpus-350m``
+have its vocab, 8192): the windows less the held-out tail
+(``data.corpus_holdout_split``, which ``train.eval_lm`` scores), in as
+many epochs as ``--num-steps`` needs over the usable windows.  The
+synthetic data keeps the numpy engine (``--data synthetic``, the
+default).  Not ported: ``--plan``, ``--spike-demo`` and the loss plot
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import time
@@ -36,12 +46,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data import make_packed_dataset, packed_batches
+from ..data import corpus_holdout_split, make_packed_dataset, packed_batches
+from ..data.packing import CORPUS_DOCS, CORPUS_TOKENIZER
 from ..device import resolve_device
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..parallel import fsdp, optim
 from ..resilience import Checkpointer, RunState, generator_states
+from ..utils import checkpoint as CK
+
+DATA = ("synthetic", "corpus")
 
 
 def leg_batches(vocab_size: int, seq: int, bs: int, num_steps: int,
@@ -54,10 +68,39 @@ def leg_batches(vocab_size: int, seq: int, bs: int, num_steps: int,
     return packed_batches(ii, ll, bs)
 
 
+@functools.lru_cache(maxsize=2)
+def corpus_windows(vocab_size: int, seq: int):
+    """The committed corpus as windows of ``seq``, split by
+    ``corpus_holdout_split``: ((train ids, labels), (held-out ids,
+    labels)).  Tokenized once a process for each (vocab, seq); callers
+    read the arrays and never write them."""
+    ii, ll = make_packed_dataset(seq, vocab_size, source="corpus",
+                                 corpus_path=CORPUS_DOCS,
+                                 tokenizer_file=CORPUS_TOKENIZER)
+    return corpus_holdout_split(ii, ll)
+
+
+def corpus_batches(vocab_size: int, seq: int, bs: int, num_steps: int):
+    """``run_leg``'s corpus batches: the train windows in as many epochs
+    as ``num_steps`` batches of ``bs`` need (epochs counted from the
+    usable windows, ``len // bs`` a pass).  Exits when the train split
+    holds fewer windows than one batch."""
+    (ii, ll), (hi, _) = corpus_windows(vocab_size, seq)
+    usable = len(ii) // bs
+    if not usable:
+        raise SystemExit(f"[flagship] corpus too small: {len(ii)} train "
+                         f"windows < batch size {bs}")
+    epochs = -(-num_steps // usable)
+    print(f"[flagship] corpus: {len(ii)} windows x seq {seq} (+{len(hi)} "
+          f"held out; {epochs} epoch(s) x {usable} batches for "
+          f"{num_steps} steps)", flush=True)
+    return packed_batches(ii, ll, bs, epochs=epochs)
+
+
 def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
             warmup_steps: int, peak_lr: float, *, seed: int = 42,
             device=None, on_step=None, ckpt_dir=None, ckpt_every: int = 0,
-            resume: bool = False) -> dict:
+            resume: bool = False, data: str = "synthetic") -> dict:
     """Train ``num_steps`` steps; returns the reference's result keys
     (``losses``, ``lrs``, ``tokens_per_second``, ``loss_first``,
     ``loss_max_first20``, ``loss_final_mean20``) and the run's shape.
@@ -67,7 +110,12 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
     ``ckpt_every`` steps (asynchronously: this loop syncs every step)
     and once at the end; ``resume`` starts from the newest intact one,
     and ``losses`` and ``lrs`` are then the stitched series
-    (``start_step`` says where this segment began)."""
+    (``start_step`` says where this segment began).  With ``ckpt_dir``
+    the final params are saved alone under ``<ckpt_dir>/<steps>/``.
+    ``data``: ``"synthetic"`` (fresh numpy windows) or ``"corpus"``
+    (:func:`corpus_batches`)."""
+    if data not in DATA:
+        raise ValueError(f"data={data!r}; choose from {DATA}")
     dev = resolve_device(device)
     cfg = dataclasses.replace(
         getattr(T, MODEL_REGISTRY[model]), matmul_precision=precision,
@@ -99,7 +147,9 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
     losses = list(prior)
     lrs = [sched(i) if sched else peak_lr for i in range(start)]
     times = []
-    batches = leg_batches(cfg.vocab_size, seq, bs, num_steps, seed)
+    batches = (corpus_batches(cfg.vocab_size, seq, bs, num_steps)
+               if data == "corpus" else
+               leg_batches(cfg.vocab_size, seq, bs, num_steps, seed))
     try:
         t0 = time.perf_counter()
         for i, (ib, lb) in enumerate(itertools.islice(batches, start, None),
@@ -128,6 +178,12 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
     finally:
         if ckptr is not None:
             ckptr.close()
+    if ckpt_dir and losses:
+        # the params alone, for train.eval_lm's restore_params
+        with CK.closing(CK.checkpoint_manager(ckpt_dir)) as mgr:
+            CK.save_state(mgr, len(losses), {"params": params}, wait=False)
+        print(f"[flagship] checkpoint step {len(losses)} -> {ckpt_dir}",
+              flush=True)
     # tokens/s over the steps after the first two (the reference's
     # window: compile there, kernel builds and allocator warm-up here).
     # The reference counts len - 1 steps' tokens over that window of
@@ -137,7 +193,7 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
     tok_s = n_timed * bs * seq / dt if dt > 0 else 0.0
     return {"start_step": start,
         "model": model, "precision": precision, "sequence_length": seq,
-        "batch_size": bs, "num_steps": len(losses),
+        "batch_size": bs, "data": data, "num_steps": len(losses),
         "warmup_steps": warmup_steps, "peak_lr": peak_lr,
         "device": str(dev), "tokens_per_second": tok_s,
         "loss_first": losses[0], "loss_max_first20": max(losses[:20]),
@@ -157,8 +213,12 @@ def main(argv=None) -> None:
     p.add_argument("--num-steps", type=int, default=500)
     p.add_argument("--warmup-steps", type=int, default=50)
     p.add_argument("--peak-lr", type=float, default=3e-4)
+    p.add_argument("--data", choices=DATA, default="synthetic",
+                   help="'corpus': the committed corpus less its held-out "
+                        "tail")
     p.add_argument("--ckpt-dir", default=None,
-                   help="RunState checkpoints under DIR/runstate")
+                   help="RunState checkpoints under DIR/runstate, the final "
+                        "params under DIR/<steps>")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true",
                    help="continue from the newest intact checkpoint")
@@ -170,7 +230,7 @@ def main(argv=None) -> None:
         args.model, args.precision, args.sequence_length, args.batch_size,
         args.num_steps, args.warmup_steps, args.peak_lr, device=args.device,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.checkpoint_every,
-        resume=args.resume,
+        resume=args.resume, data=args.data,
         on_step=lambda i, loss: print(f"[flagship] step {i:4d} loss "
                                       f"{loss:8.4f}", flush=True))
     print(f"[flagship] first {result['loss_first']:.3f} max(first20) "

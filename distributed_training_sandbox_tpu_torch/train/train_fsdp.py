@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import time
@@ -163,13 +164,19 @@ def run(model: str = "tiny", *, overlap: str = "none",
                            precision=precision, accum_steps=accum_steps)
     fp = {"model": model, "overlap": overlap,
           "state_precision": state_precision, "variant": variant}
-    return H.supervise(cfg_run, "fsdp", lambda ctx, holder: _run(
+    out = H.supervise(cfg_run, "fsdp", lambda ctx, holder: _run(
         ctx, holder, cfg_run, model, overlap=overlap, variant=variant,
         reshard_after_forward=reshard_after_forward, device=dev,
         attention=attention, remat_policy=remat_policy, quantized_gather=quantized_gather,
         quantized_grads=quantized_grads, state_precision=state_precision,
         profile_schedule=profile_schedule, on_step=on_step, log=log),
         extra_fingerprint=fp)
+    if variant == "auto":
+        # fully_shard's module, its FSDP state and its parameters refer to
+        # one another (PyTorch's FSDP2): collected as the run ends, not at
+        # the collector's next full pass, which may be runs away
+        gc.collect()
+    return out
 
 
 def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,

@@ -334,6 +334,10 @@ ATTN_SHAPES = {
     # a pipeline stage's microbatch at scripts/_pp_driver.py's shapes
     # (batch 64 in 4 microbatches, seq 256)
     "pipeline_stage": (16, 256, 16, 4, 128),
+    # hd 64: Llama-3.2-1B's heads at its training shape, the corpus
+    # configs' 12 / 4 ragged
+    "llama32_1b_train": (1, 8192, 32, 8, 64),
+    "corpus_ragged": (2, 200, 12, 4, 64),
 }
 
 
@@ -490,6 +494,45 @@ def test_flash_attention_forward_edges_match_plain_and_repeat(cuda, S, rep):
 
 
 @pytest.mark.gpu_port
+@pytest.mark.parametrize("heads", [(1, 1), (4, 1), (15, 5), (32, 8)],
+                         ids=lambda h: f"{h[0]}/{h[1]}")
+@pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 1000])
+def test_flash_attention_hd64_matches_plain_and_repeats(cuda, S, heads):
+    """The forward and backward kernels at hd 64 (Llama-3.2-1B's 32 / 8
+    heads, SmolLM3-350M's 15 / 5, MQA 4 / 1, MHA 1 / 1) at S on either
+    side of the 64-row tiles, against the plain version at the module's
+    limits; each bit-equal on a second launch.  At S 1 the one key's
+    dQ and dK are exactly 0 on the plain path and f32 roundings of 0 in
+    the kernel, so only the elementwise gate holds them there."""
+    nq, nkv = heads
+    q, k, v, do = attn_case(8, 1, S, nq, nkv, 64, cuda)
+    scale = 64 ** -0.5
+    FA.FWD_COUNTS.reset()
+    FA.BWD_COUNTS.reset()
+    o, lse = FA.flash_attention_fwd(q, k, v, scale)
+    o2, lse2 = FA.flash_attention_fwd(q, k, v, scale)
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    grads2 = FA.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls) == (2, 0)
+    assert (FA.BWD_COUNTS.launches, FA.BWD_COUNTS.plain_calls) == (2, 0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    ref_o, ref_lse = FA.attention_plain_lse(q, k, v, scale)
+    atol, rtol = FA.TOLERANCE["fwd"]
+    torch.testing.assert_close(o, ref_o, atol=atol, rtol=rtol)
+    assert FA.block_rel_l2(o, ref_o) <= FA.BLOCK_REL_L2
+    torch.testing.assert_close(lse, ref_lse, atol=FA.LSE_ATOL, rtol=0)
+    if S > 1:
+        assert_bwd_matches("hd64", grads, q, k, v, do, scale)
+    else:
+        atol, rtol = FA.TOLERANCE["bwd"]
+        for g, r in zip(grads, FA.flash_attention_bwd_plain(q, k, v, do,
+                                                            scale)):
+            torch.testing.assert_close(g, r, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu_port
 def test_flash_attention_autograd_goes_through_the_kernels(cuda):
     q, k, v, do = attn_case(2, *ATTN_SHAPES["gqa_ragged"], cuda)
     args = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -544,7 +587,7 @@ def test_training_kernels_reject_what_they_do_not_take(cuda):
     aq, a_s, bt, b_s = fp8_case(3, 64, 40, 32, cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
         Q.fp8_matmul_kernel(aq, a_s, bt, b_s)
-    q, k, v, _ = attn_case(4, 1, 16, 4, 2, 64, cuda)
+    q, k, v, _ = attn_case(4, 1, 16, 4, 2, 96, cuda)
     with pytest.raises(ValueError, match="hd"):
         FA.flash_attention_fwd(q, k, v, 0.1)
     q, k, v, _ = attn_case(4, 1, 16, 4, 2, 128, cuda)

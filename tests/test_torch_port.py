@@ -388,8 +388,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-assert {pkg.__name__ + ".serving.router",
-        pkg.__name__ + ".serving.fleet"} <= set(names), names
+assert {pkg.__name__ + m for m in (
+    ".serving.router", ".serving.fleet", ".data.native",
+    ".data.classification", ".models.classifier", ".train.eval_lm",
+    ".train.native_data_bench")} <= set(names), names
 import chip_gate_mutation
 import chip_smoke
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
