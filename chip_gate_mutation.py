@@ -204,6 +204,17 @@ resilience mutants edit a Python module of the port instead):
   O's last 8-column block unrescaled when the row maximum moves), whose
   forward gate and oracle count must fail.
 
+- two of the observability tier (phase 21, the port's Python; each
+  child runs only its sub-phase): ``pipeline_resume_no_adam``
+  (``parallel/pipeline.py``: a resumed stage takes the checkpoint's
+  params but keeps its fresh Adam state), whose bit-equality of the
+  resumed pipeline with the uninterrupted one (``pipeline harness:
+  resumed losses``, ``pipeline harness: the resumed run's``, 21a) must
+  fail; and ``ledger_drops_reduce_scatter``
+  (``utils/trace_analysis.py``: the trace reader no longer counts the
+  ``c10d`` reduce_scatter op), whose FSDP ledger join (``ledger fsdp:``,
+  21b) must fail.
+
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
 them.  Exits 0 only if every expected gate failed.  Names given on the
@@ -450,6 +461,15 @@ MUTANTS = [
      "    for (int i = 0; i < (HD == 64 ? acc_regs(HD) - 4 : acc_regs(HD)); "
      "++i) oacc[i] *= corr[(i / 2) % 2];", "fa_hd64",
      ("flash_attention_fwd:", "flash_attention_fwd oracle:")),
+    ("pipeline_resume_no_adam", "parallel/pipeline.py",
+     "        self.opt_state = opt_state",
+     "        self.opt_state = self.opt_state", "pipeline_harness",
+     ("pipeline harness: resumed losses",
+      "pipeline harness: the resumed run's")),
+    ("ledger_drops_reduce_scatter", "utils/trace_analysis.py",
+     '    "c10d::_reduce_scatter_base_": "reduce_scatter",',
+     '    "c10d::_reduce_scatter_base_#": "reduce_scatter",', "ledger",
+     ("ledger fsdp:",)),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -758,6 +778,43 @@ try:
     c.tp_serve_phase(params, serve, card)
 finally:
     c.mesh.destroy_process_group()
+""", "pipeline_harness": """
+import shutil, tempfile
+from pathlib import Path
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+root = Path(tempfile.mkdtemp(prefix="phase21_"))
+(root / "runs").mkdir()
+try:
+    c.pipeline_harness_phase(c.card_line(), root)
+finally:
+    shutil.rmtree(root, ignore_errors=True)
+""", "ledger": """
+import shutil, tempfile
+from pathlib import Path
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+root = Path(tempfile.mkdtemp(prefix="phase21_"))
+(root / "runs").mkdir()
+try:
+    c.ledger_phase(c.card_line(), root)
+finally:
+    c.mesh.destroy_process_group()
+    shutil.rmtree(root, ignore_errors=True)
 """, "fleet_disagg": """
 import numpy as np, torch
 import chip_smoke as c

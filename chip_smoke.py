@@ -12,8 +12,11 @@ rank), the serving frontier (the prefix cache and speculative
 decoding), and the serving fleet (failover, shedding, hot-swap),
 tensor-parallel and disaggregated serving and the MoE serve, the data
 tier (the corpus and its held-out eval, the native data engine),
-sentence-pair classification on the DDP twin, and the model families
-of the JAX package's registry (the flash kernels at hd 64 and 128).
+sentence-pair classification on the DDP twin, the model families
+of the JAX package's registry (the flash kernels at hd 64 and 128), and
+the observability tier (the pipeline twin under the run harness, the
+collective ledger from the profiler's traces, the timeline export and
+the cross-run report).
 
     python3 chip_smoke.py
 
@@ -316,6 +319,23 @@ Phases, each of which fails the run:
    same with int8 grads and error feedback; (d) the native data engine
    built from ``native/dtsdata.cpp``: its Zipf stream's digest
    (``NATIVE_ZIPF_DIGEST``) and its packer bit-equal to numpy's.
+21. the observability tier (on the one-rank group, under a temporary
+   directory): (a) ``train.pipeline.run`` at ``PIPE_LM`` under the run
+   harness (``PIPE_HARNESS``), profiled with the host prefetcher: the
+   summary's comm/compute split (device compute, no comm on one card)
+   and its ledger joined to the zero-collective contract; the same run
+   preempted and resumed from its checkpoint, its losses and every
+   stage's params and Adam state bit-equal to the profiled run's; FA's
+   launches exact (the path "pipeline harness"); (b) the DDP and FSDP twins
+   profiled (``LEDGER_DDP``, ``LEDGER_FSDP``): ``collectives.json``
+   filed, its join ok, the traced calls of each kind the shim's a step
+   times the traced steps, and the join failing once the contract is
+   edited by one call; (c) ``serve_bench`` at ``TIMELINE_ARGS``: the
+   timeline's device rows hold K1 and K3, its host rows the ``serve/*``
+   spans; 21a's run exported too (the FA forward); (d)
+   ``train/report.py`` over every run dir phase 21 wrote, exit 0, with
+   its bandwidth table, and exit 0 against the same dirs as
+   ``--baseline``.
 
 After every phase a full garbage collection may free at most
 ``CYCLIC_LIMIT_BYTES`` of card memory: a finished phase leaves none of
@@ -353,6 +373,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import gzip
 import importlib
 import io
 import json
@@ -361,6 +382,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -400,12 +422,18 @@ from distributed_training_sandbox_tpu_torch.train import moe as moe_run
 from distributed_training_sandbox_tpu_torch.train import (
     precision_benchmark as prec_bench)
 from distributed_training_sandbox_tpu_torch.train import pipeline as pp_run
+from distributed_training_sandbox_tpu_torch.train import report as report_run
+from distributed_training_sandbox_tpu_torch.train import (
+    export_timeline as xt_run)
 from distributed_training_sandbox_tpu_torch.train import (
     train_composable, train_sp, train_tp)
 from distributed_training_sandbox_tpu_torch.train import serve_bench
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
+from distributed_training_sandbox_tpu_torch.telemetry import ledger as LD
 from distributed_training_sandbox_tpu_torch.utils import mesh
+from distributed_training_sandbox_tpu_torch.utils.checkpoint import (
+    flatten as flatten_tree)
 from distributed_training_sandbox_tpu_torch.utils.profiling import (
     ProfileSchedule)
 from distributed_training_sandbox_tpu_torch.resilience import (
@@ -907,6 +935,29 @@ FP8_FAMILY = dict(FAMILY_TRAINS[0], model="corpus-350m",
 # 20c: the DDP twin's classification leg at SmolLM3-350M's full width
 CLS = dict(model="smollm3-350m", batch=32, num_steps=10, q8_steps=3,
            source="synthetic")
+
+
+# phase 21, the observability tier: (a) the pipeline twin under the run
+# harness at PIPE_LM's shapes, profiled with the host prefetcher, and
+# preempted before epoch ``preempt`` and resumed; (b)
+# the DDP twin on the ZeRO toy and the FSDP twin at SmolLM3-3B-L8
+# (``overlap="none"``: a gather and a reduce_scatter a leaf, copies at
+# one rank) profiled over LEDGER_SCHEDULE's steps, their ledgers joined
+# to the contracts; (c) the serve bench twin's timeline (TIMELINE_ARGS:
+# SmolLM3-3B's 8-layer cut at full width, 4 requests: the 36-layer
+# serve's timeline held 376 978 events, most of the phase's wall);
+# (d) train/report.py over every run dir phase 21 wrote
+PIPE_HARNESS = dict(epochs=4, preempt=2, prefetch_depth=2)
+LEDGER_SCHEDULE = ProfileSchedule(skip_first=1, wait=0, warmup=0, active=2)
+LEDGER_DDP = dict(scale=1, num_steps=4, batch_size=32, seed=42)
+LEDGER_FSDP = dict(model="smollm3-3b-l8", overlap="none", seq=2048, bs=1,
+                   num_steps=4, seed=42)
+TIMELINE_ARGS = ["--model", "SMOLLM3_3B_L8", "--requests", "4",
+                 "--check-parity", "1", "--profile", "--export-timeline"]
+# the kernels' symbols in a trace: K1, K3 (both of its paths), the FA
+# forward
+K1_SYMBOL, K3_SYMBOL, FA_FWD_SYMBOL = ("decode_kernel", "flash_prefill",
+                                       "fa_fwd_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -6993,6 +7044,260 @@ def phase20(card: str) -> tuple[dict, dict]:
             {"corpus": la, **{f"family {k}": v for k, v in lb.items()}})
 
 
+# ------------------------------------------------ phase 21: observability
+
+def _stage_states_equal(a, b) -> bool:
+    """Every stage's params and Adam state (moments, count) bit-equal."""
+    for sa, sb in zip(a, b, strict=True):
+        fa = flatten_tree({"p": sa.params, "o": sa.opt_state})
+        fb = flatten_tree({"p": sb.params, "o": sb.opt_state})
+        if fa.keys() != fb.keys():
+            return False
+        for k, x in fa.items():
+            y = fb[k]
+            if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y):
+                return False
+    return True
+
+
+def pipeline_harness_phase(card: str, root: Path) -> tuple[dict, dict, str]:
+    """21a: ``train.pipeline.run`` at ``PIPE_LM`` (1F1B, 4 stages on the
+    card) under the run harness: ``PIPE_HARNESS["epochs"]`` epochs,
+    profiled (the owned session over ``LEDGER_SCHEDULE``'s epochs) with
+    the host prefetcher; then the same run preempted before epoch
+    ``preempt`` and resumed in process from its checkpoint (every
+    stage's params and Adam state): losses, params and moments bit-equal
+    to the profiled run's (the profiler only reads).  The profiled run's
+    summary: the comm/compute split present, device time on compute,
+    none on comm (one card: a stage hands its activations to the next
+    without a copy), its ledger joined to the zero-collective contract.
+    FA's launches exact over both runs.  Returns the readings, FA's
+    launches and the profiled run's dir."""
+    cfg, pl, ph = PIPE_LM_CFG, PIPE_LM, PIPE_HARNESS
+    L = cfg.num_hidden_layers
+    kw = dict(model=pl["model"], n_stages=pl["n_stages"],
+              n_micro=pl["n_micro"], lr=pl["lr"], warmup_epochs=pl["warmup"],
+              batch_size=pl["batch"], seq=pl["seq"], seed=pl["seed"],
+              num_epochs=ph["epochs"], keep_stages=True, device="cuda",
+              log=log)
+    FA.FWD_COUNTS.reset()
+    FA.BWD_COUNTS.reset()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    a = pp_run.run("1f1b", config=quiet_config(
+        telemetry=True, profile=True, results_dir=str(root / "runs"),
+        trace_dir=str(root / "traces" / "pipeline"),
+        prefetch_depth=ph["prefetch_depth"]),
+        profile_schedule=LEDGER_SCHEDULE, **kw)
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t
+    summary = json.loads((Path(a["run_dir"]) / "summary.json").read_text())
+    sp, led = summary.get("comm_split"), summary.get("ledger")
+    ck = root / "pipeline_ckpt"   # under the phase's root (TMPDIR)
+    t = time.perf_counter()
+    try:
+        b = pp_run.run("1f1b", config=quiet_config(
+            checkpoint_dir=str(ck), max_restarts=1,
+            inject_fault=f"preempt@{ph['preempt']}"), **kw)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    t_b = time.perf_counter() - t
+    same = _stage_states_equal(a["stages"], b["stages"])
+    counts = (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls,
+              FA.BWD_COUNTS.launches, FA.BWD_COUNTS.plain_calls)
+    out = {"profiled_s": round(t_a, 1), "resumed_s": round(t_b, 1),
+           "checkpoint_dir": str(ck.parent), "losses": a["losses"],
+           "resumed_losses": b["losses"], "start_epoch": b["start_epoch"],
+           "state_bit_equal": same,
+           "save": [{k: v for k, v in sv.items() if k != "dir"}
+                    for sv in b["saves"]], "restore_s": b["restore_s"],
+           "comm_split": {k: v for k, v in (sp or {}).items()
+                          if k != "trace_file"},
+           "comm_split_error": summary.get("comm_split_error"),
+           "ledger": led, "step_ms": a["step_ms"], "fa_counts": counts}
+    log(f"pipeline harness on {card}: {json.dumps(out)}")
+    check(b["status"] == "completed" and b["start_epoch"] == ph["preempt"],
+          f"pipeline harness: resumed run {b['status']} from epoch "
+          f"{b['start_epoch']}")
+    check(b["losses"] == a["losses"], f"pipeline harness: resumed losses "
+          f"{b['losses']} against {a['losses']}")
+    check(same, "pipeline harness: the resumed run's params or Adam state "
+          "differ from the uninterrupted run's")
+    check(sp is not None and not summary.get("comm_split_error"),
+          f"pipeline harness: no comm split "
+          f"({summary.get('comm_split_error')})")
+    check(sp["source"] == "device" and sp["compute_us"] > 0,
+          f"pipeline harness: split {sp}")
+    check(sp["comm_us"] == 0.0, f"pipeline harness: {sp['comm_us']} us of "
+          f"comm on one card, where the stages share the card")
+    check(led is not None and led.get("ok") and led["traced_steps"] == 2,
+          f"pipeline harness: ledger {led} ({summary.get('ledger_error')})")
+    # each epoch's forwards (remat recomputes each) and backward a
+    # microbatch, and each completed run's closing forward; the
+    # preempted segment runs epochs 0 .. preempt - 1 and no closing one
+    epochs = 2 * ph["epochs"]
+    want = (2 * L * pl["n_micro"] * epochs + 2 * L, 0,
+            L * pl["n_micro"] * epochs, 0)
+    check(counts == want, f"pipeline harness: FA counts {counts} != {want}")
+    run_dir = a["run_dir"]
+    del a, b
+    torch.cuda.empty_cache()
+    return (out, {"flash_attention_fwd": counts[0],
+                  "flash_attention_bwd": counts[2]}, run_dir)
+
+
+def _ledger_gates(name: str, run_dir: str, per_step: list) -> dict:
+    """A profiled twin's ledger: filed, its join ok, the traced calls of
+    each kind the shim's a step times the traced steps; the join not ok
+    once the contract is edited by one call.  Returns its readings."""
+    summary = json.loads((Path(run_dir) / "summary.json").read_text())
+    led = summary.get("ledger")
+    check(led is not None and led.get("ok") and not summary.get(
+        "ledger_error"), f"ledger {name}: {led} "
+        f"({summary.get('ledger_error')})")
+    doc = json.loads((Path(run_dir) / LD.LEDGER_FILENAME).read_text())
+    steps = led["traced_steps"]
+    measured: dict = {}
+    for e in doc["entries"]:
+        measured[e["kind"]] = measured.get(e["kind"], 0) + e["occurrences"]
+    want = {k: v * steps for k, v in per_step[-1].items() if v}
+    check(steps == LEDGER_SCHEDULE.active and measured == want,
+          f"ledger {name}: {measured} traced calls over {steps} steps, the "
+          f"shim's {want}")
+    ledger = LD.CollectiveLedger(
+        entries=[LD.LedgerEntry(**e) for e in doc["entries"]],
+        unmatched_events=doc["unmatched_events"],
+        unmeasured_instances=doc["unmeasured_instances"],
+        axis_sizes=doc["axis_sizes"])
+    expected = dict(doc["contract_join"]["expected"])
+    kind = next(k for k, v in expected.items() if v)
+    edited = LD.join_contract(ledger, dict(expected,
+                                           **{kind: expected[kind] + 1}))
+    check(not edited["ok"], f"ledger {name}: the join holds with "
+          f"{kind} edited to {expected[kind] + 1}")
+    aggs = {k: {f: a[f] for f in ("events", "total_us", "busbw_gbps")}
+            for k, a in doc["aggregates"].items()}
+    sp = summary.get("comm_split") or {}
+    return {"traced_calls": measured, "aggregates": aggs,
+            "busbw_gbps": doc["totals"]["busbw_gbps"],
+            "comm_us": sp.get("comm_us"), "compute_us": sp.get("compute_us"),
+            "edited_violations": edited["violations"]}
+
+
+def ledger_phase(card: str, root: Path) -> dict:
+    """21b: the DDP twin (``LEDGER_DDP``) and the FSDP twin
+    (``LEDGER_FSDP``) on the one-rank group, profiled over
+    ``LEDGER_SCHEDULE``'s steps: each one's ledger (:func:`_ledger_gates`)."""
+    def cfg(tag):
+        return quiet_config(telemetry=True, profile=True,
+                            results_dir=str(root / "runs"),
+                            trace_dir=str(root / "traces" / tag))
+    d, f = LEDGER_DDP, LEDGER_FSDP
+    r = ddp_run.run(scale=d["scale"], num_steps=d["num_steps"],
+                    batch_size=d["batch_size"], seed=d["seed"],
+                    device="cuda", config=cfg("ddp"),
+                    profile_schedule=LEDGER_SCHEDULE, log=log)
+    out = {"ddp": _ledger_gates("ddp", r["run_dir"], r["collectives"])}
+    del r
+    torch.cuda.empty_cache()
+    r = train_fsdp.run(model=f["model"], overlap=f["overlap"], seq=f["seq"],
+                       batch_size=f["bs"], num_steps=f["num_steps"],
+                       seed=f["seed"], device="cuda", config=cfg("fsdp"),
+                       profile_schedule=LEDGER_SCHEDULE, log=log)
+    out["fsdp"] = _ledger_gates("fsdp", r["run_dir"], r["collectives"])
+    del r
+    torch.cuda.empty_cache()
+    log(f"ledger readings on {card} (one rank: copies): {json.dumps(out)}")
+    return out
+
+
+def _timeline_events(run_dir: Path) -> list[dict]:
+    with gzip.open(run_dir / "timeline.json.gz", "rt") as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def timeline_phase(card: str, root: Path, pipe_run_dir: str) -> dict:
+    """21c: ``serve_bench --profile --export-timeline`` at
+    ``TIMELINE_ARGS``: exit 0, the timeline's device rows hold K1 and K3
+    kernels and its host rows the ``serve/*`` spans; then 21a's profiled
+    run exported, its device rows holding the FA forward."""
+    before = {p.name for p in (root / "runs").iterdir()}
+    rc = serve_bench.main([*TIMELINE_ARGS, "--results-dir",
+                           str(root / "runs"), "--trace-dir",
+                           str(root / "traces" / "serve")])
+    check(rc == 0, f"timeline: serve_bench exit {rc}")
+    (serve_dir,) = [p for p in (root / "runs").iterdir()
+                    if p.name not in before]
+    evs = _timeline_events(serve_dir)
+    kernels = [e["name"] for e in evs if e.get("cat") == "kernel"]
+    spans = {e["name"] for e in evs if e.get("pid") == xt_run.HOST_PID
+             and e.get("ph") == "X"}
+    out = {"events": len(evs), "kernels": len(kernels),
+           "k1": sum(K1_SYMBOL in n for n in kernels),
+           "k3": sum(K3_SYMBOL in n for n in kernels),
+           "host_spans": sorted(spans)}
+    check(out["k1"] > 0 and out["k3"] > 0, f"timeline: K1 {out['k1']} and "
+          f"K3 {out['k3']} events among {len(kernels)} kernels")
+    check(any(n.startswith("serve/") for n in spans),
+          f"timeline: host rows {sorted(spans)}")
+    rc = xt_run.main([pipe_run_dir])
+    evs = _timeline_events(Path(pipe_run_dir))
+    out["pipeline_fa_fwd"] = sum(FA_FWD_SYMBOL in e.get("name", "")
+                                 for e in evs if e.get("cat") == "kernel")
+    check(rc == 0 and out["pipeline_fa_fwd"] > 0, f"timeline: the "
+          f"pipeline run's export exit {rc}, FA forward events "
+          f"{out['pipeline_fa_fwd']}")
+    log(f"timeline readings on {card}: {json.dumps(out)}")
+    return out
+
+
+def report_phase(root: Path) -> dict:
+    """21d: ``train/report.py`` over every run dir phase 21 wrote (the
+    bandwidth table from 21b's ledgers beside phase 12's busbench rows),
+    exit 0; and against the same dirs as ``--baseline``, exit 0."""
+    runs = str(root / "runs")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report_run.main([runs])
+    text = buf.getvalue()
+    table = text[text.find("## Collective bus bandwidth"):].split("\n## ")[0]
+    log(f"report over {len(list((root / 'runs').iterdir()))} run dirs, exit "
+        f"{rc}; its bandwidth table:\n{table}")
+    check(rc == 0 and "## Collective bus bandwidth" in text,
+          f"report: exit {rc}, bandwidth table "
+          f"{'## Collective bus bandwidth' in text}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_base = report_run.main([runs, "--baseline", runs])
+    check(rc_base == 0, f"report --baseline: exit {rc_base}: "
+          f"{buf.getvalue()[-2000:]}")
+    return {"rc": rc, "rc_baseline": rc_base, "chars": len(text)}
+
+
+def phase21(card: str) -> tuple[dict, dict]:
+    """Phase 21 (the observability tier): 21a-21d, under a temporary
+    directory removed at the end.  Returns the readings and the
+    pipeline harness's launches."""
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="phase21_"))
+    (root / "runs").mkdir()
+    try:
+        a, la, pipe_dir = pipeline_harness_phase(card, root)
+        b = ledger_phase(card, root)
+        c = timeline_phase(card, root, pipe_dir)
+        d = report_phase(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t21
+    log(f"phase 21 (the pipeline harness, the ledger, the timeline, the "
+        f"report): {wall:.1f} s")
+    return ({"pipeline harness": a, "ledger": b, "timeline": c, "report": d,
+             "wall_s": wall}, {"pipeline harness": la})
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -7817,6 +8122,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         p20, p20_launches = timed(
             "data, classification and the model families", phase20, card)
+        p21, p21_launches = timed(
+            "the pipeline harness, the ledger, the timeline, the report",
+            phase21, card)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -7833,7 +8141,8 @@ def main(argv) -> int:
              "precision": precision, "resilience": resilience, "moe": moe,
              **tpsp_launches, "composable step": comp_launches,
              "composable twin": twin_launches, "fsdp auto": auto_launches,
-             **frontier_launches, **fleet_launches, **p20_launches}
+             **frontier_launches, **fleet_launches, **p20_launches,
+             **p21_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -7856,6 +8165,7 @@ def main(argv) -> int:
     log(f"fleet, TP, disaggregation and MoE serve readings on {card}: "
         f"{json.dumps(fleet)}")
     log(f"phase 20 readings on {card}: {json.dumps(p20)}")
+    log(f"phase 21 readings on {card}: {json.dumps(p21)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,22 +73,47 @@ __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
 
 
 class CollectiveCounts:
-    """The recording shim: calls by kind since the last ``reset``."""
+    """The recording shim: calls by kind since the last ``reset``, and,
+    inside a ``capture`` window, each call's site (kind, the caller's
+    tensor's element count, bytes and dtype, the group's size) in call
+    order: what the collective ledger joins a trace's calls to
+    (``telemetry.ledger``).  Outside a window only the counts move, so a
+    caller that never resets (a TP server) holds no growing list."""
 
     KINDS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
              "all_to_all", "collective_permute")
 
     def __init__(self):
-        self.counts = dict.fromkeys(self.KINDS, 0)
+        self.reset()
 
     def reset(self) -> None:
+        """Zero the counts; end any capture and drop its sites."""
         self.counts = dict.fromkeys(self.KINDS, 0)
+        self._sites: list[tuple] | None = None
 
-    def record(self, kind: str) -> None:
+    def capture(self) -> None:
+        """Record each call's site from here until ``sites()`` or
+        ``reset()``: the one step whose calls the ledger joins."""
+        self._sites = []
+
+    def record(self, kind: str, x: torch.Tensor, group: int) -> None:
         self.counts[kind] += 1
+        if self._sites is not None:
+            # the tensor's facts, not the tensor: a reference would
+            # keep it
+            self._sites.append((kind, x.numel(), x.element_size(),
+                                x.dtype, group))
 
     def read(self) -> dict:
         return dict(self.counts)
+
+    def sites(self) -> list[dict]:
+        """The captured calls, in order (none outside a capture); ends
+        the capture."""
+        got, self._sites = self._sites or [], None
+        return [{"kind": k, "numel": n, "bytes": n * size,
+                 "dtype": str(dtype).removeprefix("torch."), "group": g}
+                for k, n, size, dtype, g in got]
 
     @staticmethod
     def nonzero(counts: dict) -> dict:
@@ -112,7 +137,7 @@ def _all_reduce_raw(x, axis, op):
     out = x.detach().clone()
     if initialized():
         dist.all_reduce(out, op=op, group=_group(axis))
-        COLLECTIVES.record("all_reduce")
+        COLLECTIVES.record("all_reduce", out, axis_size(axis))
     return out
 
 
@@ -122,7 +147,7 @@ def _gather_raw(x, axis, dim):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
     dist.all_gather_into_tensor(out, xt, group=_group(axis))
-    COLLECTIVES.record("all_gather")
+    COLLECTIVES.record("all_gather", xt, n)
     return out.movedim(0, dim).contiguous()
 
 
@@ -135,7 +160,7 @@ def _reduce_scatter_raw(x, axis, dim):
     out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
                                group=_group(axis))
-    COLLECTIVES.record("reduce_scatter")
+    COLLECTIVES.record("reduce_scatter", xt, n)
     return out.movedim(0, dim).contiguous()
 
 
@@ -152,7 +177,7 @@ def _hop(x, axis, shift):
            dist.P2POp(dist.irecv, out, global_rank(axis, src), _group(axis))]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    COLLECTIVES.record("collective_permute")
+    COLLECTIVES.record("collective_permute", x, n)
     return out
 
 
@@ -251,7 +276,7 @@ def broadcast(x, axis_name="dp", root: int = 0):
         if initialized():
             dist.broadcast(out, src=global_rank(axis_name, root),
                            group=_group(axis_name))
-            COLLECTIVES.record("broadcast")
+            COLLECTIVES.record("broadcast", out, axis_size(axis_name))
         return out
     return tree_map(leaf, x)
 
@@ -300,7 +325,7 @@ def _all_to_all_raw(x, axis, split_axis, concat_axis, tiled):
     out = torch.empty_like(inp)
     if initialized():
         dist.all_to_all_single(out, inp, group=_group(axis))
-        COLLECTIVES.record("all_to_all")
+        COLLECTIVES.record("all_to_all", inp, n)
     else:
         out.copy_(inp)
     if tiled:

@@ -209,6 +209,16 @@ class PipelineStage:
                 self.grad_acc, self.opt_state, self.params, lr=lr)
         self._fresh = True
 
+    @torch.no_grad()
+    def load_state(self, params, opt_state) -> None:
+        """A checkpoint's state: its params copied into the stage's own
+        (in place: the stage's grads are taken against them), its Adam
+        state adopted."""
+        for (_, p), (_, q) in zip(optim.tree_leaves(self.params),
+                                  optim.tree_leaves(params)):
+            p.copy_(q)
+        self.opt_state = opt_state
+
     def memory_plan_mb(self) -> float:
         """The stage's accounted bytes: params, Adam moments, the grad
         buffer and its stored inputs at the high-water mark.  The
@@ -629,9 +639,8 @@ def train_pipeline(stages: list[PipelineStage], schedule: str,
     epoch's batch, ``lr`` a float or a schedule ``epoch -> lr``, ``log(epoch,
     loss)`` is called after each epoch.  ``start_epoch`` and
     ``should_stop(epoch)`` (polled before each epoch) are the resume and
-    preemption seams of the reference's ``scripts/_pp_driver.py``;
-    ``train/pipeline.py`` has neither yet (ROADMAP.md A8), so they stay
-    plain parameters."""
+    preemption seams of the reference's ``scripts/_pp_driver.py``, which
+    ``train/pipeline.py`` drives from the supervisor."""
     sched_stats: dict = {}
     if schedule == "interleaved":
         def run(stages, x, y, n_micro, lr):

@@ -895,9 +895,9 @@ class ServingEngine:
         L0 = self._h_lengths.copy()
         A0 = self._h_active.copy()
         toks_d, len_d, stop_d, act_d, pages_d = self._burst_inputs()
-        # the reference's ledger join (telem.attach_step_hlo) is skipped
-        # here: the collective and memory ledgers are ROADMAP.md queue A
-        # item A12, and the port's TelemetryRun raises there
+        # the reference attaches its compiled step here for its ledgers
+        # (telem.attach_step_hlo); a serving run files no ledger in the
+        # port: the memory ledger is ROADMAP.md queue A item A12
         t_burst = time.perf_counter()
         g_steps, e_steps = [], []
         for _ in range(sync):

@@ -1,11 +1,13 @@
-"""Run telemetry of the port: the JAX package's ``telemetry/`` package,
-without its collective and memory ledgers and its report (ROADMAP.md
-queue A items A12 and A8; the JAX package's ``telemetry.report`` reads
-the port's run directories as they are).
+"""Run telemetry of the port: the JAX package's ``telemetry/`` package —
+the run, its manifest, metrics and spans, the collective ledger
+(``ledger``), the memory ledger's read-back side (``memledger``; its
+writer is ROADMAP.md queue A item A12) and the cross-run report
+(``report``, a copy of the reference's).
 
 A run directory holds ``manifest.json``, ``steps.jsonl``, ``spans.jsonl``
-(with ``clock_anchor.json``) and ``summary.json``, in the reference's
-layout and schema.
+(with ``clock_anchor.json``), ``summary.json`` and, when a profiled run
+handed over its collective sites, ``collectives.json``, in the
+reference's layout and schema.
 """
 
 from .manifest import RunManifest  # noqa: F401

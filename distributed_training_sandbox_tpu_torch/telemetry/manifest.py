@@ -7,8 +7,10 @@ torch, CUDA and NCCL versions (where the reference records jax and
 jaxlib), the card's name and power limit as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them, the git
 sha, and the restart lineage.  ``profile_sessions`` is appended at
-finalize when the run owned a profiler; ``ledger`` and ``memory`` (the
-collective and memory ledgers) stay null: ROADMAP.md queue A item A12.
+finalize when the run owned a profiler, and ``ledger`` (the collective
+ledger's verdict) when it also handed over its collective sites;
+``memory`` (the memory ledger) stays null: ROADMAP.md queue A item
+A12.
 """
 
 from __future__ import annotations

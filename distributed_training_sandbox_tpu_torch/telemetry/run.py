@@ -17,12 +17,16 @@ Around the step loop it
   * writes ``summary.json`` at exit; a crash writes status="crashed"
     with the error.
 
-Not ported: ``attach_hlo`` / ``attach_step_hlo`` and what the reference
-builds from them at finalize (the collective ledger, the memory ledger,
-``split_from_trace``'s comm/compute split): ROADMAP.md queue A item A12.
-Calling them raises ``NotImplementedError``; where the reference writes
-their results (``comm_split``, ``ledger``, ``memory`` in
-``summary.json``), a profiled run writes null.
+At finalize a profiled run reads the trace of the profiler session it
+owns: ``summary["comm_split"]`` (``utils.trace_analysis``, the
+reference's keys) and, when the twin handed over its collective sites
+(:meth:`attach_sites`, the torch counterpart of the reference's
+``attach_hlo``), the collective ledger: ``collectives.json`` in the run
+dir, its compact verdict in ``summary["ledger"]`` and the manifest.  A
+trace that does not parse leaves the block null with the error beside
+it (``comm_split_error``, ``ledger_error``).  ``summary["memory"]``
+stays null: the memory ledger's writer side (``attach_step_hlo``'s
+memory half) is ROADMAP.md queue A item A12.
 
 A loss handed to :meth:`step` may be a host float or a value still on
 the device — a tensor, or the step pump's pending loss, whose
@@ -127,6 +131,7 @@ class TelemetryRun:
         self.host_sync_count: int | None = None
         self.host_sync_breakdown: dict | None = None
         self.spans = None
+        self._sites: tuple | None = None
 
     @staticmethod
     def _unique_run_id(results_dir: str, strategy: str,
@@ -172,14 +177,23 @@ class TelemetryRun:
         self._t_prev = time.perf_counter()
         return self
 
-    def attach_hlo(self, compiled_text: str) -> None:
-        raise NotImplementedError(
-            "the collective ledger (attach_hlo) is not ported yet — see "
-            + A12)
+    def attach_sites(self, sites: list, expected: dict | None = None,
+                     strategy: str | None = None) -> None:
+        """Hand over the recording shim's calls of one step
+        (``ops.collectives.COLLECTIVES.sites()``), the contract's
+        expected counts a step (``parallel.contracts``) and the
+        contract's name, so that finalize can join the owned trace
+        against them (``telemetry.ledger``).  The first call wins; a
+        no-op unless this run owns an enabled profiler."""
+        prof = self.profiler
+        if not self.enabled or self._sites is not None or prof is None \
+                or not getattr(prof, "enabled", False):
+            return
+        self._sites = (list(sites), expected, strategy or self.strategy)
 
     def attach_step_hlo(self, *args, **kwargs) -> None:
         raise NotImplementedError(
-            "the collective and memory ledgers (attach_step_hlo) are not "
+            "the memory ledger (attach_step_hlo's memory half) is not "
             "ported yet — see " + A12)
 
     def __enter__(self) -> "TelemetryRun":
@@ -332,14 +346,25 @@ class TelemetryRun:
         if prof is not None and getattr(prof, "enabled", False):
             summary["trace_dir"] = prof.trace_dir
             owned = list(getattr(prof, "owned_sessions", None) or [])
+            session = owned[-1] if owned else None
             if owned:
                 summary["profile_sessions"] = owned
-            # the trace-derived verdicts are A12's: null, not absent
-            summary["comm_split"] = None
-            summary["ledger"] = None
-            summary["memory"] = None
-            if self.manifest is not None and owned:
-                self.manifest.profile_sessions = owned
+            trace, err = self._read_trace(prof, session)
+            ledger_verdict = None
+            summary["comm_split"] = self._comm_split(trace) if trace \
+                else None
+            if err:
+                summary["comm_split_error"] = err
+            if self._sites is not None:
+                if trace:
+                    ledger_verdict = self._build_ledger(prof, trace)
+                else:
+                    summary["ledger_error"] = err
+            summary["ledger"] = ledger_verdict
+            summary["memory"] = None     # the writer side is A12's
+            if self.manifest is not None and (owned or ledger_verdict):
+                self.manifest.profile_sessions = owned or None
+                self.manifest.ledger = ledger_verdict
                 self.writer.write_manifest(self.manifest)
         if self.spans is not None:
             self.spans.close()
@@ -358,3 +383,59 @@ class TelemetryRun:
         self.writer.write_summary(summary)
         self.writer.close()
         return summary
+
+    @staticmethod
+    def _read_trace(prof, session) -> tuple[tuple | None, str | None]:
+        """``(trace file, its events)`` of the owned session, or None and
+        why: no window closed, no file, or a trace that does not
+        parse (recorded, never raised: the run is done)."""
+        from ..utils.trace_analysis import (latest_trace_file,
+                                            load_trace_events)
+        if session is None:
+            return None, "no profiler window closed in this run"
+        tf = latest_trace_file(prof.trace_dir, session=session)
+        if tf is None:
+            return None, f"no trace file in {session}"
+        try:
+            return (tf, load_trace_events(tf)), None
+        except (OSError, ValueError, EOFError) as e:
+            return None, f"{type(e).__name__}: {e}"
+
+    @staticmethod
+    def _comm_split(trace) -> dict:
+        from ..utils.trace_analysis import split_events
+        tf, events = trace
+        sp = split_events(events, tf)
+        return {"comm_us": sp.comm_us, "compute_us": sp.compute_us,
+                "other_us": sp.other_us, "comm_fraction": sp.comm_fraction,
+                "overlap_us": sp.overlap_us,
+                "overlap_fraction": sp.overlap_fraction,
+                "trace_file": sp.trace_file, "source": sp.source}
+
+    def _build_ledger(self, prof, trace) -> dict:
+        """Build and file the collective ledger of the owned session's
+        trace; returns the compact verdict that lands in summary and
+        manifest."""
+        from ..utils.mesh import axis_size, initialized
+        from ..utils.trace_analysis import collective_stats_from_events
+        from .ledger import build_ledger, join_contract
+        sites, expected, strategy = self._sites
+        steps = prof.window_steps[-1] if getattr(prof, "window_steps",
+                                                 None) else 1
+        axis_sizes = {"dp": axis_size()} if initialized() else {}
+        led = build_ledger(collective_stats_from_events(trace[1]), sites,
+                           steps, axis_sizes)
+        join = None
+        if expected is not None:
+            join = join_contract(led, expected, strategy=strategy)
+        self.writer.write_json("collectives.json", led.to_dict())
+        totals = led.totals()
+        out = {"measured_sites": totals["measured_sites"],
+               "unmeasured_sites": totals["unmeasured_sites"],
+               "unmatched_events": totals["unmatched_events"],
+               "busbw_gbps": totals["busbw_gbps"],
+               "traced_steps": steps}
+        if join is not None:
+            out["ok"] = join["ok"]
+            out["violations"] = join["violations"]
+        return out

@@ -49,6 +49,9 @@ the final params.  A resume skips the batches already consumed.
         distributed_training_sandbox_tpu_torch.train.ddp --device cpu \\
         --model tiny --source synthetic --num-steps 6
 
+A profiled run (``--trace-dir``) files the collective ledger of its
+traced steps (``collectives.json``) joined to the ``ddp`` contract.
+
 Not ported: the contract and rules verdicts (A12).
 """
 
@@ -69,6 +72,7 @@ from ..models import classifier as CL
 from ..models import transformer as T
 from ..ops import collectives as C
 from ..parallel import ddp, optim
+from ..parallel.contracts import step_collectives
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -201,6 +205,10 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
                         cfg.num_epochs, seed, ws, dev))
     params = leg["params"]
     n_leaves = len(list(optim.tree_leaves(params)))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for _, p in optim.tree_leaves(params))
+    want = step_collectives("ddp", n_leaves, param_bytes,
+                            bucket_mb=bucket_mb, q8=quantize_grads)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     C.COLLECTIVES.reset()
@@ -248,7 +256,7 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
         warmup_steps=min(5, num_steps - 1) if num_steps > 1 else 0,
         num_devices=ws, device=dev)
     prof = H.profiler(cfg, profile_schedule, ProfileSchedule(
-        skip_first=5, wait=1, warmup=2, active=5))
+        skip_first=5, wait=1, warmup=2, active=5), record_shapes=True)
     counts, step_s, widths = [], [], []
 
     def logger(i):
@@ -271,9 +279,14 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
                 if ctx.should_stop(i):
                     break
                 C.COLLECTIVES.reset()
+                sites_step = not counts
+                if sites_step:   # the ledger's sites
+                    C.COLLECTIVES.capture()
                 t = time.perf_counter()
                 params, opt, loss = step(params, opt, batch)
                 counts.append(C.COLLECTIVES.read())
+                if sites_step:
+                    telem.attach_sites(C.COLLECTIVES.sites(), want, "ddp")
                 if model != "mlp":
                     widths.append(int(batch[0].shape[1]))
                 synced = pump.emit(loss, tokens=leg["tokens"](batch),

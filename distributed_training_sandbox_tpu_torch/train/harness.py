@@ -76,14 +76,16 @@ def ckpt_report(holder: dict) -> dict:
 
 
 def profiler(cfg: TrainConfig, schedule: ProfileSchedule | None,
-             default: ProfileSchedule, trace_dir: str | None = None
-             ) -> Profiler | None:
+             default: ProfileSchedule, trace_dir: str | None = None,
+             record_shapes: bool = False) -> Profiler | None:
     """The run's profiler when ``cfg.profile``: ``schedule``, else the
-    twin's reference ``default``."""
+    twin's reference ``default``; ``record_shapes`` for a leg whose
+    collective ledger reads the payloads."""
     if not cfg.profile:
         return None
     return Profiler(trace_dir=trace_dir or cfg.trace_dir,
-                    schedule=schedule or default)
+                    schedule=schedule or default,
+                    record_shapes=record_shapes)
 
 
 def telemetry(strategy: str, cfg: TrainConfig, ctx, dev, *, model: str,

@@ -28,17 +28,32 @@ written to ``--results-file``) is ``PipeResult.as_dict()`` plus the
 shim's collectives against the ``gpipe`` / ``1f1b`` contract (zero of
 every kind), each epoch's step time and the memory of each card.
 
-Not wired yet, with the ROADMAP.md queue A item that holds each: the run
-harness that the other twins run under (``train.harness``: the
-supervisor, RunState checkpoints, the prefetcher, the profiler) with
-resume by the epoch cursor of ``scripts/_pp_driver.py`` (A8);
-``evaluate_contract``'s verdict (A12; the shim's counts against
-``parallel.contracts`` stand in for it).
+The run harness (``train.harness``), as the other twins run under it:
+the supervisor (``--checkpoint-dir``, ``--checkpoint-every``,
+``--resume``, ``--max-restarts``, ``--inject-fault``), a RunState
+checkpoint at the epochs' sync points holding every stage's params and
+Adam state (int8 moments under ``--opt8``), each restored onto its own
+stage's device, a resume re-entering the epoch loop at the epoch after
+the checkpoint's and skipping the batches already drawn, the host
+prefetcher (``--prefetch-depth``) staging the batches, a run directory
+(``--results-dir``) and the profiler (``--trace-dir``; its sessions give
+the run's comm/compute split: the hops between cards, zero on one
+card, where the stages hand over without a copy, and a collective
+ledger joined to the zero-collective contract).
+
+    python -m distributed_training_sandbox_tpu_torch.train.pipeline \
+        --device cpu --checkpoint-dir /tmp/pp --inject-fault preempt@3 \
+        --max-restarts 1 --num-epochs 6
+
+Not ported: ``evaluate_contract``'s verdict (A12; the shim's counts
+against ``parallel.contracts`` stand in for it).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import time
 from pathlib import Path
@@ -53,25 +68,15 @@ from ..ops import collectives as C
 from ..parallel import optim
 from ..parallel import pipeline as PP
 from ..parallel.contracts import step_collectives
+from ..resilience import RunState, generator_states
+from ..runtime import DevicePrefetcher
+from ..utils.config import TrainConfig
 from ..utils.memory import MB, device_memory_stats
+from ..utils.profiling import ProfileSchedule
+from . import harness as H
 
 SCHEDULES = ("gpipe", "1f1b", "interleaved")
 MODELS = ("mlp",) + tuple(sorted(MODEL_REGISTRY))
-# ``_pp_driver.py``'s flags that this twin refuses: flag -> why
-NOT_PORTED = {
-    "resume": "resume by the epoch cursor is not wired into the pipeline "
-              "twin yet — see ROADMAP.md, queue A item A8",
-    "checkpoint_dir": "the pipeline twin does not write RunState "
-                      "checkpoints yet — see ROADMAP.md, queue A item A8",
-    "max_restarts": "the pipeline twin does not run under the supervisor "
-                    "yet — see ROADMAP.md, queue A item A8",
-    "prefetch_depth": "the pipeline twin does not use the device "
-                      "prefetcher yet — see ROADMAP.md, queue A item A8",
-    "trace_dir": "the pipeline twin does not run the profiler yet — see "
-                 "ROADMAP.md, queue A item A8",
-}
-
-
 def stage_devices(schedule: str, n_stages: int, virtual_per_device: int,
                   device=None) -> list[torch.device]:
     """The devices ``build_pipeline`` cycles over: every card; for the
@@ -129,24 +134,61 @@ def run(schedule: str = "1f1b", *, model: str = "mlp", n_stages: int = 2,
         virtual_per_device: int = 2, n_micro: int = 4, lr: float = 1e-3,
         warmup_epochs: int = 0, num_epochs: int = 16, batch_size: int = 64,
         seq: int = 256, seed: int = 42, device=None, opt8: bool = False,
-        on_step=None, log=print) -> dict:
-    """Train ``num_epochs`` pipeline steps of ``schedule``;
-    ``on_step(epoch, loss)`` is called once each epoch's loss has
-    reached the host.  Returns ``PipeResult.as_dict()`` plus
-    ``"contract"`` (the shim's collectives of each epoch against
-    ``parallel.contracts``), ``"step_ms"`` (each epoch on the host
-    clock, until its loss reaches the host), ``"final_loss_batch0"``
-    (the first batch's loss under the final params: fresh batches move
-    the epoch losses by their draw more than a few steps move the
-    model), ``"devices"`` and ``"start_memory_mb"`` (each card's
-    allocated MB when training starts; ``"peak_memory_mb"`` holds its
-    peak since then); for a
-    transformer also ``"tokens_per_s"`` (over the median epoch after the
-    first) and ``"model_flops_per_token"``."""
+        config: TrainConfig | None = None, profile_schedule=None,
+        keep_stages: bool = False, on_step=None, log=print) -> dict:
+    """Train ``num_epochs`` pipeline steps of ``schedule`` under the
+    supervisor; ``config`` holds the harness's options
+    (``train.harness.quiet_config`` when None: nothing written, no
+    checkpoints).  ``on_step(epoch, loss)`` is called once each epoch's
+    loss has reached the host.  Returns ``PipeResult.as_dict()`` (its
+    ``losses`` stitched across restarts) plus ``"status"``,
+    ``"lineage"``, ``"start_epoch"``, the checkpoint saves and restores,
+    ``"run_dir"``, ``"contract"`` (the shim's collectives of each epoch
+    of this segment against ``parallel.contracts``), ``"step_ms"`` (each
+    epoch on the host clock, until its loss reaches the host),
+    ``"final_loss_batch0"`` (the first batch's loss under the final
+    params: fresh batches move the epoch losses by their draw more than
+    a few steps move the model), ``"devices"``, ``"start_memory_mb"``
+    (each card's allocated MB when training starts; ``"peak_memory_mb"``
+    holds its peak since then), ``"pump"`` and, with ``keep_stages``,
+    ``"stages"`` (the stages themselves, their params and Adam state);
+    for a transformer also ``"tokens_per_s"`` (over the median epoch
+    after the first) and ``"model_flops_per_token"``."""
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule={schedule!r}; choose from {SCHEDULES}")
+    cfg_run = H.run_config(config, num_epochs=num_epochs,
+                           batch_size=batch_size, sequence_length=seq,
+                           seed=seed)
+    fp = {"model": model, "schedule": schedule, "n_stages": n_stages,
+          "n_micro": n_micro, "virtual_per_device": virtual_per_device,
+          "opt8": opt8}
+    return H.supervise(cfg_run, schedule, lambda ctx, holder: _run(
+        ctx, holder, cfg_run, schedule, model=model, n_stages=n_stages,
+        virtual_per_device=virtual_per_device, n_micro=n_micro, lr=lr,
+        warmup_epochs=warmup_epochs, device=device, opt8=opt8,
+        profile_schedule=profile_schedule, keep_stages=keep_stages,
+        on_step=on_step, log=log),
+        extra_fingerprint=fp)
+
+
+def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
+         n_micro, lr, warmup_epochs, device, opt8, profile_schedule,
+         keep_stages, on_step, log) -> dict:
+    num_epochs, batch_size = rc.num_epochs, rc.batch_size
+    seq, seed = rc.sequence_length, rc.seed
     stages, cfg = build_stages(model, schedule, n_stages, virtual_per_device,
                                seed, device, opt8)
+    dev0 = stages[0].device
+    key = generator_states({"params": seed, "data": seed + 1}, dev0)
+    H.track(holder, ctx)
+    # resume: every stage's params and Adam state, each back on its own
+    # stage's device (the restore fills ``like``'s devices)
+    rs = ctx.restore(RunState(params=[s.params for s in stages],
+                              opt_state=[s.opt_state for s in stages],
+                              prng_key=key))
+    if rs is not None:
+        for s, sp, so in zip(stages, rs.params, rs.opt_state):
+            s.load_state(sp, so)
     cards = list(dict.fromkeys(s.device for s in stages
                                if s.device.type == "cuda"))
     start = {}
@@ -154,64 +196,96 @@ def run(schedule: str = "1f1b", *, model: str = "mlp", n_stages: int = 2,
         torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(d)
         start[str(d)] = device_memory_stats(d)["bytes_in_use"] / MB
-    batches = epoch_batches(cfg, batch_size, seq, seed, stages[0].device)
-    first = []
-
-    def make_batch(epoch):
-        batch = next(batches)
-        if not first:
-            first.append(batch)
-        return batch
-
+    first = next(epoch_batches(cfg, batch_size, seq, seed, dev0))
+    stream = epoch_batches(cfg, batch_size, seq, seed, dev0)
+    if ctx.data_cursor:
+        # resume: the seeded stream, past the batches already drawn
+        stream = itertools.islice(stream, ctx.data_cursor, None)
     log(f"[{schedule}] model={model} stages={len(stages)} micro={n_micro} "
         f"batch={batch_size}" + (f" seq={seq}" if cfg else "")
-        + f" devices={[str(s.device) for s in stages]}")
+        + f" devices={[str(s.device) for s in stages]}"
+        + (f" start_epoch={ctx.start_step}" if ctx.start_step else ""))
     cname = schedule if schedule in ("gpipe", "1f1b") else "1f1b"
     n_leaves = sum(len(list(optim.tree_leaves(s.params))) for s in stages)
     want = step_collectives(cname, n_leaves)
-    counts, step_ms, marks = [], [], {}
-
-    def on_epoch(epoch, loss):
-        now = time.perf_counter()
-        step_ms.append((now - marks["t"]) * 1e3)
-        marks["t"] = now
-        counts.append(C.COLLECTIVES.read())
-        C.COLLECTIVES.reset()
-        if epoch % 4 == 0 or epoch == num_epochs - 1:
-            log(f"[{schedule}] epoch {epoch:3d} loss {loss:.6f}")
-        if on_step is not None:
-            on_step(epoch, loss)
-
+    tokens = batch_size * seq if cfg is not None else batch_size
+    prof = H.profiler(rc, profile_schedule, ProfileSchedule(
+        skip_first=2, wait=1, warmup=1, active=4))
+    counts, step_ms, ep_losses, marks = [], [], [], {}
     if warmup_epochs:
         def lr_fn(e):
             return lr * min(1.0, (e + 1) / warmup_epochs)
     else:
         lr_fn = lr
-    C.COLLECTIVES.reset()
-    marks["t"] = time.perf_counter()
-    result = PP.train_pipeline(stages, schedule, make_batch,
-                               num_epochs=num_epochs, n_micro=n_micro,
-                               lr=lr_fn, log=on_epoch)
+    pref = DevicePrefetcher(stream, device=dev0, depth=rc.prefetch_depth)
+    with pref, H.telemetry(schedule, rc, ctx, dev0, model=model,
+                           profiler=prof,
+                           extra={"n_stages": n_stages, "n_micro": n_micro,
+                                  "opt8": opt8}) as telem:
+        H.wire(telem, ctx, pref)
+
+        def on_epoch(epoch, loss):
+            now = time.perf_counter()
+            step_ms.append((now - marks["t"]) * 1e3)
+            marks["t"] = now
+            counts.append(C.COLLECTIVES.read())
+            if len(counts) == 1:   # zero sites: the ledger joins empty
+                telem.attach_sites(C.COLLECTIVES.sites(), want, cname)
+            C.COLLECTIVES.reset()
+            ep_losses.append(float(loss))
+            if epoch % 4 == 0 or epoch == num_epochs - 1:
+                log(f"[{schedule}] epoch {epoch:3d} loss {loss:.6f}")
+            telem.step(loss=loss, tokens=tokens)
+            # the epoch's loss reached the host: every epoch is a sync
+            # point for the checkpointer
+            ctx.after_step(epoch, True, lambda epoch=epoch: RunState(
+                params=[s.params for s in stages],
+                opt_state=[s.opt_state for s in stages], step=epoch,
+                data_cursor=epoch + 1, prng_key=key,
+                loss_log=ctx.full_losses(ep_losses)))
+            if on_step is not None:
+                on_step(epoch, loss)
+
+        C.COLLECTIVES.reset()
+        C.COLLECTIVES.capture()   # the first epoch's sites
+        marks["t"] = time.perf_counter()
+        result = PP.train_pipeline(stages, schedule, lambda e: next(pref),
+                                   num_epochs=num_epochs, n_micro=n_micro,
+                                   lr=lr_fn, log=on_epoch,
+                                   start_epoch=ctx.start_step,
+                                   should_stop=ctx.should_stop)
+        holder["losses"] = ctx.full_losses(ep_losses)
+        ctx.finalize(telem)
     out = result.as_dict()
+    out["losses"] = ctx.full_losses(ep_losses)
+    out.update(status="completed", start_epoch=ctx.start_step,
+               run_dir=telem.run_dir, **H.ckpt_report(holder))
     out["contract"] = {"name": cname, "expected": want,
                        "collectives": counts,
                        "holds": all(c == want for c in counts)}
+    out["pump"] = {"prefetch_depth": rc.prefetch_depth,
+                   "dispatch": "host-prefetch"}
     out["step_ms"] = step_ms
-    out["final_loss_batch0"] = PP.pipeline_loss(stages, *first[0])
+    out["final_loss_batch0"] = PP.pipeline_loss(stages, *first)
     if cfg is not None and len(step_ms) > 1:
         out["tokens_per_s"] = (batch_size * seq * 1e3
                                / float(np.median(step_ms[1:])))
         out["model_flops_per_token"] = T.model_flops_per_token(cfg, seq)
     out["devices"] = [str(s.device) for s in stages]
     out["start_memory_mb"] = start
+    if keep_stages:
+        out["stages"] = stages
     log(f"[{schedule}] contract[{cname}]: collectives a step "
         f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1]) if counts else {})}"
         f", holds {out['contract']['holds']}")
+    if telem.run_dir:
+        log(f"[{schedule}] telemetry in {telem.run_dir}")
     return out
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
+                                allow_abbrev=False)
     p.add_argument("--schedule", choices=SCHEDULES, default="1f1b")
     p.add_argument("--n-stages", type=int, default=2,
                    help="stage count; for the interleaved schedule the "
@@ -223,33 +297,30 @@ def main(argv=None) -> None:
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--warmup-epochs", type=int, default=0)
     p.add_argument("--results-file", default=None)
-    p.add_argument("--num-epochs", type=int, default=16)
-    p.add_argument("--batch-size", type=int, default=64)
-    p.add_argument("--seq", type=int, default=256,
-                   help="the transformer's sequence length")
-    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--seq", type=int, default=None,
+                   help="the transformer's sequence length (default 256; "
+                        "also --sequence-length)")
     p.add_argument("--device", default=None,
                    help="default: the CUDA cards; 'cpu' for the CPU")
     p.add_argument("--opt8", action="store_true",
                    help="int8 Adam moments at rest (parallel.optim8)")
-    p.add_argument("--resume", action="store_true", help="not ported (A8)")
-    for flag in ("checkpoint-dir", "max-restarts", "prefetch-depth",
-                 "trace-dir"):
-        p.add_argument(f"--{flag}", default=None, help="not ported (A8)")
-    args = p.parse_args(argv)
-    for name, why in NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(f"--{name.replace('_', '-')}: {why}")
+    args, rest = p.parse_known_args(argv)
+    cfg = TrainConfig.from_args(rest, batch_size=64, num_epochs=16,
+                                sequence_length=256)
+    if args.seq is not None:
+        cfg = dataclasses.replace(cfg, sequence_length=args.seq)
     out = run(args.schedule, model=args.model, n_stages=args.n_stages,
               virtual_per_device=args.virtual_per_device,
               n_micro=args.n_micro, lr=args.lr,
-              warmup_epochs=args.warmup_epochs, num_epochs=args.num_epochs,
-              batch_size=args.batch_size, seq=args.seq, seed=args.seed,
-              device=args.device, opt8=args.opt8)
+              warmup_epochs=args.warmup_epochs, num_epochs=cfg.num_epochs,
+              batch_size=cfg.batch_size, seq=cfg.sequence_length,
+              seed=cfg.seed, device=args.device, opt8=args.opt8, config=cfg)
     print(f"[{args.schedule}] {json.dumps(out)}", flush=True)
     if args.results_file:
         Path(args.results_file).write_text(json.dumps(out, indent=2))
         print(f"[{args.schedule}] results -> {args.results_file}")
+    if out["status"] != "completed":
+        return
     if not (np.all(np.isfinite(out["losses"])) and out["contract"]["holds"]):
         raise SystemExit(f"non-finite loss in {out['losses']} or "
                          f"collectives off the contract")

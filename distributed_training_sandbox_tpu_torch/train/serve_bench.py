@@ -63,9 +63,12 @@ near-tie of ``generate``'s now and then).  The reference's other gate,
 no jit-cache growth after warm-up, has no counterpart: PyTorch runs
 eagerly and nothing retraces, so the twin omits it.
 
-Refused (exit 2): ``--export-timeline`` (the report tooling,
-``scripts/export_timeline.py``: ROADMAP.md queue A item A8), ``--plan``
-(the tuner, item A12), the fleet's flags without ``--replicas`` >= 2,
+``--export-timeline`` merges the run directory's host spans and its
+profiler sessions (``--profile``) into ``timeline.json.gz``
+(``train/export_timeline.py``).
+
+Refused (exit 2): ``--plan`` (the tuner, ROADMAP.md queue A item A12),
+the fleet's flags without ``--replicas`` >= 2,
 and ``--tp`` / ``--disaggregate`` inside a fleet's replicas, as in the
 reference.  The reference's ``--cpu-devices`` (a simulated JAX mesh)
 has no counterpart; ``--device cpu`` runs the plain path.
@@ -190,10 +193,6 @@ def check_parity(params, cfg, reqs, *, capacity: int, kv_quant: bool,
 
 
 def _refusal(args) -> str | None:
-    if args.export_timeline:
-        return ("--export-timeline is not ported yet: the timeline export "
-                "(scripts/export_timeline.py) is the report tooling of "
-                "ROADMAP.md queue A item A8")
     if args.plan is not None:
         return f"--plan is not ported yet: the tuner is {A12}"
     if args.replicas > 1:
@@ -301,8 +300,11 @@ def parse_args(argv=None):
     p.add_argument("--burst-ms", type=float, default=50.0,
                    help="the admission controller's per-burst latency "
                         "prior (EWMA-calibrated as bursts complete)")
-    # refused: the timeline export (A8) and the tuner (A12)
-    p.add_argument("--export-timeline", action="store_true")
+    p.add_argument("--export-timeline", action="store_true",
+                   help="after the run, merge its host spans and profiler "
+                        "sessions into <run dir>/timeline.json.gz "
+                        "(train/export_timeline.py)")
+    # refused: the tuner (A12)
     p.add_argument("--plan", default=None)
     return p.parse_args(argv)
 
@@ -338,6 +340,12 @@ def _profiler(args):
     if not args.profile:
         return None
     return Profiler(trace_dir=args.trace_dir, schedule=SERVE_SCHEDULE)
+
+
+def _export_timeline(args, telem) -> None:
+    if args.export_timeline and telem.run_dir:
+        from .export_timeline import main as export_main
+        export_main([telem.run_dir])
 
 
 def _parity(params, cfg, reqs, args, capacity, exact) -> tuple[list, dict]:
@@ -465,6 +473,7 @@ def _engine_main(args, device, dev, grid) -> int:
         slo["failures"] = failures
         telem.finalize(serving=slo)
 
+    _export_timeline(args, telem)
     print(json.dumps(slo, indent=1))
     for f in failures:
         print(f"[serve] FAIL: {f}", file=sys.stderr, flush=True)
@@ -585,6 +594,7 @@ def _fleet_main(args) -> int:
         if own_swap is not None:
             shutil.rmtree(own_swap, ignore_errors=True)
 
+    _export_timeline(args, telem)
     print(json.dumps({k: v for k, v in slo.items()
                       if k not in ("rejections", "events")}, indent=1))
     for f in failures:

@@ -73,7 +73,7 @@ from ..data import make_packed_dataset, packed_batches
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import fsdp, optim, optim8
+from ..parallel import contracts, fsdp, optim, optim8
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -217,6 +217,17 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
             quantized_grads=quantized_grads,
             state_precision=state_precision)
     state_bytes = optim8.state_bytes(opt)
+    want = None           # fully_shard's own collectives: no sites
+    if variant != "auto" and quantized_gather:
+        want = contracts.fsdp_quantized_step_collectives(
+            shards, reshard_after_forward=reshard_after_forward,
+            remat=cfg.remat, accum_steps=accum_steps,
+            quantized_grads=quantized_grads)
+    elif variant != "auto":
+        want = contracts.fsdp_step_collectives(
+            shards, ws, overlap=overlap,
+            reshard_after_forward=reshard_after_forward, remat=cfg.remat,
+            accum_steps=accum_steps)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if rank == 0:
@@ -235,7 +246,8 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
         warmup_steps=min(5, max(num_steps - 1, 0)),
         flops_per_token=flops_tok, num_devices=ws, device=dev)
     prof = H.profiler(rc, profile_schedule, ProfileSchedule(
-        skip_first=0, wait=5, warmup=5, active=10))
+        skip_first=0, wait=5, warmup=5, active=10),
+        record_shapes=want is not None)
     batches = fsdp_batches(cfg.vocab_size, seq, bs, num_steps, seed)
     if ctx.data_cursor:
         # resume: the seeded dataset, past the batches already consumed
@@ -266,8 +278,13 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
                 if ctx.should_stop(i):
                     break
                 C.COLLECTIVES.reset()
+                sites_step = want is not None and not counts
+                if sites_step:   # the ledger's sites
+                    C.COLLECTIVES.capture()
                 shards, opt, loss = step(shards, opt, batch)
                 counts.append(C.COLLECTIVES.read())
+                if sites_step:
+                    telem.attach_sites(C.COLLECTIVES.sites(), want, "fsdp")
                 synced = pump.emit(loss, tokens=bs * seq, log=logger(i))
                 times.append(time.perf_counter() - t0)
                 ctx.after_step(i, synced, lambda i=i: RunState(

@@ -31,11 +31,12 @@ preempt@3:sharded``) resumes THAT leg from its latest step, and a leg
 that already completed replays nothing and reports its checkpointed
 losses, as ``scripts/_zero_driver.py`` does.  Each leg has its own
 telemetry run, profiler (under ``<trace-dir>/zero<stage>/<leg>``) and
-step pump.
+step pump; a profiled leg's summary carries the comm/compute split of
+its trace (``comm_split``).
 
 Not ported, with the ROADMAP.md queue A item that holds each:
-``evaluate_contract`` and the rules verdict (A12), ``--plan`` (A12) and
-``split_from_trace`` (A12).
+``evaluate_contract`` and the rules verdict (A12) and ``--plan``
+(A12).
 """
 
 from __future__ import annotations

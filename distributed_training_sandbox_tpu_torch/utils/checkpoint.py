@@ -176,9 +176,11 @@ class CheckpointManager:
                 self._staging[k] = buf
             buf.copy_(v, non_blocking=v.is_cuda)
             out[k] = buf
-        if any(isinstance(v, torch.Tensor) and v.is_cuda
-               for v in flat.values()):
-            torch.cuda.synchronize()   # the copies have landed
+        # the copies have landed, on every card the state lives on (a
+        # pipeline's stages are on several)
+        for dev in {v.device for v in flat.values()
+                    if isinstance(v, torch.Tensor) and v.is_cuda}:
+            torch.cuda.synchronize(dev)
         return out
 
     def save(self, step: int, state: Any, *, wait: bool = True) -> None:

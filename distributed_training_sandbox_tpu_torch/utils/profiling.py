@@ -5,7 +5,9 @@ The reference drives ``jax.profiler.start_trace / stop_trace`` from a
 ``(skip_first, wait, warmup, active, repeat)`` state machine
 (:class:`ProfileSchedule`, kept here as it is).  :class:`Profiler`
 starts a ``torch.profiler.profile`` (CPU, and CUDA when a card is
-present) at exactly the schedule's transitions and, at each stop, exports
+present; ``record_shapes`` only where asked, for a run whose collective
+ledger reads the payloads back, since it adds host work to every op) at
+exactly the schedule's transitions and, at each stop, exports
 a Chrome trace into a session directory of its own under ``trace_dir``
 (``plugins/profile/<timestamp>/``, the layout the reference's traces
 take), recording the directories it owns.  ``torch.profiler.schedule``
@@ -70,12 +72,14 @@ class Profiler:
     ``last_profile`` holds its ``torch.profiler.profile`` (for
     ``key_averages()`` / ``events()``), ``owned_sessions`` the session
     directories this profiler wrote, newest last, and ``windows`` each
-    window's host-clock seconds (start to stop, the device drained)."""
+    window's host-clock seconds (start to stop, the device drained) and
+    ``window_steps`` the steps each window traced."""
 
     def __init__(self, trace_dir: str | None = None,
                  schedule: ProfileSchedule | None = None,
-                 enabled: bool | None = None):
+                 enabled: bool | None = None, record_shapes: bool = False):
         self.trace_dir = trace_dir or default_trace_dir()
+        self.record_shapes = record_shapes
         self.schedule = schedule or ProfileSchedule()
         self.enabled = (_rank() == 0) if enabled is None else enabled
         self._step = 0
@@ -85,6 +89,8 @@ class Profiler:
         self.owned_sessions: list[str] = []
         self.trace_files: list[str] = []
         self.windows: list[float] = []
+        self.window_steps: list[int] = []
+        self._traced = 0
         self._t_start = 0.0
 
     def __enter__(self):
@@ -107,15 +113,18 @@ class Profiler:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self._prof = torch.profiler.profile(activities=acts)
+        self._prof = torch.profiler.profile(activities=acts,
+                                            record_shapes=self.record_shapes)
         self._prof.start()
         self._t_start = time.perf_counter()
+        self._traced = 0
         self._tracing = True
 
     def _finish(self) -> None:
         if torch.cuda.is_available():
             torch.cuda.synchronize()   # the window's device work, whole
         self.windows.append(time.perf_counter() - self._t_start)
+        self.window_steps.append(self._traced)
         self._prof.stop()
         self._tracing = False
         stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S_%f")
@@ -135,6 +144,7 @@ class Profiler:
     def step(self) -> None:
         if not self.enabled:
             return
+        self._traced += self._tracing   # the step that just ended
         self._step += 1
         phase = self.schedule.phase(self._step)  # phase of the *next* step
         if phase == "trace" and not self._tracing:

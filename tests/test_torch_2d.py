@@ -34,6 +34,8 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import expert as PE
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     moe_step_collectives)
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 LOSS_RTOL, PARAM_ATOL = 2e-4, 2e-4
 STEPS = 2

@@ -25,6 +25,7 @@ from test_torch_fsdp import spawn_ranks
 
 from distributed_training_sandbox_tpu.ops import busbench as JB
 from distributed_training_sandbox_tpu_torch.ops import busbench as PB
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 NAMES = PB.COLLECTIVE_NAMES + ("collective_permute",)
 

@@ -40,6 +40,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import optim
 from distributed_training_sandbox_tpu_torch.train import ddp as TD
 from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MOE = dict(n_experts=4, moe_capacity_factor=4.0)

@@ -37,6 +37,8 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
 from distributed_training_sandbox_tpu.ops import collectives as JC
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 REPO = Path(__file__).resolve().parent.parent
 WORLDS = (2, 4)

@@ -16,6 +16,7 @@ from distributed_training_sandbox_tpu.models import transformer as JT
 from distributed_training_sandbox_tpu.parallel import composable as JCP
 from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import composable as CP
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 PLANS = ["dp8", "dp1", "dp8xw1", "dp8,w2", "dp8xw3", "dp8xw3flat",
          "dp8xw3named", "fsdp8", "fsdp2xtp2", "dp2xfsdp2xtp2",

@@ -20,6 +20,8 @@ import json
 import numpy as np
 import pytest
 from test_torch_fsdp import spawn_ranks
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 WORKER = r"""
 import hashlib, json, sys

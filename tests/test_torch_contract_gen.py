@@ -14,6 +14,8 @@ import pytest
 from distributed_training_sandbox_tpu_torch.analysis import contract_gen as G
 from distributed_training_sandbox_tpu_torch.analysis.rules import RULESETS
 from distributed_training_sandbox_tpu_torch.parallel import contracts as HC
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 DIFFS = G.diff_all_contracts()
 

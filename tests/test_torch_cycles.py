@@ -25,6 +25,8 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 ROOT = Path(__file__).resolve().parents[1]
 

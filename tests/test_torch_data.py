@@ -24,6 +24,8 @@ from distributed_training_sandbox_tpu.data import packing as RP
 from distributed_training_sandbox_tpu_torch.data import classification as PC
 from distributed_training_sandbox_tpu_torch.data import native as PN
 from distributed_training_sandbox_tpu_torch.data import packing as PP
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 FIX = Path(__file__).parent / "fixtures"
 CORPUS = FIX / "tiny_corpus.txt"

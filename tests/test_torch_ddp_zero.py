@@ -54,6 +54,7 @@ from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     ddp_bucket_count, step_collectives)
 from distributed_training_sandbox_tpu_torch.train import ddp as TD
 from distributed_training_sandbox_tpu_torch.train import zero as TZ
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 WORLDS = (2, 4)
 STEPS, BATCH, SGD_LR = 3, 16, 1e-2

@@ -36,6 +36,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.ops import quant as PQ
 from distributed_training_sandbox_tpu_torch.parallel import expert as PE
 from distributed_training_sandbox_tpu_torch.parallel import optim as PO
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 HID, FFN, NEXP = 32, 64, 8
 # allclose tier of one MoE MLP (f32): outputs and aux; grads

@@ -23,6 +23,8 @@ from distributed_training_sandbox_tpu.parallel import expert as JE
 from distributed_training_sandbox_tpu.parallel import fsdp as JF
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     ep_step_collectives)
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 WORLDS = (2, 4)
 

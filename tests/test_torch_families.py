@@ -34,6 +34,7 @@ from distributed_training_sandbox_tpu_torch.models import MODEL_REGISTRY as PM
 from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import optim
 from distributed_training_sandbox_tpu_torch.train import eval_lm, flagship
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 TOL = dict(rtol=2e-5, atol=2e-5)

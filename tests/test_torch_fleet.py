@@ -43,6 +43,7 @@ from distributed_training_sandbox_tpu_torch.resilience.state import (
 from distributed_training_sandbox_tpu_torch.serving import (
     Fleet, Rejection, Request)
 from distributed_training_sandbox_tpu_torch.train import serve_bench
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 ENG = dict(max_batch=2, page_size=8, max_seq_len=32, prefill_chunk=8,
            sync_every=2)

@@ -27,6 +27,7 @@ from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import paged_attention as PA
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
 from distributed_training_sandbox_tpu_torch.serving import engine as E
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 
 @pytest.fixture

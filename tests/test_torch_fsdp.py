@@ -43,6 +43,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import fsdp as PF
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     fsdp_quantized_step_collectives)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 REPO = Path(__file__).resolve().parent.parent
 WORLDS = (2, 4)

@@ -30,6 +30,8 @@ from test_torch_fsdp import (LR, STEPS, _flat, _unflat, reference,  # noqa: F401
 from distributed_training_sandbox_tpu.models import transformer as JT
 from distributed_training_sandbox_tpu.parallel import fsdp as JF
 from distributed_training_sandbox_tpu_torch import bridge
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 N = 2
 REMATS = (False, True)

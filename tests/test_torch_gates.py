@@ -10,6 +10,8 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(

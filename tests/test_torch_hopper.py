@@ -15,6 +15,7 @@ import torch
 
 from distributed_training_sandbox_tpu_torch.ops import flash_prefill as FP
 from distributed_training_sandbox_tpu_torch.ops import quant as Q
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 
 def _paged_case(seed, B=2, S=5, nkv=2, rep=2, hd=16, page=4, P=5):

@@ -46,6 +46,7 @@ from distributed_training_sandbox_tpu_torch.ops import paged_attention as PPA
 from distributed_training_sandbox_tpu_torch.ops import quant as PQ
 from distributed_training_sandbox_tpu_torch.serving import accounting as PA
 from distributed_training_sandbox_tpu_torch.serving import engine as PE
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 # the module (the reference's models package exports its generate function
 # under the same name)

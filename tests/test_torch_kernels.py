@@ -31,6 +31,8 @@ import torch
 from distributed_training_sandbox_tpu_torch.ops import (
     flash_prefill as FP, paged_attention as PA)
 
+torch.set_num_threads(1)  # the suite's workers share the cores
+
 
 def _case(seed, B, S, nkv, rep, hd, page, P, n_pages, dtype, device):
     """Seeded pools and a page table with null-page padding: slot b

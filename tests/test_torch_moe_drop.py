@@ -28,6 +28,7 @@ from distributed_training_sandbox_tpu.parallel import expert as JE
 from distributed_training_sandbox_tpu_torch import bridge
 from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import expert as PE
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 B, S, SEED = 2, 256, 11
 

@@ -35,6 +35,7 @@ from distributed_training_sandbox_tpu_torch.parallel import expert as PE
 from distributed_training_sandbox_tpu_torch.parallel import optim as PO
 from distributed_training_sandbox_tpu_torch.utils.flops import (
     get_model_flops_per_token as port_flops)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 MOE = dict(n_experts=8, moe_ffn=64, moe_capacity_factor=4.0)
 JCFG = dataclasses.replace(JT.TINY_LM, **MOE)

@@ -28,6 +28,7 @@ from distributed_training_sandbox_tpu_torch.ops.quant import QuantizedWeight
 from distributed_training_sandbox_tpu_torch.parallel import optim as PO
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.serving import engine as PEng
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 # the module (the package re-exports its function under the same name)
 JG = importlib.import_module("distributed_training_sandbox_tpu.models.generate")

@@ -29,6 +29,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import expert as PE
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     moe_step_collectives)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 WORLDS = (2, 4)
 # loss rtol and param atol of the multi-rank steps: test_torch_fsdp's

@@ -58,6 +58,7 @@ from distributed_training_sandbox_tpu_torch.parallel import optim as PO
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     step_collectives)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 STEPS, N_MICRO, LR = 2, 4, 1e-3
 JCFG = dataclasses.replace(JT.TINY_LM, tie_word_embeddings=False)
@@ -296,6 +297,23 @@ def test_interleaved_trace_and_stats_match_jax(D, V):
 
 # ------------------------------------------------------ the port's laws
 
+# The intra-op thread count this law is held at.  The CPU GEMMs split
+# their sums by thread, and Adam's first step moves a param whose grad
+# lies near eps by up to lr on the sums' last bits: the law holds at 2 to
+# 8 and at 16 threads and fails at 1 (ROADMAP.md, C12).  A fixed count
+# keeps the sum order the same under any worker count.
+LAW_THREADS = 2
+
+
+@pytest.fixture
+def law_threads():
+    """This test at ``LAW_THREADS`` intra-op threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(LAW_THREADS)
+    yield
+    torch.set_num_threads(n)
+
+
 def _toy_port(n_stages, devices=("cpu",)):
     params, batches = _toy_inputs()
     return (PP.build_pipeline(bridge.mlp_params_from_jax(params), n_stages,
@@ -314,7 +332,8 @@ def _monolithic_toy(params, batch):
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])
-def test_each_schedule_equals_one_monolithic_adam_step(schedule):
+def test_each_schedule_equals_one_monolithic_adam_step(schedule,
+                                                      law_threads):
     devices = ["cpu"] * (2 if schedule == "interleaved" else 1)
     stages, batches, params = _toy_port(4 if schedule == "interleaved"
                                         else 2, devices)
@@ -474,7 +493,18 @@ def test_twin_prints_the_result_json():
     assert all(np.isfinite(res["losses"]))
 
 
-def test_twin_refuses_what_is_not_ported():
+def test_twin_refuses_what_is_not_ported(tmp_path, capsys):
+    """``--resume`` runs now (the run harness): a preempted run resumes
+    at the epoch after its checkpoint's.  The reference's simulated JAX
+    mesh (``--cpu-devices``) has no counterpart and is refused."""
     from distributed_training_sandbox_tpu_torch.train import pipeline as TP
-    with pytest.raises(NotImplementedError, match="A8"):
-        TP.main(["--device", "cpu", "--resume"])
+    args = ["--device", "cpu", "--num-epochs", "4", "--batch-size", "16",
+            "--no-telemetry", "--no-profile",
+            "--checkpoint-dir", str(tmp_path / "ck")]
+    TP.main(args + ["--inject-fault", "preempt@2"])
+    TP.main(args + ["--resume"])
+    line = capsys.readouterr().out.splitlines()[-1]
+    res = json.loads(line[len("[1f1b] "):])
+    assert res["start_epoch"] == 2 and len(res["losses"]) == 4
+    with pytest.raises(SystemExit):
+        TP.main(["--device", "cpu", "--cpu-devices", "8"])

@@ -46,6 +46,7 @@ from distributed_training_sandbox_tpu_torch.serving import engine as PE
 from distributed_training_sandbox_tpu_torch.serving import scheduler as PS
 from distributed_training_sandbox_tpu_torch.serving.kv_pool import (
     PageAllocator as PPageAllocator)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -401,7 +402,7 @@ bad = [m for m, mod in sys.modules.items() if mod is not None and (
 assert not bad, bad
 print(len(names))
 """
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -64,6 +64,7 @@ from distributed_training_sandbox_tpu_torch.ops import quant as PQ
 from distributed_training_sandbox_tpu_torch.parallel import fsdp as PF
 from distributed_training_sandbox_tpu_torch.parallel.contracts import (
     fsdp_quantized_step_collectives)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 WORLDS = (2, 4)
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",

@@ -30,6 +30,7 @@ from distributed_training_sandbox_tpu_torch.models.generate import (
 from distributed_training_sandbox_tpu_torch.serving import engine as PE
 from distributed_training_sandbox_tpu_torch.serving import kv_pool as PK
 from distributed_training_sandbox_tpu_torch.serving import scheduler as PS
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 ENGINE = dict(max_batch=2, page_size=8, max_seq_len=48, prefill_chunk=8)
 

@@ -46,6 +46,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.ops import flash_attention as FA
 from distributed_training_sandbox_tpu_torch.ops import quant as PQ
 from distributed_training_sandbox_tpu_torch.parallel import fsdp as PF
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 POLICIES = PT.REMAT_POLICIES
 TOL = dict(rtol=1e-5, atol=1e-5)

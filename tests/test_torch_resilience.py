@@ -61,6 +61,7 @@ from distributed_training_sandbox_tpu_torch.train import ddp as TD
 from distributed_training_sandbox_tpu_torch.train import zero as TZ
 from distributed_training_sandbox_tpu_torch.utils import checkpoint as C
 from distributed_training_sandbox_tpu_torch.utils.config import TrainConfig
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 _spec = importlib.util.spec_from_file_location(
     "chip_gate_mutation", REPO / "chip_gate_mutation.py")

@@ -28,6 +28,8 @@ from distributed_training_sandbox_tpu_torch.resilience import elastic as PEL
 from distributed_training_sandbox_tpu_torch.resilience import faults as PF
 from distributed_training_sandbox_tpu_torch.serving import router as PR
 from distributed_training_sandbox_tpu_torch.serving import scheduler as PS
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 
 def _script(seed, n=120):

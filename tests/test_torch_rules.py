@@ -35,6 +35,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.models.mlp import init_mlp
 from distributed_training_sandbox_tpu_torch.parallel import (
     expert, fsdp, optim, tensor)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 SHARED = sorted(set(R.RULESETS) & set(JR.RULESETS))
 MOE = dict(num_hidden_layers=2, n_experts=4, moe_ffn=32)

@@ -29,6 +29,7 @@ from distributed_training_sandbox_tpu_torch.runtime import (
     DevicePrefetcher, StepPump, sharded_put)
 from distributed_training_sandbox_tpu_torch.utils.tracker import (
     PerformanceTracker)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 BOUNDARIES = {2, 9, 10, 17}
 

@@ -42,6 +42,7 @@ from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.ops import ring_attention as PRA
 from distributed_training_sandbox_tpu_torch.parallel import contracts
 from distributed_training_sandbox_tpu_torch.parallel import sequence as PS
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 RING_TOL = dict(rtol=2e-5, atol=2e-5)
 RING_BF16_TOL = dict(rtol=0.05, atol=0.05)

@@ -49,6 +49,7 @@ from distributed_training_sandbox_tpu_torch.serving import accounting
 from distributed_training_sandbox_tpu_torch.serving import engine as PE
 from distributed_training_sandbox_tpu_torch.serving.kv_pool import PagedKVPool
 from distributed_training_sandbox_tpu_torch.utils import mesh
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 ENG = dict(max_batch=2, page_size=8, max_seq_len=32, prefill_chunk=8)
 NEW = 6
@@ -125,6 +126,7 @@ for name, kw in cases.items():
     eng.run()
     res[name] = {"tokens": [list(map(int, q.tokens)) for q in reqs],
                  "counts": C.COLLECTIVES.read(),
+                 "sites": C.COLLECTIVES.sites(),
                  "stats": {k: eng.stats[k] for k in (
                      "decode_steps", "prefill_chunks", "draft_steps")},
                  "pool_heads": int(eng.pool.bufs.k[0].shape[2]),
@@ -186,6 +188,17 @@ def test_tp2_shim_counts_the_serve_contract(tp_world, case):
         assert counts["all_reduce"] == want
         assert {k: v for k, v in counts.items() if k != "all_reduce"} \
             == dict.fromkeys(G.KINDS[1:], 0)
+
+
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_tp2_serve_keeps_no_collective_sites(tp_world, case):
+    """A server never resets the shim, so it must not grow its site list:
+    sites are kept only inside a ``capture``, which serving never opens
+    (its all_reduces still count)."""
+    ranks, _ = tp_world
+    for rk in ranks:
+        assert rk[case]["counts"]["all_reduce"] > 0
+        assert rk[case]["sites"] == []
 
 
 @pytest.mark.parametrize("strategy", HC.SERVE_STRATEGIES)

@@ -9,8 +9,9 @@ equal the reference's, with the planner's inverse law.  The twins run
 in-process: ``train.serve_bench`` exits 0 with the prefix cache and with
 speculation, its ``summary.json`` ``serving`` block has the reference's
 keys (but the recompile watch, which has no eager counterpart), and
-the fleet's, TP's and disaggregation's flags pinned, ``--export-timeline``
-(A8) and ``--plan`` (A12) exit 2;
+the fleet's, TP's and disaggregation's flags pinned, a profiled serve
+exported as one timeline (``--export-timeline``), ``--plan`` (A12)
+exits 2;
 ``train.decode_bench`` writes rows with the reference's keys.
 """
 
@@ -32,6 +33,7 @@ from distributed_training_sandbox_tpu_torch.serving import accounting as PA
 from distributed_training_sandbox_tpu_torch.serving import traces as PTR
 from distributed_training_sandbox_tpu_torch.train import decode_bench
 from distributed_training_sandbox_tpu_torch.train import serve_bench
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 
 # ---- traces -----------------------------------------------------------------
@@ -204,17 +206,19 @@ def test_serve_bench_serving_keys_are_the_reference_engines(reference_keys):
     (["--replicas", "2", "--max-queue", "0"], 0, "0 completed / 6 shed"),
     (["--replicas", "2", "--burst-ms", "1000", "--deadline-ms", "500"], 0,
      "0 completed / 6 shed"),
-    (["--export-timeline"], 2, "A8"), (["--plan", "p.json"], 2, "A12"),
+    (["--profile", "--trace-dir", "{tmp}/tr", "--export-timeline"], 0,
+     "host spans + "), (["--plan", "p.json"], 2, "A12"),
 ])
 def test_serve_bench_refuses_the_second_half(tmp_path, capsys, flags, rc,
                                              match):
-    """What the twin refuses (exit 2, no run directory): the timeline
-    export (A8), the tuner's plan (A12), the fleet's flags without a
-    fleet, more tp ranks than the group has; and what it runs now that
-    the fleet, TP serving and disaggregation are ported: the fleet, a
+    """What the twin refuses (exit 2, no run directory): the tuner's
+    plan (A12), the fleet's flags without a fleet, more tp ranks than the
+    group has; and what it runs now that the fleet, TP serving,
+    disaggregation and the timeline export are ported: the fleet, a
     missing swap checkpoint (the fleet keeps its weights), a wedged
     decode burst failed over, every arrival shed by a zero queue or a
-    deadline under the modeled TTFT."""
+    deadline under the modeled TTFT, a profiled serve exported as one
+    timeline."""
     flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
     got = serve_bench.main(["--device", "cpu", "--requests", "6",
                             "--max-batch", "2", "--sync-every", "2",

@@ -34,6 +34,7 @@ from distributed_training_sandbox_tpu_torch.telemetry.run import TelemetryRun
 
 from test_torch_prefix_cache import (ENGINE, _bridged,
                                      _prompts_with_shared_prefix)
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 
 @pytest.fixture(scope="module")

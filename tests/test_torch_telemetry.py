@@ -40,6 +40,7 @@ from distributed_training_sandbox_tpu_torch.telemetry import writer as PW
 from distributed_training_sandbox_tpu_torch.utils import config as PCFG
 from distributed_training_sandbox_tpu_torch.utils import profiling as PPROF
 from distributed_training_sandbox_tpu_torch.utils import tracker as PTR
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 TRACKER_METRICS = {"last_step_time_s": 0.25, "tokens_per_second": 1e4,
                    "tflops_per_device": 1.5, "peak_memory_gb": 3.0}

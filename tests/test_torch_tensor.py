@@ -44,6 +44,8 @@ from distributed_training_sandbox_tpu_torch import bridge
 from distributed_training_sandbox_tpu_torch.models import transformer as PT
 from distributed_training_sandbox_tpu_torch.parallel import contracts
 from distributed_training_sandbox_tpu_torch.parallel import tensor as PTP
+import torch  # noqa: E402
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 STEP_LOSS_RTOL, STEP_PARAM_ATOL = 1e-4, 2e-3

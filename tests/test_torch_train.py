@@ -54,6 +54,7 @@ from distributed_training_sandbox_tpu_torch.ops import quant as PQ
 from distributed_training_sandbox_tpu_torch.parallel import fsdp as PF
 from distributed_training_sandbox_tpu_torch.parallel import optim as PO
 from distributed_training_sandbox_tpu_torch.train import flagship
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -475,7 +476,7 @@ bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
 assert not [m for m in bad if sys.modules[m] is not None], bad
 print("ok")
 """
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
