@@ -94,6 +94,17 @@ resilience mutants edit a Python module of the port instead):
   every 64-deep k-block; K7's gate must fail;
 - ``k7_dropped_k_tile``: K7 leaves the chunk's last K tile out of the
   sum; K7's gate and the FSDP step-0 parity must fail;
+- ``remat_pallas_keeps_products``: the ``save_dots`` policy
+  (``models/transformer.py``, ``_saved_ops``) keeps the projection
+  ops' outputs at the ``*_pallas`` precisions too (K5's and K6's),
+  which the reference's policy never sees; phase 22a's gates that
+  ``save_dots`` keeps no byte beyond ``full``'s there and that its peak
+  is ``full``'s must fail;
+- ``q8_residual_skipped``: ``save_dots_q8`` keeps, beside the
+  round-trip's int8 pair, its dequantised bf16 output (every
+  ``aten._to_copy``, the casts of the layer with it); 22a's gates on
+  its kept bytes and on its peak's excess against bf16 ``save_dots``'
+  must fail at int8_pallas_bwd;
 - ``dot_q8_skipped``: the ``save_dots_q8`` projection
   (``ops/quant.py``, ``dot_q8``) hands on the bf16 product instead of
   its int8 round-trip, while the policy still keeps the codes; phase
@@ -470,6 +481,17 @@ MUTANTS = [
      '    "c10d::_reduce_scatter_base_": "reduce_scatter",',
      '    "c10d::_reduce_scatter_base_#": "reduce_scatter",', "ledger",
      ("ledger fsdp:",)),
+    ("remat_pallas_keeps_products", "models/transformer.py",
+     "            return None   # a kernel is no dot: save_dots keeps what "
+     "full keeps",
+     "            return {INT8_DENSE_OP, FP8_DENSE_OP}", "remat22",
+     ("int8_pallas_bwd save_dots: ", "bytes kept beyond full's",
+      "from full's, over")),
+    ("q8_residual_skipped", "models/transformer.py",
+     "    return {DOT_Q8_OP}",
+     "    return {DOT_Q8_OP, torch.ops.aten._to_copy.default}", "remat22",
+     ("int8_pallas_bwd save_dots_q8: kept bytes ratio",
+      "int8_pallas_bwd save_dots_q8: peak excess ratio")),
 ]
 STEP0 = ("step-0 loss", "step-0 grads", "step-0 bf16 grads")
 
@@ -581,6 +603,21 @@ torch.backends.cudnn.allow_tf32 = False
 c.mesh.init_process_group("cuda")
 try:
     c.remat_phase(c.card_line())
+finally:
+    c.mesh.destroy_process_group()
+""", "remat22": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+c.mesh.init_process_group("cuda")
+try:
+    c.remat22_phase(c.card_line())
 finally:
     c.mesh.destroy_process_group()
 """, "int8_train": """

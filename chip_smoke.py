@@ -336,6 +336,24 @@ Phases, each of which fails the run:
    ``train/report.py`` over every run dir phase 21 wrote, exit 0, with
    its bandwidth table, and exit 0 against the same dirs as
    ``--baseline``.
+22. the model core's rest (on the one-rank group, under a temporary
+   directory): (a) SmolLM3-3B-L8 at int8_pallas_bwd and fp8_pallas, one FSDP
+   value-and-grad under ``full``, ``save_dots`` and ``save_dots_q8``
+   after a warm-up that records what the policy keeps
+   (``transformer.record_kept``): ``save_dots`` bit-equal to ``full``
+   and keeping no byte, ``save_dots_q8``'s loss within the q8 tier and
+   its kept bytes at most ``REMAT_Q8_SAVED_RATIO`` of bf16
+   ``save_dots``', K4, K5, K6 and FA launches what the kept set
+   implies; the int8 ``save_dots`` leg (K4's bf16 outputs kept, logged
+   against the reference's int32 accumulators); the path "22: remat";
+   (b) the twins at cut depth: two ``moe_bench`` rows, one
+   ``moe_profile`` step (every phase with device time but the two a2a
+   ranges, views at one rank), one ``long_context`` row at 16384, the
+   flagship's ``--spike-demo``, ``generate_demo --serve`` on a
+   corpus-70m checkpoint (the engine's tokens equal ``generate``'s, K1
+   launched; K3 refuses the model's GQA group of 3, so its prefill takes
+   the gather path) and ``decode_bench`` on SmolLM3-3B (C14: a positive
+   slope); each its path "22: <twin>".
 
 After every phase a full garbage collection may free at most
 ``CYCLIC_LIMIT_BYTES`` of card memory: a finished phase leaves none of
@@ -428,6 +446,10 @@ from distributed_training_sandbox_tpu_torch.train import (
 from distributed_training_sandbox_tpu_torch.train import (
     train_composable, train_sp, train_tp)
 from distributed_training_sandbox_tpu_torch.train import serve_bench
+from distributed_training_sandbox_tpu_torch.train import (
+    decode_bench as decode_bench_run, generate_demo as generate_demo_run,
+    long_context as long_context_run, moe_bench as moe_bench_run,
+    moe_profile as moe_profile_run)
 from distributed_training_sandbox_tpu_torch.train import zero as zero_run
 from distributed_training_sandbox_tpu_torch.train.harness import quiet_config
 from distributed_training_sandbox_tpu_torch.telemetry import ledger as LD
@@ -6891,9 +6913,10 @@ def family_train(label, train, card, loss0=None, ckpt_dir=None) -> tuple:
     return read, {k: v[0] for k, v in counts.items()}
 
 
-def corpus_phase(card: str) -> tuple[dict, dict]:
+def corpus_phase(card: str, keep_ckpt=None) -> tuple[dict, dict]:
     """20a: ``corpus-70m`` on the committed corpus (``CORPUS_TRAIN``):
-    step-0 parity, the run with its final params saved, then
+    step-0 parity, the run with its final params saved (into
+    ``keep_ckpt``, left for the caller, when given), then
     ``train.eval_lm`` on the held-out tail from that save: restored at
     the run's last step, a finite loss, the flash forward launched L a
     batch, and no held-out window among the trained ones."""
@@ -6901,7 +6924,7 @@ def corpus_phase(card: str) -> tuple[dict, dict]:
     from distributed_training_sandbox_tpu_torch.train import eval_lm
     train = CORPUS_TRAIN
     loss0 = family_parity("corpus-70m", train)
-    ck = Path(tempfile.mkdtemp(prefix="corpus_ck_"))
+    ck = keep_ckpt or Path(tempfile.mkdtemp(prefix="corpus_ck_"))
     try:
         read, launches = family_train("corpus-70m", train, card, loss0, ck)
         _reset_kernel_counts()
@@ -6910,7 +6933,8 @@ def corpus_phase(card: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         ev_fa = (FA.FWD_COUNTS.launches, FA.FWD_COUNTS.plain_calls)
     finally:
-        shutil.rmtree(ck, ignore_errors=True)
+        if keep_ckpt is None:
+            shutil.rmtree(ck, ignore_errors=True)
     cfg = _leg_cfg(train)
     (tr, _), (ho, _) = flagship.corpus_windows(cfg.vocab_size, train["seq"])
     seen = {r.tobytes() for r in tr[:train["num_steps"] * train["bs"]]}
@@ -7027,12 +7051,13 @@ def native_phase() -> dict:
     return out
 
 
-def phase20(card: str) -> tuple[dict, dict]:
+def phase20(card: str, corpus_ckpt=None) -> tuple[dict, dict]:
     """Phase 20 (the data tier, classification and the model families):
-    20a-20d.  Returns the readings and each path's launches."""
+    20a-20d, 20a's checkpoint left in ``corpus_ckpt`` when given.
+    Returns the readings and each path's launches."""
     torch.cuda.empty_cache()
     t20 = time.perf_counter()
-    a, la = corpus_phase(card)
+    a, la = corpus_phase(card, corpus_ckpt)
     b, lb = families_phase(card)
     c = classification_phase(card)
     d = native_phase()
@@ -7296,6 +7321,400 @@ def phase21(card: str) -> tuple[dict, dict]:
         f"report): {wall:.1f} s")
     return ({"pipeline harness": a, "ledger": b, "timeline": c, "report": d,
              "wall_s": wall}, {"pipeline harness": la})
+
+
+# ------------------------------------- phase 22: the model core's rest
+
+# (a) the remat policies at the precisions whose projections run a kernel
+# (SmolLM3-3B-L8, seq 8192, batch 1, flash attention, one FSDP
+# value-and-grad after a recorded warm-up a policy).  Kept bytes are the
+# policy's cache (transformer.record_kept): save_dots keeps none at the
+# *_pallas precisions (the reference's dots_with_no_batch_dims_saveable
+# sees no dot in a kernel), save_dots_q8 the int8 pairs, at most
+# REMAT_Q8_SAVED_RATIO of bf16 save_dots' bytes (int8 codes and f32 row
+# scales of the same six products a layer read about 0.5).  The same
+# two laws on the measured peak above the step's start: save_dots' peak
+# within REMAT22_PEAK_SLACK_BYTES of full's (the allocator's own spread:
+# 1 MiB between two readings; the smallest product a policy could keep,
+# a layer's K projection, is 8 MiB and the six a layer 3.3 GiB over the
+# 8 layers), save_dots_q8's peak excess over full's at most
+# REMAT_Q8_SAVED_RATIO of bf16 save_dots' (as 13b gates it).  The int8
+# leg keeps K4's bf16 outputs where the reference keeps its XLA dot's
+# int32 accumulator (REF_ACC_BYTES an element): logged beside it.
+REMAT22 = dict(model="smollm3-3b-l8", seq=8192, bs=1, seed=42)
+REMAT22_PRECISIONS = ("int8_pallas_bwd", "fp8_pallas")
+REMAT22_PEAK_SLACK_BYTES = 6 * 2 ** 20
+REF_ACC_BYTES = 4
+# (b) the twins at cut depth, each on the one-rank group: moe_bench's
+# rows of MOE_BENCH22 (grouped bf16; grouped cf 1.25 int8_bwd) at
+# MOE22_LAYERS layers and batch 1; one moe_profile step at MOE22_LAYERS;
+# one long_context row; the flagship's spike demo; generate_demo with
+# --serve on 20a's corpus-70m checkpoint (phase 22 alone trains one of
+# DEMO22 steps); decode_bench on SmolLM3-3B (C14: its slope, over
+# DECODE22's new tokens, positive).  Before generate_demo, K3 at
+# corpus-70m's heads (12 / 4, a GQA group of 3 that splits rows across
+# the kernel's 64-vector blocks): K3_GROUP22's slots and chunk, one draw
+# a pool dtype against the plain version at its tolerance, the f64
+# oracle's off-counts of both logged
+MOE_BENCH22 = "0,3"
+MOE22_LAYERS = 2
+LONG22_SEQ = 16384
+SPIKE22 = dict(seq=2048, steps=3)
+DEMO22 = dict(model="corpus-70m", seq=2048, bs=8, steps=5)   # 20a's windows
+K3_GROUP22 = dict(slots=8, page=16, view=2048, chunk=256, prompt=(256, 1536))
+DECODE22 = ["--model", "smollm3-3b", "--batch", "1", "--prompt", "128",
+            "--new", "32"]
+# the a2a ranges hold views only at one rank (no all_to_all runs; the
+# reference's one-chip rows have no a2a phase at all)
+MOE22_VIEW_PHASES = ("moe_a2a_out", "moe_a2a_back")
+
+
+def _kernel_counts() -> dict:
+    """Every kernel's (launches, plain calls)."""
+    return {"paged_decode": PA.COUNTS, "paged_decode_q8": PA.Q8_COUNTS,
+            "flash_prefill": FP.COUNTS, "int8_matmul": Q.INT8_COUNTS,
+            "int8_matmul_fused": Q.INT8_FUSED_COUNTS,
+            "fp8_matmul": Q.COUNTS, "flash_attention_fwd": FA.FWD_COUNTS,
+            "flash_attention_bwd": FA.BWD_COUNTS, "ag_matmul": C.COUNTS}
+
+
+def _launches_now() -> dict:
+    return {k: c.launches for k, c in _kernel_counts().items()
+            if c.launches}
+
+
+def _reset_all_counts() -> None:
+    for c in _kernel_counts().values():
+        c.reset()
+    Q.BWD_COUNTS.reset()
+
+
+def _remat22_leg(shards, batch, cfg) -> dict:
+    """One policy's leg: a warm-up under ``record_kept``, then the timed
+    value-and-grad with its launches, peak and step ms."""
+    vg = fsdp.make_fsdp_value_and_grad(shards, cfg)
+    with T.record_kept() as entries:
+        vg(shards, batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _reset_all_counts()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, grads = vg(shards, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    counts = {k: (c.launches, c.plain_calls)
+              for k, c in _kernel_counts().items()
+              if c.launches or c.plain_calls}
+    proj = {str(Q.INT8_DENSE_OP), str(Q.FP8_DENSE_OP)}
+    # a kept projection: its output, or under save_dots_q8 its codes
+    # (each dot_q8 keeps codes and scales)
+    kept = sum(op in proj or (op == str(Q.DOT_Q8_OP) and dt == torch.int8)
+               for _, dt, op in entries)
+    return {"loss": float(loss), "grads": grads, "ms": round(ms, 1),
+            "peak_above_start_bytes": torch.cuda.max_memory_allocated()
+            - start, "kept_bytes": T.kept_bytes(entries),
+            "kept_entries": len(entries),
+            "kept_projections": kept,
+            "kept_dtypes": sorted({str(dt) for _, dt, _ in entries}),
+            "ref_acc_bytes": sum(math.prod(s) * REF_ACC_BYTES
+                                 for s, _, op in entries if op in proj),
+            "counts": counts,
+            "fp8_bwd_plain": Q.BWD_COUNTS.plain_calls}
+
+
+def _remat22_want(precision: str, kept: int, L: int) -> dict:
+    """The launches a step implies for a kept set of ``kept``
+    projections: each projection's forward, its recompute unless kept,
+    the int8 backward's dX and dW (K4), FA twice forward, once back."""
+    n = L * len(PROJECTIONS)
+    fwd = n + (n - kept)
+    want = {"flash_attention_fwd": (2 * L, 0), "flash_attention_bwd": (L, 0)}
+    if precision == "bf16":
+        return want
+    if precision == "int8_pallas_bwd":
+        want.update(int8_matmul_fused=(fwd, 0), int8_matmul=(2 * n, 0))
+    elif precision == "fp8_pallas":
+        want["fp8_matmul"] = (fwd, 0)
+    else:   # int8: K4 forward, a straight-through bf16 backward
+        want["int8_matmul"] = (fwd, 0)
+    return want
+
+
+def remat22_phase(card: str) -> tuple[dict, dict]:
+    """22a: the remat policies at ``REMAT22_PRECISIONS`` and the int8
+    ``save_dots`` leg, beside bf16 ``full`` and ``save_dots``.  Gates:
+    ``save_dots`` bit-equal to ``full`` (loss, every grad) at each
+    precision, with no kept byte and its peak within
+    ``REMAT22_PEAK_SLACK_BYTES`` of ``full``'s at each ``*_pallas``
+    precision; ``save_dots_q8``'s loss within [``REMAT_Q8_LOSS_MIN_RTOL``,
+    ``REMAT_Q8_LOSS_RTOL``] of ``full``'s, its kept bytes and its peak's
+    excess over ``full``'s each at most ``REMAT_Q8_SAVED_RATIO`` of bf16
+    ``save_dots``'; every leg's launches what its kept set implies
+    (:func:`_remat22_want`: under ``save_dots_q8`` a kept projection's
+    kernel does not run again in the recompute); the int8 leg's six
+    products a layer kept in bf16.  Returns the readings and the
+    launches (the path "22: remat")."""
+    cfg0 = train_fsdp.model_config(REMAT22["model"])
+    L = cfg0.num_hidden_layers
+    shards, batch = _prec_inputs(cfg0, REMAT22["seed"], REMAT22["seq"],
+                                 REMAT22["bs"], 1)
+    rows, launches, failures = {}, {}, []
+    legs = [("bf16", "full"), ("bf16", "save_dots")]
+    legs += [(p, pol) for p in REMAT22_PRECISIONS
+             for pol in ("full", "save_dots", "save_dots_q8")]
+    legs += [("int8", "full"), ("int8", "save_dots")]
+    ref = bf16_kept = bf16_excess = None
+    for precision, policy in legs:
+        cfg = dataclasses.replace(cfg0, matmul_precision=precision,
+                                  remat_policy=policy)
+        leg = _remat22_leg(shards, batch, cfg)
+        grads = leg.pop("grads")
+        name = f"{precision} {policy}"
+        rows[name] = leg
+        for k, (n, _) in leg["counts"].items():
+            launches[k] = launches.get(k, 0) + n
+        want = _remat22_want(precision, leg["kept_projections"], L)
+        log(f"remat22 {name} on {card}: loss {leg['loss']!r}, step "
+            f"{leg['ms']} ms (host clock, one fwd+bwd), peak above the "
+            f"start {leg['peak_above_start_bytes']} bytes "
+            f"({leg['peak_above_start_bytes'] / 2 ** 30:.3f} GiB), kept "
+            f"{leg['kept_bytes']} bytes in {leg['kept_entries']} tensors "
+            f"({leg['kept_dtypes']}), launches {json.dumps(leg['counts'])}"
+            f" against {json.dumps(want)}")
+        if leg["counts"] != want:
+            failures.append(f"remat22 {name}: launches {leg['counts']} != "
+                            f"{want}")
+        if precision == "fp8_pallas" and leg["fp8_bwd_plain"] != 2 * L * len(
+                PROJECTIONS):
+            failures.append(f"remat22 {name}: fp8 backward products "
+                            f"{leg['fp8_bwd_plain']}")
+        if policy == "full":
+            ref = (leg["loss"], grads, leg["peak_above_start_bytes"])
+            continue
+        excess = leg["peak_above_start_bytes"] - ref[2]
+        unequal = [("/".join(path)) for path, a in
+                   fsdp.optim.tree_leaves(grads)
+                   if not torch.equal(a, fsdp.optim.tree_get(ref[1], path))]
+        if policy == "save_dots":
+            log(f"remat22 {name}: loss bit-equal to full's "
+                f"{leg['loss'] == ref[0]}; grad leaves not bit-equal "
+                f"{unequal}; peak above full's {excess} bytes")
+            if leg["loss"] != ref[0] or unequal:
+                failures.append(f"remat22 {name}: not bit-equal to full "
+                                f"({len(unequal)} grad leaves)")
+            if precision == "bf16":
+                bf16_kept, bf16_excess = leg["kept_bytes"], excess
+            elif precision == "int8":
+                log(f"remat22 int8 save_dots: kept {leg['kept_bytes']} bytes "
+                    f"of K4's bf16 outputs against the reference's int32 "
+                    f"accumulators {leg['ref_acc_bytes']} bytes (ratio "
+                    f"{leg['kept_bytes'] / max(leg['ref_acc_bytes'], 1):.4f})")
+                if (leg["kept_projections"] != 6 * L
+                        or leg["kept_dtypes"] != ["torch.bfloat16"]):
+                    failures.append(f"remat22 int8 save_dots: kept "
+                                    f"{leg['kept_projections']} products "
+                                    f"{leg['kept_dtypes']}")
+            else:
+                if leg["kept_bytes"] != 0:
+                    failures.append(f"remat22 {name}: {leg['kept_bytes']} "
+                                    f"bytes kept beyond full's")
+                if abs(excess) > REMAT22_PEAK_SLACK_BYTES:
+                    failures.append(f"remat22 {name}: peak {excess} bytes "
+                                    f"from full's, over "
+                                    f"{REMAT22_PEAK_SLACK_BYTES}")
+        else:
+            rel = abs(leg["loss"] - ref[0]) / abs(ref[0])
+            ratio = leg["kept_bytes"] / bf16_kept
+            peak_ratio = excess / bf16_excess
+            leg.update(loss_rel=rel, kept_ratio=ratio,
+                       peak_excess_ratio=peak_ratio)
+            log(f"remat22 {name}: |loss - full| / full {rel:.3e} (limits "
+                f"{REMAT_Q8_LOSS_MIN_RTOL}, {REMAT_Q8_LOSS_RTOL}); kept "
+                f"{leg['kept_bytes']} bytes against bf16 save_dots' "
+                f"{bf16_kept}, ratio {ratio:.4f}; peak {excess} bytes above "
+                f"full's against bf16 save_dots' {bf16_excess}, ratio "
+                f"{peak_ratio:.4f} (limit {REMAT_Q8_SAVED_RATIO} each)")
+            if not REMAT_Q8_LOSS_MIN_RTOL <= rel <= REMAT_Q8_LOSS_RTOL:
+                failures.append(f"remat22 {name}: loss rel {rel} outside "
+                                f"[{REMAT_Q8_LOSS_MIN_RTOL}, "
+                                f"{REMAT_Q8_LOSS_RTOL}]")
+            if not ratio <= REMAT_Q8_SAVED_RATIO:
+                failures.append(f"remat22 {name}: kept bytes ratio {ratio} "
+                                f"over {REMAT_Q8_SAVED_RATIO}")
+            if not peak_ratio <= REMAT_Q8_SAVED_RATIO:
+                failures.append(f"remat22 {name}: peak excess ratio "
+                                f"{peak_ratio} over {REMAT_Q8_SAVED_RATIO}")
+        del grads
+    del shards, ref
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+    return rows, launches
+
+
+def k3_group_check(cfg, card: str) -> dict:
+    """K3 at ``cfg``'s GQA group (``K3_GROUP22``), a bf16 and an f32
+    pool: the kernel against its plain version at ``FP.TOLERANCE``, twice
+    bit-equal, and both against the f64 oracle (outputs off by more than
+    atol / 4, logged)."""
+    rng = np.random.default_rng(SEED + 22)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    g = K3_GROUP22
+    B, page, chunk = g["slots"], g["page"], g["chunk"]
+    P, nkv, hd = g["view"] // page, cfg.num_key_value_heads, \
+        cfg.resolved_head_dim
+    rep = cfg.num_attention_heads // nkv
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        n_pages = B * P + 1
+        pk, pv = (torch.randn((n_pages, page, nkv, hd), generator=gen,
+                              device="cuda", dtype=dt) for _ in range(2))
+        plen = rng.integers(g["prompt"][0], g["prompt"][1] + 1, size=B)
+        apos_np = ((plen - 1) // chunk * chunk)[:, None] + np.arange(chunk)
+        pages = _page_table(rng, apos_np.max(axis=1), page, P, n_pages)
+        apos = torch.as_tensor(apos_np.astype(np.int32), device="cuda")
+        qg = torch.randn((B, chunk, nkv, rep, hd), generator=gen,
+                         device="cuda", dtype=dt)
+        got = FP.paged_flash_prefill(qg, pk, pv, pages, apos)
+        torch.cuda.synchronize()
+        ref = FP.paged_flash_prefill_plain(qg, pk, pv, pages, apos)
+        orc = FP.paged_flash_prefill_oracle(qg, pk, pv, pages, apos)
+        atol, rtol = FP.TOLERANCE[dt]
+        err = float((got - ref).abs().max())
+        read = {"rep": rep, "max_abs_err": err,
+                "kernel_off_oracle": FP.off_count(got, orc, atol / 4),
+                "plain_off_oracle": FP.off_count(ref, orc, atol / 4)}
+        out[str(dt)] = read
+        log(f"flash_prefill group {rep} ({dt}) on {card}: {json.dumps(read)}"
+            f" (atol {atol}, rtol {rtol}; off-counts over atol / 4 of "
+            f"{got.numel()} outputs)")
+        check(torch.isfinite(got).all() and torch.allclose(
+            got, ref, atol=atol, rtol=rtol),
+            f"flash_prefill group {rep} ({dt}): max |kernel - plain| = "
+            f"{err} over atol {atol} rtol {rtol}")
+        _twice_equal(f"flash_prefill group {rep} ({dt})",
+                     lambda: FP.paged_flash_prefill(qg, pk, pv, pages, apos))
+        del pk, pv, qg, got, ref, orc
+    torch.cuda.empty_cache()
+    return out
+
+
+def twins22_phase(card: str, root: Path, corpus_ckpt=None) -> tuple[dict,
+                                                                    dict]:
+    """22b: the twins at cut depth (``MOE_BENCH22`` … ``DECODE22``), each
+    path's launches read with every count set to 0 just before it.
+    Gates: moe_bench's rows without error and finite; moe_profile's
+    trace holding every phase, each with device time but the two a2a
+    ranges (views at one rank); the long_context row without error;
+    the spike demo's two legs; K3 at corpus-70m's GQA group against its
+    plain version (:func:`k3_group_check`); generate_demo's greedy
+    tokens equal to the engine's, K1 and K3 launched, on
+    ``corpus_ckpt`` (20a's, of ``CORPUS_TRAIN`` steps) or a checkpoint
+    of ``DEMO22`` steps trained here; decode_bench's slope positive
+    (C14)."""
+    out, paths = {}, {}
+
+    def path(name, fn):
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        paths[name] = _launches_now()
+        log(f"twins22 {name} on {card}: {time.perf_counter() - t:.1f} s, "
+            f"launches {json.dumps(paths[name])}")
+        return res
+
+    doc = path("moe_bench", lambda: moe_bench_run.main([
+        "--rows", MOE_BENCH22, "--layers", str(MOE22_LAYERS), "--batch",
+        "1", "--steps", "2", "--out-dir", str(root / "moe")]))
+    out["moe_bench"] = [{k: v for k, v in r.items() if k != "losses"}
+                        for r in doc["rows"]]
+    check(len(doc["rows"]) == 2 and all(
+        "error" not in r and all(np.isfinite(r["losses"]))
+        and r["tokens_per_sec"] > 0 for r in doc["rows"]),
+        f"twins22 moe_bench: rows {out['moe_bench']}")
+    check(paths["moe_bench"].get("int8_matmul", 0) > 0
+          and paths["moe_bench"].get("flash_attention_fwd", 0) > 0,
+          f"twins22 moe_bench: launches {paths['moe_bench']}")
+    row = path("moe_profile", lambda: moe_profile_run.run(
+        "SMOLLM3_3B_L8", seq=8192, batch=1, steps=1, layers=MOE22_LAYERS,
+        device="cuda", trace_dir=str(root / "moe_prof")))
+    out["moe_profile"] = {k: v for k, v in row.items()
+                          if k not in ("trace_file",)}
+    us = row["phase_us"]
+    check(set(moe_profile_run.PHASES) | {"other"} <= set(us)
+          and all(us[p] > 0 for p in moe_profile_run.PHASES
+                  if p not in MOE22_VIEW_PHASES) and us["other"] > 0,
+          f"twins22 moe_profile: phases {us}")
+    rows = path("long_context", lambda: long_context_run.main([
+        "--seqs", str(LONG22_SEQ), "--precisions", "bf16", "--steps", "2",
+        "--out-dir", str(root / "lc")]))
+    out["long_context"] = [{k: v for k, v in r.items() if k != "losses"}
+                           for r in rows]
+    check(len(rows) == 1 and "error" not in rows[0]
+          and all(np.isfinite(rows[0]["losses"])),
+          f"twins22 long_context: {out['long_context']}")
+    path("flagship spike demo", lambda: flagship.main([
+        "--model", "smollm3-3b-l8", "--precision", "bf16",
+        "--sequence-length", str(SPIKE22["seq"]), "--batch-size", "1",
+        "--num-steps", str(SPIKE22["steps"]), "--warmup-steps", "1",
+        "--spike-demo", "--spike-steps", str(SPIKE22["steps"]),
+        "--out-dir", str(root / "flagship"), "--plot",
+        str(root / "flagship_loss.png")]))
+    legs = sorted(p.name for p in (root / "flagship").glob("*.json"))
+    spike = [json.loads((root / "flagship" / n).read_text())["losses"]
+             for n in legs]
+    out["flagship spike demo"] = {"legs": legs, "losses": spike,
+                                  "plot": (root / "flagship_loss.png")
+                                  .exists()}
+    check(len(legs) == 2 and all(np.isfinite(v).all() for v in spike),
+          f"twins22 flagship: {out['flagship spike demo']}")
+    cfg70 = train_fsdp.model_config(DEMO22["model"])
+    out["flash_prefill group"] = k3_group_check(cfg70, card)
+    ck, steps = corpus_ckpt, CORPUS_TRAIN["num_steps"]
+    if ck is None:
+        ck, steps = root / "ck70", DEMO22["steps"]
+        path("corpus-70m checkpoint", lambda: flagship.run_leg(
+            DEMO22["model"], "bf16", DEMO22["seq"], DEMO22["bs"], steps, 1,
+            3e-4, device="cuda", ckpt_dir=str(ck), data="corpus"))
+    demo = path("generate_demo --serve", lambda: generate_demo_run.main([
+        "--model", DEMO22["model"], "--ckpt-dir", str(ck), "--serve",
+        "--out-file", str(root / "demo.json")]))
+    out["generate_demo"] = {k: demo[k] for k in (
+        "restored_step", "samples", "sample_ids", "serve_matches_greedy")}
+    g = paths["generate_demo --serve"]
+    check(demo["restored_step"] == steps and demo["serve_matches_greedy"]
+          and g.get("paged_decode", 0) > 0 and g.get("flash_prefill", 0) > 0,
+          f"twins22 generate_demo: step {demo['restored_step']} (want "
+          f"{steps}), serve tokens equal generate's "
+          f"{demo['serve_matches_greedy']}, launches {g}")
+    dec = path("decode_bench", lambda: decode_bench_run.main(
+        DECODE22 + ["--out-dir", str(root / "decode")]))
+    out["decode_bench"] = dec
+    check(len(dec) == 1 and dec[0].get("failed_reading") is None
+          and dec[0]["steady_ms_per_step"] > 0,
+          f"twins22 decode_bench (C14): {dec}")
+    return out, {f"22: {k}": v for k, v in paths.items() if v}
+
+
+def phase22(card: str, corpus_ckpt=None) -> tuple[dict, dict]:
+    """Phase 22 (the model core's rest): 22a and 22b under a temporary
+    directory removed at the end; ``corpus_ckpt``: 20a's checkpoint, for
+    22b's generate_demo."""
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="phase22_"))
+    try:
+        a, la = remat22_phase(card)
+        b, lb = twins22_phase(card, root, corpus_ckpt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t22
+    log(f"phase 22 (the model core's rest: the remat policies at the "
+        f"kernels' precisions, the twins): {wall:.1f} s")
+    return {"remat": a, "twins": b, "wall_s": wall}, {"22: remat": la, **lb}
 
 
 # ------------------------------------------- parent-versus-change timing
@@ -7999,6 +8418,7 @@ def main(argv) -> int:
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     walls, cyclic = {}, {}
+    corpus_ckpt = None   # 20a's checkpoint, removed at the end
     # torch.utils.checkpoint imports torch._dynamo at its first call, and
     # that import leaves the calling frames in a reference cycle, once a
     # process; imported here, it holds nothing of a phase's
@@ -8044,9 +8464,10 @@ def main(argv) -> int:
         timed("parity", parity_phase, params, reqs, eng)
         timed("decode profile", decode_step_profile, eng, reqs, "serve",
               ENGINE["flash_prefill"])
-        # rounds 4-5 of the serve, as the int8 profile: the whole run
-        # under the profiler took 51 s of the smoke's limit
-        timed("profile", profile_phase, params, rng, None, "serve", (4, 2))
+        # round 4 of the serve, as the int8 profile: the whole run under
+        # the profiler took 51 s of the smoke's limit, rounds 4-5 of the
+        # int8 serve 49 s
+        timed("profile", profile_phase, params, rng, None, "serve", (4, 1))
         del eng, reqs
         params_q8 = timed("int8 params", quantize_decode_params, params, CFG)
         del params
@@ -8058,7 +8479,7 @@ def main(argv) -> int:
         timed("int8 decode profile", decode_step_profile, eng, reqs,
               "int8 serve", INT8_ENGINE["flash_prefill"])
         timed("int8 profile", profile_phase, params_q8, rng, INT8_ENGINE,
-              "int8 serve", (4, 2))
+              "int8 serve", (4, 1))
         del eng, reqs, params_q8
         torch.cuda.empty_cache()
         loss0 = timed("train parity", train_parity_phase)
@@ -8120,16 +8541,24 @@ def main(argv) -> int:
             params_q8, serve, q8, card)
         del params, params_q8
         torch.cuda.empty_cache()
+        # 20a's corpus-70m checkpoint, which 22b's generate_demo restores
+        corpus_ckpt = Path(tempfile.mkdtemp(prefix="corpus_ck_"))
         p20, p20_launches = timed(
-            "data, classification and the model families", phase20, card)
+            "data, classification and the model families", phase20, card,
+            corpus_ckpt)
         p21, p21_launches = timed(
             "the pipeline harness, the ledger, the timeline, the report",
             phase21, card)
+        p22, p22_launches = timed(
+            "the model core's rest: remat at the kernels' precisions, twins",
+            phase22, card, corpus_ckpt)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         mesh.destroy_process_group()
+        if corpus_ckpt is not None:
+            shutil.rmtree(corpus_ckpt, ignore_errors=True)
     # each kernel's launches on the main paths that run it, each path
     # read with its counts set to 0 just before it
     precision = {k: prec.get(k, 0) + bench.get(k, 0)
@@ -8142,7 +8571,7 @@ def main(argv) -> int:
              **tpsp_launches, "composable step": comp_launches,
              "composable twin": twin_launches, "fsdp auto": auto_launches,
              **frontier_launches, **fleet_launches, **p20_launches,
-             **p21_launches}
+             **p21_launches, **p22_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -8166,6 +8595,7 @@ def main(argv) -> int:
         f"{json.dumps(fleet)}")
     log(f"phase 20 readings on {card}: {json.dumps(p20)}")
     log(f"phase 21 readings on {card}: {json.dumps(p21)}")
+    log(f"phase 22 readings on {card}: {json.dumps(p22, default=str)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

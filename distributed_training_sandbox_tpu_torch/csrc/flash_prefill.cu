@@ -21,8 +21,9 @@
 // four warpgroups an SM hide one another's waits.
 //
 // Design of the bf16 pool (the serve's, the main path): a block of two
-// warpgroups, each holding 64 query vectors (64 / rep chunk rows x the
-// rep heads of one GQA group), shares every K/V tile; the grid is
+// warpgroups, each holding 64 query vectors (the chunk rows' rep heads
+// of one GQA group, row-major; a group that does not divide 128 splits
+// a row between two blocks), shares every K/V tile; the grid is
 // B x n_kv x ceil(S·rep / 128), row tiles with the most keys launched
 // first, two blocks an SM (128 registers a thread).  Q, K and V live in
 // shared memory as 128-byte swizzled tiles (hd split into 64-column
@@ -96,7 +97,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pk,
   const int S = G.S, hd = G.hd, rep = G.rep;
   const int b = blockIdx.x / G.nkv;
   const int g = blockIdx.x % G.nkv;
-  const int rows = kQv / rep;               // chunk rows per block
+  // whole chunk rows per block; its vectors past rows·rep idle
+  const int rows = kQv / rep;
   const int s0 = blockIdx.y * rows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -209,7 +211,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pk,
 #pragma unroll
   for (int j = 0; j < kQw; ++j) {
     const int v = warp * kQw + j, s_ = s0 + v / rep;
-    if (s_ >= S) continue;
+    if (s_ >= S || v >= rows * rep) continue;   // past the block's rows
     float* o = out + (((static_cast<int64_t>(b) * S + s_) * G.nkv + g) * rep +
                       v % rep) * hd;
 #pragma unroll
@@ -394,7 +396,9 @@ flash_prefill_wgmma(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.x / nkv, g = blockIdx.x % nkv;
   // the last row tiles see the most keys: they are launched first
   const int vb = (gridDim.y - 1 - blockIdx.y) * kQv * kWgs;   // 1st vector
-  const int s0 = vb / rep, rows = kQv * kWgs / rep;
+  // the rows the block's vectors touch, the first and the last maybe
+  // in part
+  const int s0 = vb / rep, rows = (vb + kQv * kWgs - 1) / rep - s0 + 1;
   const int tid = threadIdx.x, lane = tid % 32;
   const int wg = tid / 128, warp = (tid % 128) / 32;
   const int v0 = vb + kQv * wg;             // this warpgroup's first vector
@@ -598,7 +602,7 @@ int launch_wgmma(const void* q, const void* pk, const void* pv,
 
 // q (B, S, nkv, rep, hd); pk/pv (n_pages, page, nkv, hd); pages (B, P)
 // int32; apos (B, S) int32; out (B, S, nkv, rep, hd) f32; every pointer
-// 16-byte aligned.  rep must divide 64 and hd be a multiple of 8 in
+// 16-byte aligned.  rep must be in [1, 64] and hd a multiple of 8 in
 // [8, 128].  bf16 runs the wgmma kernel, f32 the CUDA-core kernel.
 // Returns cudaGetLastError().
 extern "C" int flash_prefill_launch(const void* q, const void* pk,
@@ -606,7 +610,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* pk,
                                     const void* apos, void* out, int B, int S,
                                     int P, int page, int nkv, int rep, int hd,
                                     int dtype, void* stream) {
-  if (rep < 1 || kQv % rep || hd < 8 || hd > 32 * kMaxDs || hd % 8)
+  if (rep < 1 || rep > kQv || hd < 8 || hd > 32 * kMaxDs || hd % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   int shift = 0;
   while ((1 << shift) < page) ++shift;

@@ -36,14 +36,16 @@ activation offload is a later slice (ROADMAP.md queue A, A12).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 from torch.profiler import record_function
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     set_checkpoint_early_stop)
@@ -51,14 +53,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops import collectives as C
 from ..ops.flash_attention import (ATTENTION_OP, attention_plain,
                                    attention_saved, flash_attention)
-from ..ops.quant import (QuantizedWeight, dot_q8, quantized_all_reduce,
-                         resolve_quantized_dense)
+from ..ops.quant import (DOT_Q8_OP, FP8_DENSE_OP, INT8_DENSE_OP,
+                         QuantizedWeight, dot_q8, quantized_all_reduce,
+                         quantized_residual, resolve_quantized_dense)
 from ..ops.ring_attention import LAYOUTS, ring_attention, zigzag_positions
 from ..utils.flops import get_model_flops_per_token
 from ..utils.mesh import axis_rank, axis_size, resolve_axis
 
-_ROADMAP = ("not ported yet — see ROADMAP.md, queue A item 2 (model "
-            "core) and queue B (precision kernels)")
+_ROADMAP = "not a precision of the reference (ops/quant.py)"
 MOE_DISPATCHES = ("grouped", "einsum", "sort")
 REMAT_POLICIES = ("full", "save_attn", "save_dots", "save_dots_q8")
 PRECISIONS = ("bf16", "fp8", "fp8_delayed", "fp8_pallas", "int8",
@@ -85,8 +87,10 @@ class TransformerConfig:
     # "full" recomputes each layer in the backward (torch.utils.checkpoint
     # around the layer); "save_attn" keeps the attention output, so its
     # forward runs once; "save_dots" keeps the projection products'
-    # outputs; "save_dots_q8" keeps them as int8 codes and f32 scales
-    # (ops/quant.dot_q8), half save_dots' bytes (resolve_remat_policy)
+    # outputs the backward reads (none at the *_pallas precisions, as
+    # the reference's policy sees no dot in a kernel); "save_dots_q8"
+    # keeps them as int8 codes and f32 scales, half save_dots' bytes at
+    # bf16 (resolve_remat_policy)
     remat_policy: str = "full"
     # "xla" (the plain causal attention) | "flash" (the port's kernel) |
     # "ring" (exact causal attention over the sequence sharded on
@@ -361,21 +365,31 @@ def _dense(cfg: TransformerConfig):
     the reference.
 
     Under remat ``"save_dots_q8"`` each projection's output makes an int8
-    round-trip (``quantized_residual``, reference ``:446-447``) fused
-    with its product as one op (``ops.quant.dot_q8``), whose codes and
-    scales the policy keeps."""
+    round-trip (``quantized_residual``, reference ``:446-447``), fused
+    with the projection of any precision as one op
+    (``ops.quant.dot_q8``), whose codes and scales the policy keeps, so
+    the recompute skips the product.  A :class:`C.RingShard`'s
+    collective matmul (its hops are collectives that the backward
+    reads again) and a pre-quantised decode weight take the round-trip
+    after their product: the values are the reference's, and the policy
+    keeps nothing of them (ROADMAP A12)."""
     check_supported(cfg)
     base = resolve_quantized_dense(
         cfg.matmul_precision, fp8_history_len=cfg.fp8_amax_history_len)
-    if cfg.remat and cfg.remat_policy == "save_dots_q8":
-        base = dot_q8
+    q8 = cfg.remat and cfg.remat_policy == "save_dots_q8"
 
     def dispatch(a, w):
         if isinstance(w, C.RingShard):
             if w.impl == "pallas":
-                return C.all_gather_matmul_pallas(a, w.shard, w.axis_name)
-            return C.all_gather_matmul(a, w.shard, w.axis_name)
-        return base(a, w)
+                out = C.all_gather_matmul_pallas(a, w.shard, w.axis_name)
+            else:
+                out = C.all_gather_matmul(a, w.shard, w.axis_name)
+        elif q8 and not isinstance(w, QuantizedWeight):
+            return dot_q8(a, w, cfg.matmul_precision,
+                          fp8_history_len=cfg.fp8_amax_history_len)
+        else:
+            out = base(a, w)
+        return quantized_residual(out) if q8 else out
 
     return dispatch
 
@@ -416,8 +430,12 @@ def _mlp_block(r, layer, *, cfg: TransformerConfig):
                                        / cfg.moe_aux_weight
                                        if cfg.moe_router_z_weight else 0.0))
     dense = _dense(cfg)
-    mlp = dense(torch.nn.functional.silu(dense(r, layer["w_gate"]))
-                * dense(r, layer["w_up"]), layer["w_down"])
+    h = torch.nn.functional.silu(dense(r, layer["w_gate"])) \
+        * dense(r, layer["w_up"])
+    # the down projection's output only joins the residual add, whose
+    # backward reads neither operand: no remat policy keeps it
+    with not_kept():
+        mlp = dense(h, layer["w_down"])
     return mlp, None
 
 
@@ -526,27 +544,99 @@ def _layer_body(x, layer, *, cfg: TransformerConfig, cos, sin,
     return x + mlp, aux
 
 
+# int8 precisions whose projection runs K4 on the pre-quantised operands
+# (the reference's XLA int8 dot), and the plain fp8 recipe (its XLA fp8
+# dot): save_dots keeps their products, as the reference does; at the
+# *_pallas precisions a kernel runs, which the reference's
+# dots_with_no_batch_dims_saveable does not see, so it keeps none
+_DOT_PRECISIONS = {"int8": INT8_DENSE_OP, "int8_bwd": INT8_DENSE_OP,
+                   "fp8": FP8_DENSE_OP, "fp8_delayed": FP8_DENSE_OP}
+_NOT_KEPT = {"on": False}
+_KEPT_LOG: dict = {"entries": None}
+
+
+@contextlib.contextmanager
+def not_kept():
+    """Ops dispatched inside are never kept by a remat policy: the
+    projection outputs no backward reads (the MLP's down projection),
+    which the reference's policies, choosing among residuals, never
+    keep either."""
+    old = _NOT_KEPT["on"]
+    _NOT_KEPT["on"] = True
+    try:
+        yield
+    finally:
+        _NOT_KEPT["on"] = old
+
+
 def _saved_ops(cfg: TransformerConfig):
-    """The dispatcher ops whose outputs ``cfg.remat_policy`` keeps
-    (None: ``"full"``, keep none)."""
+    """The dispatcher ops whose outputs ``cfg.remat_policy`` keeps (None:
+    keep none, the plain checkpoint of ``"full"``), at each precision as
+    the reference keeps them (its ``print_saved_residuals`` on
+    ``lm_loss``):
+
+    * ``save_attn``: the attention op;
+    * ``save_dots``: at bf16 the projections' ``aten.mm``; at ``int8``,
+      ``int8_bwd``, ``fp8``, ``fp8_delayed`` the projection op
+      (``ops.quant.INT8_DENSE_OP``: K4's output where the reference keeps
+      its dot's int32 accumulator; ``FP8_DENSE_OP``: the f32 product);
+      at ``int8_pallas``, ``int8_pallas_bwd``, ``fp8_pallas`` nothing;
+    * ``save_dots_q8``: the round-trip's int8 codes and f32 scales at
+      every precision (``DOT_Q8_OP``, each projection fused with its
+      round-trip)."""
     policy = cfg.remat_policy
     if policy == "full":
         return None
     if policy == "save_attn":
         return {ATTENTION_OP}
-    if cfg.matmul_precision != "bf16":
-        # the int8 and fp8_pallas projections launch kernels through
-        # ctypes, which no policy sees; fp8's plain recipe is no one op
-        raise NotImplementedError(
-            f"remat_policy={policy!r} at matmul_precision="
-            f"{cfg.matmul_precision!r}: the policy keeps the bf16 "
-            f"projections only; not ported yet — see ROADMAP.md, queue A "
-            f"item A2 (the remat policies)")
+    precision = cfg.matmul_precision
     if policy == "save_dots":
-        # dots with no batch dims: the (B·S, K) x (K, N) projections;
-        # attention's batched einsums are aten.bmm, not kept
-        return {torch.ops.aten.mm.default}
-    return {torch.ops.dtsb_torch.dot_q8.default}
+        if precision == "bf16":
+            # dots with no batch dims: the (B·S, K) x (K, N) projections;
+            # attention's batched einsums are aten.bmm, not kept
+            return {torch.ops.aten.mm.default}
+        if precision not in _DOT_PRECISIONS:
+            return None   # a kernel is no dot: save_dots keeps what full keeps
+        return {_DOT_PRECISIONS[precision]}
+    return {DOT_Q8_OP}
+
+
+class _KeptLog(TorchDispatchMode):
+    """In a checkpointed forward, the outputs of the ops ``saved`` keeps
+    (shape, dtype, op name), appended to ``entries``."""
+
+    def __init__(self, saved, entries: list):
+        super().__init__()
+        self.saved, self.entries = saved, entries
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.saved and not _NOT_KEPT["on"]:
+            self.entries.extend(
+                (tuple(t.shape), t.dtype, str(func))
+                for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+        return out
+
+
+@contextlib.contextmanager
+def record_kept():
+    """Yields a list that collects what every remat policy entered inside
+    keeps in its forward: one ``(shape, dtype, op)`` entry a kept tensor
+    (a policy's cache, which the checkpoint's own saved-tensor hooks
+    shadow from any outer ``saved_tensors_hooks``).  Its bytes are the
+    activation memory the policy adds over ``"full"``."""
+    old = _KEPT_LOG["entries"]
+    _KEPT_LOG["entries"] = entries = []
+    try:
+        yield entries
+    finally:
+        _KEPT_LOG["entries"] = old
+
+
+def kept_bytes(entries) -> int:
+    """The bytes of :func:`record_kept`'s entries."""
+    return sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+               for shape, dt, _ in entries)
 
 
 def resolve_remat_policy(cfg: TransformerConfig):
@@ -555,32 +645,45 @@ def resolve_remat_policy(cfg: TransformerConfig):
     policies, ``:565-595``).  Each is ``torch.utils.checkpoint``,
     non-reentrant, with early stopping off, so that every operation of
     the layer not kept, its kernels included, runs again in the
-    backward.  ``"full"`` keeps nothing; the others are selective
-    checkpoints (``create_selective_checkpoint_contexts``) that keep the
-    outputs of named ops and recompute the rest:
-
-    * ``"save_attn"``: the attention op (``ATTENTION_OP``, the flash
-      kernel's or the plain one's), so the forward attention runs once;
-    * ``"save_dots"``: ``aten.mm``, the projections (bf16 only);
-    * ``"save_dots_q8"``: ``dtsb_torch::dot_q8``, each projection's int8
-      codes and f32 scales (bf16 only; see ``_dense``).
+    backward.  ``"full"``, and ``"save_dots"`` at a ``*_pallas``
+    precision, keep nothing; the others are selective checkpoints
+    (``create_selective_checkpoint_contexts``) that keep the outputs of
+    the ops :func:`_saved_ops` names, outside a :func:`not_kept` block,
+    and recompute the rest: ``"save_attn"`` the attention op, so the
+    forward attention runs once; ``"save_dots"`` the projections' products
+    (bf16 ``aten.mm``; the int8 and fp8 projection ops where the
+    reference's XLA dots run); ``"save_dots_q8"`` each projection's int8
+    codes and f32 scales.
 
     The recompute re-runs everything not kept: under ``save_dots`` and
     ``save_dots_q8`` that includes the attention forward, as the
     reference's policies do (its splash kernel is no dot and is not
-    named).  ``save_dots`` and ``save_dots_q8`` at the other precisions
-    raise.  The host offload of the kept activations (the reference's
-    ``offload_activations``) is not ported; ``parallel.fsdp`` refuses
-    its ``offload="opt_act"`` (A12)."""
+    named), and the MLP's down projection, which no policy keeps (a
+    selective checkpoint replays every op it does not keep, where XLA
+    drops one whose output no backward reads).  The host offload of
+    the kept activations (the reference's ``offload_activations``) is
+    not ported; ``parallel.fsdp`` refuses its ``offload="opt_act"``
+    (A12)."""
     check_supported(cfg)
     saved = _saved_ops(cfg)
     context_fn = None
     if saved is not None:
         def policy(ctx, op, *args, **kwargs):
-            return (CheckpointPolicy.MUST_SAVE if op in saved
+            return (CheckpointPolicy.MUST_SAVE
+                    if op in saved and not _NOT_KEPT["on"]
                     else CheckpointPolicy.PREFER_RECOMPUTE)
-        context_fn = functools.partial(create_selective_checkpoint_contexts,
-                                       policy)
+
+        def context_fn():
+            fwd, rec = create_selective_checkpoint_contexts(policy)
+            entries = _KEPT_LOG["entries"]
+            if entries is None:
+                return fwd, rec
+
+            @contextlib.contextmanager
+            def logged():
+                with fwd, _KeptLog(saved, entries):
+                    yield
+            return logged(), rec
 
     def remat(fn, *args):
         kw = {} if context_fn is None else {"context_fn": context_fn}

@@ -130,8 +130,8 @@ def paged_flash_prefill(qg, pk, pv, pages, apos):
                          f"qg {tuple(qg.shape)}")
     if pages.shape[0] != B or apos.shape != (B, S):
         raise ValueError("pages must be (B, P) and apos (B, S)")
-    if QUERY_VECTORS % rep or hd > MAX_HD or hd % 8:
-        raise ValueError(f"kernel takes rep dividing {QUERY_VECTORS} and "
+    if rep > QUERY_VECTORS or hd > MAX_HD or hd % 8:
+        raise ValueError(f"kernel takes rep <= {QUERY_VECTORS} and "
                          f"hd <= {MAX_HD}, a multiple of 8; got rep={rep} "
                          f"hd={hd}")
     if any(t.data_ptr() % 16 for t in (qg, pk, pv)):

@@ -13,12 +13,21 @@ twin of ``int8_matmul_pallas``), the fused quantise-matmul
 fp8 recipe (``:533-687``, K6 in ``csrc/fp8_matmul.cu``),
 ``resolve_quantized_dense`` for every name the port runs,
 ``quantized_residual`` (the int8 round-trip with a straight-through
-backward; ``dot_q8`` fuses it with the projection for the
-``save_dots_q8`` remat policy) and the quantized collectives
+backward; ``dot_q8`` fuses it with the projection of any precision for
+the ``save_dots_q8`` remat policy) and the quantized collectives
 ``quantized_all_gather``, ``quantized_all_reduce`` and
 ``quantized_reduce_scatter`` (``:370-531``, autograd Functions over
 ``ops/collectives.py`` with the reference's pinned backwards; no kernel
 in either package).
+
+Each quantised projection family is one dispatcher op with the
+reference's custom VJP registered (``dtsb_torch::int8_dense`` for K4 and
+K5, ``dtsb_torch::fp8_dense`` for K6 and the plain fp8 recipe), and a
+projection of any precision fused with the ``save_dots_q8`` round-trip
+is ``dtsb_torch::dot_q8``: a selective-checkpoint policy sees the same
+ops on the CPU and on the card, where the kernels launch through
+``ctypes`` inside them (``models.transformer`` ``_saved_ops`` keeps
+what the reference's remat policies keep).
 
 **Which form of a quantizer.**  The reference divides by a constant
 (``amax / 127.0``, ``amax / fmax``), and XLA rewrites that division into
@@ -84,6 +93,7 @@ __all__ = ["quantize_int8", "QuantizedWeight", "quantize_weight",
            "quantize_fp8_kmajor",
            "fp8_matmul", "fp8_matmul_kernel", "fp8_dense",
            "resolve_quantized_dense", "COUNTS", "BWD_COUNTS", "TOLERANCE",
+           "INT8_DENSE_OP", "FP8_DENSE_OP", "DOT_Q8_OP",
            "quantized_residual", "dot_q8", "quantized_all_gather",
            "quantized_all_reduce", "quantized_reduce_scatter"]
 
@@ -382,54 +392,82 @@ def prequantized_dense(a: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
 INT8_IMPLS = ("xla", "pallas", "pallas_fused", "plain")
 
 
-class _QuantizedDense(torch.autograd.Function):
-    """``quantized_dense`` with the reference's custom VJP."""
+def _int8_forward(x, w, impl):
+    """``quantized_dense``'s forward product: K5 (``"pallas_fused"``) or
+    K4 (``"xla"``, ``"pallas"``) launched through ``ctypes`` on the card,
+    their plain versions on the CPU and under ``"plain"``."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if impl == "pallas_fused":
+        # (N, K) codes: bit for bit quantize_int8(w, axis=0)'s transpose
+        wq, ws = quantize_int8(w.t(), axis=-1)
+        out = int8_matmul_fused_kernel(x2.contiguous(), wq.contiguous(),
+                                       ws, x.dtype, b_kmajor=True)
+    else:
+        wq, ws = quantize_int8(w, axis=0)
+        xq, xs = quantize_int8(x2, axis=-1)
+        if impl == "plain":
+            INT8_COUNTS.plain_calls += 1
+            out = int8_matmul(xq, xs, wq, ws, x.dtype)
+        else:   # "xla" and "pallas" are both K4 on the card
+            out = int8_matmul_kernel(xq, xs, wq, ws, x.dtype)
+    return out.reshape(*lead, w.shape[1])
 
-    @staticmethod
-    def forward(ctx, x, w, impl, quantize_bwd):
-        ctx.save_for_backward(x, w)
-        ctx.impl, ctx.quantize_bwd = impl, quantize_bwd
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        if impl == "pallas_fused":
-            # (N, K) codes: bit for bit quantize_int8(w, axis=0)'s transpose
-            wq, ws = quantize_int8(w.t(), axis=-1)
-            out = int8_matmul_fused_kernel(x2.contiguous(), wq.contiguous(),
-                                           ws, x.dtype, b_kmajor=True)
-        else:
-            wq, ws = quantize_int8(w, axis=0)
-            xq, xs = quantize_int8(x2, axis=-1)
-            if impl == "plain":
-                INT8_COUNTS.plain_calls += 1
-                out = int8_matmul(xq, xs, wq, ws, x.dtype)
-            else:   # "xla" and "pallas" are both K4 on the card
-                out = int8_matmul_kernel(xq, xs, wq, ws, x.dtype)
-        return out.reshape(*lead, w.shape[1])
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        if not ctx.quantize_bwd:   # straight-through bf16 backward
-            gx = torch.einsum("...n,kn->...k", g, w)
-            gw = torch.einsum("...k,...n->kn", x, g)
-            return gx, gw, None, None
-        plain = ctx.impl == "plain"
-        lead = x.shape[:-1]
-        K, N = w.shape
-        g2 = g.reshape(-1, N)
-        x2 = x.reshape(-1, K)
-        # dX = g · Wᵀ, contraction over N: g rows, w along its N axis
-        gq, gs = quantize_int8(g2, axis=-1)                 # (M,N), (M,1)
-        wq_n, ws_n = quantize_int8(w, axis=1)               # (K,N), (K,1)
-        gx = _int8_dot(gq, gs, wq_n, ws_n.T, (1, 1), x.dtype, plain)
-        # dW = Xᵀ · g, contraction over M: both quantised along M, the
-        # quantiser writing the codes K-major ((K, M) and (N, M), bit for
-        # bit the transposes of quantize_int8(·, axis=0)) as K4's wgmma
-        # GEMM reads them, with no separate transposed copy
-        xq_t, xs_t = quantize_int8(x2.t(), axis=-1)         # (K,M), (K,1)
-        gq_t, gs_t = quantize_int8(g2.t(), axis=-1)         # (N,M), (N,1)
-        gw = _int8_dot(xq_t, xs_t, gq_t, gs_t.T, (1, 1), w.dtype, plain)
-        return gx.reshape(*lead, K), gw, None, None
+def _int8_backward(x, w, g, impl, quantize_bwd):
+    """The reference's custom VJP of ``quantized_dense``: ``(dx, dw)``."""
+    if not quantize_bwd:   # straight-through bf16 backward
+        return (torch.einsum("...n,kn->...k", g, w),
+                torch.einsum("...k,...n->kn", x, g))
+    plain = impl == "plain"
+    lead = x.shape[:-1]
+    K, N = w.shape
+    g2 = g.reshape(-1, N)
+    x2 = x.reshape(-1, K)
+    # dX = g · Wᵀ, contraction over N: g rows, w along its N axis
+    gq, gs = quantize_int8(g2, axis=-1)                 # (M,N), (M,1)
+    wq_n, ws_n = quantize_int8(w, axis=1)               # (K,N), (K,1)
+    gx = _int8_dot(gq, gs, wq_n, ws_n.T, (1, 1), x.dtype, plain)
+    # dW = Xᵀ · g, contraction over M: both quantised along M, the
+    # quantiser writing the codes K-major ((K, M) and (N, M), bit for
+    # bit the transposes of quantize_int8(·, axis=0)) as K4's wgmma
+    # GEMM reads them, with no separate transposed copy
+    xq_t, xs_t = quantize_int8(x2.t(), axis=-1)         # (K,M), (K,1)
+    gq_t, gs_t = quantize_int8(g2.t(), axis=-1)         # (N,M), (N,1)
+    gw = _int8_dot(xq_t, xs_t, gq_t, gs_t.T, (1, 1), w.dtype, plain)
+    return gx.reshape(*lead, K), gw
+
+
+@torch.library.custom_op(
+    "dtsb_torch::int8_dense", mutates_args=(),
+    schema="(Tensor x, Tensor w, str impl, bool quantize_bwd) -> Tensor")
+def _int8_dense_op(x, w, impl, quantize_bwd):
+    """The int8 projection (``quantized_dense``'s forward,
+    :func:`_int8_forward`) as one dispatcher op, so that a remat policy
+    sees it whatever runs inside.  Its output is what ``save_dots``
+    keeps at ``int8`` and ``int8_bwd``: the reference keeps its XLA
+    dot's int32 accumulator there, which K4 never writes (its epilogue
+    is fused), so the port keeps K4's output in the activation dtype,
+    the same element count (``models.transformer._saved_ops``)."""
+    return _int8_forward(x, w, impl)
+
+
+def _int8_dense_setup(ctx, inputs, output):
+    x, w, impl, quantize_bwd = inputs
+    ctx.save_for_backward(x, w)
+    ctx.impl, ctx.quantize_bwd = impl, quantize_bwd
+
+
+def _int8_dense_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    return (*_int8_backward(x, w, g, ctx.impl, ctx.quantize_bwd), None,
+            None)
+
+
+torch.library.register_autograd("dtsb_torch::int8_dense",
+                                _int8_dense_backward,
+                                setup_context=_int8_dense_setup)
+INT8_DENSE_OP = torch.ops.dtsb_torch.int8_dense.default
 
 
 def quantized_dense(x, w, impl: str = "xla", quantize_bwd: bool = False):
@@ -443,7 +481,7 @@ def quantized_dense(x, w, impl: str = "xla", quantize_bwd: bool = False):
         raise ValueError(f"quantized_dense: unknown impl {impl!r}")
     if _PLAIN["on"]:
         impl = "plain"
-    return _QuantizedDense.apply(x, w, impl, quantize_bwd)
+    return torch.ops.dtsb_torch.int8_dense(x, w, impl, quantize_bwd)
 
 
 # ------------------------------------------------------------------- fp8
@@ -579,53 +617,97 @@ def fp8_matmul_kernel(aq, a_scale, bt, b_scale, out_dtype=torch.bfloat16):
     return out
 
 
-class _FP8Dense(torch.autograd.Function):
-    """``fp8_dense`` with the reference's custom VJP."""
-
-    @staticmethod
-    def forward(ctx, x, w, impl, hist):
-        ctx.save_for_backward(x, w)
-        ctx.hist = hist
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        xq, xs = quantize_fp8(x2, FP8_FWD_DTYPE, amax_history_len=hist)
-        if impl == "kernel":
-            # the codes K-major, as K6 reads them
-            wt, ws = quantize_fp8_kmajor(w, FP8_FWD_DTYPE,
-                                         amax_history_len=hist)
-            out = fp8_matmul_kernel(xq, xs, wt, ws, x.dtype)
-        else:
-            wq, ws = quantize_fp8(w, FP8_FWD_DTYPE, amax_history_len=hist)
-            COUNTS.plain_calls += 1
-            out = fp8_matmul(xq, xs, wq, ws, x.dtype)
-        return out.reshape(*lead, w.shape[1])
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        hist = ctx.hist
-        lead = x.shape[:-1]
-        K, N = w.shape
-        g2 = g.reshape(-1, N)
-        x2 = x.reshape(-1, K)
-        gq, gs = quantize_fp8(g2, FP8_BWD_DTYPE, amax_history_len=hist)
-        # dX = g · Wᵀ: e5m2 grad × e4m3 weight
+def _fp8_forward(x, w, impl, hist):
+    """``fp8_dense``'s forward product.  ``"kernel"``: K6 (its plain
+    version on the CPU), whose epilogue writes the activation dtype.
+    ``"plain"``: the recipe's f32 product, its two scalar scales
+    applied, before the rounding to the activation dtype."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    xq, xs = quantize_fp8(x2, FP8_FWD_DTYPE, amax_history_len=hist)
+    if impl == "kernel":
+        # the codes K-major, as K6 reads them
+        wt, ws = quantize_fp8_kmajor(w, FP8_FWD_DTYPE, amax_history_len=hist)
+        out = fp8_matmul_kernel(xq, xs, wt, ws, x.dtype)
+    else:
         wq, ws = quantize_fp8(w, FP8_FWD_DTYPE, amax_history_len=hist)
-        gx = fp8_matmul(gq, gs, wq.t(), ws, x.dtype)
-        # dW = Xᵀ · g: e4m3 activation × e5m2 grad
-        xq, xs = quantize_fp8(x2, FP8_FWD_DTYPE, amax_history_len=hist)
-        gw = fp8_matmul(xq.t(), xs, gq, gs, w.dtype)
-        BWD_COUNTS.plain_calls += 2
-        return gx.reshape(*lead, K), gw, None, None
+        COUNTS.plain_calls += 1
+        out = fp8_matmul(xq, xs, wq, ws, torch.float32)
+    return out.reshape(*lead, w.shape[1])
+
+
+def _fp8_backward(x, w, g, hist):
+    """The reference's custom VJP of ``fp8_dense`` (plain products):
+    ``(dx, dw)``."""
+    lead = x.shape[:-1]
+    K, N = w.shape
+    g2 = g.reshape(-1, N)
+    x2 = x.reshape(-1, K)
+    gq, gs = quantize_fp8(g2, FP8_BWD_DTYPE, amax_history_len=hist)
+    # dX = g · Wᵀ: e5m2 grad × e4m3 weight
+    wq, ws = quantize_fp8(w, FP8_FWD_DTYPE, amax_history_len=hist)
+    gx = fp8_matmul(gq, gs, wq.t(), ws, x.dtype)
+    # dW = Xᵀ · g: e4m3 activation × e5m2 grad
+    xq, xs = quantize_fp8(x2, FP8_FWD_DTYPE, amax_history_len=hist)
+    gw = fp8_matmul(xq.t(), xs, gq, gs, w.dtype)
+    BWD_COUNTS.plain_calls += 2
+    return gx.reshape(*lead, K), gw
+
+
+@torch.library.custom_op(
+    "dtsb_torch::fp8_dense", mutates_args=(),
+    schema="(Tensor x, Tensor w, str impl, int hist) -> Tensor")
+def _fp8_dense_op(x, w, impl, hist):
+    """The fp8 projection (:func:`_fp8_forward`) as one dispatcher op.
+    At ``"plain"`` its output is the f32 ``(B·S, N)`` product the
+    reference's ``save_dots`` keeps of its XLA fp8 dot at ``fp8`` and
+    ``fp8_delayed`` (``models.transformer._saved_ops``)."""
+    return _fp8_forward(x, w, impl, hist)
+
+
+def _fp8_dense_setup(ctx, inputs, output):
+    x, w, impl, hist = inputs
+    ctx.save_for_backward(x, w)
+    ctx.hist = hist
+
+
+def _fp8_dense_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    return (*_fp8_backward(x, w, g, ctx.hist), None, None)
+
+
+torch.library.register_autograd("dtsb_torch::fp8_dense",
+                                _fp8_dense_backward,
+                                setup_context=_fp8_dense_setup)
+FP8_DENSE_OP = torch.ops.dtsb_torch.fp8_dense.default
 
 
 def fp8_dense(x, w, impl: str = "plain", amax_history_len: int = 0):
     """``x @ w`` under the Float8Linear recipe.  ``impl``: ``"kernel"``
     (forward through K6) or ``"plain"``; the backward is plain either
-    way."""
+    way.  One dispatcher op (``FP8_DENSE_OP``) and the rounding of the
+    plain product to ``x``'s dtype."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"fp8_dense: unknown impl {impl!r}")
-    return _FP8Dense.apply(x, w, impl, amax_history_len)
+    out = torch.ops.dtsb_torch.fp8_dense(x, w, impl, int(amax_history_len))
+    return out.to(x.dtype)
+
+
+def _projection(precision: str, fp8_history_len: int = 0):
+    """``matmul_precision`` → ``(kind, impl, quantize_bwd, hist)``, the
+    arguments of its projection: ``"mm"`` a plain matmul, ``"fp8"``
+    :func:`_fp8_forward`, ``"int8"`` :func:`_int8_forward`."""
+    if precision == "bf16":
+        return "mm", "", False, 0
+    if precision in ("fp8", "fp8_delayed", "fp8_pallas"):
+        impl = "kernel" if precision == "fp8_pallas" else "plain"
+        hist = (fp8_history_len or 16) if precision == "fp8_delayed" else 0
+        return "fp8", impl, False, hist
+    if precision in ("int8", "int8_pallas", "int8_bwd", "int8_pallas_bwd"):
+        base = precision.removesuffix("_bwd")
+        impl = {"int8": "xla", "int8_pallas": "pallas_fused"}[base]
+        return "int8", impl, precision.endswith("_bwd"), 0
+    raise ValueError(f"unknown matmul_precision {precision!r}")
 
 
 def resolve_quantized_dense(precision: str, *, fp8_history_len: int = 0):
@@ -636,23 +718,15 @@ def resolve_quantized_dense(precision: str, *, fp8_history_len: int = 0):
     straight-through backward, or with int8 dX and dW (K4) under the
     ``_bwd`` suffix.  Every returned matmul also takes a
     ``QuantizedWeight`` and routes it through ``prequantized_dense``."""
-    if precision == "bf16":
+    kind, impl, quantize_bwd, hist = _projection(precision, fp8_history_len)
+    if kind == "mm":
         base_fn = torch.matmul
-    elif precision in ("fp8", "fp8_delayed", "fp8_pallas"):
-        impl = "kernel" if precision == "fp8_pallas" else "plain"
-        hist = (fp8_history_len or 16) if precision == "fp8_delayed" else 0
-
+    elif kind == "fp8":
         def base_fn(a, w):
             return fp8_dense(a, w, impl, hist)
-    elif precision in ("int8", "int8_pallas", "int8_bwd", "int8_pallas_bwd"):
-        base = precision.removesuffix("_bwd")
-        impl = {"int8": "xla", "int8_pallas": "pallas_fused"}[base]
-        quantize_bwd = precision.endswith("_bwd")
-
+    else:
         def base_fn(a, w):
             return quantized_dense(a, w, impl, quantize_bwd)
-    else:
-        raise ValueError(f"unknown matmul_precision {precision!r}")
 
     def dense(a, w):
         if isinstance(w, QuantizedWeight):
@@ -684,46 +758,73 @@ def quantized_residual(y: torch.Tensor) -> torch.Tensor:
     straight-through (identity) backward: ``round``'s derivative is zero
     almost everywhere, so the true one would null every gradient.  The
     reference's ``checkpoint_name(·, "dot_q8")`` marks the codes and
-    scales for its ``save_dots_q8`` remat policy; here the policy saves
-    the outputs of :func:`dot_q8`, which is this round-trip fused with
-    the projection that produces ``y`` (``models.transformer``)."""
+    scales for its ``save_dots_q8`` remat policy; here a projection and
+    its round-trip are one op (:func:`dot_q8`) whose codes and scales
+    the policy keeps."""
     return _QuantizedResidual.apply(y)
 
 
-@torch.library.custom_op("dtsb_torch::dot_q8", mutates_args=(),
-                         schema="(Tensor a, Tensor w) -> (Tensor, Tensor)")
-def _dot_q8_op(a, w):
-    """``quantize_int8(a @ w, axis=-1)``: one dispatcher op, so that a
-    selective-checkpoint policy can keep its codes and scales and skip
-    the product in the recompute."""
-    return quantize_int8(torch.matmul(a, w), axis=-1)
+@torch.library.custom_op(
+    "dtsb_torch::dot_q8", mutates_args=(),
+    schema="(Tensor a, Tensor w, str kind, str impl, bool quantize_bwd, "
+           "int hist) -> (Tensor, Tensor)")
+def _dot_q8_op(a, w, kind, impl, quantize_bwd, hist):
+    """``quantize_int8(projection(a, w), axis=-1)``: the precision's
+    projection (:func:`_projection`'s arguments; its kernel on the card)
+    and the round-trip's codes and scales as one dispatcher op, so that
+    a selective-checkpoint policy keeps the pair and skips the product
+    in the recompute."""
+    if kind == "mm":
+        y = torch.matmul(a, w)
+    elif kind == "fp8":
+        y = _fp8_forward(a, w, impl, hist).to(a.dtype)
+    else:
+        y = _int8_forward(a, w, impl)
+    return quantize_int8(y, axis=-1)
+
+
+DOT_Q8_OP = torch.ops.dtsb_torch.dot_q8.default
 
 
 class _DotQ8(torch.autograd.Function):
-    """``quantized_residual(a @ w)`` on bf16 (or f32) operands: the
-    forward through :func:`_dot_q8_op`, the backward straight through the
-    round-trip and the product's own VJP."""
+    """``quantized_residual(projection(a, w))``: the forward through
+    :func:`_dot_q8_op`, the backward straight through the round-trip
+    and then the projection's own VJP."""
 
     @staticmethod
-    def forward(ctx, a, w):
+    def forward(ctx, a, w, kind, impl, quantize_bwd, hist):
         ctx.save_for_backward(a, w)
-        q, s = torch.ops.dtsb_torch.dot_q8(a, w)
+        ctx.args = kind, impl, quantize_bwd, hist
+        q, s = torch.ops.dtsb_torch.dot_q8(a, w, kind, impl, quantize_bwd,
+                                           hist)
         return dequantize(q, s, a.dtype)
 
     @staticmethod
     def backward(ctx, g):
         a, w = ctx.saved_tensors
-        return (torch.einsum("...n,kn->...k", g, w),
-                torch.einsum("...k,...n->kn", a, g))
+        kind, impl, quantize_bwd, hist = ctx.args
+        if kind == "fp8":
+            ga, gw = _fp8_backward(a, w, g, hist)
+        elif kind == "int8":
+            ga, gw = _int8_backward(a, w, g, impl, quantize_bwd)
+        else:
+            ga = torch.einsum("...n,kn->...k", g, w)
+            gw = torch.einsum("...k,...n->kn", a, g)
+        return ga, gw, None, None, None, None
 
 
-def dot_q8(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``quantized_residual(a @ w)``, the projection of the
-    ``save_dots_q8`` remat policy (``models.transformer``): forward
-    values bit for bit the round-trip's; the policy saves the op's int8
-    codes and f32 scales, so the recompute neither keeps the bf16
-    output nor runs the product again."""
-    return _DotQ8.apply(a, w)
+def dot_q8(a: torch.Tensor, w: torch.Tensor, precision: str = "bf16", *,
+           fp8_history_len: int = 0) -> torch.Tensor:
+    """``quantized_residual(dense(a, w))`` at ``precision``, the
+    projection of the ``save_dots_q8`` remat policy
+    (``models.transformer``): forward values bit for bit the
+    round-trip's of that precision's projection, grads its VJP's; the
+    policy keeps the op's int8 codes and f32 scales, so the recompute
+    neither keeps the projection's output nor runs its product again."""
+    kind, impl, quantize_bwd, hist = _projection(precision, fp8_history_len)
+    if kind == "int8" and _PLAIN["on"]:
+        impl = "plain"
+    return _DotQ8.apply(a, w, kind, impl, quantize_bwd, hist)
 
 
 # ---------------------------------------------------- quantized collectives

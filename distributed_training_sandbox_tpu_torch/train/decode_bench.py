@@ -17,6 +17,10 @@ the achieved fraction.  ``int8`` rows decode with
 ``quantize_decode_params``' int8 weights: on the card every projection
 and the unembedding run K4.  The steady rate is a slope: the total time
 at N/2 and at N new tokens, best of 3 each, the prefill cancelled.
+A slope that is not positive (two wall times within the host's noise,
+as a few steps of a tiny model on a loaded CPU give) is no reading: the
+row's ``steady_ms_per_step`` and the rates derived from it are None and
+``failed_reading`` names why.
 
   * ``--sweep``: precision {bf16, int8} × batch {1, 8, 32} at
     ``--prompt``, plus the long-prompt (2048) rows with and without the
@@ -87,8 +91,12 @@ def run_one(cfg, params, precision: str, batch: int, prompt_len: int,
         tH = min(tH, timed(p2, n_half))
         tN = min(tN, timed(p2, new_tokens))
     step_s = (tN - tH) / max(new_tokens - n_half, 1)
-    steady = batch / max(step_s, 1e-9)
-    prefill_s = max(tN - new_tokens * step_s, 0.0)
+    failed = None
+    if not step_s > 0:
+        failed = (f"non-positive slope: best of 3 at {new_tokens} new tokens "
+                  f"{tN:.6f} s, at {n_half} {tH:.6f} s")
+    steady = batch / step_s if failed is None else None
+    prefill_s = max(tN - new_tokens * step_s, 0.0) if failed is None else None
 
     wb = tree_bytes(params)
     wrb = weight_read_bytes(cfg, params, wb)
@@ -107,16 +115,22 @@ def run_one(cfg, params, precision: str, batch: int, prompt_len: int,
         "prefill_est_s": prefill_s,
         "total_s": tN,
         "steady_decode_tokens_per_sec": steady,
-        "steady_ms_per_step": step_s * 1e3,
-        "steady_ms_per_token_per_seq": step_s * 1e3,
+        "steady_ms_per_step": step_s * 1e3 if failed is None else None,
+        "steady_ms_per_token_per_seq": (step_s * 1e3 if failed is None
+                                        else None),
         "read_roofline_ms_per_step": roofline_ms,
         "roofline_fraction": (roofline_ms / (step_s * 1e3)
-                              if roofline_ms else None),
+                              if roofline_ms and failed is None else None),
+        "failed_reading": failed,
     }
-    print(f"[decode] {row['precision']} b{batch} p{prompt_len} "
-          f"n{new_tokens}: {row['steady_ms_per_step']:.3f} ms/step "
-          f"({steady:.0f} tok/s, roofline {roofline_ms} ms, "
-          f"{row['roofline_fraction']})", flush=True)
+    if failed is None:
+        print(f"[decode] {row['precision']} b{batch} p{prompt_len} "
+              f"n{new_tokens}: {row['steady_ms_per_step']:.3f} ms/step "
+              f"({steady:.0f} tok/s, roofline {roofline_ms} ms, "
+              f"{row['roofline_fraction']})", flush=True)
+    else:
+        print(f"[decode] {row['precision']} b{batch} p{prompt_len} "
+              f"n{new_tokens}: FAILED READING ({failed})", flush=True)
     return row
 
 

@@ -29,8 +29,18 @@ have its vocab, 8192): the windows less the held-out tail
 (``data.corpus_holdout_split``, which ``train.eval_lm`` scores), in as
 many epochs as ``--num-steps`` needs over the usable windows.  The
 synthetic data keeps the numpy engine (``--data synthetic``, the
-default).  Not ported: ``--plan``, ``--spike-demo`` and the loss plot
-(ROADMAP.md).
+default).
+
+``--spike-demo`` first runs a short leg with no warmup (``--spike-steps``,
+30 as the reference's) into the same out dir, to pin the step-2 spike of
+Adam's cold second moment that the warmup exists to kill.  Each leg
+writes ``<out dir>/<tag>.json`` (the reference's tag, ``--out-dir``,
+default ``flagship_results/<platform>``, beside the reference's own
+files), and the loss plot reads every leg there: two panels, the whole
+series and the first 40 steps, written to ``--plot`` (default
+``plots/flagship_loss.png``).  ``matplotlib`` is imported in
+:func:`plot`; where it is missing the twin says it wrote no plot and
+keeps its JSON.  Not ported: ``--plan`` (ROADMAP.md, A12d).
 """
 
 from __future__ import annotations
@@ -202,6 +212,64 @@ def run_leg(model: str, precision: str, seq: int, bs: int, num_steps: int,
     }
 
 
+def leg_tag(result: dict) -> str:
+    """The reference's file tag of a leg's result."""
+    warm = (f"warm{result['warmup_steps']}" if result["warmup_steps"]
+            else "nowarm")
+    corp = "_corpus" if result["data"] == "corpus" else ""
+    return (f"{result['model']}_{result['precision']}_seq"
+            f"{result['sequence_length']}_b{result['batch_size']}_{warm}"
+            f"{corp}")
+
+
+def write_leg(result: dict, out_dir) -> Path:
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{leg_tag(result)}.json"
+    path.write_text(json.dumps(result))
+    return path
+
+
+def plot(out_dir, plot_path) -> Path | None:
+    """The reference's loss plot of every leg in ``out_dir``: the whole
+    series and the first 40 steps (the spike zone).  None, and a line
+    saying so, where matplotlib is missing or there is no leg."""
+    try:
+        import matplotlib
+    except ImportError:
+        print("[flagship] matplotlib is not installed: wrote no plot "
+              "(the legs' JSON stays)", flush=True)
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    runs = sorted(Path(out_dir).glob("*.json"))
+    if not runs:
+        return None
+    fig, (ax, ax2) = plt.subplots(1, 2, figsize=(11, 4))
+    for f in runs:
+        r = json.loads(f.read_text())
+        warm = (f"warmup {r['warmup_steps']}" if r["warmup_steps"]
+                else "no warmup")
+        label = f"{r['precision']} b{r['batch_size']} {warm}"
+        ax.plot(r["losses"], label=label, lw=1)
+        ax2.plot(r["losses"][:40], label=label, lw=1)
+    ax.set_xlabel("step")
+    ax.set_ylabel("loss")
+    ax.set_title("flagship loss (full run)")
+    ax2.set_xlabel("step")
+    ax2.set_title("first 40 steps (spike zone)")
+    ax.legend(fontsize=7)
+    ax2.legend(fontsize=7)
+    fig.tight_layout()
+    plot_path = Path(plot_path)
+    plot_path.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(plot_path, dpi=120)
+    plt.close(fig)
+    print(f"[flagship] plot -> {plot_path}", flush=True)
+    return plot_path
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", choices=sorted(MODEL_REGISTRY),
@@ -225,20 +293,42 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="default: the CUDA card; 'cpu' for the plain path")
     p.add_argument("--out", default=None, help="write the result as JSON")
+    p.add_argument("--spike-demo", action="store_true",
+                   help="first run a short no-warmup leg to pin the "
+                        "cold-Adam step-2 spike")
+    p.add_argument("--spike-steps", type=int, default=30,
+                   help="the spike leg's steps (the reference's 30)")
+    p.add_argument("--out-dir", default=None,
+                   help="each leg's <tag>.json (default "
+                        "flagship_results/<platform>)")
+    p.add_argument("--plot", default="plots/flagship_loss.png")
     args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    out_dir = Path(args.out_dir or Path("flagship_results") / (
+        "gpu" if dev.type == "cuda" else dev.type))
+
+    def log_step(i, loss):
+        print(f"[flagship] step {i:4d} loss {loss:8.4f}", flush=True)
+
+    if args.spike_demo:
+        spike = run_leg(args.model, args.precision, args.sequence_length,
+                        args.batch_size, args.spike_steps, 0, args.peak_lr,
+                        device=dev, data=args.data, on_step=log_step)
+        print(f"[flagship] spike leg -> {write_leg(spike, out_dir)}",
+              flush=True)
     result = run_leg(
         args.model, args.precision, args.sequence_length, args.batch_size,
-        args.num_steps, args.warmup_steps, args.peak_lr, device=args.device,
+        args.num_steps, args.warmup_steps, args.peak_lr, device=dev,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.checkpoint_every,
-        resume=args.resume, data=args.data,
-        on_step=lambda i, loss: print(f"[flagship] step {i:4d} loss "
-                                      f"{loss:8.4f}", flush=True))
+        resume=args.resume, data=args.data, on_step=log_step)
     print(f"[flagship] first {result['loss_first']:.3f} max(first20) "
           f"{result['loss_max_first20']:.3f} final(mean20) "
           f"{result['loss_final_mean20']:.3f} "
-          f"{result['tokens_per_second']:.0f} tok/s", flush=True)
+          f"{result['tokens_per_second']:.0f} tok/s -> "
+          f"{write_leg(result, out_dir)}", flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(result))
+    plot(out_dir, args.plot)
 
 
 if __name__ == "__main__":

@@ -89,9 +89,18 @@ VARIANTS = ("explicit", "auto")
 
 def model_config(model: str, precision: str = "bf16",
                  attention: str | None = None,
-                 remat_policy: str | None = None) -> T.TransformerConfig:
+                 remat_policy: str | None = None,
+                 cfg_overrides: dict | None = None) -> T.TransformerConfig:
     """The run's config: int8 names set the projections' precision,
-    ``fp32`` the dtype, as the reference script reads ``--precision``."""
+    ``fp32`` the dtype, as the reference script reads ``--precision``;
+    ``cfg_overrides`` (config fields, the reference bench's
+    ``cfg_overrides``) are applied last."""
+    cfg = _model_config(model, precision, attention, remat_policy)
+    return (dataclasses.replace(cfg, **cfg_overrides) if cfg_overrides
+            else cfg)
+
+
+def _model_config(model, precision, attention, remat_policy):
     cfg = getattr(T, MODEL_REGISTRY[model])
     if attention:
         cfg = dataclasses.replace(cfg, attention_impl=attention)
@@ -120,7 +129,8 @@ def run(model: str = "tiny", *, overlap: str = "none",
         batch_size: int | None = None, seq: int | None = None,
         num_steps: int = 20, attention: str | None = None,
         precision: str = "bf16", device=None, seed: int = 42,
-        remat_policy: str | None = None, quantized_gather: bool = False,
+        remat_policy: str | None = None, cfg_overrides: dict | None = None,
+        quantized_gather: bool = False,
         quantized_grads: bool = False, state_precision: str = "full",
         variant: str = "explicit",
         config: TrainConfig | None = None, profile_schedule=None,
@@ -138,7 +148,10 @@ def run(model: str = "tiny", *, overlap: str = "none",
     the segment's start, when the pump returned), tokens/s (host clock)
     and the tracker's metrics, peak device memory (None on the CPU), the
     Adam moments' bytes at rest on this rank, the pump's host syncs, the
-    checkpoint saves and the restore's seconds."""
+    checkpoint saves and the restore's seconds.  ``cfg_overrides``:
+    config fields set over the model's (``model_config``), the twins'
+    one way to train another geometry (``train.moe_bench``,
+    ``train.long_context``)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r}; choose from {VARIANTS}")
     if variant == "auto" and (overlap != "none" or not reshard_after_forward
@@ -164,10 +177,14 @@ def run(model: str = "tiny", *, overlap: str = "none",
                            precision=precision, accum_steps=accum_steps)
     fp = {"model": model, "overlap": overlap,
           "state_precision": state_precision, "variant": variant}
+    if cfg_overrides:
+        fp["cfg_overrides"] = {k: str(v) for k, v in
+                               sorted(cfg_overrides.items())}
     out = H.supervise(cfg_run, "fsdp", lambda ctx, holder: _run(
         ctx, holder, cfg_run, model, overlap=overlap, variant=variant,
         reshard_after_forward=reshard_after_forward, device=dev,
-        attention=attention, remat_policy=remat_policy, quantized_gather=quantized_gather,
+        attention=attention, remat_policy=remat_policy,
+        cfg_overrides=cfg_overrides, quantized_gather=quantized_gather,
         quantized_grads=quantized_grads, state_precision=state_precision,
         profile_schedule=profile_schedule, on_step=on_step, log=log),
         extra_fingerprint=fp)
@@ -180,14 +197,15 @@ def run(model: str = "tiny", *, overlap: str = "none",
 
 
 def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
-         device, attention, remat_policy, quantized_gather,
+         device, attention, remat_policy, cfg_overrides, quantized_gather,
          quantized_grads, state_precision, profile_schedule, on_step,
          log) -> dict:
     num_steps, seed, precision = rc.num_steps, rc.seed, rc.precision
     bs, seq, accum_steps = rc.batch_size, rc.sequence_length, rc.accum_steps
     dev = mesh.init_process_group(device)
     ws, rank = mesh.axis_size(), mesh.axis_rank()
-    cfg = model_config(model, precision, attention, remat_policy)
+    cfg = model_config(model, precision, attention, remat_policy,
+                       cfg_overrides)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if variant == "auto":
         module = fsdp.fully_shard_params(T.init_params(cfg, gen, dev), cfg)

@@ -38,6 +38,19 @@ are queued by NCCL and launched together when the coalesced group
 ends (the ``nccl:coalesced`` range, after both ops): that launch's
 device time is the hop's, its send's.
 
+The phase split (:func:`phase_split`, the MoE profile's) reads the
+``record_function`` ranges the port names after the reference's
+``jax.named_scope``s.  XLA stamps every op, the backward's too, with
+its scope; here a device event belongs to the innermost named range
+around its launch on the launching thread, and a launch inside a
+backward op (the autograd engine's ``evaluate_function``, on its own
+thread) to the range of the forward op with the backward op's
+``Sequence number``.  A checkpoint's recompute runs its forward ops
+inside a backward op, with numbers from that thread's counter: they
+are read by their own ranges, and no backward op maps to them.
+Without device activity the innermost ``cpu_op``s of each thread are
+the work, read the same way.
+
 Not ported: ``hlo_computations``, ``while_bodies`` and
 ``collective_placement``, which read compiled HLO text; a torch program
 has none.
@@ -45,6 +58,7 @@ has none.
 
 from __future__ import annotations
 
+import bisect
 import glob
 import gzip
 import json
@@ -394,4 +408,127 @@ def collective_stats_from_events(events) -> dict[str, dict]:
                 mine[-1]["us"] += launched_us(thread, s, t)
     for rec in out.values():
         rec["total_us"] = sum(c["us"] for c in rec["calls"])
+    return out
+
+
+_EVALUATE = "autograd::engine::evaluate_function"
+
+
+class _Intervals:
+    """(start, end, value) intervals of one thread, for the innermost one
+    holding a time: a bisection to the last start at or before it, then
+    back while an earlier interval may still be open (the prefix maximum
+    of the ends)."""
+
+    def __init__(self, ivs):
+        self.ivs = sorted(ivs, key=lambda iv: iv[:2])
+        self.starts = [iv[0] for iv in self.ivs]
+        self.open_until, top = [], float("-inf")
+        for _, t, _ in self.ivs:
+            top = max(top, t)
+            self.open_until.append(top)
+
+    def innermost(self, ts):
+        j = bisect.bisect_right(self.starts, ts) - 1
+        best = None
+        while j >= 0 and self.open_until[j] >= ts:
+            s, t, v = self.ivs[j]
+            if t >= ts and (best is None or t - s < best[0]):
+                best = (t - s, v)
+            j -= 1
+        return best[1] if best else None
+
+
+def _leaves(events, keep) -> list[dict]:
+    """Of the events ``keep`` accepts, those holding no other accepted
+    event on their thread."""
+    by_tid: dict = {}
+    for e in events:
+        if keep(e):
+            by_tid.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    out = []
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: (float(e["ts"]), -float(e.get("dur", 0))))
+        for a, b in zip(evs, evs[1:] + [None]):
+            if b is None or float(b["ts"]) >= _span(a)[1]:
+                out.append(a)
+    return out
+
+
+def phase_split(events, phases) -> dict[str, float]:
+    """Microseconds of work by phase (``phases``: ``record_function``
+    names) and ``"other"``, from one trace's events (see the module
+    docstring): device events on a CUDA trace, the innermost ``cpu_op``s
+    of each thread without one.  Every phase is a key, 0.0 where no work
+    fell in it.
+
+    A piece of work at (thread, time) belongs to the innermost named
+    range there; outside one, the innermost op there that carries a
+    ``Sequence number`` decides: a backward op (the autograd engine's
+    ``evaluate_function`` and the node it runs) takes the phase of the
+    forward op with its number, a forward op none.  A forward op inside
+    a backward op is a checkpoint's recompute (its own ranges name its
+    work), and its graph is never differentiated: no backward op maps to
+    it."""
+    evs = _complete(events)
+    phases = tuple(phases)
+    ranges: dict = {}
+    seq_ops: dict = {}
+    for e in evs:
+        thread = (e.get("pid"), e.get("tid"))
+        if e.get("cat") == "user_annotation" and e.get("name") in phases:
+            ranges.setdefault(thread, []).append((*_span(e), e["name"]))
+        args = e.get("args") or {}
+        if e.get("cat") == "cpu_op" and args.get("Sequence number") is not None:
+            bwd = (e.get("name", "").startswith(_EVALUATE)
+                   or bool(args.get("Fwd thread id")))
+            seq_ops.setdefault(thread, []).append(
+                (*_span(e), (args["Sequence number"], bwd)))
+    ranges = {k: _Intervals(v) for k, v in ranges.items()}
+    bwd_only = {k: _Intervals([iv for iv in v if iv[2][1]])
+                for k, v in seq_ops.items()}
+
+    def named(thread, ts):
+        r = ranges.get(thread)
+        return r.innermost(ts) if r else None
+
+    # each sequence number's forward ops, in time, with their phase
+    fwd_seq: dict = {}
+    for thread, ivs in seq_ops.items():
+        for s, _, (seq, bwd) in ivs:
+            if not bwd and bwd_only[thread].innermost(s) is None:
+                fwd_seq.setdefault(seq, []).append((s, named(thread, s)))
+    for lst in fwd_seq.values():
+        lst.sort(key=lambda v: v[0])
+    seq_ops = {k: _Intervals(v) for k, v in seq_ops.items()}
+
+    def phase_at(thread, ts):
+        ph = named(thread, ts)
+        if ph is not None:
+            return ph
+        op = seq_ops[thread].innermost(ts) if thread in seq_ops else None
+        if op is None or not op[1]:
+            return "other"
+        before = [p for s, p in fwd_seq.get(op[0], []) if s <= ts]
+        return (before[-1] if before else None) or "other"
+
+    out = {ph: 0.0 for ph in phases}
+    out["other"] = 0.0
+    if has_device_activity(evs):
+        launch = {}
+        for e in evs:
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None and e.get("cat") in _LAUNCH_CATS:
+                launch[corr] = ((e.get("pid"), e.get("tid")),
+                                float(e["ts"]))
+        for e in evs:
+            if e.get("cat") not in _DEVICE_CATS:
+                continue
+            where = launch.get((e.get("args") or {}).get("correlation"))
+            ph = phase_at(*where) if where else "other"
+            out[ph] += float(e.get("dur", 0.0))
+        return out
+    for e in _leaves(evs, lambda e: e.get("cat") == "cpu_op"):
+        out[phase_at((e.get("pid"), e.get("tid")), float(e["ts"]))] += \
+            float(e.get("dur", 0.0))
     return out

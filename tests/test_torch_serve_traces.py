@@ -281,7 +281,15 @@ def test_decode_bench_rows_have_the_reference_keys(tmp_path):
                                  "--out-file", "q8.json"])
     for row in rows + rows_q8:
         assert want | {"model", "platform"} <= set(row)
-        assert row["steady_ms_per_step"] > 0
+        # a reading is a positive slope; a non-positive one is marked
+        # failed, never reported as a reading
+        if row["failed_reading"] is None:
+            assert row["steady_ms_per_step"] > 0
+            assert row["steady_decode_tokens_per_sec"] > 0
+        else:
+            assert row["steady_ms_per_step"] is None
+            assert row["steady_decode_tokens_per_sec"] is None
+            assert row["failed_reading"].startswith("non-positive slope")
         assert row["read_roofline_ms_per_step"] is None   # no card
     assert rows_q8[0]["precision"] == "int8+kvq"
     assert rows_q8[0]["weight_gib"] < rows[0]["weight_gib"]

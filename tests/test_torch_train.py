@@ -315,10 +315,10 @@ def test_forward_logits_match_jax():
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.resolve_remat_policy(dataclasses.replace(
-            PT.TINY_LM, remat_policy="save_dots",
-            matmul_precision="int8_pallas"))
+    # save_dots runs at every precision (at int8_pallas it keeps nothing
+    # of the projections: tests/test_torch_remat_precisions.py)
+    PT.resolve_remat_policy(dataclasses.replace(
+        PT.TINY_LM, remat_policy="save_dots", matmul_precision="int8_pallas"))
     # ring attention is ported; a ring config without its sequence axis
     # is refused, as the reference's __post_init__ refuses it
     with pytest.raises(ValueError, match="needs sp_axis"):
