@@ -224,7 +224,16 @@ resilience mutants edit a Python module of the port instead):
   fail; and ``ledger_drops_reduce_scatter``
   (``utils/trace_analysis.py``: the trace reader no longer counts the
   ``c10d`` reduce_scatter op), whose FSDP ledger join (``ledger fsdp:``,
-  21b) must fail.
+  21b) must fail;
+- phase 23's (child ``verdicts``, which runs phase 23 on a one-rank
+  group of its own): ``contract_extra_gather`` (``parallel/fsdp.py``:
+  the FSDP step's first gather of a step gathers its leaf twice, the
+  second time from the first's rows, so the values stay), whose
+  fixture verdict (``fixture fsdp:``, 23a) must fail; and
+  ``ledger_site_dropped`` (``train/harness.py``: the first step's sites
+  lose their first call before the ledger gets them), whose three
+  joins (``ledger join zero3-baseline:``, ``ledger join zero3:``,
+  ``ledger join train_tp:``, 23b) must fail.
 
 The fp8-path training mutants also run the step-0 parity of the
 training path; its loss or grad gates must fail on at least one of
@@ -481,6 +490,17 @@ MUTANTS = [
      '    "c10d::_reduce_scatter_base_": "reduce_scatter",',
      '    "c10d::_reduce_scatter_base_#": "reduce_scatter",', "ledger",
      ("ledger fsdp:",)),
+    ("contract_extra_gather", "parallel/fsdp.py",
+     "            return C.all_gather(x, axis, axis=dim)",
+     "            return C.all_gather(x, axis, axis=dim) if C.COLLECTIVES."
+     "counts['all_gather'] else C.all_gather(C.all_gather(x, axis, "
+     "axis=dim).narrow(dim, 0, x.shape[dim]), axis, axis=dim)",
+     "verdicts", ("fixture fsdp:",)),
+    ("ledger_site_dropped", "train/harness.py",
+     "            sites = COLLECTIVES.sites()",
+     "            sites = COLLECTIVES.sites()[1:]", "verdicts",
+     ("ledger join zero3-baseline:", "ledger join zero3:",
+      "ledger join train_tp:")),
     ("remat_pallas_keeps_products", "models/transformer.py",
      "            return None   # a kernel is no dot: save_dots keeps what "
      "full keeps",
@@ -852,6 +872,21 @@ try:
 finally:
     c.mesh.destroy_process_group()
     shutil.rmtree(root, ignore_errors=True)
+""", "verdicts": """
+import torch
+import chip_smoke as c
+def check(cond, msg):
+    if not cond:
+        print("[mutant] gate fails:", msg, flush=True)
+c.check = check
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.loader.build_all()
+c.mesh.init_process_group("cuda")
+try:
+    c.phase23(c.card_line())
+finally:
+    c.mesh.destroy_process_group()
 """, "fleet_disagg": """
 import numpy as np, torch
 import chip_smoke as c

@@ -353,7 +353,15 @@ Phases, each of which fails the run:
    corpus-70m checkpoint (the engine's tokens equal ``generate``'s, K1
    launched; K3 refuses the model's GQA group of 3, so its prefill takes
    the gather path) and ``decode_bench`` on SmolLM3-3B (C14: a positive
-   slope); each its path "22: <twin>".
+   slope); each its path "22: <twin>";
+23. the wire's verdicts (on the one-rank group): (a) every fixture of
+   ``analysis.fixtures`` built on the card and one step observed: its
+   contract verdict ok, one extra ``all_gather`` not ok, K6, K7, K1, K3
+   and the flash kernels launched under their fixtures
+   (``FIXTURE_KERNELS``), each fixture's calls and step ms logged; the
+   path "23: fixtures"; (b) the ZeRO-3 twin (both legs) and the TP twin
+   with one step profiled: each manifest's verdict ok, its
+   ``collectives.json`` joined ok.
 
 After every phase a full garbage collection may free at most
 ``CYCLIC_LIMIT_BYTES`` of card memory: a finished phase leaves none of
@@ -425,6 +433,7 @@ from distributed_training_sandbox_tpu_torch.ops import ring_attention as RA
 from distributed_training_sandbox_tpu_torch.parallel import fsdp, optim8, tensor
 from distributed_training_sandbox_tpu_torch.parallel import composable as CP
 from distributed_training_sandbox_tpu_torch.analysis import contract_gen as CG
+from distributed_training_sandbox_tpu_torch.analysis import fixtures as FX
 from distributed_training_sandbox_tpu_torch.parallel import expert as EX
 from distributed_training_sandbox_tpu_torch.parallel import pipeline as PP
 from distributed_training_sandbox_tpu_torch.parallel import sequence as PS
@@ -3341,8 +3350,8 @@ def pipeline_toy_phase(card: str) -> dict:
               f"params after step 0 off the monolithic step by {diff}")
         check(full[0] == loss0, f"pipeline toy {schedule}: the run's step-0 "
               f"loss {full[0]!r} is not the schedule's {loss0!r}")
-        check(r["contract"]["holds"], f"pipeline toy {schedule}: "
-              f"collectives {r['contract']['collectives'][-1]}")
+        check(r["contract_ok"], f"pipeline toy {schedule}: contract "
+              f"{r['contract']}, collectives {r['collectives'][-1]}")
         check(all(np.isfinite(full)), f"pipeline toy {schedule}: non-finite "
               f"loss in {full}")
         check(r["final_loss_batch0"] < full[0], f"pipeline toy {schedule}: "
@@ -3582,8 +3591,8 @@ def pipeline_lm_phase(card: str, loss0: float) -> dict:
               f"{want}")
         check(all(np.isfinite(full)), f"pipeline {schedule}: non-finite loss "
               f"in {full}")
-        check(r["contract"]["holds"], f"pipeline {schedule}: collectives "
-              f"{r['contract']['collectives'][-1]}")
+        check(r["contract_ok"], f"pipeline {schedule}: contract "
+              f"{r['contract']}, collectives {r['collectives'][-1]}")
         stored = list(r["max_stored_activations"].values())
         if schedule == "gpipe":
             check(full[0] == loss0, f"pipeline gpipe: step-0 loss {full[0]!r}"
@@ -4819,9 +4828,8 @@ def moe_train_phase(card: str, loss0: float) -> dict:
         check((launches, plain) == (want[name], 0),
               f"moe train: {name} (launches, plain) {(launches, plain)} != "
               f"({want[name]}, 0)")
-    for i, c in enumerate(res["collectives"]):
-        check(c == res["contract"], f"moe train: step {i} collectives {c} "
-              f"!= the moe contract's {res['contract']}")
+    check(res["contract_ok"], f"moe train: the moe contract "
+          f"{res['contract']}, collectives {res['collectives']}")
     check(all(np.isfinite(losses)), f"moe train: non-finite loss in {losses}")
     check(losses[-1] < losses[0], f"moe train: step-{n - 1} loss "
           f"{losses[-1]} is not below step-0 loss {losses[0]}")
@@ -5198,8 +5206,14 @@ def _run_steps(step, shards, opt, batches, n, on_step=None):
 def _train_reading(label, card, losses, step_s, tokens, flops_tok, peak,
                    counts, want, colls, contract) -> dict:
     """Log one phase-16d leg and check it: launches exact, plain 0,
-    collectives the contract's, losses finite and falling."""
+    collectives the contract's (``contract`` a count dict, or a twin's
+    verdict, ``ContractVerdict.to_dict()``: ok, and every step the first
+    step's calls), losses finite and falling."""
     n = len(losses)
+    if "ok" in contract:
+        check(contract["ok"], f"{label}: contract "
+              f"{contract['violations']}")
+        contract = colls[0]
     ms = statistics.median(step_s[1:n - 1]) * 1e3
     tok_s = tokens / ms * 1e3
     log(f"{label} on {card}: losses {losses}; step times (s) {step_s}; "
@@ -7717,6 +7731,127 @@ def phase22(card: str, corpus_ckpt=None) -> tuple[dict, dict]:
     return {"remat": a, "twins": b, "wall_s": wall}, {"22: remat": la, **lb}
 
 
+# --------------------------------------- phase 23: the wire's verdicts
+
+# the kernels each fixture's step launches on the card (its factory's
+# launches count with it: serve_decode_spec drafts its block through K1)
+FA_STEP = ("flash_attention_fwd", "flash_attention_bwd")
+FIXTURE_KERNELS = {
+    **{s: FA_STEP for s in ("fsdp", "fsdp_q8", "fsdp_ring", "tp", "tp_ring",
+                            "tp_q8", "moe", "composable_dp_fsdp_tp")},
+    "fsdp_fp8": FA_STEP + ("fp8_matmul",),
+    "fsdp_ring_fused_pallas": FA_STEP + ("ag_matmul",),
+    "serve_decode_paged_kernel": ("paged_decode",),
+    "serve_decode_spec": ("paged_decode", "flash_prefill"),
+    "serve_prefill_flash": ("flash_prefill",)}
+# 23b: one traced step after one skipped, on the one-rank group
+VERDICT_SCHEDULE = ProfileSchedule(skip_first=1, wait=0, warmup=0, active=1)
+VERDICT_TWINS = dict(zero_scale=20, zero_batch=16, tp_model="tiny",
+                     tp_seq=256, num_steps=2, seed=42)
+
+
+def fixtures_phase(card: str) -> tuple[dict, dict]:
+    """23a: every registered fixture (``analysis.fixtures``) built on the
+    card in the one-rank group, one step observed under the shim's
+    capture: its verdict ok, one extra ``all_gather`` not ok, and the
+    kernels of ``FIXTURE_KERNELS`` launched.  Logs each fixture's calls
+    by kind and its step's host ms (the first step: no warm-up).
+    Returns the readings and the launches (path "23: fixtures")."""
+    out, total = {}, {}
+    for s in FX.STRATEGIES:
+        _reset_all_counts()
+        t = time.perf_counter()
+        b = FX.build_strategy(s, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        obs = b.observe()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = _launches_now()
+        verdict = b.verdict(obs)
+        tampered = b.verdict(dict(obs, all_gather=obs["all_gather"] + 1))
+        check(verdict.ok, f"fixture {s}: {verdict.summary()}")
+        check(not tampered.ok, f"fixture {s}: an extra all_gather passes "
+              f"its contract: {tampered.summary()}")
+        for k in FIXTURE_KERNELS.get(s, ()):
+            check(got.get(k, 0) >= 1, f"fixture {s}: {k} launched "
+                  f"{got.get(k, 0)} times")
+        out[s] = {"calls": C.COLLECTIVES.nonzero(obs), "step_ms": ms,
+                  "build_s": build_s, "launches": got}
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del b
+    torch.cuda.empty_cache()
+    log(f"fixtures on {card} (one rank; calls a step, the first step's "
+        f"host ms, launches): {json.dumps(out)}")
+    return out, {"23: fixtures": total}
+
+
+def _joined(name: str, run_dir: Path) -> dict:
+    """A profiled twin run's manifest verdict and its ledger's join."""
+    man = json.loads((run_dir / "manifest.json").read_text())
+    path = run_dir / LD.LEDGER_FILENAME
+    check(path.exists(), f"ledger join {name}: no {LD.LEDGER_FILENAME} in "
+          f"{run_dir.name}")
+    contract = man.get("contract") or {}
+    check(contract.get("ok"), f"verdict {name}: {contract}")
+    if not path.exists():
+        return {"contract": contract}
+    join = json.loads(path.read_text())["contract_join"]
+    check(join["ok"], f"ledger join {name}: {join['violations']}")
+    return {"observed": contract.get("observed"), "join_ok": join["ok"],
+            "compiled_sites": join["compiled_sites"],
+            "measured_sites": join["measured_sites"]}
+
+
+def verdict_ledgers_phase(card: str, root: Path) -> dict:
+    """23b: the ZeRO-3 twin (both legs) and the TP twin (tp 1) on the
+    one-rank group, one step of each profiled (``VERDICT_SCHEDULE``):
+    each run's manifest verdict ok, its ``collectives.json`` filed and
+    joined ok."""
+    v = VERDICT_TWINS
+
+    def cfg(tag):
+        return quiet_config(telemetry=True, profile=True,
+                            results_dir=str(root / "runs" / tag),
+                            trace_dir=str(root / "traces" / tag))
+    zero_run.run(3, scale=v["zero_scale"], batch_size=v["zero_batch"],
+                 num_steps=v["num_steps"], seed=v["seed"], device="cuda",
+                 config=cfg("zero3"), profile_schedule=VERDICT_SCHEDULE,
+                 log=log)
+    train_tp.run(v["tp_model"], second=1, seq=v["tp_seq"],
+                 num_steps=v["num_steps"], seed=v["seed"], device="cuda",
+                 config=cfg("tp"), profile_schedule=VERDICT_SCHEDULE,
+                 log=log)
+    out = {}
+    for tag in ("zero3", "tp"):
+        for d in sorted((root / "runs" / tag).iterdir()):
+            name = json.loads((d / "manifest.json").read_text())["strategy"]
+            out[name] = _joined(name, d)
+    check(len(out) == 3, f"verdict ledgers: runs {sorted(out)}")
+    torch.cuda.empty_cache()
+    log(f"verdict ledgers on {card} (one rank): {json.dumps(out)}")
+    return out
+
+
+def phase23(card: str) -> tuple[dict, dict]:
+    """Phase 23 (the wire's verdicts): 23a and 23b on the one-rank group,
+    23b under a temporary directory removed at the end."""
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="phase23_"))
+    try:
+        a, la = fixtures_phase(card)
+        b = verdict_ledgers_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t23
+    log(f"phase 23 (the wire's verdicts: every fixture, two twins' "
+        f"ledgers): {wall:.1f} s")
+    return {"fixtures": a, "ledgers": b, "wall_s": wall}, la
+
+
 # ------------------------------------------- parent-versus-change timing
 
 def _parent_libs(csrc: Path) -> dict:
@@ -8552,6 +8687,9 @@ def main(argv) -> int:
         p22, p22_launches = timed(
             "the model core's rest: remat at the kernels' precisions, twins",
             phase22, card, corpus_ckpt)
+        p23, p23_launches = timed(
+            "the wire's verdicts: the fixtures, two twins' ledgers",
+            phase23, card)
     except SmokeFailure as e:
         print(f"[smoke] FAILED: {e}", file=sys.stderr)
         return 1
@@ -8571,7 +8709,7 @@ def main(argv) -> int:
              **tpsp_launches, "composable step": comp_launches,
              "composable twin": twin_launches, "fsdp auto": auto_launches,
              **frontier_launches, **fleet_launches, **p20_launches,
-             **p21_launches, **p22_launches}
+             **p21_launches, **p22_launches, **p23_launches}
     for k in kernels:
         per = {p: c[k["name"]] for p, c in paths.items() if k["name"] in c}
         k["launches"] = sum(per.values())
@@ -8596,6 +8734,7 @@ def main(argv) -> int:
     log(f"phase 20 readings on {card}: {json.dumps(p20)}")
     log(f"phase 21 readings on {card}: {json.dumps(p21)}")
     log(f"phase 22 readings on {card}: {json.dumps(p22, default=str)}")
+    log(f"phase 23 readings on {card}: {json.dumps(p23, default=str)}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,13 +41,14 @@ import math
 import os
 from dataclasses import asdict, dataclass, field
 
+from ..analysis.contracts import REFERENCE_KINDS, parse_expected_spec
+
 LEDGER_FILENAME = "collectives.json"
 LEDGER_SCHEMA_VERSION = 1
 
 # the reference's contract kinds, in its order; a kind only the port's
 # shim has (broadcast) joins after them when present
-KINDS = ("all_reduce", "all_gather", "reduce_scatter",
-         "collective_permute", "all_to_all")
+KINDS = REFERENCE_KINDS
 
 
 def payload_bucket(nbytes: int) -> str:
@@ -80,21 +81,6 @@ def _axis_for_group(group_size: int, axis_sizes: dict) -> str:
     if names:
         return "|".join(names)
     return "?"
-
-
-def parse_expected_spec(value) -> tuple[int, float]:
-    """One value of a contract's ``expected`` dict (int exact,
-    ``"lo..hi"`` range, ``"any"``/None unchecked) -> an inclusive
-    ``(lo, hi)`` bound: the reference's ``analysis.contracts``
-    parse."""
-    if value is None or value == "any":
-        return 0, math.inf
-    if isinstance(value, str) and ".." in value:
-        lo, hi = value.split("..", 1)
-        return int(lo), int(hi)
-    if isinstance(value, (tuple, list)):
-        return int(value[0]), int(value[1])
-    return int(value), int(value)
 
 
 @dataclass

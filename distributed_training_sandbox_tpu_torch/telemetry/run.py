@@ -191,6 +191,16 @@ class TelemetryRun:
             return
         self._sites = (list(sites), expected, strategy or self.strategy)
 
+    def file_contract(self, contract: dict) -> None:
+        """Put a contract verdict (``ContractVerdict.to_dict()``) in the
+        manifest.  A twin's verdict reads the shim's counts of its first
+        step, where the reference's reads the compiled step before the
+        run, so the manifest written at start is written again."""
+        self.contract = contract
+        if self.manifest is not None:
+            self.manifest.contract = contract
+            self.writer.write_manifest(self.manifest)
+
     def attach_step_hlo(self, *args, **kwargs) -> None:
         raise NotImplementedError(
             "the memory ledger (attach_step_hlo's memory half) is not "

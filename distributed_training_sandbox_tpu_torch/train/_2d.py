@@ -14,18 +14,19 @@ as the reference rounds it).  NCCL and the card by default, gloo and the
 plain path with ``--device cpu``.  The run harness
 (``train.harness``) wraps the leg as it wraps ``train_fsdp``.
 
-It prints the collectives each step issued (the shim) beside the
-reference's contract read as calls (``parallel.contracts``:
-``tp_step_collectives``, ``sp_step_collectives``), where the reference
-prints the compiled text's counts, and tokens/s and MFU
-(``utils.flops``).  ``--overlap`` takes the tp step's rejoins (``none``,
+It prints the collectives each step issued (the shim), the first step's
+verdict of the ``tp`` / ``tp_ring`` / ``tp_q8`` or ``sp`` contract
+(``analysis.contracts``: the reference's contract read as calls,
+``parallel.contracts.tp_step_collectives``, ``sp_step_collectives``)
+and the rules verdict, both in the manifest, and tokens/s and MFU
+(``utils.flops``); a profiled run joins its trace to the verdict's
+expected calls (``collectives.json``).  ``--overlap`` takes the tp step's rejoins (``none``,
 ``ring``, ``q8``), or for ``sp`` the FSDP gathers' modes: the
 reference's driver takes only its ``TrainConfig``'s ``none``, ``ring``
 and ``ring_fused`` and refuses ``--overlap`` for sp, while its steps
 take every mode, and the twin follows the steps.  ``--plan`` (a tuner
 plan) belongs to the memory planner and is refused by name (ROADMAP.md
-A12), as are the contract and sharding-rules verdicts over compiled
-text.
+A12).
 """
 
 from __future__ import annotations
@@ -39,10 +40,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..analysis.rules import rules_manifest_verdict
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import contracts, fsdp, sequence, tensor
+from ..parallel import fsdp, sequence, tensor
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -130,18 +132,21 @@ def _leg(ctx, holder, rc, mode, model, cfg, *, second, device,
         step = sequence.make_sp_train_step(
             shards, cfg, dp_axis=axes["dp"], sp_axis=axes["sp"],
             overlap=overlap, accum_steps=accum)
-        contract = contracts.sp_step_collectives(
-            shards, dp, second, overlap=overlap, remat=cfg.remat,
-            accum_steps=accum)
+        cname = "sp"
     else:
         shards = tensor.shard_params_tp(params, axes["tp"])
         step = tensor.make_tp_train_step(
             shards, cfg, dp_axis=axes["dp"], tp_axis=axes["tp"],
             overlap=overlap, accum_steps=accum)
-        contract = contracts.tp_step_collectives(
-            shards, second, overlap=overlap, remat=cfg.remat,
-            accum_steps=accum)
+        cname = f"tp_{overlap}" if overlap != "none" else "tp"
+    sizes = {"dp": dp, mode: second}
+    rules = rules_manifest_verdict(cname, params=shards, full=params,
+                                   axis_sizes=sizes)
     del params
+    verdict = H.Verdict(cname, params=shards, axes=sizes,
+                        n_layers=cfg.num_hidden_layers, label=name,
+                        rank=rank, log=log, remat=cfg.remat,
+                        accum_steps=accum, overlap=overlap)
     opt = fsdp.init_fsdp_opt_state(shards)
     key = generator_states({"params": seed}, dev)
     H.track(holder, ctx)
@@ -157,8 +162,9 @@ def _leg(ctx, holder, rc, mode, model, cfg, *, second, device,
             f"precision={cfg.matmul_precision} "
             f"attention={'ring' if mode == 'sp' else cfg.attention_impl} "
             f"dispatch={rc.dispatch} device={dev}")
-        log(f"[{name}] per-step collectives, the {mode} contract as calls: "
-            f"{json.dumps(C.COLLECTIVES.nonzero(contract))}")
+        log(f"[{name}] rules[{cname}]: "
+            f"{'ok' if rules['ok'] else 'MISMATCH'} ({rules['checked']} "
+            f"leaves checked)")
     flops_tok = T.model_flops_per_token(cfg, seq)
     tracker = PerformanceTracker(
         warmup_steps=min(3, max(num_steps - 1, 0)),
@@ -182,16 +188,16 @@ def _leg(ctx, holder, rc, mode, model, cfg, *, second, device,
     pref = DevicePrefetcher(batches, device=dev, depth=rc.prefetch_depth)
     t0 = time.perf_counter()
     with pref, H.telemetry(name, rc, ctx, dev, model=model, profiler=prof,
-                           extra={mode: second, "overlap": overlap}
+                           rules=rules, extra={mode: second, "overlap": overlap}
                            ) as telem:
         H.wire(telem, ctx, pref)
         with H.pump(rc, telem, tracker, ctx) as pump:
             for i, batch in zip(range(ctx.start_step, num_steps), pref):
                 if ctx.should_stop(i):
                     break
-                C.COLLECTIVES.reset()
+                verdict.begin()
                 shards, opt, loss = step(shards, opt, batch)
-                counts.append(C.COLLECTIVES.read())
+                counts.append(verdict.end(telem, ctx))
                 synced = pump.emit(loss, tokens=bs * seq, log=logger(i))
                 times.append(time.perf_counter() - t0)
                 ctx.after_step(i, synced, lambda i=i: RunState(
@@ -210,8 +216,7 @@ def _leg(ctx, holder, rc, mode, model, cfg, *, second, device,
     if rank == 0:
         log(f"[{name}] collectives a step "
             f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1] if counts else {}))}"
-            f", the contract's {json.dumps(C.COLLECTIVES.nonzero(contract))}"
-            f" (equal {all(c == contract for c in counts)})")
+            f", the contract holds {verdict.holds}")
         log(f"[{name}] tokens/s {tok_s:.1f} (global, host clock), MFU "
             f"{mfu:.4f} ({flops_tok:.4e} model FLOP/token over {ws} x 989 "
             f"TFLOP/s bf16), peak memory "
@@ -226,7 +231,7 @@ def _leg(ctx, holder, rc, mode, model, cfg, *, second, device,
             "precision": rc.precision, "attention": cfg.attention_impl,
             "status": "completed", "start_step": ctx.start_step,
             "device": str(dev), "losses": losses, "collectives": counts,
-            "contract": contract, "step_times_s": times, "wall_s": wall,
+            **verdict.result(), "rules": rules, "step_times_s": times, "wall_s": wall,
             "tokens_per_second": tok_s, "mfu": mfu,
             "tracker": pump.metrics, "host_syncs": dict(pump.sync_breakdown),
             "peak_memory_bytes": peak, "run_dir": telem.run_dir,

@@ -16,6 +16,11 @@ the card's ``nvidia-smi`` name and power limit.  A row that raises
 becomes the reference's ``error`` row, with ``failure`` ``"oom"`` only on
 PyTorch's own out-of-memory verdict (``utils.memory.classify_failure``),
 and the card's cache is emptied for the next row.
+
+A row leaves the process group as it found it: a group that was up
+before the call stays up (a sweep makes one for all its rows), and one
+that the row's run made is destroyed, whether the run returned or
+raised.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import gc
 import torch
 
 from ..models import MODEL_REGISTRY
+from ..utils import mesh
 from ..utils.memory import classify_failure
 from . import train_fsdp
 from .busbench import card_line
@@ -50,6 +56,7 @@ def measure_row(model: str, seq: int, batch: int, *, num_steps: int = 6,
     """The reference's row for one configuration, or its error row."""
     over = dict(cfg_overrides or {})
     head = {"model": model, "seq_len": seq, "batch": batch}
+    joined = mesh.initialized()
     try:
         res = train_fsdp.run(registry_name(model), batch_size=batch,
                              seq=seq, num_steps=num_steps + 2,
@@ -74,6 +81,9 @@ def measure_row(model: str, seq: int, batch: int, *, num_steps: int = 6,
                "card": card_line() if dev.type == "cuda" else None,
                "config": over}
         del res
+    finally:
+        if not joined:   # the run's own group, up when it raised too
+            mesh.destroy_process_group()
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()

@@ -49,10 +49,13 @@ the final params.  A resume skips the batches already consumed.
         distributed_training_sandbox_tpu_torch.train.ddp --device cpu \\
         --model tiny --source synthetic --num-steps 6
 
-A profiled run (``--trace-dir``) files the collective ledger of its
-traced steps (``collectives.json``) joined to the ``ddp`` contract.
-
-Not ported: the contract and rules verdicts (A12).
+The first step's calls are held to the ``ddp`` contract (``ddp_bucketed``
+with ``--bucket-mb``, ``ddp_q8`` with ``--quantize-grads``;
+``analysis.contracts``): the verdict is printed and lands in the
+manifest's ``contract``, beside the rules verdict
+(``analysis.rules.rules_manifest_verdict``) in its ``rules``.  A
+profiled run (``--trace-dir``) files the collective ledger of its traced
+steps (``collectives.json``) joined to the verdict's expected counts.
 """
 
 from __future__ import annotations
@@ -70,9 +73,9 @@ from ..data import classification_batches, make_classification_examples
 from ..models import MODEL_REGISTRY, mlp
 from ..models import classifier as CL
 from ..models import transformer as T
+from ..analysis.rules import rules_manifest_verdict
 from ..ops import collectives as C
 from ..parallel import ddp, optim
-from ..parallel.contracts import step_collectives
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -205,10 +208,12 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
                         cfg.num_epochs, seed, ws, dev))
     params = leg["params"]
     n_leaves = len(list(optim.tree_leaves(params)))
-    param_bytes = sum(p.numel() * p.element_size()
-                      for _, p in optim.tree_leaves(params))
-    want = step_collectives("ddp", n_leaves, param_bytes,
-                            bucket_mb=bucket_mb, q8=quantize_grads)
+    cname = ("ddp_q8" if quantize_grads else
+             "ddp_bucketed" if bucket_mb else "ddp")
+    verdict = H.Verdict(cname, params=params, axes={"dp": "dp"},
+                        label="ddp", rank=rank, log=log,
+                        **({"bucket_mb": bucket_mb} if bucket_mb else {}))
+    rules = rules_manifest_verdict(cname, params=params)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     C.COLLECTIVES.reset()
@@ -247,6 +252,8 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
         log(f"[ddp] param sync check passed (divergence {err}); init "
             f"broadcast {json.dumps(nz(init_counts))}, sync check "
             f"{json.dumps(nz(sync_counts))}")
+        log(f"[ddp] rules[{cname}]: {'ok' if rules['ok'] else 'MISMATCH'} "
+            f"({rules['checked']} leaves checked)")
     first = next(leg["stream"]())
     stream = leg["stream"]()
     if ctx.data_cursor:
@@ -272,21 +279,16 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
 
     pref = DevicePrefetcher(stream, device=dev, depth=cfg.prefetch_depth)
     with pref, H.telemetry("ddp", cfg, ctx, dev, model=model,
-                           profiler=prof) as telem:
+                           profiler=prof, rules=rules) as telem:
         H.wire(telem, ctx, pref)
         with H.pump(cfg, telem, tracker, ctx) as pump:
             for i, batch in zip(range(ctx.start_step, num_steps), pref):
                 if ctx.should_stop(i):
                     break
-                C.COLLECTIVES.reset()
-                sites_step = not counts
-                if sites_step:   # the ledger's sites
-                    C.COLLECTIVES.capture()
+                verdict.begin()
                 t = time.perf_counter()
                 params, opt, loss = step(params, opt, batch)
-                counts.append(C.COLLECTIVES.read())
-                if sites_step:
-                    telem.attach_sites(C.COLLECTIVES.sites(), want, "ddp")
+                counts.append(verdict.end(telem, ctx))
                 if model != "mlp":
                     widths.append(int(batch[0].shape[1]))
                 synced = pump.emit(loss, tokens=leg["tokens"](batch),
@@ -336,7 +338,8 @@ def _run(ctx, holder, cfg, *, model, examples, scale, bucket_mb,
             "sync_error": err, "init_collectives": init_counts,
             "sync_check_collectives": sync_counts, "losses": losses,
             "status": "completed", "start_step": ctx.start_step,
-            "collectives": counts, "step_s": step_s, **final,
+            "collectives": counts, **verdict.result(), "rules": rules,
+            "step_s": step_s, **final,
             "peak_memory_bytes": peak,
             "params": params, "host_syncs": dict(pump.sync_breakdown),
             "tracker": pump.metrics, "run_dir": telem.run_dir,

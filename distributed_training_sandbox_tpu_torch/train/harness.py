@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..analysis.contracts import (CONTRACTS, ContractContext,
+                                  ContractVerdict, check_counts)
+from ..ops.collectives import COLLECTIVES
 from ..resilience import Supervisor
 from ..runtime import StepPump
 from ..telemetry import TelemetryRun
@@ -112,3 +115,68 @@ def pump(cfg: TrainConfig, telem, tracker, ctx) -> StepPump:
                     sync_every=cfg.sync_every,
                     max_in_flight=cfg.max_in_flight,
                     watchdog=ctx.make_watchdog())
+
+
+class Verdict:
+    """A twin's collective contract, judged on the first step of each
+    segment as the reference's scripts judge the compiled step: the
+    verdict's ``summary()`` printed (rank 0), the verdict handed to the
+    resilience context's ``verify_contract`` (a resume whose calls break
+    the contract stops there), its ``to_dict()`` put in the manifest's
+    ``contract``, and that step's calls (``COLLECTIVES.sites()``) handed
+    with the verdict's expected counts to the telemetry run's collective
+    ledger (``attach_sites``; a profiled run joins its trace to them).
+
+    ``strategy`` names the contract (``contract`` another one, say a
+    generated one); ``params``, ``axes``, ``n_layers`` and ``extra`` (the
+    knobs) make its ``ContractContext``.  Around each step the loop calls
+    :meth:`begin` and then :meth:`end`, which returns the step's counts.
+    ``filed=False``: the sites and the verdict's expected counts go to
+    the ledger, and the verdict nowhere else (a mode the reference's
+    script files no verdict for)."""
+
+    def __init__(self, strategy: str, *, params=None, axes=None,
+                 n_layers: int = 0, contract=None, label: str = "",
+                 rank: int = 0, log=print, filed: bool = True, **extra):
+        self.contract = contract or CONTRACTS[strategy]
+        self.ctx = ContractContext.capture(params=params, axes=axes,
+                                           n_layers=n_layers, **extra)
+        self.label, self.rank, self.log = label or strategy, rank, log
+        self.filed = filed
+        self.verdict: ContractVerdict | None = None
+        self.counts: list[dict] = []
+
+    def begin(self) -> None:
+        COLLECTIVES.reset()
+        if self.verdict is None:
+            COLLECTIVES.capture()
+
+    def end(self, telem, ctx) -> dict:
+        counts = COLLECTIVES.read()
+        self.counts.append(counts)
+        if self.verdict is None:
+            sites = COLLECTIVES.sites()
+            v = self.verdict = check_counts(self.contract, counts,
+                                            self.ctx)
+            if self.filed:
+                if self.rank == 0:
+                    self.log(f"[{self.label}] contract[{v.strategy}]: "
+                             f"{v.summary()}")
+                ctx.verify_contract(v)
+                telem.file_contract(v.to_dict())
+            telem.attach_sites(sites, v.expected, v.strategy)
+        return counts
+
+    @property
+    def holds(self) -> bool:
+        """The first step's verdict is ok and every step of the segment
+        made the same calls (no step run: nothing to break it)."""
+        return (self.verdict is None or self.verdict.ok) and all(
+            c == self.counts[0] for c in self.counts)
+
+    def result(self) -> dict:
+        """What a twin's result carries: the verdict's dict (None when
+        the segment ran no step) and whether it holds."""
+        filed = self.verdict is not None and self.filed
+        return {"contract": self.verdict.to_dict() if filed else None,
+                "contract_ok": self.holds}

@@ -24,8 +24,8 @@ dp the ranks left over), each rank initialises the model from the seed
 and keeps its shards, and a global batch of the synthetic stream (one
 row a dp rank by default; zigzag-shuffled for the zigzag layout) goes
 through ``--num-steps`` steps, each ending in a sync.  Rank 0 prints the
-losses, the collectives a step beside the contract
-(``parallel.contracts``), step ms (the median after the first),
+losses, the collectives a step and the first step's contract verdict
+(``analysis.contracts``), step ms (the median after the first),
 tokens/s, MFU (``utils.flops``) and peak memory a rank.  NCCL and the
 card by default, gloo and the plain paths with ``--device cpu``.
 """
@@ -43,7 +43,8 @@ import torch
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import contracts, expert, fsdp, optim, sequence, tensor
+from ..analysis.contracts import evaluate_contract
+from ..parallel import expert, fsdp, optim, sequence, tensor
 from ..utils import mesh
 from ..utils.flops import PEAK_BF16_FLOPS
 from .moe import model_config as moe_config
@@ -85,8 +86,7 @@ def run(layout: str, model: str = "tiny", *, sp: int = 2, tp: int = 1,
                                         axes["dp"])
         step = sequence.make_sp_train_step(shards, cfg, dp_axis=axes["dp"],
                                            sp_axis=axes["sp"])
-        contract = contracts.sp_step_collectives(shards, dp, sp,
-                                                 remat=cfg.remat)
+        cname = "sp"
         batches = (tuple(sequence.zigzag_shuffle(t, sp) for t in b)
                    for b in batches)
     elif layout == "dp_sp_tp":
@@ -97,8 +97,7 @@ def run(layout: str, model: str = "tiny", *, sp: int = 2, tp: int = 1,
         step = tensor.make_tp_train_step(shards, cfg, dp_axis=axes["dp"],
                                          tp_axis=axes["tp"],
                                          sp_axis=axes["sp"])
-        contract = contracts.tp_step_collectives(shards, tp, sp=sp,
-                                                 remat=cfg.remat)
+        cname = "tp"
     else:
         axes = mesh.grid_axes(("dp", "sp", "ep"), (dp, sp, ep))
         cfg = moe_config(model, experts=experts, precision=precision)
@@ -107,15 +106,15 @@ def run(layout: str, model: str = "tiny", *, sp: int = 2, tp: int = 1,
         step = expert.make_moe_lm_train_step(shards, cfg, dp_axis=axes["dp"],
                                              ep_axis=axes["ep"],
                                              sp_axis=axes["sp"])
-        contract = contracts.moe_step_collectives(shards, remat=cfg.remat,
-                                                  sp=sp)
+        cname = "moe"
     opt = optim.adam_init(shards)
+    sizes = {a: mesh.axis_size(x) for a, x in axes.items() if "_" not in a}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     rank = mesh.axis_rank()
     if rank == 0:
         log(f"[layouts] {layout} model={model} mesh="
-            f"{ {a: mesh.axis_size(x) for a, x in axes.items() if '_' not in a} }"
+            f"{sizes}"
             f" batch={bs} seq={seq} precision={cfg.matmul_precision} "
             f"device={dev}")
     losses, times, colls = [], [], []
@@ -129,6 +128,13 @@ def run(layout: str, model: str = "tiny", *, sp: int = 2, tp: int = 1,
         if rank == 0:
             log(f"[layouts] step {i} loss {losses[-1]:.6f} "
                 f"{times[-1] * 1e3:.1f} ms")
+    # the first step's verdict (``analysis.contracts``: the library's
+    # layout runs as the contract it composes, the ring's axis in it)
+    verdict = evaluate_contract(cname, colls[0] if colls else {},
+                                params=shards, axes=sizes,
+                                n_layers=cfg.num_hidden_layers,
+                                remat=cfg.remat)
+    holds = verdict.ok and all(c == colls[0] for c in colls)
     ms = statistics.median(times[1:] or times) * 1e3
     tok_s = bs * seq / ms * 1e3
     flops_tok = T.model_flops_per_token(cfg, seq)
@@ -141,13 +147,13 @@ def run(layout: str, model: str = "tiny", *, sp: int = 2, tp: int = 1,
             f"peak memory " + (f"{peak / 2 ** 30:.2f} GiB a rank"
                                if peak is not None else "not measured (CPU)")
             + f"; collectives a step "
-            f"{json.dumps(C.COLLECTIVES.nonzero(colls[-1]))}, the "
-            f"contract's {json.dumps(C.COLLECTIVES.nonzero(contract))} "
-            f"(equal {all(c == contract for c in colls)})")
+            f"{json.dumps(C.COLLECTIVES.nonzero(colls[-1]))}; "
+            f"contract[{cname}]: {verdict.summary()} (every step: {holds})")
     return {"layout": layout, "model": model, "world_size": ws, "dp": dp,
             "sp": sp, "tp": tp, "ep": ep, "batch_size": bs,
             "sequence_length": seq, "losses": losses, "step_times_s": times,
-            "collectives": colls, "contract": contract, "step_ms": ms,
+            "collectives": colls, "contract": verdict.to_dict(),
+            "contract_ok": holds, "step_ms": ms,
             "tokens_per_second": tok_s, "mfu": mfu,
             "peak_memory_bytes": peak, "device": str(dev)}
 
@@ -180,7 +186,7 @@ def main(argv=None) -> None:
                   device=a.device, seed=a.seed)
         if a.out and mesh.axis_rank() == 0:
             Path(a.out).write_text(json.dumps(res))
-        if not all(c == res["contract"] for c in res["collectives"]):
+        if not res["contract_ok"]:
             raise SystemExit("collectives off the contract")
     finally:
         mesh.destroy_process_group()

@@ -78,6 +78,8 @@ def main(argv=None) -> list[dict]:
     rows = []
     joined = mesh.initialized()
     try:
+        # one group for every row: a row joins it and leaves it up
+        mesh.init_process_group(dev)
         for seq in args.seqs:
             for precision in args.precisions:
                 over = overrides(seq, precision,

@@ -29,12 +29,14 @@ does: the supervisor (``--checkpoint-dir``, ``--checkpoint-every``,
 ``--resume``, ``--max-restarts``, ``--inject-fault``), RunState
 checkpoints of this rank's params (its expert slice) and Adam state,
 the telemetry run, the profiler, the device prefetcher and the step
-pump.  It prints the losses, the collectives each step issued (the shim)
-beside ``parallel.contracts.moe_step_collectives``, tokens/s and
-peak memory.
+pump.  It prints the losses, the collectives each step issued (the
+shim), the first step's verdict of the ``moe`` contract
+(``analysis.contracts``, the calls of
+``parallel.contracts.moe_step_collectives``) and the rules verdict, both
+in the manifest, tokens/s and peak memory; a profiled run joins its
+trace to the verdict's expected calls (``collectives.json``).
 
-Not ported (ROADMAP.md): the collective-contract and sharding-rules
-verdicts over compiled text (A12).  The reference's script has no flag
+The reference's script has no flag
 for the dp × sp × ep step; it runs through the library
 (``parallel.expert.make_moe_lm_train_step(sp_axis=...)``,
 ``train.layouts --layout dp_sp_ep``).
@@ -52,11 +54,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..analysis.rules import rules_manifest_verdict
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
 from ..parallel import expert, optim
-from ..parallel.contracts import moe_step_collectives
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -141,6 +143,10 @@ def _run(ctx, holder, rc, model, cfg, *, ep, device, profile_schedule,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(cfg, gen, dev)
     shards = expert.shard_moe_lm_params(params, ep_ax)
+    axes = {"dp": dp_ax, "ep": ep_ax}
+    rules = rules_manifest_verdict(
+        "moe", params=shards, full=params,
+        axis_sizes={a: mesh.axis_size(x) for a, x in axes.items()})
     del params
     opt = optim.adam_init(shards)
     key = generator_states({"params": seed}, dev)
@@ -150,8 +156,10 @@ def _run(ctx, holder, rc, model, cfg, *, ep, device, profile_schedule,
         shards, opt = rs.params, rs.opt_state
     step = expert.make_moe_lm_train_step(shards, cfg, dp_axis=dp_ax,
                                          ep_axis=ep_ax)
-    contract = moe_step_collectives(shards, remat=cfg.remat,
-                                    z_loss=bool(cfg.moe_router_z_weight))
+    verdict = H.Verdict("moe", params=shards, axes=axes,
+                        n_layers=cfg.num_hidden_layers, label="moe",
+                        rank=rank, log=log, remat=cfg.remat,
+                        z_loss=bool(cfg.moe_router_z_weight))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if rank == 0:
@@ -161,6 +169,8 @@ def _run(ctx, holder, rc, model, cfg, *, ep, device, profile_schedule,
             f"batch={bs} seq={seq} precision={cfg.matmul_precision} "
             f"attention={cfg.attention_impl} dispatch={rc.dispatch} "
             f"device={dev}")
+        log(f"[moe] rules[moe]: {'ok' if rules['ok'] else 'MISMATCH'} "
+            f"({rules['checked']} leaves checked)")
     flops_tok = T.model_flops_per_token(cfg, seq)
     tracker = PerformanceTracker(
         warmup_steps=min(3, max(num_steps - 1, 0)),
@@ -184,16 +194,16 @@ def _run(ctx, holder, rc, model, cfg, *, ep, device, profile_schedule,
     pref = DevicePrefetcher(batches, device=dev, depth=rc.prefetch_depth)
     t0 = time.perf_counter()
     with pref, H.telemetry("moe", rc, ctx, dev, model=model, profiler=prof,
-                           extra={"experts": cfg.n_experts, "ep": ep,
+                           rules=rules, extra={"experts": cfg.n_experts, "ep": ep,
                                   "top_k": cfg.moe_top_k}) as telem:
         H.wire(telem, ctx, pref)
         with H.pump(rc, telem, tracker, ctx) as pump:
             for i, batch in zip(range(ctx.start_step, num_steps), pref):
                 if ctx.should_stop(i):
                     break
-                C.COLLECTIVES.reset()
+                verdict.begin()
                 shards, opt, loss = step(shards, opt, batch)
-                counts.append(C.COLLECTIVES.read())
+                counts.append(verdict.end(telem, ctx))
                 synced = pump.emit(loss, tokens=bs * seq, log=logger(i))
                 times.append(time.perf_counter() - t0)
                 ctx.after_step(i, synced, lambda i=i: RunState(
@@ -209,8 +219,7 @@ def _run(ctx, holder, rc, model, cfg, *, ep, device, profile_schedule,
             else None)
     if rank == 0:
         log(f"[moe] collectives a step {json.dumps(C.COLLECTIVES.nonzero(counts[-1] if counts else {}))}"
-            f", the moe contract's {json.dumps(C.COLLECTIVES.nonzero(contract))}"
-            f" (equal {all(c == contract for c in counts)})")
+            f", the contract holds {verdict.holds}")
         log(f"[moe] tokens/s {tok_s:.1f} (global, host clock) peak memory "
             + (f"{peak / 2 ** 30:.2f} GiB a rank" if peak is not None
                else "not measured (CPU)")
@@ -223,7 +232,7 @@ def _run(ctx, holder, rc, model, cfg, *, ep, device, profile_schedule,
             "sequence_length": seq, "precision": rc.precision,
             "status": "completed", "start_step": ctx.start_step,
             "device": str(dev), "losses": losses, "collectives": counts,
-            "contract": contract,
+            **verdict.result(), "rules": rules,
             "step_times_s": times, "wall_s": wall,
             "tokens_per_second": tok_s, "tracker": pump.metrics,
             "host_syncs": dict(pump.sync_breakdown),

@@ -114,6 +114,8 @@ def main(argv=None) -> dict:
     rows = []
     joined = mesh.initialized()
     try:
+        # one group for every row: a row joins it and leaves it up
+        mesh.init_process_group(dev)
         for i in picks:
             over, b = GRID[i]
             cfgo = {**base, **over}

@@ -10,8 +10,9 @@ One switch-MoE layer (``parallel.expert``, ``--hidden``, ``--ffn``,
 rank (the ``ep`` axis), trained by ``make_ep_train_step`` with Adam to
 map a seeded normal batch ``x`` (``--batch-size`` rows of 16 tokens, at
 least one row a rank) to ``tanh(x) / 2``.  It prints the collectives of
-one step (the shim) beside ``parallel.contracts.ep_step_collectives``
-and the losses.  NCCL and the card by default, gloo with ``--device
+one step (the shim), their verdict against the toy step's contract
+(``EP_TOY``: ``parallel.contracts.ep_step_collectives``, checked by
+``analysis.contracts.check_counts``) and the losses.  NCCL and the card by default, gloo with ``--device
 cpu``; run alone, it is one rank.
 """
 
@@ -22,11 +23,19 @@ import json
 
 import torch
 
+from ..analysis.contracts import (CollectiveContract, ContractContext,
+                                  check_counts)
 from ..ops import collectives as C
 from ..parallel import expert, optim
 from ..parallel.contracts import ep_step_collectives
 from ..utils import mesh
 from ..utils.config import TrainConfig
+
+# the toy EP step's calls (the reference registers no contract for it)
+EP_TOY = CollectiveContract(
+    "ep_toy", ("ep",), lambda c: ep_step_collectives(),
+    description="the layer's all_to_alls and the second's inverse, the "
+                "aux means, the loss mean and the router's grad mean")
 
 
 def run(*, experts: int = 0, hidden: int = 64, ffn: int = 128,
@@ -66,16 +75,17 @@ def run(*, experts: int = 0, hidden: int = 64, ffn: int = 128,
         losses.append(float(loss))
         if rank == 0 and (i % 10 == 0 or i == num_steps - 1):
             log(f"[moe] step {i:3d} loss {losses[-1]:.5f}")
-    contract = ep_step_collectives()
+    verdict = check_counts(EP_TOY, counts or {},
+                           ContractContext.capture(axes={"ep": "dp"}))
     if rank == 0:
         log(f"[moe] collectives a step {json.dumps(C.COLLECTIVES.nonzero(counts or {}))}"
-            f", the contract's {json.dumps(C.COLLECTIVES.nonzero(contract))}")
+            f"; contract[ep_toy]: {verdict.summary()}")
         if losses:
             log(f"[moe] loss {losses[0]:.5f} -> {losses[-1]:.5f} "
                 f"({'learning' if losses[-1] < losses[0] else 'NOT learning'})")
     return {"first_loss": losses[0] if losses else None,
             "final_loss": losses[-1] if losses else None, "losses": losses,
-            "collectives": counts, "contract": contract}
+            "collectives": counts, "contract": verdict.to_dict()}
 
 
 def main(argv=None) -> None:

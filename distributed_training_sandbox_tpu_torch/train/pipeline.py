@@ -25,8 +25,9 @@ windows of ``--seq`` + 1 random tokens, inputs ``w[:-1]`` and labels
 ``w[1:]``, as ``_pp_driver.py``'s.  ``--opt8`` keeps each stage's Adam
 moments int8 at rest (``parallel.optim8``).  The JSON printed (and
 written to ``--results-file``) is ``PipeResult.as_dict()`` plus the
-shim's collectives against the ``gpipe`` / ``1f1b`` contract (zero of
-every kind), each epoch's step time and the memory of each card.
+first epoch's verdict of the ``gpipe`` / ``1f1b`` contract (zero calls
+of every kind; ``analysis.contracts``) and the rules verdict, each
+epoch's collectives and step time and the memory of each card.
 
 The run harness (``train.harness``), as the other twins run under it:
 the supervisor (``--checkpoint-dir``, ``--checkpoint-every``,
@@ -44,9 +45,6 @@ ledger joined to the zero-collective contract).
     python -m distributed_training_sandbox_tpu_torch.train.pipeline \
         --device cpu --checkpoint-dir /tmp/pp --inject-fault preempt@3 \
         --max-restarts 1 --num-epochs 6
-
-Not ported: ``evaluate_contract``'s verdict (A12; the shim's counts
-against ``parallel.contracts`` stand in for it).
 """
 
 from __future__ import annotations
@@ -61,13 +59,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..analysis.rules import rules_manifest_verdict
 from ..device import resolve_device
 from ..models import MODEL_REGISTRY, mlp
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import optim
 from ..parallel import pipeline as PP
-from ..parallel.contracts import step_collectives
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils.config import TrainConfig
@@ -205,9 +202,12 @@ def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
         f"batch={batch_size}" + (f" seq={seq}" if cfg else "")
         + f" devices={[str(s.device) for s in stages]}"
         + (f" start_epoch={ctx.start_step}" if ctx.start_step else ""))
+    # interleaved rides on 1f1b's contract, as in the reference
     cname = schedule if schedule in ("gpipe", "1f1b") else "1f1b"
-    n_leaves = sum(len(list(optim.tree_leaves(s.params))) for s in stages)
-    want = step_collectives(cname, n_leaves)
+    stage_params = [s.params for s in stages]
+    verdict = H.Verdict(cname, params=stage_params, label=schedule,
+                        log=log)
+    rules = rules_manifest_verdict(cname, params=stage_params)
     tokens = batch_size * seq if cfg is not None else batch_size
     prof = H.profiler(rc, profile_schedule, ProfileSchedule(
         skip_first=2, wait=1, warmup=1, active=4))
@@ -219,7 +219,7 @@ def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
         lr_fn = lr
     pref = DevicePrefetcher(stream, device=dev0, depth=rc.prefetch_depth)
     with pref, H.telemetry(schedule, rc, ctx, dev0, model=model,
-                           profiler=prof,
+                           profiler=prof, rules=rules,
                            extra={"n_stages": n_stages, "n_micro": n_micro,
                                   "opt8": opt8}) as telem:
         H.wire(telem, ctx, pref)
@@ -228,10 +228,9 @@ def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
             now = time.perf_counter()
             step_ms.append((now - marks["t"]) * 1e3)
             marks["t"] = now
-            counts.append(C.COLLECTIVES.read())
-            if len(counts) == 1:   # zero sites: the ledger joins empty
-                telem.attach_sites(C.COLLECTIVES.sites(), want, cname)
-            C.COLLECTIVES.reset()
+            # zero sites: the ledger joins empty
+            counts.append(verdict.end(telem, ctx))
+            verdict.begin()
             ep_losses.append(float(loss))
             if epoch % 4 == 0 or epoch == num_epochs - 1:
                 log(f"[{schedule}] epoch {epoch:3d} loss {loss:.6f}")
@@ -246,8 +245,7 @@ def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
             if on_step is not None:
                 on_step(epoch, loss)
 
-        C.COLLECTIVES.reset()
-        C.COLLECTIVES.capture()   # the first epoch's sites
+        verdict.begin()
         marks["t"] = time.perf_counter()
         result = PP.train_pipeline(stages, schedule, lambda e: next(pref),
                                    num_epochs=num_epochs, n_micro=n_micro,
@@ -260,9 +258,7 @@ def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
     out["losses"] = ctx.full_losses(ep_losses)
     out.update(status="completed", start_epoch=ctx.start_step,
                run_dir=telem.run_dir, **H.ckpt_report(holder))
-    out["contract"] = {"name": cname, "expected": want,
-                       "collectives": counts,
-                       "holds": all(c == want for c in counts)}
+    out.update(verdict.result(), collectives=counts, rules=rules)
     out["pump"] = {"prefetch_depth": rc.prefetch_depth,
                    "dispatch": "host-prefetch"}
     out["step_ms"] = step_ms
@@ -275,9 +271,9 @@ def _run(ctx, holder, rc, schedule, *, model, n_stages, virtual_per_device,
     out["start_memory_mb"] = start
     if keep_stages:
         out["stages"] = stages
-    log(f"[{schedule}] contract[{cname}]: collectives a step "
+    log(f"[{schedule}] collectives an epoch "
         f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1]) if counts else {})}"
-        f", holds {out['contract']['holds']}")
+        f", the contract holds {out['contract_ok']}")
     if telem.run_dir:
         log(f"[{schedule}] telemetry in {telem.run_dir}")
     return out
@@ -321,7 +317,7 @@ def main(argv=None) -> None:
         print(f"[{args.schedule}] results -> {args.results_file}")
     if out["status"] != "completed":
         return
-    if not (np.all(np.isfinite(out["losses"])) and out["contract"]["holds"]):
+    if not (np.all(np.isfinite(out["losses"])) and out["contract_ok"]):
         raise SystemExit(f"non-finite loss in {out['losses']} or "
                          f"collectives off the contract")
 

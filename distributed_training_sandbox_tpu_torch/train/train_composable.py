@@ -25,12 +25,15 @@ default, rounded to the plan's data ways).  NCCL and the card by
 default, gloo and the plain path with ``--device cpu``.
 
 The run harness (``train.harness``) wraps it: supervisor, checkpoints,
-telemetry, profiler, pump.  The manifest carries the generated contract
-(``analysis.contract_gen``: the calls a step) and the rules verdict
+telemetry, profiler, pump.  The manifest carries the first step's
+verdict of the generated contract (``analysis.contracts.
+generated_contract``: the calls a step ``analysis.contract_gen``
+derives from the plan's rules) and the rules verdict
 (``analysis.rules.rules_manifest_verdict``: rule hygiene and each live
-shard's tiles against its rule spec); every step's shim counts are
-held to the contract, and the run fails if one differs or the verdict
-is not ok.  A resume under the same plan continues bit for bit; under
+shard's tiles against its rule spec); every step must make the first
+step's calls, and the run fails if one differs or a verdict is not ok.
+A profiled run joins its trace to the verdict's expected calls
+(``collectives.json``).  A resume under the same plan continues bit for bit; under
 another plan (or world size) it is resharding, and ``--plan`` replays a
 tuner plan: both are refused, naming ROADMAP.md queue A item A12.
 ``--overlap``: the fsdp plans' gathers (``parallel.fsdp``'s modes) or
@@ -51,7 +54,7 @@ import numpy as np
 import torch
 
 from ..analysis import rules as R
-from ..analysis.contract_gen import Ctx, generate_counts
+from ..analysis.contracts import generated_contract
 from ..models import MODEL_REGISTRY
 from ..models import mlp
 from ..models import transformer as T
@@ -148,18 +151,22 @@ def run(mesh_plan: str, model: str = "tiny", *, scale: int = 20,
     return res
 
 
-def _verdicts(strategy, overlap, state, full, axes, remat, kw):
+def _verdicts(strategy, overlap, state, full, axes, remat, kw, *, rank,
+              log):
     cname = contract_name(strategy, overlap)
     sizes = {a: mesh.axis_size(axes[a]) for a in axes if "_" not in a}
-    contract = generate_counts(cname, state, Ctx(sizes, remat=remat, **kw))
+    verdict = H.Verdict(cname, contract=generated_contract(cname),
+                        params=state, axes=sizes, label="composable",
+                        rank=rank, log=log, remat=remat, **kw)
     rules = R.rules_manifest_verdict(cname, params=state, full=full,
                                      axis_sizes=sizes)
-    return cname, contract, rules
+    return cname, verdict, rules
 
 
 def _loop(ctx, rc, telem_args, step, state, opt, batches, *, name, tokens,
-          contract, rank, on_step, log, key=None, tracker=None):
-    """The steps under the pump; each step's shim counts."""
+          verdict, rank, on_step, log, key=None, tracker=None):
+    """The steps under the pump; each step's shim counts, the first
+    step's verdict filed (``harness.Verdict``)."""
     counts, times = [], []
     t0 = time.perf_counter()
     pref = DevicePrefetcher(batches, device=telem_args["dev"],
@@ -168,17 +175,16 @@ def _loop(ctx, rc, telem_args, step, state, opt, batches, *, name, tokens,
     with pref or contextlib.nullcontext(), H.telemetry(
             "composable", rc, ctx, telem_args["dev"],
             model=telem_args["model"], profiler=telem_args["profiler"],
-            extra=telem_args["extra"], contract=telem_args["contract"],
-            rules=telem_args["rules"]) as telem:
+            extra=telem_args["extra"], rules=telem_args["rules"]) as telem:
         H.wire(telem, ctx, pref)
         with H.pump(rc, telem, tracker, ctx) as pump:
             for i, batch in zip(range(ctx.start_step, rc.num_steps),
                                 pref or batches):
                 if ctx.should_stop(i):
                     break
-                C.COLLECTIVES.reset()
+                verdict.begin()
                 state, opt, loss = step(state, opt, batch)
-                counts.append(C.COLLECTIVES.read())
+                counts.append(verdict.end(telem, ctx))
 
                 def cb(lf, i=i):
                     if rank == 0 and (i % 5 == 0 or i == rc.num_steps - 1):
@@ -194,12 +200,11 @@ def _loop(ctx, rc, telem_args, step, state, opt, batches, *, name, tokens,
         wall = time.perf_counter() - t0
         losses = ctx.full_losses(pump.losses)
         ctx.finalize(telem)
-    ok = all(c == contract for c in counts)
+    ok = verdict.holds
     if rank == 0:
         log(f"[{name}] collectives a step "
             f"{json.dumps(C.COLLECTIVES.nonzero(counts[-1] if counts else {}))}"
-            f", the generated contract's "
-            f"{json.dumps(C.COLLECTIVES.nonzero(contract))} (equal {ok})")
+            f", the generated contract holds {ok}")
     return state, opt, losses, counts, times, wall, pump, telem, ok
 
 
@@ -222,8 +227,9 @@ def _mlp_leg(ctx, holder, rc, plan, strategy, *, scale, rebuild, overlap,
     rs = ctx.restore(RunState(params=state, opt_state=opt))
     if rs is not None:
         state, opt = rs.params, rs.opt_state
-    cname, contract, rules = _verdicts(strategy, overlap, state, params,
-                                       axes, True, build.contract_kwargs)
+    cname, verdict, rules = _verdicts(strategy, overlap, state, params,
+                                      axes, True, build.contract_kwargs,
+                                      rank=rank, log=log)
     del params
     if rank == 0:
         log(f"[{name}] plan={plan.describe()} -> strategy={strategy} "
@@ -234,16 +240,14 @@ def _mlp_leg(ctx, holder, rc, plan, strategy, *, scale, rebuild, overlap,
             f"leaves checked)")
     prof = H.profiler(rc, profile_schedule, ProfileSchedule())
     telem_args = {"dev": dev, "model": "toy-mlp", "profiler": prof,
-                  "prefetch": False, "contract": {"strategy": cname,
-                                                  "calls": contract},
-                  "rules": rules,
+                  "prefetch": False, "rules": rules,
                   "extra": {"mesh_plan": plan.describe(),
                             "strategy": strategy, "scale": scale,
                             "rebuild": rebuild}}
     state, opt, losses, counts, times, wall, pump, telem, ok = _loop(
         ctx, rc, telem_args, build.step, state, opt,
         itertools.repeat(batch), name=name, tokens=rc.batch_size,
-        contract=contract, rank=rank, on_step=on_step, log=log)
+        verdict=verdict, rank=rank, on_step=on_step, log=log)
     holder["losses"] = losses
     opt_mb = sum(t.numel() * t.element_size() for part in (opt.mu, opt.nu)
                  for _, t in optim.tree_leaves(part)) / 2 ** 20
@@ -253,8 +257,7 @@ def _mlp_leg(ctx, holder, rc, plan, strategy, *, scale, rebuild, overlap,
     return {"plan": plan.describe(), "strategy": strategy, "world_size": ws,
             "status": "completed", "start_step": ctx.start_step,
             "device": str(dev), "losses": losses, "collectives": counts,
-            "contract": contract, "contract_ok": ok, "rules": rules,
-            "opt_mb": opt_mb, "step_times_s": times, "step_ms": step_ms,
+            **verdict.result(), "rules": rules, "opt_mb": opt_mb, "step_times_s": times, "step_ms": step_ms,
             "params": state,
             "wall_s": wall, "run_dir": telem.run_dir,
             **H.ckpt_report(holder)}
@@ -290,9 +293,10 @@ def _lm_leg(ctx, holder, rc, plan, strategy, *, model, overlap, attention,
     if rs is not None:
         shards, opt = rs.params, rs.opt_state
     kw = {k: v for k, v in build.contract_kwargs.items() if k != "overlap"}
-    cname, contract, rules = _verdicts(strategy, overlap, shards, params,
-                                       axes, cfg.remat,
-                                       {**kw, "overlap": overlap})
+    cname, verdict, rules = _verdicts(strategy, overlap, shards, params,
+                                      axes, cfg.remat,
+                                      {**kw, "overlap": overlap},
+                                      rank=rank, log=log)
     del params
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -305,8 +309,7 @@ def _lm_leg(ctx, holder, rc, plan, strategy, *, model, overlap, attention,
             f"attention={cfg.attention_impl} device={dev}")
         log(f"[{name}] rules[{cname}]: "
             f"{'ok' if rules['ok'] else 'MISMATCH'} ({rules['checked']} "
-            f"leaves checked); contract[{cname}] (generated) "
-            f"{json.dumps(C.COLLECTIVES.nonzero(contract))}")
+            f"leaves checked)")
     flops_tok = T.model_flops_per_token(cfg, seq)
     tracker = PerformanceTracker(
         warmup_steps=min(3, max(rc.num_steps - 1, 0)),
@@ -317,15 +320,13 @@ def _lm_leg(ctx, holder, rc, plan, strategy, *, model, overlap, attention,
     if ctx.data_cursor:
         batches = itertools.islice(batches, ctx.data_cursor, None)
     telem_args = {"dev": dev, "model": model, "profiler": prof,
-                  "prefetch": True, "contract": {"strategy": cname,
-                                                 "calls": contract},
-                  "rules": rules,
+                  "prefetch": True, "rules": rules,
                   "extra": {"mesh_plan": plan.describe(),
                             "strategy": strategy, "grid": grid,
                             "overlap": overlap}}
     shards, opt, losses, counts, times, wall, pump, telem, ok = _loop(
         ctx, rc, telem_args, build.step, shards, opt, batches, name=name,
-        tokens=bs * seq, contract=contract, rank=rank, on_step=on_step,
+        tokens=bs * seq, verdict=verdict, rank=rank, on_step=on_step,
         log=log, key=key, tracker=tracker)
     holder["losses"] = losses
     n_timed, dt = ((len(times) - 2, times[-1] - times[1]) if len(times) > 2
@@ -350,8 +351,7 @@ def _lm_leg(ctx, holder, rc, plan, strategy, *, model, overlap, attention,
             "precision": rc.precision, "attention": cfg.attention_impl,
             "status": "completed", "start_step": ctx.start_step,
             "device": str(dev), "losses": losses, "collectives": counts,
-            "contract": contract, "contract_ok": ok, "rules": rules,
-            "step_times_s": times, "step_ms": step_ms, "wall_s": wall,
+            **verdict.result(), "rules": rules, "step_times_s": times, "step_ms": step_ms, "wall_s": wall,
             "tokens_per_second": tok_s, "mfu": mfu,
             "tracker": pump.metrics, "peak_memory_bytes": peak,
             "run_dir": telem.run_dir, "profiler": prof, "params": shards,

@@ -46,11 +46,22 @@ past the batches a resumed run already consumed, and the step pump
         --attention flash --checkpoint-dir D --checkpoint-every 2 \\
         --inject-fault preempt@3 --max-restarts 1
 
+The explicit step's first step is held to its contract
+(``analysis.contracts``: ``fsdp``, ``fsdp_ring``,
+``fsdp_ring_fused_pallas``, ``fsdp_fp8`` at an fp8 precision,
+``fsdp_q8`` with ``--quantized-gather``): the verdict is printed and
+lands in the manifest's ``contract``, the rules verdict in its
+``rules``, and a profiled run joins its trace to the verdict's expected
+calls (``collectives.json``).  ``--overlap ring_fused`` files no verdict,
+as the reference's script files none (its ledger still joins the fused
+calls).
+
 ``--variant auto`` runs ``parallel.fsdp.make_fsdp_auto_train_step``:
 ``torch.distributed.fsdp.fully_shard`` owns the gathers and the grads'
 reduce_scatters (the reference leaves them to XLA), each rank holding
-the same rows as the explicit step's; the shim sees the loss mean only.
-It takes none of the explicit step's wire or memory knobs.
+the same rows as the explicit step's; the shim sees the loss mean only,
+so it files no verdict and no ledger.  It takes none of the explicit
+step's wire or memory knobs.
 
 Not ported (ROADMAP.md): the memory planner (``--hbm-budget-gb``,
 ``--auto-fit``, the predicted waterline) and ``--offload`` (A12).
@@ -69,11 +80,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..analysis.contracts import meta_tree
+from ..analysis.rules import rules_manifest_verdict
 from ..data import make_packed_dataset, packed_batches
 from ..models import MODEL_REGISTRY
 from ..models import transformer as T
 from ..ops import collectives as C
-from ..parallel import contracts, fsdp, optim, optim8
+from ..parallel import fsdp, optim, optim8
 from ..resilience import RunState, generator_states
 from ..runtime import DevicePrefetcher
 from ..utils import mesh
@@ -113,6 +126,18 @@ def _model_config(model, precision, attention, remat_policy):
     elif precision != "bf16":
         raise ValueError(f"precision={precision!r}; choose from {PRECISIONS}")
     return cfg
+
+
+def _contract_name(cfg, overlap: str, quantized_gather: bool) -> str:
+    """The contract the explicit step runs as."""
+    if quantized_gather:
+        return "fsdp_q8"
+    if overlap in ("ring", "ring_fused_pallas"):
+        return f"fsdp_{overlap}"
+    if overlap == "ring_fused":
+        return "fsdp_ring_fused_pallas"
+    return ("fsdp_fp8" if cfg.matmul_precision.startswith("fp8")
+            else "fsdp")
 
 
 def fsdp_batches(vocab_size: int, seq: int, bs: int, num_steps: int,
@@ -211,7 +236,10 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
         module = fsdp.fully_shard_params(T.init_params(cfg, gen, dev), cfg)
         shards = fsdp.auto_shards(module)
     else:
-        shards = fsdp.shard_params_fsdp(T.init_params(cfg, gen, dev))
+        params = T.init_params(cfg, gen, dev)
+        full = meta_tree(params)
+        shards = fsdp.shard_params_fsdp(params)
+        del params
     opt = (fsdp.init_fsdp_opt_state8(shards) if state_precision == "int8"
            else fsdp.init_fsdp_opt_state(shards))
     key = generator_states({"params": seed}, dev)
@@ -235,17 +263,21 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
             quantized_grads=quantized_grads,
             state_precision=state_precision)
     state_bytes = optim8.state_bytes(opt)
-    want = None           # fully_shard's own collectives: no sites
-    if variant != "auto" and quantized_gather:
-        want = contracts.fsdp_quantized_step_collectives(
-            shards, reshard_after_forward=reshard_after_forward,
-            remat=cfg.remat, accum_steps=accum_steps,
-            quantized_grads=quantized_grads)
-    elif variant != "auto":
-        want = contracts.fsdp_step_collectives(
-            shards, ws, overlap=overlap,
+    verdict = rules = None   # auto: fully_shard's calls, no shim sites
+    if variant != "auto":
+        cname = _contract_name(cfg, overlap, quantized_gather)
+        # the reference's script files no verdict for ring_fused; the
+        # ledger joins its calls, ring_fused_pallas's
+        verdict = H.Verdict(
+            cname, params=shards, axes={"dp": "dp"},
+            n_layers=cfg.num_hidden_layers, label="fsdp", rank=rank,
+            log=log, filed=overlap != "ring_fused", overlap=overlap,
             reshard_after_forward=reshard_after_forward, remat=cfg.remat,
-            accum_steps=accum_steps)
+            accum_steps=accum_steps, quantized_grads=quantized_grads)
+        # fsdp_fp8's ruleset is A12b's; its placement is fsdp's
+        rules = rules_manifest_verdict(
+            "fsdp" if cname == "fsdp_fp8" else cname, params=shards,
+            full=full, axis_sizes={"dp": ws})
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if rank == 0:
@@ -259,13 +291,17 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
             f"quantized_grads={quantized_grads} "
             f"state_precision={state_precision} dispatch={rc.dispatch} "
             f"device={dev}")
+        if rules is not None:
+            log(f"[fsdp] rules[{rules['strategy']}]: "
+                f"{'ok' if rules['ok'] else 'MISMATCH'} "
+                f"({rules['checked']} leaves checked)")
     flops_tok = T.model_flops_per_token(cfg, seq)
     tracker = PerformanceTracker(
         warmup_steps=min(5, max(num_steps - 1, 0)),
         flops_per_token=flops_tok, num_devices=ws, device=dev)
     prof = H.profiler(rc, profile_schedule, ProfileSchedule(
         skip_first=0, wait=5, warmup=5, active=10),
-        record_shapes=want is not None)
+        record_shapes=verdict is not None)
     batches = fsdp_batches(cfg.vocab_size, seq, bs, num_steps, seed)
     if ctx.data_cursor:
         # resume: the seeded dataset, past the batches already consumed
@@ -284,7 +320,7 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
     pref = DevicePrefetcher(batches, device=dev, depth=rc.prefetch_depth)
     t0 = time.perf_counter()
     with pref, H.telemetry("fsdp", rc, ctx, dev, model=model, profiler=prof,
-                           extra={"variant": variant,
+                           rules=rules, extra={"variant": variant,
                                   "reshard_after_forward":
                                   reshard_after_forward,
                                   "overlap": overlap,
@@ -295,14 +331,13 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
             for i, batch in zip(range(ctx.start_step, num_steps), pref):
                 if ctx.should_stop(i):
                     break
-                C.COLLECTIVES.reset()
-                sites_step = want is not None and not counts
-                if sites_step:   # the ledger's sites
-                    C.COLLECTIVES.capture()
+                if verdict is None:
+                    C.COLLECTIVES.reset()
+                else:
+                    verdict.begin()
                 shards, opt, loss = step(shards, opt, batch)
-                counts.append(C.COLLECTIVES.read())
-                if sites_step:
-                    telem.attach_sites(C.COLLECTIVES.sites(), want, "fsdp")
+                counts.append(C.COLLECTIVES.read() if verdict is None
+                              else verdict.end(telem, ctx))
                 synced = pump.emit(loss, tokens=bs * seq, log=logger(i))
                 times.append(time.perf_counter() - t0)
                 ctx.after_step(i, synced, lambda i=i: RunState(
@@ -337,6 +372,8 @@ def _run(ctx, holder, rc, model, *, overlap, variant, reshard_after_forward,
             "opt_state_bytes": state_bytes, "status": "completed",
             "start_step": ctx.start_step,
             "device": str(dev), "losses": losses, "collectives": counts,
+            **(verdict.result() if verdict is not None else
+               {"contract": None, "contract_ok": None}), "rules": rules,
             "step_times_s": times, "wall_s": wall,
             "tokens_per_second": tok_s,
             "tracker": pump.metrics, "host_syncs": dict(pump.sync_breakdown),

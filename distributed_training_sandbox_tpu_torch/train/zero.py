@@ -34,9 +34,12 @@ telemetry run, profiler (under ``<trace-dir>/zero<stage>/<leg>``) and
 step pump; a profiled leg's summary carries the comm/compute split of
 its trace (``comm_split``).
 
-Not ported, with the ROADMAP.md queue A item that holds each:
-``evaluate_contract`` and the rules verdict (A12) and ``--plan``
-(A12).
+Each leg's first step is held to its contract (``analysis.contracts``:
+``ddp`` for the baseline, ``zero<stage>`` with its ``--rebuild`` for the
+sharded leg): the verdict is printed, lands in the leg's manifest
+(``contract``) beside its rules verdict (``rules``), and a profiled leg
+joins its trace to the verdict's expected calls (``collectives.json``).
+Not ported: ``--plan`` (ROADMAP.md queue A item A12).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..analysis.rules import rules_manifest_verdict
 from ..models import mlp
 from ..ops import collectives as C
 from ..parallel import ddp, optim, zero
@@ -69,11 +73,13 @@ def tree_mb(tree) -> float:
 
 
 def _leg(step, state, opt, batch, num_steps, dev, *, ctx, cfg, name, leg,
-         stage, scale, holder, profile_schedule=None, on_step=None,
-         log=print):
+         stage, scale, holder, verdict, rules, profile_schedule=None,
+         on_step=None, log=print):
     """``num_steps`` steps of one leg under its resilience scope ``ctx``:
     restored steps are skipped, and a leg that already completed runs
-    nothing.  Returns ``(state, opt, losses, step_s, counts, memory)``:
+    nothing.  ``verdict`` (``harness.Verdict``) judges its first step,
+    ``rules`` goes in its manifest.  Returns ``(state, opt, losses,
+    step_s, counts, memory)``:
     ``losses`` stitched across restarts, ``step_s`` each step's
     host-clock seconds (the step's call until the pump returns),
     ``counts`` each step's collectives, ``memory`` the bytes allocated
@@ -88,7 +94,7 @@ def _leg(step, state, opt, batch, num_steps, dev, *, ctx, cfg, name, leg,
                       trace_dir=f"{cfg.trace_dir}/{name}/{leg}")
     strategy = name if leg == "sharded" else f"{name}-{leg}"
     with H.telemetry(strategy, cfg, ctx, dev, model="toy-mlp",
-                     profiler=prof,
+                     profiler=prof, rules=rules,
                      extra={"leg": leg, "stage": stage,
                             "scale": scale}) as telem:
         H.wire(telem, ctx)
@@ -96,10 +102,10 @@ def _leg(step, state, opt, batch, num_steps, dev, *, ctx, cfg, name, leg,
             for i in range(ctx.start_step, num_steps):
                 if ctx.should_stop(i):
                     break
-                C.COLLECTIVES.reset()
+                verdict.begin()
                 t = time.perf_counter()
                 state, opt, loss = step(state, opt, batch)
-                counts.append(C.COLLECTIVES.read())
+                counts.append(verdict.end(telem, ctx))
                 synced = pump.emit(loss, tokens=batch[0].shape[0],
                                    log=on_step and (lambda lf, i=i:
                                                     on_step(i, lf)))
@@ -195,6 +201,10 @@ def _run(root_ctx, holder, cfg, stage, *, rebuild, scale, device,
                   holder=holder, profile_schedule=profile_schedule, log=log)
 
     # ---- leg A: baseline Adam (replicated state, DDP-style)
+    axes = {"dp": "dp"}
+    base_verdict = H.Verdict("ddp", params=params, axes=axes,
+                             label=f"{name}/baseline", rank=rank, log=log)
+    base_rules = rules_manifest_verdict("ddp", params=params)
     base_step = ddp.make_ddp_train_step(
         mlp.mse_loss, lambda g, s, p: optim.adam_update(g, s, p))
     base_opt = optim.adam_init(params)
@@ -203,13 +213,18 @@ def _run(root_ctx, holder, cfg, stage, *, rebuild, scale, device,
         params, base_opt = rs.params, rs.opt_state
     base_params, base_opt, base_losses, base_s, base_counts, base_mem = \
         _leg(base_step, params, base_opt, batch, num_steps, dev,
-             ctx=ctx_a, leg="baseline", on_step=on_step and (
+             ctx=ctx_a, leg="baseline", verdict=base_verdict,
+             rules=base_rules, on_step=on_step and (
                  lambda i, l: on_step("baseline", i, l)), **leg_kw)
     base_opt_mb = tree_mb(base_opt.mu) + tree_mb(base_opt.nu)
     del params, base_opt
 
     # ---- leg B: the sharded optimizer, on identically seeded params
     params = init_params()
+    # zero3's rebuild is its gathers; 1 and 2 take --rebuild
+    shard_verdict = H.Verdict(
+        name, params=params, axes=axes, label=name, rank=rank, log=log,
+        **({"rebuild": rebuild} if stage < 3 else {}))
     opt = zero.init_zero_opt_state(params)
     if stage < 3:
         step = zero.make_zero_train_step(mlp.mse_loss, stage=stage,
@@ -218,13 +233,16 @@ def _run(root_ctx, holder, cfg, stage, *, rebuild, scale, device,
     else:
         step = zero.make_zero3_train_step(zero.make_zero3_mlp_loss(shapes))
         state = zero.shard_params_zero3(params)
+    # the placement of the leg's own tree (zero3's flat chunks)
+    shard_rules = rules_manifest_verdict(name, params=state, full=params,
+                                         axis_sizes={"dp": ws})
     del params
     rs = ctx_b.restore(RunState(params=state, opt_state=opt))
     if rs is not None:
         state, opt = rs.params, rs.opt_state
     state, opt, shard_losses, shard_s, shard_counts, shard_mem = _leg(
         step, state, opt, batch, num_steps, dev, ctx=ctx_b, leg="sharded",
-        on_step=on_step and (lambda i, l: on_step("sharded", i, l)),
+        verdict=shard_verdict, rules=shard_rules, on_step=on_step and (lambda i, l: on_step("sharded", i, l)),
         **leg_kw)
     shard_opt_mb = tree_mb(opt.mu) + tree_mb(opt.nu)
     chunk_mb = tree_mb(state) if stage == 3 else None
@@ -257,6 +275,9 @@ def _run(root_ctx, holder, cfg, stage, *, rebuild, scale, device,
         log(f"[{name}] step time: baseline {base_ms} ms, sharded "
             f"{shard_ms} ms (host clock, median of this segment's steps "
             f"after its first)")
+        log(f"[{name}] rules[ddp/baseline]: "
+            f"{'ok' if base_rules['ok'] else 'MISMATCH'}; rules[{name}]: "
+            f"{'ok' if shard_rules['ok'] else 'MISMATCH'}")
         for leg, cs in (("baseline", base_counts), ("sharded ", shard_counts)):
             log(f"[{name}] per-step collectives {leg}: " + (json.dumps(
                 C.COLLECTIVES.nonzero(cs[-1])) if cs else "no step run "
@@ -279,7 +300,11 @@ def _run(root_ctx, holder, cfg, stage, *, rebuild, scale, device,
            "shard_param_mb": chunk_mb, "base_ms": base_ms,
            "shard_ms": shard_ms, "base_step_s": base_s,
            "shard_step_s": shard_s, "base_counts": base_counts,
-           "shard_counts": shard_counts, "base_losses": base_losses,
+           "shard_counts": shard_counts,
+           "base_contract": base_verdict.result(),
+           "shard_contract": shard_verdict.result(),
+           "rules": {"baseline": base_rules, "sharded": shard_rules},
+           "base_losses": base_losses,
            "shard_losses": shard_losses, "loss_drift": drift,
            "param_max_abs_diff": diff, "params_bit_equal": bit_equal,
            "base_memory_bytes": base_mem, "shard_memory_bytes": shard_mem,

@@ -146,8 +146,8 @@ def test_twin_trains_under_torchrun(twins, mode):
     (res, outs), tmp = twins[0][mode], twins[1]
     assert res[mode] == 2 and res["dp"] == 1 and res["world_size"] == 2
     assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
-    assert all(c == res["contract"] for c in res["collectives"])
-    assert f"the {mode} contract as calls" in outs[0]
+    assert res["contract"]["ok"] and res["contract_ok"]
+    assert f"contract[{mode}]: OK" in outs[0]
     assert f"[train_{mode}] step   0 loss" in outs[0]
     runs = sorted(Path(tmp / f"runs_{mode}").iterdir())
     assert len(runs) == 2, runs

@@ -265,5 +265,5 @@ def test_moe_twin_trains_under_torchrun(procs2, tmp_path):
     res = json.loads(out.read_text())
     assert res["ep"] == 2 and res["dp"] == 1 and len(res["losses"]) == 3
     assert all(np.isfinite(res["losses"]))
-    assert all(c == res["contract"] for c in res["collectives"])
+    assert res["contract"]["ok"] and res["contract_ok"]
     assert res["saves"], "no RunState checkpoint was written"

@@ -386,7 +386,7 @@ def test_pipeline_twin_runs_opt8_on_the_cpu():
     line = next(l for l in out.splitlines() if l.startswith("[1f1b] {"))
     res = json.loads(line[len("[1f1b] "):])
     assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
-    assert res["contract"]["holds"]
+    assert res["contract"]["ok"] and res["contract_ok"]
     # int8 moments: the accounted state is about params + grads + codes
     full = subprocess.run(
         [sys.executable, "-m",

@@ -489,7 +489,8 @@ def test_twin_prints_the_result_json():
     line = next(l for l in out.splitlines() if l.startswith("[1f1b] {"))
     res = json.loads(line[len("[1f1b] "):])
     assert res["schedule"] == "1f1b" and len(res["losses"]) == 2
-    assert res["contract"]["holds"] and len(res["step_ms"]) == 2
+    assert res["contract"]["ok"] and res["contract_ok"]
+    assert len(res["step_ms"]) == 2
     assert all(np.isfinite(res["losses"]))
 
 
